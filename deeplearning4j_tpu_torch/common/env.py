@@ -1,0 +1,40 @@
+"""Runtime environment flags, read from process env vars.
+
+Counterpart of ``deeplearning4j_tpu/common/env.py`` under the port's own
+``DL4J_TORCH_`` prefix. Only the flags the ported slice reads are carried
+over: the kernel kill switch, the force switch and verbose dispatch logging.
+"""
+
+from __future__ import annotations
+
+import os
+
+
+def _flag(name: str, default: bool = False) -> bool:
+    v = os.environ.get(name)
+    if v is None:
+        return default
+    return v.strip().lower() not in ("", "0", "false", "off", "no")
+
+
+class Environment:
+    """Process-wide runtime switches."""
+
+    # Every op takes its plain PyTorch lowering, on the card too.
+    DISABLE_KERNELS = "DL4J_TORCH_DISABLE_KERNELS"
+    # Take a hand-written kernel wherever its ``requires`` holds, ignoring
+    # its ``predicate`` (structural requirements are never bypassed).
+    FORCE_KERNELS = "DL4J_TORCH_FORCE_KERNELS"
+    # Print each op's selected implementation when the choice is made.
+    VERBOSE = "DL4J_TORCH_VERBOSE"
+
+    def __init__(self) -> None:
+        self.reload()
+
+    def reload(self) -> None:
+        self.disable_kernels = _flag(self.DISABLE_KERNELS)
+        self.force_kernels = _flag(self.FORCE_KERNELS)
+        self.verbose = _flag(self.VERBOSE)
+
+
+env = Environment()

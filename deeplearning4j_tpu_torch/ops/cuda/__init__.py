@@ -1,0 +1,12 @@
+"""Hand-written CUDA kernels for Hopper (counterpart of ``ops/pallas``).
+
+Importing registers each kernel with the op registry; nothing is built
+until a kernel is first launched.
+"""
+
+from deeplearning4j_tpu_torch.ops.cuda.fused_lstm import FUSED_LSTM
+
+#: every hand-written kernel, for launch counting and the chip smoke run
+KERNELS = (FUSED_LSTM,)
+
+__all__ = ["FUSED_LSTM", "KERNELS"]

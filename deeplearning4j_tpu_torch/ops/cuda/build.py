@@ -1,0 +1,136 @@
+"""Build a hand-written CUDA source into a shared library and load it.
+
+Route (b) of the port's kernel rules: each ``csrc/*.cu`` file exposes a
+plain C interface, is compiled by ``nvcc`` for ``sm_90a`` into its own
+shared library at first use (never at import), and is called through
+``ctypes`` with raw device pointers and PyTorch's current stream. No
+PyTorch headers are compiled, so a build takes seconds.
+
+Libraries go into ``deeplearning4j_tpu_torch/_build/`` (listed in
+``.gitignore``), named by a hash of the source and the flags, so an edited
+source rebuilds and an unchanged one loads the cached library.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+from typing import Optional, Sequence
+
+import torch
+
+PACKAGE_DIR = Path(__file__).resolve().parents[2]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+ARCH = "sm_90a"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def find_nvcc() -> str:
+    """The CUDA compiler of the toolkit PyTorch finds ($CUDA_HOME, nvcc on
+    PATH, or the default install location)."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found (set CUDA_HOME); the hand-written "
+                       "kernels are compiled on the machine with the card")
+
+
+def check_device(device: torch.device) -> None:
+    """The libraries hold sm_90a code only: refuse any other card."""
+    major, minor = torch.cuda.get_device_capability(device)
+    if (major, minor) != (9, 0):
+        raise RuntimeError(
+            f"kernels are built for {ARCH} (Hopper); "
+            f"{torch.cuda.get_device_name(device)} is sm_{major}{minor}")
+
+
+class CudaLibrary:
+    """One ``csrc/<name>.cu`` source, built once per process and loaded.
+
+    ``functions`` maps each exported C symbol to ``(argtypes, restype)``.
+    After :meth:`load`, ``build_seconds`` holds the compile time of this
+    process (0.0 when a cached library was loaded) and ``build_log`` the
+    compiler's ``-Xptxas -v`` report."""
+
+    def __init__(self, source: str, functions: dict):
+        self.source = CSRC_DIR / source
+        self.functions = functions
+        self.build_seconds: Optional[float] = None
+        self.build_log = ""
+        self._lib: Optional[ctypes.CDLL] = None
+        self._checked: set = set()  # device indices found to be sm_90
+        self._lock = threading.Lock()
+
+    def library_path(self) -> Path:
+        digest = hashlib.sha1(self.source.read_bytes())
+        digest.update(" ".join(NVCC_FLAGS).encode())
+        return BUILD_DIR / f"{self.source.stem}-{digest.hexdigest()[:12]}.so"
+
+    def build(self) -> Path:
+        """Compile the source unless this exact build already exists."""
+        path = self.library_path()
+        if path.exists():
+            self.build_seconds = 0.0
+            return path
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(self.source)]
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {self.source.name}:\n"
+                                   f"{proc.stdout}{proc.stderr}")
+            os.replace(tmp, path)  # atomic: concurrent builds agree
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+        self.build_seconds = time.perf_counter() - t0
+        self.build_log = proc.stdout + proc.stderr
+        return path
+
+    def load(self, device: Optional[torch.device] = None) -> ctypes.CDLL:
+        """The loaded library, built at first use; with ``device``, also
+        checks once that the card is sm_90."""
+        if self._lib is not None and (device is None
+                                      or device.index in self._checked):
+            return self._lib
+        with self._lock:
+            if device is not None and device.index not in self._checked:
+                check_device(device)
+                self._checked.add(device.index)
+            if self._lib is None:
+                lib = ctypes.CDLL(str(self.build()))
+                for sym, (argtypes, restype) in self.functions.items():
+                    fn = getattr(lib, sym)
+                    fn.argtypes = list(argtypes)
+                    fn.restype = restype
+                self._lib = lib
+            return self._lib
+
+
+def pointer(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def check_status(lib: ctypes.CDLL, status: int, what: str) -> None:
+    """Raise on a non-zero ``cudaError_t`` returned by a C launcher."""
+    if status != 0:
+        msg = lib.dl4j_cuda_error_string(status).decode()
+        raise RuntimeError(f"{what} failed: CUDA error {status} ({msg})")
+
+
+def c_args(kinds: str) -> Sequence:
+    """ctypes argtypes, one letter each: 'p' pointer or stream, 'i' int."""
+    table = {"p": ctypes.c_void_p, "i": ctypes.c_int}
+    return [table[k] for k in kinds]
