@@ -13,16 +13,23 @@ Phases (any failure exits non-zero before the result line):
 2. Build: compiles every hand-written kernel from ``csrc/`` with nvcc.
 3. Kernel against plain: each kernel against its plain PyTorch version on
    the card in float32 with TF32 off, at the shapes the main path gives it
-   and at the GravesLSTM char-RNN width; times the kernel, the plain
-   version and, as a yardstick the port never calls, ``torch.nn.LSTM``
-   (cuDNN) on the same layer with its gates reordered.
+   and at the GravesLSTM char-RNN width, and in bfloat16 at the decode and
+   GravesLSTM shapes; times the kernel, the plain version and, as a
+   yardstick the port never calls, ``torch.nn.LSTM`` (cuDNN) on the same
+   layer with its gates reordered.
 4. Main path: TextGenerationLSTM at its published width (LSTM 256 x 2,
    vocabulary 77, random weights from a seed) served by
    ``GenerationEngine(slots=8, max_len=256)``: 16 requests, greedy and
    sampled, drained to completion. Launch counts are zeroed just before and
    read just after. Greedy streams are held against the port's plain path
-   on the CPU, teacher-forced, on the same weights.
-5. Prints the kernels line, the card line and, last, the result line
+   on the CPU, teacher-forced, on the same weights. A steady window of
+   decode steps is profiled and its host time split into the network's
+   forward and the sampler.
+5. bf16 net: the same model with ``dtype="bf16"`` generates on the card;
+   every decode step must launch the kernel (the registry sends bf16 work
+   to it), and its teacher-forced logits are held against the plain path
+   on the card.
+6. Prints the kernels line, the card line and, last, the result line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -36,6 +43,15 @@ import sys
 import time
 
 TOL = 1e-4      # f32; kernel and plain version sum h @ R in different orders
+# bf16 outputs: |kernel - plain| <= TOL_BF16 * (1 + |plain|). The sums are
+# f32 in both, in different orders, so a stored value may round to the
+# neighbouring bf16 number (a step of 2^-8 to 2^-7 of its size), and the
+# rounded h feeds the later steps.
+TOL_BF16 = 1e-2
+# bf16 net, teacher-forced logits, kernel path vs plain path on the card:
+# the recurrence's bf16 rounding differences above, through two layers and
+# the bf16 output layer (random weights give logits of about 0.4).
+TOL_BF16_LOGITS = 2e-2
 SEED = 0
 N_REQUESTS = 16
 
@@ -104,18 +120,22 @@ def kernel_device_ms(torch, fn, iters: int, symbol: str):
     return total / count if count else None
 
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 (non-tensor) flop/s
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 (non-tensor) flop/s
+# and bf16 dense tensor-core flop/s
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 
 
-def lstm_bound(T: int, B: int, H: int, peephole: bool):
+def lstm_bound(T: int, B: int, H: int, peephole: bool, bf16: bool = False):
     """Least time for the recurrence: each input read once, each output
-    written once, against the f32 flops of h@R plus ~15 per cell update."""
+    written once, against the flops of h@R (at the peak for the inputs'
+    type) plus ~15 f32 flops per cell update."""
     n_in = T * B * 4 * H + H * 4 * H + 2 * B * H + (3 * H if peephole else 0)
     n_out = T * B * H + 2 * B * H
-    t_bytes = 4.0 * (n_in + n_out) / HBM_BYTES_PER_S
-    t_ops = T * B * H * (8.0 * H + 15) / F32_FLOP_PER_S
+    t_bytes = (2.0 if bf16 else 4.0) * (n_in + n_out) / HBM_BYTES_PER_S
+    t_ops = (T * B * H * 8.0 * H / (BF16_FLOP_PER_S if bf16 else F32_FLOP_PER_S)
+             + T * B * H * 15.0 / F32_FLOP_PER_S)
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -140,23 +160,27 @@ def cudnn_lstm(torch, W, R, b, forget_gate_bias):
 
 def phase_kernels(torch):
     """Kernel against plain at the main path's shapes and the GravesLSTM
-    char-RNN width; returns (rows, max_abs_err)."""
+    char-RNN width; returns (rows, f32 max_abs_err, bf16 max_abs_err)."""
     from deeplearning4j_tpu_torch.ops.cuda.fused_lstm import (
         fused_lstm_layer, fused_lstm_recurrence, plain_recurrence,
     )
     from deeplearning4j_tpu_torch.ops.recurrent import lstm_layer, project_gates
 
-    shapes = [  # name, B, T, F, H, peephole, reverse, forget_gate_bias
-        ("decode_layer1", 8, 1, 77, 256, False, False, 0.0),
-        ("decode_layer2", 8, 1, 256, 256, False, False, 0.0),
-        ("prefill_layer1", 1, 47, 77, 256, False, False, 0.0),
-        ("graves_charrnn", 32, 64, 77, 200, True, True, 1.0),
+    f32, bf16 = torch.float32, torch.bfloat16
+    shapes = [  # name, B, T, F, H, peephole, reverse, forget_gate_bias, dtype
+        ("decode_layer1", 8, 1, 77, 256, False, False, 0.0, f32),
+        ("decode_layer2", 8, 1, 256, 256, False, False, 0.0, f32),
+        ("prefill_layer1", 1, 47, 77, 256, False, False, 0.0, f32),
+        ("graves_charrnn", 32, 64, 77, 200, True, True, 1.0, f32),
+        ("decode_layer1_bf16", 8, 1, 77, 256, False, False, 0.0, bf16),
+        ("graves_charrnn_bf16", 32, 64, 77, 200, True, True, 1.0, bf16),
     ]
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    rows, worst = [], 0.0
-    for name, B, T, F, H, peep, rev, fgb in shapes:
+    rows, worst = [], {f32: 0.0, bf16: 0.0}
+    for name, B, T, F, H, peep, rev, fgb, dt in shapes:
         def rnd(*shape, scale=1.0):
-            return torch.randn(*shape, device="cuda", generator=g) * scale
+            return (torch.randn(*shape, device="cuda", generator=g)
+                    * scale).to(dt)
         x, W, R, b = (rnd(B, T, F), rnd(F, 4 * H, scale=0.1),
                       rnd(H, 4 * H, scale=0.06), rnd(4 * H, scale=0.1))
         h0, c0 = rnd(B, H, scale=0.5), rnd(B, H, scale=0.5)
@@ -165,18 +189,25 @@ def phase_kernels(torch):
         ko, kh, kc = fused_lstm_recurrence(xg, R, h0, c0, p)
         torch.cuda.synchronize()
         po, ph, pc = plain_recurrence(xg, R, h0, c0, p)
-        err = max(float((a - r).abs().max()) for a, r in
-                  ((ko, po), (kh, ph), (kc, pc)))
+        pairs = [(a.float(), r.float()) for a, r in
+                 ((ko, po), (kh, ph), (kc, pc))]
+        err = max(float((a - r).abs().max()) for a, r in pairs)
         finite = all(bool(torch.isfinite(a).all()) for a in (ko, kh, kc))
-        if not finite or err > TOL:
+        if dt == f32:
+            tol, ok = TOL, err <= TOL
+        else:
+            tol = TOL_BF16
+            ok = all(bool(((a - r).abs() <= tol * (1 + r.abs())).all())
+                     for a, r in pairs)
+        if not finite or not ok or ko.dtype != dt:
             fail(f"kernel disagrees with plain at {name}: max_abs_err {err} "
-                 f"(finite={finite}, tolerance {TOL})")
-        worst = max(worst, err)
+                 f"(finite={finite}, dtype={ko.dtype}, tolerance {tol})")
+        worst[dt] = max(worst[dt], err)
         iters = 200 if T == 1 else 20
         kw = dict(peephole=p, forget_gate_bias=fgb, reverse=rev)
         row = {
             "shape": name, "B": B, "T": T, "F": F, "H": H, "peephole": peep,
-            "max_abs_err": err,
+            "dtype": str(dt).replace("torch.", ""), "max_abs_err": err,
             "kernel_ms": cuda_ms(torch, lambda: fused_lstm_recurrence(
                 xg, R, h0, c0, p), iters),
             "plain_ms": cuda_ms(torch, lambda: plain_recurrence(
@@ -190,20 +221,22 @@ def phase_kernels(torch):
         row["kernel_device_ms"] = kernel_device_ms(
             torch, lambda: fused_lstm_recurrence(xg, R, h0, c0, p), 20,
             "lstm_fwd_kernel")
-        row["bound_ms"], row["bound_by"] = lstm_bound(T, B, H, peep)
+        row["bound_ms"], row["bound_by"] = lstm_bound(T, B, H, peep,
+                                                      bf16=dt == bf16)
         if not peep and not rev:
-            lstm = cudnn_lstm(torch, W, R, b, fgb)
+            lstm = cudnn_lstm(torch, W.float(), R.float(), b.float(),
+                              fgb).to(dt)
             xt = x.transpose(0, 1).contiguous()
             state = (h0[None].contiguous(), c0[None].contiguous())
             with torch.no_grad():
                 lo, _ = lstm(xt, state)
                 ref, _ = lstm_layer(x, h0, c0, W, R, b, **kw)
                 row["library_max_abs_err"] = float(
-                    (lo.transpose(0, 1) - ref).abs().max())
+                    (lo.transpose(0, 1) - ref).abs().max().float())
                 row["library_ms"] = cuda_ms(torch, lambda: lstm(xt, state),
                                             iters)
         rows.append(row)
-    return rows, worst
+    return rows, worst[f32], worst[bf16]
 
 
 def phase_main_path(torch, np):
@@ -294,13 +327,38 @@ def phase_main_path(torch, np):
     }
 
 
+def host_ms(torch, fn, iters: int) -> float:
+    """Mean wall ms of ``fn`` followed by a device sync."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
 def profile_decode(torch, eng, reqs, steps: int = 20):
-    """A steady window of full-pool decode steps under torch.profiler:
-    host ms per step, device busy share, device time by kernel."""
+    """A steady window of full-pool decode steps (the workload's mix of
+    greedy and sampled knobs) under torch.profiler: host ms per step,
+    device busy share, device time by kernel; then, on the same full pool,
+    the wall ms of the network's forward alone and of the sampler alone."""
+    from deeplearning4j_tpu_torch.generation import sample_logits
+
     for r in reqs[:eng.pool.n_slots]:
-        eng.submit(r["prompt"], max_new_tokens=steps + 8)
+        eng.submit(**dict(r, max_new_tokens=steps + 40))
     # the warm-up call inside profile_device admits (prefills) all slots
     by_kernel, wall_ms = profile_device(torch, eng.step, steps)
+    pool = eng.pool
+    act = pool.active_slots()
+    tokens = torch.as_tensor(pool.tokens, dtype=torch.long, device="cuda")
+    logits = eng.adapter.decode(pool.state, tokens)[0]
+    forward_ms = host_ms(
+        torch, lambda: eng.adapter.decode(pool.state, tokens), steps)
+    sample_ms = host_ms(torch, lambda: sample_logits(
+        logits, seeds=pool.seeds, pos=pool.pos, temperature=pool.temps,
+        top_k=pool.top_k, top_p=pool.top_p, rows=act), steps)
+    step_ms = host_ms(torch, eng.step, steps)
     eng.drain()
     busy = sum(t for t, _ in by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:6]
@@ -310,7 +368,57 @@ def profile_decode(torch, eng, reqs, steps: int = 20):
         "device_busy_share": busy / wall_ms if by_kernel else None,
         "top_kernels_ms_per_step": {k[:60]: t / steps
                                     for k, (t, _) in top},
+        "active_slots": len(act),
+        "sampled_slots": int(sum(pool.temps[s] > 0 for s in act)),
+        "unprofiled_step_ms": step_ms, "forward_ms": forward_ms,
+        "sample_ms": sample_ms,
     }
+
+
+def phase_bf16_net(torch, np):
+    """The model in bf16 on the card: the registry must send its LSTM
+    work to the kernel, and the kernel path must agree with the plain path
+    on the card, teacher-forced."""
+    from deeplearning4j_tpu_torch.common.env import env
+    from deeplearning4j_tpu_torch.generation import GenerationEngine
+    from deeplearning4j_tpu_torch.ops.cuda import FUSED_LSTM
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+
+    net = TextGenerationLSTM(seed=SEED, dtype="bf16").init(device="cuda")
+    vocab = net.layers[-1].n_out
+    eng = GenerationEngine(net, slots=8, max_len=256, device="cuda")
+    rng = np.random.default_rng(SEED + 1)
+    prompts = [rng.integers(0, vocab, int(n)).tolist()
+               for n in rng.integers(4, 49, 8)]
+    FUSED_LSTM.launches = 0
+    streams = [eng.submit(p, max_new_tokens=16) for p in prompts]
+    eng.drain()
+    torch.cuda.synchronize()
+    launches, steps = FUSED_LSTM.launches, eng.steps_run
+    if any(len(s.tokens) != 16 for s in streams):
+        fail("bf16 net: a request did not emit its 16 tokens")
+    if launches < 2 * steps:
+        fail(f"bf16 net: fused_lstm_fwd launched {launches} times in "
+             f"{steps} decode steps")
+    seq = prompts[0] + streams[0].tokens
+    x = torch.nn.functional.one_hot(
+        torch.as_tensor([seq[:-1]], device="cuda"), vocab).to(torch.bfloat16)
+    logits = []
+    for disable in (False, True):
+        env.disable_kernels = disable
+        try:
+            with torch.no_grad():
+                pre, _ = net._forward_carry(net._compute_params(), net.state,
+                                            x, net._init_carries(1))
+        finally:
+            env.reload()
+        logits.append(pre[0].float())
+    err = float((logits[0] - logits[1]).abs().max())
+    if not bool(torch.isfinite(logits[0]).all()) or err > TOL_BF16_LOGITS:
+        fail(f"bf16 net: kernel vs plain logits {err} > {TOL_BF16_LOGITS}")
+    return {"decode_steps": steps, "launches": launches,
+            "logits_max_abs_err_kernel_vs_plain": err,
+            "logit_max_abs": float(logits[1].abs().max())}
 
 
 def main() -> None:
@@ -340,7 +448,7 @@ def main() -> None:
         print(k.library.build_log.strip(), flush=True)
 
     # phase 3: kernel against plain
-    rows, worst = phase_kernels(torch)
+    rows, worst, worst_bf16 = phase_kernels(torch)
     print(json.dumps({"kernel_shapes": rows}), flush=True)
 
     # phase 4: main path
@@ -349,14 +457,17 @@ def main() -> None:
     print(f"main path on {card}: {main_path['tokens_per_s']:.1f} tokens/s, "
           f"TTFT p50 {main_path['ttft_p50_ms']:.2f} ms", flush=True)
 
-    # phase 5: kernels line, card line, result line
+    # phase 5: the bf16 net
+    print(json.dumps({"bf16_net": phase_bf16_net(torch, np)}), flush=True)
+
+    # phase 6: kernels line, card line, result line
     decode = rows[0]  # the main path's decode shape [8, 1, 256]
     k = KERNELS[0]
     entry = {
         "name": k.name, "route": "cuda", "source": k.source,
         "replaces": k.replaces,
         "launches": main_path["launches"][k.name],
-        "max_abs_err": worst,
+        "max_abs_err": worst, "max_abs_err_bf16": worst_bf16,
         "ms": decode["kernel_ms"], "kernel_ms": decode["kernel_ms"],
         "device_ms": decode["kernel_device_ms"],
         "plain_ms": decode["plain_ms"], "bound_ms": decode["bound_ms"],

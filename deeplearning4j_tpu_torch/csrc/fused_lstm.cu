@@ -13,8 +13,14 @@
 // the forget-gate bias and the reverse flip stay outside, as in the JAX
 // package (_project_gates).
 //
+// Types: all tensors are float32 (dl4j_lstm_fwd) or all bfloat16
+// (dl4j_lstm_fwd_bf16). In bf16, as in the Pallas kernel, the sums, the
+// gates and the cell state c stay in f32 registers and shared memory;
+// h_{t-1} enters the product rounded to bf16 (exact bf16 x bf16 products
+// summed in f32), and out, hT and cT are rounded to bf16 on store.
+//
 // What bounds it on this card: every step reads all of R [H, 4H] (1 MiB in
-// f32 at H=256) to do 2*B*H*4H flops, so at decode batch sizes it is far
+// f32 at H=256, half that in bf16) to do 2*B*H*4H flops, so at decode batch sizes it is far
 // below the H100's ridge point and memory-bound; at decode (T=1) the launch
 // latency around it is larger still than the bytes.
 //
@@ -38,6 +44,7 @@
 // cluster, h exchanged through distributed shared memory, decode replayed by
 // CUDA graphs) is later work.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -54,20 +61,40 @@ __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
+// element type <-> f32 (round to nearest even on the way down)
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename E> __device__ __forceinline__ E from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+template <> __device__ __forceinline__ __nv_bfloat16
+from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+// read-only cached load
+__device__ __forceinline__ float ldg_f32(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg_f32(const __nv_bfloat16* p) {
+  return __bfloat162float(__ushort_as_bfloat16(
+      __ldg(reinterpret_cast<const unsigned short*>(p))));
+}
+
 // Shared memory layout (floats):
 //   h    [RB][H]                     h_{t-1}, then h_t
 //   c    [RB][upb]                   c of the block's own units
 //   part [slices][tiles][4][RB][32]  partial gate sums
-template <int RB>
+template <typename E, int RB>
 __global__ void __launch_bounds__(kThreads, 1)
-lstm_fwd_kernel(const float* __restrict__ xg,    // [T, B, 4H]
-                const float* __restrict__ R,     // [H, 4H]
-                const float* __restrict__ h0,    // [B, H]
-                const float* __restrict__ c0,    // [B, H]
-                const float* __restrict__ peep,  // [3H] or null
-                float* __restrict__ out,         // [T, B, H]
-                float* __restrict__ hT,          // [B, H]
-                float* __restrict__ cT,          // [B, H]
+lstm_fwd_kernel(const E* __restrict__ xg,    // [T, B, 4H]
+                const E* __restrict__ R,     // [H, 4H]
+                const E* __restrict__ h0,    // [B, H]
+                const E* __restrict__ c0,    // [B, H]
+                const E* __restrict__ peep,  // [3H] or null
+                E* __restrict__ out,         // [T, B, H]
+                E* __restrict__ hT,          // [B, H]
+                E* __restrict__ cT,          // [B, H]
                 int T, int B, int H, int upb, int slices) {
   extern __shared__ float smem[];
   const int tiles = (upb + kTile - 1) / kTile;
@@ -85,11 +112,11 @@ lstm_fwd_kernel(const float* __restrict__ xg,    // [T, B, 4H]
 
   for (int idx = threadIdx.x; idx < RB * H; idx += blockDim.x) {
     const int r = idx / H, k = idx - r * H, b = b0 + r;
-    h[idx] = b < B ? h0[(size_t)b * H + k] : 0.0f;
+    h[idx] = b < B ? to_f32(h0[(size_t)b * H + k]) : 0.0f;
   }
   for (int idx = threadIdx.x; idx < RB * nu; idx += blockDim.x) {
     const int r = idx / nu, u = idx - r * nu, b = b0 + r;
-    c[r * upb + u] = b < B ? c0[(size_t)b * H + j0 + u] : 0.0f;
+    c[r * upb + u] = b < B ? to_f32(c0[(size_t)b * H + j0 + u]) : 0.0f;
   }
   __syncthreads();
 
@@ -105,13 +132,13 @@ lstm_fwd_kernel(const float* __restrict__ xg,    // [T, B, 4H]
       for (int g = 0; g < 4; ++g)
 #pragma unroll
         for (int r = 0; r < RB; ++r) acc[g][r] = 0.0f;
-      const float* Rk = R + (size_t)k_begin * G + j;
+      const E* Rk = R + (size_t)k_begin * G + j;
 #pragma unroll 4
       for (int k = k_begin; k < k_end; ++k, Rk += G) {
-        const float ri = __ldg(Rk);
-        const float rf = __ldg(Rk + H);
-        const float ro = __ldg(Rk + 2 * H);
-        const float rz = __ldg(Rk + 3 * H);
+        const float ri = ldg_f32(Rk);
+        const float rf = ldg_f32(Rk + H);
+        const float ro = ldg_f32(Rk + 2 * H);
+        const float rz = ldg_f32(Rk + 3 * H);
 #pragma unroll
         for (int r = 0; r < RB; ++r) {
           const float hk = h[r * H + k];
@@ -130,7 +157,7 @@ lstm_fwd_kernel(const float* __restrict__ xg,    // [T, B, 4H]
     __syncthreads();
 
     // ---- phase 2: sum partials, cell update, publish h_t
-    const float* xg_t = xg + (size_t)t * B * G;
+    const E* xg_t = xg + (size_t)t * B * G;
     for (int idx = threadIdx.x; idx < RB * nu; idx += blockDim.x) {
       const int r = idx / nu, u = idx - r * nu, b = b0 + r;
       const int j = j0 + u;
@@ -138,30 +165,32 @@ lstm_fwd_kernel(const float* __restrict__ xg,    // [T, B, 4H]
       float gate[4];
 #pragma unroll
       for (int g = 0; g < 4; ++g) {
-        float s = b < B ? xg_t[(size_t)b * G + g * H + j] : 0.0f;
+        float s = b < B ? to_f32(xg_t[(size_t)b * G + g * H + j]) : 0.0f;
         for (int ks = 0; ks < slices; ++ks)
           s += part[((size_t)(ks * tiles + tile) * 4 * RB + g * RB + r) * kTile + l];
         gate[g] = s;
       }
       const float c_old = c[r * upb + u];
       if (peep != nullptr) {
-        gate[0] += c_old * peep[j];
-        gate[1] += c_old * peep[H + j];
+        gate[0] += c_old * to_f32(peep[j]);
+        gate[1] += c_old * to_f32(peep[H + j]);
       }
       const float ig = sigmoid_f(gate[0]);
       const float fg = sigmoid_f(gate[1]);
       const float zg = tanhf(gate[3]);
       const float c_new = fg * c_old + ig * zg;
-      if (peep != nullptr) gate[2] += c_new * peep[2 * H + j];
+      if (peep != nullptr) gate[2] += c_new * to_f32(peep[2 * H + j]);
       const float og = sigmoid_f(gate[2]);
-      const float h_new = og * tanhf(c_new);
+      const E h_st = from_f32<E>(og * tanhf(c_new));
       c[r * upb + u] = c_new;
-      h[r * H + j] = h_new;  // phase 1 of this step is over: safe to overwrite
+      // phase 1 of this step is over: safe to overwrite; the next product
+      // reads h in the element type, as the Pallas kernel casts it
+      h[r * H + j] = to_f32(h_st);
       if (b < B) {
-        out[((size_t)t * B + b) * H + j] = h_new;
+        out[((size_t)t * B + b) * H + j] = h_st;
         if (t == T - 1) {
-          hT[(size_t)b * H + j] = h_new;
-          cT[(size_t)b * H + j] = c_new;
+          hT[(size_t)b * H + j] = h_st;
+          cT[(size_t)b * H + j] = from_f32<E>(c_new);
         }
       }
     }
@@ -175,34 +204,29 @@ size_t smem_bytes(int rb, int H, int upb, int slices) {
                           (size_t)slices * tiles * 4 * rb * kTile);
 }
 
-template <int RB>
-cudaError_t launch(const float* xg, const float* R, const float* h0,
-                   const float* c0, const float* peep, float* out, float* hT,
-                   float* cT, int T, int B, int H, int upb, int slices,
-                   cudaStream_t stream) {
-  static bool configured = false;  // allow up to kSmemCap, once per RB
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        lstm_fwd_kernel<RB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)kSmemCap);
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
+template <typename E, int RB>
+cudaError_t launch(const E* xg, const E* R, const E* h0, const E* c0,
+                   const E* peep, E* out, E* hT, E* cT, int T, int B, int H,
+                   int upb, int slices, cudaStream_t stream) {
   const size_t smem = smem_bytes(RB, H, upb, slices);
+  if (smem > 48 * 1024) {
+    // opt in above the default 48 KB on the calling thread's current
+    // device; set per launch, as the attribute is per device (and cheap)
+    cudaError_t err = cudaFuncSetAttribute(
+        lstm_fwd_kernel<E, RB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+  }
   const dim3 grid((B + RB - 1) / RB, (H + upb - 1) / upb);
-  lstm_fwd_kernel<RB><<<grid, kThreads, smem, stream>>>(
+  lstm_fwd_kernel<E, RB><<<grid, kThreads, smem, stream>>>(
       xg, R, h0, c0, peep, out, hT, cT, T, B, H, upb, slices);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" {
-
-// Launches the recurrence on `stream`; returns a cudaError_t (0 = launched).
-int dl4j_lstm_fwd(const float* xg, const float* R, const float* h0,
-                  const float* c0, const float* peep, float* out, float* hT,
-                  float* cT, int T, int B, int H, void* stream) {
+template <typename E>
+int lstm_fwd(const E* xg, const E* R, const E* h0, const E* c0,
+             const E* peep, E* out, E* hT, E* cT, int T, int B, int H,
+             void* stream) {
   if (T <= 0 || B <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   // T == 1: split units across blocks; T > 1: a block needs all of h.
   const int upb = T == 1 ? std::min(H, kTile) : H;
@@ -219,11 +243,32 @@ int dl4j_lstm_fwd(const float* xg, const float* R, const float* h0,
     slices *= 2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (rb) {
-    case 8: return (int)launch<8>(xg, R, h0, c0, peep, out, hT, cT, T, B, H, upb, slices, s);
-    case 4: return (int)launch<4>(xg, R, h0, c0, peep, out, hT, cT, T, B, H, upb, slices, s);
-    case 2: return (int)launch<2>(xg, R, h0, c0, peep, out, hT, cT, T, B, H, upb, slices, s);
-    default: return (int)launch<1>(xg, R, h0, c0, peep, out, hT, cT, T, B, H, upb, slices, s);
+    case 8: return (int)launch<E, 8>(xg, R, h0, c0, peep, out, hT, cT, T, B, H, upb, slices, s);
+    case 4: return (int)launch<E, 4>(xg, R, h0, c0, peep, out, hT, cT, T, B, H, upb, slices, s);
+    case 2: return (int)launch<E, 2>(xg, R, h0, c0, peep, out, hT, cT, T, B, H, upb, slices, s);
+    default: return (int)launch<E, 1>(xg, R, h0, c0, peep, out, hT, cT, T, B, H, upb, slices, s);
   }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launch the recurrence on `stream`; each returns a cudaError_t (0 =
+// launched). Every pointer is of the function's one element type.
+int dl4j_lstm_fwd(const float* xg, const float* R, const float* h0,
+                  const float* c0, const float* peep, float* out, float* hT,
+                  float* cT, int T, int B, int H, void* stream) {
+  return lstm_fwd<float>(xg, R, h0, c0, peep, out, hT, cT, T, B, H, stream);
+}
+
+int dl4j_lstm_fwd_bf16(const __nv_bfloat16* xg, const __nv_bfloat16* R,
+                       const __nv_bfloat16* h0, const __nv_bfloat16* c0,
+                       const __nv_bfloat16* peep, __nv_bfloat16* out,
+                       __nv_bfloat16* hT, __nv_bfloat16* cT, int T, int B,
+                       int H, void* stream) {
+  return lstm_fwd<__nv_bfloat16>(xg, R, h0, c0, peep, out, hT, cT, T, B, H,
+                                 stream);
 }
 
 const char* dl4j_cuda_error_string(int err) {

@@ -15,10 +15,17 @@ launch latency dominates. None of the TPU machinery is carried over
 (``lstm_tile``, ``lstm_plan``, ``_pad_to_lanes``, ``_panel_dtype``): the
 kernel takes any H, including the 200 of the GravesLSTM char-RNN.
 
+The kernel takes float32 or bfloat16 (all tensors of one type). In bf16 it
+does what the Pallas kernel does: sums, gates and the cell state in f32,
+h_{t-1} rounded to bf16 for the product, outputs rounded to bf16; the plain
+version computes the same way.
+
 :func:`fused_lstm_recurrence` is the kernel's wrapper. It takes the plain
 version (``ops/recurrent.lstm_recurrence``) only for CPU tensors; for CUDA
-tensors it launches the kernel or raises. ``FUSED_LSTM.launches`` counts
-launches.
+tensors it launches the kernel or raises. The registry sends every
+all-CUDA ``lstm_layer`` call here, whatever its dtype, so a type the kernel
+has no code for raises instead of running the plain version on the card.
+``FUSED_LSTM.launches`` counts launches.
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ class FusedLSTMKernel:
     def __init__(self):
         self.library = CudaLibrary("fused_lstm.cu", {
             "dl4j_lstm_fwd": (c_args("ppppppppiiip"), ctypes.c_int),
+            "dl4j_lstm_fwd_bf16": (c_args("ppppppppiiip"), ctypes.c_int),
             "dl4j_cuda_error_string": (c_args("i"), ctypes.c_char_p),
         })
         self.launches = 0
@@ -56,18 +64,25 @@ class FusedLSTMKernel:
 
 FUSED_LSTM = FusedLSTMKernel()
 
+#: the C launcher for each element type the kernel takes
+_SYMBOLS = {torch.float32: "dl4j_lstm_fwd",
+            torch.bfloat16: "dl4j_lstm_fwd_bf16"}
+
 
 def _check_inputs(xg, R, h0, c0, peephole):
     tensors = {"xg": xg, "R": R, "h0": h0, "c0": c0}
     if peephole is not None:
         tensors["peephole"] = peephole
+    if xg.dtype not in _SYMBOLS:
+        raise TypeError(f"fused_lstm: xg is {xg.dtype}; the kernel takes "
+                        "float32 or bfloat16")
     for name, t in tensors.items():
         if t.device != xg.device:
             raise ValueError(f"fused_lstm: {name} is on {t.device}, "
                              f"xg on {xg.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"fused_lstm: {name} is {t.dtype}; the kernel "
-                            "takes float32")
+        if t.dtype != xg.dtype:
+            raise TypeError(f"fused_lstm: {name} is {t.dtype}, xg "
+                            f"{xg.dtype}; the kernel takes one type")
         if not t.is_contiguous():
             raise ValueError(f"fused_lstm: {name} is not contiguous")
     if xg.dim() != 3 or xg.shape[2] % 4:
@@ -100,18 +115,18 @@ def fused_lstm_recurrence(xg, R, h0, c0, peephole=None):
     if T == 0:
         return xg.new_empty((0, B, H)), h0, c0
     lib = FUSED_LSTM.library.load(xg.device)
+    launch = getattr(lib, _SYMBOLS[xg.dtype])
     out = xg.new_empty((T, B, H))
     hT = xg.new_empty((B, H))
     cT = xg.new_empty((B, H))
     args = (pointer(xg), pointer(R), pointer(h0), pointer(c0),
             pointer(peephole), pointer(out), pointer(hT), pointer(cT), T, B, H)
     if xg.device.index == torch.cuda.current_device():
-        status = lib.dl4j_lstm_fwd(*args, torch.cuda.current_stream().cuda_stream)
+        status = launch(*args, torch.cuda.current_stream().cuda_stream)
     else:  # the C launcher uses the calling thread's current device
         with torch.cuda.device(xg.device):
-            status = lib.dl4j_lstm_fwd(
-                *args, torch.cuda.current_stream().cuda_stream)
-    check_status(lib, status, "dl4j_lstm_fwd")
+            status = launch(*args, torch.cuda.current_stream().cuda_stream)
+    check_status(lib, status, _SYMBOLS[xg.dtype])
     FUSED_LSTM.launches += 1
     return out, hT, cT
 
@@ -127,9 +142,10 @@ def fused_lstm_layer(x, h0, c0, W, R, b, *, peephole=None,
 
 
 def _lstm_requires(x, h0, c0, W, R, b, *, peephole=None, **kw):
-    """Structural: float32 CUDA tensors (the kernel's only type)."""
+    """Structural: every tensor on the card. The dtype is the wrapper's
+    to check: it launches the kernel or raises."""
     ts = [x, h0, c0, W, R, b] + ([] if peephole is None else [peephole])
-    return all(t.is_cuda and t.dtype == torch.float32 for t in ts)
+    return all(t.is_cuda for t in ts)
 
 
 register_impl("lstm_layer", platform="cuda", requires=_lstm_requires,

@@ -33,14 +33,21 @@ def lstm_recurrence(xg, R, h0, c0, peephole=None):
     """The sequential part over time-major gates xg [T, B, 4H].
 
     Returns (outputs [T, B, H], hT, cT). This is the plain version of the
-    fused-LSTM kernel (``ops/cuda/fused_lstm.py``)."""
+    fused-LSTM kernel (``ops/cuda/fused_lstm.py``). Whatever the inputs'
+    type, the sums, the gates and the cell state are f32; h_{t-1} enters the
+    product rounded to R's type, and the results return in the inputs' type
+    (the JAX package's Pallas kernel does the same for bf16). In f32 every
+    cast is a no-op."""
     H = R.shape[0]
+    f32 = torch.float32
+    Rf = R.to(f32)
     if peephole is not None:
-        p_i, p_f, p_o = peephole[:H], peephole[H:2 * H], peephole[2 * H:]
-    h, c = h0, c0
+        pf = peephole.to(f32)
+        p_i, p_f, p_o = pf[:H], pf[H:2 * H], pf[2 * H:]
+    h, c = h0.to(f32), c0.to(f32)
     outs = []
     for t in range(xg.shape[0]):
-        g = xg[t] + h @ R
+        g = xg[t].to(f32) + h.to(R.dtype).to(f32) @ Rf
         i, f, o, z = g[:, :H], g[:, H:2 * H], g[:, 2 * H:3 * H], g[:, 3 * H:]
         if peephole is not None:
             i = i + c * p_i
@@ -56,7 +63,7 @@ def lstm_recurrence(xg, R, h0, c0, peephole=None):
         outs.append(h)
     if not outs:
         return xg.new_empty((0,) + tuple(h0.shape)), h0, c0
-    return torch.stack(outs), h, c
+    return torch.stack(outs).to(xg.dtype), h.to(h0.dtype), c.to(c0.dtype)
 
 
 def finish_layer(out, hT, cT, reverse):

@@ -5,8 +5,11 @@ The same numpy inputs go through the JAX package's Pallas kernel
 runs it), its scan lowering (``ops.recurrent.lstm_layer``), and the port's
 plain lowering and kernel wrapper (which takes the plain version for CPU
 tensors). Tolerance atol = rtol = 1e-5 in f32: only the order of the matmul
-sums differs. The kernel itself runs only on the card: the ``cuda`` test
-below holds it against the plain version there.
+sums differs. In bf16 the port's plain version follows the Pallas kernel's
+numerics (f32 sums and cell state, h rounded to bf16 for the product) and
+is held against it within one bf16 rounding step, 2^-7. The kernel itself
+runs only on the card: the ``cuda`` tests below hold it against the plain
+version there.
 """
 
 import jax.numpy as jnp
@@ -20,10 +23,12 @@ from deeplearning4j_tpu_torch.common.env import env
 from deeplearning4j_tpu_torch.ops.cuda.fused_lstm import (
     FUSED_LSTM, fused_lstm_layer, fused_lstm_recurrence, plain_recurrence,
 )
+from deeplearning4j_tpu_torch.ops import registry
 from deeplearning4j_tpu_torch.ops.recurrent import lstm_layer, project_gates
-from deeplearning4j_tpu_torch.ops.registry import get_op
+from deeplearning4j_tpu_torch.ops.registry import OpImpl, _Op, get_op
 
 TOL = dict(atol=1e-5, rtol=1e-5)
+BF16_TOL = dict(atol=2 ** -7, rtol=2 ** -7)
 
 
 @pytest.fixture
@@ -83,6 +88,51 @@ def test_lstm_layer_matches_jax(H, peep, rev, fgb):
     for ref in (_run_jax(jax_fused, a, **kw), _run_jax(jax_scan, a, **kw)):
         for got, want in zip(port, ref):
             np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("H,peep,rev", [(12, True, True), (200, False, False)],
+                         ids=["H12-peep-rev", "H200-nopeep-fwd"])
+def test_lstm_layer_bf16_matches_jax_pallas(H, peep, rev):
+    """bf16: port plain lowering == JAX Pallas kernel (interpret), whose
+    numerics the port's kernel and plain version share."""
+    a = _inputs(H, peephole=peep, seed=H + 1)
+    kw = dict(forget_gate_bias=1.0, reverse=rev)
+    ja = {k: None if v is None else jnp.asarray(v, jnp.bfloat16)
+          for k, v in a.items()}
+    args = [ja[k] for k in ("x", "h0", "c0", "W", "R", "b")]
+    out, (h, c) = jax_fused(*args, peephole=ja["p"], **kw)
+    want = [np.asarray(v.astype(jnp.float32)) for v in (out, h, c)]
+    ta = {k: None if v is None else
+          torch.as_tensor(np.array(v.astype(jnp.float32))).to(torch.bfloat16)
+          for k, v in ja.items()}
+    out, (h, c) = lstm_layer(*[ta[k] for k in ("x", "h0", "c0", "W", "R", "b")],
+                             peephole=ta["p"], **kw)
+    assert out.dtype == h.dtype == c.dtype == torch.bfloat16
+    for got, w in zip((out, h, c), want):
+        np.testing.assert_allclose(got.float().numpy(), w, **BF16_TOL)
+
+
+def test_plain_recurrence_bf16_keeps_f32_state():
+    """In bf16 the cell state is carried in f32 between steps: the result
+    equals an f32 run with h rounded to bf16 before each product."""
+    a = _inputs(16, B=3, T=6, F=4, seed=9)
+    x, W, R, b, h0, c0, p = (torch.as_tensor(a[k]) for k in
+                             ("x", "W", "R", "b", "h0", "c0", "p"))
+    bf = lambda t: t.to(torch.bfloat16)
+    xg = project_gates(bf(x), bf(W), bf(b))
+    out, hT, cT = plain_recurrence(xg, bf(R), bf(h0), bf(c0), bf(p))
+    H = 16
+    h, c = bf(h0).float(), bf(c0).float()
+    pf = bf(p).float()
+    for t in range(6):
+        g = xg[t].float() + bf(h).float() @ bf(R).float()
+        i = torch.sigmoid(g[:, :H] + c * pf[:H])
+        f = torch.sigmoid(g[:, H:2 * H] + c * pf[H:2 * H])
+        c = f * c + i * torch.tanh(g[:, 3 * H:])
+        h = torch.sigmoid(g[:, 2 * H:3 * H] + c * pf[2 * H:]) * torch.tanh(c)
+        torch.testing.assert_close(out[t], bf(h), rtol=0, atol=0)
+    torch.testing.assert_close(hT, bf(h), rtol=0, atol=0)
+    torch.testing.assert_close(cT, bf(c), rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("H", [12, 200])
@@ -149,6 +199,29 @@ class TestRegistry:
         out, (h, c) = get_op("lstm_layer")(*self._args())
         assert out.shape == (8, 1, 16) and h.shape == (8, 16)
 
+    @pytest.mark.parametrize("force,disable,want", [
+        (False, False, "fallback"),  # "fast" fails its predicate
+        (True, False, "fast"),       # force skips the predicate...
+        (True, True, "plain"),       # ...and disable beats everything
+    ], ids=["default", "force", "disable"])
+    def test_predicate_priority_force(self, monkeypatch, force, disable, want):
+        """Selection seam on a CUDA call (the device is faked: there is
+        no card here): priority orders the kernels, the predicate can veto
+        one, FORCE skips the predicate, ``requires`` is never skipped."""
+        monkeypatch.setattr(registry, "_device_type", lambda a, k: "cuda")
+        monkeypatch.setattr(env, "force_kernels", force)
+        monkeypatch.setattr(env, "disable_kernels", disable)
+        o = _Op("seam")
+        o.impls = [
+            OpImpl("seam", "plain", lambda x: "plain"),
+            OpImpl("seam", "cuda", lambda x: "unfit", priority=9,
+                   requires=lambda x: False),
+            OpImpl("seam", "cuda", lambda x: "fast", priority=2,
+                   predicate=lambda x: False),
+            OpImpl("seam", "cuda", lambda x: "fallback", priority=1),
+        ]
+        assert o(torch.zeros(2)) == want
+
 
 @pytest.mark.cuda
 def test_kernel_against_plain_on_card(cuda_device):
@@ -181,3 +254,52 @@ def test_kernel_against_plain_on_card(cuda_device):
     with pytest.raises(TypeError):
         fused_lstm_recurrence(xg.double(), R.double(), h0.double(),
                               c0.double())
+
+
+@pytest.mark.cuda
+def test_bf16_kernel_against_plain_on_card(cuda_device):
+    """bf16 on the card: the registry sends the call to the kernel, which
+    agrees with the plain version within one or two bf16 rounding steps
+    (f32 sums in different orders may round a stored value to its
+    neighbour, and the rounded h feeds later steps); other types raise."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    bf16 = torch.bfloat16
+    for B, T, H, peep in ((8, 1, 256, False), (1, 47, 256, False),
+                          (32, 64, 200, True), (13, 3, 33, True)):
+        rnd = lambda *s, k=1.0: (torch.randn(*s, device=cuda_device,
+                                             generator=g) * k).to(bf16)
+        xg, R = rnd(T, B, 4 * H), rnd(H, 4 * H, k=0.06)
+        h0, c0 = rnd(B, H, k=0.5), rnd(B, H, k=0.5)
+        p = rnd(3 * H, k=0.1) if peep else None
+        before = FUSED_LSTM.launches
+        got = fused_lstm_recurrence(xg, R, h0, c0, p)
+        torch.cuda.synchronize()
+        assert FUSED_LSTM.launches == before + 1
+        for a, r in zip(got, plain_recurrence(xg, R, h0, c0, p)):
+            assert a.dtype == bf16
+            torch.testing.assert_close(a.float(), r.float(), atol=1e-2,
+                                       rtol=1e-2)
+    args = [torch.zeros(s, device=cuda_device, dtype=bf16) for s in
+            ((8, 1, 5), (8, 16), (8, 16), (5, 64), (16, 64), (64,))]
+    assert get_op("lstm_layer").select(*args).platform == "cuda"
+    half = [a.half() for a in args]
+    assert get_op("lstm_layer").select(*half).platform == "cuda"
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        get_op("lstm_layer")(*half)
+    with pytest.raises(TypeError, match="one type"):
+        fused_lstm_recurrence(xg, R.float(), h0, c0)
+
+
+@pytest.mark.cuda
+def test_bf16_net_on_card_launches_kernel(cuda_device):
+    """A bf16 network's decode steps on the card go through the kernel."""
+    from deeplearning4j_tpu_torch.generation import GenerationEngine
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+
+    net = TextGenerationLSTM(seed=0, dtype="bf16", units=64,
+                             vocab_size=20).init(device=cuda_device)
+    eng = GenerationEngine(net, slots=4, max_len=32, device=cuda_device)
+    before = FUSED_LSTM.launches
+    toks = eng.generate([1, 2, 3], max_new_tokens=5)
+    assert len(toks) == 5
+    assert FUSED_LSTM.launches - before >= 2 * eng.steps_run
