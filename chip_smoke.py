@@ -29,7 +29,24 @@ Phases (any failure exits non-zero before the result line):
    every decode step must launch the kernel (the registry sends bf16 work
    to it), and its teacher-forced logits are held against the plain path
    on the card.
-6. Prints the kernels line, the card line and, last, the result line
+6. Backward kernel against plain: the training forward's reserve and the
+   backward kernel against their plain versions at the training shapes
+   (B=64, T=64; H=200 with peepholes, reversed; H=256 without), in f32 and
+   bf16; each layer's seven gradients through the kernels against torch
+   autograd through the plain lowering on the card; times of the kernels,
+   the plain versions and, where a library call computes the same layer,
+   ``torch.nn.LSTM`` (cuDNN) forward + backward.
+7. Training main path: BidirectionalGravesLSTMCharRnn at its published
+   width (2 x GravesBidirectionalLSTM(200), vocabulary 77, Adam, clipping
+   5.0) on batch 64 x T 64 of one-hot data from the seed. Two steps agree
+   with a copy trained on the CPU's plain path; then, with the launch
+   counts zeroed just before and read just after, N steps on a repeated
+   batch, each launching 4 forward (with reserve) and 4 backward kernels,
+   with finite and falling losses; a steady window is profiled.
+8. TextGenerationLSTM training (RMSProp, 2 + 2 launches a step) and the
+   bf16 char-RNN training: a few steps each, every step through both
+   kernels.
+9. Prints the kernels line, the card line and, last, the result line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -41,6 +58,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 TOL = 1e-4      # f32; kernel and plain version sum h @ R in different orders
 # bf16 outputs: |kernel - plain| <= TOL_BF16 * (1 + |plain|). The sums are
@@ -52,8 +70,16 @@ TOL_BF16 = 1e-2
 # the recurrence's bf16 rounding differences above, through two layers and
 # the bf16 output layer (random weights give logits of about 0.4).
 TOL_BF16_LOGITS = 2e-2
+# layer gradients through the kernels vs autograd through the plain
+# lowering, f32: |a - b| <= TOL_GRAD * max(1, max |b|) per gradient (sums
+# over T*B in other orders; dW and db are sums of 4096 terms)
+TOL_GRAD = 1e-4
+# training on the card vs a copy on the CPU's plain path, after 2 steps
+TOL_TRAIN_LOSS = 1e-5   # relative
+TOL_TRAIN_PARAM = 1e-4  # absolute
 SEED = 0
 N_REQUESTS = 16
+N_TRAIN_STEPS = 20
 
 
 def fail(msg: str) -> None:
@@ -139,8 +165,38 @@ def lstm_bound(T: int, B: int, H: int, peephole: bool, bf16: bool = False):
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
-def cudnn_lstm(torch, W, R, b, forget_gate_bias):
-    """torch.nn.LSTM holding the same layer: IFOG -> torch's IFGO, one bias."""
+def lstm_fwd_train_bound(T, B, H, peephole, bf16=False):
+    """lstm_bound plus the reserve written once ([5, T, B, H] f32)."""
+    ms, _ = lstm_bound(T, B, H, peephole, bf16)
+    e = 2.0 if bf16 else 4.0
+    n_in = T * B * 4 * H + H * 4 * H + 2 * B * H + (3 * H if peephole else 0)
+    n_out = T * B * H + 2 * B * H
+    t_bytes = (e * (n_in + n_out) + 4.0 * 5 * T * B * H) / HBM_BYTES_PER_S
+    t_ops = (T * B * H * 8.0 * H / (BF16_FLOP_PER_S if bf16 else F32_FLOP_PER_S)
+             + T * B * H * 15.0 / F32_FLOP_PER_S)
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def lstm_bwd_bound(T, B, H, peephole, bf16=False):
+    """Least time for the backward walk: the reserve, R^T, c0, dout, dcT
+    and the peepholes read once, dg and dc0 written once, against the flops
+    of dg @ R^T (T-1 steps: the last step needs none, at the peak for the
+    inputs' type) plus ~25 f32 flops per gate-gradient cell."""
+    e = 2.0 if bf16 else 4.0
+    t_bytes = (4.0 * 5 * T * B * H + e * (4 * H * H + 2 * B * H + T * B * H
+                                          + (3 * H if peephole else 0))
+               + 4.0 * (T * B * 4 * H + B * H)) / HBM_BYTES_PER_S
+    t_ops = (2.0 * (T - 1) * B * 4 * H * H
+             / (BF16_FLOP_PER_S if bf16 else F32_FLOP_PER_S)
+             + T * B * H * 25.0 / F32_FLOP_PER_S)
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def cudnn_lstm(torch, W, R, b, forget_gate_bias, dtype):
+    """torch.nn.LSTM holding the same layer: IFOG -> torch's IFGO, one bias,
+    its weights in ``dtype`` and compacted into cuDNN's one chunk."""
     F, G = W.shape
     H = G // 4
     perm = torch.cat([torch.arange(0, H), torch.arange(H, 2 * H),
@@ -154,6 +210,7 @@ def cudnn_lstm(torch, W, R, b, forget_gate_bias):
         lstm.weight_hh_l0.copy_(R[:, perm].t())
         lstm.bias_ih_l0.copy_(bias[perm])
         lstm.bias_hh_l0.zero_()
+    lstm = lstm.to(dtype)
     lstm.flatten_parameters()
     return lstm
 
@@ -224,8 +281,8 @@ def phase_kernels(torch):
         row["bound_ms"], row["bound_by"] = lstm_bound(T, B, H, peep,
                                                       bf16=dt == bf16)
         if not peep and not rev:
-            lstm = cudnn_lstm(torch, W.float(), R.float(), b.float(),
-                              fgb).to(dt)
+            lstm = cudnn_lstm(torch, W.float(), R.float(), b.float(), fgb,
+                              dt)
             xt = x.transpose(0, 1).contiguous()
             state = (h0[None].contiguous(), c0[None].contiguous())
             with torch.no_grad():
@@ -260,17 +317,18 @@ def phase_main_path(torch, np):
             for i, (n, m) in enumerate(zip(lens, news))]
 
     steps0 = eng.steps_run
-    for k in KERNELS:
-        k.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.monotonic()
-    streams = [eng.submit(r.pop("prompt"), **r) for r in
+
+    def serve():
+        out = [eng.submit(r.pop("prompt"), **r) for r in
                [dict(q) for q in reqs]]
-    eng.drain()
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
-    launches = {k.name: k.launches for k in KERNELS}
+        eng.drain()
+        return out
+
+    streams, launches, reserves, wall = _count_launches(torch, KERNELS, serve)
     decode_steps = eng.steps_run - steps0
+    if reserves or launches["fused_lstm_bwd"]:
+        fail(f"serving saved {reserves} reserves and launched the backward "
+             f"{launches['fused_lstm_bwd']} times (it runs under no_grad)")
 
     for i, (s, r) in enumerate(zip(streams, reqs)):
         if s.finish_reason != "length" or len(s.tokens) != r["max_new_tokens"]:
@@ -319,7 +377,8 @@ def phase_main_path(torch, np):
         "tokens": n_tokens, "decode_steps": decode_steps,
         "wall_s": wall, "tokens_per_s": n_tokens / wall,
         "ttft_p50_ms": 1e3 * float(np.percentile(ttft, 50)),
-        "launches": launches, "expected_launches": expected,
+        "launches": launches, "reserve_launches": reserves,
+        "expected_launches": expected,
         "launches_per_decode_step": (launches["fused_lstm_fwd"]
                                      - 2 * n_prefill) / decode_steps,
         "greedy_logits_max_abs_err_vs_cpu": worst,
@@ -421,6 +480,245 @@ def phase_bf16_net(torch, np):
             "logit_max_abs": float(logits[1].abs().max())}
 
 
+def _within(torch, got, want, dtype):
+    """The stated tolerance: TOL abs in f32, TOL_BF16 (1 + |b|) in bf16."""
+    if dtype == torch.float32:
+        return bool(((got - want).abs() <= TOL).all())
+    return bool(((got - want).abs() <= TOL_BF16 * (1 + want.abs())).all())
+
+
+def phase_bwd_kernels(torch):
+    """The training forward's reserve and the backward kernel against their
+    plain versions, and each layer's gradients through the kernels against
+    autograd through the plain lowering, at the training main paths'
+    shapes; returns (rows, f32 max_abs_err, bf16 max_abs_err)."""
+    from deeplearning4j_tpu_torch.ops.cuda.fused_lstm import (
+        fused_lstm_bwd_recurrence, fused_lstm_layer, fused_lstm_recurrence,
+        plain_bwd_recurrence, plain_recurrence,
+    )
+    from deeplearning4j_tpu_torch.ops.recurrent import lstm_layer, project_gates
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    shapes = [  # name, B, T, F, H, peephole, reverse, forget_gate_bias, dtype
+        ("graves_layer1", 64, 64, 77, 200, True, True, 1.0, f32),
+        ("graves_layer2", 64, 64, 400, 200, True, True, 1.0, f32),
+        ("textgen_layer1", 64, 64, 77, 256, False, False, 0.0, f32),
+        ("textgen_layer2", 64, 64, 256, 256, False, False, 0.0, f32),
+        ("graves_layer1_bf16", 64, 64, 77, 200, True, True, 1.0, bf16),
+    ]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    rows, worst = [], {f32: 0.0, bf16: 0.0}
+    for name, B, T, F, H, peep, rev, fgb, dt in shapes:
+        def rnd(*shape, scale=1.0):
+            return (torch.randn(*shape, device="cuda", generator=g)
+                    * scale).to(dt)
+        x, W, R, b = (rnd(B, T, F), rnd(F, 4 * H, scale=0.1),
+                      rnd(H, 4 * H, scale=0.06), rnd(4 * H, scale=0.1))
+        h0, c0 = rnd(B, H, scale=0.5), rnd(B, H, scale=0.5)
+        p = rnd(3 * H, scale=0.1) if peep else None
+        g_out, g_h, g_c = rnd(B, T, H), rnd(B, H), rnd(B, H)
+        xg = project_gates(x, W, b, fgb, rev)
+        _, _, _, reserve = fused_lstm_recurrence(xg, R, h0, c0, p,
+                                                 save_residuals=True)
+        dout = g_out.transpose(0, 1)
+        dout = (dout.flip(0) if rev else dout).contiguous()
+        dg, dc0 = fused_lstm_bwd_recurrence(reserve, R, c0, dout, g_c, p)
+        torch.cuda.synchronize()
+        _, _, _, p_reserve = plain_recurrence(xg, R, h0, c0, p,
+                                              save_residuals=True)
+        # the backward is held on the kernel's own reserve, so that its
+        # check does not carry the forward's rounding differences
+        p_dg, p_dc0 = plain_bwd_recurrence(reserve, R, c0, dout, g_c, p)
+        pairs = ((reserve, p_reserve), (dg, p_dg), (dc0, p_dc0))
+        err = max(float((a - r).abs().max()) for a, r in pairs)
+        finite = all(bool(torch.isfinite(a).all()) for a, _ in pairs)
+        if not finite or not all(_within(torch, a, r, dt) for a, r in pairs):
+            fail(f"backward kernel disagrees with plain at {name}: "
+                 f"max_abs_err {err} (finite={finite})")
+        worst[dt] = max(worst[dt], err)
+        row = {"shape": name, "B": B, "T": T, "F": F, "H": H,
+               "peephole": peep, "reverse": rev,
+               "dtype": str(dt).replace("torch.", ""), "max_abs_err": err}
+
+        # the layer's gradients: kernels vs autograd through plain (f32;
+        # in bf16 autograd rounds other intermediates than the kernels)
+        leaves = [t.clone().requires_grad_() for t in (x, h0, c0, W, R, b)]
+        lp = p.clone().requires_grad_() if peep else None
+        all_leaves = leaves + ([lp] if peep else [])
+        kw = dict(peephole=lp, forget_gate_bias=fgb, reverse=rev)
+
+        def grads(fn):
+            ys, (h, c) = fn(*leaves, **kw)
+            return torch.autograd.grad((ys, h, c), all_leaves,
+                                       (g_out, g_h, g_c))
+
+        if dt == f32:
+            got, want = grads(fused_lstm_layer), grads(lstm_layer)
+            rel = max(float((a - w).abs().max()) / max(1.0, float(w.abs().max()))
+                      for a, w in zip(got, want))
+            if rel > TOL_GRAD:
+                fail(f"layer gradients through the kernels disagree with "
+                     f"the plain path at {name}: {rel} > {TOL_GRAD}")
+            row["layer_grad_max_rel_err"] = rel
+
+        iters = 10
+        row["kernel_ms"] = cuda_ms(torch, lambda: fused_lstm_bwd_recurrence(
+            reserve, R, c0, dout, g_c, p), iters)
+        row["kernel_device_ms"] = kernel_device_ms(
+            torch, lambda: fused_lstm_bwd_recurrence(reserve, R, c0, dout,
+                                                     g_c, p),
+            iters, "lstm_bwd_kernel")
+        row["plain_ms"] = cuda_ms(torch, lambda: plain_bwd_recurrence(
+            reserve, R, c0, dout, g_c, p), 3)
+        row["bound_ms"], row["bound_by"] = lstm_bwd_bound(T, B, H, peep,
+                                                          dt == bf16)
+        fwd = lambda: fused_lstm_recurrence(xg, R, h0, c0, p,
+                                            save_residuals=True)
+        row["fwd_reserve_kernel_ms"] = cuda_ms(torch, fwd, iters)
+        row["fwd_reserve_device_ms"] = kernel_device_ms(torch, fwd, iters,
+                                                        "lstm_fwd_kernel")
+        row["fwd_reserve_plain_ms"] = cuda_ms(torch, lambda: plain_recurrence(
+            xg, R, h0, c0, p, save_residuals=True), 3)
+        row["fwd_reserve_bound_ms"], row["fwd_reserve_bound_by"] = \
+            lstm_fwd_train_bound(T, B, H, peep, dt == bf16)
+        row["layer_pair_ms"] = cuda_ms(torch, lambda: grads(fused_lstm_layer),
+                                       iters)
+        row["layer_pair_plain_ms"] = cuda_ms(torch, lambda: grads(lstm_layer),
+                                             3)
+        row["library_pair_ms"] = None  # no library LSTM has peepholes
+        if not peep and not rev:
+            lstm = cudnn_lstm(torch, W.float(), R.float(), b.float(), fgb,
+                              dt)
+            xt = x.transpose(0, 1).contiguous().requires_grad_()
+            state = (h0[None].contiguous(), c0[None].contiguous())
+            lib_leaves = [xt] + list(lstm.parameters())
+            g_lib = (g_out.transpose(0, 1), g_h[None], g_c[None])
+
+            def lib_pair():
+                lo, (hn, cn) = lstm(xt, state)
+                return torch.autograd.grad((lo, hn, cn), lib_leaves, g_lib)
+
+            row["library_pair_ms"] = cuda_ms(torch, lib_pair, iters)
+        rows.append(row)
+    return rows, worst[f32], worst[bf16]
+
+
+def _char_batch(np, rng, V, B, T):
+    """One-hot chars and next-char labels, as the JAX package's bench.py
+    builds the char-RNN batch."""
+    ids = rng.integers(0, V, (B, T))
+    return (np.eye(V, dtype=np.float32)[ids],
+            np.eye(V, dtype=np.float32)[np.roll(ids, -1, axis=1)])
+
+
+def _count_launches(torch, kernels, fn):
+    """Zero every kernel's count, run ``fn``, read the counts after a
+    sync. Returns (fn's result, {name: launches}, reserve launches, wall s)."""
+    for k in kernels:
+        k.launches = 0
+    kernels[0].reserves = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, {k.name: k.launches for k in kernels}, kernels[0].reserves, wall
+
+
+def phase_training(torch, np):
+    """Train BidirectionalGravesLSTMCharRnn at its published width."""
+    from deeplearning4j_tpu_torch.common.trees import tree_leaves
+    from deeplearning4j_tpu_torch.ops.cuda import KERNELS
+    from deeplearning4j_tpu_torch.zoo import BidirectionalGravesLSTMCharRnn
+
+    model = BidirectionalGravesLSTMCharRnn(seed=SEED)
+    net = model.init(device="cuda")
+    V, B, T = model.vocab_size, 64, model.timesteps
+    n_lstm = 2 * model.layers  # two directions per bidirectional layer
+    cpu_net = copy.deepcopy(net).to("cpu")
+    x, y = _char_batch(np, np.random.default_rng(SEED), V, B, T)
+
+    # two steps on the card (also its warm-up) against the CPU plain path
+    card = [net.fit_batch((x, y)) for _ in range(2)]
+    cpu = [cpu_net.fit_batch((x, y)) for _ in range(2)]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    param_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+        tree_leaves(net.params), tree_leaves(cpu_net.params)))
+    if loss_err > TOL_TRAIN_LOSS or param_err > TOL_TRAIN_PARAM:
+        fail(f"2 training steps on the card vs the CPU plain path: loss "
+             f"rel err {loss_err} (tol {TOL_TRAIN_LOSS}), param abs err "
+             f"{param_err} (tol {TOL_TRAIN_PARAM})")
+
+    losses, launches, reserves, wall = _count_launches(
+        torch, KERNELS,
+        lambda: [net.fit_batch((x, y)) for _ in range(N_TRAIN_STEPS)])
+    if not all(np.isfinite(losses)):
+        fail(f"training losses not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"loss on a repeated batch did not fall: {losses}")
+    want = n_lstm * N_TRAIN_STEPS
+    if (launches != {"fused_lstm_fwd": want, "fused_lstm_bwd": want}
+            or reserves != want):
+        fail(f"{N_TRAIN_STEPS} steps launched {launches} ({reserves} with "
+             f"reserve); want {n_lstm} of each kernel per step")
+
+    steps = 5
+    by_kernel, prof_wall_ms = profile_device(
+        torch, lambda: net.fit_batch((x, y)), steps)
+    busy = sum(t for t, _ in by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:8]
+    step_ms = host_ms(torch, lambda: net.fit_batch((x, y)), 5)
+    xd, yd = (torch.as_tensor(a, device="cuda") for a in (x, y))
+    step_ms_on_card = host_ms(torch, lambda: net.fit_batch((xd, yd)), 5)
+    return {
+        "model": "BidirectionalGravesLSTMCharRnn(units=200, layers=2, "
+                 "vocab=77), Adam 1e-3, clipping 5.0",
+        "batch": B, "timesteps": T, "params": net.num_params(),
+        "cpu_agreement": {"card_losses": card, "cpu_losses": cpu,
+                          "loss_max_rel_err": loss_err,
+                          "param_max_abs_err": param_err},
+        "steps": N_TRAIN_STEPS, "losses": losses, "launches": launches,
+        "reserve_launches": reserves,
+        "launches_per_step": {k: v / N_TRAIN_STEPS
+                              for k, v in launches.items()},
+        "wall_s": wall, "step_wall_ms": 1e3 * wall / N_TRAIN_STEPS,
+        "samples_per_s": B * N_TRAIN_STEPS / wall,
+        "synced_step_ms": step_ms,
+        "synced_step_ms_batch_on_card": step_ms_on_card,
+        "profile": {
+            "steps": steps, "wall_ms_per_step": prof_wall_ms / steps,
+            "device_ms_per_step": busy / steps,
+            "device_busy_share": busy / prof_wall_ms if by_kernel else None,
+            "top_kernels_ms_per_step": {k[:60]: t / steps
+                                        for k, (t, _) in top},
+        },
+    }
+
+
+def phase_short_training(torch, np, model, per_step, steps=3):
+    """A few fit_batch steps of ``model`` on the card at batch 64 x T 64:
+    finite losses, ``per_step`` launches of each kernel every step."""
+    from deeplearning4j_tpu_torch.ops.cuda import KERNELS
+
+    net = model.init(device="cuda")
+    x, y = _char_batch(np, np.random.default_rng(SEED + 3),
+                       model.vocab_size, 64, model.timesteps)
+    net.fit_batch((x, y))  # warm-up, not counted
+    losses, launches, reserves, wall = _count_launches(
+        torch, KERNELS, lambda: [net.fit_batch((x, y)) for _ in range(steps)])
+    name = type(model).__name__
+    if not all(np.isfinite(losses)):
+        fail(f"{name} ({model.dtype}) training losses not finite: {losses}")
+    want = per_step * steps
+    if (launches != {"fused_lstm_fwd": want, "fused_lstm_bwd": want}
+            or reserves != want):
+        fail(f"{name} ({model.dtype}): {steps} steps launched {launches} "
+             f"({reserves} with reserve); want {per_step} of each per step")
+    return {"model": name, "dtype": model.dtype, "steps": steps,
+            "losses": losses, "launches": launches,
+            "step_wall_ms": 1e3 * wall / steps}
+
+
 def main() -> None:
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "deeplearning4j_tpu_torch")):
@@ -439,19 +737,22 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # phase 2: build
+    # phase 2: build, one nvcc per source, all started together
     from deeplearning4j_tpu_torch.ops.cuda import KERNELS
 
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        list(pool.map(lambda k: k.library.load(), KERNELS))
+    print(f"build: {time.perf_counter() - t0:.2f} s wall", flush=True)
     for k in KERNELS:
-        k.library.load()
         print(f"build {k.name}: {k.library.build_seconds:.2f} s", flush=True)
         print(k.library.build_log.strip(), flush=True)
 
-    # phase 3: kernel against plain
+    # phase 3: forward kernel against plain
     rows, worst, worst_bf16 = phase_kernels(torch)
     print(json.dumps({"kernel_shapes": rows}), flush=True)
 
-    # phase 4: main path
+    # phase 4: serving main path
     main_path = phase_main_path(torch, np)
     print(json.dumps({"main_path": main_path, "card": card}), flush=True)
     print(f"main path on {card}: {main_path['tokens_per_s']:.1f} tokens/s, "
@@ -460,21 +761,67 @@ def main() -> None:
     # phase 5: the bf16 net
     print(json.dumps({"bf16_net": phase_bf16_net(torch, np)}), flush=True)
 
-    # phase 6: kernels line, card line, result line
-    decode = rows[0]  # the main path's decode shape [8, 1, 256]
-    k = KERNELS[0]
-    entry = {
-        "name": k.name, "route": "cuda", "source": k.source,
-        "replaces": k.replaces,
-        "launches": main_path["launches"][k.name],
+    # phase 6: backward kernel against plain
+    bwd_rows, bwd_worst, bwd_worst_bf16 = phase_bwd_kernels(torch)
+    print(json.dumps({"bwd_kernel_shapes": bwd_rows}), flush=True)
+
+    # phase 7: training main path
+    train = phase_training(torch, np)
+    print(json.dumps({"training": train, "card": card}), flush=True)
+    print(f"training on {card}: {train['step_wall_ms']:.2f} ms a step, "
+          f"{train['samples_per_s']:.1f} samples/s", flush=True)
+
+    # phase 8: TextGenerationLSTM and bf16 char-RNN training
+    from deeplearning4j_tpu_torch.zoo import (
+        BidirectionalGravesLSTMCharRnn, TextGenerationLSTM,
+    )
+
+    short = [phase_short_training(torch, np, TextGenerationLSTM(seed=SEED), 2),
+             phase_short_training(torch, np, BidirectionalGravesLSTMCharRnn(
+                 seed=SEED, dtype="bf16"), 4)]
+    print(json.dumps({"short_training": short}), flush=True)
+
+    # phase 9: kernels line, card line, result line
+    decode = rows[0]  # the serving path's decode shape [8, 1, 256]
+    graves = bwd_rows[0]  # the training path's first layer [64, 64, 200]
+    fwd, bwd = KERNELS
+    serve_n = main_path["launches"][fwd.name]
+    train_n = train["launches"]
+    entries = [{
+        "name": fwd.name, "route": "cuda", "source": fwd.source,
+        "replaces": fwd.replaces,
+        "launches": serve_n + train_n[fwd.name],
+        "launches_by_path": {"serving": serve_n,
+                             "training": train_n[fwd.name]},
         "max_abs_err": worst, "max_abs_err_bf16": worst_bf16,
         "ms": decode["kernel_ms"], "kernel_ms": decode["kernel_ms"],
         "device_ms": decode["kernel_device_ms"],
         "plain_ms": decode["plain_ms"], "bound_ms": decode["bound_ms"],
         "bound_by": decode["bound_by"], "library_ms": decode["library_ms"],
         "shape": "decode [B=8, T=1, H=256]",
-    }
-    print(json.dumps({"kernels": [entry]}), flush=True)
+        "training_shape": {
+            "shape": "[B=64, T=64, H=200], peephole, reverse, with reserve",
+            "ms": graves["fwd_reserve_kernel_ms"],
+            "device_ms": graves["fwd_reserve_device_ms"],
+            "plain_ms": graves["fwd_reserve_plain_ms"],
+            "bound_ms": graves["fwd_reserve_bound_ms"],
+            "bound_by": graves["fwd_reserve_bound_by"], "library_ms": None},
+    }, {
+        "name": bwd.name, "route": "cuda", "source": bwd.source,
+        "replaces": bwd.replaces, "launches": train_n[bwd.name],
+        "launches_by_path": {"serving": main_path["launches"][bwd.name],
+                             "training": train_n[bwd.name]},
+        "max_abs_err": bwd_worst, "max_abs_err_bf16": bwd_worst_bf16,
+        "ms": graves["kernel_ms"], "kernel_ms": graves["kernel_ms"],
+        "device_ms": graves["kernel_device_ms"],
+        "plain_ms": graves["plain_ms"], "bound_ms": graves["bound_ms"],
+        "bound_by": graves["bound_by"],
+        # no library LSTM has peepholes; cuDNN's forward + backward on the
+        # no-peephole layers is in bwd_kernel_shapes (library_pair_ms)
+        "library_ms": None,
+        "shape": "[B=64, T=64, H=200], peephole, reverse",
+    }]
+    print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

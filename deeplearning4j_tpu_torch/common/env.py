@@ -2,7 +2,10 @@
 
 Counterpart of ``deeplearning4j_tpu/common/env.py`` under the port's own
 ``DL4J_TORCH_`` prefix. Only the flags the ported slice reads are carried
-over: the kernel kill switch, the force switch and verbose dispatch logging.
+over: the kernel kill switch, the force switch and verbose dispatch
+logging; and the switches of training features the port has not taken over
+yet (guardrails, fault plans), so that ``fit_batch`` refuses them instead of
+training without them.
 """
 
 from __future__ import annotations
@@ -27,6 +30,9 @@ class Environment:
     FORCE_KERNELS = "DL4J_TORCH_FORCE_KERNELS"
     # Print each op's selected implementation when the choice is made.
     VERBOSE = "DL4J_TORCH_VERBOSE"
+    # Not ported yet: arming training guardrails, installing a fault plan.
+    GUARDRAILS = "DL4J_TORCH_GUARDRAILS"
+    FAULTS = "DL4J_TORCH_FAULTS"
 
     def __init__(self) -> None:
         self.reload()
@@ -35,6 +41,8 @@ class Environment:
         self.disable_kernels = _flag(self.DISABLE_KERNELS)
         self.force_kernels = _flag(self.FORCE_KERNELS)
         self.verbose = _flag(self.VERBOSE)
+        self.guardrails = _flag(self.GUARDRAILS)
+        self.faults = os.environ.get(self.FAULTS, "").strip()
 
 
 env = Environment()

@@ -13,6 +13,12 @@
 // the forget-gate bias and the reverse flip stay outside, as in the JAX
 // package (_project_gates).
 //
+// Training: given a `reserve` buffer [5, T, B, H] float32, the kernel also
+// writes the reserve the backward kernel (fused_lstm_bwd.cu) reads: the cell
+// state c_t and the post-activation gates i, f, o, z, in that order and in
+// kernel time order, as _lstm_kernel does with save_residuals. A null
+// reserve (serving, and every call made under torch.no_grad) writes nothing.
+//
 // Types: all tensors are float32 (dl4j_lstm_fwd) or all bfloat16
 // (dl4j_lstm_fwd_bf16). In bf16, as in the Pallas kernel, the sums, the
 // gates and the cell state c stay in f32 registers and shared memory;
@@ -95,6 +101,7 @@ lstm_fwd_kernel(const E* __restrict__ xg,    // [T, B, 4H]
                 E* __restrict__ out,         // [T, B, H]
                 E* __restrict__ hT,          // [B, H]
                 E* __restrict__ cT,          // [B, H]
+                float* __restrict__ reserve, // [5, T, B, H] or null
                 int T, int B, int H, int upb, int slices) {
   extern __shared__ float smem[];
   const int tiles = (upb + kTile - 1) / kTile;
@@ -187,7 +194,16 @@ lstm_fwd_kernel(const E* __restrict__ xg,    // [T, B, 4H]
       // reads h in the element type, as the Pallas kernel casts it
       h[r * H + j] = to_f32(h_st);
       if (b < B) {
-        out[((size_t)t * B + b) * H + j] = h_st;
+        const size_t at = ((size_t)t * B + b) * H + j;
+        out[at] = h_st;
+        if (reserve != nullptr) {
+          const size_t plane = (size_t)T * B * H;
+          reserve[at] = c_new;
+          reserve[plane + at] = ig;
+          reserve[2 * plane + at] = fg;
+          reserve[3 * plane + at] = og;
+          reserve[4 * plane + at] = zg;
+        }
         if (t == T - 1) {
           hT[(size_t)b * H + j] = h_st;
           cT[(size_t)b * H + j] = from_f32<E>(c_new);
@@ -206,8 +222,8 @@ size_t smem_bytes(int rb, int H, int upb, int slices) {
 
 template <typename E, int RB>
 cudaError_t launch(const E* xg, const E* R, const E* h0, const E* c0,
-                   const E* peep, E* out, E* hT, E* cT, int T, int B, int H,
-                   int upb, int slices, cudaStream_t stream) {
+                   const E* peep, E* out, E* hT, E* cT, float* reserve, int T,
+                   int B, int H, int upb, int slices, cudaStream_t stream) {
   const size_t smem = smem_bytes(RB, H, upb, slices);
   if (smem > 48 * 1024) {
     // opt in above the default 48 KB on the calling thread's current
@@ -219,14 +235,14 @@ cudaError_t launch(const E* xg, const E* R, const E* h0, const E* c0,
   }
   const dim3 grid((B + RB - 1) / RB, (H + upb - 1) / upb);
   lstm_fwd_kernel<E, RB><<<grid, kThreads, smem, stream>>>(
-      xg, R, h0, c0, peep, out, hT, cT, T, B, H, upb, slices);
+      xg, R, h0, c0, peep, out, hT, cT, reserve, T, B, H, upb, slices);
   return cudaGetLastError();
 }
 
 template <typename E>
 int lstm_fwd(const E* xg, const E* R, const E* h0, const E* c0,
-             const E* peep, E* out, E* hT, E* cT, int T, int B, int H,
-             void* stream) {
+             const E* peep, E* out, E* hT, E* cT, float* reserve, int T,
+             int B, int H, void* stream) {
   if (T <= 0 || B <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   // T == 1: split units across blocks; T > 1: a block needs all of h.
   const int upb = T == 1 ? std::min(H, kTile) : H;
@@ -243,10 +259,10 @@ int lstm_fwd(const E* xg, const E* R, const E* h0, const E* c0,
     slices *= 2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (rb) {
-    case 8: return (int)launch<E, 8>(xg, R, h0, c0, peep, out, hT, cT, T, B, H, upb, slices, s);
-    case 4: return (int)launch<E, 4>(xg, R, h0, c0, peep, out, hT, cT, T, B, H, upb, slices, s);
-    case 2: return (int)launch<E, 2>(xg, R, h0, c0, peep, out, hT, cT, T, B, H, upb, slices, s);
-    default: return (int)launch<E, 1>(xg, R, h0, c0, peep, out, hT, cT, T, B, H, upb, slices, s);
+    case 8: return (int)launch<E, 8>(xg, R, h0, c0, peep, out, hT, cT, reserve, T, B, H, upb, slices, s);
+    case 4: return (int)launch<E, 4>(xg, R, h0, c0, peep, out, hT, cT, reserve, T, B, H, upb, slices, s);
+    case 2: return (int)launch<E, 2>(xg, R, h0, c0, peep, out, hT, cT, reserve, T, B, H, upb, slices, s);
+    default: return (int)launch<E, 1>(xg, R, h0, c0, peep, out, hT, cT, reserve, T, B, H, upb, slices, s);
   }
 }
 
@@ -255,20 +271,23 @@ int lstm_fwd(const E* xg, const E* R, const E* h0, const E* c0,
 extern "C" {
 
 // Launch the recurrence on `stream`; each returns a cudaError_t (0 =
-// launched). Every pointer is of the function's one element type.
+// launched). Every pointer but `reserve` (float32, or null) is of the
+// function's one element type.
 int dl4j_lstm_fwd(const float* xg, const float* R, const float* h0,
                   const float* c0, const float* peep, float* out, float* hT,
-                  float* cT, int T, int B, int H, void* stream) {
-  return lstm_fwd<float>(xg, R, h0, c0, peep, out, hT, cT, T, B, H, stream);
+                  float* cT, float* reserve, int T, int B, int H,
+                  void* stream) {
+  return lstm_fwd<float>(xg, R, h0, c0, peep, out, hT, cT, reserve, T, B, H,
+                         stream);
 }
 
 int dl4j_lstm_fwd_bf16(const __nv_bfloat16* xg, const __nv_bfloat16* R,
                        const __nv_bfloat16* h0, const __nv_bfloat16* c0,
                        const __nv_bfloat16* peep, __nv_bfloat16* out,
-                       __nv_bfloat16* hT, __nv_bfloat16* cT, int T, int B,
-                       int H, void* stream) {
-  return lstm_fwd<__nv_bfloat16>(xg, R, h0, c0, peep, out, hT, cT, T, B, H,
-                                 stream);
+                       __nv_bfloat16* hT, __nv_bfloat16* cT, float* reserve,
+                       int T, int B, int H, void* stream) {
+  return lstm_fwd<__nv_bfloat16>(xg, R, h0, c0, peep, out, hT, cT, reserve, T,
+                                 B, H, stream);
 }
 
 const char* dl4j_cuda_error_string(int err) {

@@ -1,14 +1,17 @@
 """Layer catalog (config+impl unified, JSON round-trippable).
 
-Counterpart of ``deeplearning4j_tpu/nn/layers``: the layers this slice
-ports. A configuration naming any other layer fails to load with an error
+Counterpart of ``deeplearning4j_tpu/nn/layers``: the layers the port has so
+far. A configuration naming any other layer fails to load with an error
 that names it.
 """
 
 from deeplearning4j_tpu_torch.nn.layers.base import Layer, register_layer
 from deeplearning4j_tpu_torch.nn.layers.core import DenseLayer
 from deeplearning4j_tpu_torch.nn.layers.output import OutputLayer, RnnOutputLayer
-from deeplearning4j_tpu_torch.nn.layers.recurrent import GravesLSTMLayer, LSTMLayer
+from deeplearning4j_tpu_torch.nn.layers.recurrent import (
+    BidirectionalLayer, GravesBidirectionalLSTMLayer, GravesLSTMLayer, LSTMLayer,
+)
 
 __all__ = ["Layer", "register_layer", "DenseLayer", "OutputLayer",
-           "RnnOutputLayer", "LSTMLayer", "GravesLSTMLayer"]
+           "RnnOutputLayer", "LSTMLayer", "GravesLSTMLayer",
+           "BidirectionalLayer", "GravesBidirectionalLSTMLayer"]

@@ -6,11 +6,11 @@ same field names and defaults as the JAX package, so the same configuration
 JSON loads in both. Its methods are plain functions on tensors:
 
     params, state = layer.init(generator, input_type, device)
-    y, new_state  = layer.apply(params, state, x, mask=...)
+    y, new_state  = layer.apply(params, state, x, train=..., rng=..., mask=...)
 
-``params`` keep the DL4J param-table keys ("W", "b", "RW", "pW"). This
-slice is inference only: dropout is a training-time transform and applies
-nothing here; regularization scores come with the training slice.
+``params`` keep the DL4J param-table keys ("W", "b", "RW", "pW"). Dropout
+applies to a layer's input when training, drawing its mask from ``rng``, a
+``torch.Generator`` on the input's device (the JAX package passes a key).
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from deeplearning4j_tpu_torch.common.trees import tree_leaves
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.weights import init_weight
 from deeplearning4j_tpu_torch.ops.activations import get_activation
@@ -53,7 +54,7 @@ class Layer:
     def init(self, generator: torch.Generator, itype: InputType, device):
         return {}, {}
 
-    def apply(self, params, state, x, *, mask=None):
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
         raise NotImplementedError
 
     def feed_forward_mask(self, mask, itype: InputType):
@@ -61,6 +62,32 @@ class Layer:
         return mask
 
     # ---- shared helpers ----
+    def _maybe_dropout(self, x, train, rng):
+        """Inverted dropout on the layer input (DL4J: ``dropout`` is the
+        drop probability); ``rng`` a torch.Generator on x's device."""
+        if not train or self.dropout <= 0.0:
+            return x
+        if rng is None:
+            raise ValueError(f"layer {self.name or type(self).__name__}: "
+                             "dropout needs a generator")
+        keep = 1.0 - self.dropout
+        m = torch.rand(x.shape, generator=rng, device=x.device) < keep
+        return torch.where(m, x / keep, torch.zeros((), dtype=x.dtype,
+                                                    device=x.device))
+
+    def regularization(self, params):
+        """l1/l2 penalty of this layer's params (DL4J
+        calcRegularizationScore): none on "b", "beta" or "gamma"."""
+        if (self.l1 == 0.0 and self.l2 == 0.0) or not params:
+            return 0.0
+        s = 0.0
+        for k, v in params.items():
+            if k in ("b", "beta", "gamma"):
+                continue
+            for a in tree_leaves(v):
+                s = s + self.l1 * a.abs().sum() + self.l2 * 0.5 * (a * a).sum()
+        return s
+
     def _w(self, generator, shape, device, fan_in=None, fan_out=None):
         return init_weight(generator, shape, self.weight_init, device=device,
                            fan_in=fan_in, fan_out=fan_out)

@@ -35,7 +35,8 @@ class DenseLayer(Layer):
             p["b"] = self._b((self.n_out,), device)
         return p, {}
 
-    def apply(self, params, state, x, *, mask=None):
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        x = self._maybe_dropout(x, train, rng)
         if x.dim() > 2:
             x = x.reshape(x.shape[0], -1)
         y = x @ params["W"]

@@ -1,15 +1,28 @@
-"""MultiLayerNetwork — the sequential model class, inference half.
+"""MultiLayerNetwork — the sequential model class.
 
 Counterpart of ``deeplearning4j_tpu/nn/multilayer.py``: ``init``,
 ``output``, ``_forward_carry``, ``_init_carries``, ``rnn_time_step``,
-``rnn_clear_previous_state`` and the per-row carry surgery
-(``extract_carry_rows``/``merge_carry_rows``, ``multilayer.py:58-76``).
-Training (``fit``) comes with the training slice.
+``rnn_clear_previous_state``, the per-row carry surgery
+(``extract_carry_rows``/``merge_carry_rows``, ``multilayer.py:58-76``), and
+training: ``fit_batch``, ``fit``, ``score``, ``save``/``load``.
+
+One train step is what the JAX package's jitted ``train_step`` does, run
+eagerly: forward, loss, ``torch.autograd.grad``, global-norm clipping and
+each layer's updater. On the card every LSTM layer's forward and backward
+run the fused-LSTM kernels (``ops/cuda/fused_lstm.py``).
 
 Parameters are a list (one entry per layer) of dicts of tensors with the
-JAX package's keys, on one device. ``init`` defaults to ``device="cuda"``
-and raises without a card. Weights cross from the JAX package through
-:func:`load_jax_params` (or the model zip, ``util/serialization.py``).
+JAX package's keys, on one device; ``opt_state`` mirrors them per updater.
+``init`` defaults to ``device="cuda"`` and raises without a card. Weights
+and optimizer state cross from the JAX package through
+:func:`load_jax_params` and :func:`load_jax_opt_state`, or the model zip
+(``util/serialization.py``), which both packages read and write.
+
+Not ported yet, and refused with ``NotImplementedError`` rather than
+trained around: truncated BPTT over sequences longer than its length,
+gradient checkpointing (``remat``), guardrails, fault plans and the
+center-loss output layer. Listeners, async score dispatch and monitoring
+are not ported either: ``fit_batch`` returns the step's loss as a float.
 """
 
 from __future__ import annotations
@@ -21,16 +34,21 @@ import torch
 
 from deeplearning4j_tpu_torch.common.device import DeviceLike, resolve_device
 from deeplearning4j_tpu_torch.common.dtypes import BF16, FLOAT32, cast_floating
+from deeplearning4j_tpu_torch.common.env import env
+from deeplearning4j_tpu_torch.common.trees import (
+    tree_leaves, tree_map, tree_unflatten,
+)
 from deeplearning4j_tpu_torch.nn.conf.builders import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.layers.base import resolve_activation
+from deeplearning4j_tpu_torch.optimize.updaters import NoOp, get_updater
 
 
-def _map_tree(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map_tree(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map_tree(fn, v) for v in tree)
-    return fn(tree)
+def global_norm_clip(grads, max_norm):
+    """Scale a gradient tree to at most ``max_norm`` global L2 norm (DL4J
+    GradientNormalization.ClipL2PerParamType, global form)."""
+    norm = torch.sqrt(sum((g.float() ** 2).sum() for g in tree_leaves(grads)))
+    scale = torch.clamp(max_norm / (norm + 1e-12), max=1.0)
+    return tree_map(lambda g: g * scale, grads)
 
 
 def _layer_seed(seed: int, index: int) -> int:
@@ -47,7 +65,7 @@ def extract_carry_rows(carries, rows):
                               device=a.device)
         return a.index_select(0, idx)
 
-    return _map_tree(take, carries)
+    return tree_map(take, carries)
 
 
 def merge_carry_rows(carries, sub, rows):
@@ -75,7 +93,7 @@ def _check_carry_batch(carries, batch: int):
 
 
 class MultiLayerNetwork:
-    """Sequential network over a MultiLayerConfiguration (inference)."""
+    """Sequential network over a MultiLayerConfiguration."""
 
     def __init__(self, conf: MultiLayerConfiguration):
         if not conf.layer_input_types:
@@ -84,9 +102,19 @@ class MultiLayerNetwork:
         self.layers = conf.layers
         self.params: list[dict] = []
         self.state: list[dict] = []
+        self.opt_state: list[dict] = []
+        self.step_count = 0
+        self.epoch_count = 0
+        self.score_value = float("nan")
         self.device: Optional[torch.device] = None
+        # frozen wins over any per-layer updater override
+        self._updaters = [NoOp() if not l.trainable
+                          else (get_updater(l.updater) if l.updater is not None
+                                else conf.updater)
+                          for l in self.layers]
         self._policy = BF16 if conf.dtype in ("bf16", "bfloat16") else FLOAT32
         self._rnn_carries = None
+        self._rng: Optional[torch.Generator] = None  # dropout masks
 
     # ------------------------------------------------------------------ init
     def init(self, seed: Optional[int] = None,
@@ -99,20 +127,36 @@ class MultiLayerNetwork:
             p, s = layer.init(g, self.conf.layer_input_types[i], dev)
             self.params.append(p)
             self.state.append(s)
+        self.opt_state = [u.init_state(p)
+                          for u, p in zip(self._updaters, self.params)]
         self.device = dev
         self._rnn_carries = None
+        self._rng = None
         return self
 
     def to(self, device: DeviceLike) -> "MultiLayerNetwork":
         """Move parameters, state and stored carries to ``device``."""
         dev = resolve_device(device)
         move = lambda a: a.to(dev) if isinstance(a, torch.Tensor) else a
-        self.params = _map_tree(move, self.params)
-        self.state = _map_tree(move, self.state)
+        self.params = tree_map(move, self.params)
+        self.state = tree_map(move, self.state)
+        self.opt_state = tree_map(move, self.opt_state)
         if self._rnn_carries is not None:
-            self._rnn_carries = _map_tree(move, self._rnn_carries)
+            self._rnn_carries = tree_map(move, self._rnn_carries)
         self.device = dev
+        self._rng = None
         return self
+
+    def num_params(self) -> int:
+        return sum(int(a.numel()) for a in tree_leaves(self.params))
+
+    def _generator(self) -> torch.Generator:
+        """The dropout generator on the network's device, seeded from the
+        configuration (a torch stream: not the JAX package's bits)."""
+        if self._rng is None:
+            self._rng = torch.Generator(device=self.device).manual_seed(
+                _layer_seed(self.conf.seed, 0xD14))
+        return self._rng
 
     def _input(self, x) -> torch.Tensor:
         x = torch.as_tensor(x, device=self.device)
@@ -129,26 +173,35 @@ class MultiLayerNetwork:
             preout = resolve_activation(out_layer.activation)(preout)
         return preout.to(self._policy.output_dtype)
 
+    def _mask(self, m):
+        return (None if m is None
+                else torch.as_tensor(m, device=self.device).float())
+
+    def _labels(self, y) -> torch.Tensor:
+        y = torch.as_tensor(y, device=self.device)
+        return y.float() if y.is_floating_point() else y
+
     # --------------------------------------------------------------- forward
-    def _forward(self, params, state, x, mask):
-        """Walk layers; returns the final layer's pre-output."""
+    def _forward(self, params, state, x, mask, train=False, rng=None):
+        """Walk layers; returns (the final layer's pre-output, its mask)."""
         n = len(self.layers)
         for i, layer in enumerate(self.layers):
             if i in self.conf.preprocessors:
                 x = self.conf.preprocessors[i](x)
             if i == n - 1 and hasattr(layer, "preout"):
-                return layer.preout(params[i], x)
-            x, _ = layer.apply(params[i], state[i], x, mask=mask)
+                x = layer._maybe_dropout(x, train, rng)
+                return layer.preout(params[i], x), mask
+            x, _ = layer.apply(params[i], state[i], x, train=train, rng=rng,
+                               mask=mask)
             mask = layer.feed_forward_mask(mask, self.conf.layer_input_types[i])
-        return x
+        return x, mask
 
     @torch.no_grad()
     def output(self, x, mask=None):
         """Inference forward pass. ``mask``: optional [B, T] padding mask."""
-        x = self._input(x)
-        m = None if mask is None else torch.as_tensor(mask, device=self.device)
-        return self._activate(
-            self._forward(self._compute_params(), self.state, x, m))
+        preout, _ = self._forward(self._compute_params(), self.state,
+                                  self._input(x), self._mask(mask))
+        return self._activate(preout)
 
     # --------------------------------------------------- carried recurrence
     def _forward_carry(self, params, state, x, carries, mask=None):
@@ -203,27 +256,213 @@ class MultiLayerNetwork:
     def rnn_clear_previous_state(self):
         self._rnn_carries = None
 
+    # ------------------------------------------------------------------- fit
+    def _loss_terms(self, params, x, y, mask, label_mask=None, train=True,
+                    rng=None):
+        """Mean loss of one forward plus the l1/l2 terms. ``label_mask``, a
+        loss mask distinct from the forward's (padding) mask, replaces it
+        for the loss; a masked per-example loss is normalized by the mask's
+        sum."""
+        preout, out_mask = self._forward(params, self.state, x, mask,
+                                         train=train, rng=rng)
+        if label_mask is not None:
+            out_mask = label_mask
+        per = self.layers[-1].score_from_preout(y, preout, out_mask)
+        if out_mask is not None and per.dim() == 1:
+            loss = per.sum() / torch.clamp(out_mask.sum(), min=1.0)
+        else:
+            loss = per.mean()
+        reg = sum(l.regularization(p) for l, p in zip(self.layers, params))
+        return loss + reg
+
+    def _apply_updaters(self, grads, params, opt_state, step):
+        if self.conf.max_grad_norm > 0:
+            grads = global_norm_clip(grads, self.conf.max_grad_norm)
+        cn = float(getattr(self.conf.updater, "clipnorm", 0.0) or 0.0)
+        if cn > 0:
+            grads = global_norm_clip(grads, cn)
+        new_params, new_opt = [], []
+        for i, u in enumerate(self._updaters):
+            g = grads[i]
+            # per-layer updater override: clip only that layer's subtree
+            ucn = float(getattr(u, "clipnorm", 0.0) or 0.0)
+            if ucn > 0 and u is not self.conf.updater:
+                g = global_norm_clip(g, ucn)
+            upd, ost = u.update(g, opt_state[i], params[i], step)
+            new_params.append(tree_map(lambda p, d: p - d, params[i], upd))
+            new_opt.append(ost)
+        return new_params, new_opt
+
+    def _train_step(self, x, y, mask, label_mask) -> torch.Tensor:
+        """One step (forward, loss, backward, clip, update) on tensors
+        already on the device; returns the loss as a 0-d f32 tensor."""
+        params = tree_map(lambda p: p.detach().requires_grad_(), self.params)
+        leaves = tree_leaves(params)
+        loss = self._loss_terms(cast_floating(params, self._policy.compute_dtype),
+                                x, y, mask, label_mask, train=True,
+                                rng=self._generator()).float()
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads)]
+        with torch.no_grad():
+            self.params, self.opt_state = self._apply_updaters(
+                tree_unflatten(self.params, grads), self.params,
+                self.opt_state, self.step_count)
+        return loss.detach()
+
+    def _check_trainable(self, x):
+        """Refuse the parts of the JAX train step the port has not taken
+        over, instead of training without them."""
+        L = self.conf.tbptt_fwd_length
+        if L > 0 and np.ndim(x) == 3 and np.shape(x)[1] > L:
+            raise NotImplementedError(
+                f"truncated BPTT (tbptt_fwd_length={L} < T={np.shape(x)[1]}) "
+                "is not ported yet")
+        if self.conf.remat:
+            raise NotImplementedError(
+                "gradient checkpointing (remat) is not ported yet")
+        if env.guardrails:
+            raise NotImplementedError("training guardrails are not ported yet")
+        if env.faults:
+            raise NotImplementedError("fault plans are not ported yet")
+        if type(self.layers[-1]).__name__ == "CenterLossOutputLayer":
+            raise NotImplementedError(
+                "CenterLossOutputLayer training is not ported yet")
+
+    def fit_batch(self, ds) -> float:
+        """One optimization step on a DataSet-like object or a (features,
+        labels[, mask[, labels_mask]]) tuple; returns the step's loss."""
+        x, y, mask, label_mask = _unpack(ds)
+        label_mask = _single_mask(label_mask)
+        self._check_trainable(x)
+        loss = self._train_step(self._input(x), self._labels(y),
+                                self._mask(mask), self._mask(label_mask))
+        self.step_count += 1
+        self.score_value = float(loss)
+        return self.score_value
+
+    def fit(self, data, labels=None, epochs: int = 1):
+        """fit(features, labels) or fit(iterable of batches)."""
+        if labels is not None:
+            for _ in range(epochs):
+                self.fit_batch((data, labels))
+            return self
+        for _ in range(epochs):
+            for ds in data:
+                self.fit_batch(ds)
+            if hasattr(data, "reset"):
+                data.reset()
+            self.epoch_count += 1
+        return self
+
+    def score(self, ds=None) -> float:
+        """Loss on a dataset without updating; with no dataset, the last
+        training step's loss."""
+        if ds is None:
+            return self.score_value
+        x, y, mask, label_mask = _unpack(ds)
+        label_mask = _single_mask(label_mask)
+        with torch.no_grad():
+            loss = self._loss_terms(self._compute_params(), self._input(x),
+                                    self._labels(y), self._mask(mask),
+                                    self._mask(label_mask),
+                                    train=False)
+        return float(loss)
+
+    # ----------------------------------------------------------------- serde
+    def save(self, path: str, save_updater: bool = True):
+        from deeplearning4j_tpu_torch.util.serialization import write_model
+
+        write_model(self, path, save_updater=save_updater)
+
+    @staticmethod
+    def load(path: str, load_updater: bool = True,
+             device: DeviceLike = "cuda") -> "MultiLayerNetwork":
+        from deeplearning4j_tpu_torch.util.serialization import (
+            restore_multi_layer_network,
+        )
+
+        return restore_multi_layer_network(path, device=device,
+                                           load_updater=load_updater)
+
+
+def _single_mask(lm):
+    """A MultiLayerNetwork has one output: a per-output list/dict labels
+    mask (a ComputationGraph shape) is refused."""
+    if isinstance(lm, (list, tuple, dict)):
+        raise ValueError(
+            "per-output labels masks (list/dict) are a ComputationGraph/"
+            "MultiDataSet shape; MultiLayerNetwork takes a single labels "
+            "mask array")
+    return lm
+
+
+def _unpack(ds):
+    """Accept DataSet-like (has .features/.labels), tuple, or dict. Returns
+    (features, labels, mask, label_mask): ``mask`` is the forward's
+    (padding) mask; ``label_mask`` is set only when a labels mask distinct
+    from the features mask is given. A single mask plays both roles."""
+    if hasattr(ds, "features"):
+        fm = getattr(ds, "features_mask", None)
+        lm = getattr(ds, "labels_mask", None)
+        if fm is None:
+            if isinstance(lm, (list, tuple, dict)):
+                return ds.features, ds.labels, None, lm
+            return ds.features, ds.labels, lm, None
+        return ds.features, ds.labels, fm, lm
+    if isinstance(ds, dict):
+        return (ds["features"], ds["labels"], ds.get("mask"),
+                ds.get("labels_mask"))
+    if len(ds) == 4:
+        return ds
+    if len(ds) == 3:
+        x, y, m = ds
+        return x, y, m, None
+    x, y = ds
+    return x, y, None, None
+
+
+def _tensors_like(mine, theirs, where: str):
+    """``theirs`` (nested dicts/lists of arrays) as tensors of ``mine``'s
+    structure, dtypes and device; keys and shapes must match."""
+    if isinstance(mine, dict):
+        if not isinstance(theirs, dict) or set(mine) != set(theirs):
+            got = sorted(theirs) if isinstance(theirs, dict) else type(theirs)
+            raise ValueError(f"{where}: keys {got} != {sorted(mine)}")
+        return {k: _tensors_like(m, theirs[k], f"{where}/{k}")
+                for k, m in mine.items()}
+    if isinstance(mine, (list, tuple)):
+        if len(theirs) != len(mine):
+            raise ValueError(f"{where}: {len(theirs)} entries for "
+                             f"{len(mine)}")
+        return type(mine)(_tensors_like(m, t, f"{where}/{i}")
+                          for i, (m, t) in enumerate(zip(mine, theirs)))
+    arr = np.asarray(theirs)
+    if tuple(arr.shape) != tuple(mine.shape):
+        raise ValueError(f"{where}: shape {arr.shape} != {tuple(mine.shape)}")
+    return torch.tensor(arr, dtype=mine.dtype, device=mine.device)
+
 
 def load_jax_params(net: MultiLayerNetwork, params) -> MultiLayerNetwork:
     """Set ``net``'s parameters from the JAX package's: ``params`` is a list
-    (one per layer) of dicts of arrays, e.g. ``[{k: np.asarray(v) ...} for
-    p in jax_net.params]``. Keys and shapes must match the port's own."""
+    (one per layer) of dicts of arrays, nested for a Bidirectional layer
+    ({"fwd": {...}, "bwd": {...}}), e.g. ``jax.tree_util.tree_map(
+    np.asarray, jax_net.params)``. Keys and shapes must match the port's
+    own."""
     if len(params) != len(net.params):
         raise ValueError(f"{len(params)} layers of params for a "
                          f"{len(net.params)}-layer network")
+    net.params = _tensors_like(net.params, params, "params")
+    return net
 
-    new = []
-    for i, (mine, theirs) in enumerate(zip(net.params, params)):
-        if set(mine) != set(theirs):
-            raise ValueError(f"layer {i}: keys {sorted(theirs)} != "
-                             f"{sorted(mine)}")
-        layer = {}
-        for k, m in mine.items():
-            arr = np.asarray(theirs[k])
-            if tuple(arr.shape) != tuple(m.shape):
-                raise ValueError(f"param {i}/{k}: shape {arr.shape} != "
-                                 f"{tuple(m.shape)}")
-            layer[k] = torch.tensor(arr, dtype=m.dtype, device=m.device)
-        new.append(layer)
-    net.params = new
+
+def load_jax_opt_state(net: MultiLayerNetwork, opt_state, step_count: int = 0,
+                       epoch_count: int = 0) -> MultiLayerNetwork:
+    """Set ``net``'s updater state and counters from the JAX package's
+    (``jax_net.opt_state`` as numpy arrays, ``jax_net.step_count``), so a
+    half-trained model goes on training where it stopped. The structure
+    must match the port's own for the same configuration."""
+    net.opt_state = _tensors_like(net.opt_state, opt_state, "opt_state")
+    net.step_count = int(step_count)
+    net.epoch_count = int(epoch_count)
     return net

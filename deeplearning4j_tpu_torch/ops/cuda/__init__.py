@@ -4,9 +4,9 @@ Importing registers each kernel with the op registry; nothing is built
 until a kernel is first launched.
 """
 
-from deeplearning4j_tpu_torch.ops.cuda.fused_lstm import FUSED_LSTM
+from deeplearning4j_tpu_torch.ops.cuda.fused_lstm import FUSED_LSTM, FUSED_LSTM_BWD
 
 #: every hand-written kernel, for launch counting and the chip smoke run
-KERNELS = (FUSED_LSTM,)
+KERNELS = (FUSED_LSTM, FUSED_LSTM_BWD)
 
-__all__ = ["FUSED_LSTM", "KERNELS"]
+__all__ = ["FUSED_LSTM", "FUSED_LSTM_BWD", "KERNELS"]

@@ -1,31 +1,41 @@
-"""Fused LSTM forward: the hand-written CUDA kernel behind ``lstm_layer``.
+"""Fused LSTM: the hand-written CUDA kernels behind ``lstm_layer``.
 
-Counterpart of ``deeplearning4j_tpu/ops/pallas/fused_lstm.py``. The kernel,
-``csrc/fused_lstm.cu``, replaces ``_lstm_kernel`` (launched by
-``_fused_recurrence`` through ``pl.pallas_call``): the time-major
-recurrence over pre-projected gates, IFOG, with GravesLSTM peepholes. The
-input projection, forget-gate bias and reverse flip stay outside it, as in
-the JAX package's ``_project_gates``; the projection is one large
-``torch.matmul``.
+Counterpart of ``deeplearning4j_tpu/ops/pallas/fused_lstm.py``. Two kernels:
 
-What bounds it on the H100, and what the design does about it, is written
-at the top of the CUDA source: each step reads R [H, 4H] to do 2*B*H*4H
-flops, so at serving batch sizes it is memory-bound, and at decode (T=1) the
-launch latency dominates. None of the TPU machinery is carried over
-(``lstm_tile``, ``lstm_plan``, ``_pad_to_lanes``, ``_panel_dtype``): the
-kernel takes any H, including the 200 of the GravesLSTM char-RNN.
+- ``csrc/fused_lstm.cu`` replaces ``_lstm_kernel`` (launched by
+  ``_fused_recurrence``): the time-major recurrence over pre-projected
+  gates, IFOG, with GravesLSTM peepholes; when training it also saves the
+  reserve (c_t and the post-activation gates, [5, T, B, H] f32).
+- ``csrc/fused_lstm_bwd.cu`` replaces ``_lstm_bwd_kernel`` (launched by
+  ``_bwd_recurrence``): the reverse-time walk over that reserve, giving the
+  pre-activation gate gradients dg [T, B, 4H] f32 and dc0.
 
-The kernel takes float32 or bfloat16 (all tensors of one type). In bf16 it
-does what the Pallas kernel does: sums, gates and the cell state in f32,
-h_{t-1} rounded to bf16 for the product, outputs rounded to bf16; the plain
-version computes the same way.
+The input projection, forget-gate bias and reverse flip stay outside the
+forward, as in the JAX package's ``_project_gates``; everything of the
+backward that is not sequential (dx, dh0, dW, dR, db, the peephole sums)
+is formed outside the backward kernel by ``torch.matmul``, as
+``_fused_bwd`` forms it. :class:`FusedLSTMFunction` ties the two together
+for autograd, the counterpart of the ``jax.custom_vjp`` ``_fused``.
 
-:func:`fused_lstm_recurrence` is the kernel's wrapper. It takes the plain
-version (``ops/recurrent.lstm_recurrence``) only for CPU tensors; for CUDA
-tensors it launches the kernel or raises. The registry sends every
-all-CUDA ``lstm_layer`` call here, whatever its dtype, so a type the kernel
-has no code for raises instead of running the plain version on the card.
-``FUSED_LSTM.launches`` counts launches.
+What bounds the kernels on the H100, and what their design does about it,
+is written at the top of each CUDA source. None of the TPU machinery is
+carried over (``lstm_tile``, ``lstm_plan``, ``lstm_bwd_tile``,
+``_bwd_plan``, ``_pad_to_lanes``, ``_panel_dtype``): the kernels take any H,
+including the 200 of the GravesLSTM char-RNN.
+
+The kernels take float32 or bfloat16 (all tensors of one type, the reserve
+and the gate gradients f32). In bf16 they do what the Pallas kernels do:
+sums, gates, cell state and the backward's carries in f32, h_{t-1} and dg
+rounded to bf16 for their products; the plain versions compute the same
+way.
+
+The wrappers take the plain versions (``ops/recurrent.py``) only for CPU
+tensors; for CUDA tensors they launch the kernel or raise. The registry
+sends every all-CUDA ``lstm_layer`` call here, whatever its dtype, so a type
+the kernels have no code for raises instead of running the plain version
+on the card. ``FUSED_LSTM.launches`` and ``FUSED_LSTM_BWD.launches`` count
+launches; ``FUSED_LSTM.reserves`` counts the forward launches that saved
+the reserve.
 """
 
 from __future__ import annotations
@@ -38,106 +48,248 @@ from deeplearning4j_tpu_torch.ops.cuda.build import (
     CudaLibrary, c_args, check_status, pointer,
 )
 from deeplearning4j_tpu_torch.ops.recurrent import (
-    finish_layer, lstm_recurrence, project_gates,
+    finish_layer, lstm_bwd_recurrence, lstm_recurrence, project_gates,
 )
 from deeplearning4j_tpu_torch.ops.registry import register_impl
 
-#: the plain version the kernel is held against
+#: the plain versions the kernels are held against
 plain_recurrence = lstm_recurrence
+plain_bwd_recurrence = lstm_bwd_recurrence
 
 
-class FusedLSTMKernel:
-    """The built library plus the launch count of ``dl4j_lstm_fwd``."""
+class CudaKernel:
+    """One kernel's built library and its launch count."""
 
-    name = "fused_lstm_fwd"
-    source = "deeplearning4j_tpu_torch/csrc/fused_lstm.cu"
-    replaces = "deeplearning4j_tpu/ops/pallas/fused_lstm.py:83 (_lstm_kernel)"
-
-    def __init__(self):
-        self.library = CudaLibrary("fused_lstm.cu", {
-            "dl4j_lstm_fwd": (c_args("ppppppppiiip"), ctypes.c_int),
-            "dl4j_lstm_fwd_bf16": (c_args("ppppppppiiip"), ctypes.c_int),
+    def __init__(self, name, source, replaces, symbols):
+        self.name = name
+        self.source = f"deeplearning4j_tpu_torch/csrc/{source}"
+        self.replaces = replaces
+        self.library = CudaLibrary(source, {
+            **{sym: (c_args(kinds), ctypes.c_int)
+               for sym, kinds in symbols.items()},
             "dl4j_cuda_error_string": (c_args("i"), ctypes.c_char_p),
         })
         self.launches = 0
+        self.reserves = 0  # forward launches that saved the reserve
 
 
-FUSED_LSTM = FusedLSTMKernel()
+#: the C launcher for each element type the kernels take
+_FWD_SYMBOLS = {torch.float32: "dl4j_lstm_fwd",
+                torch.bfloat16: "dl4j_lstm_fwd_bf16"}
+_BWD_SYMBOLS = {torch.float32: "dl4j_lstm_bwd",
+                torch.bfloat16: "dl4j_lstm_bwd_bf16"}
 
-#: the C launcher for each element type the kernel takes
-_SYMBOLS = {torch.float32: "dl4j_lstm_fwd",
-            torch.bfloat16: "dl4j_lstm_fwd_bf16"}
+FUSED_LSTM = CudaKernel(
+    "fused_lstm_fwd", "fused_lstm.cu",
+    "deeplearning4j_tpu/ops/pallas/fused_lstm.py:83 (_lstm_kernel)",
+    {sym: "pppppppppiiip" for sym in _FWD_SYMBOLS.values()})
+FUSED_LSTM_BWD = CudaKernel(
+    "fused_lstm_bwd", "fused_lstm_bwd.cu",
+    "deeplearning4j_tpu/ops/pallas/fused_lstm.py:386 (_lstm_bwd_kernel)",
+    {sym: "ppppppppiiip" for sym in _BWD_SYMBOLS.values()})
 
 
-def _check_inputs(xg, R, h0, c0, peephole):
-    tensors = {"xg": xg, "R": R, "h0": h0, "c0": c0}
-    if peephole is not None:
-        tensors["peephole"] = peephole
-    if xg.dtype not in _SYMBOLS:
-        raise TypeError(f"fused_lstm: xg is {xg.dtype}; the kernel takes "
+def _check_tensors(what, dtype, device, tensors):
+    if dtype not in _FWD_SYMBOLS:
+        raise TypeError(f"{what}: the tensors are {dtype}; the kernel takes "
                         "float32 or bfloat16")
-    for name, t in tensors.items():
-        if t.device != xg.device:
-            raise ValueError(f"fused_lstm: {name} is on {t.device}, "
-                             f"xg on {xg.device}")
-        if t.dtype != xg.dtype:
-            raise TypeError(f"fused_lstm: {name} is {t.dtype}, xg "
-                            f"{xg.dtype}; the kernel takes one type")
+    for name, (t, want) in tensors.items():
+        if t is None:
+            continue
+        if t.device != device:
+            raise ValueError(f"{what}: {name} is on {t.device}, not {device}")
+        if t.dtype != (want or dtype):
+            raise TypeError(f"{what}: {name} is {t.dtype}, not "
+                            f"{want or dtype}; the kernel takes one type")
         if not t.is_contiguous():
-            raise ValueError(f"fused_lstm: {name} is not contiguous")
-    if xg.dim() != 3 or xg.shape[2] % 4:
-        raise ValueError(f"fused_lstm: xg must be [T, B, 4H], got "
-                         f"{tuple(xg.shape)}")
-    T, B, G = xg.shape
-    H = G // 4
-    if tuple(R.shape) != (H, G):
-        raise ValueError(f"fused_lstm: R must be [{H}, {G}], got "
-                         f"{tuple(R.shape)}")
-    for name, t in (("h0", h0), ("c0", c0)):
-        if tuple(t.shape) != (B, H):
-            raise ValueError(f"fused_lstm: {name} must be [{B}, {H}], got "
-                             f"{tuple(t.shape)}")
-    if peephole is not None and tuple(peephole.shape) != (3 * H,):
-        raise ValueError(f"fused_lstm: peephole must be [{3 * H}], got "
-                         f"{tuple(peephole.shape)}")
-    return T, B, H
+            raise ValueError(f"{what}: {name} is not contiguous")
 
 
-def fused_lstm_recurrence(xg, R, h0, c0, peephole=None):
-    """xg [T, B, 4H] time-major gates -> (outputs [T, B, H], hT, cT).
+def _check_shapes(what, tensors):
+    for name, (t, shape) in tensors.items():
+        if t is not None and tuple(t.shape) != shape:
+            raise ValueError(f"{what}: {name} must be {list(shape)}, got "
+                             f"{list(t.shape)}")
+
+
+def _launch(kernel, symbols, dtype, device, args):
+    lib = kernel.library.load(device)
+    launch = getattr(lib, symbols[dtype])
+    if device.index == torch.cuda.current_device():
+        status = launch(*args, torch.cuda.current_stream().cuda_stream)
+    else:  # the C launcher uses the calling thread's current device
+        with torch.cuda.device(device):
+            status = launch(*args, torch.cuda.current_stream().cuda_stream)
+    check_status(lib, status, symbols[dtype])
+    kernel.launches += 1
+
+
+def fused_lstm_recurrence(xg, R, h0, c0, peephole=None, save_residuals=False):
+    """xg [T, B, 4H] time-major gates -> (outputs [T, B, H], hT, cT), and
+    with ``save_residuals`` the reserve [5, T, B, H] f32 too.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
     if xg.device.type == "cpu":
-        return plain_recurrence(xg, R, h0, c0, peephole)
+        return plain_recurrence(xg, R, h0, c0, peephole, save_residuals)
     if xg.device.type != "cuda":
         raise ValueError(f"fused_lstm: unsupported device {xg.device}")
-    T, B, H = _check_inputs(xg, R, h0, c0, peephole)
+    if xg.dim() != 3 or xg.shape[2] % 4:
+        raise ValueError(f"fused_lstm: xg must be [T, B, 4H], got "
+                         f"{list(xg.shape)}")
+    T, B, G = xg.shape
+    H = G // 4
+    _check_tensors("fused_lstm", xg.dtype, xg.device, {
+        "xg": (xg, None), "R": (R, None), "h0": (h0, None), "c0": (c0, None),
+        "peephole": (peephole, None)})
+    _check_shapes("fused_lstm", {"R": (R, (H, G)), "h0": (h0, (B, H)),
+                                 "c0": (c0, (B, H)),
+                                 "peephole": (peephole, (3 * H,))})
+    reserve = (xg.new_empty((5, T, B, H), dtype=torch.float32)
+               if save_residuals else None)
     if T == 0:
-        return xg.new_empty((0, B, H)), h0, c0
-    lib = FUSED_LSTM.library.load(xg.device)
-    launch = getattr(lib, _SYMBOLS[xg.dtype])
+        res = (xg.new_empty((0, B, H)), h0, c0)
+        return res + (reserve,) if save_residuals else res
     out = xg.new_empty((T, B, H))
     hT = xg.new_empty((B, H))
     cT = xg.new_empty((B, H))
-    args = (pointer(xg), pointer(R), pointer(h0), pointer(c0),
-            pointer(peephole), pointer(out), pointer(hT), pointer(cT), T, B, H)
-    if xg.device.index == torch.cuda.current_device():
-        status = launch(*args, torch.cuda.current_stream().cuda_stream)
-    else:  # the C launcher uses the calling thread's current device
-        with torch.cuda.device(xg.device):
-            status = launch(*args, torch.cuda.current_stream().cuda_stream)
-    check_status(lib, status, _SYMBOLS[xg.dtype])
-    FUSED_LSTM.launches += 1
-    return out, hT, cT
+    _launch(FUSED_LSTM, _FWD_SYMBOLS, xg.dtype, xg.device, (
+        pointer(xg), pointer(R), pointer(h0), pointer(c0), pointer(peephole),
+        pointer(out), pointer(hT), pointer(cT), pointer(reserve), T, B, H))
+    if save_residuals:
+        FUSED_LSTM.reserves += 1
+    return (out, hT, cT, reserve) if save_residuals else (out, hT, cT)
+
+
+def fused_lstm_bwd_recurrence(reserve, R, c0, dout, dcT=None, peephole=None):
+    """The reverse-time walk: (dg [T, B, 4H] f32, dc0 [B, H] f32) from the
+    forward's reserve, ``dout`` [T, B, H] (kernel time order, the gradient
+    of hT joined at the last step) and ``dcT`` (or None).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    if reserve.device.type == "cpu":
+        return plain_bwd_recurrence(reserve, R, c0, dout, dcT, peephole)
+    if reserve.device.type != "cuda":
+        raise ValueError(f"fused_lstm_bwd: unsupported device {reserve.device}")
+    if reserve.dim() != 4 or reserve.shape[0] != 5:
+        raise ValueError(f"fused_lstm_bwd: reserve must be [5, T, B, H], "
+                         f"got {list(reserve.shape)}")
+    T, B, H = reserve.shape[1:]
+    dt, dev = R.dtype, reserve.device
+    Rt = R.t().contiguous()
+    _check_tensors("fused_lstm_bwd", dt, dev, {
+        "reserve": (reserve, torch.float32), "Rt": (Rt, None),
+        "c0": (c0, None), "dout": (dout, None), "dcT": (dcT, None),
+        "peephole": (peephole, None)})
+    _check_shapes("fused_lstm_bwd", {
+        "R": (R, (H, 4 * H)), "c0": (c0, (B, H)), "dout": (dout, (T, B, H)),
+        "dcT": (dcT, (B, H)), "peephole": (peephole, (3 * H,))})
+    dg = reserve.new_empty((T, B, 4 * H))
+    dc0 = reserve.new_empty((B, H))
+    _launch(FUSED_LSTM_BWD, _BWD_SYMBOLS, dt, dev, (
+        pointer(reserve), pointer(Rt), pointer(c0), pointer(dout),
+        pointer(dcT), pointer(peephole), pointer(dg), pointer(dc0), T, B, H))
+    return dg, dc0
+
+
+def _contiguous(t):
+    return None if t is None else t.contiguous()
+
+
+class FusedLSTMFunction(torch.autograd.Function):
+    """``lstm_layer`` through the two kernels, differentiable.
+
+    The counterpart of the JAX package's ``_fused`` / ``_fused_fwd`` /
+    ``_fused_bwd``. The forward launches the forward kernel with the
+    reserve; the backward launches the backward kernel, then forms dx, dh0,
+    dW, dR, db and the peephole sums as plain products, each cast to its
+    input's dtype. CPU tensors take both kernels' plain versions, so the
+    CPU tests run the same assembly code as the card."""
+
+    @staticmethod
+    def forward(ctx, x, h0, c0, W, R, b, peephole, forget_gate_bias,
+                reverse):
+        xg = project_gates(x, W, b, forget_gate_bias, reverse)
+        out, hT, cT, reserve = fused_lstm_recurrence(
+            xg, R, h0, c0, peephole, save_residuals=True)
+        # the reserve, outputs and dg stay in kernel time order (flipped
+        # when reverse), the domain the backward kernel walks
+        ctx.save_for_backward(x, h0, c0, W, R, peephole, out, reserve)
+        ctx.reverse = reverse
+        ctx.b_dtype = b.dtype
+        ys, (hT, cT) = finish_layer(out, hT, cT, reverse)
+        return ys, hT, cT
+
+    @staticmethod
+    def backward(ctx, g_out, g_hT, g_cT):
+        x, h0, c0, W, R, peephole, out, reserve = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        f32 = torch.float32
+        T, B, H = out.shape
+        G = 4 * H
+        if g_out is None:
+            dout = torch.zeros_like(out)
+        else:  # a fresh buffer in kernel time order: g_out stays as it is
+            dout = torch.empty_like(out)
+            g = g_out.transpose(0, 1)
+            dout.copy_(g.flip(0) if ctx.reverse else g)
+        if g_hT is not None:  # hT aliases the last kernel step's output
+            dout[T - 1] += g_hT.to(out.dtype)
+        dg, dc0 = fused_lstm_bwd_recurrence(
+            reserve, R, c0, dout, _contiguous(g_cT), peephole)
+
+        # everything that is not sequential: plain products in f32, each
+        # cast to its input's dtype
+        dx = dh0 = dW = dR = db = dp = None
+        dg_nat = dg.flip(0) if ctx.reverse else dg     # natural time order
+        if need[0]:
+            dx = (dg_nat.reshape(T * B, G) @ W.to(f32).t()).reshape(T, B, -1)
+            dx = dx.transpose(0, 1).to(x.dtype)
+        if need[1]:
+            dh0 = (dg[0] @ R.to(f32).t()).to(h0.dtype)
+        if need[3]:
+            xt = x.transpose(0, 1).reshape(T * B, -1).to(f32)
+            dW = (xt.t() @ dg_nat.reshape(T * B, G)).to(W.dtype)
+        if need[4]:  # h_prev is h0 at the first kernel step, out after it
+            dR = h0.to(f32).t() @ dg[0]
+            if T > 1:
+                dR += out[:-1].reshape(-1, H).to(f32).t() @ dg[1:].reshape(-1, G)
+            dR = dR.to(R.dtype)
+        if need[5]:
+            db = dg.reshape(T * B, G).sum(0).to(ctx.b_dtype)
+        if peephole is not None and need[6]:
+            cseq, c0f = reserve[0], c0.to(f32)
+            dgi, dgf, dgo = dg[..., :H], dg[..., H:2 * H], dg[..., 2 * H:3 * H]
+            dp_i = (dgi[0] * c0f).sum(0) + (dgi[1:] * cseq[:-1]).sum((0, 1))
+            dp_f = (dgf[0] * c0f).sum(0) + (dgf[1:] * cseq[:-1]).sum((0, 1))
+            dp_o = (dgo * cseq).sum((0, 1))
+            dp = torch.cat((dp_i, dp_f, dp_o)).to(peephole.dtype)
+        return (dx, dh0, dc0.to(c0.dtype), dW, dR, db, dp, None, None)
+
+
+def _needs_grad(tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
 
 
 def fused_lstm_layer(x, h0, c0, W, R, b, *, peephole=None,
                      forget_gate_bias=0.0, reverse=False):
-    """Kernel implementation of the ``lstm_layer`` op (same signature)."""
+    """Kernel implementation of the ``lstm_layer`` op (same signature).
+
+    When autograd will need the layer's gradients (grad mode on and some
+    input requires grad), the call goes through :class:`FusedLSTMFunction`,
+    whose forward saves the reserve for the backward kernel: the
+    counterpart of ``_kernel_bwd_enabled``. Otherwise (serving, under
+    ``torch.no_grad``) the forward kernel runs alone and saves nothing. The
+    choice is made on every call, never cached by the registry."""
+    R, h0, c0, peephole = (R.contiguous(), h0.contiguous(), c0.contiguous(),
+                           _contiguous(peephole))
+    if x.shape[1] and _needs_grad((x, h0, c0, W, R, b, peephole)):
+        ys, hT, cT = FusedLSTMFunction.apply(
+            x, h0, c0, W, R, b, peephole, float(forget_gate_bias),
+            bool(reverse))
+        return ys, (hT, cT)
     xg = project_gates(x, W, b, forget_gate_bias, reverse)
-    out, hT, cT = fused_lstm_recurrence(
-        xg, R.contiguous(), h0.contiguous(), c0.contiguous(),
-        None if peephole is None else peephole.contiguous())
+    out, hT, cT = fused_lstm_recurrence(xg, R, h0, c0, peephole)
     return finish_layer(out, hT, cT, reverse)
 
 

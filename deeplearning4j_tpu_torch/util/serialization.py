@@ -1,11 +1,16 @@
-"""Model serialization — reading the JAX package's zip checkpoints.
+"""Model serialization — the zip checkpoints both packages read and write.
 
-Counterpart of ``deeplearning4j_tpu/util/serialization.py`` (reading half).
-A model zip holds ``configuration.json`` (the network config JSON, which
-loads unchanged in both packages) and ``coefficients.npz`` (the params,
-flat-named ``"<layer>/<key>"``), beside state, updater state and
-``meta.json``. This slice restores configuration and coefficients for
-inference; the updater state is not read, and writing a zip comes later.
+Counterpart of ``deeplearning4j_tpu/util/serialization.py`` for a
+MultiLayerNetwork. A model zip holds:
+
+    configuration.json   the network config JSON (loads unchanged in both)
+    coefficients.npz     params, flat-named "<layer>/<key>[/<key>...]"
+    state.npz            non-trainable state
+    updater.npz          optimizer state, flat-named "<layer>/<slot>/<key>..."
+    meta.json            model class, step/epoch counters, format version
+
+so a zip written by either package restores in the other with its params,
+updater state and counters. Int8-quantized zips are not ported yet.
 """
 
 from __future__ import annotations
@@ -18,35 +23,80 @@ import numpy as np
 
 from deeplearning4j_tpu_torch.common.device import DeviceLike
 
+FORMAT_VERSION = 1
+
+
+def _flatten(tree, prefix=""):
+    """Flatten nested lists/dicts of tensors into {path: numpy array}."""
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(_flatten(v, f"{prefix}{k}/"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(_flatten(v, f"{prefix}{i}/"))
+    elif tree is not None:
+        out[prefix.rstrip("/")] = tree.detach().cpu().numpy()
+    return out
+
+
+def _unflatten(template, flat: dict, what: str):
+    """Arrays shaped like ``template`` (nested lists/dicts) from the zip's
+    flat names."""
+
+    def rebuild(t, prefix):
+        if isinstance(t, dict):
+            return {k: rebuild(v, f"{prefix}{k}/") for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(rebuild(v, f"{prefix}{i}/") for i, v in enumerate(t))
+        key = prefix.rstrip("/")
+        if key + "/__q__" in flat:
+            raise ValueError(f"{key} is an int8-quantized tensor; "
+                             "quantized models are not ported yet")
+        if key not in flat:
+            raise ValueError(f"{what} has no entry {key}")
+        return flat[key]
+
+    return rebuild(template, "")
+
+
+def _npz_bytes(flat: dict) -> bytes:
+    buf = io.BytesIO()
+    np.savez(buf, **flat)
+    return buf.getvalue()
+
 
 def _npz_load(b: bytes) -> dict:
     with np.load(io.BytesIO(b)) as z:
         return {k: z[k] for k in z.files}
 
 
-def _unflatten(template, flat: dict):
-    """Per-layer dicts of arrays shaped like ``template`` (list of dicts)
-    from the zip's flat ``"<layer>/<key>"`` names."""
-    out = []
-    for i, p in enumerate(template):
-        layer = {}
-        for k in p:
-            key = f"{i}/{k}"
-            if key + "/__q__" in flat:
-                raise ValueError(f"{key} is an int8-quantized tensor; "
-                                 "quantized models are not ported yet")
-            if key not in flat:
-                raise ValueError(f"checkpoint has no coefficient {key}")
-            layer[k] = flat[key]
-        out.append(layer)
-    return out
+def write_model(model, path: str, save_updater: bool = True):
+    """ModelSerializer.writeModel analog."""
+    meta = {
+        "format_version": FORMAT_VERSION,
+        "model_class": "MultiLayerNetwork",
+        "step_count": model.step_count,
+        "epoch_count": model.epoch_count,
+        "quantized": False,
+    }
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as z:
+        z.writestr("configuration.json", model.conf.to_json())
+        z.writestr("coefficients.npz", _npz_bytes(_flatten(model.params)))
+        z.writestr("state.npz", _npz_bytes(_flatten(model.state)))
+        if save_updater:
+            z.writestr("updater.npz", _npz_bytes(_flatten(model.opt_state)))
+        z.writestr("meta.json", json.dumps(meta))
 
 
-def restore_multi_layer_network(path: str, device: DeviceLike = "cuda"):
-    """ModelSerializer.restoreMultiLayerNetwork analog, for inference."""
+def restore_multi_layer_network(path: str, device: DeviceLike = "cuda",
+                                load_updater: bool = True):
+    """ModelSerializer.restoreMultiLayerNetwork analog: configuration,
+    params, updater state (unless ``load_updater`` is False or the zip has
+    none) and the step and epoch counters."""
     from deeplearning4j_tpu_torch.nn.conf.builders import MultiLayerConfiguration
     from deeplearning4j_tpu_torch.nn.multilayer import (
-        MultiLayerNetwork, load_jax_params,
+        MultiLayerNetwork, load_jax_opt_state, load_jax_params,
     )
 
     with zipfile.ZipFile(path) as z:
@@ -54,8 +104,18 @@ def restore_multi_layer_network(path: str, device: DeviceLike = "cuda"):
         if meta.get("model_class", "MultiLayerNetwork") != "MultiLayerNetwork":
             raise ValueError(f"{path} holds a {meta['model_class']}, "
                              "not a MultiLayerNetwork")
+        if meta.get("quantized"):
+            raise ValueError(f"{path} holds an int8-quantized model; "
+                             "quantized models are not ported yet")
         conf = MultiLayerConfiguration.from_json(
             z.read("configuration.json").decode())
         coeffs = _npz_load(z.read("coefficients.npz"))
+        upd = (_npz_load(z.read("updater.npz"))
+               if load_updater and "updater.npz" in z.namelist() else {})
     net = MultiLayerNetwork(conf).init(conf.seed, device=device)
-    return load_jax_params(net, _unflatten(net.params, coeffs))
+    load_jax_params(net, _unflatten(net.params, coeffs, "coefficients.npz"))
+    if upd:
+        load_jax_opt_state(net, _unflatten(net.opt_state, upd, "updater.npz"))
+    net.step_count = int(meta.get("step_count", 0))
+    net.epoch_count = int(meta.get("epoch_count", 0))
+    return net

@@ -1,6 +1,8 @@
-"""Model zoo (counterpart of ``zoo``): the models this slice serves."""
+"""Model zoo (counterpart of ``zoo``): the models the port has so far."""
 
 from deeplearning4j_tpu_torch.zoo.base import ZooModel
-from deeplearning4j_tpu_torch.zoo.textgen import TextGenerationLSTM
+from deeplearning4j_tpu_torch.zoo.textgen import (
+    BidirectionalGravesLSTMCharRnn, TextGenerationLSTM,
+)
 
-__all__ = ["ZooModel", "TextGenerationLSTM"]
+__all__ = ["ZooModel", "TextGenerationLSTM", "BidirectionalGravesLSTMCharRnn"]

@@ -36,11 +36,15 @@ def test_every_port_module_imports_without_jax():
         "assert not bad, bad\n"
         "from deeplearning4j_tpu_torch.ops.cuda import KERNELS\n"
         "assert all(k.library._lib is None for k in KERNELS), 'built at import'\n"
-        "print(len(names))\n")
+        "print(' '.join(names))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 25
+    names = set(proc.stdout.split())
+    assert len(names) >= 27
+    assert {f"deeplearning4j_tpu_torch.{m}" for m in (
+        "ops.losses", "ops.cuda.fused_lstm", "optimize.schedules",
+        "optimize.updaters", "nn.multilayer", "util.serialization")} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(),
