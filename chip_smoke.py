@@ -46,8 +46,27 @@ Phases (any failure exits non-zero before the result line):
 8. TextGenerationLSTM training (RMSProp, 2 + 2 launches a step) and the
    bf16 char-RNN training: a few steps each, every step through both
    kernels.
-9. Prints the kernels line, the card line and, last, the result line
-   ``{"ok": true, "device": {...}}``.
+9. Flash kernels against plain: the forward, dq and dk/dv kernels against
+   their plain versions (o, lse, dq, dk, dv) at BERT-base's attention shape
+   [32, 12, 128, 64] in f32 (TF32 off) and bf16, without and with a
+   key-padding mask, causal off and on, and at a ragged [4, 4, 77, 64] and a
+   [2, 2, 300, 128]; ``FlashAttentionFunction``'s gradients against autograd
+   through the plain lowering on the card; times of each kernel, its plain
+   version and, as a yardstick the port never calls,
+   ``scaled_dot_product_attention`` (forward, and backward).
+10. BERT-base inference: ``BertBase(max_len=128)`` at its published width
+    (12 x 768, 12 heads, d_ff 3072, vocabulary 30522, bf16, random weights
+    from the seed) runs ``output()`` on [32, 128] token ids with a padding
+    mask: 12 forward launches a call and no backward; an f32 copy on the
+    same weights agrees with the plain path on the card.
+11. BERT-base fine-tuning: ``fit_batch`` at B=32, T=128, bf16, AdamW on a
+    warmup-cosine schedule, clipping 1.0, dropout 0.1, on a repeated batch,
+    each step launching 12 forward, 12 dq and 12 dk/dv kernels; a steady
+    window is profiled. An f32 dropout-0 copy trains 2 steps against the
+    plain path on the card from the same weights, and its gradients are
+    held against the plain path's.
+12. Prints the kernels line (all five kernels), the card line and, last,
+    the result line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -625,6 +644,14 @@ def _count_launches(torch, kernels, fn):
     return out, {k.name: k.launches for k in kernels}, kernels[0].reserves, wall
 
 
+def _lstm_only(kernels, n):
+    """The launch counts of a path that runs ``n`` of each LSTM kernel and
+    no other kernel."""
+    want = {k.name: 0 for k in kernels}
+    want.update({"fused_lstm_fwd": n, "fused_lstm_bwd": n})
+    return want
+
+
 def phase_training(torch, np):
     """Train BidirectionalGravesLSTMCharRnn at its published width."""
     from deeplearning4j_tpu_torch.common.trees import tree_leaves
@@ -657,8 +684,7 @@ def phase_training(torch, np):
     if not losses[-1] < losses[0]:
         fail(f"loss on a repeated batch did not fall: {losses}")
     want = n_lstm * N_TRAIN_STEPS
-    if (launches != {"fused_lstm_fwd": want, "fused_lstm_bwd": want}
-            or reserves != want):
+    if (launches != _lstm_only(KERNELS, want) or reserves != want):
         fail(f"{N_TRAIN_STEPS} steps launched {launches} ({reserves} with "
              f"reserve); want {n_lstm} of each kernel per step")
 
@@ -710,13 +736,441 @@ def phase_short_training(torch, np, model, per_step, steps=3):
     if not all(np.isfinite(losses)):
         fail(f"{name} ({model.dtype}) training losses not finite: {losses}")
     want = per_step * steps
-    if (launches != {"fused_lstm_fwd": want, "fused_lstm_bwd": want}
-            or reserves != want):
+    if (launches != _lstm_only(KERNELS, want) or reserves != want):
         fail(f"{name} ({model.dtype}): {steps} steps launched {launches} "
              f"({reserves} with reserve); want {per_step} of each per step")
     return {"model": name, "dtype": model.dtype, "steps": steps,
             "losses": losses, "launches": launches,
             "step_wall_ms": 1e3 * wall / steps}
+
+
+# ----------------------------------------------------------------- BERT slice
+
+N_BERT_STEPS = 10
+# BERT-base inference, f32 copy: kernel path vs plain path on the card
+TOL_BERT_OUT = 1e-4
+# gradients of the f32 BERT through the kernels vs the plain path on the
+# card, per leaf: |a - b| <= TOL_BERT_GRAD * max |b| (f32 sums in other
+# orders through 12 layers; the floor of max |b| is in phase_bert_training)
+TOL_BERT_GRAD = 1e-3
+
+
+def flash_bound(torch, kind, q, k, kmask, causal):
+    """Least time of one flash kernel call: each input read once, each output
+    written once, at 3.35 TB/s, against the products over the (query, key)
+    pairs this call's mask leaves visible, at the peak for the inputs' type
+    (bf16 tensor cores, or f32 off them). Forward: 4 D flops a pair (q k^T,
+    p v); dq: 6 (q k^T, do v^T, ds k); dk/dv: 8 (and p^T do, ds^T q)."""
+    from deeplearning4j_tpu_torch.ops.cuda.flash_attention import _valid
+
+    B, N, Tq, D = q.shape
+    Tk = k.shape[2]
+    bf16 = q.dtype == torch.bfloat16
+    e = 2.0 if bf16 else 4.0
+    valid = _valid(Tq, Tk, kmask, causal, q.device)
+    pairs = float(valid.sum()) * N * (B if kmask is None else 1)
+    rows_q, rows_k = B * N * Tq * D, B * N * Tk * D
+    mask_bytes = 4.0 * B * Tk if kmask is not None else 0.0
+    if kind == "fwd":
+        nbytes = e * (2 * rows_q + 2 * rows_k) + 4.0 * B * N * Tq + mask_bytes
+        flops = 4.0 * D * pairs
+    elif kind == "dq":
+        nbytes = (e * (2 * rows_q + 2 * rows_k) + 8.0 * B * N * Tq
+                  + mask_bytes + 4.0 * rows_q)
+        flops = 6.0 * D * pairs
+    else:
+        nbytes = (e * (2 * rows_q + 2 * rows_k) + 8.0 * B * N * Tq
+                  + mask_bytes + 8.0 * rows_k)
+        flops = 8.0 * D * pairs
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / (BF16_FLOP_PER_S if bf16 else F32_FLOP_PER_S)
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _attn_inputs(torch, g, B, N, T, D, dtype, masked):
+    """q, k, v, do on the card and a [B, T] f32 key mask whose lengths are
+    drawn from 1..T (every row sees at least one key)."""
+    def rnd(*shape):
+        return torch.randn(*shape, device="cuda", generator=g).to(dtype)
+
+    q, k, v, do = rnd(B, N, T, D), rnd(B, N, T, D), rnd(B, N, T, D), \
+        rnd(B, N, T, D)
+    kmask = None
+    if masked:
+        lens = torch.randint(1, T + 1, (B,), device="cuda", generator=g)
+        kmask = (torch.arange(T, device="cuda")[None, :]
+                 < lens[:, None]).float()
+    return q, k, v, do, kmask
+
+
+def _err_within(torch, got, want, dtype):
+    """(max abs error over finite entries, whether within the stated
+    tolerance); infinities must sit at the same places."""
+    got, want = got.float(), want.float()
+    fin = torch.isfinite(want)
+    if not torch.equal(fin, torch.isfinite(got)) or \
+            not bool((got[~fin] == want[~fin]).all()):
+        return float("inf"), False
+    a, b = got[fin], want[fin]
+    err = float((a - b).abs().max()) if a.numel() else 0.0
+    return err, _within(torch, a, b, dtype)
+
+
+def phase_flash_kernels(torch):
+    """The three flash kernels against their plain versions, the autograd
+    Function against the plain lowering, and times at BERT-base's shape;
+    returns (rows, timings {dtype: {...}}, f32 and bf16 max_abs_err)."""
+    from deeplearning4j_tpu_torch.ops.attention import dot_product_attention
+    from deeplearning4j_tpu_torch.ops.cuda.flash_attention import (
+        flash_attention, flash_backward, flash_backward_plain, flash_forward,
+        flash_forward_plain,
+    )
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    shapes = [(f"bert_{'bf16' if dt == bf16 else 'f32'}"
+               f"{'_masked' if m else ''}{'_causal' if c else ''}",
+               32, 12, 128, 64, dt, m, c)
+              for dt in (f32, bf16) for m in (False, True)
+              for c in (False, True)]
+    shapes += [("ragged_f32_masked", 4, 4, 77, 64, f32, True, False),
+               ("ragged_bf16_masked_causal", 4, 4, 77, 64, bf16, True, True),
+               ("t300_d128_f32_masked_causal", 2, 2, 300, 128, f32, True, True),
+               ("t300_d128_bf16", 2, 2, 300, 128, bf16, False, False)]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    rows, worst = [], {f32: 0.0, bf16: 0.0}
+    for name, B, N, T, D, dt, masked, causal in shapes:
+        q, k, v, do, kmask = _attn_inputs(torch, g, B, N, T, D, dt, masked)
+        kw = dict(scale=1.0 / D ** 0.5, causal=causal, kmask=kmask)
+        o, lse = flash_forward(q, k, v, **kw)
+        delta = (do.float() * o.float()).sum(-1, keepdim=True)
+        grads = flash_backward(q, k, v, do, lse, delta, **kw)
+        torch.cuda.synchronize()
+        po, plse = flash_forward_plain(q, k, v, **kw)
+        # the backward is held on the kernel's own lse and delta, so that
+        # its check does not carry the forward's rounding differences
+        pgrads = flash_backward_plain(q, k, v, do, lse, delta, **kw)
+        row = {"shape": name, "B": B, "N": N, "T": T, "D": D,
+               "dtype": str(dt).replace("torch.", ""), "masked": masked,
+               "causal": causal}
+        for what, a, b, t in [("o", o, po, dt), ("lse", lse, plse, f32)] + [
+                (n, a, b, dt) for n, a, b in zip(("dq", "dk", "dv"), grads,
+                                                 pgrads)]:
+            err, ok = _err_within(torch, a, b, t)
+            if not ok or a.dtype != (b.dtype if what != "o" else dt):
+                fail(f"flash kernel disagrees with plain at {name}: {what} "
+                     f"max_abs_err {err} (dtype {a.dtype})")
+            row[f"{what}_max_abs_err"] = err
+            worst[dt] = max(worst[dt], err)
+        rows.append(row)
+
+    # gradients through the Function against autograd through the plain
+    # lowering (f32, key padding as the layers pass it)
+    q, k, v, do, kmask = _attn_inputs(torch, g, 32, 12, 128, 64, f32, True)
+    bm = kmask[:, None, None, :] > 0
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(flash_attention(*leaves, mask=bm), leaves, do)
+    want = torch.autograd.grad(dot_product_attention(*leaves, mask=bm),
+                               leaves, do)
+    grad_rel = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+                   for a, b in zip(got, want))
+    if grad_rel > TOL_GRAD:
+        fail(f"FlashAttentionFunction gradients disagree with autograd "
+             f"through the plain lowering: {grad_rel} > {TOL_GRAD}")
+
+    timings = {}
+    for dt in (f32, bf16):
+        timings[str(dt).replace("torch.", "")] = time_flash(
+            torch, g, dt, flash_forward, flash_backward, flash_forward_plain,
+            flash_backward_plain)
+    return rows, timings, grad_rel, worst[f32], worst[bf16]
+
+
+def time_flash(torch, g, dt, fwd, bwd, fwd_plain, bwd_plain):
+    """Times at the BERT main path's shape, [32, 12, 128, 64] with a
+    key-padding mask: each kernel (CUDA events around the wrapper, and the
+    profiler's device time), its plain version, and
+    scaled_dot_product_attention with the same boolean mask (forward, and
+    backward alone on a retained graph); the bounds."""
+    from deeplearning4j_tpu_torch.ops.cuda.build import launch, pointer
+    from deeplearning4j_tpu_torch.ops.cuda.flash_attention import (
+        FLASH_DKV, FLASH_DQ, _DKV_SYMBOLS, _DQ_SYMBOLS,
+    )
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q, k, v, do, kmask = _attn_inputs(torch, g, 32, 12, 128, 64, dt, True)
+    kw = dict(scale=0.125, causal=False, kmask=kmask)
+    o, lse = fwd(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(-1, keepdim=True)
+    B, N, T, D = q.shape
+    dq = torch.empty((B, N, T, D), device="cuda")
+    dk, dv = torch.empty_like(dq), torch.empty_like(dq)
+    common = (B * N, N, T, T, D, 0.125, 0)
+    ins = tuple(pointer(t) for t in (q, k, v, do, lse, delta, kmask))
+
+    def dq_only():
+        launch(FLASH_DQ, _DQ_SYMBOLS[dt], q.device, ins + (pointer(dq),)
+               + common)
+
+    def dkv_only():
+        launch(FLASH_DKV, _DKV_SYMBOLS[dt], q.device,
+               ins + (pointer(dk), pointer(dv)) + common)
+
+    bm = kmask[:, None, None, :] > 0
+    lq, lk, lv = (t.clone().requires_grad_() for t in (q, k, v))
+    lib_out = sdpa(lq, lk, lv, attn_mask=bm)
+    lib_fwd = lambda: sdpa(q, k, v, attn_mask=bm)  # noqa: E731
+    lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
+        lib_out, (lq, lk, lv), do, retain_graph=True)
+    iters = 20
+    out = {
+        "shape": "[32, 12, 128, 64], key-padding mask",
+        "fwd_ms": cuda_ms(torch, lambda: fwd(q, k, v, **kw), iters),
+        "fwd_device_ms": kernel_device_ms(torch, lambda: fwd(q, k, v, **kw),
+                                          iters, "flash_fwd_kernel"),
+        "fwd_plain_ms": cuda_ms(torch, lambda: fwd_plain(q, k, v, **kw),
+                                iters),
+        "dq_ms": cuda_ms(torch, dq_only, iters),
+        "dq_device_ms": kernel_device_ms(torch, dq_only, iters,
+                                         "flash_dq_kernel"),
+        "dkv_ms": cuda_ms(torch, dkv_only, iters),
+        "dkv_device_ms": kernel_device_ms(torch, dkv_only, iters,
+                                          "flash_dkv_kernel"),
+        "bwd_ms": cuda_ms(torch, lambda: bwd(q, k, v, do, lse, delta, **kw),
+                          iters),
+        "bwd_plain_ms": cuda_ms(torch, lambda: bwd_plain(
+            q, k, v, do, lse, delta, **kw), iters),
+        "library_fwd_ms": cuda_ms(torch, lib_fwd, iters),
+        "library_bwd_ms": cuda_ms(torch, lib_bwd, iters),
+    }
+    for kind in ("fwd", "dq", "dkv"):
+        out[f"{kind}_bound_ms"], out[f"{kind}_bound_by"] = flash_bound(
+            torch, kind, q, k, kmask, False)
+    # the launches above were for timing: they are not the main path's
+    return out
+
+
+def phase_bert_inference(torch, np):
+    """BertBase at its published width answering output() calls on the
+    card; returns a summary."""
+    from deeplearning4j_tpu_torch.common.env import env
+    from deeplearning4j_tpu_torch.ops.cuda import KERNELS
+    from deeplearning4j_tpu_torch.zoo import BertBase
+
+    model = BertBase(seed=SEED, max_len=128)
+    net = model.init(device="cuda")
+    B, T = 32, model.max_len
+    rng = np.random.default_rng(SEED + 5)
+    x = rng.integers(0, model.vocab_size, (B, T)).astype(np.int64)
+    lens = rng.integers(1, T + 1, B)
+    mask = (np.arange(T)[None, :] < lens[:, None]).astype(np.float32)
+    net.output(x, mask=mask)  # warm-up, not counted
+    calls = 5
+    outs, launches, _, wall = _count_launches(
+        torch, KERNELS, lambda: [net.output(x, mask=mask)
+                                 for _ in range(calls)])
+    want = {k.name: 0 for k in KERNELS}
+    want["flash_attention_fwd"] = model.n_layers * calls
+    if launches != want:
+        fail(f"BERT-base output(): {calls} calls launched {launches}; want "
+             f"{model.n_layers} flash forwards a call and nothing else")
+    out = outs[-1]
+    if (tuple(out.shape) != (B, model.num_classes) or out.grad_fn is not None
+            or not bool(torch.isfinite(out).all())
+            # bf16 softmax: each probability rounded to bf16 (2^-9 relative)
+            or float((out.sum(-1) - 1).abs().max()) > 1e-2):
+        fail(f"BERT-base output() gave {tuple(out.shape)}, grad_fn "
+             f"{out.grad_fn}, finite {bool(torch.isfinite(out).all())}")
+
+    # an f32 copy on the same weights: kernel path vs plain path on the card
+    net32 = BertBase(seed=SEED, max_len=128, dtype="float32").init(
+        device="cuda")
+    net32.params = [{n: a.clone() for n, a in p.items()} for p in net.params]
+    o_kernel = net32.output(x, mask=mask)
+    env.disable_kernels = True
+    try:
+        o_plain = net32.output(x, mask=mask)
+    finally:
+        env.reload()
+    err = float((o_kernel - o_plain).abs().max())
+    if err > TOL_BERT_OUT:
+        fail(f"BERT-base f32 output(), kernels vs plain on the card: {err} "
+             f"> {TOL_BERT_OUT}")
+    del net32
+
+    by_kernel, prof_wall = profile_device(
+        torch, lambda: net.output(x, mask=mask), calls)
+    busy = sum(t for t, _ in by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:8]
+    return {
+        "model": "BertBase(12 x 768, 12 heads, d_ff 3072, vocab 30522, "
+                 "max_len 128), bf16",
+        "batch": B, "timesteps": T, "params": net.num_params(),
+        "calls": calls, "launches": launches,
+        "launches_per_call": launches["flash_attention_fwd"] / calls,
+        "wall_ms_per_call": 1e3 * wall / calls,
+        "sequences_per_s": B * calls / wall,
+        "synced_ms_per_call": host_ms(torch, lambda: net.output(x, mask=mask),
+                                      calls),
+        "f32_copy_max_abs_err_kernel_vs_plain": err,
+        "profile": {
+            "calls": calls, "wall_ms_per_call": prof_wall / calls,
+            "device_ms_per_call": busy / calls,
+            "device_busy_share": busy / prof_wall if by_kernel else None,
+            "device_kernels_per_call": sum(n for _, n in by_kernel.values())
+            / calls,
+            "top_kernels_ms_per_call": {k[:60]: t / calls
+                                        for k, (t, _) in top},
+        },
+    }, net
+
+
+def _bert_batch(np, seed, B=32, T=128, V=30522):
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, V, (B, T)).astype(np.int64)
+    y = np.eye(2, dtype=np.float32)[rng.integers(0, 2, B)]
+    lens = rng.integers(1, T + 1, B)
+    return x, y, (np.arange(T)[None, :] < lens[:, None]).astype(np.float32)
+
+
+def _bert_grads(torch, net, x, y, m):
+    """Gradient leaves of one batch's loss (eval mode: no dropout)."""
+    from deeplearning4j_tpu_torch.common.trees import tree_leaves, tree_map
+
+    params = tree_map(lambda p: p.detach().requires_grad_(), net.params)
+    leaves = tree_leaves(params)
+    loss = net._loss_terms(params, net._input(x), net._labels(y),
+                           net._mask(m), None, train=False)
+    return torch.autograd.grad(loss, leaves)
+
+
+def split_step_ms(torch, net, x, y, m, steps=3):
+    """Host ms of the three parts of a train step, each ended by a sync:
+    forward + loss, autograd backward, clipping + updaters (the same calls
+    as ``_train_step``; the update's result is dropped)."""
+    from deeplearning4j_tpu_torch.common.dtypes import cast_floating
+    from deeplearning4j_tpu_torch.common.trees import (
+        tree_leaves, tree_map, tree_unflatten,
+    )
+
+    xi, yl, mk = net._input(x), net._labels(y), net._mask(m)
+    parts = {"forward_loss": 0.0, "backward": 0.0, "clip_update": 0.0}
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = tree_map(lambda p: p.detach().requires_grad_(), net.params)
+        loss = net._loss_terms(
+            cast_floating(params, net._policy.compute_dtype), xi, yl, mk,
+            None, train=True, rng=net._generator()).float()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads = torch.autograd.grad(loss, tree_leaves(params))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        with torch.no_grad():
+            net._apply_updaters(tree_unflatten(net.params, list(grads)),
+                                net.params, net.opt_state, net.step_count)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for k, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+            parts[k] += 1e3 * dt / steps
+    return parts
+
+
+def phase_bert_training(torch, np, net):
+    """BertBase fine-tuning on the card: the main path's steps, then an f32
+    copy against the plain path; returns a summary."""
+    import copy as _copy
+
+    from deeplearning4j_tpu_torch.common.env import env
+    from deeplearning4j_tpu_torch.common.trees import tree_leaves
+    from deeplearning4j_tpu_torch.ops.cuda import KERNELS
+    from deeplearning4j_tpu_torch.zoo import BertBase
+
+    x, y, m = _bert_batch(np, SEED + 6)
+    B = x.shape[0]
+    for _ in range(2):  # warm-up, not counted
+        net.fit_batch((x, y, m))
+    losses, launches, _, wall = _count_launches(
+        torch, KERNELS,
+        lambda: [net.fit_batch((x, y, m)) for _ in range(N_BERT_STEPS)])
+    if not all(np.isfinite(losses)):
+        fail(f"BERT-base training losses not finite: {losses}")
+    per = 12 * N_BERT_STEPS
+    want = {k.name: 0 for k in KERNELS}
+    want.update({"flash_attention_fwd": per, "flash_attention_dq": per,
+                 "flash_attention_dkv": per})
+    if launches != want:
+        fail(f"BERT-base: {N_BERT_STEPS} steps launched {launches}; want 12 "
+             f"forward, 12 dq and 12 dk/dv a step")
+    steps = 3
+    by_kernel, prof_wall = profile_device(
+        torch, lambda: net.fit_batch((x, y, m)), steps)
+    busy = sum(t for t, _ in by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:10]
+    step_ms = host_ms(torch, lambda: net.fit_batch((x, y, m)), 3)
+    split = split_step_ms(torch, net, x, y, m)
+
+    # f32, dropout 0: 2 steps and the gradients, kernels vs plain on the card
+    a = BertBase(seed=SEED, max_len=128, dtype="float32", dropout=0.0).init(
+        device="cuda")
+    b = _copy.deepcopy(a)
+    ga = _bert_grads(torch, a, x, y, m)
+    env.disable_kernels = True
+    try:
+        gb = _bert_grads(torch, b, x, y, m)
+    finally:
+        env.reload()
+    # each leaf's error over its largest gradient, floored at 1e-3 of the
+    # largest of all: bk's gradient is 0 in exact arithmetic (the softmax
+    # ignores a shift of a query's logits) and its float value is noise
+    floor = 1e-3 * max(float(q.abs().max()) for q in gb)
+    grad_rel = max(float((p - q).abs().max()) / max(float(q.abs().max()),
+                                                    floor)
+                   for p, q in zip(ga, gb))
+    if grad_rel > TOL_BERT_GRAD:
+        fail(f"f32 BERT-base gradients, kernels vs plain on the card: "
+             f"{grad_rel} > {TOL_BERT_GRAD}")
+    la = [a.fit_batch((x, y, m)) for _ in range(2)]
+    env.disable_kernels = True
+    try:
+        lb = [b.fit_batch((x, y, m)) for _ in range(2)]
+    finally:
+        env.reload()
+    loss_err = max(abs(p - q) / abs(q) for p, q in zip(la, lb))
+    param_err = max(float((p - q).abs().max()) for p, q in zip(
+        tree_leaves(a.params), tree_leaves(b.params)))
+    if loss_err > TOL_TRAIN_LOSS or param_err > TOL_TRAIN_PARAM:
+        fail(f"f32 BERT-base, 2 steps, kernels vs plain on the card: loss "
+             f"rel err {loss_err} (tol {TOL_TRAIN_LOSS}), param abs err "
+             f"{param_err} (tol {TOL_TRAIN_PARAM})")
+    del a, b
+    return {
+        "model": "BertBase(12 x 768, 12 heads, d_ff 3072, vocab 30522, "
+                 "max_len 128), bf16, AdamW 2e-5 warmup-cosine, clip 1.0, "
+                 "dropout 0.1",
+        "batch": B, "timesteps": x.shape[1], "steps": N_BERT_STEPS,
+        "losses": losses, "launches": launches,
+        "launches_per_step": {k: v / N_BERT_STEPS
+                              for k, v in launches.items() if v},
+        "wall_s": wall, "step_wall_ms": 1e3 * wall / N_BERT_STEPS,
+        "samples_per_s": B * N_BERT_STEPS / wall,
+        "synced_step_ms": step_ms, "synced_step_split_ms": split,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "f32_copy": {"card_kernel_losses": la, "card_plain_losses": lb,
+                     "loss_max_rel_err": loss_err,
+                     "param_max_abs_err": param_err,
+                     "grad_max_rel_err": grad_rel},
+        "profile": {
+            "steps": steps, "wall_ms_per_step": prof_wall / steps,
+            "device_ms_per_step": busy / steps,
+            "device_busy_share": busy / prof_wall if by_kernel else None,
+            "device_kernels_per_step": sum(n for _, n in by_kernel.values())
+            / steps,
+            "top_kernels_ms_per_step": {k[:60]: t / steps
+                                        for k, (t, _) in top},
+        },
+    }
 
 
 def main() -> None:
@@ -781,10 +1235,33 @@ def main() -> None:
                  seed=SEED, dtype="bf16"), 4)]
     print(json.dumps({"short_training": short}), flush=True)
 
-    # phase 9: kernels line, card line, result line
+    # phase 9: flash kernels against plain
+    flash_rows, flash_times, flash_grad_rel, flash_worst, flash_worst_bf16 = \
+        phase_flash_kernels(torch)
+    print(json.dumps({"flash_kernel_shapes": flash_rows,
+                      "flash_function_grad_max_rel_err": flash_grad_rel,
+                      "flash_times": flash_times, "card": card}), flush=True)
+
+    # phase 10: BERT-base inference
+    bert_out, bert_net = phase_bert_inference(torch, np)
+    print(json.dumps({"bert_inference": bert_out, "card": card}), flush=True)
+    print(f"BERT-base output() on {card}: "
+          f"{bert_out['wall_ms_per_call']:.2f} ms a call of 32 x 128, "
+          f"device busy {bert_out['profile']['device_busy_share']}",
+          flush=True)
+
+    # phase 11: BERT-base fine-tuning
+    bert_train = phase_bert_training(torch, np, bert_net)
+    del bert_net
+    print(json.dumps({"bert_training": bert_train, "card": card}), flush=True)
+    print(f"BERT-base fine-tuning on {card}: "
+          f"{bert_train['step_wall_ms']:.2f} ms a step, "
+          f"{bert_train['samples_per_s']:.1f} samples/s", flush=True)
+
+    # phase 12: kernels line, card line, result line
     decode = rows[0]  # the serving path's decode shape [8, 1, 256]
     graves = bwd_rows[0]  # the training path's first layer [64, 64, 200]
-    fwd, bwd = KERNELS
+    fwd, bwd, ffwd, fdq, fdkv = KERNELS
     serve_n = main_path["launches"][fwd.name]
     train_n = train["launches"]
     entries = [{
@@ -821,6 +1298,29 @@ def main() -> None:
         "library_ms": None,
         "shape": "[B=64, T=64, H=200], peephole, reverse",
     }]
+    # the flash kernels at the BERT main path's shape and type (bf16, key
+    # padding); the f32 times are in flash_times
+    ft = flash_times["bfloat16"]
+    infer_n, bert_n = bert_out["launches"], bert_train["launches"]
+    for kern, kind, plain_key, library in (
+            (ffwd, "fwd", "fwd_plain_ms", ft["library_fwd_ms"]),
+            # no one library call computes dq or dk/dv alone: SDPA's
+            # backward computes both, in library_bwd_ms
+            (fdq, "dq", "bwd_plain_ms", None),
+            (fdkv, "dkv", "bwd_plain_ms", None)):
+        entries.append({
+            "name": kern.name, "route": "cuda", "source": kern.source,
+            "replaces": kern.replaces,
+            "launches": infer_n[kern.name] + bert_n[kern.name],
+            "launches_by_path": {"bert_inference": infer_n[kern.name],
+                                 "bert_training": bert_n[kern.name]},
+            "max_abs_err": flash_worst, "max_abs_err_bf16": flash_worst_bf16,
+            "ms": ft[f"{kind}_ms"], "device_ms": ft[f"{kind}_device_ms"],
+            "plain_ms": ft[plain_key], "bound_ms": ft[f"{kind}_bound_ms"],
+            "bound_by": ft[f"{kind}_bound_by"], "library_ms": library,
+            "library_bwd_ms": ft["library_bwd_ms"],
+            "shape": "[32, 12, 128, 64] bf16, key-padding mask",
+        })
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -73,13 +73,20 @@ class CnnToRnnPreProcessor(InputPreProcessor):
 
 def auto_preprocessor(prev: InputType, layer) -> InputPreProcessor | None:
     """The DL4J-standard preprocessor between ``prev`` and ``layer``."""
+    from deeplearning4j_tpu_torch.nn.layers.attention import (
+        SelfAttentionLayer, TransformerEncoderLayer,
+    )
     from deeplearning4j_tpu_torch.nn.layers.core import DenseLayer
     from deeplearning4j_tpu_torch.nn.layers.output import RnnOutputLayer
-    from deeplearning4j_tpu_torch.nn.layers.recurrent import LSTMLayer
+    from deeplearning4j_tpu_torch.nn.layers.recurrent import (
+        BidirectionalLayer, LSTMLayer,
+    )
 
+    rnn_layers = (LSTMLayer, BidirectionalLayer, SelfAttentionLayer,
+                  TransformerEncoderLayer, RnnOutputLayer)
     if prev.kind in ("cnn", "cnn3d") and isinstance(layer, DenseLayer) \
             and not isinstance(layer, RnnOutputLayer):
         return FlattenPreProcessor()
-    if prev.kind == "cnn" and isinstance(layer, (LSTMLayer, RnnOutputLayer)):
+    if prev.kind == "cnn" and isinstance(layer, rnn_layers):
         return CnnToRnnPreProcessor()
     return None

@@ -5,13 +5,25 @@ far. A configuration naming any other layer fails to load with an error
 that names it.
 """
 
+from deeplearning4j_tpu_torch.nn.layers.attention import (
+    LearnedSelfAttentionLayer, PositionalEmbeddingLayer, SelfAttentionLayer,
+    TransformerEncoderLayer,
+)
 from deeplearning4j_tpu_torch.nn.layers.base import Layer, register_layer
-from deeplearning4j_tpu_torch.nn.layers.core import DenseLayer
+from deeplearning4j_tpu_torch.nn.layers.conv import GlobalPoolingLayer
+from deeplearning4j_tpu_torch.nn.layers.core import (
+    DenseLayer, EmbeddingLayer, EmbeddingSequenceLayer,
+)
+from deeplearning4j_tpu_torch.nn.layers.norm import LayerNormalizationLayer
 from deeplearning4j_tpu_torch.nn.layers.output import OutputLayer, RnnOutputLayer
 from deeplearning4j_tpu_torch.nn.layers.recurrent import (
     BidirectionalLayer, GravesBidirectionalLSTMLayer, GravesLSTMLayer, LSTMLayer,
 )
 
-__all__ = ["Layer", "register_layer", "DenseLayer", "OutputLayer",
-           "RnnOutputLayer", "LSTMLayer", "GravesLSTMLayer",
-           "BidirectionalLayer", "GravesBidirectionalLSTMLayer"]
+__all__ = ["Layer", "register_layer", "DenseLayer", "EmbeddingLayer",
+           "EmbeddingSequenceLayer", "OutputLayer", "RnnOutputLayer",
+           "LSTMLayer", "GravesLSTMLayer", "BidirectionalLayer",
+           "GravesBidirectionalLSTMLayer", "LayerNormalizationLayer",
+           "GlobalPoolingLayer", "SelfAttentionLayer",
+           "LearnedSelfAttentionLayer", "PositionalEmbeddingLayer",
+           "TransformerEncoderLayer"]

@@ -1,13 +1,16 @@
 """Core feed-forward layers.
 
-Counterpart of ``deeplearning4j_tpu/nn/layers/core.py``; this slice ports
-``DenseLayer``, the base of the output layers. W stays [in, out].
+Counterpart of ``deeplearning4j_tpu/nn/layers/core.py``: ``DenseLayer``,
+the base of the output layers, and the two embedding lookups. W stays
+[in, out] ([vocab, n_out] for an embedding).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
+
+import torch
 
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.layers.base import (
@@ -43,3 +46,68 @@ class DenseLayer(Layer):
         if self.has_bias:
             y = y + params["b"]
         return resolve_activation(self.activation)(y), state
+
+
+def _lookup(layer, params, idx):
+    """act(W[idx] (+ b)) for an integer index tensor."""
+    y = params["W"][idx.to(torch.long)]
+    if layer.has_bias:
+        y = y + params["b"]
+    return resolve_activation(layer.activation)(y)
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True, kw_only=True)
+class EmbeddingLayer(Layer):
+    """Index -> vector lookup, one index per example: input [B] or [B, 1]
+    integer indices, output [B, n_out]."""
+
+    n_out: int
+    n_in: Optional[int] = None  # vocab size
+    activation: str = "identity"
+    has_bias: bool = False
+
+    def output_type(self, itype):
+        return InputType.feed_forward(self.n_out)
+
+    def init(self, generator, itype, device):
+        vocab = self.n_in or itype.size
+        p = {"W": self._w(generator, (vocab, self.n_out), device)}
+        if self.has_bias:
+            p["b"] = self._b((self.n_out,), device)
+        return p, {}
+
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        if x.dim() == 2 and x.shape[-1] == 1:
+            x = x[:, 0]
+        return _lookup(self, params, x), state
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True, kw_only=True)
+class EmbeddingSequenceLayer(Layer):
+    """Sequence of indices -> sequence of vectors: input [B, T] or
+    [B, T, 1] integer indices, output [B, T, n_out]."""
+
+    n_out: int
+    n_in: Optional[int] = None
+    activation: str = "identity"
+    has_bias: bool = False
+    inference_max_len: Optional[int] = None
+
+    def output_type(self, itype):
+        t = itype.shape[0] if itype.kind == "rnn" else None
+        return InputType.recurrent(self.n_out, t)
+
+    def init(self, generator, itype, device):
+        vocab = self.n_in or (itype.size if itype.kind != "rnn"
+                              else itype.shape[1])
+        p = {"W": self._w(generator, (vocab, self.n_out), device)}
+        if self.has_bias:
+            p["b"] = self._b((self.n_out,), device)
+        return p, {}
+
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        if x.dim() == 3 and x.shape[-1] == 1:
+            x = x[..., 0]
+        return _lookup(self, params, x), state

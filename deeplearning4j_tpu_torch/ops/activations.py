@@ -1,9 +1,10 @@
 """Activation catalog, name-addressable.
 
 Counterpart of ``deeplearning4j_tpu/ops/activations.py``: activations are
-strings in layer JSON, resolved by the same names. This slice carries the
+strings in layer JSON, resolved by the same names. The port carries the
 ones its layers use; the rest of the catalog comes with the layers that
-need them.
+need them. ``gelu`` is the tanh approximation, the default of the JAX
+package's ``jax.nn.gelu``: exact erf-gelu differs by about 1e-3.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ import torch
 ACTIVATIONS: dict[str, Callable] = {
     "identity": lambda x: x,
     "linear": lambda x: x,
+    "relu": torch.relu,
+    "gelu": lambda x: torch.nn.functional.gelu(x, approximate="tanh"),
     "sigmoid": torch.sigmoid,
     "tanh": torch.tanh,
     "softmax": lambda x: torch.softmax(x, dim=-1),

@@ -4,9 +4,13 @@ Importing registers each kernel with the op registry; nothing is built
 until a kernel is first launched.
 """
 
+from deeplearning4j_tpu_torch.ops.cuda.flash_attention import (
+    FLASH_DKV, FLASH_DQ, FLASH_FWD,
+)
 from deeplearning4j_tpu_torch.ops.cuda.fused_lstm import FUSED_LSTM, FUSED_LSTM_BWD
 
 #: every hand-written kernel, for launch counting and the chip smoke run
-KERNELS = (FUSED_LSTM, FUSED_LSTM_BWD)
+KERNELS = (FUSED_LSTM, FUSED_LSTM_BWD, FLASH_FWD, FLASH_DQ, FLASH_DKV)
 
-__all__ = ["FUSED_LSTM", "FUSED_LSTM_BWD", "KERNELS"]
+__all__ = ["FLASH_DKV", "FLASH_DQ", "FLASH_FWD", "FUSED_LSTM",
+           "FUSED_LSTM_BWD", "KERNELS"]

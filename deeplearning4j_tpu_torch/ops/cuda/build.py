@@ -7,8 +7,12 @@ shared library at first use (never at import), and is called through
 PyTorch headers are compiled, so a build takes seconds.
 
 Libraries go into ``deeplearning4j_tpu_torch/_build/`` (listed in
-``.gitignore``), named by a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one loads the cached library.
+``.gitignore``), named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source rebuilds and an
+unchanged one loads the cached library.
+
+:class:`CudaKernel` pairs a library with its launch count, and
+:func:`launch` calls one of its C launchers on PyTorch's current stream.
 """
 
 from __future__ import annotations
@@ -72,6 +76,8 @@ class CudaLibrary:
 
     def library_path(self) -> Path:
         digest = hashlib.sha1(self.source.read_bytes())
+        for header in sorted(CSRC_DIR.glob("*.cuh")):
+            digest.update(header.read_bytes())
         digest.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"{self.source.stem}-{digest.hexdigest()[:12]}.so"
 
@@ -131,6 +137,41 @@ def check_status(lib: ctypes.CDLL, status: int, what: str) -> None:
 
 
 def c_args(kinds: str) -> Sequence:
-    """ctypes argtypes, one letter each: 'p' pointer or stream, 'i' int."""
-    table = {"p": ctypes.c_void_p, "i": ctypes.c_int}
+    """ctypes argtypes, one letter each: 'p' pointer or stream, 'i' int,
+    'f' float."""
+    table = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
     return [table[k] for k in kinds]
+
+
+class CudaKernel:
+    """One kernel: its source's built library and its launch count.
+
+    ``symbols`` maps each C launcher to its argument kinds (:func:`c_args`);
+    every launcher returns a ``cudaError_t``, and every source exports
+    ``dl4j_cuda_error_string``."""
+
+    def __init__(self, name, source, replaces, symbols):
+        self.name = name
+        self.source = f"deeplearning4j_tpu_torch/csrc/{source}"
+        self.replaces = replaces
+        self.library = CudaLibrary(source, {
+            **{sym: (c_args(kinds), ctypes.c_int)
+               for sym, kinds in symbols.items()},
+            "dl4j_cuda_error_string": (c_args("i"), ctypes.c_char_p),
+        })
+        self.launches = 0
+
+
+def launch(kernel: CudaKernel, symbol: str, device: torch.device, args):
+    """Call ``symbol`` of ``kernel``'s library with ``args`` and PyTorch's
+    current stream on ``device``; raise on a non-zero status, count the
+    launch."""
+    lib = kernel.library.load(device)
+    fn = getattr(lib, symbol)
+    if device.index == torch.cuda.current_device():
+        status = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:  # the C launcher uses the calling thread's current device
+        with torch.cuda.device(device):
+            status = fn(*args, torch.cuda.current_stream().cuda_stream)
+    check_status(lib, status, symbol)
+    kernel.launches += 1

@@ -40,13 +40,9 @@ the reserve.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from deeplearning4j_tpu_torch.ops.cuda.build import (
-    CudaLibrary, c_args, check_status, pointer,
-)
+from deeplearning4j_tpu_torch.ops.cuda.build import CudaKernel, launch, pointer
 from deeplearning4j_tpu_torch.ops.recurrent import (
     finish_layer, lstm_bwd_recurrence, lstm_recurrence, project_gates,
 )
@@ -57,20 +53,13 @@ plain_recurrence = lstm_recurrence
 plain_bwd_recurrence = lstm_bwd_recurrence
 
 
-class CudaKernel:
-    """One kernel's built library and its launch count."""
+class LstmKernel(CudaKernel):
+    """A fused-LSTM kernel; ``reserves`` counts the forward launches that
+    saved the training reserve."""
 
-    def __init__(self, name, source, replaces, symbols):
-        self.name = name
-        self.source = f"deeplearning4j_tpu_torch/csrc/{source}"
-        self.replaces = replaces
-        self.library = CudaLibrary(source, {
-            **{sym: (c_args(kinds), ctypes.c_int)
-               for sym, kinds in symbols.items()},
-            "dl4j_cuda_error_string": (c_args("i"), ctypes.c_char_p),
-        })
-        self.launches = 0
-        self.reserves = 0  # forward launches that saved the reserve
+    def __init__(self, *args):
+        super().__init__(*args)
+        self.reserves = 0
 
 
 #: the C launcher for each element type the kernels take
@@ -79,11 +68,11 @@ _FWD_SYMBOLS = {torch.float32: "dl4j_lstm_fwd",
 _BWD_SYMBOLS = {torch.float32: "dl4j_lstm_bwd",
                 torch.bfloat16: "dl4j_lstm_bwd_bf16"}
 
-FUSED_LSTM = CudaKernel(
+FUSED_LSTM = LstmKernel(
     "fused_lstm_fwd", "fused_lstm.cu",
     "deeplearning4j_tpu/ops/pallas/fused_lstm.py:83 (_lstm_kernel)",
     {sym: "pppppppppiiip" for sym in _FWD_SYMBOLS.values()})
-FUSED_LSTM_BWD = CudaKernel(
+FUSED_LSTM_BWD = LstmKernel(
     "fused_lstm_bwd", "fused_lstm_bwd.cu",
     "deeplearning4j_tpu/ops/pallas/fused_lstm.py:386 (_lstm_bwd_kernel)",
     {sym: "ppppppppiiip" for sym in _BWD_SYMBOLS.values()})
@@ -110,18 +99,6 @@ def _check_shapes(what, tensors):
         if t is not None and tuple(t.shape) != shape:
             raise ValueError(f"{what}: {name} must be {list(shape)}, got "
                              f"{list(t.shape)}")
-
-
-def _launch(kernel, symbols, dtype, device, args):
-    lib = kernel.library.load(device)
-    launch = getattr(lib, symbols[dtype])
-    if device.index == torch.cuda.current_device():
-        status = launch(*args, torch.cuda.current_stream().cuda_stream)
-    else:  # the C launcher uses the calling thread's current device
-        with torch.cuda.device(device):
-            status = launch(*args, torch.cuda.current_stream().cuda_stream)
-    check_status(lib, status, symbols[dtype])
-    kernel.launches += 1
 
 
 def fused_lstm_recurrence(xg, R, h0, c0, peephole=None, save_residuals=False):
@@ -152,7 +129,7 @@ def fused_lstm_recurrence(xg, R, h0, c0, peephole=None, save_residuals=False):
     out = xg.new_empty((T, B, H))
     hT = xg.new_empty((B, H))
     cT = xg.new_empty((B, H))
-    _launch(FUSED_LSTM, _FWD_SYMBOLS, xg.dtype, xg.device, (
+    launch(FUSED_LSTM, _FWD_SYMBOLS[xg.dtype], xg.device, (
         pointer(xg), pointer(R), pointer(h0), pointer(c0), pointer(peephole),
         pointer(out), pointer(hT), pointer(cT), pointer(reserve), T, B, H))
     if save_residuals:
@@ -185,7 +162,7 @@ def fused_lstm_bwd_recurrence(reserve, R, c0, dout, dcT=None, peephole=None):
         "dcT": (dcT, (B, H)), "peephole": (peephole, (3 * H,))})
     dg = reserve.new_empty((T, B, 4 * H))
     dc0 = reserve.new_empty((B, H))
-    _launch(FUSED_LSTM_BWD, _BWD_SYMBOLS, dt, dev, (
+    launch(FUSED_LSTM_BWD, _BWD_SYMBOLS[dt], dev, (
         pointer(reserve), pointer(Rt), pointer(c0), pointer(dout),
         pointer(dcT), pointer(peephole), pointer(dg), pointer(dc0), T, B, H))
     return dg, dc0

@@ -1,8 +1,10 @@
 """Model zoo (counterpart of ``zoo``): the models the port has so far."""
 
 from deeplearning4j_tpu_torch.zoo.base import ZooModel
+from deeplearning4j_tpu_torch.zoo.bert import Bert, BertBase
 from deeplearning4j_tpu_torch.zoo.textgen import (
     BidirectionalGravesLSTMCharRnn, TextGenerationLSTM,
 )
 
-__all__ = ["ZooModel", "TextGenerationLSTM", "BidirectionalGravesLSTMCharRnn"]
+__all__ = ["ZooModel", "Bert", "BertBase", "TextGenerationLSTM",
+           "BidirectionalGravesLSTMCharRnn"]
