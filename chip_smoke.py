@@ -65,8 +65,33 @@ Phases (any failure exits non-zero before the result line):
     window is profiled. An f32 dropout-0 copy trains 2 steps against the
     plain path on the card from the same weights, and its gradients are
     held against the plain path's.
-12. Prints the kernels line (all five kernels), the card line and, last,
+12. LRN kernels against plain: the forward and backward LRN kernels
+    against their plain versions at AlexNet's two LRN shapes,
+    [128, 54, 54, 96] and [128, 26, 26, 256], and at a ragged
+    [3, 7, 5, 77] with even depth 4 and a [4, 3, 3, 3] with C below the
+    depth, in f32 and bf16; ``LRNFunction``'s gradient against autograd
+    through the plain lowering on the card; times of each kernel, its plain
+    version and, as a yardstick the port never calls,
+    ``torch.nn.functional.local_response_norm`` (forward, and its autograd
+    backward) at AlexNet's shapes.
+13. AlexNet inference: ``AlexNet()`` at its published width (224 x 224 x
+    3, conv 96-256-384-384-256, two LRN layers, dense 4096-4096, 1000
+    classes, f32, random weights from the seed) runs ``output()`` on 128
+    random images: 2 LRN forward launches a call and no backward; its
+    logits agree with the plain path on the card; a call is profiled.
+14. AlexNet training: ``fit_batch`` at B=128, Nesterovs 1e-2 momentum
+    0.9, dropout 0.5, on a repeated batch, each step launching 2 LRN
+    forward and 2 LRN backward kernels, losses finite and falling; a
+    steady window is profiled. A dropout-0 copy trains 2 steps against the
+    plain path on the card, both from the seed's untrained weights.
+15. LeNet training (BASELINE.json config #1): ``LeNet()`` (flat 28 x 28 x 1
+    through ``ReshapeToCnnPreProcessor``, Adam 1e-3) trains at B=64 on
+    seeded random images, launching none of the port's kernels.
+16. Prints the kernels line (all seven kernels), the card line and, last,
     the result line ``{"ok": true, "device": {...}}``.
+
+Every phase runs f32 work with TF32 off (``torch.backends.cuda.matmul``
+and ``torch.backends.cudnn`` ``allow_tf32`` False), the timed ones too.
 """
 
 from __future__ import annotations
@@ -1173,6 +1198,360 @@ def phase_bert_training(torch, np, net):
     }
 
 
+# ----------------------------------------------------------- AlexNet slice
+
+# LRN kernels against their plain versions (the JAX package's own
+# tolerances for its Pallas kernel against the XLA lowering): f32 forward
+# |k - p| <= 2e-6 + 2e-5 |p|, backward 2e-6 + 2e-4 |p|; bf16 TOL_BF16
+TOL_LRN_FWD = (2e-6, 2e-5)
+TOL_LRN_BWD = (2e-6, 2e-4)
+# AlexNet f32 output() logits, kernels vs plain on the card, relative to
+# the largest logit (the LRN kernel and the plain lowering differ by f32
+# rounding, carried through three convs and three dense layers)
+TOL_ALEXNET_LOGITS = 1e-4
+N_ALEXNET_STEPS = 10
+N_LENET_STEPS = 20
+ALEXNET_BATCH = 128  # the AlexNet paper's batch
+LENET_BATCH = 64
+
+
+def lrn_bound(shape, dtype_bytes: int, backward: bool, depth: int = 5):
+    """Least time of one LRN kernel call: x read and y written once (plus g
+    for the backward) at 3.35 TB/s, against its f32 flops (forward about
+    depth + 5 an element, backward about 2 depth + 10) at 67 TFLOP/s."""
+    n = 1
+    for d in shape:
+        n *= d
+    t_bytes = dtype_bytes * n * (3 if backward else 2) / HBM_BYTES_PER_S
+    flops = n * ((2 * depth + 10) if backward else (depth + 5))
+    t_ops = flops / F32_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _lrn_within(torch, got, want, dtype, tol):
+    """(max abs error, whether within the stated tolerance)."""
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max()) if want.numel() else 0.0
+    if dtype == torch.float32:
+        atol, rtol = tol
+        ok = bool(((got - want).abs() <= atol + rtol * want.abs()).all())
+    else:
+        ok = bool(((got - want).abs() <= TOL_BF16 * (1 + want.abs())).all())
+    return err, ok and bool(torch.isfinite(got).all())
+
+
+def phase_lrn_kernels(torch):
+    """The LRN kernels against their plain versions at AlexNet's two LRN
+    shapes and two ragged ones, f32 and bf16; LRNFunction's gradient
+    against autograd through the plain lowering; times at AlexNet's shapes
+    in f32. Returns (rows, times, grad rel err, f32 and bf16 worst)."""
+    from deeplearning4j_tpu_torch.ops.convolution import lrn as plain_lrn
+    from deeplearning4j_tpu_torch.ops.cuda.lrn import (
+        lrn_backward, lrn_bwd_plain, lrn_forward, lrn_fwd_plain, lrn_kernel,
+    )
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    alex = dict(alpha=1e-4, beta=0.75, k=2.0)  # DL4J's defaults, AlexNet's
+    strong = dict(alpha=0.5, beta=0.6, k=1.0)  # the window moves the result
+    shapes = [  # name, shape, depth, hparams
+        ("alexnet_conv1", (ALEXNET_BATCH, 54, 54, 96), 5, alex),
+        ("alexnet_conv2", (ALEXNET_BATCH, 26, 26, 256), 5, alex),
+        ("ragged_even_depth", (3, 7, 5, 77), 4, strong),
+        ("c_below_depth", (4, 3, 3, 3), 5, strong),
+    ]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    rows, worst = [], {f32: 0.0, bf16: 0.0}
+    for name, shape, depth, hp in shapes:
+        for dt in (f32, bf16):
+            x = (2.0 * torch.randn(shape, device="cuda", generator=g)).to(dt)
+            gy = torch.randn(shape, device="cuda", generator=g).to(dt)
+            kw = dict(depth=depth, **hp)
+            y = lrn_forward(x, **kw)
+            dx = lrn_backward(x, gy, **kw)
+            torch.cuda.synchronize()
+            ef, okf = _lrn_within(torch, y, lrn_fwd_plain(x, **kw), dt,
+                                  TOL_LRN_FWD)
+            eb, okb = _lrn_within(torch, dx, lrn_bwd_plain(x, gy, **kw), dt,
+                                  TOL_LRN_BWD)
+            if not (okf and okb) or y.dtype != dt or dx.dtype != dt:
+                fail(f"LRN kernels disagree with plain at {name} {dt}: "
+                     f"forward {ef}, backward {eb}")
+            worst[dt] = max(worst[dt], ef, eb)
+            rows.append({"shape": name, "dims": list(shape), "depth": depth,
+                         "dtype": str(dt).replace("torch.", ""),
+                         "fwd_max_abs_err": ef, "bwd_max_abs_err": eb})
+
+    # LRNFunction against autograd through the plain lowering (f32)
+    x = 2.0 * torch.randn((16, 26, 26, 256), device="cuda", generator=g)
+    gy = torch.randn(x.shape, device="cuda", generator=g)
+    a, b = x.clone().requires_grad_(), x.clone().requires_grad_()
+    (ga,) = torch.autograd.grad(lrn_kernel(a, depth=5, **strong), a, gy)
+    (gb,) = torch.autograd.grad(plain_lrn(b, depth=5, **strong), b, gy)
+    grad_rel = float((ga - gb).abs().max()) / float(gb.abs().max())
+    if grad_rel > TOL_GRAD:
+        fail(f"LRNFunction's gradient disagrees with autograd through the "
+             f"plain lowering: {grad_rel} > {TOL_GRAD}")
+
+    times = {}
+    for name, shape, _, _ in shapes[:2]:  # AlexNet's two LRN layers
+        for dt in (f32, bf16):
+            key = f"{name}_{str(dt).replace('torch.', '')}"
+            times[key] = time_lrn(torch, g, shape, dt)
+    return rows, times, grad_rel, worst[f32], worst[bf16]
+
+
+def time_lrn(torch, g, shape, dt, depth=5):
+    """Times of both LRN kernels at one of the main path's shapes: the
+    wrapper (CUDA events) and the profiler's device time, the plain
+    versions, and as a yardstick the port never calls,
+    torch.nn.functional.local_response_norm on a contiguous NCHW copy
+    (size=depth, alpha*depth: PyTorch averages over the window) forward
+    and its autograd backward on a retained graph; the bounds."""
+    from deeplearning4j_tpu_torch.ops.cuda.lrn import (
+        lrn_backward, lrn_bwd_plain, lrn_forward, lrn_fwd_plain,
+    )
+
+    F = torch.nn.functional
+    hp = dict(depth=depth, alpha=1e-4, beta=0.75, k=2.0)
+    x = (2.0 * torch.randn(shape, device="cuda", generator=g)).to(dt)
+    gy = torch.randn(shape, device="cuda", generator=g).to(dt)
+    xl = x.permute(0, 3, 1, 2).contiguous().requires_grad_()
+    gl = gy.permute(0, 3, 1, 2).contiguous()
+    lib = lambda t: F.local_response_norm(  # noqa: E731
+        t, size=depth, alpha=hp["alpha"] * depth, beta=hp["beta"], k=hp["k"])
+    lib_out = lib(xl)
+    lib_err = float((lib_out.detach().permute(0, 2, 3, 1).float()
+                     - lrn_fwd_plain(x, **hp).float()).abs().max())
+    iters = 20
+    e = 2 if dt == torch.bfloat16 else 4
+    out = {
+        "shape": list(shape), "dtype": str(dt).replace("torch.", ""),
+        "tf32": False,
+        "fwd_ms": cuda_ms(torch, lambda: lrn_forward(x, **hp), iters),
+        "fwd_device_ms": kernel_device_ms(
+            torch, lambda: lrn_forward(x, **hp), iters, "lrn_fwd_kernel"),
+        "fwd_plain_ms": cuda_ms(torch, lambda: lrn_fwd_plain(x, **hp), iters),
+        "bwd_ms": cuda_ms(torch, lambda: lrn_backward(x, gy, **hp), iters),
+        "bwd_device_ms": kernel_device_ms(
+            torch, lambda: lrn_backward(x, gy, **hp), iters,
+            "lrn_bwd_kernel"),
+        "bwd_plain_ms": cuda_ms(torch, lambda: lrn_bwd_plain(x, gy, **hp),
+                                iters),
+        "library_fwd_ms": cuda_ms(torch, lambda: lib(xl.detach()), iters),
+        "library_bwd_ms": cuda_ms(torch, lambda: torch.autograd.grad(
+            lib_out, xl, gl, retain_graph=True), iters),
+        "library_max_abs_err_vs_plain": lib_err,
+    }
+    out["fwd_bound_ms"], out["fwd_bound_by"] = lrn_bound(shape, e, False,
+                                                        depth)
+    out["bwd_bound_ms"], out["bwd_bound_by"] = lrn_bound(shape, e, True,
+                                                        depth)
+    # the launches above were for timing: they are not the main path's
+    return out
+
+
+def _profile_summary(by_kernel, wall_ms, n, unit, top_n=8):
+    """A profiled window of ``n`` calls or steps (``unit``): wall and device
+    ms each, device busy share, device kernels each, top kernels."""
+    busy = sum(t for t, _ in by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:top_n]
+    return {
+        f"{unit}s": n, f"wall_ms_per_{unit}": wall_ms / n,
+        f"device_ms_per_{unit}": busy / n,
+        "device_busy_share": busy / wall_ms if by_kernel else None,
+        f"device_kernels_per_{unit}": sum(c for _, c in by_kernel.values()) / n,
+        f"top_kernels_ms_per_{unit}": {k[:60]: t / n for k, (t, _) in top},
+    }
+
+
+def _lrn_only(kernels, fwd, bwd):
+    want = {k.name: 0 for k in kernels}
+    want.update({"lrn_fwd": fwd, "lrn_bwd": bwd})
+    return want
+
+
+def _alexnet_images(torch, seed, B, H=224, W=224, C=3, classes=1000):
+    """Random images in [0, 1) and one-hot labels, made on the card from
+    the seed."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.rand((B, H, W, C), device="cuda", generator=g)
+    y = torch.nn.functional.one_hot(
+        torch.randint(0, classes, (B,), device="cuda", generator=g),
+        classes).float()
+    return x, y
+
+
+def phase_alexnet_inference(torch, np):
+    """AlexNet at its published width answering output() calls on the
+    card; returns (summary, net)."""
+    from deeplearning4j_tpu_torch.common.env import env
+    from deeplearning4j_tpu_torch.ops.cuda import KERNELS
+    from deeplearning4j_tpu_torch.zoo import AlexNet
+
+    net = AlexNet(seed=SEED).init(device="cuda")
+    x, _ = _alexnet_images(torch, SEED + 8, ALEXNET_BATCH)
+    net.output(x)  # warm-up, not counted
+    calls = 5
+    outs, launches, _, wall = _count_launches(
+        torch, KERNELS, lambda: [net.output(x) for _ in range(calls)])
+    if launches != _lrn_only(KERNELS, 2 * calls, 0):
+        fail(f"AlexNet output(): {calls} calls launched {launches}; want 2 "
+             f"LRN forwards a call and nothing else")
+    out = outs[-1]
+    if (tuple(out.shape) != (ALEXNET_BATCH, 1000) or out.grad_fn is not None
+            or not bool(torch.isfinite(out).all())
+            or float((out.sum(-1) - 1).abs().max()) > 1e-4):
+        fail(f"AlexNet output() gave {tuple(out.shape)}, grad_fn "
+             f"{out.grad_fn}, finite {bool(torch.isfinite(out).all())}")
+
+    # the same f32 net (TF32 off): kernel path vs plain path on the card
+    def logits():
+        with torch.no_grad():
+            return net._forward(net.params, net.state, x, None)[0]
+
+    k_logits = logits()
+    env.disable_kernels = True
+    try:
+        p_logits = logits()
+    finally:
+        env.reload()
+    err = float((k_logits - p_logits).abs().max()) / float(
+        p_logits.abs().max())
+    if err > TOL_ALEXNET_LOGITS:
+        fail(f"AlexNet f32 logits, kernels vs plain on the card: {err} > "
+             f"{TOL_ALEXNET_LOGITS} (relative)")
+
+    by_kernel, prof_wall = profile_device(torch, lambda: net.output(x), calls)
+    # PyTorch's copy kernels in a call: the conv weights' channels_last
+    # copies (one a conv layer); an activation copied before the LRN
+    # kernel or a pool would add more
+    copies = [(t, n) for k, (t, n) in by_kernel.items() if "copy" in k.lower()]
+    return {
+        "model": "AlexNet(224 x 224 x 3, conv 96-256-384-384-256, 2 LRN, "
+                 "dense 4096-4096, 1000 classes), f32",
+        "tf32": False, "batch": ALEXNET_BATCH, "params": net.num_params(),
+        "calls": calls, "launches": launches,
+        "launches_per_call": {k: v / calls for k, v in launches.items() if v},
+        "wall_ms_per_call": 1e3 * wall / calls,
+        "images_per_s": ALEXNET_BATCH * calls / wall,
+        "synced_ms_per_call": host_ms(torch, lambda: net.output(x), calls),
+        "logits_max_rel_err_kernel_vs_plain": err,
+        "copy_kernels_per_call": sum(n for _, n in copies) / calls,
+        "copy_device_ms_per_call": sum(t for t, _ in copies) / calls,
+        "profile": _profile_summary(by_kernel, prof_wall, calls, "call"),
+    }, net
+
+
+def _without_dropout(conf):
+    """A copy of ``conf`` with every layer's dropout set to 0."""
+    import dataclasses as dc
+
+    conf = copy.deepcopy(conf)
+    conf.layers = [dc.replace(l, dropout=0.0) for l in conf.layers]
+    return conf
+
+
+def phase_alexnet_training(torch, np, net):
+    """AlexNet fit_batch at B=128 on the card: the main path's steps, a
+    profiled window, then a dropout-0 copy against the plain path."""
+    from deeplearning4j_tpu_torch.common.env import env
+    from deeplearning4j_tpu_torch.common.trees import tree_leaves
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops.cuda import KERNELS
+
+    x, y = _alexnet_images(torch, SEED + 9, ALEXNET_BATCH)
+    torch.cuda.reset_peak_memory_stats()
+    net.fit_batch((x, y))  # warm-up, not counted
+    losses, launches, _, wall = _count_launches(
+        torch, KERNELS,
+        lambda: [net.fit_batch((x, y)) for _ in range(N_ALEXNET_STEPS)])
+    if not all(np.isfinite(losses)):
+        fail(f"AlexNet training losses not finite: {losses}")
+    if not np.mean(losses[-3:]) < np.mean(losses[:3]):
+        fail(f"AlexNet loss on a repeated batch did not fall: {losses}")
+    n = 2 * N_ALEXNET_STEPS
+    if launches != _lrn_only(KERNELS, n, n):
+        fail(f"AlexNet: {N_ALEXNET_STEPS} steps launched {launches}; want 2 "
+             f"LRN forward and 2 LRN backward a step and nothing else")
+    steps = 3
+    by_kernel, prof_wall = profile_device(
+        torch, lambda: net.fit_batch((x, y)), steps)
+    step_ms = host_ms(torch, lambda: net.fit_batch((x, y)), 3)
+    split = split_step_ms(torch, net, x, y, None)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    # dropout 0, f32: 2 steps, kernels vs plain on the card, both from the
+    # seed's untrained weights
+    a = MultiLayerNetwork(_without_dropout(net.conf)).init(device="cuda")
+    b = copy.deepcopy(a)
+    la = [a.fit_batch((x, y)) for _ in range(2)]
+    env.disable_kernels = True
+    try:
+        lb = [b.fit_batch((x, y)) for _ in range(2)]
+    finally:
+        env.reload()
+    loss_err = max(abs(p - q) / abs(q) for p, q in zip(la, lb))
+    param_err = max(float((p - q).abs().max()) for p, q in zip(
+        tree_leaves(a.params), tree_leaves(b.params)))
+    if loss_err > TOL_TRAIN_LOSS or param_err > TOL_TRAIN_PARAM:
+        fail(f"f32 dropout-0 AlexNet, 2 steps, kernels vs plain on the card: "
+             f"loss rel err {loss_err} (tol {TOL_TRAIN_LOSS}), param abs err "
+             f"{param_err} (tol {TOL_TRAIN_PARAM})")
+    del a, b
+    return {
+        "model": "AlexNet, f32, Nesterovs 1e-2 momentum 0.9, dropout 0.5",
+        "tf32": False, "batch": ALEXNET_BATCH, "steps": N_ALEXNET_STEPS,
+        "losses": losses, "launches": launches,
+        "launches_per_step": {k: v / N_ALEXNET_STEPS
+                              for k, v in launches.items() if v},
+        "wall_s": wall, "step_wall_ms": 1e3 * wall / N_ALEXNET_STEPS,
+        "samples_per_s": ALEXNET_BATCH * N_ALEXNET_STEPS / wall,
+        "synced_step_ms": step_ms, "synced_step_split_ms": split,
+        "peak_memory_gb": peak,
+        "dropout0_copy": {"card_kernel_losses": la, "card_plain_losses": lb,
+                          "loss_max_rel_err": loss_err,
+                          "param_max_abs_err": param_err},
+        "profile": _profile_summary(by_kernel, prof_wall, steps, "step",
+                                    top_n=10),
+    }
+
+
+def phase_lenet_training(torch, np):
+    """LeNet (BASELINE.json config #1) trained on the card at B=64 on
+    seeded random images: no kernel of the port on its path."""
+    from deeplearning4j_tpu_torch.ops.cuda import KERNELS
+    from deeplearning4j_tpu_torch.zoo import LeNet
+
+    net = LeNet(seed=SEED).init(device="cuda")
+    rng = np.random.default_rng(SEED + 10)
+    x = rng.random((LENET_BATCH, 784), dtype=np.float32)  # flat 28 x 28 x 1
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, LENET_BATCH)]
+    net.fit_batch((x, y))  # warm-up, not counted
+    losses, launches, _, wall = _count_launches(
+        torch, KERNELS,
+        lambda: [net.fit_batch((x, y)) for _ in range(N_LENET_STEPS)])
+    if not all(np.isfinite(losses)):
+        fail(f"LeNet training losses not finite: {losses}")
+    if not np.mean(losses[-3:]) < np.mean(losses[:3]):
+        fail(f"LeNet loss on a repeated batch did not fall: {losses}")
+    if any(launches.values()):
+        fail(f"LeNet launched {launches}; its path runs none of the port's "
+             f"kernels")
+    steps = 5
+    by_kernel, prof_wall = profile_device(
+        torch, lambda: net.fit_batch((x, y)), steps)
+    return {
+        "model": "LeNet(28 x 28 x 1 flat, conv 20-50, dense 500, 10 "
+                 "classes), f32, Adam 1e-3",
+        "tf32": False, "batch": LENET_BATCH, "params": net.num_params(),
+        "steps": N_LENET_STEPS, "losses": losses, "launches": launches,
+        "wall_s": wall, "step_wall_ms": 1e3 * wall / N_LENET_STEPS,
+        "samples_per_s": LENET_BATCH * N_LENET_STEPS / wall,
+        "profile": _profile_summary(by_kernel, prof_wall, steps, "step"),
+    }
+
+
 def main() -> None:
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "deeplearning4j_tpu_torch")):
@@ -1258,10 +1637,39 @@ def main() -> None:
           f"{bert_train['step_wall_ms']:.2f} ms a step, "
           f"{bert_train['samples_per_s']:.1f} samples/s", flush=True)
 
-    # phase 12: kernels line, card line, result line
+    # phase 12: LRN kernels against plain
+    lrn_rows, lrn_times, lrn_grad_rel, lrn_worst, lrn_worst_bf16 = \
+        phase_lrn_kernels(torch)
+    print(json.dumps({"lrn_kernel_shapes": lrn_rows,
+                      "lrn_function_grad_max_rel_err": lrn_grad_rel,
+                      "lrn_times": lrn_times, "card": card}), flush=True)
+
+    # phase 13: AlexNet inference
+    alex_out, alex_net = phase_alexnet_inference(torch, np)
+    print(json.dumps({"alexnet_inference": alex_out, "card": card}),
+          flush=True)
+    print(f"AlexNet output() on {card}: {alex_out['wall_ms_per_call']:.2f} "
+          f"ms a call of {ALEXNET_BATCH} images, device busy "
+          f"{alex_out['profile']['device_busy_share']}", flush=True)
+
+    # phase 14: AlexNet training
+    alex_train = phase_alexnet_training(torch, np, alex_net)
+    del alex_net
+    print(json.dumps({"alexnet_training": alex_train, "card": card}),
+          flush=True)
+    print(f"AlexNet training on {card}: {alex_train['step_wall_ms']:.2f} ms "
+          f"a step, {alex_train['samples_per_s']:.1f} samples/s", flush=True)
+
+    # phase 15: LeNet training
+    lenet = phase_lenet_training(torch, np)
+    print(json.dumps({"lenet_training": lenet, "card": card}), flush=True)
+    print(f"LeNet training on {card}: {lenet['step_wall_ms']:.2f} ms a "
+          f"step, {lenet['samples_per_s']:.1f} samples/s", flush=True)
+
+    # phase 16: kernels line, card line, result line
     decode = rows[0]  # the serving path's decode shape [8, 1, 256]
     graves = bwd_rows[0]  # the training path's first layer [64, 64, 200]
-    fwd, bwd, ffwd, fdq, fdkv = KERNELS
+    fwd, bwd, ffwd, fdq, fdkv, lfwd, lbwd = KERNELS
     serve_n = main_path["launches"][fwd.name]
     train_n = train["launches"]
     entries = [{
@@ -1320,6 +1728,27 @@ def main() -> None:
             "bound_by": ft[f"{kind}_bound_by"], "library_ms": library,
             "library_bwd_ms": ft["library_bwd_ms"],
             "shape": "[32, 12, 128, 64] bf16, key-padding mask",
+        })
+    # the LRN kernels at AlexNet's conv1 LRN shape, f32 (the main path's
+    # type); conv2's and the bf16 times are in lrn_times
+    lt = lrn_times["alexnet_conv1_float32"]
+    infer_n, train_n = alex_out["launches"], alex_train["launches"]
+    for kern, kind in ((lfwd, "fwd"), (lbwd, "bwd")):
+        entries.append({
+            "name": kern.name, "route": "cuda", "source": kern.source,
+            "replaces": kern.replaces,
+            "launches": infer_n[kern.name] + train_n[kern.name],
+            "launches_by_path": {"alexnet_inference": infer_n[kern.name],
+                                 "alexnet_training": train_n[kern.name],
+                                 "lenet_training": lenet["launches"][
+                                     kern.name]},
+            "max_abs_err": lrn_worst, "max_abs_err_bf16": lrn_worst_bf16,
+            "ms": lt[f"{kind}_ms"], "device_ms": lt[f"{kind}_device_ms"],
+            "plain_ms": lt[f"{kind}_plain_ms"],
+            "bound_ms": lt[f"{kind}_bound_ms"],
+            "bound_by": lt[f"{kind}_bound_by"],
+            "library_ms": lt[f"library_{kind}_ms"],
+            "shape": f"[{ALEXNET_BATCH}, 54, 54, 96] f32, depth 5",
         })
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

@@ -1,9 +1,11 @@
 """Input preprocessors — reshape adapters between layer families.
 
-Counterpart of the part of ``deeplearning4j_tpu/nn/conf/preprocessors.py``
-that ``MultiLayerConfiguration.resolve()`` needs for the ported layers: the
-(de)serializable base, ``auto_preprocessor`` and the two preprocessors it
-can insert in front of a dense or recurrent layer.
+Counterpart of ``deeplearning4j_tpu/nn/conf/preprocessors.py``: the
+(de)serializable base, the five preprocessors and ``auto_preprocessor``,
+which ``MultiLayerConfiguration.resolve()`` calls between layers. Layer
+families the port has not taken over yet (Deconvolution2D, Upsampling2D,
+GRU, ...) are not in its tables; a configuration naming them fails to load
+first.
 """
 
 from __future__ import annotations
@@ -59,6 +61,56 @@ class FlattenPreProcessor(InputPreProcessor):
 
 @_register
 @dataclasses.dataclass(frozen=True)
+class ReshapeToCnnPreProcessor(InputPreProcessor):
+    """FF [B, H*W*C] -> CNN [B, H, W, C] NHWC (FeedForwardToCnnPreProcessor).
+
+    Also takes an NCHW [B, C, H, W] tensor and transposes it: the
+    DL4J-data boundary, once, at the model's input."""
+
+    height: int = 0
+    width: int = 0
+    channels: int = 0
+
+    def __call__(self, x, mask=None):
+        if x.dim() == 4:
+            if tuple(x.shape[1:]) == (self.height, self.width, self.channels):
+                return x
+            if tuple(x.shape[1:]) == (self.channels, self.height, self.width):
+                return x.permute(0, 2, 3, 1)  # NCHW -> NHWC
+        return x.reshape(x.shape[0], self.height, self.width, self.channels)
+
+    def output_type(self, itype):
+        return InputType.convolutional(self.height, self.width, self.channels)
+
+
+@_register
+@dataclasses.dataclass(frozen=True)
+class RnnToFeedForwardPreProcessor(InputPreProcessor):
+    """[B, T, F] -> [B*T, F]."""
+
+    def __call__(self, x, mask=None):
+        return x.reshape(-1, x.shape[-1])
+
+    def output_type(self, itype):
+        return InputType.feed_forward(itype.shape[1])
+
+
+@_register
+@dataclasses.dataclass(frozen=True)
+class FeedForwardToRnnPreProcessor(InputPreProcessor):
+    """[B*T, F] -> [B, T, F]; the timesteps are part of the config."""
+
+    timesteps: int = 0
+
+    def __call__(self, x, mask=None):
+        return x.reshape(-1, self.timesteps, x.shape[-1])
+
+    def output_type(self, itype):
+        return InputType.recurrent(itype.size, self.timesteps)
+
+
+@_register
+@dataclasses.dataclass(frozen=True)
 class CnnToRnnPreProcessor(InputPreProcessor):
     """[B,H,W,C] -> [B, H, W*C] treating height as time."""
 
@@ -76,17 +128,29 @@ def auto_preprocessor(prev: InputType, layer) -> InputPreProcessor | None:
     from deeplearning4j_tpu_torch.nn.layers.attention import (
         SelfAttentionLayer, TransformerEncoderLayer,
     )
+    from deeplearning4j_tpu_torch.nn.layers.conv import (
+        ConvolutionLayer, LocalResponseNormalizationLayer, SubsamplingLayer,
+    )
     from deeplearning4j_tpu_torch.nn.layers.core import DenseLayer
     from deeplearning4j_tpu_torch.nn.layers.output import RnnOutputLayer
     from deeplearning4j_tpu_torch.nn.layers.recurrent import (
         BidirectionalLayer, LSTMLayer,
     )
 
+    cnn_layers = (ConvolutionLayer, SubsamplingLayer,
+                  LocalResponseNormalizationLayer)
     rnn_layers = (LSTMLayer, BidirectionalLayer, SelfAttentionLayer,
                   TransformerEncoderLayer, RnnOutputLayer)
+    if prev.kind == "cnn_flat" and isinstance(layer, cnn_layers):
+        h, w, c = prev.shape
+        return ReshapeToCnnPreProcessor(h, w, c)
     if prev.kind in ("cnn", "cnn3d") and isinstance(layer, DenseLayer) \
             and not isinstance(layer, RnnOutputLayer):
         return FlattenPreProcessor()
     if prev.kind == "cnn" and isinstance(layer, rnn_layers):
         return CnnToRnnPreProcessor()
+    if prev.kind == "ff" and isinstance(layer, cnn_layers):
+        raise ValueError(
+            "feed-forward -> CNN needs an explicit ReshapeToCnnPreProcessor(h, w, c)"
+        )
     return None

@@ -10,7 +10,10 @@ from deeplearning4j_tpu_torch.nn.layers.attention import (
     TransformerEncoderLayer,
 )
 from deeplearning4j_tpu_torch.nn.layers.base import Layer, register_layer
-from deeplearning4j_tpu_torch.nn.layers.conv import GlobalPoolingLayer
+from deeplearning4j_tpu_torch.nn.layers.conv import (
+    ConvolutionLayer, GlobalPoolingLayer, LocalResponseNormalizationLayer,
+    SubsamplingLayer,
+)
 from deeplearning4j_tpu_torch.nn.layers.core import (
     DenseLayer, EmbeddingLayer, EmbeddingSequenceLayer,
 )
@@ -24,6 +27,7 @@ __all__ = ["Layer", "register_layer", "DenseLayer", "EmbeddingLayer",
            "EmbeddingSequenceLayer", "OutputLayer", "RnnOutputLayer",
            "LSTMLayer", "GravesLSTMLayer", "BidirectionalLayer",
            "GravesBidirectionalLSTMLayer", "LayerNormalizationLayer",
-           "GlobalPoolingLayer", "SelfAttentionLayer",
+           "GlobalPoolingLayer", "ConvolutionLayer", "SubsamplingLayer",
+           "LocalResponseNormalizationLayer", "SelfAttentionLayer",
            "LearnedSelfAttentionLayer", "PositionalEmbeddingLayer",
            "TransformerEncoderLayer"]

@@ -9,11 +9,13 @@ training: ``fit_batch``, ``fit``, ``score``, ``save``/``load``.
 One train step is what the JAX package's jitted ``train_step`` does, run
 eagerly: forward, loss, ``torch.autograd.grad``, global-norm clipping and
 each layer's updater. On the card every LSTM layer's forward and backward
-run the fused-LSTM kernels (``ops/cuda/fused_lstm.py``), and every
+run the fused-LSTM kernels (``ops/cuda/fused_lstm.py``), every
 attention layer's the flash-attention kernels
-(``ops/cuda/flash_attention.py``). Integer token ids (an embedding's
-input) pass through as they are; a [B, T] padding mask reaches every
-layer, and the attention layers take it as a key mask.
+(``ops/cuda/flash_attention.py``), and every LRN layer's the LRN kernels
+(``ops/cuda/lrn.py``). Integer token ids (an embedding's input) pass
+through as they are; a [B, T] padding mask reaches every layer, and the
+attention layers take it as a key mask. Convolutional activations walk
+the network as NHWC tensors, as in the JAX package.
 
 Parameters are a list (one entry per layer) of dicts of tensors with the
 JAX package's keys, on one device; ``opt_state`` mirrors them per updater.

@@ -9,7 +9,9 @@ every kernel has its reference.
 from deeplearning4j_tpu_torch.ops.registry import (
     OpImpl, get_op, op, register_impl, register_op,
 )
-from deeplearning4j_tpu_torch.ops import activations, attention, recurrent  # noqa: F401
+from deeplearning4j_tpu_torch.ops import (  # noqa: F401
+    activations, attention, convolution, recurrent,
+)
 from deeplearning4j_tpu_torch.ops import cuda  # noqa: F401  (register kernels)
 
 __all__ = ["OpImpl", "get_op", "op", "register_impl", "register_op"]

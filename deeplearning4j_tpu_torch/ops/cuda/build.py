@@ -138,8 +138,9 @@ def check_status(lib: ctypes.CDLL, status: int, what: str) -> None:
 
 def c_args(kinds: str) -> Sequence:
     """ctypes argtypes, one letter each: 'p' pointer or stream, 'i' int,
-    'f' float."""
-    table = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+    'l' long long, 'f' float."""
+    table = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong,
+             "f": ctypes.c_float}
     return [table[k] for k in kinds]
 
 

@@ -18,7 +18,7 @@ none. ``DL4J_TORCH_DISABLE_KERNELS`` sends every call to the plain lowering.
 
 The JAX registry chooses once, at trace time. PyTorch runs eagerly, so the
 port chooses on every call and caches the choice per (op, device, dtypes,
-shapes, flags) to keep the predicates off the hot path.
+shapes, contiguity, flags) to keep the predicates off the hot path.
 """
 
 from __future__ import annotations
@@ -54,7 +54,8 @@ class OpImpl:
 def _signature(a):
     """Hashable description of one argument for the selection cache."""
     if isinstance(a, torch.Tensor):
-        return ("T", a.device.type, a.dtype, tuple(a.shape))
+        return ("T", a.device.type, a.dtype, tuple(a.shape),
+                a.is_contiguous())
     if a is None or isinstance(a, (bool, int, float, str)):
         return a
     if isinstance(a, (tuple, list)):

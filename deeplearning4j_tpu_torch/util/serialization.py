@@ -10,7 +10,9 @@ MultiLayerNetwork. A model zip holds:
     meta.json            model class, step/epoch counters, format version
 
 so a zip written by either package restores in the other with its params,
-updater state and counters. Int8-quantized zips are not ported yet.
+updater state and counters. Params keep the JAX package's layouts (a
+conv kernel ``W`` is HWIO, [kh, kw, cin, cout]), so they cross unchanged.
+Int8-quantized zips are not ported yet.
 """
 
 from __future__ import annotations
