@@ -87,7 +87,29 @@ Phases (any failure exits non-zero before the result line):
 15. LeNet training (BASELINE.json config #1): ``LeNet()`` (flat 28 x 28 x 1
     through ``ReshapeToCnnPreProcessor``, Adam 1e-3) trains at B=64 on
     seeded random images, launching none of the port's kernels.
-16. Prints the kernels line (all seven kernels), the card line and, last,
+16. GRU kernels against plain: the fused-GRU forward kernel (with and
+    without its reserve) and backward kernel against their plain versions
+    at the GRU paths' shapes (decode [8, 1, 256], prefill [1, 47, 256],
+    training [64, 64, 256]), the full-width recurrent product [64, 64,
+    1024] (F=256) and a ragged reversed [3, 5, 200], in f32 and bf16;
+    times of each kernel, its plain version and, as a yardstick the port
+    never calls, ``torch.nn.GRU`` (cuDNN) with its recurrent bias zeroed,
+    the same function (forward, and its autograd backward).
+17. GRU char-RNN serving: TextGenerationLSTM's topology with GRULayer(256)
+    x 2 (vocabulary 77, random weights from the seed, built from the
+    configuration builder as the JAX package would) served by
+    ``GenerationEngine(slots=8, max_len=256)`` with phase 4's 16 requests:
+    exactly 2 GRU forward launches a decode step and a prefill and no other
+    kernel; decode-step logits against the kernel-disabled plain path on
+    the card; greedy tokens against the teacher-forced argmax.
+18. GRU char-RNN training (RMSProp 1e-3, clipping 5.0) at B=64, T=64: 2
+    steps against a copy on the kernel-disabled plain path on the card,
+    then 10 timed steps, each launching exactly 2 forwards (with reserve)
+    and 2 backwards, losses falling; a steady window is profiled.
+19. Bidirectional(GRULayer(200)) x 2 with Adam (config #3's shape with GRU
+    cells: reversed time and an H that is not a multiple of 32): the same
+    checks, 3 timed steps of 4 + 4 launches.
+20. Prints the kernels line (all nine kernels), the card line and, last,
     the result line ``{"ok": true, "device": {...}}``.
 
 Every phase runs f32 work with TF32 off (``torch.backends.cuda.matmul``
@@ -370,7 +392,7 @@ def phase_main_path(torch, np):
 
     streams, launches, reserves, wall = _count_launches(torch, KERNELS, serve)
     decode_steps = eng.steps_run - steps0
-    if reserves or launches["fused_lstm_bwd"]:
+    if any(reserves.values()) or launches["fused_lstm_bwd"]:
         fail(f"serving saved {reserves} reserves and launched the backward "
              f"{launches['fused_lstm_bwd']} times (it runs under no_grad)")
 
@@ -421,7 +443,8 @@ def phase_main_path(torch, np):
         "tokens": n_tokens, "decode_steps": decode_steps,
         "wall_s": wall, "tokens_per_s": n_tokens / wall,
         "ttft_p50_ms": 1e3 * float(np.percentile(ttft, 50)),
-        "launches": launches, "reserve_launches": reserves,
+        "launches": launches,
+        "reserve_launches": reserves["fused_lstm_fwd"],
         "expected_launches": expected,
         "launches_per_decode_step": (launches["fused_lstm_fwd"]
                                      - 2 * n_prefill) / decode_steps,
@@ -656,25 +679,34 @@ def _char_batch(np, rng, V, B, T):
 
 
 def _count_launches(torch, kernels, fn):
-    """Zero every kernel's count, run ``fn``, read the counts after a
-    sync. Returns (fn's result, {name: launches}, reserve launches, wall s)."""
+    """Zero every kernel's launch and reserve counts, run ``fn``, read the
+    counts after a sync. Returns (fn's result, {name: launches}, {name:
+    reserve launches} of the kernels that save a reserve, wall s)."""
     for k in kernels:
         k.launches = 0
-    kernels[0].reserves = 0
+        if hasattr(k, "reserves"):
+            k.reserves = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return out, {k.name: k.launches for k in kernels}, kernels[0].reserves, wall
+    return (out, {k.name: k.launches for k in kernels},
+            {k.name: k.reserves for k in kernels if hasattr(k, "reserves")},
+            wall)
 
 
-def _lstm_only(kernels, n):
-    """The launch counts of a path that runs ``n`` of each LSTM kernel and
-    no other kernel."""
+def _only(kernels, **counts):
+    """The counts of a path that runs the named kernels ``counts`` times
+    and no other kernel (every other name 0)."""
     want = {k.name: 0 for k in kernels}
-    want.update({"fused_lstm_fwd": n, "fused_lstm_bwd": n})
+    want.update(counts)
     return want
+
+
+def _reserves_only(kernels, **counts):
+    """_only over the kernels that count reserve launches."""
+    return _only([k for k in kernels if hasattr(k, "reserves")], **counts)
 
 
 def phase_training(torch, np):
@@ -709,7 +741,8 @@ def phase_training(torch, np):
     if not losses[-1] < losses[0]:
         fail(f"loss on a repeated batch did not fall: {losses}")
     want = n_lstm * N_TRAIN_STEPS
-    if (launches != _lstm_only(KERNELS, want) or reserves != want):
+    if (launches != _only(KERNELS, fused_lstm_fwd=want, fused_lstm_bwd=want)
+            or reserves != _reserves_only(KERNELS, fused_lstm_fwd=want)):
         fail(f"{N_TRAIN_STEPS} steps launched {launches} ({reserves} with "
              f"reserve); want {n_lstm} of each kernel per step")
 
@@ -729,7 +762,7 @@ def phase_training(torch, np):
                           "loss_max_rel_err": loss_err,
                           "param_max_abs_err": param_err},
         "steps": N_TRAIN_STEPS, "losses": losses, "launches": launches,
-        "reserve_launches": reserves,
+        "reserve_launches": reserves["fused_lstm_fwd"],
         "launches_per_step": {k: v / N_TRAIN_STEPS
                               for k, v in launches.items()},
         "wall_s": wall, "step_wall_ms": 1e3 * wall / N_TRAIN_STEPS,
@@ -761,7 +794,8 @@ def phase_short_training(torch, np, model, per_step, steps=3):
     if not all(np.isfinite(losses)):
         fail(f"{name} ({model.dtype}) training losses not finite: {losses}")
     want = per_step * steps
-    if (launches != _lstm_only(KERNELS, want) or reserves != want):
+    if (launches != _only(KERNELS, fused_lstm_fwd=want, fused_lstm_bwd=want)
+            or reserves != _reserves_only(KERNELS, fused_lstm_fwd=want)):
         fail(f"{name} ({model.dtype}): {steps} steps launched {launches} "
              f"({reserves} with reserve); want {per_step} of each per step")
     return {"model": name, "dtype": model.dtype, "steps": steps,
@@ -994,8 +1028,7 @@ def phase_bert_inference(torch, np):
     outs, launches, _, wall = _count_launches(
         torch, KERNELS, lambda: [net.output(x, mask=mask)
                                  for _ in range(calls)])
-    want = {k.name: 0 for k in KERNELS}
-    want["flash_attention_fwd"] = model.n_layers * calls
+    want = _only(KERNELS, flash_attention_fwd=model.n_layers * calls)
     if launches != want:
         fail(f"BERT-base output(): {calls} calls launched {launches}; want "
              f"{model.n_layers} flash forwards a call and nothing else")
@@ -1122,9 +1155,8 @@ def phase_bert_training(torch, np, net):
     if not all(np.isfinite(losses)):
         fail(f"BERT-base training losses not finite: {losses}")
     per = 12 * N_BERT_STEPS
-    want = {k.name: 0 for k in KERNELS}
-    want.update({"flash_attention_fwd": per, "flash_attention_dq": per,
-                 "flash_attention_dkv": per})
+    want = _only(KERNELS, flash_attention_fwd=per, flash_attention_dq=per,
+                 flash_attention_dkv=per)
     if launches != want:
         fail(f"BERT-base: {N_BERT_STEPS} steps launched {launches}; want 12 "
              f"forward, 12 dq and 12 dk/dv a step")
@@ -1365,12 +1397,6 @@ def _profile_summary(by_kernel, wall_ms, n, unit, top_n=8):
     }
 
 
-def _lrn_only(kernels, fwd, bwd):
-    want = {k.name: 0 for k in kernels}
-    want.update({"lrn_fwd": fwd, "lrn_bwd": bwd})
-    return want
-
-
 def _alexnet_images(torch, seed, B, H=224, W=224, C=3, classes=1000):
     """Random images in [0, 1) and one-hot labels, made on the card from
     the seed."""
@@ -1395,7 +1421,7 @@ def phase_alexnet_inference(torch, np):
     calls = 5
     outs, launches, _, wall = _count_launches(
         torch, KERNELS, lambda: [net.output(x) for _ in range(calls)])
-    if launches != _lrn_only(KERNELS, 2 * calls, 0):
+    if launches != _only(KERNELS, lrn_fwd=2 * calls):
         fail(f"AlexNet output(): {calls} calls launched {launches}; want 2 "
              f"LRN forwards a call and nothing else")
     out = outs[-1]
@@ -1471,7 +1497,7 @@ def phase_alexnet_training(torch, np, net):
     if not np.mean(losses[-3:]) < np.mean(losses[:3]):
         fail(f"AlexNet loss on a repeated batch did not fall: {losses}")
     n = 2 * N_ALEXNET_STEPS
-    if launches != _lrn_only(KERNELS, n, n):
+    if launches != _only(KERNELS, lrn_fwd=n, lrn_bwd=n):
         fail(f"AlexNet: {N_ALEXNET_STEPS} steps launched {launches}; want 2 "
              f"LRN forward and 2 LRN backward a step and nothing else")
     steps = 3
@@ -1550,6 +1576,444 @@ def phase_lenet_training(torch, np):
         "samples_per_s": LENET_BATCH * N_LENET_STEPS / wall,
         "profile": _profile_summary(by_kernel, prof_wall, steps, "step"),
     }
+
+
+# --------------------------------------------------------------- GRU slice
+
+N_GRU_STEPS = 10
+N_BIDI_GRU_STEPS = 3
+# GRU kernels against their plain versions: f32 |k - p| <= 1e-5 max |p|
+# (the sums of h @ R in other orders); bf16 one bf16 step,
+# |k - p| <= 2^-7 (1 + |p|) (a stored value rounded to its neighbour)
+TOL_GRU_REL = 1e-5
+TOL_GRU_BF16 = 2 ** -7
+GRU_UNITS = 256
+GRU_VOCAB = 77
+GRU_TIMESTEPS = 64
+
+
+def gru_bound(T, B, H, bf16=False, reserve=False):
+    """Least time of the GRU forward: xg, R and h0 read once, out and hT
+    (and the [4, T, B, H] f32 reserve) written once, at 3.35 TB/s, against
+    the 2 T B H 3H flops of h @ R at the peak for the inputs' type plus
+    ~12 f32 flops per cell for the gates."""
+    e = 2.0 if bf16 else 4.0
+    n_in = T * B * 3 * H + H * 3 * H + B * H
+    n_out = T * B * H + B * H
+    t_bytes = (e * (n_in + n_out)
+               + (16.0 * T * B * H if reserve else 0.0)) / HBM_BYTES_PER_S
+    t_ops = (2.0 * T * B * H * 3 * H
+             / (BF16_FLOP_PER_S if bf16 else F32_FLOP_PER_S)
+             + 12.0 * T * B * H / F32_FLOP_PER_S)
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def gru_bwd_bound(T, B, H, bf16=False):
+    """Least time of the GRU backward walk: the reserve, R^T, h0, out and
+    dout read once, dg and dh0 written once, at 3.35 TB/s, against the
+    2 T B 3H H flops of [ga_r ga_z r ga_n] @ R^T (every step: step 0's
+    gives dh0) at the peak for the inputs' type plus ~15 f32 flops a cell."""
+    e = 2.0 if bf16 else 4.0
+    t_bytes = (16.0 * T * B * H + e * (3 * H * H + B * H + 2 * T * B * H)
+               + 4.0 * (T * B * 3 * H + B * H)) / HBM_BYTES_PER_S
+    t_ops = (2.0 * T * B * 3 * H * H
+             / (BF16_FLOP_PER_S if bf16 else F32_FLOP_PER_S)
+             + 15.0 * T * B * H / F32_FLOP_PER_S)
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def cudnn_gru(torch, W, R, b, dtype):
+    """torch.nn.GRU holding the same layer: the same gate order (r, z, n,
+    linear before reset), its input bias b and its recurrent bias zero,
+    its weights in ``dtype`` and compacted into cuDNN's one chunk. A
+    yardstick only: the port never calls it."""
+    F, G = W.shape
+    gru = torch.nn.GRU(F, G // 3).to(W.device)
+    with torch.no_grad():
+        gru.weight_ih_l0.copy_(W.t())
+        gru.weight_hh_l0.copy_(R.t())
+        gru.bias_ih_l0.copy_(b)
+        gru.bias_hh_l0.zero_()
+    gru = gru.to(dtype)
+    gru.flatten_parameters()
+    return gru
+
+
+def _gru_within(torch, got, want, dtype):
+    """(max abs error, whether within the GRU kernels' stated tolerance)."""
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max()) if want.numel() else 0.0
+    if dtype == torch.float32:
+        ok = err <= TOL_GRU_REL * max(1.0, float(want.abs().max()))
+    else:
+        ok = bool(((got - want).abs() <= TOL_GRU_BF16 * (1 + want.abs())).all())
+    return err, ok and bool(torch.isfinite(got).all())
+
+
+def phase_gru_kernels(torch):
+    """The GRU forward kernel (with and without the reserve) and the
+    backward kernel against their plain versions at the GRU paths' shapes
+    and the full-width H=1024 product, f32 and bf16; times of each kernel,
+    its plain version and cuDNN's GRU. Returns (rows, f32 and bf16
+    worst)."""
+    from deeplearning4j_tpu_torch.ops.cuda.fused_gru import (
+        fused_gru_bwd_recurrence, fused_gru_layer, fused_gru_recurrence,
+        plain_bwd_recurrence, plain_recurrence,
+    )
+    from deeplearning4j_tpu_torch.ops.recurrent import gru_layer, project_gates
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    shapes = [  # name, B, T, F, H, reverse, reserve + backward, dtype
+        ("decode", 8, 1, GRU_VOCAB, 256, False, False, f32),
+        ("prefill", 1, 47, GRU_VOCAB, 256, False, False, f32),
+        ("train", 64, 64, 256, 256, False, True, f32),
+        ("h1024", 64, 64, 256, 1024, False, True, f32),
+        ("ragged_h200_rev", 3, 5, 77, 200, True, True, f32),
+        ("decode_bf16", 8, 1, GRU_VOCAB, 256, False, False, bf16),
+        ("prefill_bf16", 1, 47, GRU_VOCAB, 256, False, False, bf16),
+        ("train_bf16", 64, 64, 256, 256, False, True, bf16),
+        ("h1024_bf16", 64, 64, 256, 1024, False, True, bf16),
+        ("ragged_h200_rev_bf16", 3, 5, 77, 200, True, True, bf16),
+    ]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    rows, worst = [], {f32: 0.0, bf16: 0.0}
+    for name, B, T, F, H, rev, train, dt in shapes:
+        def rnd(*shape, scale=1.0):
+            return (torch.randn(*shape, device="cuda", generator=g)
+                    * scale).to(dt)
+        x, W, R, b = (rnd(B, T, F), rnd(F, 3 * H, scale=F ** -0.5),
+                      rnd(H, 3 * H, scale=H ** -0.5), rnd(3 * H, scale=0.1))
+        h0, dout = rnd(B, H, scale=0.5), rnd(T, B, H)
+        xg = project_gates(x, W, b, reverse=rev)
+        out, hT, reserve = fused_gru_recurrence(xg, R, h0,
+                                                save_residuals=True)
+        k_out, k_hT = fused_gru_recurrence(xg, R, h0)
+        dg, dh0 = fused_gru_bwd_recurrence(reserve, R, h0, out, dout)
+        torch.cuda.synchronize()
+        p_out, p_hT, p_res = plain_recurrence(xg, R, h0, save_residuals=True)
+        # the backward is held on the kernel's own reserve and outputs, so
+        # that its check does not carry the forward's rounding differences
+        p_dg, p_dh0 = plain_bwd_recurrence(reserve, R, h0, out, dout)
+        row = {"shape": name, "B": B, "T": T, "F": F, "H": H, "reverse": rev,
+               "dtype": str(dt).replace("torch.", "")}
+        checks = [("out", k_out, p_out), ("hT", k_hT, p_hT),
+                  ("out_with_reserve", out, p_out), ("reserve", reserve, p_res),
+                  ("dg", dg, p_dg), ("dh0", dh0, p_dh0)]
+        for what, got, want in checks:
+            err, ok = _gru_within(torch, got, want, dt)
+            if not ok or (what in ("out", "hT") and got.dtype != dt):
+                fail(f"GRU kernel disagrees with plain at {name}: {what} "
+                     f"max_abs_err {err} (dtype {got.dtype})")
+            row[f"{what}_max_abs_err"] = err
+            worst[dt] = max(worst[dt], err)
+        if not torch.equal(k_out, out):
+            fail(f"GRU forward at {name}: saving the reserve changed out")
+
+        iters = 200 if T == 1 else 10
+        fwd = lambda: fused_gru_recurrence(xg, R, h0)  # noqa: E731
+        row["fwd_ms"] = cuda_ms(torch, fwd, iters)
+        row["fwd_device_ms"] = kernel_device_ms(torch, fwd, iters,
+                                                "gru_fwd_kernel")
+        row["fwd_plain_ms"] = cuda_ms(
+            torch, lambda: plain_recurrence(xg, R, h0), max(3, iters // 10))
+        row["fwd_bound_ms"], row["fwd_bound_by"] = gru_bound(T, B, H,
+                                                             dt == bf16)
+        row["layer_fwd_ms"] = cuda_ms(torch, lambda: fused_gru_layer(
+            x, h0, W, R, b, reverse=rev), iters)
+        row["layer_fwd_plain_ms"] = cuda_ms(torch, lambda: gru_layer(
+            x, h0, W, R, b, reverse=rev), max(3, iters // 10))
+        if train:
+            fwd_r = lambda: fused_gru_recurrence(  # noqa: E731
+                xg, R, h0, save_residuals=True)
+            bwd = lambda: fused_gru_bwd_recurrence(  # noqa: E731
+                reserve, R, h0, out, dout)
+            row["fwd_reserve_ms"] = cuda_ms(torch, fwd_r, iters)
+            row["fwd_reserve_device_ms"] = kernel_device_ms(
+                torch, fwd_r, iters, "gru_fwd_kernel")
+            row["fwd_reserve_plain_ms"] = cuda_ms(torch, lambda: (
+                plain_recurrence(xg, R, h0, save_residuals=True)), 3)
+            row["fwd_reserve_bound_ms"], row["fwd_reserve_bound_by"] = \
+                gru_bound(T, B, H, dt == bf16, reserve=True)
+            row["bwd_ms"] = cuda_ms(torch, bwd, iters)
+            row["bwd_device_ms"] = kernel_device_ms(torch, bwd, iters,
+                                                    "gru_bwd_kernel")
+            row["bwd_plain_ms"] = cuda_ms(torch, lambda: plain_bwd_recurrence(
+                reserve, R, h0, out, dout), 3)
+            row["bwd_bound_ms"], row["bwd_bound_by"] = gru_bwd_bound(
+                T, B, H, dt == bf16)
+        if not rev:
+            # cuDNN's GRU on the same layer (its input projection included,
+            # as in layer_fwd_ms); a sanity line: its error against plain
+            gru = cudnn_gru(torch, W.float(), R.float(), b.float(), dt)
+            xt = x.transpose(0, 1).contiguous()
+            with torch.no_grad():
+                lo, _ = gru(xt, h0[None].contiguous())
+                ref, _ = gru_layer(x, h0, W, R, b)
+            row["library_max_abs_err_vs_plain"] = float(
+                (lo.transpose(0, 1).float() - ref.float()).abs().max())
+            with torch.no_grad():
+                row["library_fwd_ms"] = cuda_ms(
+                    torch, lambda: gru(xt, h0[None].contiguous()), iters)
+            if train:
+                xl = xt.clone().requires_grad_()
+                lib_out, lib_h = gru(xl, h0[None].contiguous())
+                leaves = [xl] + list(gru.parameters())
+                g_lib = (dout, torch.zeros_like(lib_h))
+                row["library_bwd_ms"] = cuda_ms(
+                    torch, lambda: torch.autograd.grad(
+                        (lib_out, lib_h), leaves, g_lib, retain_graph=True),
+                    iters)
+        rows.append(row)
+    # the launches above were for checks and timing: not the main path's
+    return rows, worst[f32], worst[bf16]
+
+
+def gru_charrnn_conf(bidi=False):
+    """The GRU char-RNN: TextGenerationLSTM's topology with both LSTM
+    layers replaced by GRULayer(256) (RnnOutput 77 softmax mcxent, one-hot
+    input, T=64, RMSProp 1e-3, clipping 5.0); with ``bidi``,
+    Bidirectional(GRULayer(200)) x 2 with Adam 1e-3 (config #3's shape with
+    GRU cells). The JAX package has no zoo class for it; it crosses
+    between the packages as this configuration's JSON."""
+    from deeplearning4j_tpu_torch.nn.conf.builders import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers import (
+        BidirectionalLayer, GRULayer, RnnOutputLayer,
+    )
+    from deeplearning4j_tpu_torch.optimize.updaters import Adam, RMSProp
+
+    b = (NeuralNetConfiguration.builder().seed(SEED)
+         .updater(Adam(lr=1e-3) if bidi else RMSProp(lr=1e-3))
+         .gradient_clipping(5.0).list())
+    for _ in range(2):
+        b = b.layer(BidirectionalLayer(fwd=GRULayer(n_out=200)) if bidi
+                    else GRULayer(n_out=GRU_UNITS))
+    return (b.layer(RnnOutputLayer(n_out=GRU_VOCAB, activation="softmax",
+                                   loss="mcxent"))
+            .set_input_type(InputType.recurrent(GRU_VOCAB, GRU_TIMESTEPS))
+            .build())
+
+
+def phase_gru_serving(torch, np):
+    """Serve the GRU char-RNN through GenerationEngine(slots=8,
+    max_len=256) with phase 4's 16-request mix: exactly 2 GRU forward
+    launches a decode step and a prefill, no other kernel; decode logits
+    against the kernel-disabled plain path on the card."""
+    from deeplearning4j_tpu_torch.common.env import env
+    from deeplearning4j_tpu_torch.generation import GenerationEngine
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops.cuda import KERNELS
+
+    net = MultiLayerNetwork(gru_charrnn_conf()).init(device="cuda")
+    vocab = GRU_VOCAB
+    eng = GenerationEngine(net, slots=8, max_len=256, device="cuda")
+    eng.generate([1, 2, 3, 4], max_new_tokens=2)  # warm-up, not counted
+
+    rng = np.random.default_rng(SEED)  # phase 4's request mix
+    lens = rng.integers(4, 49, N_REQUESTS)
+    news = rng.integers(8, 65, N_REQUESTS)
+    reqs = [dict(prompt=rng.integers(0, vocab, int(n)).tolist(),
+                 max_new_tokens=int(m),
+                 **({} if i % 2 == 0 else
+                    dict(temperature=0.8, top_k=40, seed=1000 + i)))
+            for i, (n, m) in enumerate(zip(lens, news))]
+    steps0 = eng.steps_run
+
+    def serve():
+        out = [eng.submit(r.pop("prompt"), **r) for r in
+               [dict(q) for q in reqs]]
+        eng.drain()
+        return out
+
+    streams, launches, reserves, wall = _count_launches(torch, KERNELS, serve)
+    decode_steps = eng.steps_run - steps0
+    n_prefill = sum(1 for r in reqs if len(r["prompt"]) > 1)
+    want = _only(KERNELS, fused_gru_fwd=2 * decode_steps + 2 * n_prefill)
+    if launches != want or any(reserves.values()):
+        fail(f"GRU serving launched {launches} ({reserves} with reserve) in "
+             f"{decode_steps} decode steps and {n_prefill} prefills; want "
+             f"{want} and no reserve")
+    for i, (s, r) in enumerate(zip(streams, reqs)):
+        if s.finish_reason != "length" or len(s.tokens) != r["max_new_tokens"]:
+            fail(f"GRU request {i} finished {s.finish_reason} with "
+                 f"{len(s.tokens)}/{r['max_new_tokens']} tokens")
+        if not all(0 <= t < vocab for t in s.tokens):
+            fail(f"GRU request {i} emitted a token outside the vocabulary")
+
+    # the first decode steps of a full pool, kernel vs kernel-disabled plain
+    # path on the card, from the same carries and tokens
+    greedy = [(r, s) for r, s in zip(reqs, streams) if "temperature" not in r]
+    n_check = 8
+    toks = torch.as_tensor([[s.tokens[j % len(s.tokens)]
+                             for _, s in greedy[:8]] for j in range(n_check)],
+                           device="cuda")
+    worst, logit_max = 0.0, 0.0
+    carries = {False: eng.adapter.init_state(8), True: eng.adapter.init_state(8)}
+    for j in range(n_check):
+        logits = {}
+        for disable in (False, True):
+            env.disable_kernels = disable
+            try:
+                logits[disable], carries[disable] = eng.adapter.decode(
+                    carries[disable], toks[j])
+            finally:
+                env.reload()
+        err = float((logits[False] - logits[True]).abs().max())
+        worst = max(worst, err)
+        logit_max = max(logit_max, float(logits[True].abs().max()))
+        if not bool(torch.isfinite(logits[False]).all()) or err > TOL:
+            fail(f"GRU decode step {j} logits, kernel vs plain on the card: "
+                 f"{err} > {TOL}")
+    # greedy streams, teacher-forced on the plain path on the card
+    for r, s in greedy:
+        seq = list(r["prompt"]) + s.tokens
+        x = torch.nn.functional.one_hot(
+            torch.as_tensor([seq[:-1]], device="cuda"), vocab).float()
+        env.disable_kernels = True
+        try:
+            with torch.no_grad():
+                pre, _ = net._forward_carry(net.params, net.state, x,
+                                            net._init_carries(1))
+        finally:
+            env.reload()
+        lg = pre[0, len(r["prompt"]) - 1:]
+        top2 = lg.topk(2, dim=-1).values
+        if lg.argmax(-1).tolist() != s.tokens and \
+                float((top2[:, 0] - top2[:, 1]).min()) > TOL:
+            fail("GRU greedy tokens differ from the teacher-forced argmax")
+
+    n_tokens = sum(len(s.tokens) for s in streams)
+    ttft = sorted(s.first_token_at - s.submitted_at for s in streams)
+    return {
+        "model": "GRU char-RNN (GRULayer(256) x 2, vocab 77; "
+                 "TextGenerationLSTM's topology with GRU cells)",
+        "slots": 8, "max_len": 256, "requests": N_REQUESTS,
+        "tokens": n_tokens, "decode_steps": decode_steps,
+        "prefills": n_prefill, "wall_s": wall,
+        "tokens_per_s": n_tokens / wall,
+        "ttft_p50_ms": 1e3 * float(np.percentile(ttft, 50)),
+        "launches": launches,
+        "launches_per_decode_step": (launches["fused_gru_fwd"]
+                                     - 2 * n_prefill) / decode_steps,
+        "decode_logits_max_abs_err_kernel_vs_plain": worst,
+        "decode_logit_max_abs": logit_max,
+        "decode_profile": profile_decode(torch, eng, reqs),
+    }
+
+
+def phase_gru_training(torch, np, bidi=False):
+    """Train the GRU char-RNN (or the Bidirectional(GRU(200)) x 2 net) on
+    the card at B=64, T=64: 2 steps against a copy on the kernel-disabled
+    plain path, then timed steps that must launch exactly 2 forwards (with
+    reserve) and 2 backwards a step per GRU direction; losses fall."""
+    from deeplearning4j_tpu_torch.common.env import env
+    from deeplearning4j_tpu_torch.common.trees import tree_leaves
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops.cuda import KERNELS
+
+    net = MultiLayerNetwork(gru_charrnn_conf(bidi)).init(device="cuda")
+    plain = copy.deepcopy(net)
+    B, T = 64, GRU_TIMESTEPS
+    x, y = _char_batch(np, np.random.default_rng(SEED + 12), GRU_VOCAB, B, T)
+    card = [net.fit_batch((x, y)) for _ in range(2)]  # also the warm-up
+    env.disable_kernels = True
+    try:
+        ref = [plain.fit_batch((x, y)) for _ in range(2)]
+    finally:
+        env.reload()
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(card, ref))
+    param_err = max(float((a - b).abs().max()) for a, b in zip(
+        tree_leaves(net.params), tree_leaves(plain.params)))
+    name = "Bidirectional(GRU(200)) x 2" if bidi else "GRU char-RNN"
+    if loss_err > TOL_TRAIN_LOSS or param_err > TOL_TRAIN_PARAM:
+        fail(f"{name}, 2 steps, kernels vs plain on the card: loss rel err "
+             f"{loss_err} (tol {TOL_TRAIN_LOSS}), param abs err {param_err} "
+             f"(tol {TOL_TRAIN_PARAM})")
+    del plain
+
+    n = 4 if bidi else 2   # GRU directions in the net
+    steps = N_BIDI_GRU_STEPS if bidi else N_GRU_STEPS
+    losses, launches, reserves, wall = _count_launches(
+        torch, KERNELS, lambda: [net.fit_batch((x, y)) for _ in range(steps)])
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"{name} losses on a repeated batch did not fall: {losses}")
+    want = n * steps
+    if (launches != _only(KERNELS, fused_gru_fwd=want, fused_gru_bwd=want)
+            or reserves != _reserves_only(KERNELS, fused_gru_fwd=want)):
+        fail(f"{name}: {steps} steps launched {launches} ({reserves} with "
+             f"reserve); want {n} GRU forwards with reserve and {n} "
+             f"backwards a step, nothing else")
+    out = {
+        "model": (name + (", Adam 1e-3" if bidi else ", RMSProp 1e-3")
+                  + ", clipping 5.0, vocab 77"),
+        "batch": B, "timesteps": T, "params": net.num_params(),
+        "plain_copy": {"card_kernel_losses": card, "card_plain_losses": ref,
+                       "loss_max_rel_err": loss_err,
+                       "param_max_abs_err": param_err},
+        "steps": steps, "losses": losses, "launches": launches,
+        "reserve_launches": reserves["fused_gru_fwd"],
+        "launches_per_step": {k: v / steps for k, v in launches.items() if v},
+        "wall_s": wall, "step_wall_ms": 1e3 * wall / steps,
+        "samples_per_s": B * steps / wall,
+    }
+    if not bidi:
+        by_kernel, prof_wall = profile_device(
+            torch, lambda: net.fit_batch((x, y)), 5)
+        out["synced_step_ms"] = host_ms(torch, lambda: net.fit_batch((x, y)),
+                                        5)
+        out["profile"] = _profile_summary(by_kernel, prof_wall, 5, "step")
+    return out
+
+
+def gru_kernel_entries(by_name, rows, worst, worst_bf16, serve, train,
+                       bidi):
+    """The kernels line's two GRU entries. The kernels at the GRU char-RNN's
+    shapes, f32: the forward at decode [8, 1, 256] (the serving path), with
+    its training shape beside it; the backward at the training shape
+    [64, 64, 256]."""
+    g_dec, g_train = rows[0], rows[2]
+    gfwd, gbwd = by_name["fused_gru_fwd"], by_name["fused_gru_bwd"]
+    gs, gt, gb = (p["launches"] for p in (serve, train, bidi))
+    return [{
+        "name": gfwd.name, "route": "cuda", "source": gfwd.source,
+        "replaces": gfwd.replaces,
+        "launches": gs[gfwd.name] + gt[gfwd.name] + gb[gfwd.name],
+        "launches_by_path": {"gru_serving": gs[gfwd.name],
+                             "gru_training": gt[gfwd.name],
+                             "bidi_gru_training": gb[gfwd.name]},
+        "max_abs_err": worst, "max_abs_err_bf16": worst_bf16,
+        "ms": g_dec["fwd_ms"], "device_ms": g_dec["fwd_device_ms"],
+        "plain_ms": g_dec["fwd_plain_ms"], "bound_ms": g_dec["fwd_bound_ms"],
+        "bound_by": g_dec["fwd_bound_by"],
+        # cuDNN's GRU computes the whole layer, its input projection too
+        "library_ms": g_dec["library_fwd_ms"],
+        "shape": "decode [B=8, T=1, H=256] f32",
+        "training_shape": {
+            "shape": "[B=64, T=64, H=256] f32, with reserve",
+            "ms": g_train["fwd_reserve_ms"],
+            "device_ms": g_train["fwd_reserve_device_ms"],
+            "plain_ms": g_train["fwd_reserve_plain_ms"],
+            "bound_ms": g_train["fwd_reserve_bound_ms"],
+            "bound_by": g_train["fwd_reserve_bound_by"],
+            "library_ms": g_train["library_fwd_ms"]},
+    }, {
+        "name": gbwd.name, "route": "cuda", "source": gbwd.source,
+        "replaces": gbwd.replaces,
+        "launches": gs[gbwd.name] + gt[gbwd.name] + gb[gbwd.name],
+        "launches_by_path": {"gru_serving": gs[gbwd.name],
+                             "gru_training": gt[gbwd.name],
+                             "bidi_gru_training": gb[gbwd.name]},
+        "max_abs_err": worst, "max_abs_err_bf16": worst_bf16,
+        "ms": g_train["bwd_ms"], "device_ms": g_train["bwd_device_ms"],
+        "plain_ms": g_train["bwd_plain_ms"],
+        "bound_ms": g_train["bwd_bound_ms"],
+        "bound_by": g_train["bwd_bound_by"],
+        # cuDNN's GRU autograd backward (its weight gradients included)
+        "library_ms": g_train["library_bwd_ms"],
+        "shape": "[B=64, T=64, H=256] f32",
+    }]
 
 
 def main() -> None:
@@ -1666,10 +2130,40 @@ def main() -> None:
     print(f"LeNet training on {card}: {lenet['step_wall_ms']:.2f} ms a "
           f"step, {lenet['samples_per_s']:.1f} samples/s", flush=True)
 
-    # phase 16: kernels line, card line, result line
+    # phase 16: GRU kernels against plain
+    gru_rows, gru_worst, gru_worst_bf16 = phase_gru_kernels(torch)
+    print(json.dumps({"gru_kernel_shapes": gru_rows, "card": card}),
+          flush=True)
+
+    # phase 17: GRU char-RNN serving
+    gru_serve = phase_gru_serving(torch, np)
+    print(json.dumps({"gru_serving": gru_serve, "card": card}), flush=True)
+    print(f"GRU char-RNN serving on {card}: "
+          f"{gru_serve['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+          f"{gru_serve['ttft_p50_ms']:.2f} ms, device busy "
+          f"{gru_serve['decode_profile']['device_busy_share']}", flush=True)
+
+    # phase 18: GRU char-RNN training
+    gru_train = phase_gru_training(torch, np)
+    print(json.dumps({"gru_training": gru_train, "card": card}), flush=True)
+    print(f"GRU char-RNN training on {card}: "
+          f"{gru_train['step_wall_ms']:.2f} ms a step, "
+          f"{gru_train['samples_per_s']:.1f} samples/s, device busy "
+          f"{gru_train['profile']['device_busy_share']}", flush=True)
+
+    # phase 19: Bidirectional(GRU(200)) x 2 training
+    bidi_gru = phase_gru_training(torch, np, bidi=True)
+    print(json.dumps({"bidi_gru_training": bidi_gru, "card": card}),
+          flush=True)
+
+    # phase 20: kernels line, card line, result line
     decode = rows[0]  # the serving path's decode shape [8, 1, 256]
     graves = bwd_rows[0]  # the training path's first layer [64, 64, 200]
-    fwd, bwd, ffwd, fdq, fdkv, lfwd, lbwd = KERNELS
+    by_name = {k.name: k for k in KERNELS}
+    fwd, bwd = by_name["fused_lstm_fwd"], by_name["fused_lstm_bwd"]
+    ffwd, fdq, fdkv = (by_name[f"flash_attention_{n}"]
+                       for n in ("fwd", "dq", "dkv"))
+    lfwd, lbwd = by_name["lrn_fwd"], by_name["lrn_bwd"]
     serve_n = main_path["launches"][fwd.name]
     train_n = train["launches"]
     entries = [{
@@ -1750,6 +2244,9 @@ def main() -> None:
             "library_ms": lt[f"library_{kind}_ms"],
             "shape": f"[{ALEXNET_BATCH}, 54, 54, 96] f32, depth 5",
         })
+    entries += gru_kernel_entries(by_name, gru_rows, gru_worst,
+                                  gru_worst_bf16, gru_serve, gru_train,
+                                  bidi_gru)
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

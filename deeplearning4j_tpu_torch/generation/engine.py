@@ -2,14 +2,17 @@
 
 Counterpart of ``deeplearning4j_tpu/generation/engine.py``: a fixed slot
 pool of per-sequence carries, one decode step for the whole pool per call
-(every slot at ``[n_slots, 1]``, so each LSTM layer launches the fused-LSTM
-kernel once per step at the same shape), a seeded sampler, and continuous
-admission/retirement (``continuous=False`` is the static run-to-completion
-baseline). Requests submitted with ``klass="batch"`` wait in a low-priority
-lane that gets a freed slot only when no other request is waiting.
+(every slot at ``[n_slots, 1]``, so each LSTM or GRU layer launches its
+fused forward kernel once per step at the same shape), a seeded sampler,
+and continuous admission/retirement (``continuous=False`` is the static
+run-to-completion baseline). Requests submitted with ``klass="batch"`` wait
+in a low-priority lane that gets a freed slot only when no other request is
+waiting. The net may stack any recurrent layers with a carry (LSTM,
+GravesLSTM, GRU, SimpleRnn).
 
-Prefill runs ``lstm_layer`` once over the true ``prompt[:-1]`` at batch 1,
-so the kernel sees T = prompt length - 1. The JAX package pads prompts to
+Prefill runs each recurrent layer's op (``lstm_layer``, ``gru_layer``)
+once over the true ``prompt[:-1]`` at batch 1, so the kernel sees T =
+prompt length - 1. The JAX package pads prompts to
 pow2 buckets and gates a scan so padding cannot advance the carry; running
 the true length gives the same carry with no padding at all (the tests
 hold the two against each other).
@@ -114,7 +117,8 @@ class GenerationStream:
 
 
 class RecurrentDecodeAdapter:
-    """Slot state = the net's own carry dict ({layer_idx: (h, c)}).
+    """Slot state = the net's own carry dict ({layer_idx: carry tuple}:
+    (h, c) for an LSTM layer, (h,) for a GRU or SimpleRnn layer).
 
     Tokens enter as one-hot vectors over the output layer's vocabulary: the
     char-RNN convention where input and output alphabets coincide."""
@@ -148,7 +152,8 @@ class RecurrentDecodeAdapter:
     @torch.no_grad()
     def prefill(self, prompt: Sequence[int]):
         """The carry for one slot after consuming ``prompt`` (the ids before
-        the last prompt token), in one ``lstm_layer`` call per layer."""
+        the last prompt token), in one call of its op per recurrent
+        layer."""
         net = self.net
         carries = self.init_state(1)
         if not prompt:

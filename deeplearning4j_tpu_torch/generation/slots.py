@@ -2,9 +2,10 @@
 
 Counterpart of ``deeplearning4j_tpu/generation/slots.py``. The pool is one
 state tree whose every tensor has a leading ``[n_slots, ...]`` axis (the
-per-layer (h, c) carries of a recurrent net) plus small host-side numpy
-arrays (next token, absolute position, sampler knobs). Every decode step
-runs the whole pool, so the kernel always sees the same batch shape.
+per-layer carry tuples of a recurrent net: (h, c) for an LSTM, (h,) for a
+GRU) plus small host-side numpy arrays (next token, absolute position,
+sampler knobs). Every decode step runs the whole pool, so the kernel
+always sees the same batch shape.
 
 Admission overwrites a slot's ENTIRE state row with the newcomer's prefill
 result (``merge_carry_rows``), so nothing a retired sequence left behind can

@@ -134,13 +134,15 @@ def auto_preprocessor(prev: InputType, layer) -> InputPreProcessor | None:
     from deeplearning4j_tpu_torch.nn.layers.core import DenseLayer
     from deeplearning4j_tpu_torch.nn.layers.output import RnnOutputLayer
     from deeplearning4j_tpu_torch.nn.layers.recurrent import (
-        BidirectionalLayer, LSTMLayer,
+        BidirectionalLayer, GRULayer, LastTimeStepLayer, LSTMLayer,
+        MaskZeroLayer, SimpleRnnLayer, TimeDistributedLayer,
     )
 
     cnn_layers = (ConvolutionLayer, SubsamplingLayer,
                   LocalResponseNormalizationLayer)
-    rnn_layers = (LSTMLayer, BidirectionalLayer, SelfAttentionLayer,
-                  TransformerEncoderLayer, RnnOutputLayer)
+    rnn_layers = (LSTMLayer, GRULayer, SimpleRnnLayer, BidirectionalLayer,
+                  LastTimeStepLayer, MaskZeroLayer, TimeDistributedLayer,
+                  SelfAttentionLayer, TransformerEncoderLayer, RnnOutputLayer)
     if prev.kind == "cnn_flat" and isinstance(layer, cnn_layers):
         h, w, c = prev.shape
         return ReshapeToCnnPreProcessor(h, w, c)

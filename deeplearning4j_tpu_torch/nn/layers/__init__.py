@@ -20,13 +20,16 @@ from deeplearning4j_tpu_torch.nn.layers.core import (
 from deeplearning4j_tpu_torch.nn.layers.norm import LayerNormalizationLayer
 from deeplearning4j_tpu_torch.nn.layers.output import OutputLayer, RnnOutputLayer
 from deeplearning4j_tpu_torch.nn.layers.recurrent import (
-    BidirectionalLayer, GravesBidirectionalLSTMLayer, GravesLSTMLayer, LSTMLayer,
+    BidirectionalLayer, GravesBidirectionalLSTMLayer, GravesLSTMLayer, GRULayer,
+    LastTimeStepLayer, LSTMLayer, MaskZeroLayer, SimpleRnnLayer,
+    TimeDistributedLayer,
 )
 
 __all__ = ["Layer", "register_layer", "DenseLayer", "EmbeddingLayer",
            "EmbeddingSequenceLayer", "OutputLayer", "RnnOutputLayer",
-           "LSTMLayer", "GravesLSTMLayer", "BidirectionalLayer",
-           "GravesBidirectionalLSTMLayer", "LayerNormalizationLayer",
+           "LSTMLayer", "GravesLSTMLayer", "GRULayer", "SimpleRnnLayer",
+           "BidirectionalLayer", "GravesBidirectionalLSTMLayer",
+           "LastTimeStepLayer", "MaskZeroLayer", "TimeDistributedLayer", "LayerNormalizationLayer",
            "GlobalPoolingLayer", "ConvolutionLayer", "SubsamplingLayer",
            "LocalResponseNormalizationLayer", "SelfAttentionLayer",
            "LearnedSelfAttentionLayer", "PositionalEmbeddingLayer",

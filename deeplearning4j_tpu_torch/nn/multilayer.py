@@ -9,7 +9,8 @@ training: ``fit_batch``, ``fit``, ``score``, ``save``/``load``.
 One train step is what the JAX package's jitted ``train_step`` does, run
 eagerly: forward, loss, ``torch.autograd.grad``, global-norm clipping and
 each layer's updater. On the card every LSTM layer's forward and backward
-run the fused-LSTM kernels (``ops/cuda/fused_lstm.py``), every
+run the fused-LSTM kernels (``ops/cuda/fused_lstm.py``), every GRU
+layer's the fused-GRU kernels (``ops/cuda/fused_gru.py``), every
 attention layer's the flash-attention kernels
 (``ops/cuda/flash_attention.py``), and every LRN layer's the LRN kernels
 (``ops/cuda/lrn.py``). Integer token ids (an embedding's input) pass

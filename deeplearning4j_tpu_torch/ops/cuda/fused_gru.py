@@ -1,0 +1,227 @@
+"""Fused GRU: the hand-written CUDA kernels behind ``gru_layer``.
+
+Counterpart of ``deeplearning4j_tpu/ops/pallas/fused_gru.py``. Two kernels:
+
+- ``csrc/fused_gru.cu`` replaces ``_gru_kernel`` (launched by
+  ``_fused_gru_recurrence``): the time-major recurrence over pre-projected
+  gates, r, z, n, linear before reset, with the recurrent projection kept
+  apart from the input one; when training it also saves the reserve (the
+  post-activation r, z, n and the raw hg_n, [4, T, B, H] f32).
+- ``csrc/fused_gru_bwd.cu`` replaces ``_gru_bwd_kernel`` (launched by
+  ``_bwd_recurrence``): the reverse-time walk over that reserve, giving the
+  pre-activation gate gradients dg [T, B, 3H] f32 (ga_r, ga_z, ga_n) and
+  dh0, the walk's final carry.
+
+The input projection and the reverse flip stay outside the forward, as in
+the JAX package's ``_project_gates``; everything of the backward that is
+not sequential (dx, dW, dR, db) is formed outside the backward kernel by
+``torch.matmul``, as ``_fused_bwd`` forms it. dR takes (ga_r, ga_z,
+r * ga_n) against h_{t-1}; dW, db and dx take (ga_r, ga_z, ga_n).
+:class:`FusedGRUFunction` ties the two kernels together for autograd, the
+counterpart of the ``jax.custom_vjp`` ``_fused``.
+
+What bounds the kernels on the H100, and what their design does about it,
+is written at the top of each CUDA source. None of the TPU machinery is
+carried over (``gru_tile``, ``gru_plan``, ``gru_bwd_plan``, the VMEM
+budgets, ``_pad_to_lanes``, ``_panel_dtype``, the ``B % 8`` predicate of
+``_gru_applicable``): the kernels take any B and any H, 200 included.
+
+The kernels take float32 or bfloat16 (all tensors of one type, the reserve
+and the gate gradients f32). In bf16 they do what the Pallas kernels do:
+sums, gates and carries in f32, h_{t-1} and the backward's product
+operands rounded to bf16 for their products; the plain versions compute
+the same way.
+
+The wrappers take the plain versions (``ops/recurrent.py``) only for CPU
+tensors; for CUDA tensors they launch the kernel or raise. The registry
+sends every all-CUDA ``gru_layer`` call here, whatever its dtype, so a type
+the kernels have no code for raises instead of running the plain version
+on the card. ``FUSED_GRU.launches`` and ``FUSED_GRU_BWD.launches`` count
+launches; ``FUSED_GRU.reserves`` counts the forward launches that saved
+the reserve.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from deeplearning4j_tpu_torch.ops.cuda.build import launch, pointer
+from deeplearning4j_tpu_torch.ops.cuda.fused_lstm import (
+    RecurrentKernel, _check_shapes, _check_tensors, _needs_grad,
+)
+from deeplearning4j_tpu_torch.ops.recurrent import (
+    finish_h, gru_bwd_recurrence, gru_recurrence, project_gates,
+)
+from deeplearning4j_tpu_torch.ops.registry import register_impl
+
+#: the plain versions the kernels are held against
+plain_recurrence = gru_recurrence
+plain_bwd_recurrence = gru_bwd_recurrence
+
+#: the C launcher for each element type the kernels take
+_FWD_SYMBOLS = {torch.float32: "dl4j_gru_fwd",
+                torch.bfloat16: "dl4j_gru_fwd_bf16"}
+_BWD_SYMBOLS = {torch.float32: "dl4j_gru_bwd",
+                torch.bfloat16: "dl4j_gru_bwd_bf16"}
+
+FUSED_GRU = RecurrentKernel(
+    "fused_gru_fwd", "fused_gru.cu",
+    "deeplearning4j_tpu/ops/pallas/fused_gru.py:45 (_gru_kernel)",
+    {sym: "ppppppiiip" for sym in _FWD_SYMBOLS.values()})
+FUSED_GRU_BWD = RecurrentKernel(
+    "fused_gru_bwd", "fused_gru_bwd.cu",
+    "deeplearning4j_tpu/ops/pallas/fused_gru.py:237 (_gru_bwd_kernel)",
+    {sym: "pppppppiiip" for sym in _BWD_SYMBOLS.values()})
+
+
+def fused_gru_recurrence(xg, R, h0, save_residuals=False):
+    """xg [T, B, 3H] time-major gates -> (outputs [T, B, H], hT), and with
+    ``save_residuals`` the reserve [4, T, B, H] f32 too.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    if xg.device.type == "cpu":
+        return plain_recurrence(xg, R, h0, save_residuals)
+    if xg.device.type != "cuda":
+        raise ValueError(f"fused_gru: unsupported device {xg.device}")
+    if xg.dim() != 3 or xg.shape[2] % 3:
+        raise ValueError(f"fused_gru: xg must be [T, B, 3H], got "
+                         f"{list(xg.shape)}")
+    T, B, G = xg.shape
+    H = G // 3
+    _check_tensors("fused_gru", xg.dtype, xg.device, {
+        "xg": (xg, None), "R": (R, None), "h0": (h0, None)})
+    _check_shapes("fused_gru", {"R": (R, (H, G)), "h0": (h0, (B, H))})
+    reserve = (xg.new_empty((4, T, B, H), dtype=torch.float32)
+               if save_residuals else None)
+    if T == 0:
+        res = (xg.new_empty((0, B, H)), h0)
+        return res + (reserve,) if save_residuals else res
+    out = xg.new_empty((T, B, H))
+    hT = xg.new_empty((B, H))
+    launch(FUSED_GRU, _FWD_SYMBOLS[xg.dtype], xg.device, (
+        pointer(xg), pointer(R), pointer(h0), pointer(out), pointer(hT),
+        pointer(reserve), T, B, H))
+    if save_residuals:
+        FUSED_GRU.reserves += 1
+    return (out, hT, reserve) if save_residuals else (out, hT)
+
+
+def fused_gru_bwd_recurrence(reserve, R, h0, out, dout):
+    """The reverse-time walk: (dg [T, B, 3H] f32, dh0 [B, H] f32) from the
+    forward's reserve, its outputs ``out`` [T, B, H] (h_{t-1} after the
+    first step) and ``dout`` [T, B, H] (kernel time order, the gradient of
+    hT joined at the last step).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    if reserve.device.type == "cpu":
+        return plain_bwd_recurrence(reserve, R, h0, out, dout)
+    if reserve.device.type != "cuda":
+        raise ValueError(f"fused_gru_bwd: unsupported device {reserve.device}")
+    if reserve.dim() != 4 or reserve.shape[0] != 4:
+        raise ValueError(f"fused_gru_bwd: reserve must be [4, T, B, H], "
+                         f"got {list(reserve.shape)}")
+    T, B, H = reserve.shape[1:]
+    dt, dev = R.dtype, reserve.device
+    Rt = R.t().contiguous()
+    _check_tensors("fused_gru_bwd", dt, dev, {
+        "reserve": (reserve, torch.float32), "Rt": (Rt, None),
+        "h0": (h0, None), "out": (out, None), "dout": (dout, None)})
+    _check_shapes("fused_gru_bwd", {
+        "R": (R, (H, 3 * H)), "h0": (h0, (B, H)), "out": (out, (T, B, H)),
+        "dout": (dout, (T, B, H))})
+    dg = reserve.new_empty((T, B, 3 * H))
+    dh0 = reserve.new_empty((B, H))
+    launch(FUSED_GRU_BWD, _BWD_SYMBOLS[dt], dev, (
+        pointer(reserve), pointer(Rt), pointer(h0), pointer(out),
+        pointer(dout), pointer(dg), pointer(dh0), T, B, H))
+    return dg, dh0
+
+
+class FusedGRUFunction(torch.autograd.Function):
+    """``gru_layer`` through the two kernels, differentiable.
+
+    The counterpart of the JAX package's ``_fused`` / ``_fused_fwd`` /
+    ``_fused_bwd``. The forward launches the forward kernel with the
+    reserve; the backward launches the backward kernel, which also gives
+    dh0, then forms dx, dW, dR and db as plain products, each cast to its
+    input's dtype. CPU tensors take both kernels' plain versions, so the
+    CPU tests run the same assembly code as the card."""
+
+    @staticmethod
+    def forward(ctx, x, h0, W, R, b, reverse):
+        xg = project_gates(x, W, b, reverse=reverse)
+        out, hT, reserve = fused_gru_recurrence(xg, R, h0,
+                                                save_residuals=True)
+        # the reserve, outputs and dg stay in kernel time order (flipped
+        # when reverse), the domain the backward kernel walks
+        ctx.save_for_backward(x, h0, W, R, out, reserve)
+        ctx.reverse = reverse
+        ctx.b_dtype = b.dtype
+        return finish_h(out, hT, reverse)
+
+    @staticmethod
+    def backward(ctx, g_out, g_hT):
+        x, h0, W, R, out, reserve = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        f32 = torch.float32
+        T, B, H = out.shape
+        G = 3 * H
+        if g_out is None:
+            dout = torch.zeros_like(out)
+        else:  # a fresh buffer in kernel time order: g_out stays as it is
+            dout = torch.empty_like(out)
+            g = g_out.transpose(0, 1)
+            dout.copy_(g.flip(0) if ctx.reverse else g)
+        if g_hT is not None:  # hT aliases the last kernel step's output
+            dout[T - 1] += g_hT.to(out.dtype)
+        dg, dh0 = fused_gru_bwd_recurrence(reserve, R, h0, out, dout)
+
+        # everything that is not sequential: plain products in f32, each
+        # cast to its input's dtype
+        dx = dW = dR = db = None
+        dg_nat = dg.flip(0) if ctx.reverse else dg     # natural time order
+        if need[0]:
+            dx = (dg_nat.reshape(T * B, G) @ W.to(f32).t()).reshape(T, B, -1)
+            dx = dx.transpose(0, 1).to(x.dtype)
+        if need[2]:
+            xt = x.transpose(0, 1).reshape(T * B, -1).to(f32)
+            dW = (xt.t() @ dg_nat.reshape(T * B, G)).to(W.dtype)
+        if need[3]:
+            # the h path's gate gradients: hg_n enters n through r
+            dgh = dg.clone()
+            dgh[..., 2 * H:] *= reserve[0]
+            # h_prev is h0 at the first kernel step, out after it
+            dR = h0.to(out.dtype).to(f32).t() @ dgh[0]
+            if T > 1:
+                dR += out[:-1].reshape(-1, H).to(f32).t() @ dgh[1:].reshape(-1, G)
+            dR = dR.to(R.dtype)
+        if need[4]:
+            db = dg.reshape(T * B, G).sum(0).to(ctx.b_dtype)
+        return dx, dh0.to(h0.dtype), dW, dR, db, None
+
+
+def fused_gru_layer(x, h0, W, R, b, *, reverse=False):
+    """Kernel implementation of the ``gru_layer`` op (same signature).
+
+    When autograd will need the layer's gradients (grad mode on and some
+    input requires grad), the call goes through :class:`FusedGRUFunction`,
+    whose forward saves the reserve for the backward kernel. Otherwise
+    (serving, under ``torch.no_grad``) the forward kernel runs alone and
+    saves nothing. The choice is made on every call, never cached by the
+    registry."""
+    R, h0 = R.contiguous(), h0.contiguous()
+    if x.shape[1] and _needs_grad((x, h0, W, R, b)):
+        return FusedGRUFunction.apply(x, h0, W, R, b, bool(reverse))
+    xg = project_gates(x, W, b, reverse=reverse)
+    out, hT = fused_gru_recurrence(xg, R, h0)
+    return finish_h(out, hT, reverse)
+
+
+def _gru_requires(x, h0, W, R, b, **kw):
+    """Structural: every tensor on the card. The dtype is the wrapper's
+    to check: it launches the kernel or raises."""
+    return all(t.is_cuda for t in (x, h0, W, R, b))
+
+
+register_impl("gru_layer", platform="cuda", requires=_gru_requires,
+              priority=1)(fused_gru_layer)

@@ -53,9 +53,9 @@ plain_recurrence = lstm_recurrence
 plain_bwd_recurrence = lstm_bwd_recurrence
 
 
-class LstmKernel(CudaKernel):
-    """A fused-LSTM kernel; ``reserves`` counts the forward launches that
-    saved the training reserve."""
+class RecurrentKernel(CudaKernel):
+    """A fused recurrent (LSTM or GRU) kernel; ``reserves`` counts the
+    forward launches that saved the training reserve."""
 
     def __init__(self, *args):
         super().__init__(*args)
@@ -68,11 +68,11 @@ _FWD_SYMBOLS = {torch.float32: "dl4j_lstm_fwd",
 _BWD_SYMBOLS = {torch.float32: "dl4j_lstm_bwd",
                 torch.bfloat16: "dl4j_lstm_bwd_bf16"}
 
-FUSED_LSTM = LstmKernel(
+FUSED_LSTM = RecurrentKernel(
     "fused_lstm_fwd", "fused_lstm.cu",
     "deeplearning4j_tpu/ops/pallas/fused_lstm.py:83 (_lstm_kernel)",
     {sym: "pppppppppiiip" for sym in _FWD_SYMBOLS.values()})
-FUSED_LSTM_BWD = LstmKernel(
+FUSED_LSTM_BWD = RecurrentKernel(
     "fused_lstm_bwd", "fused_lstm_bwd.cu",
     "deeplearning4j_tpu/ops/pallas/fused_lstm.py:386 (_lstm_bwd_kernel)",
     {sym: "ppppppppiiip" for sym in _BWD_SYMBOLS.values()})
