@@ -26,9 +26,10 @@ Phases (any failure exits non-zero before the result line):
    decode steps is profiled and its host time split into the network's
    forward and the sampler.
 5. bf16 net: the same model with ``dtype="bf16"`` generates on the card;
-   every decode step must launch the kernel (the registry sends bf16 work
-   to it), and its teacher-forced logits are held against the plain path
-   on the card.
+   every decode step must launch the kernel (the carries start in f32, as
+   in the JAX package, so the recurrence runs the f32 kernel over the bf16
+   weights), and its teacher-forced logits are held against the plain
+   path on the card.
 6. Backward kernel against plain: the training forward's reserve and the
    backward kernel against their plain versions at the training shapes
    (B=64, T=64; H=200 with peepholes, reversed; H=256 without), in f32 and
@@ -46,14 +47,19 @@ Phases (any failure exits non-zero before the result line):
 8. TextGenerationLSTM training (RMSProp, 2 + 2 launches a step) and the
    bf16 char-RNN training: a few steps each, every step through both
    kernels.
-9. Flash kernels against plain: the forward, dq and dk/dv kernels against
+9. Flash kernels against plain. First the tensor cores: the bf16 forward
+   and dq kernels' machine code (``cuobjdump -sass``) must hold HGMMA or
+   HMMA instructions and the f32 kernels none, and the tile layer's two
+   products are held against the same product on the card. Then the
+   forward, dq and dk/dv kernels against
    their plain versions (o, lse, dq, dk, dv) at BERT-base's attention shape
    [32, 12, 128, 64] in f32 (TF32 off) and bf16, without and with a
    key-padding mask, causal off and on, and at a ragged [4, 4, 77, 64] and a
    [2, 2, 300, 128]; ``FlashAttentionFunction``'s gradients against autograd
    through the plain lowering on the card; times of each kernel, its plain
    version and, as a yardstick the port never calls,
-   ``scaled_dot_product_attention`` (forward, and backward).
+   ``scaled_dot_product_attention`` (forward, and backward), the library's
+   both on the host's clock and as the device time of its kernels.
 10. BERT-base inference: ``BertBase(max_len=128)`` at its published width
     (12 x 768, 12 heads, d_ff 3072, vocabulary 30522, bf16, random weights
     from the seed) runs ``output()`` on [32, 128] token ids with a padding
@@ -94,7 +100,8 @@ Phases (any failure exits non-zero before the result line):
     1024] (F=256) and a ragged reversed [3, 5, 200], in f32 and bf16;
     times of each kernel, its plain version and, as a yardstick the port
     never calls, ``torch.nn.GRU`` (cuDNN) with its recurrent bias zeroed,
-    the same function (forward, and its autograd backward).
+    the same function (forward, and its autograd backward), on the host's
+    clock and as the device time of its kernels.
 17. GRU char-RNN serving: TextGenerationLSTM's topology with GRULayer(256)
     x 2 (vocabulary 77, random weights from the seed, built from the
     configuration builder as the JAX package would) served by
@@ -210,6 +217,14 @@ def kernel_device_ms(torch, fn, iters: int, symbol: str):
     hits = [(t, n) for k, (t, n) in by_kernel.items() if symbol in k]
     total, count = sum(t for t, _ in hits), sum(n for _, n in hits)
     return total / count if count else None
+
+
+def call_device_ms(torch, fn, iters: int):
+    """Device time of one call of ``fn``: the sum of every kernel it runs
+    (a library call's yardstick, free of the host's clock)."""
+    by_kernel, _ = profile_device(torch, fn, iters)
+    return (sum(t for t, _ in by_kernel.values()) / iters
+            if by_kernel else None)
 
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 (non-tensor) flop/s
@@ -421,8 +436,8 @@ def phase_main_path(torch, np):
             x = torch.nn.functional.one_hot(
                 torch.as_tensor([seq[:-1]], device=m.device), vocab).float()
             with torch.no_grad():
-                pre, _ = m._forward_carry(m.params, m.state, x,
-                                          m._init_carries(1))
+                pre, _, _ = m._forward_carry(m.params, m.state, x,
+                                             m._init_carries(1))
             logits.append(pre[0, first:].float().cpu())
         err = float((logits[0] - logits[1]).abs().max())
         worst = max(worst, err)
@@ -534,8 +549,9 @@ def phase_bf16_net(torch, np):
         env.disable_kernels = disable
         try:
             with torch.no_grad():
-                pre, _ = net._forward_carry(net._compute_params(), net.state,
-                                            x, net._init_carries(1))
+                pre, _, _ = net._forward_carry(
+                    net._compute_params(), net.state, x,
+                    net._init_carries(1))
         finally:
             env.reload()
         logits.append(pre[0].float())
@@ -876,6 +892,47 @@ def _err_within(torch, got, want, dtype):
     return err, _within(torch, a, b, dtype)
 
 
+def flash_tensor_cores(torch):
+    """The bf16 flash forward and dq run on the tensor cores: their machine
+    code (``cuobjdump -sass`` of the built libraries) holds HGMMA (wgmma)
+    or HMMA (mma.sync) instructions, and the f32 kernels hold none; and the
+    tile layer's two products (``tile_check``) agree with the same product
+    on the card in f32 (TF32 off; only the order of f32 sums differs:
+    1e-4 (1 + |ref|)). Returns the counts by kernel and the products'
+    errors."""
+    from deeplearning4j_tpu_torch.ops.cuda.build import tensor_core_ops
+    from deeplearning4j_tpu_torch.ops.cuda.flash_attention import (
+        DQ_KERNEL_NAMES, FLASH_DQ, FLASH_FWD, FWD_KERNEL_NAMES, tile_check,
+    )
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    out = {"sass": {}}
+    for kern, names in ((FLASH_FWD, FWD_KERNEL_NAMES),
+                        (FLASH_DQ, DQ_KERNEL_NAMES)):
+        for dt in (bf16, f32):
+            out["sass"][names[dt]] = tensor_core_ops(kern.library, names[dt])
+        tc = out["sass"][names[bf16]]
+        if tc["HGMMA"] + tc["HMMA"] == 0:
+            fail(f"{names[bf16]} compiled to no tensor-core instruction "
+                 f"(HGMMA/HMMA): {tc}")
+        if sum(out["sass"][names[f32]].values()):
+            fail(f"{names[f32]} holds tensor-core instructions: "
+                 f"{out['sass'][names[f32]]}")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    a, b = (torch.randn(64, 128, device="cuda", generator=g).to(bf16)
+            for _ in range(2))
+    ss, rs = tile_check(a, b)
+    torch.cuda.synchronize()
+    for name, got, want in (("ss", ss, a.float() @ b.float().T),
+                            ("rs", rs, a[:, :64].float() @ b.float())):
+        err = (got - want).abs()
+        out[f"tile_{name}_max_abs_err"] = float(err.max())
+        if not bool((err <= 1e-4 * (1 + want.abs())).all()):
+            fail(f"tensor-core tile layer, {name} product: max abs err "
+                 f"{float(err.max())}")
+    return out
+
+
 def phase_flash_kernels(torch):
     """The three flash kernels against their plain versions, the autograd
     Function against the plain lowering, and times at BERT-base's shape;
@@ -953,7 +1010,8 @@ def time_flash(torch, g, dt, fwd, bwd, fwd_plain, bwd_plain):
     backward alone on a retained graph); the bounds."""
     from deeplearning4j_tpu_torch.ops.cuda.build import launch, pointer
     from deeplearning4j_tpu_torch.ops.cuda.flash_attention import (
-        FLASH_DKV, FLASH_DQ, _DKV_SYMBOLS, _DQ_SYMBOLS,
+        DQ_KERNEL_NAMES, FLASH_DKV, FLASH_DQ, FWD_KERNEL_NAMES, _DKV_SYMBOLS,
+        _DQ_SYMBOLS,
     )
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -986,12 +1044,12 @@ def time_flash(torch, g, dt, fwd, bwd, fwd_plain, bwd_plain):
         "shape": "[32, 12, 128, 64], key-padding mask",
         "fwd_ms": cuda_ms(torch, lambda: fwd(q, k, v, **kw), iters),
         "fwd_device_ms": kernel_device_ms(torch, lambda: fwd(q, k, v, **kw),
-                                          iters, "flash_fwd_kernel"),
+                                          iters, FWD_KERNEL_NAMES[dt]),
         "fwd_plain_ms": cuda_ms(torch, lambda: fwd_plain(q, k, v, **kw),
                                 iters),
         "dq_ms": cuda_ms(torch, dq_only, iters),
         "dq_device_ms": kernel_device_ms(torch, dq_only, iters,
-                                         "flash_dq_kernel"),
+                                         DQ_KERNEL_NAMES[dt]),
         "dkv_ms": cuda_ms(torch, dkv_only, iters),
         "dkv_device_ms": kernel_device_ms(torch, dkv_only, iters,
                                           "flash_dkv_kernel"),
@@ -1001,6 +1059,8 @@ def time_flash(torch, g, dt, fwd, bwd, fwd_plain, bwd_plain):
             q, k, v, do, lse, delta, **kw), iters),
         "library_fwd_ms": cuda_ms(torch, lib_fwd, iters),
         "library_bwd_ms": cuda_ms(torch, lib_bwd, iters),
+        "library_fwd_device_ms": call_device_ms(torch, lib_fwd, iters),
+        "library_bwd_device_ms": call_device_ms(torch, lib_bwd, iters),
     }
     for kind in ("fwd", "dq", "dkv"):
         out[f"{kind}_bound_ms"], out[f"{kind}_bound_by"] = flash_bound(
@@ -1097,8 +1157,8 @@ def _bert_grads(torch, net, x, y, m):
 
     params = tree_map(lambda p: p.detach().requires_grad_(), net.params)
     leaves = tree_leaves(params)
-    loss = net._loss_terms(params, net._input(x), net._labels(y),
-                           net._mask(m), None, train=False)
+    loss, _ = net._loss_terms(params, net._input(x), net._labels(y),
+                              net._mask(m), None, train=False)
     return torch.autograd.grad(loss, leaves)
 
 
@@ -1119,7 +1179,7 @@ def split_step_ms(torch, net, x, y, m, steps=3):
         params = tree_map(lambda p: p.detach().requires_grad_(), net.params)
         loss = net._loss_terms(
             cast_floating(params, net._policy.compute_dtype), xi, yl, mk,
-            None, train=True, rng=net._generator()).float()
+            None, train=True, rng=net._generator())[0].float()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         grads = torch.autograd.grad(loss, tree_leaves(params))
@@ -1756,15 +1816,18 @@ def phase_gru_kernels(torch):
             with torch.no_grad():
                 row["library_fwd_ms"] = cuda_ms(
                     torch, lambda: gru(xt, h0[None].contiguous()), iters)
+                row["library_fwd_device_ms"] = call_device_ms(
+                    torch, lambda: gru(xt, h0[None].contiguous()), iters)
             if train:
                 xl = xt.clone().requires_grad_()
                 lib_out, lib_h = gru(xl, h0[None].contiguous())
                 leaves = [xl] + list(gru.parameters())
                 g_lib = (dout, torch.zeros_like(lib_h))
-                row["library_bwd_ms"] = cuda_ms(
-                    torch, lambda: torch.autograd.grad(
-                        (lib_out, lib_h), leaves, g_lib, retain_graph=True),
-                    iters)
+                lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
+                    (lib_out, lib_h), leaves, g_lib, retain_graph=True)
+                row["library_bwd_ms"] = cuda_ms(torch, lib_bwd, iters)
+                row["library_bwd_device_ms"] = call_device_ms(
+                    torch, lib_bwd, iters)
         rows.append(row)
     # the launches above were for checks and timing: not the main path's
     return rows, worst[f32], worst[bf16]
@@ -1874,8 +1937,8 @@ def phase_gru_serving(torch, np):
         env.disable_kernels = True
         try:
             with torch.no_grad():
-                pre, _ = net._forward_carry(net.params, net.state, x,
-                                            net._init_carries(1))
+                pre, _, _ = net._forward_carry(net.params, net.state, x,
+                                               net._init_carries(1))
         finally:
             env.reload()
         lg = pre[0, len(r["prompt"]) - 1:]
@@ -1989,6 +2052,7 @@ def gru_kernel_entries(by_name, rows, worst, worst_bf16, serve, train,
         "bound_by": g_dec["fwd_bound_by"],
         # cuDNN's GRU computes the whole layer, its input projection too
         "library_ms": g_dec["library_fwd_ms"],
+        "library_device_ms": g_dec["library_fwd_device_ms"],
         "shape": "decode [B=8, T=1, H=256] f32",
         "training_shape": {
             "shape": "[B=64, T=64, H=256] f32, with reserve",
@@ -1997,7 +2061,8 @@ def gru_kernel_entries(by_name, rows, worst, worst_bf16, serve, train,
             "plain_ms": g_train["fwd_reserve_plain_ms"],
             "bound_ms": g_train["fwd_reserve_bound_ms"],
             "bound_by": g_train["fwd_reserve_bound_by"],
-            "library_ms": g_train["library_fwd_ms"]},
+            "library_ms": g_train["library_fwd_ms"],
+            "library_device_ms": g_train["library_fwd_device_ms"]},
     }, {
         "name": gbwd.name, "route": "cuda", "source": gbwd.source,
         "replaces": gbwd.replaces,
@@ -2012,6 +2077,7 @@ def gru_kernel_entries(by_name, rows, worst, worst_bf16, serve, train,
         "bound_by": g_train["bwd_bound_by"],
         # cuDNN's GRU autograd backward (its weight gradients included)
         "library_ms": g_train["library_bwd_ms"],
+        "library_device_ms": g_train["library_bwd_device_ms"],
         "shape": "[B=64, T=64, H=256] f32",
     }]
 
@@ -2078,7 +2144,11 @@ def main() -> None:
                  seed=SEED, dtype="bf16"), 4)]
     print(json.dumps({"short_training": short}), flush=True)
 
-    # phase 9: flash kernels against plain
+    # phase 9: flash kernels against plain, the bf16 ones on tensor cores
+    tensor_cores = flash_tensor_cores(torch)
+    print(json.dumps({"flash_tensor_cores": tensor_cores}), flush=True)
+    print("tensor-core instructions: " + ", ".join(
+        f"{k} {v}" for k, v in tensor_cores["sass"].items()), flush=True)
     flash_rows, flash_times, flash_grad_rel, flash_worst, flash_worst_bf16 = \
         phase_flash_kernels(torch)
     print(json.dumps({"flash_kernel_shapes": flash_rows,
@@ -2202,14 +2272,20 @@ def main() -> None:
     }]
     # the flash kernels at the BERT main path's shape and type (bf16, key
     # padding); the f32 times are in flash_times
+    from deeplearning4j_tpu_torch.ops.cuda.flash_attention import (
+        DQ_KERNEL_NAMES, FWD_KERNEL_NAMES,
+    )
+
     ft = flash_times["bfloat16"]
     infer_n, bert_n = bert_out["launches"], bert_train["launches"]
-    for kern, kind, plain_key, library in (
-            (ffwd, "fwd", "fwd_plain_ms", ft["library_fwd_ms"]),
+    for kern, kind, plain_key, library, design in (
+            (ffwd, "fwd", "fwd_plain_ms", ft["library_fwd_ms"],
+             "wgmma (tensor cores), cp.async ring"),
             # no one library call computes dq or dk/dv alone: SDPA's
             # backward computes both, in library_bwd_ms
-            (fdq, "dq", "bwd_plain_ms", None),
-            (fdkv, "dkv", "bwd_plain_ms", None)):
+            (fdq, "dq", "bwd_plain_ms", None,
+             "wgmma (tensor cores), cp.async ring"),
+            (fdkv, "dkv", "bwd_plain_ms", None, "CUDA cores, f32")):
         entries.append({
             "name": kern.name, "route": "cuda", "source": kern.source,
             "replaces": kern.replaces,
@@ -2220,7 +2296,14 @@ def main() -> None:
             "ms": ft[f"{kind}_ms"], "device_ms": ft[f"{kind}_device_ms"],
             "plain_ms": ft[plain_key], "bound_ms": ft[f"{kind}_bound_ms"],
             "bound_by": ft[f"{kind}_bound_by"], "library_ms": library,
+            "library_device_ms": (ft["library_fwd_device_ms"]
+                                  if kind == "fwd" else None),
             "library_bwd_ms": ft["library_bwd_ms"],
+            "library_bwd_device_ms": ft["library_bwd_device_ms"],
+            "design": design,
+            "tensor_core_ops": tensor_cores["sass"].get(
+                {"fwd": FWD_KERNEL_NAMES, "dq": DQ_KERNEL_NAMES}.get(
+                    kind, {}).get(torch.bfloat16)),
             "shape": "[32, 12, 128, 64] bf16, key-padding mask",
         })
     # the LRN kernels at AlexNet's conv1 LRN shape, f32 (the main path's

@@ -8,6 +8,7 @@ configuration's ``dtype`` string.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -41,3 +42,24 @@ def cast_floating(tree, dtype: torch.dtype):
     if isinstance(tree, torch.Tensor) and tree.is_floating_point():
         return tree.to(dtype)
     return tree
+
+
+def widen(*tensors):
+    """Operands of one operation whose floating types differ, each widened
+    to the widest of them, as jnp's promotion computes the operation (bf16
+    with f32 gives f32); widening is exact. None and non-floating tensors
+    pass as they are. Returns the operands in order."""
+    dts = {t.dtype for t in tensors
+           if t is not None and t.is_floating_point()}
+    if len(dts) < 2:
+        return tensors
+    dt = functools.reduce(torch.promote_types, dts)
+    return tuple(t.to(dt) if t is not None and t.is_floating_point() else t
+                 for t in tensors)
+
+
+def matmul(x, w):
+    """``x @ w`` over the two operands' promoted type (:func:`widen`):
+    torch's matmul refuses mixed types, where jnp's promotes."""
+    x, w = widen(x, w)
+    return x @ w

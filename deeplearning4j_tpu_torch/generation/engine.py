@@ -142,7 +142,7 @@ class RecurrentDecodeAdapter:
     def decode(self, carries, tokens: torch.Tensor):
         """One step for every slot: logits [B, vocab] + advanced carries."""
         net = self.net
-        preout, new_c = net._forward_carry(
+        preout, _, new_c = net._forward_carry(
             net._compute_params(), net.state, self._encode(tokens[:, None]),
             carries)
         merged = dict(carries)
@@ -160,8 +160,8 @@ class RecurrentDecodeAdapter:
             return carries
         ids = torch.as_tensor([list(prompt)], dtype=torch.long,
                               device=net.device)
-        _, new_c = net._forward_carry(net._compute_params(), net.state,
-                                      self._encode(ids), carries)
+        _, _, new_c = net._forward_carry(net._compute_params(), net.state,
+                                         self._encode(ids), carries)
         carries.update(new_c)
         return carries
 

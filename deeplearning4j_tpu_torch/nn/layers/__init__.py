@@ -17,7 +17,9 @@ from deeplearning4j_tpu_torch.nn.layers.conv import (
 from deeplearning4j_tpu_torch.nn.layers.core import (
     DenseLayer, EmbeddingLayer, EmbeddingSequenceLayer,
 )
-from deeplearning4j_tpu_torch.nn.layers.norm import LayerNormalizationLayer
+from deeplearning4j_tpu_torch.nn.layers.norm import (
+    BatchNormalizationLayer, LayerNormalizationLayer,
+)
 from deeplearning4j_tpu_torch.nn.layers.output import OutputLayer, RnnOutputLayer
 from deeplearning4j_tpu_torch.nn.layers.recurrent import (
     BidirectionalLayer, GravesBidirectionalLSTMLayer, GravesLSTMLayer, GRULayer,
@@ -29,7 +31,8 @@ __all__ = ["Layer", "register_layer", "DenseLayer", "EmbeddingLayer",
            "EmbeddingSequenceLayer", "OutputLayer", "RnnOutputLayer",
            "LSTMLayer", "GravesLSTMLayer", "GRULayer", "SimpleRnnLayer",
            "BidirectionalLayer", "GravesBidirectionalLSTMLayer",
-           "LastTimeStepLayer", "MaskZeroLayer", "TimeDistributedLayer", "LayerNormalizationLayer",
+           "LastTimeStepLayer", "MaskZeroLayer", "TimeDistributedLayer",
+           "BatchNormalizationLayer", "LayerNormalizationLayer",
            "GlobalPoolingLayer", "ConvolutionLayer", "SubsamplingLayer",
            "LocalResponseNormalizationLayer", "SelfAttentionLayer",
            "LearnedSelfAttentionLayer", "PositionalEmbeddingLayer",

@@ -12,6 +12,7 @@ from typing import Optional
 
 import torch
 
+from deeplearning4j_tpu_torch.common.dtypes import matmul
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.layers.base import (
     Layer, register_layer, resolve_activation,
@@ -42,7 +43,7 @@ class DenseLayer(Layer):
         x = self._maybe_dropout(x, train, rng)
         if x.dim() > 2:
             x = x.reshape(x.shape[0], -1)
-        y = x @ params["W"]
+        y = matmul(x, params["W"])
         if self.has_bias:
             y = y + params["b"]
         return resolve_activation(self.activation)(y), state

@@ -1,8 +1,10 @@
 """Normalization layers.
 
-Counterpart of ``deeplearning4j_tpu/nn/layers/norm.py``; this slice ports
-``LayerNormalizationLayer`` (``norm.py:77``), the transformer's. Batch
-normalization and RMSNorm come with the models that use them.
+Counterpart of ``deeplearning4j_tpu/nn/layers/norm.py``:
+``BatchNormalizationLayer`` (``norm.py:22``), whose running statistics live
+in the network's ``state`` and move with every training step, and
+``LayerNormalizationLayer`` (``norm.py:77``), the transformer's. RMSNorm
+comes with the models that use it.
 """
 
 from __future__ import annotations
@@ -13,6 +15,69 @@ from typing import Optional
 import torch
 
 from deeplearning4j_tpu_torch.nn.layers.base import Layer, register_layer
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True, kw_only=True)
+class BatchNormalizationLayer(Layer):
+    """Batch norm over the channel/feature (last) axis: NHWC activations
+    normalize per channel, [B, F] ones per feature.
+
+    DL4J semantics, as the JAX layer keeps them: ``decay`` is the running
+    average's retention (mean = decay * mean + (1 - decay) * batch mean,
+    the same for var), eps 1e-5, ``lock_gamma_beta`` drops the affine
+    params, ``use_mean_var_from_state`` normalizes with the running
+    statistics even in training. Params ``gamma``, ``beta``; state ``mean``,
+    ``var``, all f32."""
+
+    n_out: Optional[int] = None  # inferred
+    decay: float = 0.9
+    eps: float = 1e-5
+    lock_gamma_beta: bool = False
+    use_mean_var_from_state: bool = False
+
+    def _n(self, itype):
+        if self.n_out:
+            return self.n_out
+        if itype.kind in ("cnn", "cnn3d"):
+            return itype.channels
+        return itype.shape[1] if itype.kind == "rnn" else itype.size
+
+    def init(self, generator, itype, device):
+        n = self._n(itype)
+        p = {} if self.lock_gamma_beta else {
+            "gamma": torch.ones((n,), device=device),
+            "beta": torch.zeros((n,), device=device)}
+        s = {"mean": torch.zeros((n,), device=device),
+             "var": torch.ones((n,), device=device)}
+        return p, s
+
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        axes = tuple(range(x.dim() - 1))
+        if train and not self.use_mean_var_from_state:
+            # one-pass statistics, E[x^2] - E[x]^2 clamped at 0, summed in
+            # f32 for bf16 activations (the JAX layer's, not F.batch_norm's
+            # two-pass variance); the running update carries no gradient
+            xf = x.to(torch.promote_types(x.dtype, torch.float32))
+            mean = xf.mean(axes)
+            var = ((xf * xf).mean(axes) - mean * mean).clamp_min(0.0)
+            with torch.no_grad():
+                new_state = {
+                    "mean": self.decay * state["mean"]
+                    + (1 - self.decay) * mean.detach(),
+                    "var": self.decay * state["var"]
+                    + (1 - self.decay) * var.detach(),
+                }
+        else:
+            mean, var = state["mean"], state["var"]
+            new_state = state
+        # normalize in the activation's type: the statistics are f32, but
+        # the activation-sized tensors (and their gradients) stay narrow
+        inv = torch.reciprocal(torch.sqrt(var + self.eps)).to(x.dtype)
+        xhat = (x - mean.to(x.dtype)) * inv
+        if not self.lock_gamma_beta:
+            xhat = xhat * params["gamma"] + params["beta"]
+        return xhat.to(x.dtype), new_state
 
 
 def layer_norm(x, gamma, beta, eps):

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 
+from deeplearning4j_tpu_torch.common.dtypes import matmul
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.layers.base import register_layer, resolve_activation
 from deeplearning4j_tpu_torch.nn.layers.core import DenseLayer
@@ -37,7 +38,7 @@ class OutputLayer(DenseLayer):
     def preout(self, params, x):
         if x.dim() > 2:
             x = x.reshape(x.shape[0], -1)
-        y = x @ params["W"]
+        y = matmul(x, params["W"])
         if self.has_bias:
             y = y + params["b"]
         return y
@@ -65,7 +66,7 @@ class RnnOutputLayer(OutputLayer):
         return InputType.recurrent(self.n_out, t)
 
     def preout(self, params, x):
-        y = x @ params["W"]  # [B, T, nout]
+        y = matmul(x, params["W"])  # [B, T, nout]
         if self.has_bias:
             y = y + params["b"]
         return y

@@ -165,10 +165,15 @@ class MultiLayerNetwork:
                 _layer_seed(self.conf.seed, 0xD14))
         return self._rng
 
-    def _input(self, x) -> torch.Tensor:
+    def _input(self, x, cast: bool = True) -> torch.Tensor:
+        """``x`` on the device, floating input in the compute type; with
+        ``cast`` False it keeps its own type (f64 becomes f32, as
+        ``jnp.asarray`` makes it), as ``score`` and ``rnn_time_step`` take it
+        in the JAX package."""
         x = torch.as_tensor(x, device=self.device)
         if x.is_floating_point():
-            x = x.to(self._policy.compute_dtype)
+            x = x.to(self._policy.compute_dtype if cast
+                     else _canonical(x.dtype))
         return x
 
     def _compute_params(self):
@@ -190,60 +195,77 @@ class MultiLayerNetwork:
 
     # --------------------------------------------------------------- forward
     def _forward(self, params, state, x, mask, train=False, rng=None):
-        """Walk layers; returns (the final layer's pre-output, its mask)."""
+        """Walk layers; returns (the final layer's pre-output, the state
+        each layer returns, the final mask). In training a layer with
+        running statistics returns them moved (BatchNormalization); the
+        others return their state as it was."""
+        new_states = []
         n = len(self.layers)
         for i, layer in enumerate(self.layers):
             if i in self.conf.preprocessors:
                 x = self.conf.preprocessors[i](x)
             if i == n - 1 and hasattr(layer, "preout"):
                 x = layer._maybe_dropout(x, train, rng)
-                return layer.preout(params[i], x), mask
-            x, _ = layer.apply(params[i], state[i], x, train=train, rng=rng,
-                               mask=mask)
+                new_states.append(state[i])
+                return layer.preout(params[i], x), new_states, mask
+            x, st = layer.apply(params[i], state[i], x, train=train, rng=rng,
+                                mask=mask)
+            new_states.append(st)
             mask = layer.feed_forward_mask(mask, self.conf.layer_input_types[i])
-        return x, mask
+        return x, new_states, mask
 
     @torch.no_grad()
     def output(self, x, mask=None):
         """Inference forward pass. ``mask``: optional [B, T] padding mask."""
-        preout, _ = self._forward(self._compute_params(), self.state,
-                                  self._input(x), self._mask(mask))
+        preout, _, _ = self._forward(self._compute_params(), self.state,
+                                     self._input(x), self._mask(mask))
         return self._activate(preout)
 
     # --------------------------------------------------- carried recurrence
     def _forward_carry(self, params, state, x, carries, mask=None):
-        """_forward threading explicit RNN carries. carries:
-        {layer_idx: carry_tuple}; returns (preout, new_carries)."""
-        new_carries = {}
+        """_forward threading explicit RNN carries (inference). carries:
+        {layer_idx: carry_tuple}; returns (preout, new_states,
+        new_carries)."""
+        new_states, new_carries = [], {}
         n = len(self.layers)
         for i, layer in enumerate(self.layers):
             if i in self.conf.preprocessors:
                 x = self.conf.preprocessors[i](x)
             if i == n - 1 and hasattr(layer, "preout"):
-                return layer.preout(params[i], x), new_carries
+                new_states.append(state[i])
+                return layer.preout(params[i], x), new_states, new_carries
             if i in carries and hasattr(layer, "apply_with_carry"):
                 x, new_carries[i] = layer.apply_with_carry(
                     params[i], x, carries[i], mask=mask)
+                new_states.append(state[i])
             else:
-                x, _ = layer.apply(params[i], state[i], x, mask=mask)
+                x, st = layer.apply(params[i], state[i], x, mask=mask)
+                new_states.append(st)
             mask = layer.feed_forward_mask(mask, self.conf.layer_input_types[i])
-        return x, new_carries
+        return x, new_states, new_carries
 
     def _rnn_layer_indices(self):
         return [i for i, l in enumerate(self.layers)
                 if hasattr(l, "apply_with_carry")]
 
     def _init_carries(self, batch: int):
-        dt = self._policy.compute_dtype
-        return {i: self.layers[i].initial_carry(batch, dt, self.device)
+        """Zero carries in f32, whatever the compute type, as the JAX
+        package's ``initial_carry`` makes them: a bf16 net's recurrence then
+        computes in f32 (the recurrent ops' mixed-type contract)."""
+        return {i: self.layers[i].initial_carry(batch, torch.float32,
+                                                self.device)
                 for i in self._rnn_layer_indices()}
 
     @torch.no_grad()
     def rnn_time_step(self, x):
         """Streaming inference with persisted RNN state. x [B, T, F] or
         [B, F] (single step). Returns the output activations for the new
-        timesteps; the state persists until rnn_clear_previous_state()."""
-        x = self._input(x)
+        timesteps; the state persists until rnn_clear_previous_state().
+        As in the JAX package, the params are cast to the compute type and
+        x is not, and the carries start in f32, so in a bf16 net the
+        recurrence and the layers after it compute in f32 over the bf16
+        weights."""
+        x = self._input(x, cast=False)
         single = x.dim() == 2
         if single:
             x = x[:, None, :]
@@ -252,7 +274,7 @@ class MultiLayerNetwork:
             _check_carry_batch(carries, x.shape[0])
         else:
             carries = self._init_carries(x.shape[0])
-        preout, new_carries = self._forward_carry(
+        preout, _, new_carries = self._forward_carry(
             self._compute_params(), self.state, x, carries)
         merged = dict(carries)
         merged.update(new_carries)
@@ -266,12 +288,12 @@ class MultiLayerNetwork:
     # ------------------------------------------------------------------- fit
     def _loss_terms(self, params, x, y, mask, label_mask=None, train=True,
                     rng=None):
-        """Mean loss of one forward plus the l1/l2 terms. ``label_mask``, a
-        loss mask distinct from the forward's (padding) mask, replaces it
-        for the loss; a masked per-example loss is normalized by the mask's
-        sum."""
-        preout, out_mask = self._forward(params, self.state, x, mask,
-                                         train=train, rng=rng)
+        """(mean loss of one forward plus the l1/l2 terms, the layers' new
+        states). ``label_mask``, a loss mask distinct from the forward's
+        (padding) mask, replaces it for the loss; a masked per-example loss
+        is normalized by the mask's sum."""
+        preout, new_states, out_mask = self._forward(
+            params, self.state, x, mask, train=train, rng=rng)
         if label_mask is not None:
             out_mask = label_mask
         per = self.layers[-1].score_from_preout(y, preout, out_mask)
@@ -280,7 +302,7 @@ class MultiLayerNetwork:
         else:
             loss = per.mean()
         reg = sum(l.regularization(p) for l, p in zip(self.layers, params))
-        return loss + reg
+        return loss + reg, new_states
 
     def _apply_updaters(self, grads, params, opt_state, step):
         if self.conf.max_grad_norm > 0:
@@ -302,12 +324,14 @@ class MultiLayerNetwork:
 
     def _train_step(self, x, y, mask, label_mask) -> torch.Tensor:
         """One step (forward, loss, backward, clip, update) on tensors
-        already on the device; returns the loss as a 0-d f32 tensor."""
+        already on the device; stores the layers' new states (the JAX
+        step's ``new_states``) and returns the loss as a 0-d f32 tensor."""
         params = tree_map(lambda p: p.detach().requires_grad_(), self.params)
         leaves = tree_leaves(params)
-        loss = self._loss_terms(cast_floating(params, self._policy.compute_dtype),
-                                x, y, mask, label_mask, train=True,
-                                rng=self._generator()).float()
+        loss, new_states = self._loss_terms(
+            cast_floating(params, self._policy.compute_dtype), x, y, mask,
+            label_mask, train=True, rng=self._generator())
+        loss = loss.float()
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, grads)]
@@ -315,6 +339,7 @@ class MultiLayerNetwork:
             self.params, self.opt_state = self._apply_updaters(
                 tree_unflatten(self.params, grads), self.params,
                 self.opt_state, self.step_count)
+        self.state = tree_map(lambda a: a.detach(), new_states)
         return loss.detach()
 
     def _check_trainable(self, x):
@@ -364,16 +389,17 @@ class MultiLayerNetwork:
 
     def score(self, ds=None) -> float:
         """Loss on a dataset without updating; with no dataset, the last
-        training step's loss."""
+        training step's loss. As in the JAX package, the params and the
+        input go in uncast, so a bf16 net scores in f32."""
         if ds is None:
             return self.score_value
         x, y, mask, label_mask = _unpack(ds)
         label_mask = _single_mask(label_mask)
         with torch.no_grad():
-            loss = self._loss_terms(self._compute_params(), self._input(x),
-                                    self._labels(y), self._mask(mask),
-                                    self._mask(label_mask),
-                                    train=False)
+            loss, _ = self._loss_terms(self.params,
+                                       self._input(x, cast=False),
+                                       self._labels(y), self._mask(mask),
+                                       self._mask(label_mask), train=False)
         return float(loss)
 
     # ----------------------------------------------------------------- serde
@@ -391,6 +417,12 @@ class MultiLayerNetwork:
 
         return restore_multi_layer_network(path, device=device,
                                            load_updater=load_updater)
+
+
+def _canonical(dtype: torch.dtype) -> torch.dtype:
+    """A floating type as ``jnp.asarray`` leaves it with x64 off: f64
+    becomes f32, the others stay."""
+    return torch.float32 if dtype == torch.float64 else dtype
 
 
 def _single_mask(lm):
@@ -450,16 +482,22 @@ def _tensors_like(mine, theirs, where: str):
     return torch.tensor(arr, dtype=mine.dtype, device=mine.device)
 
 
-def load_jax_params(net: MultiLayerNetwork, params) -> MultiLayerNetwork:
-    """Set ``net``'s parameters from the JAX package's: ``params`` is a list
-    (one per layer) of dicts of arrays, nested for a Bidirectional layer
-    ({"fwd": {...}, "bwd": {...}}), e.g. ``jax.tree_util.tree_map(
-    np.asarray, jax_net.params)``. Keys and shapes must match the port's
-    own."""
-    if len(params) != len(net.params):
-        raise ValueError(f"{len(params)} layers of params for a "
-                         f"{len(net.params)}-layer network")
+def load_jax_params(net: MultiLayerNetwork, params,
+                    state=None) -> MultiLayerNetwork:
+    """Set ``net``'s parameters, and with ``state`` its layer state (the
+    running statistics of BatchNormalization), from the JAX package's: each
+    is a list (one per layer) of dicts of arrays, nested for a
+    Bidirectional layer ({"fwd": {...}, "bwd": {...}}), e.g.
+    ``jax.tree_util.tree_map(np.asarray, jax_net.params)``. Keys and
+    shapes must match the port's own."""
+    for what, tree, mine in (("params", params, net.params),
+                             ("state", state, net.state)):
+        if tree is not None and len(tree) != len(mine):
+            raise ValueError(f"{len(tree)} layers of {what} for a "
+                             f"{len(mine)}-layer network")
     net.params = _tensors_like(net.params, params, "params")
+    if state is not None:
+        net.state = _tensors_like(net.state, state, "state")
     return net
 
 

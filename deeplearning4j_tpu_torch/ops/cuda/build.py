@@ -20,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import tempfile
 import threading
@@ -105,6 +106,24 @@ class CudaLibrary:
         self.build_log = proc.stdout + proc.stderr
         return path
 
+    def sass(self) -> dict:
+        """The built library's machine code by device function, as
+        ``cuobjdump -sass`` (beside nvcc) prints it: {mangled name: text}."""
+        tool = Path(find_nvcc()).with_name("cuobjdump")
+        proc = subprocess.run([str(tool), "-sass", str(self.build())],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"cuobjdump failed on {self.source.name}:\n"
+                               f"{proc.stderr}")
+        out, name = {}, None
+        for line in proc.stdout.splitlines():
+            if line.strip().startswith("Function :"):
+                name = line.split(":", 1)[1].strip()
+                out[name] = ""
+            elif name is not None:
+                out[name] += line + "\n"
+        return out
+
     def load(self, device: Optional[torch.device] = None) -> ctypes.CDLL:
         """The loaded library, built at first use; with ``device``, also
         checks once that the card is sm_90."""
@@ -123,6 +142,19 @@ class CudaLibrary:
                     fn.restype = restype
                 self._lib = lib
             return self._lib
+
+
+def tensor_core_ops(library: CudaLibrary, function: str) -> dict:
+    """How many tensor-core instructions the device functions whose name
+    holds ``function`` compiled to: {"HGMMA": n (wgmma), "HMMA": n
+    (mma.sync)}."""
+    codes = [text for name, text in library.sass().items()
+             if function in name]
+    if not codes:
+        raise RuntimeError(f"no device function {function!r} in "
+                           f"{library.source.name}")
+    return {op: sum(len(re.findall(rf"\b{op}\.", t)) for t in codes)
+            for op in ("HGMMA", "HMMA")}
 
 
 def pointer(t: Optional[torch.Tensor]) -> Optional[int]:

@@ -26,15 +26,18 @@ the mean of v there instead (``ops/attention.py``). In bf16, products take
 the input type's values with f32 sums, the scale multiplies the f32
 product, p is rounded to v's (do's) type and ds to k's (q's) type before
 their products, and o is stored in the input type. The kernels take f32 or
-bf16 and any head dim up to 128. None of the TPU machinery is carried over
-(``bwd_tiles``, the v5e tile defaults): the kernels tile by 64 rows.
+bf16 and any head dim up to 128. The bf16 forward and dq run on the tensor
+cores (wgmma, ``FWD_KERNEL_NAMES``/``DQ_KERNEL_NAMES``); f32 and dk/dv run
+on the CUDA cores. None of the TPU machinery is carried over (``bwd_tiles``,
+the v5e tile defaults): the kernels tile by 64 rows.
 
 The wrappers take the plain versions (:func:`flash_forward_plain`,
 :func:`flash_backward_plain`) only for CPU tensors; for CUDA tensors they
 launch the kernels or raise. ``FLASH_FWD.launches``, ``FLASH_DQ.launches``
 and ``FLASH_DKV.launches`` count launches. The registry sends every
-all-CUDA ``dot_product_attention`` call that :func:`flash_requires` admits
-here; no predicate is carried over from the TPU (the JAX package's
+all-CUDA ``dot_product_attention`` call that :func:`kernel_admits` admits
+here (f32 or bf16, and :func:`flash_requires`); others take the plain
+lowering; no predicate is carried over from the TPU (the JAX package's
 T >= 2048 was measured on a v5e).
 """
 
@@ -58,10 +61,18 @@ _DQ_SYMBOLS = {torch.float32: "dl4j_flash_dq",
 _DKV_SYMBOLS = {torch.float32: "dl4j_flash_dkv",
                 torch.bfloat16: "dl4j_flash_dkv_bf16"}
 
+#: the device function each launcher runs, for profiles: the bf16 kernels
+#: are the tensor-core (wgmma) designs, the f32 ones run on the CUDA cores
+FWD_KERNEL_NAMES = {torch.float32: "flash_fwd_kernel",
+                    torch.bfloat16: "flash_fwd_wgmma_kernel"}
+DQ_KERNEL_NAMES = {torch.float32: "flash_dq_kernel",
+                   torch.bfloat16: "flash_dq_wgmma_kernel"}
+
 FLASH_FWD = CudaKernel(
     "flash_attention_fwd", "flash_attention_fwd.cu",
     f"{_PALLAS}:56 (_flash_kernel)",
-    {sym: "ppppppiiiiifip" for sym in _FWD_SYMBOLS.values()})
+    {**{sym: "ppppppiiiiifip" for sym in _FWD_SYMBOLS.values()},
+     "dl4j_flash_tile_check": "ppppp"})
 FLASH_DQ = CudaKernel(
     "flash_attention_dq", "flash_attention_dq.cu",
     f"{_PALLAS}:210 (_flash_dq_kernel)",
@@ -122,6 +133,28 @@ def flash_backward_plain(q, k, v, do, lse, delta, *, scale, causal=False,
 
 
 # ----------------------------------------------------------------- wrappers
+
+def tile_check(a, b):
+    """One product of each kind that the bf16 kernels' tensor-core tile
+    layer makes (``flash_tile_check_kernel``): (ss [64, 64] = a b^T,
+    rs [64, 128] = a[:, :64] b), f32, for a and b contiguous bf16
+    [64, 128] on the card. Not a launch of the forward, so not counted."""
+    from deeplearning4j_tpu_torch.ops.cuda.build import check_status
+
+    for t in (a, b):
+        if (t.dtype != torch.bfloat16 or tuple(t.shape) != (64, 128)
+                or not t.is_cuda or not t.is_contiguous()):
+            raise ValueError("tile_check takes contiguous bf16 [64, 128] "
+                             "tensors on the card")
+    ss = a.new_empty((64, 64), dtype=torch.float32)
+    rs = a.new_empty((64, 128), dtype=torch.float32)
+    lib = FLASH_FWD.library.load(a.device)
+    with torch.cuda.device(a.device):
+        check_status(lib, lib.dl4j_flash_tile_check(
+            pointer(a), pointer(b), pointer(ss), pointer(rs),
+            torch.cuda.current_stream().cuda_stream), "dl4j_flash_tile_check")
+    return ss, rs
+
 
 def _check(what, q, k, v, kmask, rows=()):
     """Device, type, shape and contiguity of a kernel call's tensors; returns
@@ -330,12 +363,22 @@ def flash_requires(q, k, v, *, mask=None, scale=None, causal=False, **kw):
             and q.shape[-1] <= MAX_HEAD_DIM)
 
 
+def kernel_admits(q, k, v, *, mask=None, **kw):
+    """What the kernels can compute, from shapes and dtypes alone:
+    :func:`flash_requires`, and q, k and v of one type that a kernel takes
+    (f32 or bf16). Anything else (f16, f64, mixed types) goes to the plain
+    lowering, as the JAX package sends it to XLA."""
+    return (q.dtype in _FWD_SYMBOLS and k.dtype == q.dtype
+            and v.dtype == q.dtype
+            and flash_requires(q, k, v, mask=mask, **kw))
+
+
 def _cuda_requires(q, k, v, *, mask=None, **kw):
-    """Every tensor on the card, and :func:`flash_requires`. The dtype is
-    the wrapper's to check: it launches the kernel or raises."""
+    """Every tensor on the card, and :func:`kernel_admits`. A call it admits
+    launches the kernels or raises."""
     on_card = all(t.is_cuda for t in (q, k, v)) and (
         not isinstance(mask, torch.Tensor) or mask.is_cuda)
-    return on_card and flash_requires(q, k, v, mask=mask, **kw)
+    return on_card and kernel_admits(q, k, v, mask=mask, **kw)
 
 
 register_impl("dot_product_attention", platform="cuda",

@@ -32,22 +32,30 @@ sums, gates and carries in f32, h_{t-1} and the backward's product
 operands rounded to bf16 for their products; the plain versions compute
 the same way.
 
-The wrappers take the plain versions (``ops/recurrent.py``) only for CPU
-tensors; for CUDA tensors they launch the kernel or raise. The registry
-sends every all-CUDA ``gru_layer`` call here, whatever its dtype, so a type
-the kernels have no code for raises instead of running the plain version
-on the card. ``FUSED_GRU.launches`` and ``FUSED_GRU_BWD.launches`` count
-launches; ``FUSED_GRU.reserves`` counts the forward launches that saved
-the reserve.
+A call that mixes f32 and bf16 computes in f32, as jnp's promotion does:
+the wrappers widen the narrower operands before launching (``widen``;
+widening is exact).
+
+A block keeps all of h in shared memory, under the launchers' cap, so H
+has a limit: :func:`kernel_admits` repeats the launchers' arithmetic. The
+registry sends an all-CUDA ``gru_layer`` call here when
+:func:`kernel_admits` takes it (f32 or bf16, H under the limit of the
+kernels the call will run); any other call takes the plain lowering, as
+the JAX package sends it to XLA. A call sent here launches the kernel or
+raises. The wrappers take the plain versions (``ops/recurrent.py``) only
+for CPU tensors. ``FUSED_GRU.launches`` and ``FUSED_GRU_BWD.launches``
+count launches; ``FUSED_GRU.reserves`` counts the forward launches that
+saved the reserve.
 """
 
 from __future__ import annotations
 
 import torch
 
+from deeplearning4j_tpu_torch.common.dtypes import widen
 from deeplearning4j_tpu_torch.ops.cuda.build import launch, pointer
 from deeplearning4j_tpu_torch.ops.cuda.fused_lstm import (
-    RecurrentKernel, _check_shapes, _check_tensors, _needs_grad,
+    RecurrentKernel, _check_shapes, _check_tensors, _needs_grad, _promoted,
 )
 from deeplearning4j_tpu_torch.ops.recurrent import (
     finish_h, gru_bwd_recurrence, gru_recurrence, project_gates,
@@ -78,7 +86,9 @@ def fused_gru_recurrence(xg, R, h0, save_residuals=False):
     """xg [T, B, 3H] time-major gates -> (outputs [T, B, H], hT), and with
     ``save_residuals`` the reserve [4, T, B, H] f32 too.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    Mixed f32/bf16 operands compute in f32."""
+    xg, R, h0 = widen(xg, R, h0)
     if xg.device.type == "cpu":
         return plain_recurrence(xg, R, h0, save_residuals)
     if xg.device.type != "cuda":
@@ -112,7 +122,9 @@ def fused_gru_bwd_recurrence(reserve, R, h0, out, dout):
     first step) and ``dout`` [T, B, H] (kernel time order, the gradient of
     hT joined at the last step).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    Mixed f32/bf16 operands (the reserve aside) compute in f32."""
+    R, h0, out, dout = widen(R, h0, out, dout)
     if reserve.device.type == "cpu":
         return plain_bwd_recurrence(reserve, R, h0, out, dout)
     if reserve.device.type != "cuda":
@@ -207,8 +219,10 @@ def fused_gru_layer(x, h0, W, R, b, *, reverse=False):
     input requires grad), the call goes through :class:`FusedGRUFunction`,
     whose forward saves the reserve for the backward kernel. Otherwise
     (serving, under ``torch.no_grad``) the forward kernel runs alone and
-    saves nothing. The choice is made on every call, never cached by the
-    registry."""
+    saves nothing. The choice is made on every call. Mixed operand types
+    promote as jnp's do, operation by operation: the projection over x, W
+    and b, the recurrence over its gates, R and h0."""
+    x, W, b = widen(x, W, b)
     R, h0 = R.contiguous(), h0.contiguous()
     if x.shape[1] and _needs_grad((x, h0, W, R, b)):
         return FusedGRUFunction.apply(x, h0, W, R, b, bool(reverse))
@@ -217,10 +231,49 @@ def fused_gru_layer(x, h0, W, R, b, *, reverse=False):
     return finish_h(out, hT, reverse)
 
 
+# ------------------------------------------------- what the kernels take
+
+#: csrc/fused_gru.cu:67,69 and csrc/fused_gru_bwd.cu:64,66 (kTile,
+#: kSmemCap): hidden units per work item, and the shared memory a block may
+#: use
+SMEM_TILE = 32
+SMEM_CAP = 200 * 1024
+
+
+def fwd_smem_bytes(T: int, H: int) -> int:
+    """The forward launcher's least shared memory for a [T, *, H] call:
+    ``smem_bytes(1, H, upb, 1)`` of csrc/fused_gru.cu:208-212, with one
+    batch row a block and one k-slice, and upb as the launcher sets it
+    (:238, all of H when T > 1, one tile of units when T == 1). The
+    launcher refuses the call when this exceeds the cap (:242-243)."""
+    upb = min(H, SMEM_TILE) if T == 1 else H
+    tiles = -(-upb // SMEM_TILE)
+    return 4 * (H + upb + tiles * 3 * SMEM_TILE)
+
+
+def bwd_smem_bytes(H: int) -> int:
+    """The backward launcher's least shared memory: ``smem_bytes(1, H, 1)``
+    of csrc/fused_gru_bwd.cu:191-195, refused above the cap at :224-225."""
+    tiles = -(-H // SMEM_TILE)
+    return 4 * (3 * H + H + tiles * SMEM_TILE)
+
+
+def kernel_admits(T: int, H: int, dtype: torch.dtype,
+                  backward: bool) -> bool:
+    """Can the kernels compute a call of this length, width and (promoted)
+    type: f32 or bf16, and the shared memory of the forward, and of the
+    backward when autograd will run it, under the cap."""
+    return (dtype in _FWD_SYMBOLS and fwd_smem_bytes(T, H) <= SMEM_CAP
+            and (not backward or bwd_smem_bytes(H) <= SMEM_CAP))
+
+
 def _gru_requires(x, h0, W, R, b, **kw):
-    """Structural: every tensor on the card. The dtype is the wrapper's
-    to check: it launches the kernel or raises."""
-    return all(t.is_cuda for t in (x, h0, W, R, b))
+    """Every tensor on the card, and :func:`kernel_admits` for the call's
+    promoted type, T, H and whether autograd will run the backward."""
+    ts = (x, h0, W, R, b)
+    return all(t.is_cuda for t in ts) and kernel_admits(
+        x.shape[1], R.shape[0], _promoted(ts),
+        bool(x.shape[1]) and _needs_grad(ts))
 
 
 register_impl("gru_layer", platform="cuda", requires=_gru_requires,

@@ -27,21 +27,28 @@ The kernels take float32 or bfloat16 (all tensors of one type, the reserve
 and the gate gradients f32). In bf16 they do what the Pallas kernels do:
 sums, gates, cell state and the backward's carries in f32, h_{t-1} and dg
 rounded to bf16 for their products; the plain versions compute the same
-way.
+way. A call that mixes f32 and bf16 (an f32 carry beside bf16 weights, as
+``rnn_time_step`` passes) computes in f32, as jnp's promotion does: the
+wrappers widen the narrower operands before launching (``widen``; widening
+is exact).
 
-The wrappers take the plain versions (``ops/recurrent.py``) only for CPU
-tensors; for CUDA tensors they launch the kernel or raise. The registry
-sends every all-CUDA ``lstm_layer`` call here, whatever its dtype, so a type
-the kernels have no code for raises instead of running the plain version
-on the card. ``FUSED_LSTM.launches`` and ``FUSED_LSTM_BWD.launches`` count
-launches; ``FUSED_LSTM.reserves`` counts the forward launches that saved
-the reserve.
+A block keeps all of h in shared memory, under the launchers' cap, so H
+has a limit: :func:`kernel_admits` repeats the launchers' arithmetic.
+The registry sends an all-CUDA ``lstm_layer`` call here when
+:func:`kernel_admits` takes it (f32 or bf16, H under the limit of the
+kernels the call will run); any other call takes the plain lowering, as
+the JAX package sends it to XLA. A call sent here launches the kernel or
+raises. The wrappers take the plain versions (``ops/recurrent.py``) only
+for CPU tensors. ``FUSED_LSTM.launches`` and ``FUSED_LSTM_BWD.launches``
+count launches; ``FUSED_LSTM.reserves`` counts the forward launches that
+saved the reserve.
 """
 
 from __future__ import annotations
 
 import torch
 
+from deeplearning4j_tpu_torch.common.dtypes import widen
 from deeplearning4j_tpu_torch.ops.cuda.build import CudaKernel, launch, pointer
 from deeplearning4j_tpu_torch.ops.recurrent import (
     finish_layer, lstm_bwd_recurrence, lstm_recurrence, project_gates,
@@ -105,7 +112,9 @@ def fused_lstm_recurrence(xg, R, h0, c0, peephole=None, save_residuals=False):
     """xg [T, B, 4H] time-major gates -> (outputs [T, B, H], hT, cT), and
     with ``save_residuals`` the reserve [5, T, B, H] f32 too.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    Mixed f32/bf16 operands compute in f32."""
+    xg, R, h0, c0, peephole = widen(xg, R, h0, c0, peephole)
     if xg.device.type == "cpu":
         return plain_recurrence(xg, R, h0, c0, peephole, save_residuals)
     if xg.device.type != "cuda":
@@ -142,7 +151,9 @@ def fused_lstm_bwd_recurrence(reserve, R, c0, dout, dcT=None, peephole=None):
     forward's reserve, ``dout`` [T, B, H] (kernel time order, the gradient
     of hT joined at the last step) and ``dcT`` (or None).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    Mixed f32/bf16 operands (the reserve aside) compute in f32."""
+    R, c0, dout, dcT, peephole = widen(R, c0, dout, dcT, peephole)
     if reserve.device.type == "cpu":
         return plain_bwd_recurrence(reserve, R, c0, dout, dcT, peephole)
     if reserve.device.type != "cuda":
@@ -257,7 +268,10 @@ def fused_lstm_layer(x, h0, c0, W, R, b, *, peephole=None,
     whose forward saves the reserve for the backward kernel: the
     counterpart of ``_kernel_bwd_enabled``. Otherwise (serving, under
     ``torch.no_grad``) the forward kernel runs alone and saves nothing. The
-    choice is made on every call, never cached by the registry."""
+    choice is made on every call. Mixed operand types promote as jnp's
+    do, operation by operation: the projection over x, W and b, the
+    recurrence over its gates, R and the carries."""
+    x, W, b = widen(x, W, b)
     R, h0, c0, peephole = (R.contiguous(), h0.contiguous(), c0.contiguous(),
                            _contiguous(peephole))
     if x.shape[1] and _needs_grad((x, h0, c0, W, R, b, peephole)):
@@ -270,11 +284,54 @@ def fused_lstm_layer(x, h0, c0, W, R, b, *, peephole=None,
     return finish_layer(out, hT, cT, reverse)
 
 
+# ------------------------------------------------- what the kernels take
+
+#: csrc/fused_lstm.cu:62,64 and csrc/fused_lstm_bwd.cu:60,62 (kTile,
+#: kSmemCap): hidden units per work item, and the shared memory a block may
+#: use
+SMEM_TILE = 32
+SMEM_CAP = 200 * 1024
+
+
+def fwd_smem_bytes(T: int, H: int) -> int:
+    """The forward launcher's least shared memory for a [T, *, H] call:
+    ``smem_bytes(1, H, upb, 1)`` of csrc/fused_lstm.cu:217-221, with one
+    batch row a block and one k-slice, and upb as the launcher sets it
+    (:248, all of H when T > 1, one tile of units when T == 1). The
+    launcher refuses the call when this exceeds the cap (:252-253)."""
+    upb = min(H, SMEM_TILE) if T == 1 else H
+    tiles = -(-upb // SMEM_TILE)
+    return 4 * (H + upb + tiles * 4 * SMEM_TILE)
+
+
+def bwd_smem_bytes(H: int) -> int:
+    """The backward launcher's least shared memory: ``smem_bytes(1, H, 1)``
+    of csrc/fused_lstm_bwd.cu:197-201, refused above the cap at :231-232."""
+    tiles = -(-H // SMEM_TILE)
+    return 4 * (4 * H + H + tiles * SMEM_TILE)
+
+
+def kernel_admits(T: int, H: int, dtype: torch.dtype,
+                  backward: bool) -> bool:
+    """Can the kernels compute a call of this length, width and (promoted)
+    type: f32 or bf16, and the shared memory of the forward, and of the
+    backward when autograd will run it, under the cap."""
+    return (dtype in _FWD_SYMBOLS and fwd_smem_bytes(T, H) <= SMEM_CAP
+            and (not backward or bwd_smem_bytes(H) <= SMEM_CAP))
+
+
+def _promoted(tensors) -> torch.dtype:
+    """The type the recurrence of a call with these operands runs in."""
+    return widen(*tensors)[0].dtype
+
+
 def _lstm_requires(x, h0, c0, W, R, b, *, peephole=None, **kw):
-    """Structural: every tensor on the card. The dtype is the wrapper's
-    to check: it launches the kernel or raises."""
+    """Every tensor on the card, and :func:`kernel_admits` for the call's
+    promoted type, T, H and whether autograd will run the backward."""
     ts = [x, h0, c0, W, R, b] + ([] if peephole is None else [peephole])
-    return all(t.is_cuda for t in ts)
+    return all(t.is_cuda for t in ts) and kernel_admits(
+        x.shape[1], R.shape[0], _promoted(ts),
+        bool(x.shape[1]) and _needs_grad(ts))
 
 
 register_impl("lstm_layer", platform="cuda", requires=_lstm_requires,

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from deeplearning4j_tpu_torch.common.dtypes import widen
 from deeplearning4j_tpu_torch.ops.registry import register_op
 
 
@@ -142,9 +143,11 @@ def lstm_layer(x, h0, c0, W, R, b, *, peephole=None, forget_gate_bias=0.0,
     """Full-sequence LSTM.
 
     x [B,T,F], W [F,4H], R [H,4H], b [4H], peephole None or [3H] (i,f,o).
-    Returns (outputs [B,T,H], (hT, cT))."""
-    xg = project_gates(x, W, b, forget_gate_bias, reverse)
-    out, hT, cT = lstm_recurrence(xg, R, h0, c0, peephole)
+    Returns (outputs [B,T,H], (hT, cT)). Mixed operand types promote as
+    jnp's do, operation by operation (``widen``): the projection over x, W
+    and b, the recurrence over its gates, R and the carries."""
+    xg = project_gates(*widen(x, W, b), forget_gate_bias, reverse)
+    out, hT, cT = lstm_recurrence(*widen(xg, R, h0, c0, peephole))
     return finish_layer(out, hT, cT, reverse)
 
 
@@ -237,17 +240,21 @@ def finish_h(out, hT, reverse):
 @register_op("gru_layer")
 def gru_layer(x, h0, W, R, b, *, reverse=False):
     """Full-sequence GRU. x [B,T,F], W [F,3H], R [H,3H], b [3H]; gate order
-    r, z, n. Returns (outputs [B,T,H], hT)."""
-    xg = project_gates(x, W, b, reverse=reverse)
-    out, hT = gru_recurrence(xg, R, h0)
+    r, z, n. Returns (outputs [B,T,H], hT). Mixed operand types promote as
+    jnp's do, operation by operation (``widen``): the projection over x, W
+    and b, the recurrence over its gates, R and h0."""
+    xg = project_gates(*widen(x, W, b), reverse=reverse)
+    out, hT = gru_recurrence(*widen(xg, R, h0))
     return finish_h(out, hT, reverse)
 
 
 @register_op("simple_rnn_layer")
 def simple_rnn_layer(x, h0, W, R, b, *, activation=torch.tanh, reverse=False):
     """Elman RNN: h_t = act(x_t @ W + h_{t-1} @ R + b). Returns (outputs
-    [B,T,H], hT). No kernel: the JAX package has none either."""
-    xg = project_gates(x, W, b, reverse=reverse)
+    [B,T,H], hT). No kernel: the JAX package has none either. Mixed
+    operand types promote operation by operation, as jnp's do."""
+    xg = project_gates(*widen(x, W, b), reverse=reverse)
+    xg, h0, R = widen(xg, h0, R)
     h, outs = h0, []
     for t in range(xg.shape[0]):
         h = activation(xg[t] + h @ R)

@@ -18,7 +18,9 @@ none. ``DL4J_TORCH_DISABLE_KERNELS`` sends every call to the plain lowering.
 
 The JAX registry chooses once, at trace time. PyTorch runs eagerly, so the
 port chooses on every call and caches the choice per (op, device, dtypes,
-shapes, contiguity, flags) to keep the predicates off the hot path.
+shapes, contiguity, whether autograd will need gradients, flags) to keep
+the predicates off the hot path: a kernel's ``requires`` may depend on all
+of them (the recurrent kernels' backward has its own limit on H).
 """
 
 from __future__ import annotations
@@ -55,7 +57,7 @@ def _signature(a):
     """Hashable description of one argument for the selection cache."""
     if isinstance(a, torch.Tensor):
         return ("T", a.device.type, a.dtype, tuple(a.shape),
-                a.is_contiguous())
+                a.is_contiguous(), a.requires_grad)
     if a is None or isinstance(a, (bool, int, float, str)):
         return a
     if isinstance(a, (tuple, list)):
@@ -95,14 +97,15 @@ class _Op:
 
     def select(self, *args, **kwargs) -> OpImpl:
         key = (env.disable_kernels, env.force_kernels,
-               _signature(args), _signature(tuple(sorted(kwargs.items()))))
+               torch.is_grad_enabled(), _signature(args),
+               _signature(tuple(sorted(kwargs.items()))))
         impl = self._choices.get(key)
         if impl is None:
             impl = self._choose(args, kwargs)
             self._choices[key] = impl
             if env.verbose:
                 print(f"[dl4j-torch] op {self.name} -> {impl.platform} "
-                      f"for {key[2]}")
+                      f"for {key[3]}")
         return impl
 
     def __call__(self, *args, **kwargs):

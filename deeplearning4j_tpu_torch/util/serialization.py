@@ -94,8 +94,9 @@ def write_model(model, path: str, save_updater: bool = True):
 def restore_multi_layer_network(path: str, device: DeviceLike = "cuda",
                                 load_updater: bool = True):
     """ModelSerializer.restoreMultiLayerNetwork analog: configuration,
-    params, updater state (unless ``load_updater`` is False or the zip has
-    none) and the step and epoch counters."""
+    params, layer state (BatchNormalization's running statistics), updater
+    state (unless ``load_updater`` is False or the zip has none) and the
+    step and epoch counters."""
     from deeplearning4j_tpu_torch.nn.conf.builders import MultiLayerConfiguration
     from deeplearning4j_tpu_torch.nn.multilayer import (
         MultiLayerNetwork, load_jax_opt_state, load_jax_params,
@@ -112,10 +113,14 @@ def restore_multi_layer_network(path: str, device: DeviceLike = "cuda",
         conf = MultiLayerConfiguration.from_json(
             z.read("configuration.json").decode())
         coeffs = _npz_load(z.read("coefficients.npz"))
+        states = (_npz_load(z.read("state.npz"))
+                  if "state.npz" in z.namelist() else {})
         upd = (_npz_load(z.read("updater.npz"))
                if load_updater and "updater.npz" in z.namelist() else {})
     net = MultiLayerNetwork(conf).init(conf.seed, device=device)
-    load_jax_params(net, _unflatten(net.params, coeffs, "coefficients.npz"))
+    load_jax_params(net, _unflatten(net.params, coeffs, "coefficients.npz"),
+                    _unflatten(net.state, states, "state.npz")
+                    if states else None)
     if upd:
         load_jax_opt_state(net, _unflatten(net.opt_state, upd, "updater.npz"))
     net.step_count = int(meta.get("step_count", 0))

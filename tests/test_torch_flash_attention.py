@@ -63,8 +63,8 @@ def _no_tf32():
 
 def _case(T, D, *, mask, B=2, N=2, Tk=None, seed=0):
     """q, k, v, do [B, N, T, D] f32 and a [B, Tk] key mask (or None) as
-    numpy. ``mask``: None, "pad" (ragged lengths) or "full" (batch 1 sees
-    no key at all)."""
+    numpy. ``mask``: None, "pad" (ragged lengths) or "full" (the last
+    batch row sees no key at all)."""
     rng = np.random.default_rng(seed)
     Tk = T if Tk is None else Tk
     f = lambda *s: rng.normal(size=s).astype(np.float32)
@@ -75,7 +75,7 @@ def _case(T, D, *, mask, B=2, N=2, Tk=None, seed=0):
         lens = rng.integers(1, Tk + 1, B)
         km = (np.arange(Tk)[None, :] < lens[:, None]).astype(np.float32)
         if mask == "full":
-            km[1] = 0.0
+            km[-1] = 0.0
     return a, km
 
 
@@ -396,14 +396,17 @@ def _card_inputs(device, B, N, T, D, dtype, mask, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(2, 3, 128, 64), (2, 2, 77, 64),
-                                   (1, 2, 300, 128), (1, 1, 40, 16)])
+                                   (1, 2, 300, 128), (1, 1, 40, 16),
+                                   (2, 2, 40, 72), (2, 2, 1, 64)])
 def test_kernels_against_plain_on_card(cuda_device, shape, dtype):
     """o, lse, dq, dk, dv of the three kernels against the plain versions
-    on the card, masked and not, causal and not. Tolerance 1e-4 in f32
-    (sums in other orders), 1e-2 (1 + |ref|) in bf16."""
+    on the card, unmasked, key-padded and with a batch row that sees no key,
+    causal and not; D = 72 pads the bf16 tiles, T = 1 is one row. Exactly
+    one launch of each kernel a case. Tolerance 1e-4 in f32 (sums in other
+    orders), 1e-2 (1 + |ref|) in bf16."""
     dt = getattr(torch, dtype)
     B, N, T, D = shape
-    for mask in (None, "pad"):
+    for mask in (None, "pad", "full"):
         for causal in (False, True):
             t, km = _card_inputs(cuda_device, B, N, T, D, dt, mask, T + D)
             kw = dict(scale=1.0 / math.sqrt(D), causal=causal, kmask=km)
@@ -442,3 +445,57 @@ def test_function_grads_against_autograd_on_card(cuda_device):
     for a, b in zip(got, want):
         assert float((a - b).abs().max()) <= 1e-4 * max(1.0, float(
             b.abs().max()))
+
+
+def _tensor_core_product_inputs(device):
+    g = np.random.default_rng(11)
+    a = torch.tensor(g.normal(size=(64, 128)), dtype=torch.bfloat16)
+    b = torch.tensor(g.normal(size=(64, 128)), dtype=torch.bfloat16)
+    return a.to(device), b.to(device)
+
+
+@pytest.mark.cuda
+def test_tensor_core_tile_layer_on_card(cuda_device):
+    """The bf16 kernels' tile layer (swizzled tiles, wgmma descriptors,
+    register fragments) on one product of each kind against the host's
+    f32 product of the same bf16 values: a b^T with both operands from
+    shared memory over K = 128, and a[:, :64] b with A from registers and B
+    read transposed. Only the order of f32 sums differs: 1e-4 (1 + |ref|)."""
+    a, b = _tensor_core_product_inputs(cuda_device)
+    ss, rs = fa.tile_check(a, b)
+    torch.cuda.synchronize()
+    af, bf = a.cpu().float(), b.cpu().float()
+    for got, want in ((ss, af @ bf.T), (rs, af[:, :64] @ bf)):
+        err = (got.cpu() - want).abs()
+        assert bool((err <= 1e-4 * (1 + want.abs())).all()), float(err.max())
+
+
+@pytest.mark.cuda
+def test_bf16_kernels_run_on_tensor_cores_on_card(cuda_device):
+    """The bf16 forward and dq compiled to wgmma (HGMMA in their machine
+    code); the f32 kernels, and so every f32 call, stay on the CUDA cores:
+    a profile of each dtype's calls names its own kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeplearning4j_tpu_torch.ops.cuda.build import tensor_core_ops
+
+    for kern, names in ((FLASH_FWD, fa.FWD_KERNEL_NAMES),
+                        (FLASH_DQ, fa.DQ_KERNEL_NAMES)):
+        assert tensor_core_ops(kern.library,
+                               names[torch.bfloat16])["HGMMA"] > 0
+        assert tensor_core_ops(kern.library, names[torch.float32]) == {
+            "HGMMA": 0, "HMMA": 0}
+    for dt in (torch.float32, torch.bfloat16):
+        t, km = _card_inputs(cuda_device, 2, 2, 128, 64, dt, "pad", 3)
+        kw = dict(scale=0.125, causal=False, kmask=km)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            o, lse = flash_forward(t["q"], t["k"], t["v"], **kw)
+            delta = (t["do"].float() * o.float()).sum(-1, keepdim=True)
+            flash_backward(t["q"], t["k"], t["v"], t["do"], lse, delta, **kw)
+            torch.cuda.synchronize()
+        names = " ".join(e.key for e in prof.key_averages())
+        other = torch.bfloat16 if dt == torch.float32 else torch.float32
+        for table in (fa.FWD_KERNEL_NAMES, fa.DQ_KERNEL_NAMES):
+            assert table[dt] in names
+            # neither f32 name is a substring of a bf16 one, nor back
+            assert table[other] not in names

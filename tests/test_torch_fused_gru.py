@@ -281,15 +281,22 @@ def test_empty_sequence_passes_carry_through():
 
 def test_registry_sends_cpu_calls_to_plain_and_cuda_calls_to_the_kernel():
     """CPU tensors take the plain lowering; the kernel's ``requires`` asks
-    only that every tensor lies on the card (no TPU predicate: any B, any
-    H, any dtype reaches the wrapper, which launches or raises)."""
+    that every tensor lies on the card and that the kernels can compute
+    the call (f32 or bf16, H under their shared-memory limit; the choice
+    at the limits is in test_torch_kernel_requires.py). No TPU predicate:
+    any B reaches the wrapper, which launches or raises."""
     op = get_op("gru_layer")
     assert [i.platform for i in op.impls] == ["plain", "cuda"]
     a = _inputs(5, seed=4)
     args = [torch.tensor(a[k]) for k in NAMES]
     assert op.select(*args).fn is gru_layer
     assert not _gru_requires(*args)
-    fake = [type("T", (), {"is_cuda": True})() for _ in NAMES]
+
+    class OnCard(torch.Tensor):
+        is_cuda = property(lambda self: True)
+
+    fake = [torch.empty(t.shape, device="meta").as_subclass(OnCard)
+            for t in args]
     assert _gru_requires(*fake)
     assert get_op("simple_rnn_layer").impls[0].platform == "plain"
 

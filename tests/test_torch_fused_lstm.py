@@ -261,7 +261,10 @@ def test_bf16_kernel_against_plain_on_card(cuda_device):
     """bf16 on the card: the registry sends the call to the kernel, which
     agrees with the plain version within one or two bf16 rounding steps
     (f32 sums in different orders may round a stored value to its
-    neighbour, and the rounded h feeds later steps); other types raise."""
+    neighbour, and the rounded h feeds later steps). A type the kernels
+    have no code for (f16) goes to the plain lowering, and the wrapper
+    raises if called with it; mixed f32/bf16 operands run the f32 kernel
+    on the widened operands."""
     g = torch.Generator(device=cuda_device).manual_seed(1)
     bf16 = torch.bfloat16
     for B, T, H, peep in ((8, 1, 256, False), (1, 47, 256, False),
@@ -283,11 +286,18 @@ def test_bf16_kernel_against_plain_on_card(cuda_device):
             ((8, 1, 5), (8, 16), (8, 16), (5, 64), (16, 64), (64,))]
     assert get_op("lstm_layer").select(*args).platform == "cuda"
     half = [a.half() for a in args]
-    assert get_op("lstm_layer").select(*half).platform == "cuda"
+    assert get_op("lstm_layer").select(*half).platform == "plain"
+    assert get_op("lstm_layer")(*half)[0].dtype == torch.float16
     with pytest.raises(TypeError, match="float32 or bfloat16"):
-        get_op("lstm_layer")(*half)
-    with pytest.raises(TypeError, match="one type"):
-        fused_lstm_recurrence(xg, R.float(), h0, c0)
+        fused_lstm_recurrence(xg.half(), R.half(), h0.half(), c0.half())
+    before = FUSED_LSTM.launches
+    mixed = fused_lstm_recurrence(xg, R.float(), h0, c0)
+    wide = fused_lstm_recurrence(xg.float(), R.float(), h0.float(),
+                                 c0.float())
+    torch.cuda.synchronize()
+    assert FUSED_LSTM.launches == before + 2
+    for a, b in zip(mixed, wide):
+        assert a.dtype == torch.float32 and torch.equal(a, b)
 
 
 @pytest.mark.cuda
