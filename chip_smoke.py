@@ -16,7 +16,8 @@ Phases (any failure exits non-zero before the result line):
    and at the GravesLSTM char-RNN width, and in bfloat16 at the decode and
    GravesLSTM shapes; times the kernel, the plain version and, as a
    yardstick the port never calls, ``torch.nn.LSTM`` (cuDNN) on the same
-   layer with its gates reordered.
+   layer with its gates reordered (on CUDA events and as the device time
+   of its kernels).
 4. Main path: TextGenerationLSTM at its published width (LSTM 256 x 2,
    vocabulary 77, random weights from a seed) served by
    ``GenerationEngine(slots=8, max_len=256)``: 16 requests, greedy and
@@ -47,9 +48,9 @@ Phases (any failure exits non-zero before the result line):
 8. TextGenerationLSTM training (RMSProp, 2 + 2 launches a step) and the
    bf16 char-RNN training: a few steps each, every step through both
    kernels.
-9. Flash kernels against plain. First the tensor cores: the bf16 forward
-   and dq kernels' machine code (``cuobjdump -sass``) must hold HGMMA or
-   HMMA instructions and the f32 kernels none, and the tile layer's two
+9. Flash kernels against plain. First the tensor cores: the bf16 forward,
+   dq and dk/dv kernels' machine code (``cuobjdump -sass``) must hold HGMMA
+   or HMMA instructions and the f32 kernels none, and the tile layer's two
    products are held against the same product on the card. Then the
    forward, dq and dk/dv kernels against
    their plain versions (o, lse, dq, dk, dv) at BERT-base's attention shape
@@ -79,7 +80,8 @@ Phases (any failure exits non-zero before the result line):
     through the plain lowering on the card; times of each kernel, its plain
     version and, as a yardstick the port never calls,
     ``torch.nn.functional.local_response_norm`` (forward, and its autograd
-    backward) at AlexNet's shapes.
+    backward) at AlexNet's shapes, on CUDA events and as the device time of
+    its kernels.
 13. AlexNet inference: ``AlexNet()`` at its published width (224 x 224 x
     3, conv 96-256-384-384-256, two LRN layers, dense 4096-4096, 1000
     classes, f32, random weights from the seed) runs ``output()`` on 128
@@ -96,12 +98,17 @@ Phases (any failure exits non-zero before the result line):
 16. GRU kernels against plain: the fused-GRU forward kernel (with and
     without its reserve) and backward kernel against their plain versions
     at the GRU paths' shapes (decode [8, 1, 256], prefill [1, 47, 256],
-    training [64, 64, 256]), the full-width recurrent product [64, 64,
-    1024] (F=256) and a ragged reversed [3, 5, 200], in f32 and bf16;
-    times of each kernel, its plain version and, as a yardstick the port
-    never calls, ``torch.nn.GRU`` (cuDNN) with its recurrent bias zeroed,
-    the same function (forward, and its autograd backward), on the host's
-    clock and as the device time of its kernels.
+    training [64, 64, 256], Bidirectional(GRU(200))'s reversed [64, 64,
+    200]), the full-width recurrent product [64, 64, 1024] (F=256) and a
+    ragged reversed [3, 5, 200], in f32 and bf16. Each row names the
+    forward design the launcher chose (the cluster kernel, R resident
+    across a thread-block cluster, or the stream kernel), held against its
+    Python mirror; the cluster design must run at every T > 1 shape of the
+    main path and the stream design at decode and H=1024, as the profile
+    of each row shows. Times of each kernel, its plain version and, as a
+    yardstick the port never calls, ``torch.nn.GRU`` (cuDNN) with its
+    recurrent bias zeroed, the same function (forward, and its autograd
+    backward), on the host's clock and as the device time of its kernels.
 17. GRU char-RNN serving: TextGenerationLSTM's topology with GRULayer(256)
     x 2 (vocabulary 77, random weights from the seed, built from the
     configuration builder as the JAX package would) served by
@@ -354,7 +361,8 @@ def phase_kernels(torch):
                 x, h0, c0, W, R, b, **kw), iters),
             "layer_plain_ms": cuda_ms(torch, lambda: lstm_layer(
                 x, h0, c0, W, R, b, **kw), iters),
-            "library_ms": None, "library_max_abs_err": None,
+            "library_ms": None, "library_device_ms": None,
+            "library_max_abs_err": None,
         }
         row["kernel_device_ms"] = kernel_device_ms(
             torch, lambda: fused_lstm_recurrence(xg, R, h0, c0, p), 20,
@@ -373,6 +381,8 @@ def phase_kernels(torch):
                     (lo.transpose(0, 1) - ref).abs().max().float())
                 row["library_ms"] = cuda_ms(torch, lambda: lstm(xt, state),
                                             iters)
+                row["library_device_ms"] = call_device_ms(
+                    torch, lambda: lstm(xt, state), iters)
         rows.append(row)
     return rows, worst[f32], worst[bf16]
 
@@ -893,22 +903,25 @@ def _err_within(torch, got, want, dtype):
 
 
 def flash_tensor_cores(torch):
-    """The bf16 flash forward and dq run on the tensor cores: their machine
-    code (``cuobjdump -sass`` of the built libraries) holds HGMMA (wgmma)
-    or HMMA (mma.sync) instructions, and the f32 kernels hold none; and the
+    """The bf16 flash forward, dq and dk/dv run on the tensor cores: their
+    machine code (``cuobjdump -sass`` of the built libraries) holds HGMMA
+    (wgmma) or HMMA (mma.sync) instructions, and the f32 kernels hold none;
+    and the
     tile layer's two products (``tile_check``) agree with the same product
     on the card in f32 (TF32 off; only the order of f32 sums differs:
     1e-4 (1 + |ref|)). Returns the counts by kernel and the products'
     errors."""
     from deeplearning4j_tpu_torch.ops.cuda.build import tensor_core_ops
     from deeplearning4j_tpu_torch.ops.cuda.flash_attention import (
-        DQ_KERNEL_NAMES, FLASH_DQ, FLASH_FWD, FWD_KERNEL_NAMES, tile_check,
+        DKV_KERNEL_NAMES, DQ_KERNEL_NAMES, FLASH_DKV, FLASH_DQ, FLASH_FWD,
+        FWD_KERNEL_NAMES, tile_check,
     )
 
     f32, bf16 = torch.float32, torch.bfloat16
     out = {"sass": {}}
     for kern, names in ((FLASH_FWD, FWD_KERNEL_NAMES),
-                        (FLASH_DQ, DQ_KERNEL_NAMES)):
+                        (FLASH_DQ, DQ_KERNEL_NAMES),
+                        (FLASH_DKV, DKV_KERNEL_NAMES)):
         for dt in (bf16, f32):
             out["sass"][names[dt]] = tensor_core_ops(kern.library, names[dt])
         tc = out["sass"][names[bf16]]
@@ -1010,8 +1023,8 @@ def time_flash(torch, g, dt, fwd, bwd, fwd_plain, bwd_plain):
     backward alone on a retained graph); the bounds."""
     from deeplearning4j_tpu_torch.ops.cuda.build import launch, pointer
     from deeplearning4j_tpu_torch.ops.cuda.flash_attention import (
-        DQ_KERNEL_NAMES, FLASH_DKV, FLASH_DQ, FWD_KERNEL_NAMES, _DKV_SYMBOLS,
-        _DQ_SYMBOLS,
+        DKV_KERNEL_NAMES, DQ_KERNEL_NAMES, FLASH_DKV, FLASH_DQ,
+        FWD_KERNEL_NAMES, _DKV_SYMBOLS, _DQ_SYMBOLS,
     )
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1052,7 +1065,7 @@ def time_flash(torch, g, dt, fwd, bwd, fwd_plain, bwd_plain):
                                          DQ_KERNEL_NAMES[dt]),
         "dkv_ms": cuda_ms(torch, dkv_only, iters),
         "dkv_device_ms": kernel_device_ms(torch, dkv_only, iters,
-                                          "flash_dkv_kernel"),
+                                          DKV_KERNEL_NAMES[dt]),
         "bwd_ms": cuda_ms(torch, lambda: bwd(q, k, v, do, lse, delta, **kw),
                           iters),
         "bwd_plain_ms": cuda_ms(torch, lambda: bwd_plain(
@@ -1284,6 +1297,9 @@ def phase_bert_training(torch, np, net):
             "device_busy_share": busy / prof_wall if by_kernel else None,
             "device_kernels_per_step": sum(n for _, n in by_kernel.values())
             / steps,
+            # the three flash kernels' share of the step's device time
+            "flash_device_ms_per_step": sum(
+                t for k, (t, _) in by_kernel.items() if "flash_" in k) / steps,
             "top_kernels_ms_per_step": {k[:60]: t / steps
                                         for k, (t, _) in top},
         },
@@ -1399,7 +1415,8 @@ def time_lrn(torch, g, shape, dt, depth=5):
     versions, and as a yardstick the port never calls,
     torch.nn.functional.local_response_norm on a contiguous NCHW copy
     (size=depth, alpha*depth: PyTorch averages over the window) forward
-    and its autograd backward on a retained graph; the bounds."""
+    and its autograd backward on a retained graph, on CUDA events and as
+    the device time of its kernels; the bounds."""
     from deeplearning4j_tpu_torch.ops.cuda.lrn import (
         lrn_backward, lrn_bwd_plain, lrn_forward, lrn_fwd_plain,
     )
@@ -1433,6 +1450,11 @@ def time_lrn(torch, g, shape, dt, depth=5):
         "library_fwd_ms": cuda_ms(torch, lambda: lib(xl.detach()), iters),
         "library_bwd_ms": cuda_ms(torch, lambda: torch.autograd.grad(
             lib_out, xl, gl, retain_graph=True), iters),
+        "library_fwd_device_ms": call_device_ms(
+            torch, lambda: lib(xl.detach()), iters),
+        "library_bwd_device_ms": call_device_ms(
+            torch, lambda: torch.autograd.grad(lib_out, xl, gl,
+                                               retain_graph=True), iters),
         "library_max_abs_err_vs_plain": lib_err,
     }
     out["fwd_bound_ms"], out["fwd_bound_by"] = lrn_bound(shape, e, False,
@@ -1712,15 +1734,27 @@ def _gru_within(torch, got, want, dtype):
     return err, ok and bool(torch.isfinite(got).all())
 
 
+# the forward design each GRU path's shape must run: the cluster kernel
+# (R resident across a thread-block cluster) at every T > 1 shape of the
+# main path, the stream kernel at decode and where R is too wide
+GRU_DESIGNS = {"prefill": "cluster", "train": "cluster",
+               "train_bf16": "cluster", "bidi_h200_rev": "cluster",
+               "decode": "stream", "h1024": "stream"}
+
+
 def phase_gru_kernels(torch):
     """The GRU forward kernel (with and without the reserve) and the
     backward kernel against their plain versions at the GRU paths' shapes
     and the full-width H=1024 product, f32 and bf16; times of each kernel,
-    its plain version and cuDNN's GRU. Returns (rows, f32 and bf16
-    worst)."""
+    its plain version and cuDNN's GRU. Each row names the forward design
+    the launcher chose (held against ``fwd_design``, its Python mirror) and
+    is timed by that design's device function; the designs of GRU_DESIGNS
+    are required, and their profiles must show that function. Returns
+    (rows, f32 and bf16 worst)."""
     from deeplearning4j_tpu_torch.ops.cuda.fused_gru import (
+        CLUSTER_SMEM_CAP, FWD_KERNEL_NAMES, card_active_clusters,
         fused_gru_bwd_recurrence, fused_gru_layer, fused_gru_recurrence,
-        plain_bwd_recurrence, plain_recurrence,
+        fwd_design, launcher_design, plain_bwd_recurrence, plain_recurrence,
     )
     from deeplearning4j_tpu_torch.ops.recurrent import gru_layer, project_gates
 
@@ -1731,6 +1765,8 @@ def phase_gru_kernels(torch):
         ("train", 64, 64, 256, 256, False, True, f32),
         ("h1024", 64, 64, 256, 1024, False, True, f32),
         ("ragged_h200_rev", 3, 5, 77, 200, True, True, f32),
+        ("bidi_h200_rev", 64, GRU_TIMESTEPS, GRU_VOCAB, 200, True, True,
+         f32),
         ("decode_bf16", 8, 1, GRU_VOCAB, 256, False, False, bf16),
         ("prefill_bf16", 1, 47, GRU_VOCAB, 256, False, False, bf16),
         ("train_bf16", 64, 64, 256, 256, False, True, bf16),
@@ -1756,8 +1792,20 @@ def phase_gru_kernels(torch):
         # the backward is held on the kernel's own reserve and outputs, so
         # that its check does not carry the forward's rounding differences
         p_dg, p_dh0 = plain_bwd_recurrence(reserve, R, h0, out, dout)
+        design = launcher_design(T, B, H, dt)
+        if fwd_design(T, B, H, dt) != design:
+            fail(f"GRU forward at {name}: the launcher chose {design}, its "
+                 f"Python mirror {fwd_design(T, B, H, dt)}")
+        if GRU_DESIGNS.get(name, design.kind) != design.kind:
+            fail(f"GRU forward at {name} runs the {design.kind} design; "
+                 f"want {GRU_DESIGNS[name]}")
+        fwd_kernel = FWD_KERNEL_NAMES[design.kind]
         row = {"shape": name, "B": B, "T": T, "F": F, "H": H, "reverse": rev,
-               "dtype": str(dt).replace("torch.", "")}
+               "dtype": str(dt).replace("torch.", ""),
+               "design": design._asdict(), "fwd_kernel": fwd_kernel}
+        if design.kind == "cluster":  # clusters the card holds, 1 CTA an SM
+            row["cluster_slots"] = card_active_clusters(dt)(
+                design.cluster, 1, CLUSTER_SMEM_CAP)
         checks = [("out", k_out, p_out), ("hT", k_hT, p_hT),
                   ("out_with_reserve", out, p_out), ("reserve", reserve, p_res),
                   ("dg", dg, p_dg), ("dh0", dh0, p_dh0)]
@@ -1775,7 +1823,7 @@ def phase_gru_kernels(torch):
         fwd = lambda: fused_gru_recurrence(xg, R, h0)  # noqa: E731
         row["fwd_ms"] = cuda_ms(torch, fwd, iters)
         row["fwd_device_ms"] = kernel_device_ms(torch, fwd, iters,
-                                                "gru_fwd_kernel")
+                                                fwd_kernel)
         row["fwd_plain_ms"] = cuda_ms(
             torch, lambda: plain_recurrence(xg, R, h0), max(3, iters // 10))
         row["fwd_bound_ms"], row["fwd_bound_by"] = gru_bound(T, B, H,
@@ -1791,7 +1839,7 @@ def phase_gru_kernels(torch):
                 reserve, R, h0, out, dout)
             row["fwd_reserve_ms"] = cuda_ms(torch, fwd_r, iters)
             row["fwd_reserve_device_ms"] = kernel_device_ms(
-                torch, fwd_r, iters, "gru_fwd_kernel")
+                torch, fwd_r, iters, fwd_kernel)
             row["fwd_reserve_plain_ms"] = cuda_ms(torch, lambda: (
                 plain_recurrence(xg, R, h0, save_residuals=True)), 3)
             row["fwd_reserve_bound_ms"], row["fwd_reserve_bound_by"] = \
@@ -1828,6 +1876,13 @@ def phase_gru_kernels(torch):
                 row["library_bwd_ms"] = cuda_ms(torch, lib_bwd, iters)
                 row["library_bwd_device_ms"] = call_device_ms(
                     torch, lib_bwd, iters)
+        # the designs GRU_DESIGNS requires are shown by the device's own
+        # record (their windows run 10 calls or more; the profiler can drop
+        # the records of a window much shorter than a millisecond)
+        if name in GRU_DESIGNS and (row["fwd_device_ms"] is None or (
+                train and row["fwd_reserve_device_ms"] is None)):
+            fail(f"GRU forward at {name}: the profile shows no "
+                 f"{fwd_kernel}, the {design.kind} design's kernel")
         rows.append(row)
     # the launches above were for checks and timing: not the main path's
     return rows, worst[f32], worst[bf16]
@@ -2054,8 +2109,10 @@ def gru_kernel_entries(by_name, rows, worst, worst_bf16, serve, train,
         "library_ms": g_dec["library_fwd_ms"],
         "library_device_ms": g_dec["library_fwd_device_ms"],
         "shape": "decode [B=8, T=1, H=256] f32",
+        "design": g_dec["design"]["kind"],
         "training_shape": {
             "shape": "[B=64, T=64, H=256] f32, with reserve",
+            "design": g_train["design"]["kind"],
             "ms": g_train["fwd_reserve_ms"],
             "device_ms": g_train["fwd_reserve_device_ms"],
             "plain_ms": g_train["fwd_reserve_plain_ms"],
@@ -2079,6 +2136,7 @@ def gru_kernel_entries(by_name, rows, worst, worst_bf16, serve, train,
         "library_ms": g_train["library_bwd_ms"],
         "library_device_ms": g_train["library_bwd_device_ms"],
         "shape": "[B=64, T=64, H=256] f32",
+        "design": "stream (R^T from L2 every step)",
     }]
 
 
@@ -2247,6 +2305,7 @@ def main() -> None:
         "device_ms": decode["kernel_device_ms"],
         "plain_ms": decode["plain_ms"], "bound_ms": decode["bound_ms"],
         "bound_by": decode["bound_by"], "library_ms": decode["library_ms"],
+        "library_device_ms": decode["library_device_ms"],
         "shape": "decode [B=8, T=1, H=256]",
         "training_shape": {
             "shape": "[B=64, T=64, H=200], peephole, reverse, with reserve",
@@ -2273,7 +2332,7 @@ def main() -> None:
     # the flash kernels at the BERT main path's shape and type (bf16, key
     # padding); the f32 times are in flash_times
     from deeplearning4j_tpu_torch.ops.cuda.flash_attention import (
-        DQ_KERNEL_NAMES, FWD_KERNEL_NAMES,
+        DKV_KERNEL_NAMES, DQ_KERNEL_NAMES, FWD_KERNEL_NAMES,
     )
 
     ft = flash_times["bfloat16"]
@@ -2285,7 +2344,8 @@ def main() -> None:
             # backward computes both, in library_bwd_ms
             (fdq, "dq", "bwd_plain_ms", None,
              "wgmma (tensor cores), cp.async ring"),
-            (fdkv, "dkv", "bwd_plain_ms", None, "CUDA cores, f32")):
+            (fdkv, "dkv", "bwd_plain_ms", None,
+             "wgmma (tensor cores), cp.async ring")):
         entries.append({
             "name": kern.name, "route": "cuda", "source": kern.source,
             "replaces": kern.replaces,
@@ -2301,9 +2361,9 @@ def main() -> None:
             "library_bwd_ms": ft["library_bwd_ms"],
             "library_bwd_device_ms": ft["library_bwd_device_ms"],
             "design": design,
-            "tensor_core_ops": tensor_cores["sass"].get(
-                {"fwd": FWD_KERNEL_NAMES, "dq": DQ_KERNEL_NAMES}.get(
-                    kind, {}).get(torch.bfloat16)),
+            "tensor_core_ops": tensor_cores["sass"][
+                {"fwd": FWD_KERNEL_NAMES, "dq": DQ_KERNEL_NAMES,
+                 "dkv": DKV_KERNEL_NAMES}[kind][torch.bfloat16]],
             "shape": "[32, 12, 128, 64] bf16, key-padding mask",
         })
     # the LRN kernels at AlexNet's conv1 LRN shape, f32 (the main path's
@@ -2325,6 +2385,7 @@ def main() -> None:
             "bound_ms": lt[f"{kind}_bound_ms"],
             "bound_by": lt[f"{kind}_bound_by"],
             "library_ms": lt[f"library_{kind}_ms"],
+            "library_device_ms": lt[f"library_{kind}_device_ms"],
             "shape": f"[{ALEXNET_BATCH}, 54, 54, 96] f32, depth 5",
         })
     entries += gru_kernel_entries(by_name, gru_rows, gru_worst,

@@ -1,8 +1,7 @@
 // Shared pieces of the flash-attention kernels (flash_attention_fwd.cu,
 // flash_attention_dq.cu, flash_attention_dkv.cu): the CUDA-core tile layer
-// of the f32 kernels and the dk/dv kernel (namespace flash), and the
-// tensor-core tile layer of the bf16 forward and dq (namespace flash::wg,
-// below).
+// of the f32 kernels (namespace flash), and the tensor-core tile layer of
+// the bf16 forward, dq and dk/dv (namespace flash::wg, below).
 //
 // Every CUDA-core kernel works on 64 x 64 tiles of the score matrix with 256 threads
 // laid out 16 x 16: thread (ty, tx) = (threadIdx.x / 16, threadIdx.x % 16)
@@ -123,7 +122,8 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 
 // ------------------------------------------------------------------------
 // Tensor-core tile layer (bf16): one warpgroup of 128 threads per 64-row
-// query tile, products by wgmma.mma_async m64n64k16 bf16 -> f32.
+// query tile (key tile in dk/dv), products by wgmma.mma_async m64n64k16
+// bf16 -> f32.
 //
 // Shared-memory tiles. A [64 rows][DMAX] bf16 tile (DMAX 64 or 128) is
 // stored as DMAX / 64 column blocks of [64 rows][64 values], 8 KB each,
@@ -172,6 +172,13 @@ __device__ __forceinline__ uint32_t swizzled(int r, int c) {
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+// 4 bytes global -> shared, asynchronously (through L1); src_bytes 0 writes
+// a zero.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {

@@ -26,9 +26,10 @@ the mean of v there instead (``ops/attention.py``). In bf16, products take
 the input type's values with f32 sums, the scale multiplies the f32
 product, p is rounded to v's (do's) type and ds to k's (q's) type before
 their products, and o is stored in the input type. The kernels take f32 or
-bf16 and any head dim up to 128. The bf16 forward and dq run on the tensor
-cores (wgmma, ``FWD_KERNEL_NAMES``/``DQ_KERNEL_NAMES``); f32 and dk/dv run
-on the CUDA cores. None of the TPU machinery is carried over (``bwd_tiles``,
+bf16 and any head dim up to 128. The bf16 kernels run on the tensor cores
+(wgmma; ``FWD_KERNEL_NAMES``, ``DQ_KERNEL_NAMES``, ``DKV_KERNEL_NAMES``
+name each type's device function); the f32 ones run on the CUDA cores.
+None of the TPU machinery is carried over (``bwd_tiles``,
 the v5e tile defaults): the kernels tile by 64 rows.
 
 The wrappers take the plain versions (:func:`flash_forward_plain`,
@@ -67,6 +68,8 @@ FWD_KERNEL_NAMES = {torch.float32: "flash_fwd_kernel",
                     torch.bfloat16: "flash_fwd_wgmma_kernel"}
 DQ_KERNEL_NAMES = {torch.float32: "flash_dq_kernel",
                    torch.bfloat16: "flash_dq_wgmma_kernel"}
+DKV_KERNEL_NAMES = {torch.float32: "flash_dkv_kernel",
+                    torch.bfloat16: "flash_dkv_wgmma_kernel"}
 
 FLASH_FWD = CudaKernel(
     "flash_attention_fwd", "flash_attention_fwd.cu",

@@ -432,6 +432,40 @@ def test_kernels_against_plain_on_card(cuda_device, shape, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 72, 128])
+@pytest.mark.parametrize("T,Tk", [(1, 1), (128, 128), (200, 200), (77, 130),
+                                  (130, 77)])
+def test_bf16_dkv_against_plain_on_card(cuda_device, D, T, Tk):
+    """The bf16 dk/dv kernel (tensor cores) against the plain backward on
+    the card, at head dims 64, 72 (padded tiles) and 128 (two column
+    blocks), T 1, 128 and 200 with causal and not, and Tq != Tk (not
+    causal: the kernels are start-aligned); unmasked, key-padded and with
+    a batch row that sees no key (lse = +inf). One bf16 step:
+    1e-2 (1 + |ref|), on the kernel's own lse and delta."""
+    dt = torch.bfloat16
+    for mask in (None, "pad", "full"):
+        for causal in ((False, True) if T == Tk else (False,)):
+            a, km = _case(T, D, mask=mask, B=2, N=3, Tk=Tk, seed=T + D)
+            t = {n: _t(x, dt).to(cuda_device) for n, x in a.items()}
+            km = None if km is None else _t(km).to(cuda_device)
+            kw = dict(scale=1.0 / math.sqrt(D), causal=causal, kmask=km)
+            o, lse = flash_forward(t["q"], t["k"], t["v"], **kw)
+            delta = (t["do"].float() * o.float()).sum(-1, keepdim=True)
+            n0 = FLASH_DKV.launches
+            _, dk, dv = flash_backward(t["q"], t["k"], t["v"], t["do"], lse,
+                                       delta, **kw)
+            torch.cuda.synchronize()
+            assert FLASH_DKV.launches == n0 + 1
+            _, pdk, pdv = flash_backward_plain(t["q"], t["k"], t["v"],
+                                               t["do"], lse, delta, **kw)
+            for got, want in ((dk, pdk), (dv, pdv)):
+                assert bool(torch.isfinite(got).all())
+                err = (got - want).abs()
+                assert bool((err <= 1e-2 * (1 + want.abs())).all()), (
+                    mask, causal, float(err.max()))
+
+
+@pytest.mark.cuda
 def test_function_grads_against_autograd_on_card(cuda_device):
     """Gradients through the kernels against autograd through the plain
     lowering on the card (f32, key padding, every key row valid)."""
@@ -472,15 +506,16 @@ def test_tensor_core_tile_layer_on_card(cuda_device):
 
 @pytest.mark.cuda
 def test_bf16_kernels_run_on_tensor_cores_on_card(cuda_device):
-    """The bf16 forward and dq compiled to wgmma (HGMMA in their machine
-    code); the f32 kernels, and so every f32 call, stay on the CUDA cores:
-    a profile of each dtype's calls names its own kernels."""
+    """The bf16 forward, dq and dk/dv compiled to wgmma (HGMMA in their
+    machine code); the f32 kernels, and so every f32 call, stay on the CUDA
+    cores: a profile of each dtype's calls names its own kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     from deeplearning4j_tpu_torch.ops.cuda.build import tensor_core_ops
 
     for kern, names in ((FLASH_FWD, fa.FWD_KERNEL_NAMES),
-                        (FLASH_DQ, fa.DQ_KERNEL_NAMES)):
+                        (FLASH_DQ, fa.DQ_KERNEL_NAMES),
+                        (FLASH_DKV, fa.DKV_KERNEL_NAMES)):
         assert tensor_core_ops(kern.library,
                                names[torch.bfloat16])["HGMMA"] > 0
         assert tensor_core_ops(kern.library, names[torch.float32]) == {
@@ -495,7 +530,8 @@ def test_bf16_kernels_run_on_tensor_cores_on_card(cuda_device):
             torch.cuda.synchronize()
         names = " ".join(e.key for e in prof.key_averages())
         other = torch.bfloat16 if dt == torch.float32 else torch.float32
-        for table in (fa.FWD_KERNEL_NAMES, fa.DQ_KERNEL_NAMES):
+        for table in (fa.FWD_KERNEL_NAMES, fa.DQ_KERNEL_NAMES,
+                      fa.DKV_KERNEL_NAMES):
             assert table[dt] in names
             # neither f32 name is a substring of a bf16 one, nor back
             assert table[other] not in names

@@ -361,6 +361,130 @@ def test_kernels_against_plain_on_card(cuda_device):
         fused_gru_recurrence(xg.half(), R.half(), h0.half())
 
 
+def _ran(fn, kind, calls=3):
+    """Run ``fn`` (one forward launch) ``calls`` times under the profiler,
+    after a warm-up call outside it: (did every call launch the ``kind``
+    design and none the other, the event counts). Only the cluster design
+    launches through cudaLaunchKernelEx (for its cluster dimension), the
+    stream design through cudaLaunchKernel; these host calls are always
+    recorded. The kernels' device records are not: on the H100 a short
+    window kept 0 to 2 of 3, so they are checked only for the other
+    design's kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    counts = {e.key: e.count for e in prof.key_averages()}
+    ex = sum(n for k, n in counts.items()
+             if k.startswith("cudaLaunchKernelEx"))
+    plain = counts.get("cudaLaunchKernel", 0)
+    other = "stream" if kind == "cluster" else "cluster"
+    # a name that holds "gru_fwd_kernel" is never the cluster kernel's
+    other_ran = any(port_fused.FWD_KERNEL_NAMES[other] in k for k in counts)
+    launched = (ex, plain) == ((calls, 0) if kind == "cluster"
+                               else (0, calls))
+    return launched and not other_ran, counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H", [200, 256])
+def test_cluster_kernel_against_plain_on_card(cuda_device, H, dtype):
+    """The cluster design (R resident across a thread-block cluster) at
+    H 200 and 256, B 1, 3 and 64, T 2 and 64, both directions: out, hT and
+    the reserve against the plain version, out bit-equal with and without
+    the reserve, the backward kernel on its reserve against the plain
+    backward; the launcher's choice is fwd_design's and every call
+    launches the cluster design. Tolerances as
+    test_kernels_against_plain_on_card."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda_device).manual_seed(H)
+    for B in (1, 3, 64):
+        for T in (2, 64):
+            for rev in (False, True):
+                design = port_fused.launcher_design(T, B, H, dt)
+                assert design == port_fused.fwd_design(T, B, H, dt)
+                assert design.kind == "cluster"
+                x = torch.randn(B, T, 77, device=cuda_device,
+                                generator=g).to(dt)
+                W = (torch.randn(77, 3 * H, device=cuda_device, generator=g)
+                     * 77 ** -0.5).to(dt)
+                b = (0.1 * torch.randn(3 * H, device=cuda_device,
+                                       generator=g)).to(dt)
+                _, R, h0, dout = _card_case(cuda_device, g, B, T, H, dt)
+                xg = project_gates(x, W, b, reverse=rev)
+                ok, counts = _ran(lambda: fused_gru_recurrence(xg, R, h0),
+                                  "cluster")
+                assert ok, (B, T, rev, counts)
+                out, hT = fused_gru_recurrence(xg, R, h0)
+                out_r, hT_r, res = fused_gru_recurrence(
+                    xg, R, h0, save_residuals=True)
+                dg, dh0 = fused_gru_bwd_recurrence(res, R, h0, out_r, dout)
+                torch.cuda.synchronize()
+                assert torch.equal(out, out_r) and torch.equal(hT, hT_r)
+                po, ph, pres = plain_recurrence(xg, R, h0,
+                                                save_residuals=True)
+                pdg, pdh0 = plain_bwd_recurrence(res, R, h0, out_r, dout)
+                for got, want in ((out, po), (hT, ph), (res, pres),
+                                  (dg, pdg), (dh0, pdh0)):
+                    got, want = got.float(), want.float()
+                    if dt == torch.float32:
+                        tol = 1e-5 * max(1.0, float(want.abs().max()))
+                        torch.testing.assert_close(got, want, atol=tol,
+                                                   rtol=0)
+                    else:
+                        assert bool(((got - want).abs()
+                                     <= 2 ** -7 * (1 + want.abs())).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,kind", [(512, "cluster"), (514, "stream")])
+def test_design_boundary_on_card(cuda_device, H, kind, dtype):
+    """Both sides of the design boundary: H=512 takes clusters of 16 CTAs,
+    32 units each; H=514 the stream design. Either against the plain
+    version (T 2, B 3)."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    design = port_fused.launcher_design(2, 3, H, dt)
+    assert design == port_fused.fwd_design(2, 3, H, dt)
+    assert design.kind == kind
+    assert design.cluster == (16 if kind == "cluster" else None)
+    xg, R, h0, _ = _card_case(cuda_device, g, 3, 2, H, dt)
+    ok, counts = _ran(lambda: fused_gru_recurrence(xg, R, h0), kind)
+    assert ok, counts
+    out, hT, res = fused_gru_recurrence(xg, R, h0, save_residuals=True)
+    torch.cuda.synchronize()
+    po, ph, pres = plain_recurrence(xg, R, h0, save_residuals=True)
+    for got, want in ((out, po), (hT, ph), (res, pres)):
+        got, want = got.float(), want.float()
+        if dt == torch.float32:
+            tol = 1e-5 * max(1.0, float(want.abs().max()))
+            torch.testing.assert_close(got, want, atol=tol, rtol=0)
+        else:
+            assert bool(((got - want).abs()
+                         <= 2 ** -7 * (1 + want.abs())).all())
+
+
+@pytest.mark.cuda
+def test_decode_and_wide_r_take_the_stream_design_on_card(cuda_device):
+    """Decode (T == 1) and H=1024 run the stream kernel; the launcher's
+    choice is fwd_design's at the GRU paths' shapes."""
+    for T, B, H, dt, kind in ((1, 8, 256, torch.float32, "stream"),
+                              (64, 64, 1024, torch.float32, "stream"),
+                              (64, 64, 1024, torch.bfloat16, "stream"),
+                              (47, 1, 256, torch.float32, "cluster"),
+                              (64, 64, 256, torch.bfloat16, "cluster"),
+                              (64, 64, 200, torch.float32, "cluster")):
+        design = port_fused.launcher_design(T, B, H, dt)
+        assert design == port_fused.fwd_design(T, B, H, dt)
+        assert design.kind == kind, (T, B, H, dt)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("rev", [False, True], ids=["fwd", "rev"])
 def test_cuda_gru_layer_trains_through_both_kernels(cuda_device, rev):

@@ -71,6 +71,125 @@ def test_constants_match_the_sources(family, source, gates):
     assert f"(size_t)rb * {gates} * H + (size_t)rb * H" in bwd
 
 
+def _slots(n):
+    """A card that holds ``n`` clusters at one CTA an SM, and as many as
+    fit at smaller shared memory (``active_clusters`` of fwd_design)."""
+    return lambda C, rows, smem: (n * (fused_gru.CLUSTER_SMEM_CAP // smem)
+                                  if smem <= fused_gru.CLUSTER_SMEM_CAP
+                                  else 0)
+
+
+def test_gru_cluster_constants_match_the_source():
+    """The forward design's constants and arithmetic, read back from
+    csrc/fused_gru.cu: fwd_design repeats plan_fwd."""
+    text = (CSRC / "fused_gru.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);",
+                             text).group(1))
+
+    assert const("kMaxSlices") == fused_gru.MAX_SLICES
+    assert const("kWarps") == fused_gru.STREAM_WARPS
+    assert const("kClusterWarps") == fused_gru.CLUSTER_WARPS
+    assert const("kClusterUnits") == fused_gru.CLUSTER_UNITS
+    sizes = re.search(r"constexpr int kClusterSizes\[\] = \{([\d, ]+)\};",
+                      text).group(1)
+    assert tuple(int(c) for c in sizes.split(",")) == fused_gru.CLUSTER_SIZES
+    cap = re.search(r"constexpr size_t kClusterSmemCap = (\d+) \* 1024;",
+                    text)
+    assert int(cap.group(1)) * 1024 == fused_gru.CLUSTER_SMEM_CAP
+    for line in (
+            "return ((H + C - 1) / C + 1) & ~1;",
+            "return hp * 3 * kClusterUnits * e +",
+            "sizeof(float) * (2 * rb * hp + (size_t)kClusterWarps * 3 * rb "
+            "* 32);",
+            "active_clusters<E, 1>(C, kClusterSmemCap, &slots);",
+            "while (rb < rb_max && (B + rb - 1) / rb > slots) rb *= 2;",
+            "while (rb > 1 && cluster_smem_bytes(rb, H, sizeof(E)) > "
+            "kClusterSmemCap)",
+            "if (fits >= 1) {",
+            "while (slices < kMaxSlices && tiles * slices < kWarps &&",
+            "H >= 16 * slices * 2 &&"):
+        assert line in text, line
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_gru_fwd_design_boundary(dtype):
+    """The cluster design takes T > 1 up to the H where a cluster of 16
+    still gives a CTA at most 32 units, in f32 and in bf16; one unit more,
+    and T == 1 at any H, take the stream design."""
+    ok = _slots(16)
+    H = max(h for h in range(1, 2048)
+            if fused_gru.fwd_design(64, 64, h, dtype, ok).kind == "cluster")
+    assert H == 512
+    at = fused_gru.fwd_design(64, 64, H, dtype, ok)
+    over = fused_gru.fwd_design(64, 64, H + 1, dtype, ok)
+    assert (at.kind, at.cluster, over.kind, over.cluster) == (
+        "cluster", 16, "stream", None)
+    assert at.smem <= fused_gru.CLUSTER_SMEM_CAP
+    small = fused_gru.fwd_design(64, 64, 256, dtype, ok)
+    assert (small.kind, small.cluster) == ("cluster", 8)
+    assert fused_gru.fwd_design(64, 64, 257, dtype, ok).cluster == 16
+    for h in (7, 256, 512, 1024):
+        assert fused_gru.fwd_design(1, 8, h, dtype, ok).kind == "stream"
+    # a card that holds no such cluster: the stream design
+    none = lambda C, rows, smem: 0  # noqa: E731
+    assert fused_gru.fwd_design(64, 64, 256, dtype, none).kind == "stream"
+    # H = 512 in f32 fits only with fewer rows a cluster
+    if dtype == F32:
+        assert at.rows < 8 and fused_gru.cluster_smem_bytes(
+            2 * at.rows, H, 4) > fused_gru.CLUSTER_SMEM_CAP
+
+
+@pytest.mark.parametrize("slots,B,rows", [
+    (16, 64, 4), (8, 64, 8), (15, 64, 8), (64, 64, 1), (16, 1, 1),
+    (16, 3, 1), (2, 3, 2), (1, 3, 4), (1, 100, 8)])
+def test_gru_cluster_rows_from_the_card(slots, B, rows):
+    """Rows a cluster: the fewest that let every cluster be resident at
+    one CTA an SM, at most 8 and at most B rounded up to a power of two."""
+    d = fused_gru.fwd_design(64, B, 256, F32, _slots(slots))
+    assert (d.kind, d.rows) == ("cluster", rows)
+    assert d.smem == fused_gru.cluster_smem_bytes(rows, 256, 4)
+
+
+def test_gru_stream_design_rows_and_smem():
+    """The stream design's rows a block and shared memory repeat the
+    launcher's: up to 8 rows, halved while over the cap, then k-slices
+    doubled while warps would idle (decode: one unit tile a block, so 16
+    slices; T > 1 at H=1024: 32 unit tiles, so one)."""
+    d = fused_gru.fwd_design(64, 64, 1024, F32, _slots(16))
+    assert (d.kind, d.rows) == ("stream", 8)
+    assert d.smem == 4 * (8 * 1024 + 8 * 1024 + 32 * 3 * 8 * 32)
+    h = _max_h(fused_gru, 7, False)
+    assert fused_gru.fwd_design(7, 64, h, F32, _slots(16)).rows == 1
+    assert fused_gru.fwd_design(1, 3, 256, BF16, _slots(16)) == (
+        "stream", None, 4, 4 * (4 * 256 + 4 * 32 + 16 * 3 * 4 * 32))
+    # decode at H=40: each slice at least 16 long, so 2 slices
+    assert fused_gru.fwd_design(1, 8, 40, F32, _slots(16)).smem == \
+        fused_gru.stream_smem_bytes(8, 40, 32, 2)
+
+
+@pytest.mark.parametrize("T", [1, 2, 64])
+@pytest.mark.parametrize("backward", [False, True])
+def test_gru_kernel_admits_what_it_did(T, backward):
+    """The cluster design changes no limit: kernel_admits takes exactly
+    the stream launcher's shared-memory limits, written out here, and
+    every shape the cluster design takes is one the stream design takes."""
+    def stream(H):
+        upb = min(H, 32) if T == 1 else H
+        tiles = -(-upb // 32)
+        fwd = 4 * (H + upb + tiles * 3 * 32) <= 200 * 1024
+        bwd = 4 * (4 * H + -(-H // 32) * 32) <= 200 * 1024
+        return fwd and (not backward or bwd)
+
+    for H in list(range(1, 600, 7)) + list(range(9000, 12500, 61)):
+        for dt in (F32, BF16):
+            assert fused_gru.kernel_admits(T, H, dt, backward) is stream(H)
+            if fused_gru.fwd_design(T, 64, H, dt, _slots(16)).kind == \
+                    "cluster":
+                assert stream(H)
+
+
 @pytest.mark.parametrize("family,per_unit", [(fused_lstm, 24),
                                              (fused_gru, 20)])
 @pytest.mark.parametrize("T", [1, 7])
