@@ -14,10 +14,13 @@ Phases (any failure exits non-zero before the result line):
 3. Kernel against plain: each kernel against its plain PyTorch version on
    the card in float32 with TF32 off, at the shapes the main path gives it
    and at the GravesLSTM char-RNN width, and in bfloat16 at the decode and
-   GravesLSTM shapes; times the kernel, the plain version and, as a
-   yardstick the port never calls, ``torch.nn.LSTM`` (cuDNN) on the same
-   layer with its gates reordered (on CUDA events and as the device time
-   of its kernels).
+   GravesLSTM shapes; each row names the forward design the launcher chose
+   (held against its Python mirror ``fwd_design``): the cluster kernel, R
+   resident across a thread-block cluster, at every T > 1 shape, the
+   stream kernel at decode; times the kernel (profiled under its design's
+   device function), the plain version and, as a yardstick the port never
+   calls, ``torch.nn.LSTM`` (cuDNN) on the same layer with its gates
+   reordered (on CUDA events and as the device time of its kernels).
 4. Main path: TextGenerationLSTM at its published width (LSTM 256 x 2,
    vocabulary 77, random weights from a seed) served by
    ``GenerationEngine(slots=8, max_len=256)``: 16 requests, greedy and
@@ -34,17 +37,21 @@ Phases (any failure exits non-zero before the result line):
 6. Backward kernel against plain: the training forward's reserve and the
    backward kernel against their plain versions at the training shapes
    (B=64, T=64; H=200 with peepholes, reversed; H=256 without), in f32 and
-   bf16; each layer's seven gradients through the kernels against torch
-   autograd through the plain lowering on the card; times of the kernels,
-   the plain versions and, where a library call computes the same layer,
-   ``torch.nn.LSTM`` (cuDNN) forward + backward.
+   bf16, the forward on its cluster design; each layer's seven gradients
+   through the kernels against torch autograd through the plain lowering
+   on the card; times of the kernels, the plain versions and, where a
+   library call computes the same layer (H=256, no peepholes),
+   ``torch.nn.LSTM`` (cuDNN): its forward in training mode and its forward
+   + backward, on the device clock beside the kernel pair with the
+   wrapper's GEMMs.
 7. Training main path: BidirectionalGravesLSTMCharRnn at its published
    width (2 x GravesBidirectionalLSTM(200), vocabulary 77, Adam, clipping
    5.0) on batch 64 x T 64 of one-hot data from the seed. Two steps agree
    with a copy trained on the CPU's plain path; then, with the launch
    counts zeroed just before and read just after, N steps on a repeated
    batch, each launching 4 forward (with reserve) and 4 backward kernels,
-   with finite and falling losses; a steady window is profiled.
+   with finite and falling losses; a steady window is profiled and must
+   show the forward's cluster kernel, 4 a step.
 8. TextGenerationLSTM training (RMSProp, 2 + 2 launches a step) and the
    bf16 char-RNN training: a few steps each, every step through both
    kernels.
@@ -101,11 +108,11 @@ Phases (any failure exits non-zero before the result line):
     training [64, 64, 256], Bidirectional(GRU(200))'s reversed [64, 64,
     200]), the full-width recurrent product [64, 64, 1024] (F=256) and a
     ragged reversed [3, 5, 200], in f32 and bf16. Each row names the
-    forward design the launcher chose (the cluster kernel, R resident
-    across a thread-block cluster, or the stream kernel), held against its
-    Python mirror; the cluster design must run at every T > 1 shape of the
-    main path and the stream design at decode and H=1024, as the profile
-    of each row shows. Times of each kernel, its plain version and, as a
+    forward and backward designs the launchers chose (the cluster kernels,
+    R resident across a thread-block cluster, or the stream kernels), held
+    against their Python mirrors; the cluster designs must run at every
+    T > 1 shape of the main path and the stream designs at decode and
+    H=1024, as the profile of each row shows. Times of each kernel, its plain version and, as a
     yardstick the port never calls, ``torch.nn.GRU`` (cuDNN) with its
     recurrent bias zeroed, the same function (forward, and its autograd
     backward), on the host's clock and as the device time of its kernels.
@@ -119,10 +126,12 @@ Phases (any failure exits non-zero before the result line):
 18. GRU char-RNN training (RMSProp 1e-3, clipping 5.0) at B=64, T=64: 2
     steps against a copy on the kernel-disabled plain path on the card,
     then 10 timed steps, each launching exactly 2 forwards (with reserve)
-    and 2 backwards, losses falling; a steady window is profiled.
+    and 2 backwards, losses falling; a steady window is profiled and must
+    show both cluster kernels, 2 launches each a step.
 19. Bidirectional(GRULayer(200)) x 2 with Adam (config #3's shape with GRU
     cells: reversed time and an H that is not a multiple of 32): the same
-    checks, 3 timed steps of 4 + 4 launches.
+    checks, 3 timed steps of 4 + 4 launches, 4 + 4 cluster launches a
+    profiled step.
 20. Prints the kernels line (all nine kernels), the card line and, last,
     the result line ``{"ok": true, "device": {...}}``.
 
@@ -218,12 +227,35 @@ def profile_device(torch, fn, iters: int):
     return out, wall_ms
 
 
-def kernel_device_ms(torch, fn, iters: int, symbol: str):
-    """Mean device time of one launch of the kernel named ``symbol``."""
-    by_kernel, _ = profile_device(torch, fn, iters)
-    hits = [(t, n) for k, (t, n) in by_kernel.items() if symbol in k]
-    total, count = sum(t for t, _ in hits), sum(n for _, n in hits)
-    return total / count if count else None
+def kernel_device_ms(torch, fn, iters: int, symbol: str, tries: int = 3):
+    """Mean device time of one launch of the kernel named ``symbol``. The
+    profiler now and then keeps no device record of a window (on the H100,
+    in a window of 2 ms as well as in shorter ones), so a window without
+    the kernel is profiled again, at twice the calls, up to ``tries``
+    times; None if none shows it."""
+    for _ in range(tries):
+        by_kernel, _ = profile_device(torch, fn, iters)
+        hits = [(t, n) for k, (t, n) in by_kernel.items() if symbol in k]
+        total, count = sum(t for t, _ in hits), sum(n for _, n in hits)
+        if count:
+            return total / count
+        iters *= 2
+    return None
+
+
+def profile_showing(torch, fn, calls: int, want: dict, tries: int = 3):
+    """``profile_device`` over ``calls`` calls of ``fn``, profiled again (up
+    to ``tries`` times) while its device records fall short of ``want``
+    ({kernel name: launches a call}), as the profiler now and then drops a
+    window's records. Returns (by_kernel, wall ms, {name: launches
+    seen})."""
+    for _ in range(tries):
+        by_kernel, wall_ms = profile_device(torch, fn, calls)
+        seen = {name: sum(c for key, (_, c) in by_kernel.items()
+                          if name in key) for name in want}
+        if all(seen[k] == n * calls for k, n in want.items()):
+            break
+    return by_kernel, wall_ms, seen
 
 
 def call_device_ms(torch, fn, iters: int):
@@ -303,9 +335,37 @@ def cudnn_lstm(torch, W, R, b, forget_gate_bias, dtype):
     return lstm
 
 
+# the LSTM forward design each shape of phases 3 and 6 must run: the
+# cluster kernel (R resident across a thread-block cluster) at every T > 1
+# shape of the main path, the stream kernel at decode
+LSTM_DESIGNS = {"decode_layer1": "stream", "decode_layer2": "stream",
+                "decode_layer1_bf16": "stream", "prefill_layer1": "cluster",
+                "graves_charrnn": "cluster", "graves_charrnn_bf16": "cluster"}
+
+
+def lstm_design(name, T, B, H, dt, want):
+    """The LSTM forward design the launcher chose for this call, held
+    against its Python mirror (``fwd_design``) and against ``want`` (None:
+    any); returns (the design, its kernel's device function name)."""
+    from deeplearning4j_tpu_torch.ops.cuda.fused_lstm import (
+        FWD_KERNEL_NAMES, fwd_design, launcher_design,
+    )
+
+    design = launcher_design(T, B, H, dt)
+    if fwd_design(T, B, H, dt) != design:
+        fail(f"LSTM forward at {name}: the launcher chose {design}, its "
+             f"Python mirror {fwd_design(T, B, H, dt)}")
+    if want not in (None, design.kind):
+        fail(f"LSTM forward at {name} runs the {design.kind} design; want "
+             f"{want}")
+    return design, FWD_KERNEL_NAMES[design.kind]
+
+
 def phase_kernels(torch):
     """Kernel against plain at the main path's shapes and the GravesLSTM
-    char-RNN width; returns (rows, f32 max_abs_err, bf16 max_abs_err)."""
+    char-RNN width; each row names the forward design the launcher chose
+    (LSTM_DESIGNS) and is profiled under its kernel's name. Returns (rows,
+    f32 max_abs_err, bf16 max_abs_err)."""
     from deeplearning4j_tpu_torch.ops.cuda.fused_lstm import (
         fused_lstm_layer, fused_lstm_recurrence, plain_recurrence,
     )
@@ -348,11 +408,14 @@ def phase_kernels(torch):
             fail(f"kernel disagrees with plain at {name}: max_abs_err {err} "
                  f"(finite={finite}, dtype={ko.dtype}, tolerance {tol})")
         worst[dt] = max(worst[dt], err)
+        design, fwd_kernel = lstm_design(name, T, B, H, dt,
+                                         LSTM_DESIGNS[name])
         iters = 200 if T == 1 else 20
         kw = dict(peephole=p, forget_gate_bias=fgb, reverse=rev)
         row = {
             "shape": name, "B": B, "T": T, "F": F, "H": H, "peephole": peep,
             "dtype": str(dt).replace("torch.", ""), "max_abs_err": err,
+            "design": design._asdict(), "fwd_kernel": fwd_kernel,
             "kernel_ms": cuda_ms(torch, lambda: fused_lstm_recurrence(
                 xg, R, h0, c0, p), iters),
             "plain_ms": cuda_ms(torch, lambda: plain_recurrence(
@@ -365,8 +428,11 @@ def phase_kernels(torch):
             "library_max_abs_err": None,
         }
         row["kernel_device_ms"] = kernel_device_ms(
-            torch, lambda: fused_lstm_recurrence(xg, R, h0, c0, p), 20,
-            "lstm_fwd_kernel")
+            torch, lambda: fused_lstm_recurrence(xg, R, h0, c0, p), iters,
+            fwd_kernel)
+        if row["kernel_device_ms"] is None:
+            fail(f"LSTM forward at {name}: the profile shows no "
+                 f"{fwd_kernel}, the {design.kind} design's kernel")
         row["bound_ms"], row["bound_by"] = lstm_bound(T, B, H, peep,
                                                       bf16=dt == bf16)
         if not peep and not rev:
@@ -598,6 +664,8 @@ def phase_bwd_kernels(torch):
         ("textgen_layer1", 64, 64, 77, 256, False, False, 0.0, f32),
         ("textgen_layer2", 64, 64, 256, 256, False, False, 0.0, f32),
         ("graves_layer1_bf16", 64, 64, 77, 200, True, True, 1.0, bf16),
+        ("textgen_layer1_bf16", 64, 64, 77, 256, False, False, 0.0, bf16),
+        ("textgen_layer2_bf16", 64, 64, 256, 256, False, False, 0.0, bf16),
     ]
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     rows, worst = [], {f32: 0.0, bf16: 0.0}
@@ -629,9 +697,12 @@ def phase_bwd_kernels(torch):
             fail(f"backward kernel disagrees with plain at {name}: "
                  f"max_abs_err {err} (finite={finite})")
         worst[dt] = max(worst[dt], err)
+        # every training shape is T > 1: the forward's cluster design
+        design, fwd_kernel = lstm_design(name, T, B, H, dt, "cluster")
         row = {"shape": name, "B": B, "T": T, "F": F, "H": H,
                "peephole": peep, "reverse": rev,
-               "dtype": str(dt).replace("torch.", ""), "max_abs_err": err}
+               "dtype": str(dt).replace("torch.", ""), "max_abs_err": err,
+               "fwd_design": design._asdict(), "fwd_kernel": fwd_kernel}
 
         # the layer's gradients: kernels vs autograd through plain (f32;
         # in bf16 autograd rounds other intermediates than the kernels)
@@ -669,16 +740,25 @@ def phase_bwd_kernels(torch):
                                             save_residuals=True)
         row["fwd_reserve_kernel_ms"] = cuda_ms(torch, fwd, iters)
         row["fwd_reserve_device_ms"] = kernel_device_ms(torch, fwd, iters,
-                                                        "lstm_fwd_kernel")
+                                                        fwd_kernel)
+        if row["fwd_reserve_device_ms"] is None:
+            fail(f"LSTM forward at {name}: the profile shows no "
+                 f"{fwd_kernel}, the {design.kind} design's kernel")
         row["fwd_reserve_plain_ms"] = cuda_ms(torch, lambda: plain_recurrence(
             xg, R, h0, c0, p, save_residuals=True), 3)
         row["fwd_reserve_bound_ms"], row["fwd_reserve_bound_by"] = \
             lstm_fwd_train_bound(T, B, H, peep, dt == bf16)
         row["layer_pair_ms"] = cuda_ms(torch, lambda: grads(fused_lstm_layer),
                                        iters)
+        # the kernel pair plus the wrapper's projection and gradient GEMMs,
+        # on the device clock: what cuDNN's forward + backward computes
+        row["layer_pair_device_ms"] = call_device_ms(
+            torch, lambda: grads(fused_lstm_layer), iters)
         row["layer_pair_plain_ms"] = cuda_ms(torch, lambda: grads(lstm_layer),
                                              3)
-        row["library_pair_ms"] = None  # no library LSTM has peepholes
+        # no library LSTM has peepholes: cuDNN's only at the shapes without
+        row["library_pair_ms"] = row["library_pair_device_ms"] = None
+        row["library_fwd_device_ms"] = None
         if not peep and not rev:
             lstm = cudnn_lstm(torch, W.float(), R.float(), b.float(), fgb,
                               dt)
@@ -692,6 +772,13 @@ def phase_bwd_kernels(torch):
                 return torch.autograd.grad((lo, hn, cn), lib_leaves, g_lib)
 
             row["library_pair_ms"] = cuda_ms(torch, lib_pair, iters)
+            row["library_pair_device_ms"] = call_device_ms(torch, lib_pair,
+                                                           iters)
+            # its forward in training mode (it saves its own reserve),
+            # against the kernel's forward with reserve; its input
+            # projection included
+            row["library_fwd_device_ms"] = call_device_ms(
+                torch, lambda: lstm(xt, state), iters)
         rows.append(row)
     return rows, worst[f32], worst[bf16]
 
@@ -773,8 +860,14 @@ def phase_training(torch, np):
              f"reserve); want {n_lstm} of each kernel per step")
 
     steps = 5
-    by_kernel, prof_wall_ms = profile_device(
-        torch, lambda: net.fit_batch((x, y)), steps)
+    # the forward's cluster design, n_lstm launches a step
+    design, fwd_kernel = lstm_design("char-RNN training", T, B,
+                                     model.units, torch.float32, "cluster")
+    by_kernel, prof_wall_ms, seen = profile_showing(
+        torch, lambda: net.fit_batch((x, y)), steps, {fwd_kernel: n_lstm})
+    if seen[fwd_kernel] != n_lstm * steps:
+        fail(f"{steps} profiled training steps show {seen} launches of "
+             f"{fwd_kernel}; want {n_lstm} a step")
     busy = sum(t for t, _ in by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:8]
     step_ms = host_ms(torch, lambda: net.fit_batch((x, y)), 5)
@@ -795,6 +888,7 @@ def phase_training(torch, np):
         "samples_per_s": B * N_TRAIN_STEPS / wall,
         "synced_step_ms": step_ms,
         "synced_step_ms_batch_on_card": step_ms_on_card,
+        "fwd_design": design._asdict(),
         "profile": {
             "steps": steps, "wall_ms_per_step": prof_wall_ms / steps,
             "device_ms_per_step": busy / steps,
@@ -1740,21 +1834,31 @@ def _gru_within(torch, got, want, dtype):
 GRU_DESIGNS = {"prefill": "cluster", "train": "cluster",
                "train_bf16": "cluster", "bidi_h200_rev": "cluster",
                "decode": "stream", "h1024": "stream"}
+# and the backward design at the shapes that run the backward
+GRU_BWD_DESIGNS = {"train": "cluster", "train_bf16": "cluster",
+                   "bidi_h200_rev": "cluster", "h1024": "stream",
+                   "h1024_bf16": "stream"}
 
 
 def phase_gru_kernels(torch):
     """The GRU forward kernel (with and without the reserve) and the
     backward kernel against their plain versions at the GRU paths' shapes
     and the full-width H=1024 product, f32 and bf16; times of each kernel,
-    its plain version and cuDNN's GRU. Each row names the forward design
-    the launcher chose (held against ``fwd_design``, its Python mirror) and
-    is timed by that design's device function; the designs of GRU_DESIGNS
-    are required, and their profiles must show that function. Returns
-    (rows, f32 and bf16 worst)."""
+    its plain version and cuDNN's GRU. Each row names the forward (and the
+    backward) design the launcher chose (held against ``fwd_design`` and
+    ``bwd_design``, their Python mirrors) and is timed by that design's
+    device function; the designs of GRU_DESIGNS and GRU_BWD_DESIGNS are
+    required, and their profiles must show that function. Returns (rows,
+    f32 and bf16 worst)."""
     from deeplearning4j_tpu_torch.ops.cuda.fused_gru import (
-        CLUSTER_SMEM_CAP, FWD_KERNEL_NAMES, card_active_clusters,
+        BWD_KERNEL_NAMES, FWD_KERNEL_NAMES, bwd_design,
+        card_active_clusters, card_bwd_active_clusters,
         fused_gru_bwd_recurrence, fused_gru_layer, fused_gru_recurrence,
-        fwd_design, launcher_design, plain_bwd_recurrence, plain_recurrence,
+        fwd_design, launcher_bwd_design, launcher_design,
+        plain_bwd_recurrence, plain_recurrence,
+    )
+    from deeplearning4j_tpu_torch.ops.cuda.recurrent_cluster import (
+        CLUSTER_SMEM_CAP,
     )
     from deeplearning4j_tpu_torch.ops.recurrent import gru_layer, project_gates
 
@@ -1806,6 +1910,20 @@ def phase_gru_kernels(torch):
         if design.kind == "cluster":  # clusters the card holds, 1 CTA an SM
             row["cluster_slots"] = card_active_clusters(dt)(
                 design.cluster, 1, CLUSTER_SMEM_CAP)
+        if train:
+            b_design = launcher_bwd_design(T, B, H, dt)
+            if bwd_design(T, B, H, dt) != b_design:
+                fail(f"GRU backward at {name}: the launcher chose "
+                     f"{b_design}, its Python mirror "
+                     f"{bwd_design(T, B, H, dt)}")
+            if GRU_BWD_DESIGNS.get(name, b_design.kind) != b_design.kind:
+                fail(f"GRU backward at {name} runs the {b_design.kind} "
+                     f"design; want {GRU_BWD_DESIGNS[name]}")
+            bwd_kernel = BWD_KERNEL_NAMES[b_design.kind]
+            row.update(bwd_design=b_design._asdict(), bwd_kernel=bwd_kernel)
+            if b_design.kind == "cluster":
+                row["bwd_cluster_slots"] = card_bwd_active_clusters(dt)(
+                    b_design.cluster, 1, CLUSTER_SMEM_CAP)
         checks = [("out", k_out, p_out), ("hT", k_hT, p_hT),
                   ("out_with_reserve", out, p_out), ("reserve", reserve, p_res),
                   ("dg", dg, p_dg), ("dh0", dh0, p_dh0)]
@@ -1846,7 +1964,7 @@ def phase_gru_kernels(torch):
                 gru_bound(T, B, H, dt == bf16, reserve=True)
             row["bwd_ms"] = cuda_ms(torch, bwd, iters)
             row["bwd_device_ms"] = kernel_device_ms(torch, bwd, iters,
-                                                    "gru_bwd_kernel")
+                                                    bwd_kernel)
             row["bwd_plain_ms"] = cuda_ms(torch, lambda: plain_bwd_recurrence(
                 reserve, R, h0, out, dout), 3)
             row["bwd_bound_ms"], row["bwd_bound_by"] = gru_bwd_bound(
@@ -1883,6 +2001,9 @@ def phase_gru_kernels(torch):
                 train and row["fwd_reserve_device_ms"] is None)):
             fail(f"GRU forward at {name}: the profile shows no "
                  f"{fwd_kernel}, the {design.kind} design's kernel")
+        if name in GRU_BWD_DESIGNS and row["bwd_device_ms"] is None:
+            fail(f"GRU backward at {name}: the profile shows no "
+                 f"{bwd_kernel}, the {b_design.kind} design's kernel")
         rows.append(row)
     # the launches above were for checks and timing: not the main path's
     return rows, worst[f32], worst[bf16]
@@ -2025,11 +2146,17 @@ def phase_gru_training(torch, np, bidi=False):
     """Train the GRU char-RNN (or the Bidirectional(GRU(200)) x 2 net) on
     the card at B=64, T=64: 2 steps against a copy on the kernel-disabled
     plain path, then timed steps that must launch exactly 2 forwards (with
-    reserve) and 2 backwards a step per GRU direction; losses fall."""
+    reserve) and 2 backwards a step per GRU direction; losses fall. A
+    profiled window names the designs the launchers chose and must show
+    each cluster kernel, one launch a GRU direction a step."""
     from deeplearning4j_tpu_torch.common.env import env
     from deeplearning4j_tpu_torch.common.trees import tree_leaves
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
     from deeplearning4j_tpu_torch.ops.cuda import KERNELS
+    from deeplearning4j_tpu_torch.ops.cuda.fused_gru import (
+        BWD_KERNEL_NAMES, FWD_KERNEL_NAMES, launcher_bwd_design,
+        launcher_design,
+    )
 
     net = MultiLayerNetwork(gru_charrnn_conf(bidi)).init(device="cuda")
     plain = copy.deepcopy(net)
@@ -2076,12 +2203,27 @@ def phase_gru_training(torch, np, bidi=False):
         "wall_s": wall, "step_wall_ms": 1e3 * wall / steps,
         "samples_per_s": B * steps / wall,
     }
+    # the designs the launchers chose at the net's shape, and a profiled
+    # window that shows each design's kernel, n launches a step
+    H = 200 if bidi else GRU_UNITS
+    designs = {"fwd": launcher_design(T, B, H, torch.float32),
+               "bwd": launcher_bwd_design(T, B, H, torch.float32)}
+    names = {"fwd": FWD_KERNEL_NAMES[designs["fwd"].kind],
+             "bwd": BWD_KERNEL_NAMES[designs["bwd"].kind]}
+    out["designs"] = {k: d._asdict() for k, d in designs.items()}
+    n_prof = 3 if bidi else 5
+    by_kernel, prof_wall, seen = profile_showing(
+        torch, lambda: net.fit_batch((x, y)), n_prof,
+        {kname: n for kname in names.values()})
+    for k, kname in names.items():
+        if designs[k].kind != "cluster" or seen[kname] != n * n_prof:
+            fail(f"{name}: {n_prof} profiled steps show {seen[kname]} "
+                 f"launches of {kname} ({designs[k].kind} design); want {n} "
+                 f"a step of the cluster design")
+    out["profile"] = _profile_summary(by_kernel, prof_wall, n_prof, "step")
     if not bidi:
-        by_kernel, prof_wall = profile_device(
-            torch, lambda: net.fit_batch((x, y)), 5)
         out["synced_step_ms"] = host_ms(torch, lambda: net.fit_batch((x, y)),
                                         5)
-        out["profile"] = _profile_summary(by_kernel, prof_wall, 5, "step")
     return out
 
 
@@ -2136,7 +2278,7 @@ def gru_kernel_entries(by_name, rows, worst, worst_bf16, serve, train,
         "library_ms": g_train["library_bwd_ms"],
         "library_device_ms": g_train["library_bwd_device_ms"],
         "shape": "[B=64, T=64, H=256] f32",
-        "design": "stream (R^T from L2 every step)",
+        "design": g_train["bwd_design"]["kind"],
     }]
 
 
@@ -2287,6 +2429,9 @@ def main() -> None:
     # phase 20: kernels line, card line, result line
     decode = rows[0]  # the serving path's decode shape [8, 1, 256]
     graves = bwd_rows[0]  # the training path's first layer [64, 64, 200]
+    # TextGenerationLSTM's second layer [64, 64, 256], no peepholes: where
+    # cuDNN's LSTM computes the same function at T > 1
+    textgen = next(r for r in bwd_rows if r["shape"] == "textgen_layer2")
     by_name = {k.name: k for k in KERNELS}
     fwd, bwd = by_name["fused_lstm_fwd"], by_name["fused_lstm_bwd"]
     ffwd, fdq, fdkv = (by_name[f"flash_attention_{n}"]
@@ -2307,13 +2452,23 @@ def main() -> None:
         "bound_by": decode["bound_by"], "library_ms": decode["library_ms"],
         "library_device_ms": decode["library_device_ms"],
         "shape": "decode [B=8, T=1, H=256]",
+        "design": decode["design"]["kind"],
         "training_shape": {
             "shape": "[B=64, T=64, H=200], peephole, reverse, with reserve",
+            "design": graves["fwd_design"]["kind"],
             "ms": graves["fwd_reserve_kernel_ms"],
             "device_ms": graves["fwd_reserve_device_ms"],
             "plain_ms": graves["fwd_reserve_plain_ms"],
             "bound_ms": graves["fwd_reserve_bound_ms"],
-            "bound_by": graves["fwd_reserve_bound_by"], "library_ms": None},
+            "bound_by": graves["fwd_reserve_bound_by"], "library_ms": None,
+            "library_device_ms": None},  # no library LSTM has peepholes
+        "library_shape": {
+            "shape": "[B=64, T=64, H=256] f32, no peepholes, with reserve",
+            "design": textgen["fwd_design"]["kind"],
+            "device_ms": textgen["fwd_reserve_device_ms"],
+            "bound_ms": textgen["fwd_reserve_bound_ms"],
+            # cuDNN's forward in training mode, its projection included
+            "library_device_ms": textgen["library_fwd_device_ms"]},
     }, {
         "name": bwd.name, "route": "cuda", "source": bwd.source,
         "replaces": bwd.replaces, "launches": train_n[bwd.name],
@@ -2325,9 +2480,17 @@ def main() -> None:
         "plain_ms": graves["plain_ms"], "bound_ms": graves["bound_ms"],
         "bound_by": graves["bound_by"],
         # no library LSTM has peepholes; cuDNN's forward + backward on the
-        # no-peephole layers is in bwd_kernel_shapes (library_pair_ms)
-        "library_ms": None,
+        # no-peephole layers is in library_shape and bwd_kernel_shapes
+        "library_ms": None, "library_device_ms": None,
         "shape": "[B=64, T=64, H=200], peephole, reverse",
+        "design": "stream",
+        "library_shape": {
+            "shape": "[B=64, T=64, H=256] f32, no peepholes",
+            "device_ms": textgen["kernel_device_ms"],
+            # the kernel pair with the wrapper's projection and gradient
+            # GEMMs, against cuDNN's forward + autograd backward
+            "layer_pair_device_ms": textgen["layer_pair_device_ms"],
+            "library_pair_device_ms": textgen["library_pair_device_ms"]},
     }]
     # the flash kernels at the BERT main path's shape and type (bf16, key
     # padding); the f32 times are in flash_times

@@ -37,14 +37,11 @@
 // Two designs; the launcher (gru_fwd) chooses by shape and by what the
 // card can co-schedule, never because a launch failed:
 //
-// - Cluster (gru_fwd_cluster_kernel), for T > 1 where a cluster can hold R:
-//   every step needs all of R [H, 3H] (768 KB in f32 at H=256), more than
-//   one SM's 227 KB, but a thread-block cluster of 8 (or 16) holds it.
-//   CTA c of a cluster owns hidden units [c U, (c + 1) U) (U at most 32,
-//   one a lane) and loads its three gate columns of R (r, z and n of those
-//   units) into shared memory once, with cp.async; they stay there, in R's
-//   type, for all T steps. A cluster owns RB batch rows; ceil(B / RB)
-//   clusters run side by side, RB the smallest that lets every cluster be
+// - Cluster (gru_fwd_cluster_kernel), for T > 1 where a cluster can hold R,
+//   on the cluster layer of recurrent_cluster.cuh: CTA c of a cluster of 8
+//   (or 16) keeps the r, z and n columns of R for its U <= 32 units in
+//   shared memory for all T steps (96 KB in f32 at H=256); a cluster owns
+//   RB batch rows, the fewest that let every cluster be
 //   resident at one CTA an SM (cudaOccupancyMaxActiveClusters). Each step,
 //   each CTA: its 8 warps each take a k-slice of hg = h_{t-1} R for its
 //   units and rows (lane = unit, RB rows in registers, h_{t-1} read as
@@ -74,16 +71,13 @@
 // Later work: wgmma for the bf16 step product, and decode replayed by CUDA
 // graphs.
 
-#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
-#include <mutex>
-#include <type_traits>
 
-namespace cg = cooperative_groups;
+#include "recurrent_cluster.cuh"
 
 namespace {
 
@@ -92,36 +86,6 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kTile = 32;                  // hidden units per work item
 constexpr int kMaxSlices = 16;             // k-slices per unit tile
 constexpr size_t kSmemCap = 200 * 1024;    // of the 227 KB a block may use
-// the cluster design
-constexpr int kClusterWarps = 8;           // k-slices of a step's product
-constexpr int kClusterThreads = kClusterWarps * 32;
-constexpr int kClusterUnits = 32;          // hidden units a CTA owns, at most
-constexpr int kClusterSizes[] = {8, 16};   // CTAs a cluster, in order of choice
-constexpr size_t kClusterSmemCap = 227 * 1024;  // all a block may use
-
-__device__ __forceinline__ float sigmoid_f(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-// element type <-> f32 (round to nearest even on the way down)
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename E> __device__ __forceinline__ E from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-// read-only cached load
-__device__ __forceinline__ float ldg_f32(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float ldg_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(__ushort_as_bfloat16(
-      __ldg(reinterpret_cast<const unsigned short*>(p))));
-}
 
 // Shared memory layout (floats):
 //   h    [RB][H]                     h_{t-1} rounded to E, then h_t
@@ -263,63 +227,6 @@ cudaError_t launch(const E* xg, const E* R, const E* h0, E* out, E* hT,
 
 // ------------------------------------------------------------ cluster design
 
-// 4 bytes global -> shared, asynchronously; src_bytes 0 writes zeros
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-// Units a CTA owns in a cluster of C: ceil(H / C), rounded up to even so
-// that a bf16 pair of units starts on a 4-byte boundary when H is even.
-inline int cluster_units(int H, int C) { return ((H + C - 1) / C + 1) & ~1; }
-
-// Shared memory of a cluster CTA (bytes), with HP = H rounded up to 4:
-//   Rs   [HP][3][kClusterUnits] E   its gate columns of R, resident
-//   hs   [2][RB][HP] f32            h_{t-1} rounded to E, by step parity
-//   part [kClusterWarps][3][RB][32] f32   partial sums by k-slice
-size_t cluster_smem_bytes(int rb, int H, int e) {
-  const size_t hp = (size_t)((H + 3) & ~3);
-  return hp * 3 * kClusterUnits * e +
-         sizeof(float) * (2 * rb * hp + (size_t)kClusterWarps * 3 * rb * 32);
-}
-
-// Rs[k][g][u] = R[k][g H + j0 + u] for k < H and u < nu; zero elsewhere
-// (rows up to HP, lanes up to 32), so padding never meets a weight.
-template <typename E>
-__device__ __forceinline__ void load_r_slice(E* Rs, const E* R, int H, int HP,
-                                             int j0, int nu) {
-  const int G = 3 * H;
-  if constexpr (sizeof(E) == 4) {
-    for (int idx = threadIdx.x; idx < HP * 3 * kClusterUnits;
-         idx += kClusterThreads) {
-      const int u = idx % kClusterUnits, kg = idx / kClusterUnits;
-      const int g = kg % 3, k = kg / 3;
-      const bool in = k < H && u < nu;
-      cp_async4(Rs + idx, R + (in ? (size_t)k * G + g * H + j0 + u : 0),
-                in ? 4 : 0);
-    }
-  } else {  // bf16 pairs of units, one cp.async where 4-byte aligned
-    for (int idx = threadIdx.x; idx < HP * 3 * kClusterUnits / 2;
-         idx += kClusterThreads) {
-      const int u = 2 * (idx % (kClusterUnits / 2));
-      const int kg = idx / (kClusterUnits / 2);
-      const int g = kg % 3, k = kg / 3;
-      const E* src = R + (size_t)k * G + g * H + j0 + u;
-      E* dst = Rs + 2 * idx;
-      if (k < H && u + 1 < nu &&
-          (reinterpret_cast<uintptr_t>(src) & 3) == 0) {
-        cp_async4(dst, src, 4);
-      } else {
-        dst[0] = k < H && u < nu ? src[0] : from_f32<E>(0.0f);
-        dst[1] = k < H && u + 1 < nu ? src[1] : from_f32<E>(0.0f);
-      }
-    }
-  }
-}
-
 template <typename E, int RB>
 __global__ void __launch_bounds__(kClusterThreads, 1)
 gru_fwd_cluster_kernel(const E* __restrict__ xg,    // [T, B, 3H]
@@ -344,7 +251,7 @@ gru_fwd_cluster_kernel(const E* __restrict__ xg,    // [T, B, 3H]
   const int G = 3 * H;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  load_r_slice<E>(Rs, R, H, HP, j0, nu);
+  load_r_slice<E, 3>(Rs, R, H, HP, j0, nu);
   asm volatile("cp.async.commit_group;\n" ::: "memory");
   // h0 (of the element type, so its rounded copy and the carry agree) into
   // the step-0 buffer; the other buffer's padding columns stay zero
@@ -459,78 +366,6 @@ gru_fwd_cluster_kernel(const E* __restrict__ xg,    // [T, B, 3H]
   }
 }
 
-// Calls f(std::integral_constant<int, rb>) for rb in {1, 2, 4, 8}: the
-// kernels' row counts are template arguments.
-template <typename F>
-auto by_rows(int rb, F f) {
-  switch (rb) {
-    case 8: return f(std::integral_constant<int, 8>{});
-    case 4: return f(std::integral_constant<int, 4>{});
-    case 2: return f(std::integral_constant<int, 2>{});
-    default: return f(std::integral_constant<int, 1>{});
-  }
-}
-
-// Opts the cluster kernel in to `smem_max` bytes of dynamic shared memory
-// and, past 8 CTAs, to its cluster size, and fills `cfg` for `clusters`
-// clusters of C CTAs with `smem` bytes each.
-template <typename E, int RB>
-cudaError_t cluster_config(int C, int clusters, size_t smem, size_t smem_max,
-                           cudaStream_t stream, cudaLaunchAttribute* attr,
-                           cudaLaunchConfig_t* cfg) {
-  auto kernel = gru_fwd_cluster_kernel<E, RB>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_max);
-  if (err == cudaSuccess && C > 8)
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = C;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  *cfg = cudaLaunchConfig_t{};
-  cfg->gridDim = dim3(C * clusters);
-  cfg->blockDim = dim3(kClusterThreads);
-  cfg->dynamicSmemBytes = smem;
-  cfg->stream = stream;
-  cfg->attrs = attr;
-  cfg->numAttrs = 1;
-  return err;
-}
-
-// How many clusters of C CTAs, each with `smem` bytes of dynamic shared
-// memory, the card holds at once (cudaOccupancyMaxActiveClusters), cached
-// by (device, type, rows, C, smem).
-template <typename E, int RB>
-cudaError_t active_clusters(int C, size_t smem, int* n) {
-  struct Entry { int dev, c; size_t smem; int n; };
-  static Entry cache[64];
-  static int used = 0;
-  static std::mutex lock;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  {
-    std::lock_guard<std::mutex> g(lock);
-    for (int i = 0; i < used; ++i)
-      if (cache[i].dev == dev && cache[i].c == C && cache[i].smem == smem) {
-        *n = cache[i].n;
-        return cudaSuccess;
-      }
-  }
-  cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg;
-  err = cluster_config<E, RB>(C, 1, smem, kClusterSmemCap, nullptr, &attr,
-                              &cfg);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveClusters(n, gru_fwd_cluster_kernel<E, RB>,
-                                         &cfg);
-  if (err != cudaSuccess) return err;
-  std::lock_guard<std::mutex> g(lock);
-  if (used < 64) cache[used++] = {dev, C, smem, *n};
-  return cudaSuccess;
-}
-
 // ------------------------------------------------------------------ choice
 
 // What the launcher runs for a [T, B, *, H] call: the cluster design (C
@@ -544,36 +379,28 @@ struct Plan {
 
 template <typename E>
 cudaError_t plan_fwd(int T, int B, int H, Plan* plan) {
-  int rb_max = 1;
-  while (rb_max < 8 && rb_max < B) rb_max *= 2;
   if (T > 1) {
-    int C = 0;
-    for (int c : kClusterSizes)
-      if (cluster_units(H, c) <= kClusterUnits) { C = c; break; }
-    if (C > 0) {
-      // clusters the card holds at one CTA an SM: the fewest rows a
-      // cluster that lets every cluster be resident at once
-      int slots = 0;
-      cudaError_t err = active_clusters<E, 1>(C, kClusterSmemCap, &slots);
-      if (err != cudaSuccess) return err;
-      int rb = 1;
-      while (rb < rb_max && (B + rb - 1) / rb > slots) rb *= 2;
-      while (rb > 1 && cluster_smem_bytes(rb, H, sizeof(E)) > kClusterSmemCap)
-        rb /= 2;
-      const size_t smem = cluster_smem_bytes(rb, H, sizeof(E));
-      int fits = 0;
-      if (smem <= kClusterSmemCap) {
-        err = by_rows(rb, [&](auto r) {
-          return active_clusters<E, decltype(r)::value>(C, smem, &fits);
-        });
-        if (err != cudaSuccess) return err;
-      }
-      if (fits >= 1) {
-        *plan = {1, C, rb, 0, 0, smem};
-        return cudaSuccess;
-      }
+    ClusterPlan cp;
+    cudaError_t err = plan_cluster(
+        B, H,
+        [&](int rb, int) {
+          return fwd_cluster_smem_bytes(rb, H, 3, sizeof(E));
+        },
+        [&](int rb, int C, size_t smem, int* n) {
+          return by_rows(rb, [&](auto r) {
+            return active_clusters(
+                gru_fwd_cluster_kernel<E, decltype(r)::value>, C, smem, n);
+          });
+        },
+        &cp);
+    if (err != cudaSuccess) return err;
+    if (cp.C > 0) {
+      *plan = {1, cp.C, cp.rb, 0, 0, cp.smem};
+      return cudaSuccess;
     }
   }
+  int rb_max = 1;
+  while (rb_max < 8 && rb_max < B) rb_max *= 2;
   // stream: T == 1 splits units across blocks; T > 1: a block needs all of h
   const int upb = T == 1 ? std::min(H, kTile) : H;
   const int tiles = (upb + kTile - 1) / kTile;
@@ -605,12 +432,12 @@ int gru_fwd(const E* xg, const E* R, const E* h0, E* out, E* hT,
                            p.slices, s);
     cudaLaunchAttribute attr;
     cudaLaunchConfig_t cfg;
-    cudaError_t e = cluster_config<E, RB>(p.C, (B + RB - 1) / RB, p.smem,
-                                          p.smem, s, &attr, &cfg);
+    auto kernel = gru_fwd_cluster_kernel<E, RB>;
+    cudaError_t e = cluster_config(kernel, p.C, (B + RB - 1) / RB, p.smem,
+                                   p.smem, s, &attr, &cfg);
     if (e != cudaSuccess) return e;
-    return cudaLaunchKernelEx(&cfg, gru_fwd_cluster_kernel<E, RB>, xg, R, h0,
-                              out, hT, reserve, T, B, H,
-                              cluster_units(H, p.C));
+    return cudaLaunchKernelEx(&cfg, kernel, xg, R, h0, out, hT, reserve, T,
+                              B, H, cluster_units(H, p.C));
   });
 }
 
@@ -656,8 +483,10 @@ int dl4j_gru_fwd_plan(int T, int B, int H, int bf16, int* out) {
 int dl4j_gru_active_clusters(int bf16, int rb, int C, int smem, int* n) {
   return (int)by_rows(rb, [&](auto r) {
     constexpr int RB = decltype(r)::value;
-    return bf16 ? active_clusters<__nv_bfloat16, RB>(C, smem, n)
-                : active_clusters<float, RB>(C, smem, n);
+    return bf16 ? active_clusters(gru_fwd_cluster_kernel<__nv_bfloat16, RB>,
+                                  C, smem, n)
+                : active_clusters(gru_fwd_cluster_kernel<float, RB>, C, smem,
+                                  n);
   });
 }
 

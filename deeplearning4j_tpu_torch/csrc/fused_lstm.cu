@@ -30,30 +30,52 @@
 // below the H100's ridge point and memory-bound; at decode (T=1) the launch
 // latency around it is larger still than the bytes.
 //
-// Design (simple and right first):
-// - A block owns RB batch rows and a tile of hidden units; rows are
-//   independent, so blocks never wait on one another. When T > 1 a block
-//   owns all H units (every step needs the whole h_{t-1}) and loops over T
-//   inside the block; when T == 1 there is no next step, so the units are
-//   split across blocks to spread the read of R over more SMs.
-// - h_{t-1} for the block's rows sits in shared memory; R streams from
+// Two designs; the launcher (lstm_fwd) chooses by shape and by what the
+// card can co-schedule, never because a launch failed:
+//
+// - Cluster (lstm_fwd_cluster_kernel), for T > 1 where a cluster can hold
+//   R, on the cluster layer of recurrent_cluster.cuh (the GRU forward's,
+//   with four gates): CTA c of a cluster of 8 (or 16) keeps the i, f, o and
+//   z columns of R for its U <= 32 units in shared memory for all T steps
+//   (128 KB in f32 at H=256, 100 KB at H=200); a cluster owns RB batch
+//   rows, the fewest that let every cluster be resident at one CTA an SM.
+//   Each step, each CTA: its 8 warps each take a k-slice of h_{t-1} R for
+//   its units and rows (lane = unit, RB rows in registers, h_{t-1} read as
+//   float4 broadcasts from its local copy); after one barrier the thread of
+//   (row, unit) sums the slices and the gates xg, applies the peepholes
+//   and the cell update in f32, keeps c and its unit's three peepholes in
+//   registers across steps, writes out, hT, cT and the reserve, and stores
+//   its rounded h_t into every CTA's h buffer through distributed shared
+//   memory (double-buffered by step parity); one cluster barrier ends the
+//   step. In f32 a cluster of 16 holds R up to H = 436; wider calls take
+//   the stream design.
+// - Stream (lstm_fwd_kernel), for T == 1 (decode) and any shape whose R
+//   does not fit in a cluster: a block owns RB <= 8 batch rows and a tile
+//   of hidden units; rows are independent, so blocks never wait on one
+//   another. When T > 1 a block owns all H units (every step needs the
+//   whole h_{t-1}) and loops over T inside the block; when T == 1 there is
+//   no next step, so the units are split across blocks, kDecodeUnits a
+//   block, to spread the read of R over more SMs (32 blocks at H=256).
+//   h_{t-1} for the block's rows sits in shared memory; R streams from
 //   device memory / L2 once per step per block and is reused for all RB
-//   rows held in registers.
-// - Each warp takes a (32-unit tile, k-slice) work item: lane j accumulates
-//   the four gate columns R[:, j], R[:, H+j], R[:, 2H+j], R[:, 3H+j] over its
-//   k-slice (coalesced across the warp). Several k-slices per tile keep
-//   enough loads in flight per SM; their partial sums meet in shared memory.
-// - After one barrier, threads sum the partials, apply the cell update in
-//   f32 registers, and publish h_t to shared memory; a second barrier ends
-//   the step.
-// The fast design (R slices resident in shared memory across a thread-block
-// cluster, h exchanged through distributed shared memory, decode replayed by
-// CUDA graphs) is later work.
+//   rows held in registers. Each warp takes a (unit tile, k-slice) work
+//   item: lane j accumulates the four gate columns R[:, j], R[:, H+j],
+//   R[:, 2H+j], R[:, 3H+j] over its k-slice (coalesced across the warp); a
+//   decode tile of kDecodeUnits units gives each unit 32 / kDecodeUnits
+//   lanes, which take every 4th k of the slice and meet by warp shuffles,
+//   so that a warp's chain of dependent loads is 4x shorter. The k-slices'
+//   partial sums meet in shared memory. After one barrier, threads sum the
+//   partials, apply the cell update in f32 registers, and publish h_t to
+//   shared memory; a second barrier ends the step.
+// Later work: wgmma for the bf16 step product, and decode replayed by CUDA
+// graphs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
+
+#include "recurrent_cluster.cuh"
 
 namespace {
 
@@ -62,30 +84,7 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kTile = 32;                  // hidden units per work item
 constexpr int kMaxSlices = 16;             // k-slices per unit tile
 constexpr size_t kSmemCap = 200 * 1024;    // of the 227 KB a block may use
-
-__device__ __forceinline__ float sigmoid_f(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-// element type <-> f32 (round to nearest even on the way down)
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename E> __device__ __forceinline__ E from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-// read-only cached load
-__device__ __forceinline__ float ldg_f32(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float ldg_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(__ushort_as_bfloat16(
-      __ldg(reinterpret_cast<const unsigned short*>(p))));
-}
+constexpr int kDecodeUnits = 8;            // units a block at T == 1
 
 // Shared memory layout (floats):
 //   h    [RB][H]                     h_{t-1}, then h_t
@@ -104,7 +103,10 @@ lstm_fwd_kernel(const E* __restrict__ xg,    // [T, B, 4H]
                 float* __restrict__ reserve, // [5, T, B, H] or null
                 int T, int B, int H, int upb, int slices) {
   extern __shared__ float smem[];
-  const int tiles = (upb + kTile - 1) / kTile;
+  // units a work item: a decode tile gives each unit 32 / tw lanes (phases)
+  const int tw = T == 1 ? kDecodeUnits : kTile;
+  const int phases = kTile / tw;
+  const int tiles = (upb + tw - 1) / tw;
   float* h = smem;
   float* c = h + RB * H;
   float* part = c + RB * upb;
@@ -115,6 +117,7 @@ lstm_fwd_kernel(const E* __restrict__ xg,    // [T, B, 4H]
   const int nu = min(upb, H - j0);         // units this block owns
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  const int ul = lane % tw, ph = lane / tw;  // unit in the tile, k phase
   const int kchunk = (H + slices - 1) / slices;
 
   for (int idx = threadIdx.x; idx < RB * H; idx += blockDim.x) {
@@ -131,7 +134,7 @@ lstm_fwd_kernel(const E* __restrict__ xg,    // [T, B, 4H]
     // ---- phase 1: partial h_{t-1} @ R over (unit tile, k-slice) items
     for (int item = warp; item < tiles * slices; item += kWarps) {
       const int tile = item / slices, ks = item - tile * slices;
-      const int j = min(j0 + tile * kTile + lane, H - 1);  // clamp: in bounds
+      const int j = min(j0 + tile * tw + ul, H - 1);  // clamp: in bounds
       const int k_begin = ks * kchunk;
       const int k_end = min(H, k_begin + kchunk);
       float acc[4][RB];
@@ -139,9 +142,9 @@ lstm_fwd_kernel(const E* __restrict__ xg,    // [T, B, 4H]
       for (int g = 0; g < 4; ++g)
 #pragma unroll
         for (int r = 0; r < RB; ++r) acc[g][r] = 0.0f;
-      const E* Rk = R + (size_t)k_begin * G + j;
+      const E* Rk = R + (size_t)(k_begin + ph) * G + j;
 #pragma unroll 4
-      for (int k = k_begin; k < k_end; ++k, Rk += G) {
+      for (int k = k_begin + ph; k < k_end; k += phases, Rk += phases * G) {
         const float ri = ldg_f32(Rk);
         const float rf = ldg_f32(Rk + H);
         const float ro = ldg_f32(Rk + 2 * H);
@@ -155,11 +158,19 @@ lstm_fwd_kernel(const E* __restrict__ xg,    // [T, B, 4H]
           acc[3][r] = fmaf(hk, rz, acc[3][r]);
         }
       }
+      // a unit's phases meet in its lane of phase 0
+      for (int off = tw; off < kTile; off *= 2)
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+#pragma unroll
+          for (int r = 0; r < RB; ++r)
+            acc[g][r] += __shfl_xor_sync(0xffffffffu, acc[g][r], off);
       float* p = part + (size_t)(ks * tiles + tile) * 4 * RB * kTile;
+      if (ph == 0)
 #pragma unroll
-      for (int g = 0; g < 4; ++g)
+        for (int g = 0; g < 4; ++g)
 #pragma unroll
-        for (int r = 0; r < RB; ++r) p[(g * RB + r) * kTile + lane] = acc[g][r];
+          for (int r = 0; r < RB; ++r) p[(g * RB + r) * kTile + ul] = acc[g][r];
     }
     __syncthreads();
 
@@ -168,7 +179,7 @@ lstm_fwd_kernel(const E* __restrict__ xg,    // [T, B, 4H]
     for (int idx = threadIdx.x; idx < RB * nu; idx += blockDim.x) {
       const int r = idx / nu, u = idx - r * nu, b = b0 + r;
       const int j = j0 + u;
-      const int tile = u / kTile, l = u % kTile;
+      const int tile = u / tw, l = u % tw;
       float gate[4];
 #pragma unroll
       for (int g = 0; g < 4; ++g) {
@@ -239,31 +250,239 @@ cudaError_t launch(const E* xg, const E* R, const E* h0, const E* c0,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------------ cluster design
+
+template <typename E, int RB>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+lstm_fwd_cluster_kernel(const E* __restrict__ xg,    // [T, B, 4H]
+                        const E* __restrict__ R,     // [H, 4H]
+                        const E* __restrict__ h0,    // [B, H]
+                        const E* __restrict__ c0,    // [B, H]
+                        const E* __restrict__ peep,  // [3H] or null
+                        E* __restrict__ out,         // [T, B, H]
+                        E* __restrict__ hT,          // [B, H]
+                        E* __restrict__ cT,          // [B, H]
+                        float* __restrict__ reserve, // [5, T, B, H] or null
+                        int T, int B, int H, int U) {
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int HP = (H + 3) & ~3;
+  E* Rs = reinterpret_cast<E*>(smem_raw);
+  float* hs = reinterpret_cast<float*>(
+      smem_raw + (size_t)HP * 4 * kClusterUnits * sizeof(E));
+  float* part = hs + 2 * RB * HP;
+
+  const int C = (int)cluster.num_blocks();
+  const int j0 = (int)cluster.block_rank() * U;
+  const int nu = max(0, min(U, H - j0));   // units this CTA owns
+  const int b0 = (blockIdx.x / C) * RB;
+  const int G = 4 * H;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  load_r_slice<E, 4>(Rs, R, H, HP, j0, nu);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  // h0 into the step-0 buffer; the other buffer's padding columns stay zero
+  for (int idx = threadIdx.x; idx < 2 * RB * HP; idx += kClusterThreads) {
+    const int r = (idx / HP) % RB, k = idx % HP, b = b0 + r;
+    hs[idx] = idx < RB * HP && b < B && k < H
+                  ? to_f32(h0[(size_t)b * H + k]) : 0.0f;
+  }
+  // the thread of (row gr, unit j) keeps that unit's f32 cell state and
+  // its three peepholes in registers
+  const int gr = warp, j = j0 + lane;
+  const bool owner = gr < RB && lane < nu;
+  const int b = b0 + gr;
+  const bool live = owner && b < B;
+  float c = live ? to_f32(c0[(size_t)b * H + j]) : 0.0f;
+  float p_i = 0.0f, p_f = 0.0f, p_o = 0.0f;
+  if (owner && peep != nullptr) {
+    p_i = to_f32(peep[j]);
+    p_f = to_f32(peep[H + j]);
+    p_o = to_f32(peep[2 * H + j]);
+  }
+  float xv[4];
+#pragma unroll
+  for (int g = 0; g < 4; ++g)
+    xv[g] = live ? to_f32(xg[(size_t)b * G + g * H + j]) : 0.0f;
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  // every CTA of the cluster is running and initialised before any CTA
+  // stores into another's buffers
+  cluster.sync();
+
+  // this warp's k-slice, a multiple of 4 long
+  const int kslice = ((HP / 4 + kClusterWarps - 1) / kClusterWarps) * 4;
+  const int k_begin = min(HP, warp * kslice);
+  const int k_end = min(HP, k_begin + kslice);
+  const size_t plane = (size_t)T * B * H;
+
+  for (int t = 0; t < T; ++t) {
+    // the next step's gates are known now: their load overlaps the product
+    float xn[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (live && t + 1 < T) {
+      const E* x_next = xg + ((size_t)(t + 1) * B + b) * G + j;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) xn[g] = to_f32(x_next[g * H]);
+    }
+
+    // ---- this warp's k-slice of h_{t-1} @ R for its 32 units, RB rows
+    const float* hcur = hs + (t & 1) * RB * HP;
+    float acc[4][RB];
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+#pragma unroll
+      for (int r = 0; r < RB; ++r) acc[g][r] = 0.0f;
+    for (int k = k_begin; k < k_end; k += 4) {
+      float4 h4[RB];
+#pragma unroll
+      for (int r = 0; r < RB; ++r)
+        h4[r] = *reinterpret_cast<const float4*>(hcur + r * HP + k);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const E* rk = Rs + (size_t)(k + kk) * 4 * kClusterUnits + lane;
+        float w[4];
+#pragma unroll
+        for (int g = 0; g < 4; ++g) w[g] = to_f32(rk[g * kClusterUnits]);
+#pragma unroll
+        for (int r = 0; r < RB; ++r) {
+          const float hk = kk == 0 ? h4[r].x : kk == 1 ? h4[r].y
+                         : kk == 2 ? h4[r].z : h4[r].w;
+#pragma unroll
+          for (int g = 0; g < 4; ++g) acc[g][r] = fmaf(hk, w[g], acc[g][r]);
+        }
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+#pragma unroll
+      for (int r = 0; r < RB; ++r)
+        part[((warp * 4 + g) * RB + r) * 32 + lane] = acc[g][r];
+    __syncthreads();
+
+    // ---- the cell of (row gr, unit j); h_t to every CTA of the cluster
+    if (owner) {
+      float gate[4];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        float sum = 0.0f;
+#pragma unroll
+        for (int w = 0; w < kClusterWarps; ++w)
+          sum += part[((w * 4 + g) * RB + gr) * 32 + lane];
+        gate[g] = xv[g] + sum;
+      }
+      const float c_old = c;
+      if (peep != nullptr) {
+        gate[0] += c_old * p_i;
+        gate[1] += c_old * p_f;
+      }
+      const float ig = sigmoid_f(gate[0]);
+      const float fg = sigmoid_f(gate[1]);
+      const float zg = tanhf(gate[3]);
+      const float c_new = fg * c_old + ig * zg;
+      if (peep != nullptr) gate[2] += c_new * p_o;
+      const float og = sigmoid_f(gate[2]);
+      const E h_st = from_f32<E>(og * tanhf(c_new));
+      c = c_new;
+      // the next product reads h in the element type, as the Pallas
+      // kernel casts it
+      float* dst = hs + ((t + 1) & 1) * RB * HP + gr * HP + j;
+      const float h_r = to_f32(h_st);
+      for (int q = 0; q < C; ++q) *cluster.map_shared_rank(dst, q) = h_r;
+      if (live) {
+        const size_t at = ((size_t)t * B + b) * H + j;
+        out[at] = h_st;
+        if (reserve != nullptr) {
+          reserve[at] = c_new;
+          reserve[plane + at] = ig;
+          reserve[2 * plane + at] = fg;
+          reserve[3 * plane + at] = og;
+          reserve[4 * plane + at] = zg;
+        }
+        if (t == T - 1) {
+          hT[(size_t)b * H + j] = h_st;
+          cT[(size_t)b * H + j] = from_f32<E>(c_new);
+        }
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < 4; ++g) xv[g] = xn[g];
+    // h_t has reached every CTA, and this step's buffers are free
+    cluster.sync();
+  }
+}
+
+// ------------------------------------------------------------------ choice
+
+// What the launcher runs for a [T, B, *, H] call: the cluster design (C
+// CTAs a cluster, RB rows a cluster) or the stream design (RB rows a
+// block, upb units a block, k-slices a unit tile), and the dynamic shared
+// memory of a block.
+struct Plan {
+  int cluster, C, rb, upb, slices;
+  size_t smem;
+};
+
 template <typename E>
-int lstm_fwd(const E* xg, const E* R, const E* h0, const E* c0,
-             const E* peep, E* out, E* hT, E* cT, float* reserve, int T,
-             int B, int H, void* stream) {
-  if (T <= 0 || B <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  // T == 1: split units across blocks; T > 1: a block needs all of h.
-  const int upb = T == 1 ? std::min(H, kTile) : H;
+cudaError_t plan_fwd(int T, int B, int H, Plan* plan) {
+  if (T > 1) {
+    ClusterPlan cp;
+    cudaError_t err = plan_cluster(
+        B, H,
+        [&](int rb, int) {
+          return fwd_cluster_smem_bytes(rb, H, 4, sizeof(E));
+        },
+        [&](int rb, int C, size_t smem, int* n) {
+          return by_rows(rb, [&](auto r) {
+            return active_clusters(
+                lstm_fwd_cluster_kernel<E, decltype(r)::value>, C, smem, n);
+          });
+        },
+        &cp);
+    if (err != cudaSuccess) return err;
+    if (cp.C > 0) {
+      *plan = {1, cp.C, cp.rb, 0, 0, cp.smem};
+      return cudaSuccess;
+    }
+  }
+  // stream: T == 1 splits units across blocks; T > 1: a block needs all of h
+  const int upb = T == 1 ? std::min(H, kDecodeUnits) : H;
   const int tiles = (upb + kTile - 1) / kTile;
   int rb = 1;
   while (rb < 8 && rb < B) rb *= 2;
   while (rb > 1 && smem_bytes(rb, H, upb, 1) > kSmemCap) rb /= 2;
-  if (smem_bytes(rb, H, upb, 1) > kSmemCap) return (int)cudaErrorInvalidValue;
+  if (smem_bytes(rb, H, upb, 1) > kSmemCap) return cudaErrorInvalidValue;
   // more k-slices while warps would idle, each slice >= 16 k long
   int slices = 1;
   while (slices < kMaxSlices && tiles * slices < kWarps &&
          H >= 16 * slices * 2 &&
          smem_bytes(rb, H, upb, slices * 2) <= kSmemCap)
     slices *= 2;
+  *plan = {0, 0, rb, upb, slices, smem_bytes(rb, H, upb, slices)};
+  return cudaSuccess;
+}
+
+template <typename E>
+int lstm_fwd(const E* xg, const E* R, const E* h0, const E* c0,
+             const E* peep, E* out, E* hT, E* cT, float* reserve, int T,
+             int B, int H, void* stream) {
+  if (T <= 0 || B <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  Plan p;
+  cudaError_t err = plan_fwd<E>(T, B, H, &p);
+  if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (rb) {
-    case 8: return (int)launch<E, 8>(xg, R, h0, c0, peep, out, hT, cT, reserve, T, B, H, upb, slices, s);
-    case 4: return (int)launch<E, 4>(xg, R, h0, c0, peep, out, hT, cT, reserve, T, B, H, upb, slices, s);
-    case 2: return (int)launch<E, 2>(xg, R, h0, c0, peep, out, hT, cT, reserve, T, B, H, upb, slices, s);
-    default: return (int)launch<E, 1>(xg, R, h0, c0, peep, out, hT, cT, reserve, T, B, H, upb, slices, s);
-  }
+  return (int)by_rows(p.rb, [&](auto r) {
+    constexpr int RB = decltype(r)::value;
+    if (!p.cluster)
+      return launch<E, RB>(xg, R, h0, c0, peep, out, hT, cT, reserve, T, B,
+                           H, p.upb, p.slices, s);
+    cudaLaunchAttribute attr;
+    cudaLaunchConfig_t cfg;
+    auto kernel = lstm_fwd_cluster_kernel<E, RB>;
+    cudaError_t e = cluster_config(kernel, p.C, (B + RB - 1) / RB, p.smem,
+                                   p.smem, s, &attr, &cfg);
+    if (e != cudaSuccess) return e;
+    return cudaLaunchKernelEx(&cfg, kernel, xg, R, h0, c0, peep, out, hT,
+                              cT, reserve, T, B, H, cluster_units(H, p.C));
+  });
 }
 
 }  // namespace
@@ -288,6 +507,34 @@ int dl4j_lstm_fwd_bf16(const __nv_bfloat16* xg, const __nv_bfloat16* R,
                        int T, int B, int H, void* stream) {
   return lstm_fwd<__nv_bfloat16>(xg, R, h0, c0, peep, out, hT, cT, reserve, T,
                                  B, H, stream);
+}
+
+// The launcher's choice for a [T, B, *, H] call of the element type (bf16
+// nonzero: bfloat16, else float32) on the current device: out = {1 for the
+// cluster design or 0 for the stream design, C (0 for stream), RB, dynamic
+// shared memory bytes}. Returns a cudaError_t.
+int dl4j_lstm_fwd_plan(int T, int B, int H, int bf16, int* out) {
+  Plan plan;
+  cudaError_t err = bf16 ? plan_fwd<__nv_bfloat16>(T, B, H, &plan)
+                         : plan_fwd<float>(T, B, H, &plan);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = plan.cluster;
+  out[1] = plan.C;
+  out[2] = plan.rb;
+  out[3] = (int)plan.smem;
+  return 0;
+}
+
+// cudaOccupancyMaxActiveClusters of the cluster kernel (RB rows) for
+// clusters of C CTAs with `smem` bytes each, into *n.
+int dl4j_lstm_active_clusters(int bf16, int rb, int C, int smem, int* n) {
+  return (int)by_rows(rb, [&](auto r) {
+    constexpr int RB = decltype(r)::value;
+    return bf16 ? active_clusters(lstm_fwd_cluster_kernel<__nv_bfloat16, RB>,
+                                  C, smem, n)
+                : active_clusters(lstm_fwd_cluster_kernel<float, RB>, C,
+                                  smem, n);
+  });
 }
 
 const char* dl4j_cuda_error_string(int err) {

@@ -14,7 +14,8 @@ through its scan ``gru_layer``. f32 tolerance: rtol = 1e-5 and atol =
 the gradients reach 30, and the sums of 200 such terms round at about
 1e-6 of that). Weights are drawn at scale 0.3 or more, so
 that r stays away from 1 and a mix-up of ga_n and r * ga_n shows. The
-``cuda`` tests hold both kernels against their plain versions on the card.
+``cuda`` tests hold both kernels, each design of each, against their plain
+versions on the card.
 """
 
 import jax
@@ -511,3 +512,110 @@ def test_cuda_gru_layer_trains_through_both_kernels(cuda_device, rev):
             scale = max(1.0, float(w.abs().max()))
             torch.testing.assert_close(g.cpu(), w.cpu(), atol=1e-5 * scale,
                                        rtol=0, msg=n)
+
+
+def _cluster_launches(fn, calls=3):
+    """How many of ``calls`` calls of ``fn`` (one backward launch each,
+    after a warm-up outside the profiler) went through cudaLaunchKernelEx:
+    the cluster design launches that way (for its cluster dimension), the
+    stream design and R^T's transpose through cudaLaunchKernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.key.startswith("cudaLaunchKernelEx"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bwd_cluster_kernel_against_plain_on_card(cuda_device, dtype):
+    """The backward's cluster design (R resident across a cluster, the
+    partial carries reduce-scattered through distributed shared memory) at
+    the GRU paths' training shapes, [64, 64, 256] and Bidirectional
+    GRU(200)'s reversed [64, 64, 200], and a ragged reversed [3, 5, 200];
+    the stream design (R^T from L2) at T = 1 and H = 1024. The launcher's
+    choice is bwd_design's, and the cluster design alone launches through
+    cudaLaunchKernelEx. dg and dh0 against the plain backward on the
+    kernel's own reserve, and bit-equal from run to run (each carry sums
+    its slots in rank order). Tolerances as
+    test_kernels_against_plain_on_card."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    for B, T, H, rev, kind in ((64, 64, 256, False, "cluster"),
+                               (64, 64, 200, True, "cluster"),
+                               (3, 5, 200, True, "cluster"),
+                               (8, 1, 256, False, "stream"),
+                               (64, 8, 1024, False, "stream")):
+        design = port_fused.launcher_bwd_design(T, B, H, dt)
+        assert design == port_fused.bwd_design(T, B, H, dt)
+        assert design.kind == kind, (B, T, H)
+        x = torch.randn(B, T, 77, device=cuda_device, generator=g).to(dt)
+        W = (torch.randn(77, 3 * H, device=cuda_device, generator=g)
+             * 77 ** -0.5).to(dt)
+        b = (0.1 * torch.randn(3 * H, device=cuda_device,
+                               generator=g)).to(dt)
+        _, R, h0, dout = _card_case(cuda_device, g, B, T, H, dt)
+        xg = project_gates(x, W, b, reverse=rev)
+        out, _, res = fused_gru_recurrence(xg, R, h0, save_residuals=True)
+
+        def bwd():
+            return fused_gru_bwd_recurrence(res, R, h0, out, dout)
+
+        assert _cluster_launches(bwd) == (3 if kind == "cluster" else 0)
+        before = FUSED_GRU_BWD.launches
+        (dg, dh0), (dg2, dh02) = bwd(), bwd()
+        torch.cuda.synchronize()
+        assert FUSED_GRU_BWD.launches == before + 2
+        assert torch.equal(dg, dg2) and torch.equal(dh0, dh02)
+        pdg, pdh0 = plain_bwd_recurrence(res, R, h0, out, dout)
+        for got, want in ((dg, pdg), (dh0, pdh0)):
+            assert got.dtype == torch.float32
+            if dt == torch.float32:
+                tol = 1e-5 * max(1.0, float(want.abs().max()))
+                torch.testing.assert_close(got, want, atol=tol, rtol=0)
+            else:
+                assert bool(((got - want).abs()
+                             <= 2 ** -7 * (1 + want.abs())).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rev", [False, True], ids=["fwd", "rev"])
+def test_cuda_gru_layer_grads_at_the_training_shape(cuda_device, rev):
+    """FusedGRUFunction at the GRU char-RNN's training shape (B 64, T 64,
+    H 256), both kernels on their cluster designs: the five gradients
+    against autograd through the plain lowering on the card, 1e-4 of
+    max(1, max |plain|) (TOL_GRAD of chip_smoke.py: dW and db are sums of
+    4096 terms, taken in other orders). The weights are drawn as a layer
+    is initialised (W and R at 1 / sqrt(fan-in)): _inputs' scale 0.3 at
+    H 256 makes the recurrence chaotic over 64 steps, where any two
+    summation orders part."""
+    a = _inputs(256, B=64, T=64, F=77, seed=9)
+    a["W"] *= 77 ** -0.5 / 0.3
+    a["R"] *= 256 ** -0.5 / 0.3
+    for launcher, mirror in ((port_fused.launcher_design,
+                              port_fused.fwd_design),
+                             (port_fused.launcher_bwd_design,
+                              port_fused.bwd_design)):
+        d = launcher(64, 64, 256, torch.float32)
+        assert d == mirror(64, 64, 256, torch.float32)
+        assert d.kind == "cluster"
+    op = get_op("gru_layer")
+    before = (FUSED_GRU.launches, FUSED_GRU_BWD.launches)
+    got = _torch_grads(op, a, device=cuda_device, reverse=rev)
+    torch.cuda.synchronize()
+    assert (FUSED_GRU.launches, FUSED_GRU_BWD.launches) == (
+        before[0] + 1, before[1] + 1)
+    env.disable_kernels = True
+    try:
+        want = _torch_grads(op, a, device=cuda_device, reverse=rev)
+    finally:
+        env.reload()
+    for n, g in got.items():
+        scale = max(1.0, float(want[n].abs().max()))
+        torch.testing.assert_close(g, want[n], atol=1e-4 * scale, rtol=0,
+                                   msg=lambda m, n=n: f"{n}: {m}")

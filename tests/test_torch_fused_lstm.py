@@ -20,6 +20,7 @@ import torch
 from deeplearning4j_tpu.ops.pallas.fused_lstm import fused_lstm_layer as jax_fused
 from deeplearning4j_tpu.ops.recurrent import lstm_layer as jax_scan
 from deeplearning4j_tpu_torch.common.env import env
+from deeplearning4j_tpu_torch.ops.cuda import fused_lstm as port_lstm
 from deeplearning4j_tpu_torch.ops.cuda.fused_lstm import (
     FUSED_LSTM, fused_lstm_layer, fused_lstm_recurrence, plain_recurrence,
 )
@@ -313,3 +314,71 @@ def test_bf16_net_on_card_launches_kernel(cuda_device):
     toks = eng.generate([1, 2, 3], max_new_tokens=5)
     assert len(toks) == 5
     assert FUSED_LSTM.launches - before >= 2 * eng.steps_run
+
+
+def _cluster_launches(fn, calls=3):
+    """How many of ``calls`` calls of ``fn`` (one forward launch each,
+    after a warm-up outside the profiler) went through cudaLaunchKernelEx,
+    as only the cluster design launches (for its cluster dimension)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.key.startswith("cudaLaunchKernelEx"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cluster_kernel_against_plain_on_card(cuda_device, dtype):
+    """The forward's cluster design (R resident across a thread-block
+    cluster, h through distributed shared memory) at the main path's T > 1
+    shapes: config #3's [64, 64, 200] with peepholes, reversed;
+    TextGenerationLSTM's training [64, 64, 256] and prefill [1, 47, 256];
+    and a ragged reversed [3, 5, 200]. The stream design at decode [8, 1,
+    256] and [5, 3, 1000] (a cluster cannot hold R). The launcher's choice
+    is fwd_design's and the cluster design alone launches through
+    cudaLaunchKernelEx; out, hT, cT and the reserve against the plain
+    version, out bit-equal with and without the reserve. f32 tolerance
+    1e-4 abs (summation order); bf16 one bf16 step, |a - b| <= 2^-7
+    (1 + |b|)."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    for B, T, H, peep, rev, kind in ((64, 64, 200, True, True, "cluster"),
+                                     (64, 64, 256, False, False, "cluster"),
+                                     (1, 47, 256, False, False, "cluster"),
+                                     (3, 5, 200, True, True, "cluster"),
+                                     (8, 1, 256, False, False, "stream"),
+                                     (5, 3, 1000, True, False, "stream")):
+        design = port_lstm.launcher_design(T, B, H, dt)
+        assert design == port_lstm.fwd_design(T, B, H, dt)
+        assert design.kind == kind, (B, T, H)
+        rnd = lambda *s, k=1.0: (torch.randn(*s, device=cuda_device,
+                                             generator=g) * k).to(dt)
+        x, W, b = rnd(B, T, 77), rnd(77, 4 * H, k=0.1), rnd(4 * H, k=0.1)
+        R = rnd(H, 4 * H, k=0.06)
+        h0, c0 = rnd(B, H, k=0.5), rnd(B, H, k=0.5)
+        p = rnd(3 * H, k=0.1) if peep else None
+        xg = project_gates(x, W, b, 1.0, rev)
+        assert _cluster_launches(lambda: fused_lstm_recurrence(
+            xg, R, h0, c0, p)) == (3 if kind == "cluster" else 0)
+        before = FUSED_LSTM.launches
+        got = fused_lstm_recurrence(xg, R, h0, c0, p)
+        *got_r, res = fused_lstm_recurrence(xg, R, h0, c0, p,
+                                            save_residuals=True)
+        torch.cuda.synchronize()
+        assert FUSED_LSTM.launches == before + 2
+        assert all(torch.equal(a, r) for a, r in zip(got, got_r))
+        *want, p_res = plain_recurrence(xg, R, h0, c0, p,
+                                        save_residuals=True)
+        for a, r in zip(list(got) + [res], list(want) + [p_res]):
+            assert a.dtype == (torch.float32 if a is res else dt)
+            a, r = a.float(), r.float()
+            if dt == torch.float32:
+                torch.testing.assert_close(a, r, atol=1e-4, rtol=0)
+            else:
+                assert bool(((a - r).abs() <= 2 ** -7 * (1 + r.abs())).all())

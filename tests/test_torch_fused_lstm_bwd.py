@@ -278,3 +278,66 @@ def test_cuda_lstm_layer_trains_through_both_kernels(cuda_device, peep, rev):
         scale = max(1.0, float(ref[n].abs().max()))
         torch.testing.assert_close(g.cpu(), ref[n], atol=1e-4 * scale, rtol=0,
                                    msg=n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bwd_kernel_on_the_cluster_forwards_reserve_on_card(cuda_device,
+                                                             dtype):
+    """The backward kernel reads the cluster forward's reserve unchanged:
+    at the training shapes ([64, 64, 200] with peepholes, [64, 64, 256]
+    without) the forward runs its cluster design, its reserve agrees with
+    the plain forward's, and the backward on it with the plain backward on
+    the same reserve. Tolerances as test_bwd_kernel_against_plain_on_card;
+    bf16 one bf16 step, |a - b| <= 2^-7 (1 + |b|), on the reserve."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    for B, T, H, peep in ((64, 64, 200, True), (64, 64, 256, False)):
+        design = port_fused.launcher_design(T, B, H, dt)
+        assert design == port_fused.fwd_design(T, B, H, dt)
+        assert design.kind == "cluster"
+        xg, R, h0, c0, p, dout, dcT = _card_case(cuda_device, g, B, T, H,
+                                                 peep, dt)
+        _, _, _, reserve = fused_lstm_recurrence(xg, R, h0, c0, p,
+                                                 save_residuals=True)
+        dg, dc0 = fused_lstm_bwd_recurrence(reserve, R, c0, dout, dcT, p)
+        torch.cuda.synchronize()
+        _, _, _, plain_res = plain_recurrence(xg, R, h0, c0, p,
+                                              save_residuals=True)
+        pg, pc = plain_bwd_recurrence(reserve, R, c0, dout, dcT, p)
+        if dt == torch.float32:
+            for got, want in ((reserve, plain_res), (dg, pg), (dc0, pc)):
+                torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+        else:
+            assert bool(((reserve - plain_res).abs()
+                         <= 2 ** -7 * (1 + plain_res.abs())).all())
+            for got, want in ((dg, pg), (dc0, pc)):
+                assert bool(((got - want).abs()
+                             <= 1e-2 * (1 + want.abs())).all())
+
+
+@pytest.mark.cuda
+def test_cuda_lstm_layer_grads_at_the_training_shape(cuda_device):
+    """FusedLSTMFunction at config #3's training shape (B 64, T 64, H 200,
+    peepholes, reversed), the forward on its cluster design: the seven
+    gradients against autograd through the plain lowering on the card,
+    1e-4 of max(1, max |plain|) (TOL_GRAD of chip_smoke.py)."""
+    a = _inputs(200, B=64, T=64, F=77, peephole=True, seed=8)
+    kw = dict(forget_gate_bias=1.0, reverse=True)
+    assert port_fused.launcher_design(64, 64, 200,
+                                      torch.float32).kind == "cluster"
+    op = get_op("lstm_layer")
+    before = (FUSED_LSTM.launches, FUSED_LSTM_BWD.launches)
+    got = _torch_grads(op, a, device=cuda_device, **kw)
+    torch.cuda.synchronize()
+    assert (FUSED_LSTM.launches, FUSED_LSTM_BWD.launches) == (
+        before[0] + 1, before[1] + 1)
+    env.disable_kernels = True
+    try:
+        want = _torch_grads(op, a, device=cuda_device, **kw)
+    finally:
+        env.reload()
+    for n, g in got.items():
+        scale = max(1.0, float(want[n].abs().max()))
+        torch.testing.assert_close(g, want[n], atol=1e-4 * scale, rtol=0,
+                                   msg=n)

@@ -25,6 +25,7 @@ import torch
 
 from deeplearning4j_tpu_torch.ops.cuda import flash_attention as fa
 from deeplearning4j_tpu_torch.ops.cuda import fused_gru, fused_lstm
+from deeplearning4j_tpu_torch.ops.cuda import recurrent_cluster as rc
 
 CSRC = Path(fused_lstm.__file__).resolve().parents[2] / "csrc"
 F32, BF16 = torch.float32, torch.bfloat16
@@ -65,8 +66,10 @@ def test_constants_match_the_sources(family, source, gates):
         assert tile == family.SMEM_TILE
         assert int(cap.group(1)) * 1024 == family.SMEM_CAP
     fwd = (CSRC / f"{source}.cu").read_text()
+    # units a stream block at T == 1: the LSTM's own decode width
+    units = "kDecodeUnits" if hasattr(family, "DECODE_UNITS") else "kTile"
     assert (f"(size_t)slices * tiles * {gates} * rb * kTile" in fwd
-            and "const int upb = T == 1 ? std::min(H, kTile) : H;" in fwd)
+            and f"const int upb = T == 1 ? std::min(H, {units}) : H;" in fwd)
     bwd = (CSRC / f"{source}_bwd.cu").read_text()
     assert f"(size_t)rb * {gates} * H + (size_t)rb * H" in bwd
 
@@ -74,43 +77,130 @@ def test_constants_match_the_sources(family, source, gates):
 def _slots(n):
     """A card that holds ``n`` clusters at one CTA an SM, and as many as
     fit at smaller shared memory (``active_clusters`` of fwd_design)."""
-    return lambda C, rows, smem: (n * (fused_gru.CLUSTER_SMEM_CAP // smem)
-                                  if smem <= fused_gru.CLUSTER_SMEM_CAP
+    return lambda C, rows, smem: (n * (rc.CLUSTER_SMEM_CAP // smem)
+                                  if smem <= rc.CLUSTER_SMEM_CAP
                                   else 0)
+
+
+def _const(text, name):
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+def _cluster_text(source):
+    """A cluster kernel's source and the shared layer it includes."""
+    text = (CSRC / source).read_text()
+    assert '#include "recurrent_cluster.cuh"' in text
+    return text + (CSRC / "recurrent_cluster.cuh").read_text()
+
+
+def test_cluster_layer_constants_match_the_header():
+    """csrc/recurrent_cluster.cuh's constants and planner, as the Python
+    mirror (ops/cuda/recurrent_cluster.py) repeats them."""
+    text = (CSRC / "recurrent_cluster.cuh").read_text()
+    assert _const(text, "kClusterWarps") == rc.CLUSTER_WARPS
+    assert _const(text, "kClusterUnits") == rc.CLUSTER_UNITS
+    sizes = re.search(r"constexpr int kClusterSizes\[\] = \{([\d, ]+)\};",
+                      text).group(1)
+    assert tuple(int(c) for c in sizes.split(",")) == rc.CLUSTER_SIZES
+    cap = re.search(r"constexpr size_t kClusterSmemCap = (\d+) \* 1024;",
+                    text)
+    assert int(cap.group(1)) * 1024 == rc.CLUSTER_SMEM_CAP
+    for line in (
+            "return ((H + C - 1) / C + 1) & ~1;",
+            "return hp * G * kClusterUnits * e +",
+            "sizeof(float) * (2 * rb * hp + (size_t)kClusterWarps * G * rb "
+            "* 32);",
+            "if (cluster_units(H, c) <= kClusterUnits) { C = c; break; }",
+            "while (rb_max < 8 && rb_max < B) rb_max *= 2;",
+            "cudaError_t err = slots(1, C, kClusterSmemCap, &resident);",
+            "while (rb < rb_max && (B + rb - 1) / rb > resident) rb *= 2;",
+            "while (rb > 1 && smem_of(rb, C) > kClusterSmemCap) rb /= 2;",
+            "if (fits >= 1) *plan = ClusterPlan{C, rb, smem};"):
+        assert line in text, line
+
+
+def test_a_change_to_the_cluster_header_rebuilds_the_recurrent_libraries(
+        tmp_path, monkeypatch):
+    """The three recurrent sources that include csrc/recurrent_cluster.cuh
+    are built into libraries named by a hash of the headers too, so an
+    edited header gives each a new library (no stale build is loaded)."""
+    import shutil
+
+    from deeplearning4j_tpu_torch.ops.cuda import build
+
+    shutil.copytree(CSRC, tmp_path / "csrc")
+    monkeypatch.setattr(build, "CSRC_DIR", tmp_path / "csrc")
+    libs = [build.CudaLibrary(src, {}) for src in (
+        "fused_gru.cu", "fused_gru_bwd.cu", "fused_lstm.cu")]
+    before = [lib.library_path() for lib in libs]
+    header = tmp_path / "csrc" / "recurrent_cluster.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = [lib.library_path() for lib in libs]
+    assert all(a != b for a, b in zip(before, after))
 
 
 def test_gru_cluster_constants_match_the_source():
     """The forward design's constants and arithmetic, read back from
-    csrc/fused_gru.cu: fwd_design repeats plan_fwd."""
-    text = (CSRC / "fused_gru.cu").read_text()
-
-    def const(name):
-        return int(re.search(rf"constexpr int {name} = (\d+);",
-                             text).group(1))
-
-    assert const("kMaxSlices") == fused_gru.MAX_SLICES
-    assert const("kWarps") == fused_gru.STREAM_WARPS
-    assert const("kClusterWarps") == fused_gru.CLUSTER_WARPS
-    assert const("kClusterUnits") == fused_gru.CLUSTER_UNITS
-    sizes = re.search(r"constexpr int kClusterSizes\[\] = \{([\d, ]+)\};",
-                      text).group(1)
-    assert tuple(int(c) for c in sizes.split(",")) == fused_gru.CLUSTER_SIZES
-    cap = re.search(r"constexpr size_t kClusterSmemCap = (\d+) \* 1024;",
-                    text)
-    assert int(cap.group(1)) * 1024 == fused_gru.CLUSTER_SMEM_CAP
+    csrc/fused_gru.cu and the cluster layer it includes: fwd_design repeats
+    plan_fwd."""
+    text = _cluster_text("fused_gru.cu")
+    assert _const(text, "kMaxSlices") == fused_gru.MAX_SLICES
+    assert _const(text, "kWarps") == fused_gru.STREAM_WARPS
     for line in (
             "return ((H + C - 1) / C + 1) & ~1;",
-            "return hp * 3 * kClusterUnits * e +",
-            "sizeof(float) * (2 * rb * hp + (size_t)kClusterWarps * 3 * rb "
-            "* 32);",
-            "active_clusters<E, 1>(C, kClusterSmemCap, &slots);",
-            "while (rb < rb_max && (B + rb - 1) / rb > slots) rb *= 2;",
-            "while (rb > 1 && cluster_smem_bytes(rb, H, sizeof(E)) > "
-            "kClusterSmemCap)",
-            "if (fits >= 1) {",
+            "return fwd_cluster_smem_bytes(rb, H, 3, sizeof(E));",
+            "gru_fwd_cluster_kernel<E, decltype(r)::value>, C, smem, n);",
+            "cudaError_t err = slots(1, C, kClusterSmemCap, &resident);",
+            "while (rb < rb_max && (B + rb - 1) / rb > resident) rb *= 2;",
+            "while (rb > 1 && smem_of(rb, C) > kClusterSmemCap) rb /= 2;",
+            "if (fits >= 1) *plan = ClusterPlan{C, rb, smem};",
             "while (slices < kMaxSlices && tiles * slices < kWarps &&",
             "H >= 16 * slices * 2 &&"):
         assert line in text, line
+
+
+def test_gru_bwd_cluster_constants_match_the_source():
+    """The backward design's arithmetic, read back from
+    csrc/fused_gru_bwd.cu: bwd_design repeats plan_bwd."""
+    text = _cluster_text("fused_gru_bwd.cu")
+    assert _const(text, "kMaxSlices") == fused_gru.MAX_SLICES
+    assert _const(text, "kWarps") == fused_gru.STREAM_WARPS
+    for line in (
+            "return 3 * kClusterUnits + 4 / (int)sizeof(E);",
+            "return hp * bwd_row<E>() * sizeof(E) +",
+            "sizeof(float) * ((size_t)rb * 3 * 32 + 2 * (size_t)C * rb * 32);",
+            "return bwd_cluster_smem_bytes<E>(rb, H, C);",
+            "gru_bwd_cluster_kernel<E, decltype(r)::value>, C, smem, n);",
+            "while (rb > 1 && smem_bytes(rb, H, 1) > kSmemCap) rb /= 2;",
+            "while (slices < kMaxSlices && tiles * slices < kWarps &&",
+            "3 * H >= 16 * slices * 2 &&",
+            "(size_t)slices * tiles * rb * kTile);"):
+        assert line in text, line
+    # H=256, 8 rows, a cluster of 8, f32: 256 rows of 97 words of R, the
+    # operands 8 x 96 and the slots 2 x 8 x 8 x 32
+    assert fused_gru.bwd_cluster_smem_bytes(8, 256, 8, 4) == 4 * (
+        256 * 97 + 8 * 96 + 2 * 8 * 8 * 32)
+    assert fused_gru.bwd_cluster_smem_bytes(8, 256, 8, 2) == (
+        2 * 256 * 98 + 4 * (8 * 96 + 2 * 8 * 8 * 32))
+
+
+def test_lstm_cluster_constants_match_the_source():
+    """The LSTM forward's designs, read back from csrc/fused_lstm.cu:
+    fwd_design repeats plan_fwd."""
+    text = _cluster_text("fused_lstm.cu")
+    assert _const(text, "kDecodeUnits") == fused_lstm.DECODE_UNITS
+    assert _const(text, "kMaxSlices") == fused_lstm.MAX_SLICES
+    assert _const(text, "kWarps") == fused_lstm.STREAM_WARPS
+    for line in (
+            "return fwd_cluster_smem_bytes(rb, H, 4, sizeof(E));",
+            "lstm_fwd_cluster_kernel<E, decltype(r)::value>, C, smem, n);",
+            "const int upb = T == 1 ? std::min(H, kDecodeUnits) : H;",
+            "while (rb > 1 && smem_bytes(rb, H, upb, 1) > kSmemCap) rb /= 2;",
+            "while (slices < kMaxSlices && tiles * slices < kWarps &&",
+            "H >= 16 * slices * 2 &&"):
+        assert line in text, line
+    assert fused_lstm.cluster_smem_bytes(8, 256, 4) == (
+        256 * 4 * 32 * 4 + 4 * (2 * 8 * 256 + 8 * 4 * 8 * 32))
 
 
 @pytest.mark.parametrize("dtype", [F32, BF16])
@@ -126,7 +216,7 @@ def test_gru_fwd_design_boundary(dtype):
     over = fused_gru.fwd_design(64, 64, H + 1, dtype, ok)
     assert (at.kind, at.cluster, over.kind, over.cluster) == (
         "cluster", 16, "stream", None)
-    assert at.smem <= fused_gru.CLUSTER_SMEM_CAP
+    assert at.smem <= rc.CLUSTER_SMEM_CAP
     small = fused_gru.fwd_design(64, 64, 256, dtype, ok)
     assert (small.kind, small.cluster) == ("cluster", 8)
     assert fused_gru.fwd_design(64, 64, 257, dtype, ok).cluster == 16
@@ -138,7 +228,7 @@ def test_gru_fwd_design_boundary(dtype):
     # H = 512 in f32 fits only with fewer rows a cluster
     if dtype == F32:
         assert at.rows < 8 and fused_gru.cluster_smem_bytes(
-            2 * at.rows, H, 4) > fused_gru.CLUSTER_SMEM_CAP
+            2 * at.rows, H, 4) > rc.CLUSTER_SMEM_CAP
 
 
 @pytest.mark.parametrize("slots,B,rows", [
@@ -188,6 +278,106 @@ def test_gru_kernel_admits_what_it_did(T, backward):
             if fused_gru.fwd_design(T, 64, H, dt, _slots(16)).kind == \
                     "cluster":
                 assert stream(H)
+
+
+# the cluster designs of the GRU backward and the LSTM forward: where a
+# cluster of 16 stops holding R, in f32 and bf16, and the rows a cluster
+_CLUSTER_DESIGNS = {"gru_bwd": fused_gru.bwd_design,
+                    "lstm_fwd": fused_lstm.fwd_design}
+
+
+@pytest.mark.parametrize("dtype,kernel,H_max", [
+    (F32, "gru_bwd", 512), (BF16, "gru_bwd", 512),
+    (F32, "lstm_fwd", 436), (BF16, "lstm_fwd", 512)])
+def test_cluster_design_boundary(dtype, kernel, H_max):
+    """T > 1 takes the cluster design up to the H where a cluster of 16
+    still holds R: the GRU backward's units run out first (32 a CTA at H
+    = 512); the LSTM forward's R [H, 4H] in f32 fills a CTA's 227 KB first
+    (at H = 436, one row a cluster). One unit more, T == 1 at any H, and a
+    card that holds no such cluster take the stream design."""
+    design = _CLUSTER_DESIGNS[kernel]
+    ok = _slots(16)
+    H = max(h for h in range(1, 1100)
+            if design(64, 64, h, dtype, ok).kind == "cluster")
+    assert H == H_max
+    at, over = design(64, 64, H, dtype, ok), design(64, 64, H + 1, dtype, ok)
+    assert (at.kind, at.cluster, over.kind, over.cluster) == (
+        "cluster", 16, "stream", None)
+    assert at.smem <= rc.CLUSTER_SMEM_CAP
+    small = design(64, 64, 256, dtype, ok)
+    assert (small.kind, small.cluster) == ("cluster", 8)
+    assert design(64, 64, 257, dtype, ok).cluster == 16
+    for h in (7, 200, 256, 512, 1024):
+        assert design(1, 8, h, dtype, ok).kind == "stream"
+    none = lambda C, rows, smem: 0  # noqa: E731
+    assert design(64, 64, 256, dtype, none).kind == "stream"
+    if (dtype, kernel) == (F32, "lstm_fwd"):
+        assert at.rows == 1
+    if kernel == "gru_bwd":  # the receive slots grow with the cluster
+        assert at.smem == fused_gru.bwd_cluster_smem_bytes(
+            at.rows, H, 16, 2 if dtype == BF16 else 4)
+
+
+@pytest.mark.parametrize("kernel", ["gru_bwd", "lstm_fwd"])
+@pytest.mark.parametrize("slots,B,rows", [
+    (16, 64, 4), (8, 64, 8), (15, 64, 8), (64, 64, 1), (16, 1, 1),
+    (16, 3, 1), (2, 3, 2), (1, 3, 4), (1, 100, 8)])
+def test_cluster_rows_from_the_card(kernel, slots, B, rows):
+    """Rows a cluster, as the GRU forward's: the fewest that let every
+    cluster be resident at one CTA an SM, at most 8 and at most B rounded
+    up to a power of two; the shared memory of that many rows."""
+    d = _CLUSTER_DESIGNS[kernel](64, B, 256, F32, _slots(slots))
+    assert (d.kind, d.cluster, d.rows) == ("cluster", 8, rows)
+    assert d.smem == (fused_gru.bwd_cluster_smem_bytes(rows, 256, 8, 4)
+                      if kernel == "gru_bwd"
+                      else fused_lstm.cluster_smem_bytes(rows, 256, 4))
+
+
+def test_stream_designs_of_the_gru_bwd_and_lstm_fwd():
+    """The stream designs' rows and shared memory repeat their launchers':
+    the GRU backward at H=1024 (8 rows; 32 unit tiles, so one slice) and
+    T = 1; the LSTM forward at decode (DECODE_UNITS units a block, one tile,
+    16 k-slices at H=256, each 16 long) and at H=1024 (8 rows, 32 unit
+    tiles, so one slice)."""
+    ok = _slots(16)
+    assert fused_gru.bwd_design(64, 64, 1024, F32, ok) == (
+        "stream", None, 8, 4 * (8 * 3 * 1024 + 8 * 1024 + 32 * 8 * 32))
+    assert fused_gru.bwd_design(1, 8, 256, BF16, ok) == (
+        "stream", None, 8, 4 * (8 * 768 + 8 * 256 + 2 * 8 * 8 * 32))
+    assert fused_lstm.fwd_design(1, 8, 256, F32, ok) == (
+        "stream", None, 8, 4 * (8 * 256 + 8 * 8 + 16 * 4 * 8 * 32))
+    assert fused_lstm.fwd_design(1, 3, 5, BF16, ok) == (
+        "stream", None, 4, 4 * (4 * 5 + 4 * 5 + 4 * 4 * 32))
+    assert fused_lstm.fwd_design(64, 64, 1024, F32, ok) == (
+        "stream", None, 8, 4 * (8 * 1024 + 8 * 1024 + 32 * 4 * 8 * 32))
+    h = _max_h(fused_lstm, 7, False)
+    assert fused_lstm.fwd_design(7, 64, h, F32, ok).rows == 1
+
+
+@pytest.mark.parametrize("T", [1, 2, 64])
+@pytest.mark.parametrize("backward", [False, True])
+def test_lstm_kernel_admits_what_it_did(T, backward):
+    """The cluster design changes no limit: kernel_admits takes exactly
+    the stream launchers' shared-memory limits, written out here (a
+    decode block holds DECODE_UNITS units), and every shape the cluster
+    design takes is one the stream design takes; so does the GRU
+    backward's cluster design."""
+    def stream(H):
+        upb = min(H, 8) if T == 1 else H
+        fwd = 4 * (H + upb + -(-upb // 32) * 4 * 32) <= 200 * 1024
+        bwd = 4 * (5 * H + -(-H // 32) * 32) <= 200 * 1024
+        return fwd and (not backward or bwd)
+
+    for H in list(range(1, 600, 7)) + list(range(8000, 9000, 17)) + list(
+            range(51000, 51100, 3)):
+        for dt in (F32, BF16):
+            assert fused_lstm.kernel_admits(T, H, dt, backward) is stream(H)
+            if fused_lstm.fwd_design(T, 64, H, dt, _slots(16)).kind == \
+                    "cluster":
+                assert stream(H)
+            if fused_gru.bwd_design(T, 64, H, dt, _slots(16)).kind == \
+                    "cluster":
+                assert fused_gru.kernel_admits(T, H, dt, True)
 
 
 @pytest.mark.parametrize("family,per_unit", [(fused_lstm, 24),
