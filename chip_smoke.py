@@ -37,7 +37,12 @@ Phases (any failure exits non-zero before the result line):
 6. Backward kernel against plain: the training forward's reserve and the
    backward kernel against their plain versions at the training shapes
    (B=64, T=64; H=200 with peepholes, reversed; H=256 without), in f32 and
-   bf16, the forward on its cluster design; each layer's seven gradients
+   bf16, both kernels on their cluster designs (R resident across a
+   thread-block cluster), and at [64, 16, 448], past the width a cluster
+   holds, on both stream designs; each row names the designs the
+   launchers chose (held against their Python mirrors ``fwd_design`` and
+   ``bwd_design``) and is profiled under each design's kernel; each
+   layer's seven gradients
    through the kernels against torch autograd through the plain lowering
    on the card; times of the kernels, the plain versions and, where a
    library call computes the same layer (H=256, no peepholes),
@@ -51,7 +56,8 @@ Phases (any failure exits non-zero before the result line):
    counts zeroed just before and read just after, N steps on a repeated
    batch, each launching 4 forward (with reserve) and 4 backward kernels,
    with finite and falling losses; a steady window is profiled and must
-   show the forward's cluster kernel, 4 a step.
+   show the forward's and the backward's cluster kernels, 4 of each a
+   step.
 8. TextGenerationLSTM training (RMSProp, 2 + 2 launches a step) and the
    bf16 char-RNN training: a few steps each, every step through both
    kernels.
@@ -88,7 +94,8 @@ Phases (any failure exits non-zero before the result line):
     version and, as a yardstick the port never calls,
     ``torch.nn.functional.local_response_norm`` (forward, and its autograd
     backward) at AlexNet's shapes, on CUDA events and as the device time of
-    its kernels.
+    its kernels, and the backward kernel's element-by-element path there
+    (data one element past a 16-byte boundary).
 13. AlexNet inference: ``AlexNet()`` at its published width (224 x 224 x
     3, conv 96-256-384-384-256, two LRN layers, dense 4096-4096, 1000
     classes, f32, random weights from the seed) runs ``output()`` on 128
@@ -343,22 +350,43 @@ LSTM_DESIGNS = {"decode_layer1": "stream", "decode_layer2": "stream",
                 "graves_charrnn": "cluster", "graves_charrnn_bf16": "cluster"}
 
 
-def lstm_design(name, T, B, H, dt, want):
-    """The LSTM forward design the launcher chose for this call, held
-    against its Python mirror (``fwd_design``) and against ``want`` (None:
-    any); returns (the design, its kernel's device function name)."""
-    from deeplearning4j_tpu_torch.ops.cuda.fused_lstm import (
-        FWD_KERNEL_NAMES, fwd_design, launcher_design,
-    )
+def lstm_design(name, T, B, H, dt, want, backward=False):
+    """The LSTM forward (or backward) design the launcher chose for this
+    call, held against its Python mirror (``fwd_design`` or
+    ``bwd_design``) and against ``want`` (None: any); returns (the design,
+    its kernel's device function name)."""
+    from deeplearning4j_tpu_torch.ops.cuda import fused_lstm
 
-    design = launcher_design(T, B, H, dt)
-    if fwd_design(T, B, H, dt) != design:
-        fail(f"LSTM forward at {name}: the launcher chose {design}, its "
-             f"Python mirror {fwd_design(T, B, H, dt)}")
+    if backward:
+        what, launcher, mirror, names = (
+            "backward", fused_lstm.launcher_bwd_design, fused_lstm.bwd_design,
+            fused_lstm.BWD_KERNEL_NAMES)
+    else:
+        what, launcher, mirror, names = (
+            "forward", fused_lstm.launcher_design, fused_lstm.fwd_design,
+            fused_lstm.FWD_KERNEL_NAMES)
+    design = launcher(T, B, H, dt)
+    if mirror(T, B, H, dt) != design:
+        fail(f"LSTM {what} at {name}: the launcher chose {design}, its "
+             f"Python mirror {mirror(T, B, H, dt)}")
     if want not in (None, design.kind):
-        fail(f"LSTM forward at {name} runs the {design.kind} design; want "
+        fail(f"LSTM {what} at {name} runs the {design.kind} design; want "
              f"{want}")
-    return design, FWD_KERNEL_NAMES[design.kind]
+    return design, names[design.kind]
+
+
+# the LSTM forward and backward designs each row of phase 6 must run: the
+# cluster kernels at every training shape of the main path; the stream
+# kernels one unit tile past the width a cluster of 16 holds in f32 (the
+# forward's limit is H = 436, the backward's 440)
+LSTM_TRAIN_DESIGNS = {"graves_layer1": ("cluster", "cluster"),
+                      "graves_layer2": ("cluster", "cluster"),
+                      "textgen_layer1": ("cluster", "cluster"),
+                      "textgen_layer2": ("cluster", "cluster"),
+                      "graves_layer1_bf16": ("cluster", "cluster"),
+                      "textgen_layer1_bf16": ("cluster", "cluster"),
+                      "textgen_layer2_bf16": ("cluster", "cluster"),
+                      "stream_h448": ("stream", "stream")}
 
 
 def phase_kernels(torch):
@@ -666,6 +694,7 @@ def phase_bwd_kernels(torch):
         ("graves_layer1_bf16", 64, 64, 77, 200, True, True, 1.0, bf16),
         ("textgen_layer1_bf16", 64, 64, 77, 256, False, False, 0.0, bf16),
         ("textgen_layer2_bf16", 64, 64, 256, 256, False, False, 0.0, bf16),
+        ("stream_h448", 64, 16, 77, 448, True, True, 1.0, f32),
     ]
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     rows, worst = [], {f32: 0.0, bf16: 0.0}
@@ -697,12 +726,15 @@ def phase_bwd_kernels(torch):
             fail(f"backward kernel disagrees with plain at {name}: "
                  f"max_abs_err {err} (finite={finite})")
         worst[dt] = max(worst[dt], err)
-        # every training shape is T > 1: the forward's cluster design
-        design, fwd_kernel = lstm_design(name, T, B, H, dt, "cluster")
+        want_fwd, want_bwd = LSTM_TRAIN_DESIGNS[name]
+        design, fwd_kernel = lstm_design(name, T, B, H, dt, want_fwd)
+        b_design, bwd_kernel = lstm_design(name, T, B, H, dt, want_bwd,
+                                           backward=True)
         row = {"shape": name, "B": B, "T": T, "F": F, "H": H,
                "peephole": peep, "reverse": rev,
                "dtype": str(dt).replace("torch.", ""), "max_abs_err": err,
-               "fwd_design": design._asdict(), "fwd_kernel": fwd_kernel}
+               "fwd_design": design._asdict(), "fwd_kernel": fwd_kernel,
+               "bwd_design": b_design._asdict(), "bwd_kernel": bwd_kernel}
 
         # the layer's gradients: kernels vs autograd through plain (f32;
         # in bf16 autograd rounds other intermediates than the kernels)
@@ -731,7 +763,10 @@ def phase_bwd_kernels(torch):
         row["kernel_device_ms"] = kernel_device_ms(
             torch, lambda: fused_lstm_bwd_recurrence(reserve, R, c0, dout,
                                                      g_c, p),
-            iters, "lstm_bwd_kernel")
+            iters, bwd_kernel)
+        if row["kernel_device_ms"] is None:
+            fail(f"LSTM backward at {name}: the profile shows no "
+                 f"{bwd_kernel}, the {b_design.kind} design's kernel")
         row["plain_ms"] = cuda_ms(torch, lambda: plain_bwd_recurrence(
             reserve, R, c0, dout, g_c, p), 3)
         row["bound_ms"], row["bound_by"] = lstm_bwd_bound(T, B, H, peep,
@@ -860,14 +895,19 @@ def phase_training(torch, np):
              f"reserve); want {n_lstm} of each kernel per step")
 
     steps = 5
-    # the forward's cluster design, n_lstm launches a step
+    # the forward's and the backward's cluster designs, n_lstm launches of
+    # each a step
     design, fwd_kernel = lstm_design("char-RNN training", T, B,
                                      model.units, torch.float32, "cluster")
+    b_design, bwd_kernel = lstm_design("char-RNN training", T, B,
+                                       model.units, torch.float32, "cluster",
+                                       backward=True)
+    want_seen = {fwd_kernel: n_lstm, bwd_kernel: n_lstm}
     by_kernel, prof_wall_ms, seen = profile_showing(
-        torch, lambda: net.fit_batch((x, y)), steps, {fwd_kernel: n_lstm})
-    if seen[fwd_kernel] != n_lstm * steps:
-        fail(f"{steps} profiled training steps show {seen} launches of "
-             f"{fwd_kernel}; want {n_lstm} a step")
+        torch, lambda: net.fit_batch((x, y)), steps, want_seen)
+    if any(seen[k] != n * steps for k, n in want_seen.items()):
+        fail(f"{steps} profiled training steps show {seen} launches; want "
+             f"{n_lstm} of {fwd_kernel} and of {bwd_kernel} a step")
     busy = sum(t for t, _ in by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:8]
     step_ms = host_ms(torch, lambda: net.fit_batch((x, y)), 5)
@@ -888,9 +928,10 @@ def phase_training(torch, np):
         "samples_per_s": B * N_TRAIN_STEPS / wall,
         "synced_step_ms": step_ms,
         "synced_step_ms_batch_on_card": step_ms_on_card,
-        "fwd_design": design._asdict(),
+        "fwd_design": design._asdict(), "bwd_design": b_design._asdict(),
         "profile": {
             "steps": steps, "wall_ms_per_step": prof_wall_ms / steps,
+            "launches_per_step": {k: v / steps for k, v in seen.items()},
             "device_ms_per_step": busy / steps,
             "device_busy_share": busy / prof_wall_ms if by_kernel else None,
             "top_kernels_ms_per_step": {k[:60]: t / steps
@@ -1510,7 +1551,8 @@ def time_lrn(torch, g, shape, dt, depth=5):
     torch.nn.functional.local_response_norm on a contiguous NCHW copy
     (size=depth, alpha*depth: PyTorch averages over the window) forward
     and its autograd backward on a retained graph, on CUDA events and as
-    the device time of its kernels; the bounds."""
+    the device time of its kernels; the backward's element-by-element path
+    on a copy that is not 16-byte aligned; the bounds."""
     from deeplearning4j_tpu_torch.ops.cuda.lrn import (
         lrn_backward, lrn_bwd_plain, lrn_forward, lrn_fwd_plain,
     )
@@ -1551,6 +1593,14 @@ def time_lrn(torch, g, shape, dt, depth=5):
                                                retain_graph=True), iters),
         "library_max_abs_err_vs_plain": lib_err,
     }
+    # the backward's element-by-element path (no 16-byte loads): the same
+    # data one element past a 16-byte boundary
+    xm, gm = (torch.empty(t.numel() + 1, device="cuda", dtype=dt)[1:]
+              .view(shape).copy_(t) for t in (x, gy))
+    if xm.data_ptr() % 16 == 0:
+        fail("the element path's copy of x is 16-byte aligned")
+    out["bwd_element_path_device_ms"] = kernel_device_ms(
+        torch, lambda: lrn_backward(xm, gm, **hp), iters, "lrn_bwd_kernel")
     out["fwd_bound_ms"], out["fwd_bound_by"] = lrn_bound(shape, e, False,
                                                         depth)
     out["bwd_bound_ms"], out["bwd_bound_by"] = lrn_bound(shape, e, True,
@@ -2483,14 +2533,19 @@ def main() -> None:
         # no-peephole layers is in library_shape and bwd_kernel_shapes
         "library_ms": None, "library_device_ms": None,
         "shape": "[B=64, T=64, H=200], peephole, reverse",
-        "design": "stream",
+        "design": graves["bwd_design"]["kind"],
         "library_shape": {
             "shape": "[B=64, T=64, H=256] f32, no peepholes",
+            "design": textgen["bwd_design"]["kind"],
             "device_ms": textgen["kernel_device_ms"],
+            "bound_ms": textgen["bound_ms"],
             # the kernel pair with the wrapper's projection and gradient
-            # GEMMs, against cuDNN's forward + autograd backward
+            # GEMMs, against cuDNN's forward + autograd backward, on the
+            # device clock and on CUDA events
             "layer_pair_device_ms": textgen["layer_pair_device_ms"],
-            "library_pair_device_ms": textgen["library_pair_device_ms"]},
+            "library_pair_device_ms": textgen["library_pair_device_ms"],
+            "layer_pair_ms": textgen["layer_pair_ms"],
+            "library_pair_ms": textgen["library_pair_ms"]},
     }]
     # the flash kernels at the BERT main path's shape and type (bf16, key
     # padding); the f32 times are in flash_times

@@ -54,7 +54,9 @@
 //   broadcast). One cluster barrier; then each owner sums its C slots in
 //   rank order (the same order every run) and its z * dh into the carry.
 //   A row of the resident R is padded by one 4-byte word, so that the 32
-//   lanes of a warp, reading one k each, hit 32 banks.
+//   lanes of a warp, reading one k each, hit 32 banks. The product, the
+//   reduce-scatter and the rank-order sum are the header's scatter_carry
+//   and gather_carry, shared with the LSTM backward.
 // - Stream (gru_bwd_kernel), for T == 1 and any shape whose R does not fit
 //   in a cluster (H=1024), PR 5's design (it mirrors fused_lstm_bwd.cu):
 //   a block owns RB batch rows and all H units and loops over t inside the
@@ -84,11 +86,6 @@ constexpr int kTile = 32;                  // hidden units per work item
 constexpr int kMaxSlices = 16;             // slices of the 3H reduction
 constexpr size_t kSmemCap = 200 * 1024;    // of the 227 KB a block may use
 
-// a float rounded to the element type and back: what enters the product
-__device__ __forceinline__ float round_to(float v, const float*) { return v; }
-__device__ __forceinline__ float round_to(float v, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
 // Shared memory layout (floats):
 //   gh   [RB][3H]                 this step's [ga_r ga_z r*ga_n], rounded to E
 //   zdh  [RB][H]                  this step's direct term z * dh
@@ -222,28 +219,6 @@ cudaError_t launch(const float* reserve, const E* Rt, const E* h0,
 
 // ------------------------------------------------------------ cluster design
 
-// Elements a row of the resident R: the 3 gate columns of kClusterUnits
-// units and one 4-byte word of padding (an odd row length in words), so
-// that lanes reading one row each hit distinct banks.
-template <typename E>
-__host__ __device__ constexpr int bwd_row() {
-  return 3 * kClusterUnits + 4 / (int)sizeof(E);
-}
-
-// Shared memory of a backward cluster CTA (bytes), with HP = H rounded up
-// to 4:
-//   Rs    [HP][bwd_row] E          its gate columns of R, resident
-//   gp    [RB][3][32] f32          this step's [ga_r ga_z r*ga_n] of its
-//                                  units, rounded to E
-//   slots [2][C][RB][32] f32       the partial carries the cluster's CTAs
-//                                  send it, by step parity
-template <typename E>
-size_t bwd_cluster_smem_bytes(int rb, int H, int C) {
-  const size_t hp = (size_t)((H + 3) & ~3);
-  return hp * bwd_row<E>() * sizeof(E) +
-         sizeof(float) * ((size_t)rb * 3 * 32 + 2 * (size_t)C * rb * 32);
-}
-
 template <typename E, int RB>
 __global__ void __launch_bounds__(kClusterThreads, 1)
 gru_bwd_cluster_kernel(const float* __restrict__ reserve,  // [4, T, B, H]
@@ -254,7 +229,7 @@ gru_bwd_cluster_kernel(const float* __restrict__ reserve,  // [4, T, B, H]
                        float* __restrict__ dg,             // [T, B, 3H]
                        float* __restrict__ dh0,            // [B, H]
                        int T, int B, int H, int U) {
-  constexpr int kRow = bwd_row<E>();
+  constexpr int kRow = bwd_row<E, 3>();
   constexpr int kU = kClusterUnits;
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -296,8 +271,6 @@ gru_bwd_cluster_kernel(const float* __restrict__ reserve,  // [4, T, B, H]
   };
   if (live) load_step(T - 1, in);
   float zdh = 0.0f;
-  // the units of a CTA, a multiple of 4: the product's reduction length
-  const int U4 = (U + 3) & ~3;
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   // every CTA of the cluster is running and initialised before any CTA
   // stores into another's slots
@@ -310,12 +283,9 @@ gru_bwd_cluster_kernel(const float* __restrict__ reserve,  // [4, T, B, H]
     if (live) {
       // the carry from step t+1: its C partial products in rank order,
       // then the direct term
-      float carry = 0.0f;
-      if (t < T - 1) {
-        const float* s = slots + (size_t)(par ^ 1) * C * RB * kU + gr * kU + lane;
-        for (int q = 0; q < C; ++q) carry += s[(size_t)q * RB * kU];
-        carry += zdh;
-      }
+      const float carry =
+          t < T - 1 ? gather_carry<RB>(slots, par ^ 1, C, gr, lane) + zdh
+                    : 0.0f;
       const float rg = in[0], zg = in[1], ng = in[2];
       const float dh = in[4] + carry;
       const float ga_n = dh * (1.0f - zg) * (1.0f - ng * ng);
@@ -338,48 +308,17 @@ gru_bwd_cluster_kernel(const float* __restrict__ reserve,  // [4, T, B, H]
 
     // ---- this CTA's part of the next carry, for every k < H and RB rows,
     // to the CTA that owns unit k
-    for (int k = threadIdx.x; k < H; k += kClusterThreads) {
-      float acc[RB];
-#pragma unroll
-      for (int r = 0; r < RB; ++r) acc[r] = 0.0f;
-      const E* rk = Rs + (size_t)k * kRow;
-#pragma unroll
-      for (int g = 0; g < 3; ++g) {
-        for (int u = 0; u < U4; u += 4) {
-          const float w0 = to_f32(rk[g * kU + u]);
-          const float w1 = to_f32(rk[g * kU + u + 1]);
-          const float w2 = to_f32(rk[g * kU + u + 2]);
-          const float w3 = to_f32(rk[g * kU + u + 3]);
-#pragma unroll
-          for (int r = 0; r < RB; ++r) {
-            const float4 p = *reinterpret_cast<const float4*>(
-                gp + (r * 3 + g) * kU + u);
-            acc[r] = fmaf(p.x, w0, acc[r]);
-            acc[r] = fmaf(p.y, w1, acc[r]);
-            acc[r] = fmaf(p.z, w2, acc[r]);
-            acc[r] = fmaf(p.w, w3, acc[r]);
-          }
-        }
-      }
-      const int q = k / U;
-      float* dst = cluster.map_shared_rank(
-          slots + ((size_t)(par * C + rank) * RB) * kU + (k - q * U), q);
-#pragma unroll
-      for (int r = 0; r < RB; ++r) dst[r * kU] = acc[r];
-    }
+    scatter_carry<E, 3, RB, kRow>(cluster, Rs, gp, slots, par, C, rank, H,
+                                  U);
 #pragma unroll
     for (int i = 0; i < 6; ++i) in[i] = nxt[i];
     // every part has reached its owner, and this step's gp is free
     cluster.sync();
   }
 
-  // the carry after step 0 is dh0
-  if (live) {
-    const float* s = slots + gr * kU + lane;  // step 0's parity is 0
-    float carry = 0.0f;
-    for (int q = 0; q < C; ++q) carry += s[(size_t)q * RB * kU];
-    dh0[(size_t)b * H + j] = carry + zdh;
-  }
+  // the carry after step 0 (parity 0) is dh0
+  if (live)
+    dh0[(size_t)b * H + j] = gather_carry<RB>(slots, 0, C, gr, lane) + zdh;
 }
 
 // ------------------------------------------------------------------ choice
@@ -400,7 +339,7 @@ cudaError_t plan_bwd(int T, int B, int H, Plan* plan) {
     cudaError_t err = plan_cluster(
         B, H,
         [&](int rb, int C) {
-          return bwd_cluster_smem_bytes<E>(rb, H, C);
+          return bwd_cluster_smem_bytes<E, 3>(rb, H, C);
         },
         [&](int rb, int C, size_t smem, int* n) {
           return by_rows(rb, [&](auto r) {

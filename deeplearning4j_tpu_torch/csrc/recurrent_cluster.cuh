@@ -9,17 +9,18 @@
 // all T steps. A cluster owns RB batch rows; ceil(B / RB) clusters run side
 // by side, RB the fewest rows that let every cluster be resident at one CTA
 // an SM (cudaOccupancyMaxActiveClusters). What a step has to share across
-// the cluster (h_t in the forwards, the partial carries in the GRU
-// backward) goes through distributed shared memory, double-buffered by step
-// parity, with one cluster barrier a step.
+// the cluster (h_t in the forwards, the partial carries in the backwards)
+// goes through distributed shared memory, double-buffered by step parity,
+// with one cluster barrier a step.
 //
 // The kernels built on it: gru_fwd_cluster_kernel (fused_gru.cu),
-// gru_bwd_cluster_kernel (fused_gru_bwd.cu) and lstm_fwd_cluster_kernel
-// (fused_lstm.cu). This header holds what they share: the element-type
-// helpers, the R loader, the launch configuration and occupancy query, and
-// the planner of cluster size and rows a cluster. Each launcher falls back
-// to its stream design where plan_cluster finds no cluster that holds R,
-// before any launch.
+// gru_bwd_cluster_kernel (fused_gru_bwd.cu), lstm_fwd_cluster_kernel
+// (fused_lstm.cu) and lstm_bwd_cluster_kernel (fused_lstm_bwd.cu). This
+// header holds what they share: the element-type helpers, the R loader,
+// the backwards' step product and reduce-scatter of the carry, the launch
+// configuration and occupancy query, and the planner of cluster size and
+// rows a cluster. Each launcher takes its stream design where plan_cluster
+// finds no cluster that holds R, before any launch.
 
 #pragma once
 
@@ -57,6 +58,11 @@ template <> __device__ __forceinline__ float from_f32<float>(float v) {
 template <> __device__ __forceinline__ __nv_bfloat16
 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
+}
+// a float rounded to the element type and back: what enters a product
+__device__ __forceinline__ float round_to(float v, const float*) { return v; }
+__device__ __forceinline__ float round_to(float v, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16_rn(v));
 }
 // read-only cached load
 __device__ __forceinline__ float ldg_f32(const float* p) { return __ldg(p); }
@@ -125,6 +131,90 @@ inline size_t fwd_cluster_smem_bytes(int rb, int H, int G, int e) {
   const size_t hp = (size_t)((H + 3) & ~3);
   return hp * G * kClusterUnits * e +
          sizeof(float) * (2 * rb * hp + (size_t)kClusterWarps * G * rb * 32);
+}
+
+// ------------------------------------------------------------- backwards
+//
+// A backward step is the forward's transpose: the carry to step t-1 needs
+// every unit's gate gradients against R's rows. CTA c keeps the forward's
+// slice of R (R, not R^T) and, each step, forms its part of the carry for
+// every k < H and stores it into the CTA that owns unit k: a reduce-scatter
+// through distributed shared memory, RB x H floats leaving a CTA a step.
+
+// Elements a row of a backward's resident R: the G gate columns of
+// kClusterUnits units and one 4-byte word of padding (an odd row length in
+// words), so that lanes reading one row each hit distinct banks.
+template <typename E, int G>
+__host__ __device__ constexpr int bwd_row() {
+  return G * kClusterUnits + 4 / (int)sizeof(E);
+}
+
+// Shared memory of a backward cluster CTA (bytes) for G gates, with HP = H
+// rounded up to 4:
+//   Rs    [HP][bwd_row] E          its gate columns of R, resident
+//   gp    [RB][G][32] f32          this step's product operands of its
+//                                  units, rounded to E
+//   slots [2][C][RB][32] f32       the partial carries the cluster's CTAs
+//                                  send it, by step parity
+template <typename E, int G>
+size_t bwd_cluster_smem_bytes(int rb, int H, int C) {
+  const size_t hp = (size_t)((H + 3) & ~3);
+  return hp * bwd_row<E, G>() * sizeof(E) +
+         sizeof(float) * ((size_t)rb * G * 32 + 2 * (size_t)C * rb * 32);
+}
+
+// This CTA's part of the next carry, P[b, k] = sum over its G x U columns
+// of gp[b, .] R[k, .], for every k < H and its RB rows, stored into slot
+// [par][rank] of the CTA that owns unit k. Units past a CTA's own are zero
+// in gp and in Rs, so the reduction runs over U rounded up to 4.
+template <typename E, int G, int RB, int Row>
+__device__ __forceinline__ void scatter_carry(cg::cluster_group& cluster,
+                                              const E* Rs, const float* gp,
+                                              float* slots, int par, int C,
+                                              int rank, int H, int U) {
+  constexpr int kU = kClusterUnits;
+  const int U4 = (U + 3) & ~3;
+  for (int k = threadIdx.x; k < H; k += kClusterThreads) {
+    float acc[RB];
+#pragma unroll
+    for (int r = 0; r < RB; ++r) acc[r] = 0.0f;
+    const E* rk = Rs + (size_t)k * Row;
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      for (int u = 0; u < U4; u += 4) {
+        const float w0 = to_f32(rk[g * kU + u]);
+        const float w1 = to_f32(rk[g * kU + u + 1]);
+        const float w2 = to_f32(rk[g * kU + u + 2]);
+        const float w3 = to_f32(rk[g * kU + u + 3]);
+#pragma unroll
+        for (int r = 0; r < RB; ++r) {
+          const float4 p = *reinterpret_cast<const float4*>(
+              gp + (r * G + g) * kU + u);
+          acc[r] = fmaf(p.x, w0, acc[r]);
+          acc[r] = fmaf(p.y, w1, acc[r]);
+          acc[r] = fmaf(p.z, w2, acc[r]);
+          acc[r] = fmaf(p.w, w3, acc[r]);
+        }
+      }
+    }
+    const int q = k / U;
+    float* dst = cluster.map_shared_rank(
+        slots + ((size_t)(par * C + rank) * RB) * kU + (k - q * U), q);
+#pragma unroll
+    for (int r = 0; r < RB; ++r) dst[r * kU] = acc[r];
+  }
+}
+
+// The carry of (row, lane) that the cluster sent this CTA in parity par:
+// its C parts summed in rank order, the same order every run.
+template <int RB>
+__device__ __forceinline__ float gather_carry(const float* slots, int par,
+                                              int C, int row, int lane) {
+  const float* s = slots + (size_t)par * C * RB * kClusterUnits +
+                   row * kClusterUnits + lane;
+  float carry = 0.0f;
+  for (int q = 0; q < C; ++q) carry += s[(size_t)q * RB * kClusterUnits];
+  return carry;
 }
 
 // Calls f(std::integral_constant<int, rb>) for rb in {1, 2, 4, 8}: the

@@ -69,9 +69,10 @@ from deeplearning4j_tpu_torch.ops.cuda.build import launch, pointer
 from deeplearning4j_tpu_torch.ops.cuda import recurrent_cluster as rc
 from deeplearning4j_tpu_torch.ops.cuda.fused_lstm import (
     RecurrentKernel, _check_shapes, _check_tensors, _needs_grad, _promoted,
+    stream_slices,
 )
 from deeplearning4j_tpu_torch.ops.cuda.recurrent_cluster import (
-    CLUSTER_UNITS, Design, plan_cluster, rows_max,
+    Design, plan_cluster, rows_max,
 )
 from deeplearning4j_tpu_torch.ops.recurrent import (
     finish_h, gru_bwd_recurrence, gru_recurrence, project_gates,
@@ -300,23 +301,10 @@ def cluster_smem_bytes(rb: int, H: int, e: int) -> int:
 
 
 def bwd_cluster_smem_bytes(rb: int, H: int, C: int, e: int) -> int:
-    """A backward cluster CTA's shared memory (csrc/fused_gru_bwd.cu
-    ``bwd_cluster_smem_bytes``): its R columns [HP][3 x 32 + one word of
-    padding], the product operands [RB][3][32] f32 and the receive slots
-    [2][C][RB][32] f32."""
-    hp = (H + 3) & ~3
-    return hp * (3 * CLUSTER_UNITS + 4 // e) * e + 4 * (
-        rb * 3 * 32 + 2 * C * rb * 32)
-
-
-def _slices(H: int, tiles: int, reduce: int, smem) -> int:
-    """k-slices doubled while warps would idle, each slice at least 16
-    long (``reduce`` the reduction's length), under the cap."""
-    slices = 1
-    while (slices < MAX_SLICES and tiles * slices < STREAM_WARPS
-           and reduce >= 32 * slices and smem(2 * slices) <= SMEM_CAP):
-        slices *= 2
-    return slices
+    """A backward cluster CTA's shared memory for RB rows, a cluster of C
+    and elements of ``e`` bytes: ``bwd_cluster_smem_bytes`` with three
+    gates."""
+    return rc.bwd_cluster_smem_bytes(rb, H, C, 3, e)
 
 
 def fwd_design(T: int, B: int, H: int, dtype: torch.dtype,
@@ -342,8 +330,8 @@ def fwd_design(T: int, B: int, H: int, dtype: torch.dtype,
     rb = rows_max(B)
     while rb > 1 and stream_smem_bytes(rb, H, upb) > SMEM_CAP:
         rb //= 2
-    slices = _slices(H, tiles, H,
-                     lambda s: stream_smem_bytes(rb, H, upb, s))
+    slices = stream_slices(tiles, H,
+                           lambda s: stream_smem_bytes(rb, H, upb, s))
     return Design("stream", None, rb, stream_smem_bytes(rb, H, upb, slices))
 
 
@@ -374,8 +362,8 @@ def bwd_design(T: int, B: int, H: int, dtype: torch.dtype,
     rb = rows_max(B)
     while rb > 1 and bwd_stream_smem_bytes(rb, H) > SMEM_CAP:
         rb //= 2
-    slices = _slices(H, -(-H // SMEM_TILE), 3 * H,
-                     lambda s: bwd_stream_smem_bytes(rb, H, s))
+    slices = stream_slices(-(-H // SMEM_TILE), 3 * H,
+                           lambda s: bwd_stream_smem_bytes(rb, H, s))
     return Design("stream", None, rb, bwd_stream_smem_bytes(rb, H, slices))
 
 

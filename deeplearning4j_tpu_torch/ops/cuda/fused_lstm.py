@@ -18,10 +18,10 @@ is formed outside the backward kernel by ``torch.matmul``, as
 for autograd, the counterpart of the ``jax.custom_vjp`` ``_fused``.
 
 What bounds the kernels on the H100, and what their design does about it,
-is written at the top of each CUDA source. None of the TPU machinery is
-carried over (``lstm_tile``, ``lstm_plan``, ``lstm_bwd_tile``,
-``_bwd_plan``, ``_pad_to_lanes``, ``_panel_dtype``): the kernels take any H,
-including the 200 of the GravesLSTM char-RNN.
+is written at the top of each CUDA source. None of the TPU machinery of
+the JAX package is carried over (``lstm_tile``, ``lstm_plan``,
+``lstm_bwd_tile``, its ``_bwd_plan``, ``_pad_to_lanes``, ``_panel_dtype``):
+the kernels take any H, including the 200 of the GravesLSTM char-RNN.
 
 The kernels take float32 or bfloat16 (all tensors of one type, the reserve
 and the gate gradients f32). In bf16 they do what the Pallas kernels do:
@@ -32,13 +32,15 @@ way. A call that mixes f32 and bf16 (an f32 carry beside bf16 weights, as
 wrappers widen the narrower operands before launching (``widen``; widening
 is exact).
 
-The forward has two designs (``csrc/fused_lstm.cu``) on the cluster layer
-of ``csrc/recurrent_cluster.cuh``: at T > 1, where a thread-block cluster
-can hold R in shared memory, the cluster kernel; at T == 1 and for any
-wider R, the stream kernel, which reads R from L2 every step. The C
-launcher chooses; :func:`fwd_design` repeats its choice and
-``FWD_KERNEL_NAMES`` names each design's device function. The backward
-has the stream design alone.
+Each kernel has two designs (``csrc/fused_lstm.cu``,
+``fused_lstm_bwd.cu``) on the cluster layer of
+``csrc/recurrent_cluster.cuh``: at T > 1, where a thread-block cluster can
+hold R in shared memory, the cluster kernel; at T == 1 and for any wider
+R, the stream kernel, which reads R (the backward: R^T, formed by the
+wrapper for that design alone) from L2 every step. The C launchers
+choose; :func:`fwd_design` and :func:`bwd_design` repeat their choices,
+and ``FWD_KERNEL_NAMES`` and ``BWD_KERNEL_NAMES`` name each design's
+device function.
 
 A stream block keeps all of h in shared memory, under the launchers' cap,
 so H has a limit: :func:`kernel_admits` repeats the launchers' arithmetic
@@ -54,6 +56,8 @@ saved the reserve.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -88,9 +92,11 @@ _FWD_SYMBOLS = {torch.float32: "dl4j_lstm_fwd",
 _BWD_SYMBOLS = {torch.float32: "dl4j_lstm_bwd",
                 torch.bfloat16: "dl4j_lstm_bwd_bf16"}
 
-#: the device function of each forward design, for profiles
+#: the device function of each design, for profiles
 FWD_KERNEL_NAMES = {"cluster": "lstm_fwd_cluster_kernel",
                     "stream": "lstm_fwd_kernel"}
+BWD_KERNEL_NAMES = {"cluster": "lstm_bwd_cluster_kernel",
+                    "stream": "lstm_bwd_kernel"}
 
 FUSED_LSTM = RecurrentKernel(
     "fused_lstm_fwd", "fused_lstm.cu",
@@ -100,7 +106,8 @@ FUSED_LSTM = RecurrentKernel(
 FUSED_LSTM_BWD = RecurrentKernel(
     "fused_lstm_bwd", "fused_lstm_bwd.cu",
     "deeplearning4j_tpu/ops/pallas/fused_lstm.py:386 (_lstm_bwd_kernel)",
-    {sym: "ppppppppiiip" for sym in _BWD_SYMBOLS.values()})
+    {**{sym: "pppppppppiiip" for sym in _BWD_SYMBOLS.values()},
+     "dl4j_lstm_bwd_plan": "iiiip", "dl4j_lstm_bwd_active_clusters": "iiiip"})
 
 
 def _check_tensors(what, dtype, device, tensors):
@@ -181,19 +188,22 @@ def fused_lstm_bwd_recurrence(reserve, R, c0, dout, dcT=None, peephole=None):
                          f"got {list(reserve.shape)}")
     T, B, H = reserve.shape[1:]
     dt, dev = R.dtype, reserve.device
-    Rt = R.t().contiguous()
     _check_tensors("fused_lstm_bwd", dt, dev, {
-        "reserve": (reserve, torch.float32), "Rt": (Rt, None),
+        "reserve": (reserve, torch.float32), "R": (R, None),
         "c0": (c0, None), "dout": (dout, None), "dcT": (dcT, None),
         "peephole": (peephole, None)})
     _check_shapes("fused_lstm_bwd", {
         "R": (R, (H, 4 * H)), "c0": (c0, (B, H)), "dout": (dout, (T, B, H)),
         "dcT": (dcT, (B, H)), "peephole": (peephole, (3 * H,))})
+    # the stream design reads R^T; the cluster design reads R itself
+    Rt = (R.t().contiguous()
+          if _bwd_plan(T, B, H, dt, dev).kind == "stream" else None)
     dg = reserve.new_empty((T, B, 4 * H))
     dc0 = reserve.new_empty((B, H))
     launch(FUSED_LSTM_BWD, _BWD_SYMBOLS[dt], dev, (
-        pointer(reserve), pointer(Rt), pointer(c0), pointer(dout),
-        pointer(dcT), pointer(peephole), pointer(dg), pointer(dc0), T, B, H))
+        pointer(reserve), pointer(R), pointer(Rt), pointer(c0),
+        pointer(dout), pointer(dcT), pointer(peephole), pointer(dg),
+        pointer(dc0), T, B, H))
     return dg, dc0
 
 
@@ -315,6 +325,18 @@ MAX_SLICES = 16
 STREAM_WARPS = 16
 
 
+def stream_slices(tiles: int, reduce: int, smem) -> int:
+    """A stream block's k-slices (the recurrent launchers' ``slices``):
+    doubled while its warps would idle on ``tiles`` unit tiles, each slice
+    at least 16 long (``reduce`` the reduction's length) and
+    ``smem(slices)`` under the cap."""
+    slices = 1
+    while (slices < MAX_SLICES and tiles * slices < STREAM_WARPS
+           and reduce >= 32 * slices and smem(2 * slices) <= SMEM_CAP):
+        slices *= 2
+    return slices
+
+
 def stream_smem_bytes(rb: int, H: int, upb: int, slices: int = 1) -> int:
     """A forward stream block's shared memory (csrc/fused_lstm.cu
     ``smem_bytes``): h [RB][H], c [RB][upb] and the k-slices' partial
@@ -331,11 +353,19 @@ def fwd_smem_bytes(T: int, H: int) -> int:
     return stream_smem_bytes(1, H, min(H, DECODE_UNITS) if T == 1 else H)
 
 
+def bwd_stream_smem_bytes(rb: int, H: int, slices: int = 1) -> int:
+    """A backward stream block's shared memory (csrc/fused_lstm_bwd.cu
+    ``smem_bytes``): this step's dg [RB][4H], the dc carry [RB][H] and the
+    slices' partial sums."""
+    return 4 * (rb * 4 * H + rb * H + slices * -(-H // SMEM_TILE) * rb
+                * SMEM_TILE)
+
+
 def bwd_smem_bytes(H: int) -> int:
-    """The backward launcher's least shared memory: ``smem_bytes(1, H, 1)``
-    of csrc/fused_lstm_bwd.cu, refused above the cap (``lstm_bwd``)."""
-    tiles = -(-H // SMEM_TILE)
-    return 4 * (4 * H + H + tiles * SMEM_TILE)
+    """The backward stream launcher's least shared memory, one row a block
+    and one slice; the launcher refuses the call above the cap
+    (``plan_bwd``)."""
+    return bwd_stream_smem_bytes(1, H)
 
 
 def cluster_smem_bytes(rb: int, H: int, e: int) -> int:
@@ -368,12 +398,42 @@ def fwd_design(T: int, B: int, H: int, dtype: torch.dtype,
     rb = rows_max(B)
     while rb > 1 and stream_smem_bytes(rb, H, upb) > SMEM_CAP:
         rb //= 2
-    slices = 1
-    while (slices < MAX_SLICES and tiles * slices < STREAM_WARPS
-           and H >= 32 * slices
-           and stream_smem_bytes(rb, H, upb, 2 * slices) <= SMEM_CAP):
-        slices *= 2
+    slices = stream_slices(tiles, H,
+                           lambda s: stream_smem_bytes(rb, H, upb, s))
     return Design("stream", None, rb, stream_smem_bytes(rb, H, upb, slices))
+
+
+def bwd_cluster_smem_bytes(rb: int, H: int, C: int, e: int) -> int:
+    """A backward cluster CTA's shared memory for RB rows, a cluster of C
+    and elements of ``e`` bytes: ``bwd_cluster_smem_bytes`` with four
+    gates."""
+    return rc.bwd_cluster_smem_bytes(rb, H, C, 4, e)
+
+
+def bwd_design(T: int, B: int, H: int, dtype: torch.dtype,
+               active_clusters=None) -> Design:
+    """The backward launcher's choice for a [T, B, *, H] call
+    (csrc/fused_lstm_bwd.cu ``plan_bwd``), as :func:`fwd_design` for the
+    forward: the cluster design at T > 1 where ``plan_cluster`` finds one
+    (a CTA's shared memory grows with the cluster, by its receive slots;
+    in f32 a cluster of 16 holds R [H, 4H] up to H = 440, in bf16 up to
+    512); else the stream design, rows halved while over the cap, then
+    more slices of the 4H reduction while warps would idle, each at least
+    16 long. ``active_clusters`` None asks the card
+    (:func:`card_bwd_active_clusters`)."""
+    e = 2 if dtype == torch.bfloat16 else 4
+    if T > 1:
+        d = plan_cluster(B, H,
+                         lambda rb, C: bwd_cluster_smem_bytes(rb, H, C, e),
+                         active_clusters or card_bwd_active_clusters(dtype))
+        if d is not None:
+            return d
+    rb = rows_max(B)
+    while rb > 1 and bwd_stream_smem_bytes(rb, H) > SMEM_CAP:
+        rb //= 2
+    slices = stream_slices(-(-H // SMEM_TILE), 4 * H,
+                           lambda s: bwd_stream_smem_bytes(rb, H, s))
+    return Design("stream", None, rb, bwd_stream_smem_bytes(rb, H, slices))
 
 
 def card_active_clusters(dtype: torch.dtype, device=None):
@@ -382,11 +442,30 @@ def card_active_clusters(dtype: torch.dtype, device=None):
                                    dtype, device)
 
 
+def card_bwd_active_clusters(dtype: torch.dtype, device=None):
+    """``active_clusters`` for :func:`bwd_design` from the card."""
+    return rc.card_active_clusters(FUSED_LSTM_BWD,
+                                   "dl4j_lstm_bwd_active_clusters", dtype,
+                                   device)
+
+
 def launcher_design(T: int, B: int, H: int, dtype: torch.dtype,
                     device=None) -> Design:
     """The forward C launcher's own choice (``dl4j_lstm_fwd_plan``)."""
     return rc.launcher_design(FUSED_LSTM, "dl4j_lstm_fwd_plan", T, B, H,
                               dtype, device)
+
+
+def launcher_bwd_design(T: int, B: int, H: int, dtype: torch.dtype,
+                        device=None) -> Design:
+    """The backward C launcher's own choice (``dl4j_lstm_bwd_plan``)."""
+    return rc.launcher_design(FUSED_LSTM_BWD, "dl4j_lstm_bwd_plan", T, B, H,
+                              dtype, device)
+
+
+#: the backward launcher's choice by call, asked once: the wrapper forms
+#: R^T only for the stream design
+_bwd_plan = functools.lru_cache(maxsize=256)(launcher_bwd_design)
 
 
 def kernel_admits(T: int, H: int, dtype: torch.dtype,

@@ -1,7 +1,7 @@
 """The thread-block-cluster layer of the recurrent kernels, as their
 launchers see it: the Python mirror of ``csrc/recurrent_cluster.cuh``.
 
-The GRU forward and backward and the LSTM forward each have two designs:
+The GRU and LSTM forwards and backwards each have two designs:
 at T > 1, where a thread-block cluster can hold R in shared memory, a
 cluster kernel; elsewhere a stream kernel that reads R from L2 every step.
 The C launchers choose by shape and by what the card can co-schedule
@@ -65,6 +65,18 @@ def fwd_cluster_smem_bytes(rb: int, H: int, gates: int, e: int) -> int:
     hp = (H + 3) & ~3
     return hp * gates * CLUSTER_UNITS * e + 4 * (
         2 * rb * hp + CLUSTER_WARPS * gates * rb * 32)
+
+
+def bwd_cluster_smem_bytes(rb: int, H: int, C: int, gates: int,
+                           e: int) -> int:
+    """A backward cluster CTA's shared memory for RB rows, a cluster of C,
+    ``gates`` gates and elements of ``e`` bytes
+    (``bwd_cluster_smem_bytes``): its R columns [HP][gates x 32 + one word
+    of padding], the product operands [RB][gates][32] f32 and the receive
+    slots [2][C][RB][32] f32."""
+    hp = (H + 3) & ~3
+    return hp * (gates * CLUSTER_UNITS + 4 // e) * e + 4 * (
+        rb * gates * 32 + 2 * C * rb * 32)
 
 
 def plan_cluster(B: int, H: int, smem_of: Callable[[int, int], int],

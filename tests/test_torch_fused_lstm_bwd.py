@@ -326,6 +326,8 @@ def test_cuda_lstm_layer_grads_at_the_training_shape(cuda_device):
     kw = dict(forget_gate_bias=1.0, reverse=True)
     assert port_fused.launcher_design(64, 64, 200,
                                       torch.float32).kind == "cluster"
+    assert port_fused.launcher_bwd_design(64, 64, 200,
+                                          torch.float32).kind == "cluster"
     op = get_op("lstm_layer")
     before = (FUSED_LSTM.launches, FUSED_LSTM_BWD.launches)
     got = _torch_grads(op, a, device=cuda_device, **kw)
@@ -341,3 +343,84 @@ def test_cuda_lstm_layer_grads_at_the_training_shape(cuda_device):
         scale = max(1.0, float(want[n].abs().max()))
         torch.testing.assert_close(g, want[n], atol=1e-4 * scale, rtol=0,
                                    msg=n)
+
+
+def _bwd_on_card(device, g, B, T, H, peep, dt, with_dcT=True):
+    """The forward's reserve at one shape, the backward kernel on it (one
+    launch), and the plain backward on the same reserve."""
+    xg, R, h0, c0, p, dout, dcT = _card_case(device, g, B, T, H, peep, dt)
+    dcT = dcT if with_dcT else None
+    _, _, _, reserve = fused_lstm_recurrence(xg, R, h0, c0, p,
+                                             save_residuals=True)
+    before = FUSED_LSTM_BWD.launches
+    dg, dc0 = fused_lstm_bwd_recurrence(reserve, R, c0, dout, dcT, p)
+    torch.cuda.synchronize()
+    assert FUSED_LSTM_BWD.launches == before + 1
+    want = plain_bwd_recurrence(reserve, R, c0, dout, dcT, p)
+    return (reserve, R, c0, dout, dcT, p), (dg, dc0), want
+
+
+def _assert_bwd_within(got, want, dt):
+    """f32: 1e-4 abs (summation order); bf16: |a - b| <= 1e-2 (1 + |b|),
+    chip_smoke.py's ``_within`` (dg enters the product rounded to bf16, and
+    a carry summed in another order can tip a rounding)."""
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32 and bool(torch.isfinite(a).all())
+        if dt == torch.float32:
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+        else:
+            assert bool(((a - b).abs() <= 1e-2 * (1 + b.abs())).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bwd_cluster_design_against_plain_on_card(cuda_device, dtype):
+    """The backward's cluster design (R resident across a cluster, the
+    carry reduce-scattered through distributed shared memory) against the
+    plain backward on the kernel's own reserve: config #3's [64, 64, 200]
+    with peepholes (its reversal is the projection's, outside the kernel),
+    [64, 64, 256], a ragged [37, 5, 256] (the last cluster's rows past B),
+    T = 2, and dcT and the peepholes null. The launcher's choice is held
+    against its Python mirror ``bwd_design``."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    for B, T, H, peep, with_dcT in ((64, 64, 200, True, True),
+                                    (64, 64, 256, False, True),
+                                    (37, 5, 256, True, True),
+                                    (8, 2, 96, True, True),
+                                    (16, 9, 200, False, False)):
+        design = port_fused.launcher_bwd_design(T, B, H, dt)
+        assert design == port_fused.bwd_design(T, B, H, dt)
+        assert design.kind == "cluster"
+        _, got, want = _bwd_on_card(cuda_device, g, B, T, H, peep, dt,
+                                    with_dcT)
+        _assert_bwd_within(got, want, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bwd_stream_design_against_plain_on_card(cuda_device, dtype):
+    """T = 1, and T > 1 one unit past the width a cluster of 16 holds
+    (H = 441 in f32, 513 in bf16), take the stream design, against the
+    plain backward."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda_device).manual_seed(10)
+    past = 441 if dt == torch.float32 else 513
+    for B, T, H, peep in ((8, 1, 256, False), (5, 6, past, True)):
+        design = port_fused.launcher_bwd_design(T, B, H, dt)
+        assert design == port_fused.bwd_design(T, B, H, dt)
+        assert design.kind == "stream"
+        _, got, want = _bwd_on_card(cuda_device, g, B, T, H, peep, dt)
+        _assert_bwd_within(got, want, dt)
+
+
+@pytest.mark.cuda
+def test_bwd_cluster_design_is_the_same_run_to_run(cuda_device):
+    """Each CTA sums its C partial carries in rank order, so dg and dc0 are
+    bit for bit the same run to run."""
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    args, first, _ = _bwd_on_card(cuda_device, g, 64, 64, 200, True,
+                                  torch.float32)
+    for _ in range(3):
+        again = fused_lstm_bwd_recurrence(*args)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))

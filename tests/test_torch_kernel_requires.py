@@ -121,7 +121,7 @@ def test_cluster_layer_constants_match_the_header():
 
 def test_a_change_to_the_cluster_header_rebuilds_the_recurrent_libraries(
         tmp_path, monkeypatch):
-    """The three recurrent sources that include csrc/recurrent_cluster.cuh
+    """The four recurrent sources that include csrc/recurrent_cluster.cuh
     are built into libraries named by a hash of the headers too, so an
     edited header gives each a new library (no stale build is loaded)."""
     import shutil
@@ -130,8 +130,12 @@ def test_a_change_to_the_cluster_header_rebuilds_the_recurrent_libraries(
 
     shutil.copytree(CSRC, tmp_path / "csrc")
     monkeypatch.setattr(build, "CSRC_DIR", tmp_path / "csrc")
-    libs = [build.CudaLibrary(src, {}) for src in (
-        "fused_gru.cu", "fused_gru_bwd.cu", "fused_lstm.cu")]
+    sources = ("fused_gru.cu", "fused_gru_bwd.cu", "fused_lstm.cu",
+               "fused_lstm_bwd.cu")
+    for src in sources:
+        assert '#include "recurrent_cluster.cuh"' in (
+            tmp_path / "csrc" / src).read_text()
+    libs = [build.CudaLibrary(src, {}) for src in sources]
     before = [lib.library_path() for lib in libs]
     header = tmp_path / "csrc" / "recurrent_cluster.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
@@ -166,10 +170,11 @@ def test_gru_bwd_cluster_constants_match_the_source():
     assert _const(text, "kMaxSlices") == fused_gru.MAX_SLICES
     assert _const(text, "kWarps") == fused_gru.STREAM_WARPS
     for line in (
-            "return 3 * kClusterUnits + 4 / (int)sizeof(E);",
-            "return hp * bwd_row<E>() * sizeof(E) +",
-            "sizeof(float) * ((size_t)rb * 3 * 32 + 2 * (size_t)C * rb * 32);",
-            "return bwd_cluster_smem_bytes<E>(rb, H, C);",
+            "return G * kClusterUnits + 4 / (int)sizeof(E);",
+            "return hp * bwd_row<E, G>() * sizeof(E) +",
+            "sizeof(float) * ((size_t)rb * G * 32 + 2 * (size_t)C * rb * 32);",
+            "constexpr int kRow = bwd_row<E, 3>();",
+            "return bwd_cluster_smem_bytes<E, 3>(rb, H, C);",
             "gru_bwd_cluster_kernel<E, decltype(r)::value>, C, smem, n);",
             "while (rb > 1 && smem_bytes(rb, H, 1) > kSmemCap) rb /= 2;",
             "while (slices < kMaxSlices && tiles * slices < kWarps &&",
@@ -182,6 +187,40 @@ def test_gru_bwd_cluster_constants_match_the_source():
         256 * 97 + 8 * 96 + 2 * 8 * 8 * 32)
     assert fused_gru.bwd_cluster_smem_bytes(8, 256, 8, 2) == (
         2 * 256 * 98 + 4 * (8 * 96 + 2 * 8 * 8 * 32))
+
+
+def test_lstm_bwd_cluster_constants_match_the_source():
+    """The LSTM backward's designs, read back from csrc/fused_lstm_bwd.cu
+    and the cluster layer it includes: bwd_design repeats plan_bwd, the
+    resident rows padded by one word, the step product and reduce-scatter
+    the header's, shared with the GRU backward."""
+    text = _cluster_text("fused_lstm_bwd.cu")
+    assert _const(text, "kMaxSlices") == fused_lstm.MAX_SLICES
+    assert _const(text, "kWarps") == fused_lstm.STREAM_WARPS
+    for line in (
+            "return G * kClusterUnits + 4 / (int)sizeof(E);",
+            "constexpr int kRow = bwd_row<E, 4>();",
+            "load_r_slice<E, 4, kRow>(Rs, R, H, HP, j0, nu);",
+            "scatter_carry<E, 4, RB, kRow>(cluster, Rs, gp, slots, par, C, "
+            "rank, H,",
+            "gather_carry<RB>(slots, par ^ 1, C, gr, lane)",
+            "return bwd_cluster_smem_bytes<E, 4>(rb, H, C);",
+            "lstm_bwd_cluster_kernel<E, decltype(r)::value>, C, smem, n);",
+            "while (rb > 1 && smem_bytes(rb, H, 1) > kSmemCap) rb /= 2;",
+            "while (slices < kMaxSlices && tiles * slices < kWarps &&",
+            "4 * H >= 16 * slices * 2 &&"):
+        assert " ".join(line.split()) in " ".join(text.split()), line
+    gru = (CSRC / "fused_gru_bwd.cu").read_text()
+    assert "scatter_carry<E, 3, RB, kRow>(" in gru
+    # H=256, 8 rows, a cluster of 8, f32: 256 rows of 129 words of R, the
+    # operands 8 x 128 and the slots 2 x 8 x 8 x 32; bf16 rows of 130
+    assert fused_lstm.bwd_cluster_smem_bytes(8, 256, 8, 4) == 4 * (
+        256 * 129 + 8 * 128 + 2 * 8 * 8 * 32)
+    assert fused_lstm.bwd_cluster_smem_bytes(8, 256, 8, 2) == (
+        2 * 256 * 130 + 4 * (8 * 128 + 2 * 8 * 8 * 32))
+    # about 149 KB in f32 at H = 256 and 121 KB at H = 200
+    assert fused_lstm.bwd_cluster_smem_bytes(8, 256, 8, 4) // 1024 == 149
+    assert fused_lstm.bwd_cluster_smem_bytes(8, 200, 8, 4) // 1024 == 120
 
 
 def test_lstm_cluster_constants_match_the_source():
@@ -283,18 +322,25 @@ def test_gru_kernel_admits_what_it_did(T, backward):
 # the cluster designs of the GRU backward and the LSTM forward: where a
 # cluster of 16 stops holding R, in f32 and bf16, and the rows a cluster
 _CLUSTER_DESIGNS = {"gru_bwd": fused_gru.bwd_design,
-                    "lstm_fwd": fused_lstm.fwd_design}
+                    "lstm_fwd": fused_lstm.fwd_design,
+                    "lstm_bwd": fused_lstm.bwd_design}
+#: a backward cluster CTA's shared memory by kernel: (rows, H, C, e)
+_BWD_SMEM = {"gru_bwd": fused_gru.bwd_cluster_smem_bytes,
+             "lstm_bwd": fused_lstm.bwd_cluster_smem_bytes}
 
 
 @pytest.mark.parametrize("dtype,kernel,H_max", [
     (F32, "gru_bwd", 512), (BF16, "gru_bwd", 512),
-    (F32, "lstm_fwd", 436), (BF16, "lstm_fwd", 512)])
+    (F32, "lstm_fwd", 436), (BF16, "lstm_fwd", 512),
+    (F32, "lstm_bwd", 440), (BF16, "lstm_bwd", 512)])
 def test_cluster_design_boundary(dtype, kernel, H_max):
     """T > 1 takes the cluster design up to the H where a cluster of 16
     still holds R: the GRU backward's units run out first (32 a CTA at H
-    = 512); the LSTM forward's R [H, 4H] in f32 fills a CTA's 227 KB first
-    (at H = 436, one row a cluster). One unit more, T == 1 at any H, and a
-    card that holds no such cluster take the stream design."""
+    = 512); the LSTM forward's and backward's R [H, 4H] in f32 fill a
+    CTA's 227 KB first (at H = 436 and 440, one row a cluster; the
+    backward's rows are padded by a word but hold no h), in bf16 their
+    units run out at 512. One unit more, T == 1 at any H, and a card that
+    holds no such cluster take the stream design."""
     design = _CLUSTER_DESIGNS[kernel]
     ok = _slots(16)
     H = max(h for h in range(1, 1100)
@@ -311,14 +357,14 @@ def test_cluster_design_boundary(dtype, kernel, H_max):
         assert design(1, 8, h, dtype, ok).kind == "stream"
     none = lambda C, rows, smem: 0  # noqa: E731
     assert design(64, 64, 256, dtype, none).kind == "stream"
-    if (dtype, kernel) == (F32, "lstm_fwd"):
+    if dtype == F32 and kernel.startswith("lstm"):
         assert at.rows == 1
-    if kernel == "gru_bwd":  # the receive slots grow with the cluster
-        assert at.smem == fused_gru.bwd_cluster_smem_bytes(
+    if kernel in _BWD_SMEM:  # the receive slots grow with the cluster
+        assert at.smem == _BWD_SMEM[kernel](
             at.rows, H, 16, 2 if dtype == BF16 else 4)
 
 
-@pytest.mark.parametrize("kernel", ["gru_bwd", "lstm_fwd"])
+@pytest.mark.parametrize("kernel", ["gru_bwd", "lstm_fwd", "lstm_bwd"])
 @pytest.mark.parametrize("slots,B,rows", [
     (16, 64, 4), (8, 64, 8), (15, 64, 8), (64, 64, 1), (16, 1, 1),
     (16, 3, 1), (2, 3, 2), (1, 3, 4), (1, 100, 8)])
@@ -328,8 +374,8 @@ def test_cluster_rows_from_the_card(kernel, slots, B, rows):
     up to a power of two; the shared memory of that many rows."""
     d = _CLUSTER_DESIGNS[kernel](64, B, 256, F32, _slots(slots))
     assert (d.kind, d.cluster, d.rows) == ("cluster", 8, rows)
-    assert d.smem == (fused_gru.bwd_cluster_smem_bytes(rows, 256, 8, 4)
-                      if kernel == "gru_bwd"
+    assert d.smem == (_BWD_SMEM[kernel](rows, 256, 8, 4)
+                      if kernel in _BWD_SMEM
                       else fused_lstm.cluster_smem_bytes(rows, 256, 4))
 
 
@@ -352,6 +398,67 @@ def test_stream_designs_of_the_gru_bwd_and_lstm_fwd():
         "stream", None, 8, 4 * (8 * 1024 + 8 * 1024 + 32 * 4 * 8 * 32))
     h = _max_h(fused_lstm, 7, False)
     assert fused_lstm.fwd_design(7, 64, h, F32, ok).rows == 1
+
+
+def test_lstm_bwd_stream_design():
+    """The LSTM backward's stream design repeats its launcher's rows and
+    shared memory: T = 1 at any H (8 rows; 8 unit tiles at H = 256, so two
+    slices of the 4H reduction), H = 1024 (32 unit tiles, one slice), and
+    H = 441 in f32 / 513 in bf16, one unit past a cluster of 16 (14 and 17
+    unit tiles: two slices, one)."""
+    ok = _slots(16)
+    assert fused_lstm.bwd_design(1, 8, 256, F32, ok) == (
+        "stream", None, 8, 4 * (8 * 4 * 256 + 8 * 256 + 2 * 8 * 8 * 32))
+    assert fused_lstm.bwd_design(64, 64, 1024, BF16, ok) == (
+        "stream", None, 8, 4 * (8 * 4 * 1024 + 8 * 1024 + 32 * 8 * 32))
+    for dt, H, slices in ((F32, 441, 2), (BF16, 513, 1)):
+        d = fused_lstm.bwd_design(6, 5, H, dt, ok)
+        assert (d.kind, d.rows) == ("stream", 8)
+        assert d.smem == fused_lstm.bwd_stream_smem_bytes(8, H, slices)
+    # rows halved while one block's share exceeds the cap
+    h = _max_h(fused_lstm, 7, True)
+    assert fused_lstm.bwd_design(7, 64, h, F32, ok).rows == 1
+    assert fused_lstm.bwd_smem_bytes(h) <= fused_lstm.SMEM_CAP
+
+
+class _OnCardDevice(torch.Tensor):
+    """A CPU tensor that reports itself on the card, so that a wrapper
+    takes its kernel path up to the (stubbed) launch."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("family,planes,gates", [(fused_lstm, 5, 4),
+                                                 (fused_gru, 4, 3)])
+@pytest.mark.parametrize("kind", ["cluster", "stream"])
+def test_the_backward_forms_r_transpose_only_for_the_stream_design(
+        monkeypatch, family, planes, gates, kind):
+    """The backward wrapper asks the launcher's (cached) plan and forms
+    R^T only for the stream design; the cluster design reads R, and gets
+    a null R^T."""
+    launched = []
+    monkeypatch.setattr(family, "launch",
+                        lambda kernel, sym, dev, args: launched.append(args))
+    monkeypatch.setattr(family, "_bwd_plan", lambda *a: rc.Design(
+        kind, 8 if kind == "cluster" else None, 4, 1024))
+    T, B, H = 3, 2, 5
+    on_card = lambda *s: torch.zeros(*s).as_subclass(_OnCardDevice)  # noqa
+    R = on_card(H, gates * H)
+    if family is fused_lstm:
+        family.fused_lstm_bwd_recurrence(on_card(planes, T, B, H), R,
+                                         on_card(B, H), on_card(T, B, H))
+    else:
+        family.fused_gru_bwd_recurrence(on_card(planes, T, B, H), R,
+                                        on_card(B, H), on_card(T, B, H),
+                                        on_card(T, B, H))
+    (args,) = launched
+    assert args[1] == R.data_ptr()
+    if kind == "cluster":
+        assert args[2] is None
+    else:
+        assert args[2] not in (None, R.data_ptr())
 
 
 @pytest.mark.parametrize("T", [1, 2, 64])

@@ -264,18 +264,40 @@ def test_kernel_records_name_their_sources_and_pallas_kernels():
 
 # ----------------------------------------------------------- on the card
 
-CARD_SHAPES = [((2, 13, 13, 96), 5), ((2, 7, 7, 256), 5), ((3, 7, 5, 77), 4),
-               ((4, 3, 3, 3), 5), ((1, 1, 1, 4096), 6)]
+def _card_tensor(a, device, dtype, offset):
+    """``a`` on the card, its data ``offset`` elements past the start of an
+    allocation (so past a 16-byte boundary when offset is 1): the kernels'
+    element-by-element path."""
+    t = torch.tensor(a).to(device, dtype)
+    if not offset:
+        return t
+    buf = torch.empty(t.numel() + offset, device=device, dtype=dtype)
+    out = buf[offset:].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16
+    return out
+
+
+# (shape, depth, offset): AlexNet's two LRN channel counts; even depth, C
+# below the depth and C = 1; C = 4096 (one row a block) at depths 6 and 5;
+# 25 pixels of 96 channels, which leave the last block of rows partial; and
+# data one element past a 16-byte boundary, which takes the element path
+CARD_SHAPES = [((2, 13, 13, 96), 5, 0), ((2, 7, 7, 256), 5, 0),
+               ((3, 7, 5, 77), 4, 0), ((4, 3, 3, 3), 5, 0),
+               ((1, 1, 1, 4096), 6, 0), ((5, 3, 3, 1), 5, 0),
+               ((1, 2, 1, 4096), 5, 0), ((1, 5, 5, 96), 5, 0),
+               ((2, 5, 7, 96), 5, 1), ((2, 3, 3, 256), 4, 1)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("shape,depth", CARD_SHAPES)
-def test_kernels_against_plain_on_card(cuda_device, shape, depth, dtype):
+@pytest.mark.parametrize("shape,depth,offset", CARD_SHAPES)
+def test_kernels_against_plain_on_card(cuda_device, shape, depth, offset,
+                                       dtype):
     hp = HPARAMS[1]
-    x = torch.tensor(_x(shape, 5)).to(cuda_device, dtype)
-    g = torch.tensor(_x(shape, 6, scale=1.0)).to(cuda_device, dtype)
+    x = _card_tensor(_x(shape, 5), cuda_device, dtype, offset)
+    g = _card_tensor(_x(shape, 6, scale=1.0), cuda_device, dtype, offset)
     n = (LRN_FWD.launches, LRN_BWD.launches)
     y = lrn_forward(x, depth=depth, **hp)
     dx = lrn_backward(x, g, depth=depth, **hp)
