@@ -20,7 +20,9 @@ Phases (any failure exits non-zero before the result line):
    stream kernel at decode; times the kernel (profiled under its design's
    device function), the plain version and, as a yardstick the port never
    calls, ``torch.nn.LSTM`` (cuDNN) on the same layer with its gates
-   reordered (on CUDA events and as the device time of its kernels).
+   reordered (on CUDA events and as the device time of its kernels); and
+   the stream kernel at [64, 64, 1024] in f32 and bf16, past the width a
+   cluster holds, beside cuDNN's LSTM there.
 4. Main path: TextGenerationLSTM at its published width (LSTM 256 x 2,
    vocabulary 77, random weights from a seed) served by
    ``GenerationEngine(slots=8, max_len=256)``: 16 requests, greedy and
@@ -38,8 +40,9 @@ Phases (any failure exits non-zero before the result line):
    backward kernel against their plain versions at the training shapes
    (B=64, T=64; H=200 with peepholes, reversed; H=256 without), in f32 and
    bf16, both kernels on their cluster designs (R resident across a
-   thread-block cluster), and at [64, 16, 448], past the width a cluster
-   holds, on both stream designs; each row names the designs the
+   thread-block cluster), and at [64, 16, 448] and [64, 64, 1024] (f32
+   and bf16), past the width a cluster holds, on both stream designs;
+   each row names the designs the
    launchers chose (held against their Python mirrors ``fwd_design`` and
    ``bwd_design``) and is profiled under each design's kernel; each
    layer's seven gradients
@@ -113,13 +116,21 @@ Phases (any failure exits non-zero before the result line):
     without its reserve) and backward kernel against their plain versions
     at the GRU paths' shapes (decode [8, 1, 256], prefill [1, 47, 256],
     training [64, 64, 256], Bidirectional(GRU(200))'s reversed [64, 64,
-    200]), the full-width recurrent product [64, 64, 1024] (F=256) and a
-    ragged reversed [3, 5, 200], in f32 and bf16. Each row names the
-    forward and backward designs the launchers chose (the cluster kernels,
-    R resident across a thread-block cluster, or the stream kernels), held
+    200]), past the width a cluster holds ([64, 64, 1024] in f32 and
+    bf16, [64, 64, 768], a ragged reversed [3, 5, 640]), past the width
+    the grid holds ([64, 8, 1200] in f32 and bf16), a ragged reversed
+    [3, 5, 200] in f32 and bf16, and training at decode's [8, 1, 256].
+    Each row names the forward and backward designs the launchers chose
+    (the cluster kernels, R resident across a thread-block cluster; the
+    grid kernels, R resident across the card; or the stream kernels), held
     against their Python mirrors; the cluster designs must run at every
-    T > 1 shape of the main path and the stream designs at decode and
-    H=1024, as the profile of each row shows. Times of each kernel, its plain version and, as a
+    T > 1 shape of the main path, the grid designs past H = 512, and the
+    stream designs at T = 1 and at H = 1200 (both directions), as the
+    profile of each row shows. A grid row records its plan and its time a
+    step (T = 64 against T = 8), and at T = 64 must beat the plain
+    versions on the device; the bf16 grid kernels' machine code must hold
+    tensor-core (HMMA) instructions and the f32 ones none. Times of each
+    kernel, its plain version and, as a
     yardstick the port never calls, ``torch.nn.GRU`` (cuDNN) with its
     recurrent bias zeroed, the same function (forward, and its autograd
     backward), on the host's clock and as the device time of its kernels.
@@ -134,7 +145,10 @@ Phases (any failure exits non-zero before the result line):
     steps against a copy on the kernel-disabled plain path on the card,
     then 10 timed steps, each launching exactly 2 forwards (with reserve)
     and 2 backwards, losses falling; a steady window is profiled and must
-    show both cluster kernels, 2 launches each a step.
+    show both cluster kernels, 2 launches each a step. Then the same
+    net widened to GRULayer(1024) x 2: 2 steps against the plain path, 5
+    timed steps of 2 + 2 launches, and a profiled window that must show
+    both grid kernels, 2 launches each a step.
 19. Bidirectional(GRULayer(200)) x 2 with Adam (config #3's shape with GRU
     cells: reversed time and an H that is not a multiple of 32): the same
     checks, 3 timed steps of 4 + 4 launches, 4 + 4 cluster launches a
@@ -347,7 +361,15 @@ def cudnn_lstm(torch, W, R, b, forget_gate_bias, dtype):
 # shape of the main path, the stream kernel at decode
 LSTM_DESIGNS = {"decode_layer1": "stream", "decode_layer2": "stream",
                 "decode_layer1_bf16": "stream", "prefill_layer1": "cluster",
-                "graves_charrnn": "cluster", "graves_charrnn_bf16": "cluster"}
+                "graves_charrnn": "cluster", "graves_charrnn_bf16": "cluster",
+                "h1024": "stream", "h1024_bf16": "stream"}
+
+
+def lstm_r_scale(H):
+    """The scale of the LSTM phases' random R: 0.06 (a recurrent gain near
+    1 at H = 256), cut by sqrt(256 / H) past H = 512 so that the gain stays
+    near 1 at H = 1024."""
+    return 0.06 if H <= 512 else 0.06 * (256 / H) ** 0.5
 
 
 def lstm_design(name, T, B, H, dt, want, backward=False):
@@ -386,7 +408,9 @@ LSTM_TRAIN_DESIGNS = {"graves_layer1": ("cluster", "cluster"),
                       "graves_layer1_bf16": ("cluster", "cluster"),
                       "textgen_layer1_bf16": ("cluster", "cluster"),
                       "textgen_layer2_bf16": ("cluster", "cluster"),
-                      "stream_h448": ("stream", "stream")}
+                      "stream_h448": ("stream", "stream"),
+                      "h1024": ("stream", "stream"),
+                      "h1024_bf16": ("stream", "stream")}
 
 
 def phase_kernels(torch):
@@ -407,6 +431,10 @@ def phase_kernels(torch):
         ("graves_charrnn", 32, 64, 77, 200, True, True, 1.0, f32),
         ("decode_layer1_bf16", 8, 1, 77, 256, False, False, 0.0, bf16),
         ("graves_charrnn_bf16", 32, 64, 77, 200, True, True, 1.0, bf16),
+        # past the width a cluster holds (the stream kernels), timed beside
+        # cuDNN's LSTM so that the grid layer's next family can be ranked
+        ("h1024", 64, 64, 256, 1024, False, False, 0.0, f32),
+        ("h1024_bf16", 64, 64, 256, 1024, False, False, 0.0, bf16),
     ]
     g = torch.Generator(device="cuda").manual_seed(SEED)
     rows, worst = [], {f32: 0.0, bf16: 0.0}
@@ -415,7 +443,8 @@ def phase_kernels(torch):
             return (torch.randn(*shape, device="cuda", generator=g)
                     * scale).to(dt)
         x, W, R, b = (rnd(B, T, F), rnd(F, 4 * H, scale=0.1),
-                      rnd(H, 4 * H, scale=0.06), rnd(4 * H, scale=0.1))
+                      rnd(H, 4 * H, scale=lstm_r_scale(H)),
+                      rnd(4 * H, scale=0.1))
         h0, c0 = rnd(B, H, scale=0.5), rnd(B, H, scale=0.5)
         p = rnd(3 * H, scale=0.1) if peep else None
         xg = project_gates(x, W, b, fgb, rev)
@@ -695,6 +724,9 @@ def phase_bwd_kernels(torch):
         ("textgen_layer1_bf16", 64, 64, 77, 256, False, False, 0.0, bf16),
         ("textgen_layer2_bf16", 64, 64, 256, 256, False, False, 0.0, bf16),
         ("stream_h448", 64, 16, 77, 448, True, True, 1.0, f32),
+        # past the width a cluster holds, beside cuDNN's LSTM pair
+        ("h1024", 64, 64, 256, 1024, False, False, 0.0, f32),
+        ("h1024_bf16", 64, 64, 256, 1024, False, False, 0.0, bf16),
     ]
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     rows, worst = [], {f32: 0.0, bf16: 0.0}
@@ -703,7 +735,8 @@ def phase_bwd_kernels(torch):
             return (torch.randn(*shape, device="cuda", generator=g)
                     * scale).to(dt)
         x, W, R, b = (rnd(B, T, F), rnd(F, 4 * H, scale=0.1),
-                      rnd(H, 4 * H, scale=0.06), rnd(4 * H, scale=0.1))
+                      rnd(H, 4 * H, scale=lstm_r_scale(H)),
+                      rnd(4 * H, scale=0.1))
         h0, c0 = rnd(B, H, scale=0.5), rnd(B, H, scale=0.5)
         p = rnd(3 * H, scale=0.1) if peep else None
         g_out, g_h, g_c = rnd(B, T, H), rnd(B, H), rnd(B, H)
@@ -809,6 +842,8 @@ def phase_bwd_kernels(torch):
             row["library_pair_ms"] = cuda_ms(torch, lib_pair, iters)
             row["library_pair_device_ms"] = call_device_ms(torch, lib_pair,
                                                            iters)
+            row["library_fwd_ms"] = cuda_ms(torch, lambda: lstm(xt, state),
+                                            iters)
             # its forward in training mode (it saves its own reserve),
             # against the kernel's forward with reserve; its input
             # projection included
@@ -1808,6 +1843,8 @@ def phase_lenet_training(torch, np):
 
 N_GRU_STEPS = 10
 N_BIDI_GRU_STEPS = 3
+N_WIDE_GRU_STEPS = 5   # the GRU(1024) x 2 char-RNN's timed steps
+WIDE_GRU_UNITS = 1024
 # GRU kernels against their plain versions: f32 |k - p| <= 1e-5 max |p|
 # (the sums of h @ R in other orders); bf16 one bf16 step,
 # |k - p| <= 2^-7 (1 + |p|) (a stored value rounded to its neighbour)
@@ -1880,32 +1917,47 @@ def _gru_within(torch, got, want, dtype):
 
 # the forward design each GRU path's shape must run: the cluster kernel
 # (R resident across a thread-block cluster) at every T > 1 shape of the
-# main path, the stream kernel at decode and where R is too wide
+# main path, the grid kernel (R resident across the card) at T > 1 past
+# the width a cluster holds, the stream kernel at decode and past the
+# width the grid holds (H = 1200: 1024 forward, 1168 / 1088 backward)
 GRU_DESIGNS = {"prefill": "cluster", "train": "cluster",
                "train_bf16": "cluster", "bidi_h200_rev": "cluster",
-               "decode": "stream", "h1024": "stream"}
-# and the backward design at the shapes that run the backward
+               "decode": "stream", "decode_train": "stream",
+               "h1024": "grid", "h1024_bf16": "grid", "h768": "grid",
+               "h640_rev": "grid", "h1200": "stream", "h1200_bf16": "stream"}
+# and the backward design at the shapes that run the backward: the stream
+# kernel at T = 1 and past the width the grid holds
 GRU_BWD_DESIGNS = {"train": "cluster", "train_bf16": "cluster",
-                   "bidi_h200_rev": "cluster", "h1024": "stream",
-                   "h1024_bf16": "stream"}
+                   "bidi_h200_rev": "cluster", "decode_train": "stream",
+                   "h1024": "grid", "h1024_bf16": "grid", "h768": "grid",
+                   "h640_rev": "grid", "h1200": "stream",
+                   "h1200_bf16": "stream"}
+# the grid rows' per-step time: their T = 64 time against T = 8's
+GRU_STEP_PAIR = (64, 8)
 
 
 def phase_gru_kernels(torch):
     """The GRU forward kernel (with and without the reserve) and the
-    backward kernel against their plain versions at the GRU paths' shapes
-    and the full-width H=1024 product, f32 and bf16; times of each kernel,
-    its plain version and cuDNN's GRU. Each row names the forward (and the
-    backward) design the launcher chose (held against ``fwd_design`` and
-    ``bwd_design``, their Python mirrors) and is timed by that design's
-    device function; the designs of GRU_DESIGNS and GRU_BWD_DESIGNS are
-    required, and their profiles must show that function. Returns (rows,
-    f32 and bf16 worst)."""
+    backward kernel against their plain versions at the GRU paths' shapes,
+    past the width a cluster holds (H = 1024, 768 and a ragged reversed
+    640) and past the width the grid holds (H = 1200), f32 and bf16, and
+    the backward at T = 1; times of each kernel, its plain version
+    and cuDNN's GRU. Each row names the forward (and the backward) design
+    the launcher chose (held against ``fwd_design`` and ``bwd_design``,
+    their Python mirrors) and is timed by that design's device function;
+    the designs of GRU_DESIGNS and GRU_BWD_DESIGNS are required, and their
+    profiles must show that function. A grid row records its plan (units
+    a CTA, CTAs and rows a row group, groups), the CTAs the card holds at
+    once, and its time a step from the T = 64 / T = 8 pair; at T = 64 its
+    kernels must beat their plain versions. Returns (rows, f32 and bf16
+    worst)."""
     from deeplearning4j_tpu_torch.ops.cuda.fused_gru import (
         BWD_KERNEL_NAMES, FWD_KERNEL_NAMES, bwd_design,
         card_active_clusters, card_bwd_active_clusters,
-        fused_gru_bwd_recurrence, fused_gru_layer, fused_gru_recurrence,
-        fwd_design, launcher_bwd_design, launcher_design,
-        plain_bwd_recurrence, plain_recurrence,
+        card_bwd_co_resident, card_co_resident, fused_gru_bwd_recurrence,
+        fused_gru_layer, fused_gru_recurrence, fwd_design,
+        launcher_bwd_design, launcher_design, plain_bwd_recurrence,
+        plain_recurrence,
     )
     from deeplearning4j_tpu_torch.ops.cuda.recurrent_cluster import (
         CLUSTER_SMEM_CAP,
@@ -1918,7 +1970,11 @@ def phase_gru_kernels(torch):
         ("prefill", 1, 47, GRU_VOCAB, 256, False, False, f32),
         ("train", 64, 64, 256, 256, False, True, f32),
         ("h1024", 64, 64, 256, 1024, False, True, f32),
+        ("h768", 64, 64, 256, 768, False, True, f32),
+        ("h640_rev", 3, 5, 77, 640, True, True, f32),
         ("ragged_h200_rev", 3, 5, 77, 200, True, True, f32),
+        ("decode_train", 8, 1, GRU_VOCAB, 256, False, True, f32),
+        ("h1200", 64, 8, 256, 1200, False, True, f32),
         ("bidi_h200_rev", 64, GRU_TIMESTEPS, GRU_VOCAB, 200, True, True,
          f32),
         ("decode_bf16", 8, 1, GRU_VOCAB, 256, False, False, bf16),
@@ -1926,6 +1982,7 @@ def phase_gru_kernels(torch):
         ("train_bf16", 64, 64, 256, 256, False, True, bf16),
         ("h1024_bf16", 64, 64, 256, 1024, False, True, bf16),
         ("ragged_h200_rev_bf16", 3, 5, 77, 200, True, True, bf16),
+        ("h1200_bf16", 64, 8, 256, 1200, False, True, bf16),
     ]
     g = torch.Generator(device="cuda").manual_seed(SEED + 11)
     rows, worst = [], {f32: 0.0, bf16: 0.0}
@@ -1960,6 +2017,9 @@ def phase_gru_kernels(torch):
         if design.kind == "cluster":  # clusters the card holds, 1 CTA an SM
             row["cluster_slots"] = card_active_clusters(dt)(
                 design.cluster, 1, CLUSTER_SMEM_CAP)
+        if design.kind == "grid":  # the grid CTAs the card holds at once
+            row["grid_resident_ctas"] = card_co_resident(dt)(design.rows,
+                                                            design.smem)
         if train:
             b_design = launcher_bwd_design(T, B, H, dt)
             if bwd_design(T, B, H, dt) != b_design:
@@ -1974,6 +2034,9 @@ def phase_gru_kernels(torch):
             if b_design.kind == "cluster":
                 row["bwd_cluster_slots"] = card_bwd_active_clusters(dt)(
                     b_design.cluster, 1, CLUSTER_SMEM_CAP)
+            if b_design.kind == "grid":
+                row["bwd_grid_resident_ctas"] = card_bwd_co_resident(dt)(
+                    b_design.rows, b_design.smem)
         checks = [("out", k_out, p_out), ("hT", k_hT, p_hT),
                   ("out_with_reserve", out, p_out), ("reserve", reserve, p_res),
                   ("dg", dg, p_dg), ("dh0", dh0, p_dh0)]
@@ -2054,15 +2117,73 @@ def phase_gru_kernels(torch):
         if name in GRU_BWD_DESIGNS and row["bwd_device_ms"] is None:
             fail(f"GRU backward at {name}: the profile shows no "
                  f"{bwd_kernel}, the {b_design.kind} design's kernel")
+        if design.kind == "grid" and T == GRU_STEP_PAIR[0]:
+            row["grid_step"] = gru_grid_step(torch, row, xg, R, h0, dout,
+                                             fwd_kernel, bwd_kernel)
+            for k in ("fwd", "bwd"):
+                if not row[f"{k}_device_ms"] < row[f"{k}_plain_ms"]:
+                    fail(f"GRU grid {k} at {name}: {row[f'{k}_device_ms']} "
+                         f"ms on the device, its plain version "
+                         f"{row[f'{k}_plain_ms']} ms")
         rows.append(row)
     # the launches above were for checks and timing: not the main path's
     return rows, worst[f32], worst[bf16]
 
 
-def gru_charrnn_conf(bidi=False):
+#: the grid kernels' instances by element type, as mangled device names
+#: hold them (``cuobjdump -sass``)
+GRU_GRID_INSTANCES = {"bfloat16": "grid_kernelI13__nv_bfloat16",
+                      "float32": "grid_kernelIf"}
+
+
+def gru_grid_tensor_cores():
+    """The bf16 grid kernels' step products run on the tensor cores: their
+    machine code holds HMMA (mma.sync) instructions, the f32 instances'
+    none. Returns the counts by kernel and type."""
+    from deeplearning4j_tpu_torch.ops.cuda.build import tensor_core_ops
+    from deeplearning4j_tpu_torch.ops.cuda.fused_gru import (
+        FUSED_GRU, FUSED_GRU_BWD,
+    )
+
+    out = {}
+    for kern, stem in ((FUSED_GRU, "gru_fwd_"), (FUSED_GRU_BWD, "gru_bwd_")):
+        for dt, inst in GRU_GRID_INSTANCES.items():
+            ops = tensor_core_ops(kern.library, stem + inst)
+            out[f"{stem}grid_kernel_{dt}"] = ops
+            if (ops["HMMA"] == 0) == (dt == "bfloat16"):
+                fail(f"{stem}grid_kernel ({dt}) holds {ops['HMMA']} HMMA; "
+                     f"want some in bf16 and none in f32")
+    return out
+
+
+def gru_grid_step(torch, row, xg, R, h0, dout, fwd_kernel, bwd_kernel):
+    """A grid row's time a step: its device time at T = 64 against the
+    same call cut to its first 8 steps, the difference over the 56 steps
+    between (the launch, the resident R's load and the set-up cancel)."""
+    from deeplearning4j_tpu_torch.ops.cuda.fused_gru import (
+        fused_gru_bwd_recurrence, fused_gru_recurrence,
+    )
+
+    T, t = GRU_STEP_PAIR
+    xs, ds = xg[:t], dout[:t]
+    out, _, res = fused_gru_recurrence(xs, R, h0, save_residuals=True)
+    fwd_t = kernel_device_ms(torch, lambda: fused_gru_recurrence(xs, R, h0),
+                             20, fwd_kernel)
+    bwd_t = kernel_device_ms(torch, lambda: fused_gru_bwd_recurrence(
+        res, R, h0, out, ds), 20, bwd_kernel)
+    if fwd_t is None or bwd_t is None:
+        fail(f"GRU grid at {row['shape']}: the profile shows no kernel at "
+             f"T = {t}")
+    return {f"fwd_T{t}_device_ms": fwd_t, f"bwd_T{t}_device_ms": bwd_t,
+            "fwd_us_per_step": 1e3 * (row["fwd_device_ms"] - fwd_t) / (T - t),
+            "bwd_us_per_step": 1e3 * (row["bwd_device_ms"] - bwd_t) / (T - t)}
+
+
+def gru_charrnn_conf(bidi=False, units=GRU_UNITS):
     """The GRU char-RNN: TextGenerationLSTM's topology with both LSTM
-    layers replaced by GRULayer(256) (RnnOutput 77 softmax mcxent, one-hot
-    input, T=64, RMSProp 1e-3, clipping 5.0); with ``bidi``,
+    layers replaced by GRULayer(``units``, 256 unless widened) (RnnOutput
+    77 softmax mcxent, one-hot input, T=64, RMSProp 1e-3, clipping 5.0);
+    with ``bidi``,
     Bidirectional(GRULayer(200)) x 2 with Adam 1e-3 (config #3's shape with
     GRU cells). The JAX package has no zoo class for it; it crosses
     between the packages as this configuration's JSON."""
@@ -2078,7 +2199,7 @@ def gru_charrnn_conf(bidi=False):
          .gradient_clipping(5.0).list())
     for _ in range(2):
         b = b.layer(BidirectionalLayer(fwd=GRULayer(n_out=200)) if bidi
-                    else GRULayer(n_out=GRU_UNITS))
+                    else GRULayer(n_out=units))
     return (b.layer(RnnOutputLayer(n_out=GRU_VOCAB, activation="softmax",
                                    loss="mcxent"))
             .set_input_type(InputType.recurrent(GRU_VOCAB, GRU_TIMESTEPS))
@@ -2192,13 +2313,15 @@ def phase_gru_serving(torch, np):
     }
 
 
-def phase_gru_training(torch, np, bidi=False):
-    """Train the GRU char-RNN (or the Bidirectional(GRU(200)) x 2 net) on
-    the card at B=64, T=64: 2 steps against a copy on the kernel-disabled
-    plain path, then timed steps that must launch exactly 2 forwards (with
-    reserve) and 2 backwards a step per GRU direction; losses fall. A
-    profiled window names the designs the launchers chose and must show
-    each cluster kernel, one launch a GRU direction a step."""
+def phase_gru_training(torch, np, bidi=False, units=GRU_UNITS):
+    """Train the GRU char-RNN (GRULayer(``units``) x 2; or the
+    Bidirectional(GRU(200)) x 2 net) on the card at B=64, T=64: 2 steps
+    against a copy on the kernel-disabled plain path, then timed steps
+    that must launch exactly 2 forwards (with reserve) and 2 backwards a
+    step per GRU direction; losses fall. A profiled window names the
+    designs the launchers chose and must show each kernel of the design
+    the width takes (cluster to H = 512, grid past it), one launch a GRU
+    direction a step."""
     from deeplearning4j_tpu_torch.common.env import env
     from deeplearning4j_tpu_torch.common.trees import tree_leaves
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
@@ -2208,7 +2331,8 @@ def phase_gru_training(torch, np, bidi=False):
         launcher_design,
     )
 
-    net = MultiLayerNetwork(gru_charrnn_conf(bidi)).init(device="cuda")
+    net = MultiLayerNetwork(gru_charrnn_conf(bidi, units)).init(
+        device="cuda")
     plain = copy.deepcopy(net)
     B, T = 64, GRU_TIMESTEPS
     x, y = _char_batch(np, np.random.default_rng(SEED + 12), GRU_VOCAB, B, T)
@@ -2221,7 +2345,8 @@ def phase_gru_training(torch, np, bidi=False):
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(card, ref))
     param_err = max(float((a - b).abs().max()) for a, b in zip(
         tree_leaves(net.params), tree_leaves(plain.params)))
-    name = "Bidirectional(GRU(200)) x 2" if bidi else "GRU char-RNN"
+    name = ("Bidirectional(GRU(200)) x 2" if bidi else "GRU char-RNN"
+            if units == GRU_UNITS else f"GRU({units}) x 2 char-RNN")
     if loss_err > TOL_TRAIN_LOSS or param_err > TOL_TRAIN_PARAM:
         fail(f"{name}, 2 steps, kernels vs plain on the card: loss rel err "
              f"{loss_err} (tol {TOL_TRAIN_LOSS}), param abs err {param_err} "
@@ -2229,7 +2354,8 @@ def phase_gru_training(torch, np, bidi=False):
     del plain
 
     n = 4 if bidi else 2   # GRU directions in the net
-    steps = N_BIDI_GRU_STEPS if bidi else N_GRU_STEPS
+    steps = (N_BIDI_GRU_STEPS if bidi else N_GRU_STEPS
+             if units == GRU_UNITS else N_WIDE_GRU_STEPS)
     losses, launches, reserves, wall = _count_launches(
         torch, KERNELS, lambda: [net.fit_batch((x, y)) for _ in range(steps)])
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
@@ -2255,7 +2381,8 @@ def phase_gru_training(torch, np, bidi=False):
     }
     # the designs the launchers chose at the net's shape, and a profiled
     # window that shows each design's kernel, n launches a step
-    H = 200 if bidi else GRU_UNITS
+    H = 200 if bidi else units
+    want = "cluster" if H <= 512 else "grid"
     designs = {"fwd": launcher_design(T, B, H, torch.float32),
                "bwd": launcher_bwd_design(T, B, H, torch.float32)}
     names = {"fwd": FWD_KERNEL_NAMES[designs["fwd"].kind],
@@ -2266,10 +2393,10 @@ def phase_gru_training(torch, np, bidi=False):
         torch, lambda: net.fit_batch((x, y)), n_prof,
         {kname: n for kname in names.values()})
     for k, kname in names.items():
-        if designs[k].kind != "cluster" or seen[kname] != n * n_prof:
+        if designs[k].kind != want or seen[kname] != n * n_prof:
             fail(f"{name}: {n_prof} profiled steps show {seen[kname]} "
                  f"launches of {kname} ({designs[k].kind} design); want {n} "
-                 f"a step of the cluster design")
+                 f"a step of the {want} design")
     out["profile"] = _profile_summary(by_kernel, prof_wall, n_prof, "step")
     if not bidi:
         out["synced_step_ms"] = host_ms(torch, lambda: net.fit_batch((x, y)),
@@ -2277,21 +2404,51 @@ def phase_gru_training(torch, np, bidi=False):
     return out
 
 
-def gru_kernel_entries(by_name, rows, worst, worst_bf16, serve, train,
-                       bidi):
+def _grid_shapes(rows, kind, sass):
+    """The grid rows at H = 1024 for the kernels line: the forward (``kind``
+    "fwd", with and without the reserve) or the backward, f32 and bf16,
+    with their plans, times a step and tensor-core instruction counts."""
+    out = []
+    for r in rows:
+        if r["shape"] not in ("h1024", "h1024_bf16"):
+            continue
+        d = r["design"] if kind == "fwd" else r["bwd_design"]
+        e = {"shape": f"[B=64, T=64, H=1024] {r['dtype']}", "design": d,
+             "ms": r[f"{kind}_ms"], "device_ms": r[f"{kind}_device_ms"],
+             "plain_ms": r[f"{kind}_plain_ms"],
+             "bound_ms": r[f"{kind}_bound_ms"],
+             "bound_by": r[f"{kind}_bound_by"],
+             "library_ms": r[f"library_{kind}_ms"],
+             "library_device_ms": r[f"library_{kind}_device_ms"],
+             "us_per_step": r["grid_step"][f"{kind}_us_per_step"],
+             "tensor_core_ops": sass[f"gru_{kind}_grid_kernel_{r['dtype']}"]}
+        if kind == "fwd":
+            e.update(reserve_ms=r["fwd_reserve_ms"],
+                     reserve_device_ms=r["fwd_reserve_device_ms"],
+                     reserve_plain_ms=r["fwd_reserve_plain_ms"],
+                     reserve_bound_ms=r["fwd_reserve_bound_ms"])
+        out.append(e)
+    return out
+
+
+def gru_kernel_entries(by_name, rows, worst, worst_bf16, serve, train, wide,
+                       bidi, sass):
     """The kernels line's two GRU entries. The kernels at the GRU char-RNN's
     shapes, f32: the forward at decode [8, 1, 256] (the serving path), with
     its training shape beside it; the backward at the training shape
-    [64, 64, 256]."""
+    [64, 64, 256]. Beside them the grid design at [64, 64, 1024] (the
+    GRU(1024) x 2 char-RNN's shape)."""
     g_dec, g_train = rows[0], rows[2]
     gfwd, gbwd = by_name["fused_gru_fwd"], by_name["fused_gru_bwd"]
-    gs, gt, gb = (p["launches"] for p in (serve, train, bidi))
+    gs, gt, gw, gb = (p["launches"] for p in (serve, train, wide, bidi))
     return [{
         "name": gfwd.name, "route": "cuda", "source": gfwd.source,
         "replaces": gfwd.replaces,
-        "launches": gs[gfwd.name] + gt[gfwd.name] + gb[gfwd.name],
+        "launches": (gs[gfwd.name] + gt[gfwd.name] + gw[gfwd.name]
+                     + gb[gfwd.name]),
         "launches_by_path": {"gru_serving": gs[gfwd.name],
                              "gru_training": gt[gfwd.name],
+                             "gru1024_training": gw[gfwd.name],
                              "bidi_gru_training": gb[gfwd.name]},
         "max_abs_err": worst, "max_abs_err_bf16": worst_bf16,
         "ms": g_dec["fwd_ms"], "device_ms": g_dec["fwd_device_ms"],
@@ -2312,12 +2469,15 @@ def gru_kernel_entries(by_name, rows, worst, worst_bf16, serve, train,
             "bound_by": g_train["fwd_reserve_bound_by"],
             "library_ms": g_train["library_fwd_ms"],
             "library_device_ms": g_train["library_fwd_device_ms"]},
+        "grid_shapes": _grid_shapes(rows, "fwd", sass),
     }, {
         "name": gbwd.name, "route": "cuda", "source": gbwd.source,
         "replaces": gbwd.replaces,
-        "launches": gs[gbwd.name] + gt[gbwd.name] + gb[gbwd.name],
+        "launches": (gs[gbwd.name] + gt[gbwd.name] + gw[gbwd.name]
+                     + gb[gbwd.name]),
         "launches_by_path": {"gru_serving": gs[gbwd.name],
                              "gru_training": gt[gbwd.name],
+                             "gru1024_training": gw[gbwd.name],
                              "bidi_gru_training": gb[gbwd.name]},
         "max_abs_err": worst, "max_abs_err_bf16": worst_bf16,
         "ms": g_train["bwd_ms"], "device_ms": g_train["bwd_device_ms"],
@@ -2329,6 +2489,7 @@ def gru_kernel_entries(by_name, rows, worst, worst_bf16, serve, train,
         "library_device_ms": g_train["library_bwd_device_ms"],
         "shape": "[B=64, T=64, H=256] f32",
         "design": g_train["bwd_design"]["kind"],
+        "grid_shapes": _grid_shapes(rows, "bwd", sass),
     }]
 
 
@@ -2450,7 +2611,10 @@ def main() -> None:
     print(f"LeNet training on {card}: {lenet['step_wall_ms']:.2f} ms a "
           f"step, {lenet['samples_per_s']:.1f} samples/s", flush=True)
 
-    # phase 16: GRU kernels against plain
+    # phase 16: GRU kernels against plain, the bf16 grid products on the
+    # tensor cores
+    gru_sass = gru_grid_tensor_cores()
+    print(json.dumps({"gru_grid_tensor_cores": gru_sass}), flush=True)
     gru_rows, gru_worst, gru_worst_bf16 = phase_gru_kernels(torch)
     print(json.dumps({"gru_kernel_shapes": gru_rows, "card": card}),
           flush=True)
@@ -2463,13 +2627,19 @@ def main() -> None:
           f"{gru_serve['ttft_p50_ms']:.2f} ms, device busy "
           f"{gru_serve['decode_profile']['device_busy_share']}", flush=True)
 
-    # phase 18: GRU char-RNN training
+    # phase 18: GRU char-RNN training, GRULayer(256) x 2 (the cluster
+    # kernels) and GRULayer(1024) x 2 (the grid kernels)
     gru_train = phase_gru_training(torch, np)
     print(json.dumps({"gru_training": gru_train, "card": card}), flush=True)
-    print(f"GRU char-RNN training on {card}: "
-          f"{gru_train['step_wall_ms']:.2f} ms a step, "
-          f"{gru_train['samples_per_s']:.1f} samples/s, device busy "
-          f"{gru_train['profile']['device_busy_share']}", flush=True)
+    wide_gru = phase_gru_training(torch, np, units=WIDE_GRU_UNITS)
+    print(json.dumps({"gru1024_training": wide_gru, "card": card}),
+          flush=True)
+    for what, run in (("GRU char-RNN", gru_train),
+                      ("GRU(1024) x 2 char-RNN", wide_gru)):
+        print(f"{what} training on {card}: {run['step_wall_ms']:.2f} ms a "
+              f"step, {run['samples_per_s']:.1f} samples/s, device "
+              f"{run['profile']['device_ms_per_step']:.3f} ms a step, busy "
+              f"{run['profile']['device_busy_share']}", flush=True)
 
     # phase 19: Bidirectional(GRU(200)) x 2 training
     bidi_gru = phase_gru_training(torch, np, bidi=True)
@@ -2608,7 +2778,7 @@ def main() -> None:
         })
     entries += gru_kernel_entries(by_name, gru_rows, gru_worst,
                                   gru_worst_bf16, gru_serve, gru_train,
-                                  bidi_gru)
+                                  wide_gru, bidi_gru, gru_sass)
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -36,18 +36,26 @@ A call that mixes f32 and bf16 computes in f32, as jnp's promotion does:
 the wrappers widen the narrower operands before launching (``widen``;
 widening is exact).
 
-Each kernel has two designs (``csrc/fused_gru.cu``, ``fused_gru_bwd.cu``)
-on the cluster layer of ``csrc/recurrent_cluster.cuh``: at T > 1, where a
-thread-block cluster can hold R in shared memory, the cluster kernel; at
-T == 1 and for any wider R, the stream kernel, which reads R (the
-backward: R^T, formed by the wrapper for that design alone) from L2 every
-step. The C launchers choose; :func:`fwd_design` and :func:`bwd_design`
-repeat their choices, and ``FWD_KERNEL_NAMES`` and ``BWD_KERNEL_NAMES``
-name each design's device function.
+Each kernel has three designs (``csrc/fused_gru.cu``,
+``fused_gru_bwd.cu``): at T > 1, where a thread-block cluster can hold R in
+shared memory (H <= 512), the cluster kernel, on the cluster layer of
+``csrc/recurrent_cluster.cuh``; at T > 1 past that width, where the whole
+card holds R, the grid kernel, on the grid layer of
+``csrc/recurrent_grid.cuh`` (R split across row groups of CTAs, 64 a
+group in f32 at H = 1024, one barrier a step over a group, h or the
+partial carries through L2, the bf16 step products on the tensor cores;
+the wrapper allocates the workspace the launcher's plan asks for); at T ==
+1 and for any R the card cannot hold, the stream kernel, which reads R
+(the backward: R^T, formed by the wrapper for that design alone) from L2
+every step. The C launchers choose;
+:func:`fwd_design` and :func:`bwd_design` repeat their choices, and
+``FWD_KERNEL_NAMES`` and ``BWD_KERNEL_NAMES`` name each design's device
+function.
 
 A stream block keeps all of h in shared memory, under the launchers' cap,
 so H has a limit: :func:`kernel_admits` repeats the launchers' arithmetic
-(the cluster design takes only shapes the stream design also takes). The
+(the cluster and grid designs take only shapes the stream design also
+takes). The
 registry sends an all-CUDA ``gru_layer`` call here when
 :func:`kernel_admits` takes it (f32 or bf16, H under the limit of the
 kernels the call will run); any other call takes the plain lowering, as
@@ -60,6 +68,7 @@ saved the reserve.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -67,6 +76,7 @@ import torch
 from deeplearning4j_tpu_torch.common.dtypes import widen
 from deeplearning4j_tpu_torch.ops.cuda.build import launch, pointer
 from deeplearning4j_tpu_torch.ops.cuda import recurrent_cluster as rc
+from deeplearning4j_tpu_torch.ops.cuda import recurrent_grid as rg
 from deeplearning4j_tpu_torch.ops.cuda.fused_lstm import (
     RecurrentKernel, _check_shapes, _check_tensors, _needs_grad, _promoted,
     stream_slices,
@@ -91,20 +101,24 @@ _BWD_SYMBOLS = {torch.float32: "dl4j_gru_bwd",
 
 #: the device function of each design, for profiles
 FWD_KERNEL_NAMES = {"cluster": "gru_fwd_cluster_kernel",
+                    "grid": "gru_fwd_grid_kernel",
                     "stream": "gru_fwd_kernel"}
 BWD_KERNEL_NAMES = {"cluster": "gru_bwd_cluster_kernel",
+                    "grid": "gru_bwd_grid_kernel",
                     "stream": "gru_bwd_kernel"}
 
 FUSED_GRU = RecurrentKernel(
     "fused_gru_fwd", "fused_gru.cu",
     "deeplearning4j_tpu/ops/pallas/fused_gru.py:45 (_gru_kernel)",
-    {**{sym: "ppppppiiip" for sym in _FWD_SYMBOLS.values()},
-     "dl4j_gru_fwd_plan": "iiiip", "dl4j_gru_active_clusters": "iiiip"})
+    {**{sym: "pppppppliiip" for sym in _FWD_SYMBOLS.values()},
+     "dl4j_gru_fwd_plan": "iiiip", "dl4j_gru_active_clusters": "iiiip",
+     "dl4j_gru_grid_resident": "iiip"})
 FUSED_GRU_BWD = RecurrentKernel(
     "fused_gru_bwd", "fused_gru_bwd.cu",
     "deeplearning4j_tpu/ops/pallas/fused_gru.py:237 (_gru_bwd_kernel)",
-    {**{sym: "ppppppppiiip" for sym in _BWD_SYMBOLS.values()},
-     "dl4j_gru_bwd_plan": "iiiip", "dl4j_gru_bwd_active_clusters": "iiiip"})
+    {**{sym: "pppppppppliiip" for sym in _BWD_SYMBOLS.values()},
+     "dl4j_gru_bwd_plan": "iiiip", "dl4j_gru_bwd_active_clusters": "iiiip",
+     "dl4j_gru_bwd_grid_resident": "iiip"})
 
 
 def fused_gru_recurrence(xg, R, h0, save_residuals=False):
@@ -133,9 +147,13 @@ def fused_gru_recurrence(xg, R, h0, save_residuals=False):
         return res + (reserve,) if save_residuals else res
     out = xg.new_empty((T, B, H))
     hT = xg.new_empty((B, H))
+    # decode (T == 1) always takes the stream design, which needs no
+    # workspace: only longer calls ask the launcher's plan
+    work = (_workspace(_fwd_plan(T, B, H, xg.dtype, xg.device)[1], xg)
+            if T > 1 else None)
     launch(FUSED_GRU, _FWD_SYMBOLS[xg.dtype], xg.device, (
         pointer(xg), pointer(R), pointer(h0), pointer(out), pointer(hT),
-        pointer(reserve), T, B, H))
+        pointer(reserve), pointer(work), _nbytes(work), T, B, H))
     if save_residuals:
         FUSED_GRU.reserves += 1
     return (out, hT, reserve) if save_residuals else (out, hT)
@@ -165,15 +183,30 @@ def fused_gru_bwd_recurrence(reserve, R, h0, out, dout):
     _check_shapes("fused_gru_bwd", {
         "R": (R, (H, 3 * H)), "h0": (h0, (B, H)), "out": (out, (T, B, H)),
         "dout": (dout, (T, B, H))})
-    # the stream design reads R^T; the cluster design reads R itself
-    Rt = (R.t().contiguous()
-          if _bwd_plan(T, B, H, dt, dev).kind == "stream" else None)
+    # the stream design reads R^T; the cluster and grid designs read R
+    # itself, the grid design with its workspace
+    design, nbytes = _bwd_plan(T, B, H, dt, dev)
+    Rt = R.t().contiguous() if design.kind == "stream" else None
+    work = _workspace(nbytes, reserve)
     dg = reserve.new_empty((T, B, 3 * H))
     dh0 = reserve.new_empty((B, H))
     launch(FUSED_GRU_BWD, _BWD_SYMBOLS[dt], dev, (
         pointer(reserve), pointer(R), pointer(Rt), pointer(h0), pointer(out),
-        pointer(dout), pointer(dg), pointer(dh0), T, B, H))
+        pointer(dout), pointer(dg), pointer(dh0), pointer(work),
+        _nbytes(work), T, B, H))
     return dg, dh0
+
+
+def _workspace(nbytes: int, like: torch.Tensor):
+    """The workspace a launcher's plan asks for (``nbytes`` bytes on
+    ``like``'s device; the grid design's), or None where it asks for
+    none."""
+    return like.new_empty(nbytes, dtype=torch.uint8) if nbytes else None
+
+
+def _nbytes(work) -> int:
+    """The bytes of a workspace from :func:`_workspace` (0 for None)."""
+    return 0 if work is None else work.numel()
 
 
 class FusedGRUFunction(torch.autograd.Function):
@@ -308,21 +341,29 @@ def bwd_cluster_smem_bytes(rb: int, H: int, C: int, e: int) -> int:
 
 
 def fwd_design(T: int, B: int, H: int, dtype: torch.dtype,
-               active_clusters=None) -> Design:
+               active_clusters=None, co_resident=None) -> Design:
     """The forward launcher's choice for a [T, B, *, H] call
     (csrc/fused_gru.cu ``plan_fwd``). ``active_clusters(C, rows, smem)`` is
     the card's ``cudaOccupancyMaxActiveClusters`` for clusters of C CTAs of
-    the kernel for ``rows`` rows with ``smem`` bytes each; None asks the
-    card (:func:`card_active_clusters`).
+    the kernel for ``rows`` rows with ``smem`` bytes each;
+    ``co_resident(rows, smem)`` the CTAs of the grid kernel for ``rows``
+    rows the card holds at once; None asks the card
+    (:func:`card_active_clusters`, :func:`card_co_resident`).
 
-    T > 1 takes the cluster design where ``plan_cluster`` finds one.
-    Everything else takes the stream design (whose launcher refuses what
-    :func:`kernel_admits` refuses): rows halved while over the cap, then
-    more k-slices while warps would idle."""
+    T > 1 takes the cluster design where ``plan_cluster`` finds one, else
+    the grid design where ``plan_grid`` finds one. Everything else takes
+    the stream
+    design (whose launcher refuses what :func:`kernel_admits` refuses):
+    rows halved while over the cap, then more k-slices while warps would
+    idle."""
     e = 2 if dtype == torch.bfloat16 else 4
     if T > 1:
         d = plan_cluster(B, H, lambda rb, C: cluster_smem_bytes(rb, H, e),
                          active_clusters or card_active_clusters(dtype))
+        if d is not None:
+            return d
+        d = rg.plan_grid(B, H, e, lambda rb: rg.fwd_grid_smem_bytes(H, 3),
+                         co_resident or card_co_resident(dtype))
         if d is not None:
             return d
     upb = min(H, SMEM_TILE) if T == 1 else H
@@ -344,19 +385,27 @@ def bwd_stream_smem_bytes(rb: int, H: int, slices: int = 1) -> int:
 
 
 def bwd_design(T: int, B: int, H: int, dtype: torch.dtype,
-               active_clusters=None) -> Design:
+               active_clusters=None, co_resident=None) -> Design:
     """The backward launcher's choice for a [T, B, *, H] call
     (csrc/fused_gru_bwd.cu ``plan_bwd``), as :func:`fwd_design` for the
     forward: the cluster design at T > 1 where ``plan_cluster`` finds one
     (a CTA's shared memory grows with the cluster, by its receive slots);
-    else the stream design, rows halved while over the cap, then more
-    slices of the 3H reduction while warps would idle. ``active_clusters``
-    None asks the card (:func:`card_bwd_active_clusters`)."""
+    else the grid design where ``plan_grid`` finds one (a CTA's shared
+    memory grows with its rows, by the product operands); else the stream
+    design, rows halved while over the cap, then more slices of the 3H
+    reduction while warps would idle. ``active_clusters`` and
+    ``co_resident`` None ask the card (:func:`card_bwd_active_clusters`,
+    :func:`card_bwd_co_resident`)."""
     e = 2 if dtype == torch.bfloat16 else 4
     if T > 1:
         d = plan_cluster(B, H,
                          lambda rb, C: bwd_cluster_smem_bytes(rb, H, C, e),
                          active_clusters or card_bwd_active_clusters(dtype))
+        if d is not None:
+            return d
+        d = rg.plan_grid(B, H, e,
+                         lambda rb: rg.bwd_grid_smem_bytes(rb, H, 3, e),
+                         co_resident or card_bwd_co_resident(dtype))
         if d is not None:
             return d
     rb = rows_max(B)
@@ -380,30 +429,61 @@ def card_bwd_active_clusters(dtype: torch.dtype, device=None):
                                    device)
 
 
+def card_co_resident(dtype: torch.dtype, device=None):
+    """``co_resident`` for :func:`fwd_design` from the card."""
+    return rg.card_co_resident(FUSED_GRU, "dl4j_gru_grid_resident", dtype,
+                               device)
+
+
+def card_bwd_co_resident(dtype: torch.dtype, device=None):
+    """``co_resident`` for :func:`bwd_design` from the card."""
+    return rg.card_co_resident(FUSED_GRU_BWD, "dl4j_gru_bwd_grid_resident",
+                               dtype, device)
+
+
+def launcher_plan(kernel, symbol: str, T: int, B: int, H: int,
+                  dtype: torch.dtype, device=None) -> tuple[Design, int]:
+    """A C launcher's own plan (``symbol``, a ``dl4j_gru_*_plan``) on the
+    card: its :class:`Design` and the workspace bytes a call must pass (0
+    unless grid)."""
+    kind, C, rb, smem, units, ctas, groups, work = rc.query(
+        kernel, symbol, 8, device, T, B, H, int(dtype == torch.bfloat16),
+        ctype=ctypes.c_longlong)
+    if kind == 2:
+        return Design("grid", None, rb, smem, units, ctas, groups), work
+    return Design("cluster" if kind else "stream", C or None, rb, smem), 0
+
+
 def launcher_design(T: int, B: int, H: int, dtype: torch.dtype,
                     device=None) -> Design:
     """The forward C launcher's own choice (``dl4j_gru_fwd_plan``)."""
-    return rc.launcher_design(FUSED_GRU, "dl4j_gru_fwd_plan", T, B, H, dtype,
-                              device)
+    return launcher_plan(FUSED_GRU, "dl4j_gru_fwd_plan", T, B, H, dtype,
+                         device)[0]
 
 
 def launcher_bwd_design(T: int, B: int, H: int, dtype: torch.dtype,
                         device=None) -> Design:
     """The backward C launcher's own choice (``dl4j_gru_bwd_plan``)."""
-    return rc.launcher_design(FUSED_GRU_BWD, "dl4j_gru_bwd_plan", T, B, H,
-                              dtype, device)
+    return launcher_plan(FUSED_GRU_BWD, "dl4j_gru_bwd_plan", T, B, H, dtype,
+                         device)[0]
 
 
-#: the backward launcher's choice by call, asked once: the wrapper forms
-#: R^T only for the stream design
-_bwd_plan = functools.lru_cache(maxsize=256)(launcher_bwd_design)
+#: the launchers' plans by call, asked once: the wrappers allocate the
+#: workspace a plan asks for, and form R^T only for the backward's stream
+#: design
+_fwd_plan = functools.lru_cache(maxsize=256)(
+    functools.partial(launcher_plan, FUSED_GRU, "dl4j_gru_fwd_plan"))
+_bwd_plan = functools.lru_cache(maxsize=256)(
+    functools.partial(launcher_plan, FUSED_GRU_BWD, "dl4j_gru_bwd_plan"))
 
 
 def kernel_admits(T: int, H: int, dtype: torch.dtype,
                   backward: bool) -> bool:
     """Can the kernels compute a call of this length, width and (promoted)
     type: f32 or bf16, and the shared memory of the forward, and of the
-    backward when autograd will run it, under the cap."""
+    backward when autograd will run it, under the cap. The cluster and
+    grid designs widen nothing: they take only shapes that the stream
+    launchers take too."""
     return (dtype in _FWD_SYMBOLS and fwd_smem_bytes(T, H) <= SMEM_CAP
             and (not backward or bwd_smem_bytes(H) <= SMEM_CAP))
 

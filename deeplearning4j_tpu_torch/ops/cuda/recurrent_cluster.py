@@ -4,6 +4,8 @@ launchers see it: the Python mirror of ``csrc/recurrent_cluster.cuh``.
 The GRU and LSTM forwards and backwards each have two designs:
 at T > 1, where a thread-block cluster can hold R in shared memory, a
 cluster kernel; elsewhere a stream kernel that reads R from L2 every step.
+The GRU's have a third past the cluster's width, on the grid layer
+(``recurrent_grid.py``).
 The C launchers choose by shape and by what the card can co-schedule
 (``plan_cluster``), never by a failed launch. Each family's ``fwd_design``
 / ``bwd_design`` repeats that choice here, so that the CPU tests can hold
@@ -33,13 +35,19 @@ ActiveClusters = Callable[[int, int, int], int]
 
 
 class Design(NamedTuple):
-    """What a launcher runs: ``kind`` "cluster" or "stream", ``cluster``
-    CTAs a cluster (None for stream), ``rows`` batch rows a cluster (or a
-    stream block), ``smem`` dynamic shared memory bytes of a block."""
+    """What a launcher runs: ``kind`` "cluster", "grid" or "stream",
+    ``cluster`` CTAs a cluster (None unless cluster), ``rows`` batch rows a
+    cluster (a grid row group, a stream block), ``smem`` dynamic shared
+    memory bytes of a block; for the grid design alone (None otherwise)
+    ``units`` hidden units a CTA, ``ctas`` CTAs a row group and ``groups``
+    the groups launched together (``recurrent_grid.py``)."""
     kind: str
     cluster: Optional[int]
     rows: int
     smem: int
+    units: Optional[int] = None
+    ctas: Optional[int] = None
+    groups: Optional[int] = None
 
 
 def rows_max(B: int) -> int:
@@ -102,14 +110,15 @@ def plan_cluster(B: int, H: int, smem_of: Callable[[int, int], int],
     return None
 
 
-def query(kernel, symbol: str, n_out: int, device, *args) -> list:
+def query(kernel, symbol: str, n_out: int, device, *args,
+          ctype=ctypes.c_int) -> list:
     """Call one of ``kernel``'s query functions on ``device`` (None: the
-    current card); returns its ``n_out`` int outputs."""
+    current card); returns its ``n_out`` outputs of C type ``ctype``."""
     from deeplearning4j_tpu_torch.ops.cuda.build import check_status
 
     device = torch.device("cuda", torch.cuda.current_device()) \
         if device is None else torch.device(device)
-    out = (ctypes.c_int * n_out)()
+    out = (ctype * n_out)()
     lib = kernel.library.load(device)
     with torch.cuda.device(device):
         check_status(lib, getattr(lib, symbol)(*args, out), symbol)

@@ -365,12 +365,12 @@ def test_kernels_against_plain_on_card(cuda_device):
 def _ran(fn, kind, calls=3):
     """Run ``fn`` (one forward launch) ``calls`` times under the profiler,
     after a warm-up call outside it: (did every call launch the ``kind``
-    design and none the other, the event counts). Only the cluster design
-    launches through cudaLaunchKernelEx (for its cluster dimension), the
-    stream design through cudaLaunchKernel; these host calls are always
-    recorded. The kernels' device records are not: on the H100 a short
-    window kept 0 to 2 of 3, so they are checked only for the other
-    design's kernel."""
+    design and none of the others, the event counts). The cluster and grid
+    designs launch through cudaLaunchKernelEx (for the cluster dimension,
+    or the cooperative attribute), the stream design through
+    cudaLaunchKernel; these host calls are always recorded. The kernels'
+    device records are not: on the H100 a short window kept 0 to 2 of 3,
+    so they are checked only for the other designs' kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -383,11 +383,13 @@ def _ran(fn, kind, calls=3):
     ex = sum(n for k, n in counts.items()
              if k.startswith("cudaLaunchKernelEx"))
     plain = counts.get("cudaLaunchKernel", 0)
-    other = "stream" if kind == "cluster" else "cluster"
-    # a name that holds "gru_fwd_kernel" is never the cluster kernel's
-    other_ran = any(port_fused.FWD_KERNEL_NAMES[other] in k for k in counts)
-    launched = (ex, plain) == ((calls, 0) if kind == "cluster"
-                               else (0, calls))
+    # a name that holds "gru_fwd_kernel" is never the cluster or grid
+    # kernel's
+    other_ran = any(name in k for other, name in
+                    port_fused.FWD_KERNEL_NAMES.items() if other != kind
+                    for k in counts)
+    launched = (ex, plain) == ((0, calls) if kind == "stream"
+                               else (calls, 0))
     return launched and not other_ran, counts
 
 
@@ -444,11 +446,11 @@ def test_cluster_kernel_against_plain_on_card(cuda_device, H, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("H,kind", [(512, "cluster"), (514, "stream")])
+@pytest.mark.parametrize("H,kind", [(512, "cluster"), (514, "grid")])
 def test_design_boundary_on_card(cuda_device, H, kind, dtype):
     """Both sides of the design boundary: H=512 takes clusters of 16 CTAs,
-    32 units each; H=514 the stream design. Either against the plain
-    version (T 2, B 3)."""
+    32 units each; H=514 the grid design (R across the card). Either
+    against the plain version (T 2, B 3)."""
     dt = getattr(torch, dtype)
     g = torch.Generator(device=cuda_device).manual_seed(7)
     design = port_fused.launcher_design(2, 3, H, dt)
@@ -472,17 +474,27 @@ def test_design_boundary_on_card(cuda_device, H, kind, dtype):
 
 
 @pytest.mark.cuda
-def test_decode_and_wide_r_take_the_stream_design_on_card(cuda_device):
-    """Decode (T == 1) and H=1024 run the stream kernel; the launcher's
-    choice is fwd_design's at the GRU paths' shapes."""
-    for T, B, H, dt, kind in ((1, 8, 256, torch.float32, "stream"),
-                              (64, 64, 1024, torch.float32, "stream"),
-                              (64, 64, 1024, torch.bfloat16, "stream"),
-                              (47, 1, 256, torch.float32, "cluster"),
-                              (64, 64, 256, torch.bfloat16, "cluster"),
-                              (64, 64, 200, torch.float32, "cluster")):
-        design = port_fused.launcher_design(T, B, H, dt)
-        assert design == port_fused.fwd_design(T, B, H, dt)
+@pytest.mark.parametrize("T,B,H,dtype,kind", [
+    (1, 8, 256, "float32", "stream"), (1, 8, 1024, "float32", "stream"),
+    (64, 64, 1024, "float32", "grid"), (64, 64, 1024, "bfloat16", "grid"),
+    (64, 64, 768, "float32", "grid"), (5, 3, 640, "float32", "grid"),
+    (47, 1, 256, "float32", "cluster"), (64, 64, 256, "bfloat16", "cluster"),
+    (64, 64, 200, "float32", "cluster"), (8, 64, 1200, "float32", "stream"),
+    (8, 64, 1200, "bfloat16", "stream")])
+def test_decode_and_wide_r_take_the_stream_design_on_card(cuda_device, T, B,
+                                                          H, dtype, kind):
+    """Decode (T == 1) runs the stream kernel at any width, T > 1 the
+    cluster kernel to H = 512, the grid kernel past it, and the stream
+    kernel again past the width the grid holds (H = 1200); the forward and
+    backward launchers' choices are fwd_design's and bwd_design's at the
+    GRU paths' shapes."""
+    dt = getattr(torch, dtype)
+    for launcher, mirror in ((port_fused.launcher_design,
+                              port_fused.fwd_design),
+                             (port_fused.launcher_bwd_design,
+                              port_fused.bwd_design)):
+        design = launcher(T, B, H, dt)
+        assert design == mirror(T, B, H, dt)
         assert design.kind == kind, (T, B, H, dt)
 
 
@@ -538,11 +550,12 @@ def test_bwd_cluster_kernel_against_plain_on_card(cuda_device, dtype):
     partial carries reduce-scattered through distributed shared memory) at
     the GRU paths' training shapes, [64, 64, 256] and Bidirectional
     GRU(200)'s reversed [64, 64, 200], and a ragged reversed [3, 5, 200];
-    the stream design (R^T from L2) at T = 1 and H = 1024. The launcher's
-    choice is bwd_design's, and the cluster design alone launches through
-    cudaLaunchKernelEx. dg and dh0 against the plain backward on the
-    kernel's own reserve, and bit-equal from run to run (each carry sums
-    its slots in rank order). Tolerances as
+    the stream design (R^T from L2) at T = 1 and past the width the grid
+    holds (H = 1200), and the grid design at H = 1024. The launcher's
+    choice is bwd_design's, and the cluster and grid designs alone launch
+    through cudaLaunchKernelEx. dg and dh0 against the plain backward on
+    the kernel's own reserve, and bit-equal from run to run (each carry
+    sums its slots in rank order). Tolerances as
     test_kernels_against_plain_on_card."""
     dt = getattr(torch, dtype)
     g = torch.Generator(device=cuda_device).manual_seed(11)
@@ -550,7 +563,8 @@ def test_bwd_cluster_kernel_against_plain_on_card(cuda_device, dtype):
                                (64, 64, 200, True, "cluster"),
                                (3, 5, 200, True, "cluster"),
                                (8, 1, 256, False, "stream"),
-                               (64, 8, 1024, False, "stream")):
+                               (64, 8, 1200, False, "stream"),
+                               (64, 8, 1024, False, "grid")):
         design = port_fused.launcher_bwd_design(T, B, H, dt)
         assert design == port_fused.bwd_design(T, B, H, dt)
         assert design.kind == kind, (B, T, H)
@@ -566,7 +580,7 @@ def test_bwd_cluster_kernel_against_plain_on_card(cuda_device, dtype):
         def bwd():
             return fused_gru_bwd_recurrence(res, R, h0, out, dout)
 
-        assert _cluster_launches(bwd) == (3 if kind == "cluster" else 0)
+        assert _cluster_launches(bwd) == (0 if kind == "stream" else 3)
         before = FUSED_GRU_BWD.launches
         (dg, dh0), (dg2, dh02) = bwd(), bwd()
         torch.cuda.synchronize()
@@ -615,6 +629,104 @@ def test_cuda_gru_layer_grads_at_the_training_shape(cuda_device, rev):
         want = _torch_grads(op, a, device=cuda_device, reverse=rev)
     finally:
         env.reload()
+    for n, g in got.items():
+        scale = max(1.0, float(want[n].abs().max()))
+        torch.testing.assert_close(g, want[n], atol=1e-4 * scale, rtol=0,
+                                   msg=lambda m, n=n: f"{n}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,T,H,rev", [
+    (64, 64, 1024, False), (3, 5, 640, True), (8, 16, 1000, False),
+    (64, 64, 768, False)], ids=["h1024", "h640_rev", "h1000", "h768"])
+def test_grid_kernels_against_plain_on_card(cuda_device, B, T, H, rev,
+                                            dtype):
+    """The grid design (R across the card, one barrier a step over a row
+    group, h and the partial carries through L2; the bf16 step products on
+    the tensor cores) at widths no cluster holds, ragged ones too (H 1000
+    and 640 not a multiple of a CTA's units, B = 3 under a group's 8 rows,
+    reversed): out, hT and the four
+    reserve planes against the plain forward, out bit-equal with and
+    without the reserve; dg and dh0 against the plain backward on the
+    kernel's own reserve, bit-equal from run to run. Both launchers' plans
+    are their mirrors' and run gru_fwd_grid_kernel and gru_bwd_grid_kernel
+    alone. Tolerances as test_kernels_against_plain_on_card."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda_device).manual_seed(H + B)
+    for launcher, mirror in ((port_fused.launcher_design,
+                              port_fused.fwd_design),
+                             (port_fused.launcher_bwd_design,
+                              port_fused.bwd_design)):
+        d = launcher(T, B, H, dt)
+        assert d == mirror(T, B, H, dt)
+        assert d.kind == "grid", d
+    x = torch.randn(B, T, 77, device=cuda_device, generator=g).to(dt)
+    W = (torch.randn(77, 3 * H, device=cuda_device, generator=g)
+         * 77 ** -0.5).to(dt)
+    b = (0.1 * torch.randn(3 * H, device=cuda_device, generator=g)).to(dt)
+    _, R, h0, dout = _card_case(cuda_device, g, B, T, H, dt)
+    xg = project_gates(x, W, b, reverse=rev)
+    ok, counts = _ran(lambda: fused_gru_recurrence(xg, R, h0), "grid")
+    assert ok, counts
+    out, hT = fused_gru_recurrence(xg, R, h0)
+    out_r, hT_r, res = fused_gru_recurrence(xg, R, h0, save_residuals=True)
+
+    def bwd():
+        return fused_gru_bwd_recurrence(res, R, h0, out_r, dout)
+
+    assert _cluster_launches(bwd) == 3
+    (dg, dh0), (dg2, dh02) = bwd(), bwd()
+    torch.cuda.synchronize()
+    assert torch.equal(out, out_r) and torch.equal(hT, hT_r)
+    assert torch.equal(hT, out[-1])
+    assert torch.equal(dg, dg2) and torch.equal(dh0, dh02)
+    po, ph, pres = plain_recurrence(xg, R, h0, save_residuals=True)
+    pdg, pdh0 = plain_bwd_recurrence(res, R, h0, out_r, dout)
+    for name, got, want in (("out", out, po), ("hT", hT, ph),
+                            ("reserve", res, pres), ("dg", dg, pdg),
+                            ("dh0", dh0, pdh0)):
+        got, want = got.float(), want.float()
+        if dt == torch.float32:
+            tol = 1e-5 * max(1.0, float(want.abs().max()))
+            torch.testing.assert_close(got, want, atol=tol, rtol=0,
+                                       msg=lambda m, n=name: f"{n}: {m}")
+        else:
+            assert bool(((got - want).abs()
+                         <= 2 ** -7 * (1 + want.abs())).all()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rev", [False, True], ids=["fwd", "rev"])
+def test_cuda_gru_layer_grads_on_the_grid_design(cuda_device, rev):
+    """FusedGRUFunction at [B 8, T 16, H 640], both kernels on their grid
+    designs: the five gradients against autograd through the plain
+    lowering on the card, 1e-4 of max(1, max |plain|) (as
+    test_cuda_gru_layer_grads_at_the_training_shape); weights drawn as a
+    layer is initialised."""
+    H = 640
+    a = _inputs(H, B=8, T=16, F=77, seed=13)
+    a["W"] *= 77 ** -0.5 / 0.3
+    a["R"] *= H ** -0.5 / 0.3
+    for launcher, mirror in ((port_fused.launcher_design,
+                              port_fused.fwd_design),
+                             (port_fused.launcher_bwd_design,
+                              port_fused.bwd_design)):
+        d = launcher(16, 8, H, torch.float32)
+        assert d == mirror(16, 8, H, torch.float32)
+        assert d.kind == "grid"
+    op = get_op("gru_layer")
+    before = (FUSED_GRU.launches, FUSED_GRU_BWD.launches)
+    got = _torch_grads(op, a, device=cuda_device, reverse=rev)
+    torch.cuda.synchronize()
+    assert (FUSED_GRU.launches, FUSED_GRU_BWD.launches) == (
+        before[0] + 1, before[1] + 1)
+    env.disable_kernels = True
+    try:
+        want = _torch_grads(op, a, device=cuda_device, reverse=rev)
+    finally:
+        env.reload()
+    assert set(got) == set(NAMES)
     for n, g in got.items():
         scale = max(1.0, float(want[n].abs().max()))
         torch.testing.assert_close(g, want[n], atol=1e-4 * scale, rtol=0,
