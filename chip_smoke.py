@@ -92,23 +92,29 @@ Phases (any failure exits non-zero before the result line):
     against their plain versions at AlexNet's two LRN shapes,
     [128, 54, 54, 96] and [128, 26, 26, 256], and at a ragged
     [3, 7, 5, 77] with even depth 4 and a [4, 3, 3, 3] with C below the
-    depth, in f32 and bf16; ``LRNFunction``'s gradient against autograd
-    through the plain lowering on the card; times of each kernel, its plain
-    version and, as a yardstick the port never calls,
+    depth, in f32 and bf16; each row names the forward's design (16-byte
+    vector or element path, rows a block, threads a row) that its
+    launcher chose, which must be ``lrn.fwd_design``'s; ``LRNFunction``'s
+    gradient against autograd through the plain lowering on the card;
+    times of each kernel, its plain version, its bound and, as a
+    yardstick the port never calls,
     ``torch.nn.functional.local_response_norm`` (forward, and its autograd
     backward) at AlexNet's shapes, on CUDA events and as the device time of
-    its kernels, and the backward kernel's element-by-element path there
-    (data one element past a 16-byte boundary).
+    its kernels, and both kernels' element-by-element paths there (data
+    one element past a 16-byte boundary; the forward held against its
+    plain version on that copy too).
 13. AlexNet inference: ``AlexNet()`` at its published width (224 x 224 x
     3, conv 96-256-384-384-256, two LRN layers, dense 4096-4096, 1000
     classes, f32, random weights from the seed) runs ``output()`` on 128
     random images: 2 LRN forward launches a call and no backward; its
-    logits agree with the plain path on the card; a call is profiled.
+    logits agree with the plain path on the card; a call is profiled
+    (the LRN forward's device time a call among them).
 14. AlexNet training: ``fit_batch`` at B=128, Nesterovs 1e-2 momentum
     0.9, dropout 0.5, on a repeated batch, each step launching 2 LRN
     forward and 2 LRN backward kernels, losses finite and falling; a
-    steady window is profiled. A dropout-0 copy trains 2 steps against the
-    plain path on the card, both from the seed's untrained weights.
+    steady window is profiled (the LRN kernels' device time a step among
+    them). A dropout-0 copy trains 2 steps against the plain path on the
+    card, both from the seed's untrained weights.
 15. LeNet training (BASELINE.json config #1): ``LeNet()`` (flat 28 x 28 x 1
     through ``ReshapeToCnnPreProcessor``, Adam 1e-3) trains at B=64 on
     seeded random images, launching none of the port's kernels.
@@ -153,7 +159,28 @@ Phases (any failure exits non-zero before the result line):
     cells: reversed time and an H that is not a multiple of 32): the same
     checks, 3 timed steps of 4 + 4 launches, 4 + 4 cluster launches a
     profiled step.
-20. Prints the kernels line (all nine kernels), the card line and, last,
+20. ResNet-50 inference (BASELINE.json config #2): ``ResNet50()`` at
+    its published width (224 x 224 x 3, bottleneck stages [3, 4, 6, 3],
+    1000 classes, bf16, random weights from the seed), a
+    ComputationGraph, runs 5 ``output()`` calls on [64, 224, 224, 3] bf16
+    images, launching none of the port's kernels (convolutions and pools
+    on cuDNN); ms a call, images/s, the device busy share, the top
+    kernels and the device time by kind of kernel (convolution, matmul,
+    reduce, elementwise, pooling) of a profiled window.
+21. ResNet-50 training: 2 warm and 10 timed ``fit_batch`` steps at B=64,
+    Nesterovs 0.1 momentum 0.9, on a repeated batch: losses finite and
+    the last below the first (at this lr the loss climbs for several
+    steps before it falls, in the JAX package too), every
+    BatchNormalization's running mean moved;
+    step wall ms, samples/s, device ms, busy share, kernels a step, the
+    top 10 kernels and the device time by kind of a profiled window, and
+    MFU, the step's FLOPs (2 x
+    the multiply-adds of the graph's own convolution and dense shapes, x 3
+    for forward and backward) against 989 TFLOP/s bf16. Then the port's
+    own f32 ResNet-50 (TF32 off) on the card against the same graph on the
+    CPU at B=2 from shared weights: logits, the step's loss and the BN
+    running means within TOL_RESNET_CPU.
+22. Prints the kernels line (all nine kernels), the card line and, last,
     the result line ``{"ok": true, "device": {...}}``.
 
 Every phase runs f32 work with TF32 off (``torch.backends.cuda.matmul``
@@ -1558,6 +1585,7 @@ def phase_lrn_kernels(torch):
             worst[dt] = max(worst[dt], ef, eb)
             rows.append({"shape": name, "dims": list(shape), "depth": depth,
                          "dtype": str(dt).replace("torch.", ""),
+                         "fwd_design": lrn_fwd_design(x, y),
                          "fwd_max_abs_err": ef, "bwd_max_abs_err": eb})
 
     # LRNFunction against autograd through the plain lowering (f32)
@@ -1577,6 +1605,22 @@ def phase_lrn_kernels(torch):
             key = f"{name}_{str(dt).replace('torch.', '')}"
             times[key] = time_lrn(torch, g, shape, dt)
     return rows, times, grad_rel, worst[f32], worst[bf16]
+
+
+def lrn_fwd_design(x, y):
+    """The forward launcher's design for x and y ([path, rows a block,
+    threads a row]), which must be the one ``fwd_design`` names."""
+    from deeplearning4j_tpu_torch.ops.cuda.lrn import (
+        fwd_design, launcher_design,
+    )
+
+    aligned = (x.data_ptr() | y.data_ptr()) % 16 == 0
+    got = launcher_design(x.shape[-1], aligned, x.dtype)
+    want = fwd_design(x.shape[-1], aligned, x.dtype)
+    if got != want:
+        fail(f"LRN forward launcher chose {got} for C = {x.shape[-1]}, "
+             f"{x.dtype}, aligned {aligned}; fwd_design names {want}")
+    return list(got)
 
 
 def time_lrn(torch, g, shape, dt, depth=5):
@@ -1628,12 +1672,24 @@ def time_lrn(torch, g, shape, dt, depth=5):
                                                retain_graph=True), iters),
         "library_max_abs_err_vs_plain": lib_err,
     }
-    # the backward's element-by-element path (no 16-byte loads): the same
-    # data one element past a 16-byte boundary
+    out["fwd_design"] = lrn_fwd_design(x, lrn_forward(x, **hp))
+    # the element-by-element paths (no 16-byte loads): the same data one
+    # element past a 16-byte boundary, the forward held against its plain
+    # version there
     xm, gm = (torch.empty(t.numel() + 1, device="cuda", dtype=dt)[1:]
               .view(shape).copy_(t) for t in (x, gy))
     if xm.data_ptr() % 16 == 0:
         fail("the element path's copy of x is 16-byte aligned")
+    ym = lrn_forward(xm, **hp)
+    out["fwd_element_path_design"] = lrn_fwd_design(xm, ym)
+    err, ok = _lrn_within(torch, ym, lrn_fwd_plain(xm, **hp), dt,
+                          TOL_LRN_FWD)
+    if not ok or out["fwd_element_path_design"][0] != "element":
+        fail(f"LRN forward off a 16-byte boundary at {list(shape)} {dt}: "
+             f"design {out['fwd_element_path_design']}, error {err}")
+    out["fwd_element_path_max_abs_err"] = err
+    out["fwd_element_path_device_ms"] = kernel_device_ms(
+        torch, lambda: lrn_forward(xm, **hp), iters, "lrn_fwd_kernel")
     out["bwd_element_path_device_ms"] = kernel_device_ms(
         torch, lambda: lrn_backward(xm, gm, **hp), iters, "lrn_bwd_kernel")
     out["fwd_bound_ms"], out["fwd_bound_by"] = lrn_bound(shape, e, False,
@@ -1644,18 +1700,54 @@ def time_lrn(torch, g, shape, dt, depth=5):
     return out
 
 
+def _symbol_ms(by_kernel, symbol, n):
+    """Device ms of the kernels named ``symbol`` in a profiled window of
+    ``n`` calls or steps, per call or step."""
+    return sum(t for k, (t, _) in by_kernel.items() if symbol in k) / n
+
+
 def _profile_summary(by_kernel, wall_ms, n, unit, top_n=8):
     """A profiled window of ``n`` calls or steps (``unit``): wall and device
-    ms each, device busy share, device kernels each, top kernels."""
+    ms each, device busy share, device kernels each, top kernels (names cut
+    to 120 characters, which still tell PyTorch's elementwise kernels
+    apart by their functor; kernels whose cut names agree are summed)."""
     busy = sum(t for t, _ in by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:top_n]
+    named = {}
+    for k, (t, _) in top:
+        named[k[:120]] = named.get(k[:120], 0.0) + t / n
     return {
         f"{unit}s": n, f"wall_ms_per_{unit}": wall_ms / n,
         f"device_ms_per_{unit}": busy / n,
         "device_busy_share": busy / wall_ms if by_kernel else None,
         f"device_kernels_per_{unit}": sum(c for _, c in by_kernel.values()) / n,
-        f"top_kernels_ms_per_{unit}": {k[:60]: t / n for k, (t, _) in top},
+        f"top_kernels_ms_per_{unit}": named,
     }
+
+
+# kinds of device kernel by name, first match wins: cuDNN's convolutions
+# (its own and CUTLASS kernels, implicit GEMMs for fprop, dgrad, wgrad),
+# other matrix products, PyTorch's reductions (the BatchNormalization
+# statistics and the loss among them), its elementwise kernels
+# (normalization, activations, adds, casts, the updater), pooling
+KERNEL_KINDS = (("convolution", ("cudnn", "implicit_gemm", "fprop", "dgrad",
+                                 "wgrad", "conv")),
+                ("matmul", ("gemm",)),
+                ("reduce", ("reduce_kernel",)),
+                ("elementwise", ("elementwise",)),
+                ("pooling", ("pool",)))
+
+
+def _ms_by_kind(by_kernel, n):
+    """Device ms of a profiled window of ``n`` calls or steps by kind of
+    kernel (KERNEL_KINDS; "other" for the rest), per call or step."""
+    out = {kind: 0.0 for kind, _ in KERNEL_KINDS}
+    out["other"] = 0.0
+    for k, (t, _) in by_kernel.items():
+        kind = next((kd for kd, pats in KERNEL_KINDS
+                     if any(p in k for p in pats)), "other")
+        out[kind] += t / n
+    return out
 
 
 def _alexnet_images(torch, seed, B, H=224, W=224, C=3, classes=1000):
@@ -1726,6 +1818,8 @@ def phase_alexnet_inference(torch, np):
         "logits_max_rel_err_kernel_vs_plain": err,
         "copy_kernels_per_call": sum(n for _, n in copies) / calls,
         "copy_device_ms_per_call": sum(t for t, _ in copies) / calls,
+        "lrn_fwd_device_ms_per_call": _symbol_ms(by_kernel, "lrn_fwd_kernel",
+                                                 calls),
         "profile": _profile_summary(by_kernel, prof_wall, calls, "call"),
     }, net
 
@@ -1796,6 +1890,10 @@ def phase_alexnet_training(torch, np, net):
         "samples_per_s": ALEXNET_BATCH * N_ALEXNET_STEPS / wall,
         "synced_step_ms": step_ms, "synced_step_split_ms": split,
         "peak_memory_gb": peak,
+        "lrn_fwd_device_ms_per_step": _symbol_ms(by_kernel, "lrn_fwd_kernel",
+                                                 steps),
+        "lrn_bwd_device_ms_per_step": _symbol_ms(by_kernel, "lrn_bwd_kernel",
+                                                 steps),
         "dropout0_copy": {"card_kernel_losses": la, "card_plain_losses": lb,
                           "loss_max_rel_err": loss_err,
                           "param_max_abs_err": param_err},
@@ -2493,6 +2591,197 @@ def gru_kernel_entries(by_name, rows, worst, worst_bf16, serve, train, wide,
     }]
 
 
+# ------------------------------------------------------ ResNet-50 slice
+
+RESNET_BATCH = 64  # BASELINE.md's ResNet-50 row, bench.py's batch
+N_RESNET_CALLS = 5
+N_RESNET_WARM = 2
+N_RESNET_STEPS = 10
+# the port's f32 ResNet-50 on the card (cuDNN, TF32 off) against the same
+# graph on the CPU, B = 2, 224 x 224: logits of output() relative to the
+# largest, the step's loss relative, the BN running means after the step
+# relative to the largest. The convolutions sum in other orders (cuDNN
+# may take Winograd or FFT algorithms) through 53 layers, and the step's
+# BatchNormalizations normalize by statistics of 2 x 7 x 7 values a
+# channel in the last stage. The updated weights are not compared: the
+# gradients through 53 training-mode BatchNormalizations amplify f32
+# rounding by orders (the port's own f32 and f64 steps on the CPU give
+# logits after one step far further apart than before it).
+TOL_RESNET_CPU = 1e-4
+
+
+def resnet_forward_flops(net, batch: int) -> int:
+    """FLOPs of one forward pass of ``batch`` images through a graph: 2 x
+    the multiply-adds of every convolution and dense layer, from the
+    graph's own shapes (conv: output pixels x C_out x kh x kw x C_in /
+    groups; dense: inputs x outputs)."""
+    from deeplearning4j_tpu_torch.nn.layers import ConvolutionLayer, DenseLayer
+
+    macs = 0
+    for name in net.conf.topological_order:
+        layer = getattr(net.conf.vertices[name], "layer", None)
+        if layer is None:
+            continue
+        (itype,) = net._vertex_input_types(name)
+        otype = net.conf.vertex_output_types[name]
+        if isinstance(layer, ConvolutionLayer):
+            h, w, cout = otype.shape
+            kh, kw = layer.kernel
+            macs += h * w * cout * kh * kw * itype.channels // layer.groups
+        elif isinstance(layer, DenseLayer):  # the output layer too
+            macs += itype.size * layer.n_out
+    return 2 * macs * batch
+
+
+def _resnet_batch(torch, seed, B, dtype):
+    """bench.py's ResNet-50 data (``_batch_pool``): images from N(0, 1) in
+    ``dtype`` and one-hot labels over 1000 classes, made on the card from
+    the seed."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((B, 224, 224, 3), device="cuda", generator=g).to(dtype)
+    y = torch.nn.functional.one_hot(
+        torch.randint(0, 1000, (B,), device="cuda", generator=g),
+        1000).float()
+    return x, y
+
+
+def _resnet_logits(torch, net, x):
+    """The output vertex's pre-softmax logits of an inference pass, f32."""
+    from deeplearning4j_tpu_torch.common.dtypes import cast_floating
+
+    with torch.no_grad():
+        _, _, pre = net._forward(
+            cast_floating(net.params, net._policy.compute_dtype), net.state,
+            {"input": x}, False, None, want_preout=True)
+    return pre["output"].float()
+
+
+def phase_resnet_inference(torch, np):
+    """ResNet50() at its published width answering output() calls on
+    [64, 224, 224, 3] bf16 images; returns (summary, net)."""
+    from deeplearning4j_tpu_torch.ops.cuda import KERNELS
+    from deeplearning4j_tpu_torch.zoo import ResNet50
+
+    net = ResNet50(seed=SEED).init(device="cuda")
+    x, _ = _resnet_batch(torch, SEED + 11, RESNET_BATCH, torch.bfloat16)
+    net.output(x)  # warm-up, not counted
+    outs, launches, _, wall = _count_launches(
+        torch, KERNELS, lambda: [net.output(x) for _ in range(N_RESNET_CALLS)])
+    if any(launches.values()):
+        fail(f"ResNet-50 output() launched {launches}; its path runs none "
+             f"of the port's kernels")
+    out = outs[-1]
+    if (tuple(out.shape) != (RESNET_BATCH, 1000)
+            or out.dtype != torch.float32 or out.grad_fn is not None
+            or not bool(torch.isfinite(out).all())
+            or float((out.sum(-1) - 1).abs().max()) > 1e-2):
+        fail(f"ResNet-50 output() gave {tuple(out.shape)} {out.dtype}, "
+             f"finite {bool(torch.isfinite(out).all())}")
+    by_kernel, prof_wall = profile_device(torch, lambda: net.output(x),
+                                          N_RESNET_CALLS)
+    flops = resnet_forward_flops(net, RESNET_BATCH)
+    call_ms = 1e3 * wall / N_RESNET_CALLS
+    return {
+        "model": "ResNet50(224 x 224 x 3, [3, 4, 6, 3] bottlenecks, 1000 "
+                 "classes), bf16, random weights from the seed",
+        "batch": RESNET_BATCH, "params": net.num_params(),
+        "calls": N_RESNET_CALLS, "launches": launches,
+        "wall_ms_per_call": call_ms,
+        "images_per_s": RESNET_BATCH * N_RESNET_CALLS / wall,
+        "synced_ms_per_call": host_ms(torch, lambda: net.output(x),
+                                      N_RESNET_CALLS),
+        "forward_gflop_per_call": flops / 1e9,
+        "mfu": flops / (call_ms * 1e-3) / BF16_FLOP_PER_S,
+        "profile": _profile_summary(by_kernel, prof_wall, N_RESNET_CALLS,
+                                    "call", top_n=10),
+        "device_ms_per_call_by_kind": _ms_by_kind(by_kernel, N_RESNET_CALLS),
+    }, net
+
+
+def resnet_cpu_check(torch, np):
+    """The port's own f32 ResNet-50 (TF32 off) on the card against the same
+    graph on the CPU, B = 2 at 224 x 224, from shared weights: logits of
+    output(), the loss of one fit_batch step and the BN running means after
+    it."""
+    from deeplearning4j_tpu_torch.zoo import ResNet50
+
+    card = ResNet50(seed=SEED + 1, dtype="float32").init(device="cuda")
+    cpu = copy.deepcopy(card).to("cpu")
+    x, y = _resnet_batch(torch, SEED + 13, 2, torch.float32)
+
+    def rel(a, b):
+        return float((a.cpu() - b).abs().max()) / float(b.abs().max())
+
+    err = {"logits": rel(_resnet_logits(torch, card, x),
+                         _resnet_logits(torch, cpu, x.cpu()))}
+    lc = card.fit_batch((x, y))
+    lp = cpu.fit_batch((x.cpu(), y.cpu()))
+    err["step_loss"] = abs(lc - lp) / abs(lp)
+    err["bn_running_mean"] = max(
+        rel(card.state[k]["mean"], cpu.state[k]["mean"]) for k in cpu.state)
+    if not all(e <= TOL_RESNET_CPU for e in err.values()):
+        fail(f"f32 ResNet-50, card against CPU at B = 2: {err} (tolerance "
+             f"{TOL_RESNET_CPU}, relative)")
+    return {"batch": 2, "tf32": False, "tolerance": TOL_RESNET_CPU,
+            "max_rel_err": err, "card_loss": lc, "cpu_loss": lp}
+
+
+def phase_resnet_training(torch, np, net):
+    """ResNet-50 fit_batch at B = 64 on the card: 2 warm steps, 10 timed
+    ones on a repeated batch, a profiled window, the FLOPs of a step
+    against the bf16 peak, then the f32 card-against-CPU check."""
+    from deeplearning4j_tpu_torch.ops.cuda import KERNELS
+
+    x, y = _resnet_batch(torch, SEED + 12, RESNET_BATCH, torch.bfloat16)
+    means = {k: s["mean"].clone() for k, s in net.state.items()}
+    torch.cuda.reset_peak_memory_stats()
+    warm = [net.fit_batch((x, y)) for _ in range(N_RESNET_WARM)]
+    timed, launches, _, wall = _count_launches(
+        torch, KERNELS,
+        lambda: [net.fit_batch((x, y)) for _ in range(N_RESNET_STEPS)])
+    losses = warm + timed
+    if not all(np.isfinite(losses)):
+        fail(f"ResNet-50 training losses not finite: {losses}")
+    # from the first step to the last: at the model's lr of 0.1 with
+    # momentum 0.9 the loss on a repeated batch first climbs for several
+    # steps and then falls (the JAX package's ResNet50 does the same), so
+    # the mean of the first three steps, which the other phases compare, is
+    # no measure of learning here
+    if not losses[-1] < losses[0]:
+        fail(f"ResNet-50 loss on a repeated batch did not fall: {losses}")
+    if any(launches.values()):
+        fail(f"ResNet-50 training launched {launches}; its path runs none "
+             f"of the port's kernels")
+    still = [k for k, m in means.items()
+             if torch.equal(net.state[k]["mean"], m)]
+    if len(means) != 53 or still:
+        fail(f"ResNet-50: {len(means)} BN states, running means that did "
+             f"not move: {still}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    steps = 3
+    by_kernel, prof_wall = profile_device(
+        torch, lambda: net.fit_batch((x, y)), steps)
+    prof = _profile_summary(by_kernel, prof_wall, steps, "step", top_n=10)
+    step_ms = 1e3 * wall / N_RESNET_STEPS
+    flops = 3 * resnet_forward_flops(net, RESNET_BATCH)
+    return {
+        "model": "ResNet50, bf16, Nesterovs 0.1 momentum 0.9",
+        "batch": RESNET_BATCH, "warm_steps": N_RESNET_WARM,
+        "steps": N_RESNET_STEPS, "losses": losses, "launches": launches,
+        "wall_s": wall, "step_wall_ms": step_ms,
+        "samples_per_s": RESNET_BATCH * N_RESNET_STEPS / wall,
+        "peak_memory_gb": peak,
+        # 2 x multiply-adds forward, x 3 for forward + backward
+        "step_tflop": flops / 1e12,
+        "mfu": flops / (step_ms * 1e-3) / BF16_FLOP_PER_S,
+        "mfu_of_device_time": (flops / (prof["device_ms_per_step"] * 1e-3)
+                               / BF16_FLOP_PER_S),
+        "profile": prof,
+        "device_ms_per_step_by_kind": _ms_by_kind(by_kernel, steps),
+        "f32_card_vs_cpu": resnet_cpu_check(torch, np),
+    }
+
+
 def main() -> None:
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "deeplearning4j_tpu_torch")):
@@ -2646,7 +2935,25 @@ def main() -> None:
     print(json.dumps({"bidi_gru_training": bidi_gru, "card": card}),
           flush=True)
 
-    # phase 20: kernels line, card line, result line
+    # phase 20: ResNet-50 inference (BASELINE.json config #2)
+    rn_out, rn_net = phase_resnet_inference(torch, np)
+    print(json.dumps({"resnet50_inference": rn_out, "card": card}),
+          flush=True)
+    print(f"ResNet-50 output() on {card}: {rn_out['wall_ms_per_call']:.2f} "
+          f"ms a call of {RESNET_BATCH} images, device busy "
+          f"{rn_out['profile']['device_busy_share']}", flush=True)
+
+    # phase 21: ResNet-50 training
+    rn_train = phase_resnet_training(torch, np, rn_net)
+    del rn_net
+    print(json.dumps({"resnet50_training": rn_train, "card": card}),
+          flush=True)
+    print(f"ResNet-50 training on {card}: {rn_train['step_wall_ms']:.2f} ms "
+          f"a step, {rn_train['samples_per_s']:.1f} samples/s, MFU "
+          f"{rn_train['mfu']:.4f}, device busy "
+          f"{rn_train['profile']['device_busy_share']}", flush=True)
+
+    # phase 22: kernels line, card line, result line
     decode = rows[0]  # the serving path's decode shape [8, 1, 256]
     graves = bwd_rows[0]  # the training path's first layer [64, 64, 200]
     # TextGenerationLSTM's second layer [64, 64, 256], no peepholes: where
@@ -2758,6 +3065,9 @@ def main() -> None:
     # type); conv2's and the bf16 times are in lrn_times
     lt = lrn_times["alexnet_conv1_float32"]
     infer_n, train_n = alex_out["launches"], alex_train["launches"]
+    # the forward's layout (path, rows a block, threads a row); the
+    # backward's is the same (csrc/lrn_common.cuh)
+    lrn_design = "{}, {} rows x {} threads a block".format(*lt["fwd_design"])
     for kern, kind in ((lfwd, "fwd"), (lbwd, "bwd")):
         entries.append({
             "name": kern.name, "route": "cuda", "source": kern.source,
@@ -2775,6 +3085,7 @@ def main() -> None:
             "library_ms": lt[f"library_{kind}_ms"],
             "library_device_ms": lt[f"library_{kind}_device_ms"],
             "shape": f"[{ALEXNET_BATCH}, 54, 54, 96] f32, depth 5",
+            "design": lrn_design,
         })
     entries += gru_kernel_entries(by_name, gru_rows, gru_worst,
                                   gru_worst_bf16, gru_serve, gru_train,

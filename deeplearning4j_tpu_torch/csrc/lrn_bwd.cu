@@ -37,153 +37,21 @@
 //   power and u; after a second, the mirrored window of u and dx.
 // - d^(-beta) is exp2(-beta log2 d) (the MUFU log2 and exp2), and
 //   d^(-beta-1) is d^(-beta) over d by the fast division (__fdividef): no
-//   powf and no full-precision division. g d^(-beta) replaces g in its register, so a
-//   thread holds two values an element between the passes.
+//   powf and no full-precision division. g d^(-beta) replaces g in its
+//   register, so a thread holds two values an element between the passes.
 // - AlexNet's depth, 5, is a template constant: the two windows are five
 //   register adds an element, unclipped thanks to the zero padding. Any
 //   other depth >= 1 takes the same kernel with a run-time window clipped
 //   to the row.
+//
+// The layout, the segment loads and stores and the window sums are in
+// lrn_common.cuh, shared with the forward.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "lrn_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;   // threads a block (P rows of tpr threads)
-constexpr int kMaxThreads = 512;  // one row of C = 4096 channels
-constexpr int kSeg = 8;         // channels a thread owns
-constexpr int kPad = 4;         // zero padding each side of a shared row
-constexpr int kMaxChannels = 4096;
-
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
-// kSeg elements at p, as f32: 16-byte vectors when Vec, else one by one
-// (n of them valid, the rest zero)
-template <bool Vec>
-__device__ __forceinline__ void load_seg(const float* p, int n, float* v) {
-  if constexpr (Vec) {
-    const float4* q = reinterpret_cast<const float4*>(p);
-#pragma unroll
-    for (int i = 0; i < kSeg / 4; ++i) {
-      const float4 a = i * 4 < n ? __ldg(q + i) : make_float4(0, 0, 0, 0);
-      v[4 * i] = a.x;
-      v[4 * i + 1] = a.y;
-      v[4 * i + 2] = a.z;
-      v[4 * i + 3] = a.w;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < kSeg; ++i) v[i] = i < n ? __ldg(p + i) : 0.0f;
-  }
-}
-template <bool Vec>
-__device__ __forceinline__ void load_seg(const __nv_bfloat16* p, int n,
-                                         float* v) {
-  if constexpr (Vec) {  // kSeg bf16 are one 16-byte vector
-    uint4 a = n > 0 ? __ldg(reinterpret_cast<const uint4*>(p))
-                    : make_uint4(0, 0, 0, 0);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&a);
-#pragma unroll
-    for (int i = 0; i < kSeg / 2; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      v[2 * i] = f.x;
-      v[2 * i + 1] = f.y;
-    }
-  } else {
-    const unsigned short* q = reinterpret_cast<const unsigned short*>(p);
-#pragma unroll
-    for (int i = 0; i < kSeg; ++i)
-      v[i] = i < n ? __bfloat162float(__ushort_as_bfloat16(__ldg(q + i)))
-                   : 0.0f;
-  }
-}
-template <bool Vec>
-__device__ __forceinline__ void store_seg(float* p, int n, const float* v) {
-  if constexpr (Vec) {
-    float4* q = reinterpret_cast<float4*>(p);
-#pragma unroll
-    for (int i = 0; i < kSeg / 4; ++i)
-      if (i * 4 < n)
-        q[i] = make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
-  } else {
-#pragma unroll
-    for (int i = 0; i < kSeg; ++i)
-      if (i < n) p[i] = v[i];
-  }
-}
-template <bool Vec>
-__device__ __forceinline__ void store_seg(__nv_bfloat16* p, int n,
-                                          const float* v) {
-  if constexpr (Vec) {
-    if (n > 0) {
-      uint4 a;
-      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&a);
-#pragma unroll
-      for (int i = 0; i < kSeg / 2; ++i)
-        h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-      *reinterpret_cast<uint4*>(p) = a;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < kSeg; ++i)
-      if (i < n) store(p + i, v[i]);
-  }
-}
-
-// The kSeg + 2 kPad values of a shared row around a thread's channels:
-// w[i] = row[c0 + i - kPad], row[] starting at its left padding
-__device__ __forceinline__ void read_window(const float* row, int c0,
-                                           float* w) {
-  const float4* q = reinterpret_cast<const float4*>(row + c0);
-#pragma unroll
-  for (int i = 0; i < (kSeg + 2 * kPad) / 4; ++i) {
-    const float4 a = q[i];
-    w[4 * i] = a.x;
-    w[4 * i + 1] = a.y;
-    w[4 * i + 2] = a.z;
-    w[4 * i + 3] = a.w;
-  }
-}
-
-// Sum of row[c + j] over j in [-before, after], clipped to [0, C); row[]
-// at channel 0
-__device__ __forceinline__ float clipped(const float* row, int c, int C,
-                                         int before, int after) {
-  const int lo = max(0, c - before), hi = min(C - 1, c + after);
-  float s = 0.0f;
-  for (int j = lo; j <= hi; ++j) s += row[j];
-  return s;
-}
-
-// Sums of depth 5's window [c - 2, c + 2] (its mirror is itself) for each
-// of a thread's channels, from the padded neighbourhood (read_window)
-__device__ __forceinline__ void window5(const float* w, float* s) {
-#pragma unroll
-  for (int e = 0; e < kSeg; ++e)
-    s[e] = w[e + kPad - 2] + w[e + kPad - 1] + w[e + kPad] +
-           w[e + kPad + 1] + w[e + kPad + 2];
-}
-
-// The window sums of a thread's channels c0 + e in a shared row (at its
-// left padding): depth 5's unrolled, any other depth's clipped to [0, C)
-// over [c - before, c + after]
-template <int Depth>
-__device__ __forceinline__ void windows(const float* row, int c0, int C,
-                                        int before, int after, float* s) {
-  if constexpr (Depth == 5) {
-    float w[kSeg + 2 * kPad];
-    read_window(row, c0, w);
-    window5(w, s);
-  } else {
-#pragma unroll
-    for (int e = 0; e < kSeg; ++e)
-      s[e] = clipped(row + kPad, c0 + e, C, before, after);
-  }
-}
+using namespace lrn;
 
 // Depth: 5 for the unrolled window, 0 for any depth (run-time, clipped).
 // Vec: 16-byte loads and stores.
@@ -264,17 +132,19 @@ template <typename T, bool Vec>
 cudaError_t launch(const T* x, const T* g, T* dx, long long R, int C,
                    int depth, float alpha, float beta, float k,
                    cudaStream_t stream) {
-  const int tpr = (C + kSeg - 1) / kSeg;
-  const int P = tpr <= kThreads ? kThreads / tpr : 1;
-  const long long blocks = (R + P - 1) / P;
+  const Layout L = layout(C);
+  const long long blocks = (R + L.P - 1) / L.P;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const size_t smem = 2 * sizeof(float) * (size_t)P * (tpr * kSeg + 2 * kPad);
+  const size_t smem =
+      2 * sizeof(float) * (size_t)L.P * (L.tpr * kSeg + 2 * kPad);
   if (depth == 5)
-    lrn_bwd_kernel<T, Vec, 5><<<(unsigned)blocks, P * tpr, smem, stream>>>(
-        x, g, dx, R, C, tpr, P, depth, alpha, beta, k);
+    lrn_bwd_kernel<T, Vec, 5><<<(unsigned)blocks, L.P * L.tpr, smem,
+                                stream>>>(x, g, dx, R, C, L.tpr, L.P, depth,
+                                          alpha, beta, k);
   else
-    lrn_bwd_kernel<T, Vec, 0><<<(unsigned)blocks, P * tpr, smem, stream>>>(
-        x, g, dx, R, C, tpr, P, depth, alpha, beta, k);
+    lrn_bwd_kernel<T, Vec, 0><<<(unsigned)blocks, L.P * L.tpr, smem,
+                                stream>>>(x, g, dx, R, C, L.tpr, L.P, depth,
+                                          alpha, beta, k);
   return cudaGetLastError();
 }
 
@@ -283,10 +153,9 @@ int lrn_bwd(const T* x, const T* g, T* dx, long long R, int C, int depth,
             float alpha, float beta, float k, void* stream) {
   if (C < 1 || C > kMaxChannels || depth < 1 || R < 1)
     return (int)cudaErrorInvalidValue;
-  constexpr int V = 16 / sizeof(T);  // elements a 16-byte vector
-  const bool vec = C % V == 0 && ((reinterpret_cast<uintptr_t>(x) |
-                                   reinterpret_cast<uintptr_t>(g) |
-                                   reinterpret_cast<uintptr_t>(dx)) & 15) == 0;
+  const bool vec = vector_path<T>(C, reinterpret_cast<uintptr_t>(x) |
+                                         reinterpret_cast<uintptr_t>(g) |
+                                         reinterpret_cast<uintptr_t>(dx));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(vec ? launch<T, true>(x, g, dx, R, C, depth, alpha, beta, k, s)
                    : launch<T, false>(x, g, dx, R, C, depth, alpha, beta, k,

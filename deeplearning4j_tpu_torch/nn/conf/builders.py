@@ -1,10 +1,10 @@
 """Network configuration builders with JSON round-trip.
 
-Counterpart of the sequential half of
-``deeplearning4j_tpu/nn/conf/builders.py``: ``NeuralNetConfiguration`` ->
-``ListBuilder`` -> ``MultiLayerConfiguration``, writing and reading the
-same JSON as the JAX package. ``ComputationGraphConfiguration`` comes with
-the graph slice.
+Counterpart of ``deeplearning4j_tpu/nn/conf/builders.py``:
+``NeuralNetConfiguration`` -> ``ListBuilder`` -> ``MultiLayerConfiguration``
+for a sequential network, and ``NeuralNetConfiguration.graph_builder`` ->
+``GraphBuilder`` (``nn/conf/graph.py``) -> ``ComputationGraphConfiguration``
+for a DAG, writing and reading the same JSON as the JAX package.
 """
 
 from __future__ import annotations
@@ -175,3 +175,114 @@ class NeuralNetConfiguration:
 
     def list(self) -> ListBuilder:
         return ListBuilder(self)
+
+    def graph_builder(self) -> "GraphBuilder":
+        from deeplearning4j_tpu_torch.nn.conf.graph import GraphBuilder
+
+        return GraphBuilder(self)
+
+
+@dataclasses.dataclass
+class ComputationGraphConfiguration:
+    """DAG network config (same fields and JSON as the JAX package).
+
+    vertices: {name: GraphVertex}; edges via vertex_inputs {name: [input
+    names]}; network_inputs/network_outputs are name lists;
+    preprocessors: {vertex name: preprocessor of its single input}."""
+
+    vertices: dict = dataclasses.field(default_factory=dict)
+    vertex_inputs: dict = dataclasses.field(default_factory=dict)
+    network_inputs: list = dataclasses.field(default_factory=list)
+    network_outputs: list = dataclasses.field(default_factory=list)
+    input_types: dict = dataclasses.field(default_factory=dict)
+    preprocessors: dict = dataclasses.field(default_factory=dict)
+    seed: int = 0
+    updater: Updater = dataclasses.field(default_factory=lambda: Sgd())
+    dtype: str = "float32"
+    max_grad_norm: float = 0.0
+    remat: bool = False
+
+    topological_order: list = dataclasses.field(default_factory=list)
+    vertex_output_types: dict = dataclasses.field(default_factory=dict)
+
+    def resolve(self):
+        """Topological order (outputs first, then every other vertex, each
+        after its inputs; a cycle raises), each vertex's output type, and a
+        preprocessor wherever a layer vertex's single input needs one."""
+        from deeplearning4j_tpu_torch.nn.conf.graph import LayerVertex
+
+        order, seen = [], set()
+
+        def visit(name, stack=()):
+            if name in seen:
+                return
+            if name in stack:
+                raise ValueError(f"cycle at vertex {name}")
+            for dep in self.vertex_inputs.get(name, []):
+                if dep not in self.network_inputs:
+                    visit(dep, stack + (name,))
+            seen.add(name)
+            order.append(name)
+
+        for out in self.network_outputs:
+            visit(out)
+        for name in self.vertices:
+            visit(name)
+        self.topological_order = order
+
+        types = dict(self.input_types)
+        for name in order:
+            ins = [types[i] for i in self.vertex_inputs.get(name, [])]
+            v = self.vertices[name]
+            if name in self.preprocessors and len(ins) == 1:
+                ins = [self.preprocessors[name].output_type(ins[0])]
+            elif isinstance(v, LayerVertex) and len(ins) == 1:
+                pre = auto_preprocessor(ins[0], v.layer)
+                if pre is not None:
+                    self.preprocessors[name] = pre
+                    ins = [pre.output_type(ins[0])]
+            types[name] = v.output_type(ins)
+        self.vertex_output_types = types
+        return self
+
+    def to_json(self) -> str:
+        from deeplearning4j_tpu_torch.nn.conf.graph import vertex_to_dict
+
+        return json.dumps(
+            {
+                "vertices": {k: vertex_to_dict(v) for k, v in self.vertices.items()},
+                "vertex_inputs": self.vertex_inputs,
+                "network_inputs": self.network_inputs,
+                "network_outputs": self.network_outputs,
+                "input_types": {k: v.to_dict() for k, v in self.input_types.items()},
+                "preprocessors": {k: v.to_dict() for k, v in self.preprocessors.items()},
+                "seed": self.seed,
+                "updater": self.updater.to_dict(),
+                "dtype": self.dtype,
+                "max_grad_norm": self.max_grad_norm,
+                "remat": self.remat,
+            },
+            indent=2,
+        )
+
+    @staticmethod
+    def from_json(s: str) -> "ComputationGraphConfiguration":
+        from deeplearning4j_tpu_torch.nn.conf.graph import vertex_from_dict
+
+        d = json.loads(s)
+        conf = ComputationGraphConfiguration(
+            vertices={k: vertex_from_dict(v) for k, v in d["vertices"].items()},
+            vertex_inputs=d["vertex_inputs"],
+            network_inputs=d["network_inputs"],
+            network_outputs=d["network_outputs"],
+            input_types={k: InputType.from_dict(v)
+                         for k, v in d.get("input_types", {}).items()},
+            preprocessors={k: InputPreProcessor.from_dict(v)
+                           for k, v in d.get("preprocessors", {}).items()},
+            seed=d.get("seed", 0),
+            updater=updater_from_dict(d["updater"]),
+            dtype=d.get("dtype", "float32"),
+            max_grad_norm=d.get("max_grad_norm", 0.0),
+            remat=d.get("remat", False),
+        )
+        return conf.resolve() if conf.input_types else conf

@@ -12,10 +12,10 @@ from deeplearning4j_tpu_torch.nn.layers.attention import (
 from deeplearning4j_tpu_torch.nn.layers.base import Layer, register_layer
 from deeplearning4j_tpu_torch.nn.layers.conv import (
     ConvolutionLayer, GlobalPoolingLayer, LocalResponseNormalizationLayer,
-    SubsamplingLayer,
+    SubsamplingLayer, ZeroPadding2DLayer,
 )
 from deeplearning4j_tpu_torch.nn.layers.core import (
-    DenseLayer, EmbeddingLayer, EmbeddingSequenceLayer,
+    ActivationLayer, DenseLayer, EmbeddingLayer, EmbeddingSequenceLayer,
 )
 from deeplearning4j_tpu_torch.nn.layers.norm import (
     BatchNormalizationLayer, LayerNormalizationLayer,
@@ -27,13 +27,15 @@ from deeplearning4j_tpu_torch.nn.layers.recurrent import (
     TimeDistributedLayer,
 )
 
-__all__ = ["Layer", "register_layer", "DenseLayer", "EmbeddingLayer",
+__all__ = ["Layer", "register_layer", "DenseLayer", "ActivationLayer",
+           "EmbeddingLayer",
            "EmbeddingSequenceLayer", "OutputLayer", "RnnOutputLayer",
            "LSTMLayer", "GravesLSTMLayer", "GRULayer", "SimpleRnnLayer",
            "BidirectionalLayer", "GravesBidirectionalLSTMLayer",
            "LastTimeStepLayer", "MaskZeroLayer", "TimeDistributedLayer",
            "BatchNormalizationLayer", "LayerNormalizationLayer",
            "GlobalPoolingLayer", "ConvolutionLayer", "SubsamplingLayer",
-           "LocalResponseNormalizationLayer", "SelfAttentionLayer",
+           "LocalResponseNormalizationLayer", "ZeroPadding2DLayer",
+           "SelfAttentionLayer",
            "LearnedSelfAttentionLayer", "PositionalEmbeddingLayer",
            "TransformerEncoderLayer"]

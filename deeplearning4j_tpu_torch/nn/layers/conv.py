@@ -1,10 +1,10 @@
 """Convolutional-family layers.
 
 Counterpart of ``deeplearning4j_tpu/nn/layers/conv.py`` for the layers of
-LeNet and AlexNet: ``ConvolutionLayer`` (``conv.py:35``),
-``SubsamplingLayer`` (``:308``), ``LocalResponseNormalizationLayer``
-(``:488``), and ``GlobalPoolingLayer`` (``:446``), which BERT's classifier
-head uses over time. Same DL4J names, fields and defaults, so a
+LeNet, AlexNet and ResNet-50: ``ConvolutionLayer`` (``conv.py:35``),
+``SubsamplingLayer`` (``:308``), ``ZeroPadding2DLayer`` (``:410``),
+``LocalResponseNormalizationLayer`` (``:488``), and ``GlobalPoolingLayer``
+(``:446``), which BERT's classifier head uses over time. Same DL4J names, fields and defaults, so a
 JAX-written ``configuration.json`` loads. Activations are NHWC and conv
 kernels HWIO ([kh, kw, cin / groups, cout]), as in the JAX package, so
 params and zips cross unchanged. The convolution and the pools run the
@@ -123,6 +123,34 @@ class SubsamplingLayer(Layer):
                                      padding=self.padding,
                                      pnorm=self.pnorm), state
         raise ValueError(f"unknown pooling type {self.pooling_type}")
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True, kw_only=True)
+class ZeroPadding2DLayer(Layer):
+    """Zero padding of the spatial axes of an NHWC tensor
+    (org.deeplearning4j.nn.conf.layers.ZeroPaddingLayer): ``pad`` is
+    ((top, bottom), (left, right)), (rows, cols) or (top, bottom, left,
+    right)."""
+
+    pad: tuple = ((1, 1), (1, 1))
+
+    def _norm(self):
+        p = self.pad
+        if isinstance(p[0], int):
+            p = (((p[0], p[0]), (p[1], p[1])) if len(p) == 2
+                 else ((p[0], p[1]), (p[2], p[3])))
+        return p
+
+    def output_type(self, itype):
+        h, w, c = itype.shape
+        (t, b), (l, r) = self._norm()
+        return InputType.convolutional(None if h is None else h + t + b,
+                                       None if w is None else w + l + r, c)
+
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        (t, b), (l, r) = self._norm()
+        return torch.nn.functional.pad(x, (0, 0, l, r, t, b)), state
 
 
 @register_layer

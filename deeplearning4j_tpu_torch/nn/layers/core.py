@@ -1,8 +1,9 @@
 """Core feed-forward layers.
 
 Counterpart of ``deeplearning4j_tpu/nn/layers/core.py``: ``DenseLayer``,
-the base of the output layers, and the two embedding lookups. W stays
-[in, out] ([vocab, n_out] for an embedding).
+the base of the output layers, ``ActivationLayer`` (``core.py:56``) and
+the two embedding lookups. W stays [in, out] ([vocab, n_out] for an
+embedding).
 """
 
 from __future__ import annotations
@@ -47,6 +48,18 @@ class DenseLayer(Layer):
         if self.has_bias:
             y = y + params["b"]
         return resolve_activation(self.activation)(y), state
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True, kw_only=True)
+class ActivationLayer(Layer):
+    """Applies an activation only (org.deeplearning4j.nn.conf.layers
+    .ActivationLayer)."""
+
+    activation: str = "relu"
+
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        return resolve_activation(self.activation)(x), state
 
 
 def _lookup(layer, params, idx):

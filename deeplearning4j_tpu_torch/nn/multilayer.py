@@ -305,22 +305,30 @@ class MultiLayerNetwork:
         return loss + reg, new_states
 
     def _apply_updaters(self, grads, params, opt_state, step):
+        """Clip (the configuration's global norm and updater clipnorm), then
+        each updater's step. ``grads``, ``params``, ``opt_state`` and
+        ``self._updaters`` are indexed alike: lists by layer here, dicts by
+        vertex name in a ComputationGraph, which shares this method."""
         if self.conf.max_grad_norm > 0:
             grads = global_norm_clip(grads, self.conf.max_grad_norm)
         cn = float(getattr(self.conf.updater, "clipnorm", 0.0) or 0.0)
         if cn > 0:
             grads = global_norm_clip(grads, cn)
-        new_params, new_opt = [], []
-        for i, u in enumerate(self._updaters):
+        keys = list(params) if isinstance(params, dict) else range(len(params))
+        new_params, new_opt = {}, {}
+        for i in keys:
+            u = self._updaters[i]
             g = grads[i]
             # per-layer updater override: clip only that layer's subtree
             ucn = float(getattr(u, "clipnorm", 0.0) or 0.0)
             if ucn > 0 and u is not self.conf.updater:
                 g = global_norm_clip(g, ucn)
             upd, ost = u.update(g, opt_state[i], params[i], step)
-            new_params.append(tree_map(lambda p, d: p - d, params[i], upd))
-            new_opt.append(ost)
-        return new_params, new_opt
+            new_params[i] = tree_map(lambda p, d: p - d, params[i], upd)
+            new_opt[i] = ost
+        if isinstance(params, dict):
+            return new_params, new_opt
+        return list(new_params.values()), list(new_opt.values())
 
     def _train_step(self, x, y, mask, label_mask) -> torch.Tensor:
         """One step (forward, loss, backward, clip, update) on tensors
@@ -342,10 +350,14 @@ class MultiLayerNetwork:
         self.state = tree_map(lambda a: a.detach(), new_states)
         return loss.detach()
 
+    def _output_layers(self):
+        return [self.layers[-1]]
+
     def _check_trainable(self, x):
         """Refuse the parts of the JAX train step the port has not taken
-        over, instead of training without them."""
-        L = self.conf.tbptt_fwd_length
+        over, instead of training without them (shared with
+        ComputationGraph, whose configuration has no truncated BPTT)."""
+        L = getattr(self.conf, "tbptt_fwd_length", 0)
         if L > 0 and np.ndim(x) == 3 and np.shape(x)[1] > L:
             raise NotImplementedError(
                 f"truncated BPTT (tbptt_fwd_length={L} < T={np.shape(x)[1]}) "
@@ -357,7 +369,8 @@ class MultiLayerNetwork:
             raise NotImplementedError("training guardrails are not ported yet")
         if env.faults:
             raise NotImplementedError("fault plans are not ported yet")
-        if type(self.layers[-1]).__name__ == "CenterLossOutputLayer":
+        if any(type(l).__name__ == "CenterLossOutputLayer"
+               for l in self._output_layers()):
             raise NotImplementedError(
                 "CenterLossOutputLayer training is not ported yet")
 
@@ -482,17 +495,18 @@ def _tensors_like(mine, theirs, where: str):
     return torch.tensor(arr, dtype=mine.dtype, device=mine.device)
 
 
-def load_jax_params(net: MultiLayerNetwork, params,
-                    state=None) -> MultiLayerNetwork:
+def load_jax_params(net, params, state=None):
     """Set ``net``'s parameters, and with ``state`` its layer state (the
-    running statistics of BatchNormalization), from the JAX package's: each
-    is a list (one per layer) of dicts of arrays, nested for a
-    Bidirectional layer ({"fwd": {...}, "bwd": {...}}), e.g.
-    ``jax.tree_util.tree_map(np.asarray, jax_net.params)``. Keys and
-    shapes must match the port's own."""
+    running statistics of BatchNormalization), from the JAX package's,
+    e.g. ``jax.tree_util.tree_map(np.asarray, jax_net.params)``. For a
+    MultiLayerNetwork each is a list (one per layer) of dicts of arrays,
+    nested for a Bidirectional layer ({"fwd": {...}, "bwd": {...}}); for a
+    ComputationGraph a dict keyed by vertex name. Keys and shapes must
+    match the port's own."""
     for what, tree, mine in (("params", params, net.params),
                              ("state", state, net.state)):
-        if tree is not None and len(tree) != len(mine):
+        if (tree is not None and isinstance(mine, list)
+                and len(tree) != len(mine)):
             raise ValueError(f"{len(tree)} layers of {what} for a "
                              f"{len(mine)}-layer network")
     net.params = _tensors_like(net.params, params, "params")
@@ -501,12 +515,13 @@ def load_jax_params(net: MultiLayerNetwork, params,
     return net
 
 
-def load_jax_opt_state(net: MultiLayerNetwork, opt_state, step_count: int = 0,
-                       epoch_count: int = 0) -> MultiLayerNetwork:
+def load_jax_opt_state(net, opt_state, step_count: int = 0,
+                       epoch_count: int = 0):
     """Set ``net``'s updater state and counters from the JAX package's
     (``jax_net.opt_state`` as numpy arrays, ``jax_net.step_count``), so a
     half-trained model goes on training where it stopped. The structure
-    must match the port's own for the same configuration."""
+    must match the port's own for the same configuration (a list by layer,
+    or a dict by vertex name for a ComputationGraph)."""
     net.opt_state = _tensors_like(net.opt_state, opt_state, "opt_state")
     net.step_count = int(step_count)
     net.epoch_count = int(epoch_count)

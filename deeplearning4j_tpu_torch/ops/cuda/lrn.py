@@ -20,6 +20,12 @@ which computes in bf16 as the XLA lowering does. They take any depth and a
 C of at most :data:`MAX_CHANNELS` (a block stages its rows' squares in
 shared memory).
 
+Both kernels share one layout (``csrc/lrn_common.cuh``): 8 channels a
+thread, moved as 16-byte vectors where the pointers are aligned and C is a
+multiple of the vector, whole rows a block. :func:`fwd_design` repeats the
+forward launcher's choice, and :func:`launcher_design` asks the launcher
+itself (``dl4j_lrn_fwd_plan``).
+
 The wrappers take the plain versions (:func:`lrn_fwd_plain`,
 :func:`lrn_bwd_plain`) only for CPU tensors; for CUDA tensors they launch
 the kernels or raise. ``LRN_FWD.launches`` and ``LRN_BWD.launches`` count
@@ -35,11 +41,16 @@ from __future__ import annotations
 import torch
 
 from deeplearning4j_tpu_torch.ops.convolution import window_sum
+from deeplearning4j_tpu_torch.ops.cuda import recurrent_cluster as rc
 from deeplearning4j_tpu_torch.ops.cuda.build import CudaKernel, launch, pointer
 from deeplearning4j_tpu_torch.ops.registry import register_impl
 
-#: the largest channel count the kernels take (their shared-memory tile)
+#: the largest channel count the kernels take (a row in one block)
 MAX_CHANNELS = 4096
+#: the layout's constants (csrc/lrn_common.cuh): channels a thread, threads
+#: a block of several rows
+SEG = 8
+THREADS = 256
 _PALLAS = "deeplearning4j_tpu/ops/pallas/lrn.py"
 
 #: the C launcher of each kernel for each element type it takes
@@ -49,7 +60,8 @@ _BWD_SYMBOLS = {torch.float32: "dl4j_lrn_bwd",
                 torch.bfloat16: "dl4j_lrn_bwd_bf16"}
 
 LRN_FWD = CudaKernel("lrn_fwd", "lrn_fwd.cu", f"{_PALLAS}:31 (_lrn_kernel)",
-                     {sym: "ppliifffp" for sym in _FWD_SYMBOLS.values()})
+                     {**{sym: "ppliifffp" for sym in _FWD_SYMBOLS.values()},
+                      "dl4j_lrn_fwd_plan": "iiip"})
 LRN_BWD = CudaKernel("lrn_bwd", "lrn_bwd.cu",
                      f"{_PALLAS}:84 (_lrn_bwd_kernel)",
                      {sym: "pppliifffp" for sym in _BWD_SYMBOLS.values()})
@@ -59,6 +71,29 @@ def _windows(depth):
     """(before, after): the forward window's reach below and above c."""
     half = depth // 2
     return half, depth - 1 - half
+
+
+def fwd_design(C: int, aligned: bool, dtype: torch.dtype = torch.float32):
+    """The forward launcher's design for C channels, x and y 16-byte
+    aligned or not: (path, rows_per_block, threads_per_row), path "vector"
+    (16-byte loads and stores) or "element". Mirrors ``lrn::layout`` and
+    ``lrn::vector_path`` of csrc/lrn_common.cuh."""
+    if not 1 <= C <= MAX_CHANNELS:
+        raise ValueError(f"C = {C} outside the kernel's 1 to {MAX_CHANNELS}")
+    tpr = -(-C // SEG)
+    rows = THREADS // tpr if tpr <= THREADS else 1
+    vector = aligned and C % (16 // dtype.itemsize) == 0
+    return ("vector" if vector else "element"), rows, tpr
+
+
+def launcher_design(C: int, aligned: bool, dtype: torch.dtype = torch.float32,
+                    device=None):
+    """The forward C launcher's own design (``dl4j_lrn_fwd_plan``) on the
+    card, as :func:`fwd_design` gives it."""
+    vec, rows, tpr = rc.query(LRN_FWD, "dl4j_lrn_fwd_plan", 3, device, int(C),
+                              int(bool(aligned)),
+                              int(dtype == torch.bfloat16))
+    return ("vector" if vec else "element"), rows, tpr
 
 
 # ----------------------------------------------------------- plain versions

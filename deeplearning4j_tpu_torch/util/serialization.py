@@ -1,10 +1,11 @@
 """Model serialization — the zip checkpoints both packages read and write.
 
 Counterpart of ``deeplearning4j_tpu/util/serialization.py`` for a
-MultiLayerNetwork. A model zip holds:
+MultiLayerNetwork and a ComputationGraph. A model zip holds:
 
     configuration.json   the network config JSON (loads unchanged in both)
     coefficients.npz     params, flat-named "<layer>/<key>[/<key>...]"
+                         (a graph's "<vertex name>/<key>...")
     state.npz            non-trainable state
     updater.npz          optimizer state, flat-named "<layer>/<slot>/<key>..."
     meta.json            model class, step/epoch counters, format version
@@ -77,7 +78,8 @@ def write_model(model, path: str, save_updater: bool = True):
     """ModelSerializer.writeModel analog."""
     meta = {
         "format_version": FORMAT_VERSION,
-        "model_class": "MultiLayerNetwork",
+        "model_class": ("ComputationGraph" if hasattr(model.conf, "vertices")
+                        else "MultiLayerNetwork"),
         "step_count": model.step_count,
         "epoch_count": model.epoch_count,
         "quantized": False,
@@ -91,33 +93,35 @@ def write_model(model, path: str, save_updater: bool = True):
         z.writestr("meta.json", json.dumps(meta))
 
 
-def restore_multi_layer_network(path: str, device: DeviceLike = "cuda",
-                                load_updater: bool = True):
-    """ModelSerializer.restoreMultiLayerNetwork analog: configuration,
-    params, layer state (BatchNormalization's running statistics), updater
-    state (unless ``load_updater`` is False or the zip has none) and the
-    step and epoch counters."""
-    from deeplearning4j_tpu_torch.nn.conf.builders import MultiLayerConfiguration
+def _read_meta(path: str) -> dict:
+    with zipfile.ZipFile(path) as z:
+        return json.loads(z.read("meta.json").decode())
+
+
+def _restore(path: str, model_class: str, model_factory, conf_parser,
+             device: DeviceLike, load_updater: bool):
+    """Configuration, params, layer state (BatchNormalization's running
+    statistics), updater state (unless ``load_updater`` is False or the zip
+    has none) and the step and epoch counters of a ``model_class`` zip."""
     from deeplearning4j_tpu_torch.nn.multilayer import (
-        MultiLayerNetwork, load_jax_opt_state, load_jax_params,
+        load_jax_opt_state, load_jax_params,
     )
 
     with zipfile.ZipFile(path) as z:
         meta = json.loads(z.read("meta.json").decode())
-        if meta.get("model_class", "MultiLayerNetwork") != "MultiLayerNetwork":
+        if meta.get("model_class", "MultiLayerNetwork") != model_class:
             raise ValueError(f"{path} holds a {meta['model_class']}, "
-                             "not a MultiLayerNetwork")
+                             f"not a {model_class}")
         if meta.get("quantized"):
             raise ValueError(f"{path} holds an int8-quantized model; "
                              "quantized models are not ported yet")
-        conf = MultiLayerConfiguration.from_json(
-            z.read("configuration.json").decode())
+        conf = conf_parser(z.read("configuration.json").decode())
         coeffs = _npz_load(z.read("coefficients.npz"))
         states = (_npz_load(z.read("state.npz"))
                   if "state.npz" in z.namelist() else {})
         upd = (_npz_load(z.read("updater.npz"))
                if load_updater and "updater.npz" in z.namelist() else {})
-    net = MultiLayerNetwork(conf).init(conf.seed, device=device)
+    net = model_factory(conf).init(conf.seed, device=device)
     load_jax_params(net, _unflatten(net.params, coeffs, "coefficients.npz"),
                     _unflatten(net.state, states, "state.npz")
                     if states else None)
@@ -126,3 +130,34 @@ def restore_multi_layer_network(path: str, device: DeviceLike = "cuda",
     net.step_count = int(meta.get("step_count", 0))
     net.epoch_count = int(meta.get("epoch_count", 0))
     return net
+
+
+def restore_multi_layer_network(path: str, device: DeviceLike = "cuda",
+                                load_updater: bool = True):
+    """ModelSerializer.restoreMultiLayerNetwork analog."""
+    from deeplearning4j_tpu_torch.nn.conf.builders import MultiLayerConfiguration
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    return _restore(path, "MultiLayerNetwork", MultiLayerNetwork,
+                    MultiLayerConfiguration.from_json, device, load_updater)
+
+
+def restore_computation_graph(path: str, device: DeviceLike = "cuda",
+                              load_updater: bool = True):
+    """ModelSerializer.restoreComputationGraph analog."""
+    from deeplearning4j_tpu_torch.nn.conf.builders import (
+        ComputationGraphConfiguration,
+    )
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    return _restore(path, "ComputationGraph", ComputationGraph,
+                    ComputationGraphConfiguration.from_json, device,
+                    load_updater)
+
+
+def restore_model(path: str, device: DeviceLike = "cuda",
+                  load_updater: bool = True):
+    """Either model class, by the zip's ``meta.json``."""
+    if _read_meta(path)["model_class"] == "ComputationGraph":
+        return restore_computation_graph(path, device, load_updater)
+    return restore_multi_layer_network(path, device, load_updater)

@@ -20,16 +20,23 @@ class ZooModel:
         raise NotImplementedError
 
     def init(self, device: DeviceLike = "cuda"):
-        """Build + initialize the untrained model (ZooModel.init)."""
+        """Build + initialize the untrained model (ZooModel.init): a
+        ComputationGraph for a graph configuration, else a
+        MultiLayerNetwork."""
+        from deeplearning4j_tpu_torch.nn.conf.builders import (
+            ComputationGraphConfiguration,
+        )
+        from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
         from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 
-        return MultiLayerNetwork(self.conf()).init(self.seed, device=device)
+        c = self.conf()
+        model = (ComputationGraph if isinstance(c, ComputationGraphConfiguration)
+                 else MultiLayerNetwork)
+        return model(c).init(self.seed, device=device)
 
     def init_pretrained(self, checkpoint_path: str,
                         device: DeviceLike = "cuda"):
         """Restore weights from a model zip written by either package."""
-        from deeplearning4j_tpu_torch.util.serialization import (
-            restore_multi_layer_network,
-        )
+        from deeplearning4j_tpu_torch.util.serialization import restore_model
 
-        return restore_multi_layer_network(checkpoint_path, device=device)
+        return restore_model(checkpoint_path, device=device)

@@ -11,6 +11,9 @@ the kernels' limits:
   arithmetic (``fwd_smem_bytes``, ``bwd_smem_bytes``) repeats the .cu
   ``smem_bytes``; its constants are read back from the sources here.
 - flash attention: q, k and v of one type, f32 or bf16.
+- LRN: f32 or bf16, contiguous, 1 <= C <= 4096, depth >= 1; the
+  forward's layout (``lrn.fwd_design``) is read back from
+  ``csrc/lrn_fwd.cu`` and ``csrc/lrn_common.cuh``.
 
 The ``requires`` functions see every tensor on the card; here the tensors
 are shape-only (meta) tensors that say they are on the card, so the choice
@@ -25,7 +28,7 @@ import pytest
 import torch
 
 from deeplearning4j_tpu_torch.ops.cuda import flash_attention as fa
-from deeplearning4j_tpu_torch.ops.cuda import fused_gru, fused_lstm
+from deeplearning4j_tpu_torch.ops.cuda import fused_gru, fused_lstm, lrn
 from deeplearning4j_tpu_torch.ops.cuda import recurrent_cluster as rc
 from deeplearning4j_tpu_torch.ops.cuda import recurrent_grid as rg
 
@@ -902,3 +905,94 @@ def test_registry_keys_the_choice_on_grad_need():
 
     a, b = torch.zeros(2, 3), torch.zeros(2, 3, requires_grad=True)
     assert _signature(a) != _signature(b)
+
+
+# ------------------------------------------------------------ LRN forward
+
+def _lrn_fwd_text():
+    """The LRN forward's source and the layout header it includes."""
+    text = (CSRC / "lrn_fwd.cu").read_text()
+    assert '#include "lrn_common.cuh"' in text
+    return text + (CSRC / "lrn_common.cuh").read_text()
+
+
+def test_lrn_layout_constants_match_the_sources():
+    """``fwd_design`` repeats ``lrn::layout`` and ``lrn::vector_path``: 8
+    channels a thread, whole rows in blocks of at most 256 threads, one
+    row of up to 512 threads past 2048 channels, 16-byte vectors where C
+    is a multiple of the vector and the pointers are aligned."""
+    text = _lrn_fwd_text()
+    assert _const(text, "kSeg") == lrn.SEG
+    assert _const(text, "kThreads") == lrn.THREADS
+    assert _const(text, "kMaxChannels") == lrn.MAX_CHANNELS
+    assert _const(text, "kMaxThreads") * lrn.SEG == lrn.MAX_CHANNELS
+    for line in ("const int tpr = (C + kSeg - 1) / kSeg;",
+                 "return {tpr, tpr <= kThreads ? kThreads / tpr : 1};",
+                 "constexpr int V = 16 / sizeof(T);",
+                 "return C % V == 0 && (pointers & 15) == 0;",
+                 "const Layout L = layout(C);",
+                 "lrn_fwd_kernel<T, Vec, 5><<<(unsigned)blocks, L.P * L.tpr",
+                 "const uintptr_t pointers = aligned ? 0 : 1;"):
+        assert line in text, line
+
+
+# (C, aligned, dtype, (path, rows a block, threads a row)) at the layout's
+# boundaries: C = 8k and 8k + 1, the vector's multiple for f32 (4) and
+# bf16 (8), one row a block from 2048 channels on, the largest C
+LRN_DESIGNS = [
+    (96, True, F32, ("vector", 21, 12)),      # AlexNet conv1
+    (96, False, F32, ("element", 21, 12)),
+    (256, True, BF16, ("vector", 8, 32)),     # AlexNet conv2
+    (256, False, BF16, ("element", 8, 32)),
+    (257, True, F32, ("element", 7, 33)),
+    (8, True, BF16, ("vector", 256, 1)),
+    (9, True, F32, ("element", 128, 2)),
+    (4, True, F32, ("vector", 256, 1)),
+    (4, True, BF16, ("element", 256, 1)),
+    (12, True, BF16, ("element", 128, 2)),
+    (77, True, F32, ("element", 25, 10)),
+    (3, True, F32, ("element", 256, 1)),
+    (2048, True, F32, ("vector", 1, 256)),
+    (2049, True, F32, ("element", 1, 257)),
+    (4096, True, BF16, ("vector", 1, 512)),
+    (4096, False, F32, ("element", 1, 512)),
+]
+
+
+@pytest.mark.parametrize("C,aligned,dtype,want", LRN_DESIGNS)
+def test_lrn_fwd_design_boundary(C, aligned, dtype, want):
+    path, rows, tpr = lrn.fwd_design(C, aligned, dtype)
+    assert (path, rows, tpr) == want
+    assert rows * tpr <= 2 * lrn.THREADS and tpr * lrn.SEG >= C
+
+
+@pytest.mark.parametrize("C", [0, 4097])
+def test_lrn_fwd_design_refuses_what_the_kernel_refuses(C):
+    with pytest.raises(ValueError, match="outside"):
+        lrn.fwd_design(C, True)
+
+
+@pytest.mark.parametrize("depth", [5, 4])
+@pytest.mark.parametrize("C,ok", [(4096, True), (4097, False), (1, True)])
+def test_lrn_requires_at_the_channel_limit(depth, C, ok):
+    """Depth 5 (the unrolled window) and 4 (the run-time one) take the
+    same layout and the same limits."""
+    for dt in (F32, BF16):
+        assert lrn._cuda_requires(_t(3, 2, C, dtype=dt), depth=depth) is ok
+    assert not lrn._cuda_requires(_t(3, 2, 96, dtype=torch.float16),
+                                  depth=depth)
+
+
+@pytest.mark.parametrize("out,want", [([1, 21, 12], ("vector", 21, 12)),
+                                      ([0, 1, 257], ("element", 1, 257))])
+def test_lrn_launcher_design_reads_the_plan_query(monkeypatch, out, want):
+    seen = {}
+
+    def query(kernel, symbol, n_out, device, *args):
+        seen.update(kernel=kernel, symbol=symbol, n_out=n_out, args=args)
+        return list(out)
+
+    monkeypatch.setattr(rc, "query", query)
+    assert lrn.launcher_design(96, False, BF16) == want
+    assert seen == {"kernel": lrn.LRN_FWD, "symbol": "dl4j_lrn_fwd_plan",
+                    "n_out": 3, "args": (96, 0, 1)}

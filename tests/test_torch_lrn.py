@@ -323,3 +323,41 @@ def test_function_grad_against_autograd_on_card(cuda_device):
     (ga,) = torch.autograd.grad(lrn_kernel(a, depth=5, **hp), a, g)
     (gb,) = torch.autograd.grad(convolution.lrn(b, depth=5, **hp), b, g)
     torch.testing.assert_close(ga, gb, **BWD_TOL)
+
+
+# (shape, depth, offset): the forward at the main path's shapes (AlexNet's
+# two LRN layers at batch 128), C = 77 at even depth and C = 3 (element
+# path), and AlexNet's conv1 shape one element past a 16-byte boundary
+FWD_MAIN_SHAPES = [((128, 54, 54, 96), 5, 0), ((128, 26, 26, 256), 5, 0),
+                   ((3, 7, 5, 77), 4, 0), ((4, 3, 3, 3), 5, 0),
+                   ((8, 54, 54, 96), 5, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,depth,offset", FWD_MAIN_SHAPES)
+def test_forward_against_plain_at_main_path_shapes(cuda_device, shape, depth,
+                                                   offset, dtype):
+    """The forward kernel against its plain version (the tolerances of
+    ``test_kernels_against_plain_on_card``), with AlexNet's hyperparameters
+    at depth 5 and the stronger ones elsewhere; the launcher takes the
+    design that ``fwd_design`` names."""
+    hp = HPARAMS[0] if depth == 5 and shape[-1] > 3 else HPARAMS[1]
+    x = _card_tensor(_x(shape, 9), cuda_device, dtype, offset)
+    n = LRN_FWD.launches
+    y = lrn_forward(x, depth=depth, **hp)
+    torch.cuda.synchronize()
+    assert LRN_FWD.launches == n + 1 and y.dtype == dtype
+    want = lrn_fwd_plain(x, depth=depth, **hp)
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, want, **FWD_TOL)
+    else:
+        torch.testing.assert_close(y.float(), want.float(), rtol=1e-2,
+                                   atol=1e-2)
+    aligned = (x.data_ptr() | y.data_ptr()) % 16 == 0
+    assert aligned is not bool(offset)
+    design = lrn_mod.launcher_design(shape[-1], aligned, dtype, cuda_device)
+    assert design == lrn_mod.fwd_design(shape[-1], aligned, dtype)
+    assert design[0] == ("vector" if shape[-1] in (96, 256) and not offset
+                         else "element")
