@@ -180,8 +180,44 @@ Phases (any failure exits non-zero before the result line):
     own f32 ResNet-50 (TF32 off) on the card against the same graph on the
     CPU at B=2 from shared weights: logits, the step's loss and the BN
     running means within TOL_RESNET_CPU.
-22. Prints the kernels line (all nine kernels), the card line and, last,
-    the result line ``{"ok": true, "device": {...}}``.
+22. bert_tiny.onnx (a transformers BertModel, 2 x 64, exported by
+    torch.onnx) imported onto the card, with the import-graph optimizer
+    on and off: both outputs against the recorded torch outputs within
+    rtol = atol = 1e-4; node counts raw and optimized and the rewrites
+    per rule (fuse_attention must be 2).
+23. bench.py's bert_import lane at its own shape (BASELINE.json config #4
+    as written, at the fixture's width): the import's
+    ``as_trainable(outputs=["pooler_output"], compute_dtype=bfloat16)``
+    under torch.func.vmap over 128 outer x [2, 16] (256 samples a step), a
+    64 -> 2 head, cross-entropy and Adam(lr=2e-5) on f32 masters: 2 + 20
+    steps with the optimizer on, then off. Losses finite, the first of
+    the two runs within 2e-2 relative; no kernel of the port launched
+    (the fused attention carries the mask as a bias). Step wall ms,
+    samples/s, device ms, busy share, kernels a step.
+24. BERT-base through TF import, full width: ``bert_graph_def`` builds a
+    frozen GraphDef in google-research/bert modeling.py's op pattern (12
+    x 768, 12 heads x 64, 3072, vocab 30522, 512 positions, a 768 -> 2
+    classifier; weights N(0, 0.02) from the seed; about 440 MB), timed
+    to build, parse and import; fuse_attention must be 12. f32 output()
+    at B=2 on the card against the same graph on the CPU and against the
+    optimizer off (logits and pooled output within 1e-4 of the largest
+    value); 5 output() calls at [32, 128]; then ``as_trainable`` (bf16
+    compute, f32 masters, Adam 2e-5) for 2 + 10 steps on seeded ids with
+    padded positions, losses finite; ms a call, step wall ms, samples/s,
+    device ms, busy share, kernels a step, and the step against phase
+    11's zoo BertBase step.
+25. The import path reaches a hand kernel: a TF graph Placeholder
+    [128, 54, 54, 96] -> LRN (AlexNet's depth 5, k 2, alpha 1e-4, beta
+    0.75) imported; output() launches the LRN forward kernel once a call
+    (its count; a profiled window of 10 calls names it and no other
+    kernel of the port) and equals the plain ``lrn``
+    within TOL_LRN_FWD; a variant with a 1x1 Conv2D in front through
+    ``as_trainable``: one sum-loss backward launches one LRN forward and
+    one backward, its weight gradient against the plain path on the card.
+26. Prints the kernels line (all nine kernels; the LRN entries count the
+    import path's launches under ``launches_by_path["tf_import"]``), the
+    card line and, last, the result line ``{"ok": true, "device":
+    {...}}``.
 
 Every phase runs f32 work with TF32 off (``torch.backends.cuda.matmul``
 and ``torch.backends.cudnn`` ``allow_tf32`` False), the timed ones too.
@@ -2782,6 +2818,635 @@ def phase_resnet_training(torch, np, net):
     }
 
 
+# ------------------------------------------------------ model-import slice
+
+N_IMPORT_WARM = 2
+N_IMPORT_STEPS = 20      # phase 23, bench.py bert_import's lane
+N_BERT_TF_CALLS = 5
+N_BERT_TF_STEPS = 10     # phase 24
+# bert_tiny.onnx against the recorded torch outputs (the JAX test's
+# tolerance, tests/test_golden_import.py: rtol = atol = 1e-4)
+TOL_GOLDEN = 1e-4
+# phase 23: the first bf16 loss of the optimizer-on run against the
+# optimizer-off run, relative (both bf16: the rewrite moves the attention
+# into one op, so the bf16 roundings fall in other places)
+TOL_IMPORT_LOSS = 2e-2
+# phase 24: f32 logits and pooled output, card against the CPU and
+# optimizer on against off, relative to the largest value
+TOL_BERT_TF = 1e-4
+
+
+def _fixture(name):
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "fixtures", name)
+
+
+# A protobuf writer for TF's GraphDef wire format (the subset
+# modelimport/tensorflow.py reads): NodeDef name=1 op=2 input=3 attr=5;
+# AttrValue list=1 s=2 i=3 f=4 b=5 type=6 shape=7 tensor=8; TensorProto
+# dtype=1 tensor_shape=2 tensor_content=4.
+
+def _pb_varint(v: int) -> bytes:
+    out = bytearray()
+    while True:
+        b = v & 0x7F
+        v >>= 7
+        if v:
+            out.append(b | 0x80)
+        else:
+            out.append(b)
+            return bytes(out)
+
+
+def _pb_len(field: int, payload: bytes) -> bytes:
+    return _pb_varint((field << 3) | 2) + _pb_varint(len(payload)) + payload
+
+
+def _pb_int(field: int, v: int) -> bytes:
+    return _pb_varint(field << 3) + _pb_varint(v & ((1 << 64) - 1))
+
+
+def _pb_shape(dims) -> bytes:
+    return b"".join(_pb_len(2, _pb_int(1, int(d))) for d in dims)
+
+
+_PB_DTYPES = {"float32": 1, "int32": 3, "int64": 9}
+
+
+def _pb_tensor(arr) -> bytes:
+    return (_pb_int(1, _PB_DTYPES[str(arr.dtype)])
+            + _pb_len(2, _pb_shape(arr.shape))
+            + _pb_len(4, arr.tobytes()))
+
+
+def _pb_attr(key: str, *, tensor=None, i=None, f=None, b=None, type_=None,
+             ints=None, shape=None, s=None) -> bytes:
+    val = b""
+    if tensor is not None:
+        val += _pb_len(8, _pb_tensor(tensor))
+    if s is not None:
+        val += _pb_len(2, s.encode())
+    if i is not None:
+        val += _pb_int(3, i)
+    if f is not None:
+        import struct
+        val += _pb_varint((4 << 3) | 5) + struct.pack("<f", f)
+    if b is not None:
+        val += _pb_int(5, int(b))
+    if type_ is not None:
+        val += _pb_int(6, type_)
+    if shape is not None:
+        val += _pb_len(7, _pb_shape(shape))
+    if ints is not None:
+        val += _pb_len(1, b"".join(_pb_int(3, v) for v in ints))
+    return _pb_len(5, _pb_len(1, key.encode()) + _pb_len(2, val))
+
+
+def _pb_node(name: str, op: str, inputs=(), *attrs) -> bytes:
+    return _pb_len(1, _pb_len(1, name.encode()) + _pb_len(2, op.encode())
+                   + b"".join(_pb_len(3, i.encode()) for i in inputs)
+                   + b"".join(attrs))
+
+
+def bert_graph_def(layers=12, hidden=768, heads=12, intermediate=3072,
+                   vocab=30522, type_vocab=2, max_pos=512, batch=32, seq=128,
+                   num_labels=2, seed=SEED) -> bytes:
+    """A BERT sequence classifier as a frozen TF GraphDef, in the op
+    pattern of google-research/bert ``modeling.py`` (``BertModel``) and
+    ``run_classifier.py``'s head: GatherV2 word embeddings, OneHot + MatMul
+    token-type embeddings, sliced position embeddings, LayerNorm as
+    ``tf.nn.moments`` + ``batch_normalization`` (Mean / StopGradient /
+    SquaredDifference / Rsqrt, eps 1e-12), the dense layers on the
+    [B*T, hidden] matrix with BiasAdd, heads by Reshape + Transpose, scores
+    by BatchMatMulV2(adj_y) x 1/sqrt(head dim) + (1 - mask) * -10000,
+    Softmax, GELU in its tanh form, the [CLS] pooler by StridedSlice +
+    MatMul + Tanh, and a hidden -> num_labels classifier (MatMul with
+    transpose_b, BiasAdd): the output "logits". Placeholders ``input_ids``,
+    ``input_mask`` and ``segment_ids`` are int32 [batch, seq] with static
+    shapes; the reshapes take -1 for the batch, so one graph runs at any
+    batch. Weights N(0, 0.02) from ``seed``, biases 0, LayerNorm gamma 1."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    dh = hidden // heads
+    nodes = []
+
+    def const(name, arr):
+        nodes.append(_pb_node(name, "Const", (), _pb_attr("value",
+                                                          tensor=arr)))
+        return name
+
+    def weight(name, shape):
+        return const(name, rng.standard_normal(shape, dtype=np.float32)
+                     * np.float32(0.02))
+
+    def op(name, kind, inputs, *attrs):
+        nodes.append(_pb_node(name, kind, inputs, *attrs))
+        return name
+
+    def ints(name, v):
+        return const(name, np.asarray(v, np.int32))
+
+    def scalar(name, v):
+        return const(name, np.asarray(v, np.float32))
+
+    for name in ("input_ids", "input_mask", "segment_ids"):
+        op(name, "Placeholder", (), _pb_attr("dtype", type_=3),
+           _pb_attr("shape", shape=(batch, seq)))
+    c = "bert/constants/"
+    one, half = scalar(c + "one", 1.0), scalar(c + "half", 0.5)
+    eps, neg = scalar(c + "eps", 1e-12), scalar(c + "neg", -10000.0)
+    three = scalar(c + "three", 3.0)
+    gelu_a = scalar(c + "gelu_a", 0.044715)
+    gelu_s = scalar(c + "gelu_s", float(np.sqrt(2.0 / np.pi)))
+    scale = scalar(c + "scale", 1.0 / float(np.sqrt(dh)))
+    flat, axis0 = ints(c + "flat", [-1]), ints(c + "axis0", 0)
+    last = ints(c + "last_axis", [-1])
+    mat, seq3 = ints(c + "matrix", [-1, hidden]), ints(c + "seq3",
+                                                         [-1, seq, hidden])
+    split_heads = ints(c + "heads", [-1, seq, heads, dh])
+    perm = ints(c + "perm", [0, 2, 1, 3])
+    keep = _pb_attr("keep_dims", b=True)
+
+    def layer_norm(x, p):
+        gamma = const(p + "/gamma", np.ones(hidden, np.float32))
+        beta = const(p + "/beta", np.zeros(hidden, np.float32))
+        mean = op(p + "/moments/mean", "Mean", (x, last), keep)
+        sg = op(p + "/moments/StopGradient", "StopGradient", (mean,))
+        sqd = op(p + "/moments/SquaredDifference", "SquaredDifference",
+                 (x, sg))
+        var = op(p + "/moments/variance", "Mean", (sqd, last), keep)
+        rs = op(p + "/batchnorm/Rsqrt", "Rsqrt",
+                (op(p + "/batchnorm/add", "AddV2", (var, eps)),))
+        inv = op(p + "/batchnorm/mul", "Mul", (rs, gamma))
+        xi = op(p + "/batchnorm/mul_1", "Mul", (x, inv))
+        mi = op(p + "/batchnorm/mul_2", "Mul", (mean, inv))
+        sub = op(p + "/batchnorm/sub", "Sub", (beta, mi))
+        return op(p + "/batchnorm/add_1", "AddV2", (xi, sub))
+
+    def dense(x, p, n_in, n_out):
+        w = weight(p + "/kernel", (n_in, n_out))
+        b = const(p + "/bias", np.zeros(n_out, np.float32))
+        return op(p + "/BiasAdd", "BiasAdd",
+                  (op(p + "/MatMul", "MatMul", (x, w)), b))
+
+    # embeddings
+    e = "bert/embeddings/"
+    table = weight(e + "word_embeddings", (vocab, hidden))
+    ids = op(e + "flat_ids", "Reshape", ("input_ids", flat))
+    word = op(e + "word", "Reshape", (
+        op(e + "GatherV2", "GatherV2", (table, ids, axis0)), seq3))
+    tt_table = weight(e + "token_type_embeddings", (type_vocab, hidden))
+    tt = op(e + "flat_token_type_ids", "Reshape", ("segment_ids", flat))
+    oh = op(e + "one_hot", "OneHot", (tt, ints(e + "depth", type_vocab),
+                                      scalar(e + "on", 1.0),
+                                      scalar(e + "off", 0.0)),
+            _pb_attr("axis", i=-1))
+    tte = op(e + "token_type", "Reshape", (
+        op(e + "MatMul", "MatMul", (oh, tt_table)), seq3))
+    pos = op(e + "Slice", "Slice", (
+        weight(e + "position_embeddings", (max_pos, hidden)),
+        ints(e + "slice_begin", [0, 0]), ints(e + "slice_size", [seq, -1])))
+    pos = op(e + "position", "Reshape", (pos, ints(e + "pos_shape",
+                                                   [1, seq, hidden])))
+    x = op(e + "add_1", "AddV2", (op(e + "add", "AddV2", (word, tte)), pos))
+    x = op("bert/encoder/Reshape", "Reshape",
+           (layer_norm(x, e + "LayerNorm"), mat))
+    # the attention mask, [B, 1, T] as float (create_attention_mask_from_
+    # input_mask without its broadcast over the query axis)
+    mask = op("bert/encoder/Cast", "Cast", (
+        op("bert/encoder/mask", "Reshape", (
+            "input_mask", ints("bert/encoder/mask_shape", [-1, 1, seq]))),),
+        _pb_attr("DstT", type_=1))
+    for i in range(layers):
+        p = f"bert/encoder/layer_{i}"
+        a = p + "/attention/self"
+
+        def split(t, n):
+            r = op(f"{a}/{n}_reshape", "Reshape", (t, split_heads))
+            return op(f"{a}/{n}_transpose", "Transpose", (r, perm))
+
+        q = split(dense(x, a + "/query", hidden, hidden), "q")
+        k = split(dense(x, a + "/key", hidden, hidden), "k")
+        v = split(dense(x, a + "/value", hidden, hidden), "v")
+        scores = op(a + "/MatMul", "BatchMatMulV2", (q, k),
+                    _pb_attr("adj_y", b=True))
+        scores = op(a + "/Mul", "Mul", (scores, scale))
+        m = op(a + "/ExpandDims", "ExpandDims", (
+            mask, ints(a + "/expand_axis", 1)))
+        adder = op(a + "/mul_1", "Mul", (op(a + "/sub", "Sub", (one, m)),
+                                         neg))
+        probs = op(a + "/Softmax", "Softmax",
+                   (op(a + "/add", "AddV2", (scores, adder)),))
+        ctx = op(a + "/MatMul_1", "BatchMatMulV2", (probs, v))
+        ctx = op(a + "/context", "Reshape", (
+            op(a + "/transpose_3", "Transpose", (ctx, perm)), mat))
+        att = dense(ctx, p + "/attention/output/dense", hidden, hidden)
+        att = layer_norm(op(p + "/attention/output/add", "AddV2", (att, x)),
+                         p + "/attention/output/LayerNorm")
+        h = dense(att, p + "/intermediate/dense", hidden, intermediate)
+        g = p + "/intermediate/gelu"
+        inner = op(g + "/add", "AddV2", (h, op(g + "/mul", "Mul", (
+            gelu_a, op(g + "/Pow", "Pow", (h, three))))))
+        cdf = op(g + "/mul_2", "Mul", (half, op(g + "/add_1", "AddV2", (
+            one, op(g + "/Tanh", "Tanh", (
+                op(g + "/mul_1", "Mul", (gelu_s, inner)),))))))
+        h = op(g + "/mul_3", "Mul", (h, cdf))
+        out = dense(h, p + "/output/dense", intermediate, hidden)
+        x = layer_norm(op(p + "/output/add", "AddV2", (out, att)),
+                       p + "/output/LayerNorm")
+    seq_out = op("bert/encoder/Reshape_last", "Reshape", (x, seq3))
+    cls = op("bert/pooler/strided_slice", "StridedSlice", (
+        seq_out, ints("bert/pooler/begin", [0, 0]),
+        ints("bert/pooler/end", [0, 1]), ints("bert/pooler/strides", [1, 1])),
+        _pb_attr("begin_mask", i=1), _pb_attr("end_mask", i=1),
+        _pb_attr("shrink_axis_mask", i=2))
+    pooled = op("bert/pooler/dense/Tanh", "Tanh",
+                (dense(cls, "bert/pooler/dense", hidden, hidden),))
+    w = weight("output_weights", (num_labels, hidden))
+    b = const("output_bias", np.zeros(num_labels, np.float32))
+    op("logits", "BiasAdd", (op("MatMul", "MatMul", (pooled, w),
+                                _pb_attr("transpose_b", b=True)), b))
+    return b"".join(nodes)
+
+
+# bert_graph_def's pooled output (the classifier's input)
+BERT_POOLED = "bert/pooler/dense/Tanh"
+
+
+def lrn_graph_def(shape, conv=False, depth_radius=2, bias=2.0, alpha=1e-4,
+                  beta=0.75, seed=SEED) -> bytes:
+    """Placeholder ``x`` (float32, ``shape``, NHWC) -> [a 1x1 Conv2D, C to
+    C, weights N(0, 1/C) from ``seed``] -> TF's LRN, output "lrn". TF's
+    alpha multiplies the window sum directly, as the LRN layer's does, so
+    AlexNet's LRN (depth 5, k 2, alpha 1e-4, beta 0.75) is depth_radius
+    2, bias 2, alpha 1e-4, beta 0.75."""
+    import numpy as np
+
+    C = shape[-1]
+    nodes = [_pb_node("x", "Placeholder", (), _pb_attr("dtype", type_=1),
+                      _pb_attr("shape", shape=shape))]
+    x = "x"
+    if conv:
+        w = np.random.default_rng(seed).standard_normal(
+            (1, 1, C, C), dtype=np.float32) / np.float32(np.sqrt(C))
+        nodes.append(_pb_node("w", "Const", (), _pb_attr("value", tensor=w)))
+        nodes.append(_pb_node("conv", "Conv2D", ("x", "w"),
+                              _pb_attr("strides", ints=[1, 1, 1, 1]),
+                              _pb_attr("padding", s="SAME")))
+        x = "conv"
+    nodes.append(_pb_node("lrn", "LRN", (x,),
+                          _pb_attr("depth_radius", i=depth_radius),
+                          _pb_attr("bias", f=bias), _pb_attr("alpha", f=alpha),
+                          _pb_attr("beta", f=beta)))
+    return b"".join(nodes)
+
+
+def _close(torch, got, want, rtol, atol):
+    """(max abs error, |got - want| <= atol + rtol |want| everywhere)."""
+    got = torch.as_tensor(got).float().cpu()
+    want = torch.as_tensor(want).float().cpu()
+    err = float((got - want).abs().max())
+    return err, bool(((got - want).abs() <= atol + rtol * want.abs()).all())
+
+
+def _rel_err(torch, got, want):
+    """max |got - want| over max |want|."""
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).abs().max()) / float(want.abs().max())
+
+
+def phase_onnx_golden(torch, np):
+    """bert_tiny.onnx imported onto the card with the import-graph
+    optimizer on and off, both outputs against the recorded torch
+    outputs."""
+    from deeplearning4j_tpu_torch.modelimport import OnnxModelImport
+    from deeplearning4j_tpu_torch.modelimport.optimizer import graph_signature
+
+    g = np.load(_fixture("bert_golden.npz"))
+    feeds = {"input_ids": g["ids"], "attention_mask": g["mask"]}
+    out = {}
+    for opt in (True, False):
+        t0 = time.perf_counter()
+        imp = OnnxModelImport.import_model(_fixture("bert_tiny.onnx"),
+                                           optimize=opt)
+        import_s = time.perf_counter() - t0
+        lh, po = imp.output(feeds, ["last_hidden_state", "pooler_output"])
+        if lh.device.type != "cuda" or po.device.type != "cuda":
+            fail(f"bert_tiny.onnx output() on {lh.device}, {po.device}; the "
+                 f"import's default device is the card")
+        el, okl = _close(torch, lh, g["last_hidden"], TOL_GOLDEN, TOL_GOLDEN)
+        ep, okp = _close(torch, po, g["pooler"], TOL_GOLDEN, TOL_GOLDEN)
+        if not (okl and okp) or tuple(po.shape) != g["pooler"].shape:
+            fail(f"bert_tiny.onnx (optimizer {'on' if opt else 'off'}) on "
+                 f"the card against the golden: last_hidden {el}, pooler "
+                 f"{ep} (rtol = atol = {TOL_GOLDEN}), pooler shape "
+                 f"{tuple(po.shape)}")
+        out["on" if opt else "off"] = {
+            "nodes": graph_signature(imp)[0], "import_s": import_s,
+            "rewrites": imp.import_opt_stats,
+            "last_hidden_max_abs_err": el, "pooler_max_abs_err": ep}
+    stats = out["on"]["rewrites"]
+    if stats["fuse_attention"] != 2:
+        fail(f"bert_tiny.onnx: the optimizer fused {stats['fuse_attention']} "
+             f"attention blocks; want 2")
+    return out
+
+
+def _adam_steps(torch, loss_fn, params, lr, steps):
+    """``steps`` Adam steps on the f32 master ``params`` (a tree of card
+    tensors); returns (params, [loss tensors])."""
+    from deeplearning4j_tpu_torch.common.trees import (
+        tree_leaves, tree_map, tree_unflatten,
+    )
+    from deeplearning4j_tpu_torch.optimize.updaters import Adam
+
+    updater = Adam(lr=lr)
+    state = updater.init_state(params)
+    losses = []
+    for i in range(steps):
+        params = tree_map(lambda p: p.detach().requires_grad_(), params)
+        loss = loss_fn(params)
+        grads = torch.autograd.grad(loss, tree_leaves(params))
+        with torch.no_grad():
+            upd, state = updater.update(tree_unflatten(params, list(grads)),
+                                        state, params, i)
+            params = tree_map(lambda p, u: p - u, params, upd)
+        losses.append(loss.detach())
+    return params, losses
+
+
+def _import_train(torch, np, loss_fn, params, lr, warm, steps, profile=2):
+    """``warm`` then ``steps`` timed Adam steps, then a profiled window of
+    ``profile`` steps; returns a summary with the losses (floats)."""
+    params, warm_losses = _adam_steps(torch, loss_fn, params, lr, warm)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, losses = _adam_steps(torch, loss_fn, params, lr, steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by_kernel, prof_wall = profile_device(
+        torch, lambda: _adam_steps(torch, loss_fn, params, lr, 1), profile)
+    losses = [float(v) for v in warm_losses + losses]
+    if not all(np.isfinite(losses)):
+        fail(f"import fine-tuning losses not finite: {losses}")
+    return {"losses": losses, "steps": steps, "wall_s": wall,
+            "step_wall_ms": 1e3 * wall / steps,
+            "profile": _profile_summary(by_kernel, prof_wall, profile,
+                                        "step")}
+
+
+def phase_bert_import_training(torch, np):
+    """bench.py's bert_import lane at its own shape: bert_tiny.onnx's
+    ``as_trainable(compute_dtype=bfloat16)`` under torch.func.vmap over 128
+    outer x [2, 16] (256 samples a step), a 64 -> 2 head, cross-entropy,
+    Adam(lr=2e-5) on f32 masters; 2 + 20 steps with the optimizer on, then
+    off."""
+    from deeplearning4j_tpu_torch.common.dtypes import cast_floating
+    from deeplearning4j_tpu_torch.modelimport import OnnxModelImport
+    from deeplearning4j_tpu_torch.ops.cuda import KERNELS
+
+    BO, BI, T, V, C = 128, 2, 16, 500, 2   # bench.py:1035-1041
+    B = BO * BI
+    rng = np.random.default_rng(SEED)
+    ids = torch.as_tensor(rng.integers(0, V, (B, T)).astype(np.int32),
+                          device="cuda").reshape(BO, BI, T)
+    feeds = {"input_ids": ids,
+             "attention_mask": torch.ones((BO, BI, T), dtype=torch.int32,
+                                          device="cuda")}
+    y = torch.as_tensor(np.eye(C, dtype=np.float32)[rng.integers(0, C, B)],
+                        device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    head = {"W": torch.randn((64, C), device="cuda", generator=g) * 0.05,
+            "b": torch.zeros(C, device="cuda")}
+    out = {"shape": f"{BO} outer x [{BI}, {T}] (vmap), {B} samples a step",
+           "model": "bert_tiny.onnx (transformers BertModel, 2 x 64, 4 "
+                    "heads, vocab 500), bf16 compute, f32 masters, "
+                    "Adam 2e-5"}
+    for opt in (True, False):
+        imp = OnnxModelImport.import_model(_fixture("bert_tiny.onnx"),
+                                           optimize=opt)
+        fn, bert = imp.as_trainable(outputs=["pooler_output"],
+                                    compute_dtype=torch.bfloat16)
+
+        def loss_fn(p, fn=fn):
+            cp = cast_floating(p, torch.bfloat16)
+            pooled = torch.func.vmap(lambda f: fn(cp["bert"], f))(feeds)
+            logits = (pooled.reshape(B, 64) @ cp["head"]["W"]
+                      + cp["head"]["b"]).float()
+            return -(y * torch.log_softmax(logits, -1)).sum(-1).mean()
+
+        params = {"bert": bert, "head": {k: v.clone()
+                                         for k, v in head.items()}}
+        run, launches, _, _ = _count_launches(
+            torch, KERNELS, lambda: _import_train(
+                torch, np, loss_fn, params, 2e-5, N_IMPORT_WARM,
+                N_IMPORT_STEPS))
+        if any(launches.values()):
+            fail(f"bert_tiny fine-tuning launched {launches}; its attention "
+                 f"carries the exporter's mask as a bias, which no kernel of "
+                 f"the port takes")
+        run["samples_per_s"] = B / (run["step_wall_ms"] / 1e3)
+        run["nodes"] = len(imp.nodes)
+        run["rewrites"] = imp.import_opt_stats
+        out["on" if opt else "off"] = run
+    a, b = out["on"]["losses"][0], out["off"]["losses"][0]
+    if abs(a - b) > TOL_IMPORT_LOSS * abs(b):
+        fail(f"bert_import: first loss with the optimizer on {a}, off {b} "
+             f"(rel tol {TOL_IMPORT_LOSS})")
+    return out
+
+
+def phase_bert_tf_import(torch, np, zoo_step_ms):
+    """BERT-base (12 x 768, 12 heads, 3072, vocab 30522) built as a frozen
+    TF GraphDef and imported onto the card: f32 output() at B=2 against
+    the same graph on the CPU and against the optimizer off; 5 output()
+    calls at [32, 128]; 2 + 10 bf16 fine-tuning steps through
+    as_trainable. ``zoo_step_ms`` is phase 11's BertBase step."""
+    from deeplearning4j_tpu_torch.common.dtypes import cast_floating
+    from deeplearning4j_tpu_torch.modelimport import TFGraphMapper
+    from deeplearning4j_tpu_torch.modelimport.tensorflow import parse_graph
+    from deeplearning4j_tpu_torch.ops.cuda import KERNELS
+
+    B, T = 32, 128
+    t0 = time.perf_counter()
+    gd = bert_graph_def(batch=B, seq=T)
+    build_s = time.perf_counter() - t0
+    graph_bytes = len(gd)
+    t0 = time.perf_counter()
+    nodes_raw = len(parse_graph(gd)[0])
+    parse_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    imp = TFGraphMapper.import_graph(gd)
+    import_s = time.perf_counter() - t0
+    stats = imp.import_opt_stats
+    if stats["fuse_attention"] != 12:
+        fail(f"BERT-base GraphDef: the optimizer fused "
+             f"{stats['fuse_attention']} attention blocks; want 12")
+    n_params = sum(int(np.prod(v.shape)) for v in imp.constants.values()
+                   if v.dtype == np.float32 and v.ndim >= 1 and v.size > 1)
+
+    rng = np.random.default_rng(SEED + 13)
+
+    def batch(b):
+        lens = rng.integers(T // 2, T + 1, b)
+        return {"input_ids": rng.integers(0, 30522, (b, T)).astype(np.int32),
+                "input_mask": (np.arange(T)[None, :] < lens[:, None]
+                               ).astype(np.int32),
+                "segment_ids": (np.arange(T)[None, :] >= lens[:, None] // 2
+                                ).astype(np.int32)}
+
+    small = batch(2)
+    outs = ["logits", BERT_POOLED]
+    card = imp.output(small, outs)
+    cpu = TFGraphMapper.import_graph(gd, device="cpu").output(small, outs)
+    off = TFGraphMapper.import_graph(gd, optimize=False).output(small, outs)
+    errs = {"card_vs_cpu": max(_rel_err(torch, a, b)
+                               for a, b in zip(card, cpu)),
+            "on_vs_off": max(_rel_err(torch, a, b) for a, b in zip(card, off))}
+    if max(errs.values()) > TOL_BERT_TF:
+        fail(f"BERT-base GraphDef f32 at B=2: {errs} (relative to the "
+             f"largest value, tol {TOL_BERT_TF})")
+    del cpu, off, gd
+
+    big = batch(B)
+    imp.output(big)  # warm-up, not counted
+    calls, launches, _, wall = _count_launches(
+        torch, KERNELS, lambda: [imp.output(big) for _ in range(
+            N_BERT_TF_CALLS)])
+    logits = calls[-1]
+    if tuple(logits.shape) != (B, 2) or not bool(torch.isfinite(logits).all()):
+        fail(f"BERT-base GraphDef output() gave {tuple(logits.shape)}, "
+             f"finite {bool(torch.isfinite(logits).all())}")
+    if any(launches.values()):
+        fail(f"BERT-base GraphDef output() launched {launches}; its fused "
+             f"attention carries the mask as a bias (plain lowering)")
+    by_kernel, prof_wall = profile_device(torch, lambda: imp.output(big), 2)
+    inference = {"calls": N_BERT_TF_CALLS,
+                 "ms_per_call": 1e3 * wall / N_BERT_TF_CALLS,
+                 "profile": _profile_summary(by_kernel, prof_wall, 2, "call")}
+
+    fn, params = imp.as_trainable(outputs=["logits"],
+                                  compute_dtype=torch.bfloat16)
+    y = torch.as_tensor(np.eye(2, dtype=np.float32)[rng.integers(0, 2, B)],
+                        device="cuda")
+    feeds = {k: torch.as_tensor(v, device="cuda") for k, v in big.items()}
+
+    def loss_fn(p):
+        logits = fn(cast_floating(p, torch.bfloat16), feeds).float()
+        return -(y * torch.log_softmax(logits, -1)).sum(-1).mean()
+
+    run, launches, _, _ = _count_launches(
+        torch, KERNELS, lambda: _import_train(
+            torch, np, loss_fn, params, 2e-5, N_IMPORT_WARM,
+            N_BERT_TF_STEPS))
+    if any(launches.values()):
+        fail(f"BERT-base GraphDef fine-tuning launched {launches}")
+    run["samples_per_s"] = B / (run["step_wall_ms"] / 1e3)
+    run["step_ms_over_zoo_bertbase_step_ms"] = (run["step_wall_ms"]
+                                                / zoo_step_ms)
+    return {
+        "model": "BERT-base as a frozen TF GraphDef (modeling.py's op "
+                 "pattern): 12 x 768, 12 heads x 64, 3072, vocab 30522, "
+                 "type vocab 2, 512 positions, 768 -> 2 classifier; "
+                 "weights N(0, 0.02) from the seed",
+        "params": n_params, "graph_bytes": graph_bytes,
+        "build_s": build_s, "parse_s": parse_s, "import_s": import_s,
+        "nodes_raw": nodes_raw, "nodes": len(imp.order), "rewrites": stats,
+        "f32_b2_max_rel_err": errs,
+        "inference": inference,
+        "training": dict(run, batch=B, timesteps=T,
+                         optimizer="Adam 2e-5, f32 masters, bf16 compute"),
+        "zoo_bertbase_step_wall_ms": zoo_step_ms,
+        "deltas_from_zoo_bertbase": "token-type embeddings (OneHot + "
+        "MatMul), tanh pooler + classifier instead of the zoo's pooled "
+        "output layer, plain attention (the mask is a bias: no flash "
+        "kernel) against flash, Adam against AdamW on a warmup-cosine "
+        "schedule with clipping 1.0, no dropout against 0.1",
+    }
+
+
+def phase_tf_import_lrn(torch, np):
+    """TF LRN through import: a [128, 54, 54, 96] Placeholder -> LRN graph
+    (AlexNet's conv1 LRN) whose output() launches the LRN forward kernel
+    once (a profiled window names it) and equals the plain ``lrn``
+    lowering; a variant with a 1x1 Conv2D in front, through as_trainable,
+    whose sum loss's backward launches the LRN backward kernel once."""
+    from deeplearning4j_tpu_torch.common.env import env
+    from deeplearning4j_tpu_torch.modelimport import TFGraphMapper
+    from deeplearning4j_tpu_torch.ops.convolution import lrn as plain_lrn
+    from deeplearning4j_tpu_torch.ops.cuda import KERNELS
+
+    shape = (ALEXNET_BATCH, 54, 54, 96)
+    hp = dict(depth=5, k=2.0, alpha=1e-4, beta=0.75)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    x = 2.0 * torch.randn(shape, device="cuda", generator=g)
+    imp = TFGraphMapper.import_graph(lrn_graph_def(shape))
+    y, fwd_launches, _, _ = _count_launches(
+        torch, KERNELS, lambda: imp.output({"x": x}, ["lrn"]))
+    if fwd_launches != _only(KERNELS, lrn_fwd=1):
+        fail(f"imported TF LRN output() launched {fwd_launches}; want one "
+             f"LRN forward")
+    # the device's own record: a window of 10 calls must name the LRN
+    # forward kernel and no other kernel of the port. Its count is read
+    # from the launch counters: at this point of the full run the profiler
+    # keeps only some of a short window's records (7 of 10 on an H100; all
+    # of them in a process that runs this phase alone), so the window is
+    # profiled again while it falls short, and then taken as it is.
+    calls = 10
+
+    def call():
+        return imp.output({"x": x}, ["lrn"])
+
+    _, n_launched, _, _ = _count_launches(
+        torch, KERNELS, lambda: [call() for _ in range(calls)])
+    by_kernel, _, seen = profile_showing(torch, call, calls,
+                                         {"lrn_fwd_kernel": 1}, tries=5)
+    # the device names of the port's kernels (csrc/*.cu)
+    port = sorted(k for k in by_kernel
+                  if any(t in k for t in ("lstm_", "gru_", "flash_", "lrn_")))
+    err, ok = _lrn_within(torch, y, plain_lrn(x, **hp), torch.float32,
+                          TOL_LRN_FWD)
+    if (not ok or n_launched != _only(KERNELS, lrn_fwd=calls)
+            or not 0 < seen["lrn_fwd_kernel"] <= calls
+            or any("lrn_fwd_kernel" not in k for k in port)):
+        fail(f"imported TF LRN: error against the plain lrn {err}; {calls} "
+             f"calls launched {n_launched}; the profiler saw "
+             f"{seen['lrn_fwd_kernel']} lrn_fwd_kernel records and the "
+             f"port's kernels {port}")
+
+    conv = TFGraphMapper.import_graph(lrn_graph_def(shape, conv=True))
+    fn, params = conv.as_trainable(outputs=["lrn"])
+
+    def grad():
+        p = {k: v.detach().requires_grad_() for k, v in params.items()}
+        return torch.autograd.grad(fn(p, {"x": x}).sum(), list(p.values()))
+
+    (gw,), train_launches, _, _ = _count_launches(torch, KERNELS, grad)
+    if train_launches != _only(KERNELS, lrn_fwd=1, lrn_bwd=1):
+        fail(f"imported conv + LRN, one as_trainable step launched "
+             f"{train_launches}; want one LRN forward and one backward")
+    env.disable_kernels = True
+    try:
+        (gp,) = grad()
+    finally:
+        env.reload()
+    grad_rel = _rel_err(torch, gw, gp)
+    if grad_rel > TOL_GRAD:
+        fail(f"imported conv + LRN: the weight gradient through the kernels "
+             f"against the plain path {grad_rel} > {TOL_GRAD}")
+    launches = {k: fwd_launches[k] + train_launches[k] for k in fwd_launches}
+    return {"shape": list(shape), "lrn": "depth_radius 2, bias 2, alpha 1e-4, "
+            "beta 0.75 (AlexNet's)", "output_launches": fwd_launches,
+            "train_launches": train_launches, "launches": launches,
+            "output_max_abs_err_vs_plain": err,
+            "profiled_window": {"calls": calls,
+                                "lrn_fwd_kernel_records":
+                                    seen["lrn_fwd_kernel"],
+                                "port_kernels": port},
+            "conv_weight_grad_rel_err_vs_plain": grad_rel}
+
+
 def main() -> None:
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "deeplearning4j_tpu_torch")):
@@ -2953,7 +3618,53 @@ def main() -> None:
           f"{rn_train['mfu']:.4f}, device busy "
           f"{rn_train['profile']['device_busy_share']}", flush=True)
 
-    # phase 22: kernels line, card line, result line
+    # phase 22: bert_tiny.onnx on the card against its golden
+    t0 = time.perf_counter()
+    golden = phase_onnx_golden(torch, np)
+    golden["wall_s"] = time.perf_counter() - t0
+    print(json.dumps({"onnx_golden": golden, "card": card}), flush=True)
+    print(f"bert_tiny.onnx on {card}: {golden['off']['nodes']} -> "
+          f"{golden['on']['nodes']} nodes, rewrites "
+          f"{golden['on']['rewrites']}", flush=True)
+
+    # phase 23: bench.py bert_import at its own shape
+    t0 = time.perf_counter()
+    bert_import = phase_bert_import_training(torch, np)
+    bert_import["wall_s"] = time.perf_counter() - t0
+    print(json.dumps({"bert_import_training": bert_import, "card": card}),
+          flush=True)
+    for k in ("on", "off"):
+        r = bert_import[k]
+        print(f"bert_import (optimizer {k}) on {card}: "
+              f"{r['step_wall_ms']:.2f} ms a step, {r['samples_per_s']:.1f} "
+              f"samples/s, device {r['profile']['device_ms_per_step']:.3f} "
+              f"ms a step, busy {r['profile']['device_busy_share']}",
+              flush=True)
+
+    # phase 24: BERT-base through TF import, full width
+    t0 = time.perf_counter()
+    bert_tf = phase_bert_tf_import(torch, np, bert_train["step_wall_ms"])
+    bert_tf["wall_s"] = time.perf_counter() - t0
+    print(json.dumps({"bert_tf_import": bert_tf, "card": card}), flush=True)
+    tr = bert_tf["training"]
+    print(f"BERT-base TF import on {card}: build {bert_tf['build_s']:.1f} s, "
+          f"parse {bert_tf['parse_s']:.1f} s, import "
+          f"{bert_tf['import_s']:.1f} s; output() "
+          f"{bert_tf['inference']['ms_per_call']:.2f} ms a call; "
+          f"fine-tuning {tr['step_wall_ms']:.2f} ms a step, "
+          f"{tr['samples_per_s']:.1f} samples/s, busy "
+          f"{tr['profile']['device_busy_share']}, "
+          f"{tr['step_ms_over_zoo_bertbase_step_ms']:.2f}x the zoo BertBase "
+          f"step", flush=True)
+
+    # phase 25: the import path reaches the LRN kernels
+    t0 = time.perf_counter()
+    lrn_import = phase_tf_import_lrn(torch, np)
+    lrn_import["wall_s"] = time.perf_counter() - t0
+    print(json.dumps({"tf_import_lrn": lrn_import, "card": card}),
+          flush=True)
+
+    # phase 26: kernels line, card line, result line
     decode = rows[0]  # the serving path's decode shape [8, 1, 256]
     graves = bwd_rows[0]  # the training path's first layer [64, 64, 200]
     # TextGenerationLSTM's second layer [64, 64, 256], no peepholes: where
@@ -3072,10 +3783,13 @@ def main() -> None:
         entries.append({
             "name": kern.name, "route": "cuda", "source": kern.source,
             "replaces": kern.replaces,
-            "launches": infer_n[kern.name] + train_n[kern.name],
+            "launches": (infer_n[kern.name] + train_n[kern.name]
+                         + lrn_import["launches"][kern.name]),
             "launches_by_path": {"alexnet_inference": infer_n[kern.name],
                                  "alexnet_training": train_n[kern.name],
                                  "lenet_training": lenet["launches"][
+                                     kern.name],
+                                 "tf_import": lrn_import["launches"][
                                      kern.name]},
             "max_abs_err": lrn_worst, "max_abs_err_bf16": lrn_worst_bf16,
             "ms": lt[f"{kind}_ms"], "device_ms": lt[f"{kind}_device_ms"],

@@ -2,8 +2,8 @@
 
 Counterpart of ``deeplearning4j_tpu/common/env.py`` under the port's own
 ``DL4J_TORCH_`` prefix. Only the flags the ported slice reads are carried
-over: the kernel kill switch, the force switch and verbose dispatch
-logging; and the switches of training features the port has not taken over
+over: the kernel kill switch, the force switch, verbose dispatch logging
+and the import-graph optimizer's switch; and the switches of training features the port has not taken over
 yet (guardrails, fault plans), so that ``fit_batch`` refuses them instead of
 training without them.
 """
@@ -30,6 +30,9 @@ class Environment:
     FORCE_KERNELS = "DL4J_TORCH_FORCE_KERNELS"
     # Print each op's selected implementation when the choice is made.
     VERBOSE = "DL4J_TORCH_VERBOSE"
+    # The import-graph optimizer runs at import (default on; 0 keeps the
+    # raw parsed graph).
+    IMPORT_OPT = "DL4J_TORCH_IMPORT_OPT"
     # Not ported yet: arming training guardrails, installing a fault plan.
     GUARDRAILS = "DL4J_TORCH_GUARDRAILS"
     FAULTS = "DL4J_TORCH_FAULTS"
@@ -41,6 +44,7 @@ class Environment:
         self.disable_kernels = _flag(self.DISABLE_KERNELS)
         self.force_kernels = _flag(self.FORCE_KERNELS)
         self.verbose = _flag(self.VERBOSE)
+        self.import_opt = _flag(self.IMPORT_OPT, default=True)
         self.guardrails = _flag(self.GUARDRAILS)
         self.faults = os.environ.get(self.FAULTS, "").strip()
 
