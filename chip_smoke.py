@@ -214,10 +214,39 @@ Phases (any failure exits non-zero before the result line):
     within TOL_LRN_FWD; a variant with a 1x1 Conv2D in front through
     ``as_trainable``: one sum-loss backward launches one LRN forward and
     one backward, its weight gradient against the plain path on the card.
-26. Prints the kernels line (all nine kernels; the LRN entries count the
-    import path's launches under ``launches_by_path["tf_import"]``), the
-    card line and, last, the result line ``{"ok": true, "device":
-    {...}}``.
+26. YOLO2 inference at full width: ``YOLO2()`` with its defaults (608 x
+    608 x 3, 80 classes, the five priors, bf16, random weights from the
+    seed; a Darknet-19 trunk, the passthrough route and the 19 x 19 x 425
+    head), a ComputationGraph, runs 5 ``output()`` calls on 16 N(0, 1)
+    images, launching none of the port's kernels; ms a call, device ms,
+    busy share, kernels a call and device time by kind of a profiled
+    window. Then ``get_predicted_objects`` (threshold 0.5) and
+    ``non_max_suppression`` (IoU 0.45) on the last output, their host ms
+    and detection counts. Then the f32 YOLO2 (TF32 off) on the card
+    against the same graph on the CPU at B=2, 608 x 608, from shared
+    weights: the output, one ``fit_batch`` loss and the BN running means
+    after it within TOL_YOLO2_CPU.
+27. YOLO2 training at full width: 2 warm and 10 timed ``fit_batch`` steps
+    at B=16, bf16, the zoo's Adam 1e-3, on labels [16, 19, 19, 85] made
+    from the seed (1-8 object cells an image, cx, cy ~ U[0, 1), w, h ~
+    U[0.3, 12] grid units, a one-hot class of 80): every loss finite;
+    step wall ms, samples/s, device ms, busy share, kernels a step and the
+    device time by kind of a profiled window (which must launch none of
+    the nine kernels), peak memory, and MFU (3 x the forward FLOPs of
+    ``forward_flops`` over the step wall, against 989 TFLOP/s bf16).
+28. The rest of the CNN zoo on the card, each at its default input size
+    and dtype (SimpleCNN 48, VGG16 and VGG19 224, SqueezeNet 227,
+    Darknet19 224, TinyYOLO 416, Xception 299, UNet 512,
+    InceptionResNetV1 160, NASNet 224): one ``output()`` and one
+    ``fit_batch`` at B=2 (a finite loss, no kernel of the port launched),
+    then its f32 ``output()`` at B=1 on the card against the CPU at full
+    depth, the image side cut to ZOO_CHECK_SIDE (SimpleCNN at its own
+    48), within TOL_ZOO_CPU of the largest output.
+29. Prints the kernels line (all nine kernels; the LRN entries count the
+    import path's launches under ``launches_by_path["tf_import"]``, and
+    every entry YOLO2's, 0, under ``"yolo2_inference"`` and
+    ``"yolo2_training"``), the card line and, last, the result line
+    ``{"ok": true, "device": {...}}``.
 
 Every phase runs f32 work with TF32 off (``torch.backends.cuda.matmul``
 and ``torch.backends.cudnn`` ``allow_tf32`` False), the timed ones too.
@@ -2646,27 +2675,74 @@ N_RESNET_STEPS = 10
 TOL_RESNET_CPU = 1e-4
 
 
-def resnet_forward_flops(net, batch: int) -> int:
-    """FLOPs of one forward pass of ``batch`` images through a graph: 2 x
-    the multiply-adds of every convolution and dense layer, from the
-    graph's own shapes (conv: output pixels x C_out x kh x kw x C_in /
-    groups; dense: inputs x outputs)."""
-    from deeplearning4j_tpu_torch.nn.layers import ConvolutionLayer, DenseLayer
+# ResNet50()'s forward FLOPs an image as the earlier ResNet-only counter
+# gave them (2 x its convolutions' and dense layer's multiply-adds), which
+# forward_flops must still give
+RESNET50_FORWARD_FLOPS = 7_715_946_496
 
-    macs = 0
-    for name in net.conf.topological_order:
-        layer = getattr(net.conf.vertices[name], "layer", None)
-        if layer is None:
-            continue
-        (itype,) = net._vertex_input_types(name)
-        otype = net.conf.vertex_output_types[name]
-        if isinstance(layer, ConvolutionLayer):
-            h, w, cout = otype.shape
-            kh, kw = layer.kernel
-            macs += h * w * cout * kh * kw * itype.channels // layer.groups
-        elif isinstance(layer, DenseLayer):  # the output layer too
-            macs += itype.size * layer.n_out
-    return 2 * macs * batch
+
+def _prod(v):
+    out = 1
+    for d in v:
+        out *= int(d)
+    return out
+
+
+def layer_macs(layer, itype, otype) -> int:
+    """Multiply-adds of one example through ``layer``, from its input and
+    output types: conv (1-D, 2-D, 3-D) output positions x C_out x kernel
+    volume x C_in / groups; depthwise output positions x kernel area;
+    separable its depthwise and its 1x1 pointwise conv; deconv input
+    pixels x kernel area x C_in x C_out; dense inputs x outputs (the
+    output layers too). Other layers do none."""
+    from deeplearning4j_tpu_torch.nn.layers import (
+        Convolution1DLayer, Convolution3DLayer, ConvolutionLayer,
+        Deconvolution2DLayer, DenseLayer, DepthwiseConvolution2DLayer,
+        SeparableConvolution2DLayer,
+    )
+
+    if isinstance(layer, ConvolutionLayer):
+        h, w, cout = otype.shape
+        kh, kw = layer.kernel
+        return h * w * cout * kh * kw * itype.channels // layer.groups
+    if isinstance(layer, Convolution1DLayer):
+        t, cin = itype.shape
+        cout, tout = otype.shape[1], otype.shape[0]
+        return tout * cout * layer.kernel * cin
+    if isinstance(layer, Convolution3DLayer):
+        return (_prod(otype.shape) * _prod(layer.kernel)
+                * itype.channels)
+    if isinstance(layer, DepthwiseConvolution2DLayer):
+        return _prod(otype.shape) * _prod(layer.kernel)
+    if isinstance(layer, SeparableConvolution2DLayer):
+        h, w, cout = otype.shape
+        mid = itype.channels * layer.depth_multiplier
+        return h * w * mid * (_prod(layer.kernel) + cout)
+    if isinstance(layer, Deconvolution2DLayer):
+        h, w, cin = itype.shape
+        return h * w * _prod(layer.kernel) * cin * layer.n_out
+    if isinstance(layer, DenseLayer):
+        return itype.size * layer.n_out
+    return 0
+
+
+def forward_flops(net, batch: int) -> int:
+    """FLOPs of one forward pass of ``batch`` examples through a
+    ComputationGraph or a MultiLayerNetwork: 2 x ``layer_macs`` of every
+    layer, from the network's own shapes."""
+    conf = net.conf
+    if hasattr(conf, "topological_order"):
+        pairs = []
+        for name in conf.topological_order:
+            layer = getattr(conf.vertices[name], "layer", None)
+            if layer is not None:
+                (itype,) = net._vertex_input_types(name)
+                pairs.append((layer, itype, conf.vertex_output_types[name]))
+    else:
+        pairs = [(layer, itype, layer.output_type(itype))
+                 for layer, itype in zip(conf.layers,
+                                         conf.layer_input_types)]
+    return 2 * batch * sum(layer_macs(*p) for p in pairs)
 
 
 def _resnet_batch(torch, seed, B, dtype):
@@ -2686,7 +2762,7 @@ def _resnet_logits(torch, net, x):
     from deeplearning4j_tpu_torch.common.dtypes import cast_floating
 
     with torch.no_grad():
-        _, _, pre = net._forward(
+        _, _, pre, _ = net._forward(
             cast_floating(net.params, net._policy.compute_dtype), net.state,
             {"input": x}, False, None, want_preout=True)
     return pre["output"].float()
@@ -2715,7 +2791,10 @@ def phase_resnet_inference(torch, np):
              f"finite {bool(torch.isfinite(out).all())}")
     by_kernel, prof_wall = profile_device(torch, lambda: net.output(x),
                                           N_RESNET_CALLS)
-    flops = resnet_forward_flops(net, RESNET_BATCH)
+    flops = forward_flops(net, RESNET_BATCH)
+    if flops != RESNET50_FORWARD_FLOPS * RESNET_BATCH:
+        fail(f"forward_flops gives ResNet-50 {flops} FLOPs at B = "
+             f"{RESNET_BATCH}, not {RESNET50_FORWARD_FLOPS} an image")
     call_ms = 1e3 * wall / N_RESNET_CALLS
     return {
         "model": "ResNet50(224 x 224 x 3, [3, 4, 6, 3] bottlenecks, 1000 "
@@ -2799,7 +2878,7 @@ def phase_resnet_training(torch, np, net):
         torch, lambda: net.fit_batch((x, y)), steps)
     prof = _profile_summary(by_kernel, prof_wall, steps, "step", top_n=10)
     step_ms = 1e3 * wall / N_RESNET_STEPS
-    flops = 3 * resnet_forward_flops(net, RESNET_BATCH)
+    flops = 3 * forward_flops(net, RESNET_BATCH)
     return {
         "model": "ResNet50, bf16, Nesterovs 0.1 momentum 0.9",
         "batch": RESNET_BATCH, "warm_steps": N_RESNET_WARM,
@@ -2816,6 +2895,279 @@ def phase_resnet_training(torch, np, net):
         "device_ms_per_step_by_kind": _ms_by_kind(by_kernel, steps),
         "f32_card_vs_cpu": resnet_cpu_check(torch, np),
     }
+
+
+# ------------------------------------------------------ detection slice
+
+YOLO2_BATCH = 16
+N_YOLO2_CALLS = 5
+N_YOLO2_WARM = 2
+N_YOLO2_STEPS = 10
+YOLO2_GRID = 19
+YOLO2_CLASSES = 80
+YOLO2_THRESHOLD = 0.5
+YOLO2_NMS_IOU = 0.45
+# the port's f32 YOLO2 on the card (cuDNN, TF32 off) against the same graph
+# on the CPU, B = 2 at 608 x 608: the output relative to its largest entry,
+# the step's loss relative, the BN running means after the step relative
+# to the largest (as TOL_RESNET_CPU: the convolutions sum in other orders
+# through 23 layers and 22 training-mode BatchNormalizations)
+TOL_YOLO2_CPU = 1e-4
+# phase 28: the rest of the zoo at B = 2 on the card, each model's f32
+# output() at B = 1 on the card against the CPU at full depth on images cut
+# to ZOO_CHECK_SIDE (SimpleCNN at its own 48), relative to the largest
+# output
+ZOO_BATCH = 2
+ZOO_CHECK_SIDE = 128
+TOL_ZOO_CPU = 1e-4
+# the device functions of the nine kernels (csrc/*.cu), as the profiler
+# names them
+HAND_KERNEL_NAMES = ("flash_fwd_", "flash_dq_", "flash_dkv_", "gru_fwd_",
+                     "gru_bwd_", "lrn_fwd_kernel", "lrn_bwd_kernel",
+                     "lstm_fwd_", "lstm_bwd_")
+ZOO_MODELS = ("SimpleCNN", "VGG16", "VGG19", "SqueezeNet", "Darknet19",
+              "TinyYOLO", "Xception", "UNet", "InceptionResNetV1", "NASNet")
+
+
+def yolo2_labels(np, seed, B, grid=YOLO2_GRID, classes=YOLO2_CLASSES,
+                 cells=(1, 8), wh=(0.3, 12.0)):
+    """[B, grid, grid, 5 + classes] YOLOv2 labels from the seed: 1-8 object
+    cells an image, cx, cy ~ U[0, 1) in the cell, w, h ~ U[0.3, 12] grid
+    units, obj 1, a one-hot class."""
+    rng = np.random.default_rng(seed)
+    y = np.zeros((B, grid, grid, 5 + classes), np.float32)
+    for b in range(B):
+        n = min(int(rng.integers(cells[0], cells[1] + 1)), grid * grid)
+        for c in rng.choice(grid * grid, size=n, replace=False):
+            i, j = divmod(int(c), grid)
+            y[b, i, j, 0:2] = rng.random(2)
+            y[b, i, j, 2:4] = rng.uniform(*wh, size=2)
+            y[b, i, j, 4] = 1.0
+            y[b, i, j, 5 + int(rng.integers(0, classes))] = 1.0
+    return y
+
+
+def _images(torch, seed, B, H, W, dtype, device="cuda"):
+    """N(0, 1) NHWC images made on ``device`` from the seed."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn((B, H, W, 3), device=device, generator=g).to(dtype)
+
+
+def _max_rel(a, b):
+    """Largest |a - b| over the largest |b| (b on the CPU)."""
+    return float((a.float().cpu() - b.float()).abs().max()) / max(
+        float(b.float().abs().max()), 1e-30)
+
+
+def yolo2_cpu_check(torch, np):
+    """The port's own f32 YOLO2 (TF32 off) on the card against the same
+    graph on the CPU, B = 2 at 608 x 608, from shared weights: output(),
+    the loss of one fit_batch step and the BN running means after it."""
+    from deeplearning4j_tpu_torch.zoo import YOLO2
+
+    card = YOLO2(seed=SEED + 1, dtype="float32").init(device="cuda")
+    cpu = copy.deepcopy(card).to("cpu")
+    x = _images(torch, SEED + 23, 2, 608, 608, torch.float32)
+    y = torch.tensor(yolo2_labels(np, SEED + 24, 2))
+    err = {"output": _max_rel(card.output(x), cpu.output(x.cpu()))}
+    lc = card.fit_batch((x, y.cuda()))
+    lp = cpu.fit_batch((x.cpu(), y))
+    err["step_loss"] = abs(lc - lp) / abs(lp)
+    err["bn_running_mean"] = max(
+        _max_rel(card.state[k]["mean"], cpu.state[k]["mean"])
+        for k in cpu.state)
+    if not all(e <= TOL_YOLO2_CPU for e in err.values()):
+        fail(f"f32 YOLO2, card against CPU at B = 2: {err} (tolerance "
+             f"{TOL_YOLO2_CPU}, relative)")
+    return {"batch": 2, "tf32": False, "tolerance": TOL_YOLO2_CPU,
+            "max_rel_err": err, "card_loss": lc, "cpu_loss": lp}
+
+
+def phase_yolo2_inference(torch, np):
+    """YOLO2() at its published width answering output() calls on 16 bf16
+    images, then decode and NMS on the host, then the f32 card-against-CPU
+    check; returns (summary, net)."""
+    from deeplearning4j_tpu_torch.nn.layers.objdetect import (
+        get_predicted_objects, non_max_suppression,
+    )
+    from deeplearning4j_tpu_torch.ops.cuda import KERNELS
+    from deeplearning4j_tpu_torch.zoo import YOLO2
+
+    net = YOLO2(seed=SEED).init(device="cuda")
+    x = _images(torch, SEED + 21, YOLO2_BATCH, 608, 608, torch.bfloat16)
+    net.output(x)  # warm-up, not counted
+    outs, launches, _, wall = _count_launches(
+        torch, KERNELS, lambda: [net.output(x) for _ in range(N_YOLO2_CALLS)])
+    if any(launches.values()):
+        fail(f"YOLO2 output() launched {launches}; its path runs none of "
+             f"the port's kernels")
+    out = outs[-1]
+    want = (YOLO2_BATCH, YOLO2_GRID, YOLO2_GRID, 5 * (5 + YOLO2_CLASSES))
+    if (tuple(out.shape) != want or out.dtype != torch.float32
+            or out.grad_fn is not None
+            or not bool(torch.isfinite(out).all())):
+        fail(f"YOLO2 output() gave {tuple(out.shape)} {out.dtype}, finite "
+             f"{bool(torch.isfinite(out).all())}; want {want} float32")
+    by_kernel, prof_wall = profile_device(torch, lambda: net.output(x),
+                                          N_YOLO2_CALLS)
+    layer = net.conf.vertices["output"].layer
+    t0 = time.perf_counter()
+    dets = get_predicted_objects(layer, out, threshold=YOLO2_THRESHOLD)
+    t1 = time.perf_counter()
+    kept = [non_max_suppression(d, YOLO2_NMS_IOU) for d in dets]
+    t2 = time.perf_counter()
+    if len(dets) != YOLO2_BATCH or not all(
+            len(k) <= len(d) and (len(k) > 0) == (len(d) > 0)
+            for k, d in zip(kept, dets)):
+        fail(f"YOLO2 decode/NMS: {[len(d) for d in dets]} detections, "
+             f"{[len(k) for k in kept]} kept")
+    flops = forward_flops(net, YOLO2_BATCH)
+    call_ms = 1e3 * wall / N_YOLO2_CALLS
+    return {
+        "model": "YOLO2(608 x 608 x 3, Darknet-19 trunk + passthrough, 80 "
+                 "classes, 5 priors), bf16, random weights from the seed",
+        "batch": YOLO2_BATCH, "params": net.num_params(),
+        "calls": N_YOLO2_CALLS, "launches": launches,
+        "wall_ms_per_call": call_ms,
+        "images_per_s": YOLO2_BATCH * N_YOLO2_CALLS / wall,
+        "synced_ms_per_call": host_ms(torch, lambda: net.output(x),
+                                      N_YOLO2_CALLS),
+        "forward_gflop_per_call": flops / 1e9,
+        "mfu": flops / (call_ms * 1e-3) / BF16_FLOP_PER_S,
+        "profile": _profile_summary(by_kernel, prof_wall, N_YOLO2_CALLS,
+                                    "call", top_n=10),
+        "device_ms_per_call_by_kind": _ms_by_kind(by_kernel, N_YOLO2_CALLS),
+        "decode": {"threshold": YOLO2_THRESHOLD, "nms_iou": YOLO2_NMS_IOU,
+                   "decode_host_ms": 1e3 * (t1 - t0),
+                   "nms_host_ms": 1e3 * (t2 - t1),
+                   "detections": sum(len(d) for d in dets),
+                   "kept": sum(len(k) for k in kept),
+                   "kept_per_image": [len(k) for k in kept]},
+        "f32_card_vs_cpu": yolo2_cpu_check(torch, np),
+    }, net
+
+
+def phase_yolo2_training(torch, np, net):
+    """YOLO2 fit_batch at B = 16, bf16, Adam 1e-3: 2 warm steps, 10 timed
+    ones on a repeated batch, a profiled window that launches none of the
+    nine kernels, the FLOPs of a step against the bf16 peak."""
+    from deeplearning4j_tpu_torch.ops.cuda import KERNELS
+
+    x = _images(torch, SEED + 22, YOLO2_BATCH, 608, 608, torch.bfloat16)
+    y = torch.tensor(yolo2_labels(np, SEED + 25, YOLO2_BATCH), device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    warm = [net.fit_batch((x, y)) for _ in range(N_YOLO2_WARM)]
+    timed, launches, _, wall = _count_launches(
+        torch, KERNELS,
+        lambda: [net.fit_batch((x, y)) for _ in range(N_YOLO2_STEPS)])
+    losses = warm + timed
+    if not all(np.isfinite(losses)):
+        fail(f"YOLO2 training losses not finite: {losses}")
+    if any(launches.values()):
+        fail(f"YOLO2 training launched {launches}; its path runs none of "
+             f"the port's kernels")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    steps = 3
+    prof_launches = {}
+
+    def window():
+        nonlocal prof_launches
+        _, prof_launches, _, _ = _count_launches(
+            torch, KERNELS, lambda: net.fit_batch((x, y)))
+
+    by_kernel, prof_wall = profile_device(torch, window, steps)
+    named = [k for k in by_kernel if any(p in k for p in HAND_KERNEL_NAMES)]
+    if any(prof_launches.values()) or named:
+        fail(f"YOLO2's profiled steps launched {prof_launches} {named}")
+    prof = _profile_summary(by_kernel, prof_wall, steps, "step", top_n=10)
+    step_ms = 1e3 * wall / N_YOLO2_STEPS
+    flops = 3 * forward_flops(net, YOLO2_BATCH)
+    return {
+        "model": "YOLO2, bf16, Adam 1e-3",
+        "batch": YOLO2_BATCH, "warm_steps": N_YOLO2_WARM,
+        "steps": N_YOLO2_STEPS, "losses": losses, "launches": launches,
+        "profiled_launches": prof_launches,
+        "labels": f"{list(y.shape)}, 1-8 object cells an image",
+        "wall_s": wall, "step_wall_ms": step_ms,
+        "samples_per_s": YOLO2_BATCH * N_YOLO2_STEPS / wall,
+        "peak_memory_gb": peak,
+        "step_tflop": flops / 1e12,
+        "mfu": flops / (step_ms * 1e-3) / BF16_FLOP_PER_S,
+        "mfu_of_device_time": (flops / (prof["device_ms_per_step"] * 1e-3)
+                               / BF16_FLOP_PER_S),
+        "profile": prof,
+        "device_ms_per_step_by_kind": _ms_by_kind(by_kernel, steps),
+    }
+
+
+def _zoo_labels(np, name, model, out_shape, seed):
+    """Labels for one zoo model's output shape: YOLO labels for TinyYOLO
+    (its grid and classes), a binary map for UNet, one-hot classes for the
+    classifiers."""
+    rng = np.random.default_rng(seed)
+    if name == "TinyYOLO":
+        return yolo2_labels(np, seed, out_shape[0], grid=out_shape[1],
+                            classes=model.n_classes)
+    if name == "UNet":
+        return (rng.random(out_shape) > 0.5).astype(np.float32)
+    n = out_shape[-1]
+    return np.eye(n, dtype=np.float32)[rng.integers(0, n, out_shape[0])]
+
+
+def phase_zoo(torch, np):
+    """Each model of ZOO_MODELS at its default input size and dtype: one
+    output() and one fit_batch at B = 2 on the card, then its f32 output()
+    at B = 1, card against CPU, at full depth on a cut image side."""
+    import deeplearning4j_tpu_torch.zoo as zoo
+    from deeplearning4j_tpu_torch.ops.cuda import KERNELS
+
+    rows = {}
+    for i, name in enumerate(ZOO_MODELS):
+        cls = getattr(zoo, name)
+        model = cls(seed=SEED)
+        net = model.init(device="cuda")
+        H, W = model.height, model.width
+        dt = (torch.bfloat16 if net.conf.dtype in ("bf16", "bfloat16")
+              else torch.float32)
+        x = _images(torch, SEED + 30 + i, ZOO_BATCH, H, W, dt)
+        t0 = time.perf_counter()
+        (out, launches_out, _, out_wall) = _count_launches(
+            torch, KERNELS, lambda: net.output(x))
+        y = torch.tensor(_zoo_labels(np, name, model, tuple(out.shape),
+                                     SEED + 40 + i), device="cuda")
+        loss, launches_fit, _, fit_wall = _count_launches(
+            torch, KERNELS, lambda: net.fit_batch((x, y)))
+        if not (bool(torch.isfinite(out).all()) and np.isfinite(loss)):
+            fail(f"{name} on the card: output finite "
+                 f"{bool(torch.isfinite(out).all())}, loss {loss}")
+        if any(launches_out.values()) or any(launches_fit.values()):
+            fail(f"{name} launched {launches_out} {launches_fit}; its path "
+                 f"runs none of the port's kernels")
+        params, flops = net.num_params(), forward_flops(net, 1)
+        del net
+        side = H if name == "SimpleCNN" else ZOO_CHECK_SIDE
+        small = cls(seed=SEED + 1, height=side, width=side, dtype="float32")
+        card = small.init(device="cuda")
+        cpu = copy.deepcopy(card).to("cpu")
+        xc = _images(torch, SEED + 50 + i, 1, side, side, torch.float32)
+        err = _max_rel(card.output(xc), cpu.output(xc.cpu()))
+        if not err <= TOL_ZOO_CPU:
+            fail(f"f32 {name} at {side} x {side}, card against CPU: "
+                 f"{err} (tolerance {TOL_ZOO_CPU}, relative)")
+        del card, cpu
+        torch.cuda.empty_cache()
+        rows[name] = {
+            "input": [H, W, 3], "dtype": str(dt).replace("torch.", ""),
+            "params": params, "batch": ZOO_BATCH,
+            "output_shape": list(out.shape),
+            "first_output_ms": 1e3 * out_wall,
+            "first_fit_batch_ms": 1e3 * fit_wall, "loss": loss,
+            "forward_gflop_per_image": flops / 1e9,
+            "f32_check": {"side": side, "batch": 1, "tf32": False,
+                          "max_rel_err": err, "tolerance": TOL_ZOO_CPU},
+            "wall_s": time.perf_counter() - t0,
+        }
+    return rows
 
 
 # ------------------------------------------------------ model-import slice
@@ -3664,7 +4016,47 @@ def main() -> None:
     print(json.dumps({"tf_import_lrn": lrn_import, "card": card}),
           flush=True)
 
-    # phase 26: kernels line, card line, result line
+    # phase 26: YOLO2 inference at full width
+    t0 = time.perf_counter()
+    yolo_out, yolo_net = phase_yolo2_inference(torch, np)
+    yolo_out["wall_s"] = time.perf_counter() - t0
+    print(json.dumps({"yolo2_inference": yolo_out, "card": card}),
+          flush=True)
+    dec = yolo_out["decode"]
+    print(f"YOLO2 output() on {card}: {yolo_out['wall_ms_per_call']:.2f} ms "
+          f"a call of {YOLO2_BATCH} images, device "
+          f"{yolo_out['profile']['device_ms_per_call']:.3f} ms, busy "
+          f"{yolo_out['profile']['device_busy_share']}; decode "
+          f"{dec['decode_host_ms']:.1f} ms, NMS {dec['nms_host_ms']:.1f} ms, "
+          f"{dec['detections']} detections, {dec['kept']} kept", flush=True)
+
+    # phase 27: YOLO2 training at full width
+    t0 = time.perf_counter()
+    yolo_train = phase_yolo2_training(torch, np, yolo_net)
+    yolo_train["wall_s_phase"] = time.perf_counter() - t0
+    del yolo_net
+    print(json.dumps({"yolo2_training": yolo_train, "card": card}),
+          flush=True)
+    print(f"YOLO2 training on {card}: {yolo_train['step_wall_ms']:.2f} ms a "
+          f"step, {yolo_train['samples_per_s']:.1f} samples/s, MFU "
+          f"{yolo_train['mfu']:.4f}, device "
+          f"{yolo_train['profile']['device_ms_per_step']:.3f} ms a step, busy "
+          f"{yolo_train['profile']['device_busy_share']}, peak "
+          f"{yolo_train['peak_memory_gb']:.2f} GB", flush=True)
+
+    # phase 28: the rest of the CNN zoo
+    t0 = time.perf_counter()
+    zoo_rows = phase_zoo(torch, np)
+    print(json.dumps({"zoo": zoo_rows, "card": card,
+                      "wall_s": time.perf_counter() - t0}), flush=True)
+    for zname, r in zoo_rows.items():
+        print(f"{zname} on {card}: output() {r['first_output_ms']:.1f} ms, "
+              f"fit_batch {r['first_fit_batch_ms']:.1f} ms (first calls, B="
+              f"{r['batch']}), loss {r['loss']:.4f}, f32 at "
+              f"{r['f32_check']['side']} against the CPU "
+              f"{r['f32_check']['max_rel_err']:.2e}", flush=True)
+
+    # phase 29: kernels line, card line, result line
     decode = rows[0]  # the serving path's decode shape [8, 1, 256]
     graves = bwd_rows[0]  # the training path's first layer [64, 64, 200]
     # TextGenerationLSTM's second layer [64, 64, 256], no peepholes: where
@@ -3804,6 +4196,11 @@ def main() -> None:
     entries += gru_kernel_entries(by_name, gru_rows, gru_worst,
                                   gru_worst_bf16, gru_serve, gru_train,
                                   wide_gru, bidi_gru, gru_sass)
+    for e in entries:  # YOLO2 runs none of the nine (phases 26-27)
+        e["launches_by_path"]["yolo2_inference"] = yolo_out["launches"][
+            e["name"]]
+        e["launches_by_path"]["yolo2_training"] = yolo_train["launches"][
+            e["name"]]
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""deeplearning4j_tpu_torch — the PyTorch/CUDA port of deeplearning4j_tpu.
+"""deeplearning4j_tpu_torch — the PyTorch/CUDA port of the JAX package.
 
 The module paths mirror the JAX package (``deeplearning4j_tpu``), so each
 module's counterpart sits at the same relative path. The port imports torch,

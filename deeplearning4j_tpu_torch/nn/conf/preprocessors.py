@@ -124,13 +124,13 @@ class CnnToRnnPreProcessor(InputPreProcessor):
 
 
 def auto_preprocessor(prev: InputType, layer) -> InputPreProcessor | None:
-    """The DL4J-standard preprocessor between ``prev`` and ``layer``."""
+    """The DL4J-standard preprocessor between ``prev`` and ``layer``. As in
+    the JAX package, a CNN activation reaching a 1-D conv or pool gets
+    none."""
     from deeplearning4j_tpu_torch.nn.layers.attention import (
         SelfAttentionLayer, TransformerEncoderLayer,
     )
-    from deeplearning4j_tpu_torch.nn.layers.conv import (
-        ConvolutionLayer, LocalResponseNormalizationLayer, SubsamplingLayer,
-    )
+    from deeplearning4j_tpu_torch.nn.layers import conv as convmod
     from deeplearning4j_tpu_torch.nn.layers.core import DenseLayer
     from deeplearning4j_tpu_torch.nn.layers.output import RnnOutputLayer
     from deeplearning4j_tpu_torch.nn.layers.recurrent import (
@@ -138,8 +138,13 @@ def auto_preprocessor(prev: InputType, layer) -> InputPreProcessor | None:
         MaskZeroLayer, SimpleRnnLayer, TimeDistributedLayer,
     )
 
-    cnn_layers = (ConvolutionLayer, SubsamplingLayer,
-                  LocalResponseNormalizationLayer)
+    cnn_layers = (convmod.ConvolutionLayer, convmod.SubsamplingLayer,
+                  convmod.Deconvolution2DLayer,
+                  convmod.SeparableConvolution2DLayer,
+                  convmod.DepthwiseConvolution2DLayer,
+                  convmod.Upsampling2DLayer, convmod.Cropping2DLayer,
+                  convmod.ZeroPadding2DLayer, convmod.SpaceToDepthLayer,
+                  convmod.LocalResponseNormalizationLayer)
     rnn_layers = (LSTMLayer, GRULayer, SimpleRnnLayer, BidirectionalLayer,
                   LastTimeStepLayer, MaskZeroLayer, TimeDistributedLayer,
                   SelfAttentionLayer, TransformerEncoderLayer, RnnOutputLayer)

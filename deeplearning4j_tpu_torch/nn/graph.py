@@ -25,8 +25,9 @@ card. Weights and optimizer state cross from the JAX package through
 Not ported yet: ``rnn_time_step``, ``as_loss_fn``, ``evaluate``,
 ``quantize``, listeners and async score dispatch (``fit_batch`` returns the
 loss as a float), tail padding of short batches, and the training features
-MultiLayerNetwork refuses (gradient checkpointing, guardrails, fault plans,
-the center-loss output layer).
+MultiLayerNetwork refuses (gradient checkpointing, guardrails, fault
+plans). A ``CenterLossOutputLayer`` output adds its center term and moves
+its centers every step (``nn/graph.py:294,345-352`` there).
 """
 
 from __future__ import annotations
@@ -46,9 +47,10 @@ from deeplearning4j_tpu_torch.nn.conf.builders import (
 )
 from deeplearning4j_tpu_torch.nn.conf.graph import LayerVertex
 from deeplearning4j_tpu_torch.nn.multilayer import (  # noqa: F401 (re-exported)
-    MultiLayerNetwork, _canonical, _layer_seed, _unpack, load_jax_opt_state,
-    load_jax_params,
+    MultiLayerNetwork, _canonical, _center_term, _layer_seed, _unpack,
+    load_jax_opt_state, load_jax_params,
 )
+from deeplearning4j_tpu_torch.nn.layers.output import CenterLossOutputLayer
 from deeplearning4j_tpu_torch.optimize.updaters import NoOp, get_updater
 
 
@@ -88,10 +90,6 @@ class ComputationGraph:
     _generator = MultiLayerNetwork._generator
     num_params = MultiLayerNetwork.num_params
     fit = MultiLayerNetwork.fit
-
-    def _output_layers(self):
-        return [self.conf.vertices[n].layer for n in self.conf.network_outputs
-                if isinstance(self.conf.vertices[n], LayerVertex)]
 
     # ------------------------------------------------------------------ init
     def init(self, seed: Optional[int] = None,
@@ -139,9 +137,10 @@ class ComputationGraph:
                  want_preout=False):
         """Walk the topological order. Returns (dict name -> activation,
         the new state of each vertex that returned one, the output vertices'
-        pre-outputs if ``want_preout``)."""
+        pre-outputs if ``want_preout``, and the input of each of those
+        output vertices)."""
         acts = dict(inputs)
-        new_state, preouts = {}, {}
+        new_state, preouts, out_feats = {}, {}, {}
         for name in self.conf.topological_order:
             v = self.conf.vertices[name]
             ins = [acts[d] for d in self.conf.vertex_inputs.get(name, [])]
@@ -152,6 +151,7 @@ class ComputationGraph:
             if (want_preout and name in self.conf.network_outputs
                     and isinstance(v, LayerVertex)
                     and hasattr(v.layer, "preout")):
+                out_feats[name] = ins[0]
                 preouts[name] = acts[name] = v.layer.preout(p, ins[0])
                 if s:
                     new_state[name] = s
@@ -160,7 +160,7 @@ class ComputationGraph:
             acts[name] = out
             if s2:
                 new_state[name] = s2
-        return acts, new_state, preouts
+        return acts, new_state, preouts, out_feats
 
     def _as_input_dict(self, xs, cast: bool) -> dict:
         """The network inputs by name, on the device; floating inputs in the
@@ -201,7 +201,7 @@ class ComputationGraph:
         padding mask threaded to every vertex."""
         inputs = self._as_input_dict(xs[0] if len(xs) == 1 else list(xs),
                                      cast=False)
-        acts, _, _ = self._forward(
+        acts, _, _, _ = self._forward(
             cast_floating(self.params, self._policy.compute_dtype),
             self.state, inputs, False, None, masks=self._mask_list(mask))
         outs = [acts[n].to(self._policy.output_dtype)
@@ -217,7 +217,7 @@ class ComputationGraph:
         loss mask; ``labels_masks``: {output name: mask} overriding it per
         output ([B, T] for a sequence head, per-example [B] or [B, 1] for
         any other)."""
-        acts, new_state, preouts = self._forward(
+        acts, new_state, preouts, out_feats = self._forward(
             params, state, inputs, train, rng, masks=masks, want_preout=True)
         shared_mask = masks[0] if masks else None
         loss = 0.0
@@ -254,6 +254,11 @@ class ComputationGraph:
                     labels[name], ref, None if per_example else out_mask)
                 if per_example:
                     per = per * out_mask
+                if isinstance(v.layer, CenterLossOutputLayer):
+                    per, new_state[name] = _center_term(
+                        v.layer, params.get(name, {}), state.get(name, {}),
+                        out_feats[name], labels[name], per, out_mask,
+                        ref.shape[0])
                 if out_mask is not None and per.dim() == 1:
                     # masked per-sample sums normalized by the valid count
                     loss = loss + per.sum() / torch.clamp(out_mask.sum(),

@@ -70,10 +70,7 @@ class Layer:
         if rng is None:
             raise ValueError(f"layer {self.name or type(self).__name__}: "
                              "dropout needs a generator")
-        keep = 1.0 - self.dropout
-        m = torch.rand(x.shape, generator=rng, device=x.device) < keep
-        return torch.where(m, x / keep, torch.zeros((), dtype=x.dtype,
-                                                    device=x.device))
+        return dropout(x, self.dropout, rng)
 
     def regularization(self, params):
         """l1/l2 penalty of this layer's params (DL4J
@@ -119,6 +116,15 @@ class Layer:
             if f.name in d:
                 kwargs[f.name] = _deser(d[f.name])
         return cls(**kwargs)
+
+
+def dropout(x, rate: float, rng: torch.Generator):
+    """Inverted dropout: each entry kept with probability 1 - ``rate`` and
+    scaled by 1 / (1 - rate), the mask drawn from ``rng``."""
+    keep = 1.0 - rate
+    m = torch.rand(x.shape, generator=rng, device=x.device) < keep
+    return torch.where(m, x / keep, torch.zeros((), dtype=x.dtype,
+                                                device=x.device))
 
 
 def _ser(v):

@@ -1,9 +1,11 @@
 """Core feed-forward layers.
 
 Counterpart of ``deeplearning4j_tpu/nn/layers/core.py``: ``DenseLayer``,
-the base of the output layers, ``ActivationLayer`` (``core.py:56``) and
-the two embedding lookups. W stays [in, out] ([vocab, n_out] for an
-embedding).
+the base of the output layers, ``ActivationLayer`` (``core.py:56``),
+``DropoutLayer`` (``:67``), the two embedding lookups and
+``ElementWiseMultiplicationLayer`` (``:160``). W stays [in, out] ([vocab,
+n_out] for an embedding). ``DropoutLayer`` draws its mask from the
+network's generator (``rng``) and is the identity in eval.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import torch
 from deeplearning4j_tpu_torch.common.dtypes import matmul
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.layers.base import (
-    Layer, register_layer, resolve_activation,
+    Layer, dropout, register_layer, resolve_activation,
 )
 
 
@@ -60,6 +62,23 @@ class ActivationLayer(Layer):
 
     def apply(self, params, state, x, *, train=False, rng=None, mask=None):
         return resolve_activation(self.activation)(x), state
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True, kw_only=True)
+class DropoutLayer(Layer):
+    """Standalone inverted dropout (org.deeplearning4j.nn.conf.layers
+    .DropoutLayer); ``rate`` is the drop probability, as in the JAX
+    package."""
+
+    rate: float = 0.5
+
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        if not train or self.rate <= 0.0:
+            return x, state
+        if rng is None:
+            raise ValueError("DropoutLayer needs a generator during training")
+        return dropout(x, self.rate, rng), state
 
 
 def _lookup(layer, params, idx):
@@ -125,3 +144,23 @@ class EmbeddingSequenceLayer(Layer):
         if x.dim() == 3 and x.shape[-1] == 1:
             x = x[..., 0]
         return _lookup(self, params, x), state
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True, kw_only=True)
+class ElementWiseMultiplicationLayer(Layer):
+    """out = act(x * W + b), a learned per-feature scale
+    (org.deeplearning4j.nn.conf.layers.misc.ElementWiseMultiplicationLayer);
+    W starts at ones."""
+
+    n_out: Optional[int] = None
+    activation: str = "identity"
+
+    def init(self, generator, itype, device):
+        n = self.n_out or itype.size
+        return {"W": torch.ones((n,), device=device),
+                "b": self._b((n,), device)}, {}
+
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        y = x * params["W"] + params["b"]
+        return resolve_activation(self.activation)(y), state

@@ -3,8 +3,8 @@
 Counterpart of ``deeplearning4j_tpu/nn/layers/norm.py``:
 ``BatchNormalizationLayer`` (``norm.py:22``), whose running statistics live
 in the network's ``state`` and move with every training step, and
-``LayerNormalizationLayer`` (``norm.py:77``), the transformer's. RMSNorm
-comes with the models that use it.
+``LayerNormalizationLayer`` (``norm.py:77``), the transformer's, and
+``RMSNormLayer`` (``norm.py:101``).
 """
 
 from __future__ import annotations
@@ -112,3 +112,22 @@ class LayerNormalizationLayer(Layer):
     def apply(self, params, state, x, *, train=False, rng=None, mask=None):
         return layer_norm(x, params.get("gamma"), params.get("beta"),
                           self.eps), state
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True, kw_only=True)
+class RMSNormLayer(Layer):
+    """RMSNorm over the last axis: x / sqrt(mean(x^2) + eps) * gamma, in
+    the input's dtype (no DL4J analog)."""
+
+    n_out: Optional[int] = None
+    eps: float = 1e-6
+
+    def init(self, generator, itype, device):
+        n = self.n_out or itype.shape[-1]
+        return {"gamma": torch.ones((n,), device=device)}, {}
+
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        ms = (x * x).mean(-1, keepdim=True)
+        y = x * torch.reciprocal(torch.sqrt(ms + self.eps)) * params["gamma"]
+        return y.to(x.dtype), state

@@ -25,11 +25,16 @@ and optimizer state cross from the JAX package through
 :func:`load_jax_params` and :func:`load_jax_opt_state`, or the model zip
 (``util/serialization.py``), which both packages read and write.
 
+A ``CenterLossOutputLayer`` head adds its center term to the loss and
+moves its centers (layer state) every step, as the JAX train step does
+(``nn/multilayer.py:232-245`` there): a per-example loss mask covers the
+term and the update.
+
 Not ported yet, and refused with ``NotImplementedError`` rather than
 trained around: truncated BPTT over sequences longer than its length,
-gradient checkpointing (``remat``), guardrails, fault plans and the
-center-loss output layer. Listeners, async score dispatch and monitoring
-are not ported either: ``fit_batch`` returns the step's loss as a float.
+gradient checkpointing (``remat``), guardrails and fault plans.
+Listeners, async score dispatch and monitoring are not ported either:
+``fit_batch`` returns the step's loss as a float.
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ from deeplearning4j_tpu_torch.common.trees import (
 )
 from deeplearning4j_tpu_torch.nn.conf.builders import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.layers.base import resolve_activation
+from deeplearning4j_tpu_torch.nn.layers.output import CenterLossOutputLayer
 from deeplearning4j_tpu_torch.optimize.updaters import NoOp, get_updater
 
 
@@ -196,9 +202,9 @@ class MultiLayerNetwork:
     # --------------------------------------------------------------- forward
     def _forward(self, params, state, x, mask, train=False, rng=None):
         """Walk layers; returns (the final layer's pre-output, the state
-        each layer returns, the final mask). In training a layer with
-        running statistics returns them moved (BatchNormalization); the
-        others return their state as it was."""
+        each layer returns, the final mask, the final layer's input). In
+        training a layer with running statistics returns them moved
+        (BatchNormalization); the others return their state as it was."""
         new_states = []
         n = len(self.layers)
         for i, layer in enumerate(self.layers):
@@ -207,17 +213,17 @@ class MultiLayerNetwork:
             if i == n - 1 and hasattr(layer, "preout"):
                 x = layer._maybe_dropout(x, train, rng)
                 new_states.append(state[i])
-                return layer.preout(params[i], x), new_states, mask
+                return layer.preout(params[i], x), new_states, mask, x
             x, st = layer.apply(params[i], state[i], x, train=train, rng=rng,
                                 mask=mask)
             new_states.append(st)
             mask = layer.feed_forward_mask(mask, self.conf.layer_input_types[i])
-        return x, new_states, mask
+        return x, new_states, mask, x
 
     @torch.no_grad()
     def output(self, x, mask=None):
         """Inference forward pass. ``mask``: optional [B, T] padding mask."""
-        preout, _, _ = self._forward(self._compute_params(), self.state,
+        preout, _, _, _ = self._forward(self._compute_params(), self.state,
                                      self._input(x), self._mask(mask))
         return self._activate(preout)
 
@@ -291,12 +297,18 @@ class MultiLayerNetwork:
         """(mean loss of one forward plus the l1/l2 terms, the layers' new
         states). ``label_mask``, a loss mask distinct from the forward's
         (padding) mask, replaces it for the loss; a masked per-example loss
-        is normalized by the mask's sum."""
-        preout, new_states, out_mask = self._forward(
+        is normalized by the mask's sum. A center-loss head adds its
+        center term and returns its moved centers as its new state."""
+        preout, new_states, out_mask, features = self._forward(
             params, self.state, x, mask, train=train, rng=rng)
         if label_mask is not None:
             out_mask = label_mask
-        per = self.layers[-1].score_from_preout(y, preout, out_mask)
+        out_layer = self.layers[-1]
+        per = out_layer.score_from_preout(y, preout, out_mask)
+        if isinstance(out_layer, CenterLossOutputLayer):
+            per, new_states[-1] = _center_term(
+                out_layer, params[-1], self.state[-1], features, y, per,
+                out_mask, preout.shape[0])
         if out_mask is not None and per.dim() == 1:
             loss = per.sum() / torch.clamp(out_mask.sum(), min=1.0)
         else:
@@ -350,9 +362,6 @@ class MultiLayerNetwork:
         self.state = tree_map(lambda a: a.detach(), new_states)
         return loss.detach()
 
-    def _output_layers(self):
-        return [self.layers[-1]]
-
     def _check_trainable(self, x):
         """Refuse the parts of the JAX train step the port has not taken
         over, instead of training without them (shared with
@@ -369,10 +378,6 @@ class MultiLayerNetwork:
             raise NotImplementedError("training guardrails are not ported yet")
         if env.faults:
             raise NotImplementedError("fault plans are not ported yet")
-        if any(type(l).__name__ == "CenterLossOutputLayer"
-               for l in self._output_layers()):
-            raise NotImplementedError(
-                "CenterLossOutputLayer training is not ported yet")
 
     def fit_batch(self, ds) -> float:
         """One optimization step on a DataSet-like object or a (features,
@@ -430,6 +435,18 @@ class MultiLayerNetwork:
 
         return restore_multi_layer_network(path, device=device,
                                            load_updater=load_updater)
+
+
+def _center_term(layer, params, state, features, labels, per, out_mask, B):
+    """A CenterLossOutputLayer's per-example loss ``per`` plus its center
+    term, and its moved centers: a per-example loss mask (B entries)
+    covers both, as in the JAX package."""
+    cmask = None
+    if out_mask is not None and out_mask.numel() == B:
+        cmask = out_mask.reshape(B)
+    cscore, cstate = layer.center_score_and_state(params, state, features,
+                                                  labels, mask=cmask)
+    return per + cscore, cstate
 
 
 def _canonical(dtype: torch.dtype) -> torch.dtype:

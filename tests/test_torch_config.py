@@ -14,7 +14,7 @@ import torch
 from deeplearning4j_tpu.nn.conf.builders import NeuralNetConfiguration as JaxNNC
 from deeplearning4j_tpu.nn.conf.inputs import InputType as JaxInputType
 from deeplearning4j_tpu.nn.layers import (
-    Deconvolution2DLayer as JaxDeconv, DenseLayer as JaxDense,
+    AutoEncoderLayer as JaxAutoEncoder, DenseLayer as JaxDense,
     GravesLSTMLayer as JaxGraves, OutputLayer as JaxOut,
     RnnOutputLayer as JaxRnnOut,
 )
@@ -88,10 +88,10 @@ def test_resolved_types_and_records():
 
 def test_unported_layer_is_named():
     conf = (JaxNNC.builder().list()
-            .layer(JaxDeconv(n_out=2, kernel=(3, 3)))
+            .layer(JaxAutoEncoder(n_out=2))
             .layer(JaxOut(n_out=2))
-            .set_input_type(JaxInputType.convolutional(5, 5, 1)).build())
-    with pytest.raises(ValueError, match="Deconvolution2DLayer"):
+            .set_input_type(JaxInputType.feed_forward(5)).build())
+    with pytest.raises(ValueError, match="AutoEncoderLayer"):
         MultiLayerConfiguration.from_json(conf.to_json())
 
 

@@ -464,23 +464,13 @@ def _tiny(**conf_kw):
     return MultiLayerNetwork(dataclasses.replace(conf, **conf_kw))
 
 
-@pytest.mark.parametrize("case", ["tbptt", "remat", "guardrails", "faults",
-                                  "center_loss"])
+@pytest.mark.parametrize("case", ["tbptt", "remat", "guardrails", "faults"])
 def test_unported_train_step_parts_raise(case, monkeypatch):
     (x, y), = _batches(1, 5, T=6, B=2, seed=8)
     if case == "tbptt":
         net = _tiny(tbptt_fwd_length=3, tbptt_bwd_length=3)
     elif case == "remat":
         net = _tiny(remat=True)
-    elif case == "center_loss":
-        class CenterLossOutputLayer(RnnOutputLayer):
-            pass
-
-        conf = MultiLayerConfiguration(
-            layers=[LSTMLayer(n_out=4),
-                    CenterLossOutputLayer(n_out=5, activation="softmax")],
-            input_type=InputType.recurrent(5, 6))
-        net = MultiLayerNetwork(conf)
     else:
         net = _tiny()
         monkeypatch.setattr(env, case, "1" if case == "faults" else True)
