@@ -26,16 +26,27 @@ Phases (any failure exits non-zero before the result line):
 4. Main path: TextGenerationLSTM at its published width (LSTM 256 x 2,
    vocabulary 77, random weights from a seed) served by
    ``GenerationEngine(slots=8, max_len=256)``: 16 requests, greedy and
-   sampled, drained to completion. Launch counts are zeroed just before and
-   read just after. Greedy streams are held against the port's plain path
-   on the CPU, teacher-forced, on the same weights. A steady window of
-   decode steps is profiled and its host time split into the network's
-   forward and the sampler.
+   sampled, drained to completion, twice: a timed run (tokens/s, TTFT),
+   then the counted run, with every count zeroed just before and read
+   just after. The engine replays one captured CUDA graph for every decode
+   step, and the wrappers count launches on the host, where a replay calls
+   none; so the counted run goes under torch.profiler, and a kernel's
+   launches are the profiler's records of its device functions there.
+   They must equal the host's account (the prefills' counted launches plus
+   ``capture_launches`` times the replays; a run whose records fall short
+   is run again, three times at most) and be exactly 2 a decode step and
+   2 a prefill.
+   Greedy streams are held against the port's plain path on the CPU,
+   teacher-forced, on the same weights. A steady window of decode steps is
+   profiled (the profiler must name the decode kernel twice a replay) and
+   its host time split into a replay, the same step run eagerly and the
+   sampler.
 5. bf16 net: the same model with ``dtype="bf16"`` generates on the card;
-   every decode step must launch the kernel (the carries start in f32, as
-   in the JAX package, so the recurrence runs the f32 kernel over the bf16
-   weights), and its teacher-forced logits are held against the plain
-   path on the card.
+   every decode step must replay the graph and launch the kernel twice
+   (counted on the device as in phase 4),
+   every prefill twice (the carries start in f32, as in the JAX package,
+   so the recurrence runs the f32 kernel over the bf16 weights), and its
+   teacher-forced logits are held against the plain path on the card.
 6. Backward kernel against plain: the training forward's reserve and the
    backward kernel against their plain versions at the training shapes
    (B=64, T=64; H=200 with peepholes, reversed; H=256 without), in f32 and
@@ -144,9 +155,10 @@ Phases (any failure exits non-zero before the result line):
     x 2 (vocabulary 77, random weights from the seed, built from the
     configuration builder as the JAX package would) served by
     ``GenerationEngine(slots=8, max_len=256)`` with phase 4's 16 requests:
-    exactly 2 GRU forward launches a decode step and a prefill and no other
-    kernel; decode-step logits against the kernel-disabled plain path on
-    the card; greedy tokens against the teacher-forced argmax.
+    exactly 2 GRU forward launches a decode step (a graph replay, counted
+    on the device as in phase 4) and a prefill and no other kernel; decode-step logits
+    against the kernel-disabled plain path on the card; greedy tokens
+    against the teacher-forced argmax.
 18. GRU char-RNN training (RMSProp 1e-3, clipping 5.0) at B=64, T=64: 2
     steps against a copy on the kernel-disabled plain path on the card,
     then 10 timed steps, each launching exactly 2 forwards (with reserve)
@@ -242,11 +254,50 @@ Phases (any failure exits non-zero before the result line):
     then its f32 ``output()`` at B=1 on the card against the CPU at full
     depth, the image side cut to ZOO_CHECK_SIDE (SimpleCNN at its own
     48), within TOL_ZOO_CPU of the largest output.
-29. Prints the kernels line (all nine kernels; the LRN entries count the
-    import path's launches under ``launches_by_path["tf_import"]``, and
-    every entry YOLO2's, 0, under ``"yolo2_inference"`` and
-    ``"yolo2_training"``), the card line and, last, the result line
-    ``{"ok": true, "device": {...}}``.
+29. Transformer serving at bench.py's decode lane (bench.py:2226-2300):
+    a causal LM of 4 layers, d 256, 8 heads, vocabulary 512, max_len 96,
+    f32, served at 8 slots with the f32 ring and the int8 ring, 16 sampled
+    requests (prompts 4-15, 12-39 new tokens) after an untimed pass:
+    tokens/s, one decode program (a graph replayed every step), prefill
+    shapes, and exactly 4 flash forwards a prefill and no other kernel
+    (counted on the device as in phase 4);
+    the lane's accuracy contract (8 rows, 32 teacher-forced steps: top-1
+    agreement and the post-softmax difference of the int8 ring within
+    1e-2); an f32 copy on the CPU gives the same greedy tokens, and its
+    decode logits lie within 1e-5 relative over 16 steps through a ring
+    of 8.
+30. Transformer serving at full width: a causal LM at zoo BertBase's
+    widths (12 x 768, 12 heads, d_ff 3072, vocabulary 30522, 512
+    positions, bf16, random weights from the seed) in
+    ``GenerationEngine(slots=8, max_len=512)``, with the bf16 ring and the
+    int8 ring: 16 requests (prompts 16-380, 32-128 new tokens, half
+    greedy, half sampled) with prompts padded to pow2 buckets (at most 6
+    shapes), exactly 12 flash forwards a prefill and no other kernel
+    (counted on the device as in phase 4), one
+    decode program, every stream to its budget; tokens/s and TTFT p50; a
+    full pool's decode step (synced wall ms, device ms, busy share,
+    kernels a step), a replay alone and the same step run eagerly through
+    ``adapter.decode``; ring bytes and peak memory; the replayed graph's
+    own logits of the greedy streams, recorded in the counted run with the
+    pool's slots live, against the full causal recompute over each stream:
+    the share of emitted tokens that are a recompute top-1 (TOP1_FULL: at
+    least 0.98 for the bf16 ring) and the largest logit difference
+    (TOL_FULL_LOGIT), a gate that a ring left stale in one layer must
+    fail (stale_ring_control, teacher-forced eagerly); an f32 2-layer
+    copy within 1e-5 relative of its recompute; and the flash forward at
+    the prefill shape [1, 12, 256, 64] causal bf16 against its plain
+    version, timed beside its bound and scaled_dot_product_attention.
+31. Session resume on the card: the phase-29 model cut to 1 layer, f32,
+    greedy, a ring of 32 under max_len 96: 4 journaled sessions
+    interrupted after 3, 12 and 30 steps (30: past the ring's wrap),
+    resumed from a new journal into a new engine and finished; every
+    stream equals the uninterrupted run token for token.
+32. Prints the kernels line (all nine kernels; the LRN entries count the
+    import path's launches under ``launches_by_path["tf_import"]``, the
+    flash forward the serving prefills of phases 29-30 and its prefill
+    shape's times, and every entry YOLO2's, 0, under
+    ``"yolo2_inference"`` and ``"yolo2_training"``), the card line and,
+    last, the result line ``{"ok": true, "device": {...}}``.
 
 Every phase runs f32 work with TF32 off (``torch.backends.cuda.matmul``
 and ``torch.backends.cudnn`` ``allow_tf32`` False), the timed ones too.
@@ -257,6 +308,7 @@ from __future__ import annotations
 import copy
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -622,16 +674,17 @@ def phase_main_path(torch, np):
                     dict(temperature=0.8, top_k=40, seed=1000 + i)))
             for i, (n, m) in enumerate(zip(lens, news))]
 
-    steps0 = eng.steps_run
-
-    def serve():
+    def serve(counted):
         out = [eng.submit(r.pop("prompt"), **r) for r in
                [dict(q) for q in reqs]]
         eng.drain()
         return out
 
-    streams, launches, reserves, wall = _count_launches(torch, KERNELS, serve)
-    decode_steps = eng.steps_run - steps0
+    run = _engine_launches(torch, eng, KERNELS, serve)
+    streams, launches, reserves = (run["streams"], run["launches"],
+                                   run["reserves"])
+    decode_steps, replays = run["steps"], run["replays"]
+    _check_replays(eng, decode_steps, "LSTM serving")
     if any(reserves.values()) or launches["fused_lstm_bwd"]:
         fail(f"serving saved {reserves} reserves and launched the backward "
              f"{launches['fused_lstm_bwd']} times (it runs under no_grad)")
@@ -644,9 +697,10 @@ def phase_main_path(torch, np):
             fail(f"request {i} emitted a token outside the vocabulary")
     n_prefill = sum(1 for r in reqs if len(r["prompt"]) > 1)
     expected = 2 * decode_steps + 2 * n_prefill
-    if launches["fused_lstm_fwd"] < 2 * decode_steps:
-        fail(f"fused_lstm_fwd launched {launches['fused_lstm_fwd']} times "
-             f"in {decode_steps} decode steps (2 LSTM layers each)")
+    if launches != _only(KERNELS, fused_lstm_fwd=expected):
+        fail(f"LSTM serving launched {launches} in {decode_steps} decode "
+             f"steps ({replays} replays of {eng.capture_launches}) and "
+             f"{n_prefill} prefills; want fused_lstm_fwd {expected} alone")
 
     # greedy streams, teacher-forced: card (kernel) vs CPU (plain path)
     cpu_net = copy.deepcopy(net).to("cpu")
@@ -675,15 +729,22 @@ def phase_main_path(torch, np):
                 fail("greedy tokens differ from the teacher-forced argmax")
 
     n_tokens = sum(len(s.tokens) for s in streams)
-    ttft = sorted(s.first_token_at - s.submitted_at for s in streams)
-    profile = profile_decode(torch, eng, reqs)
+    wall = run["wall_s"]
+    ttft = sorted(s.first_token_at - s.submitted_at for s in run["timed"])
+    from deeplearning4j_tpu_torch.ops.cuda.fused_lstm import FWD_KERNEL_NAMES
+
+    profile = profile_decode(torch, eng, reqs,
+                             want={FWD_KERNEL_NAMES["stream"]: 2})
     return {
         "model": "TextGenerationLSTM(units=256, layers=2, vocab=77)",
         "slots": 8, "max_len": 256, "requests": N_REQUESTS,
         "tokens": n_tokens, "decode_steps": decode_steps,
+        "replays": replays, "capture_launches": eng.capture_launches,
+        "decode_programs": eng.decode_programs,
+        "prefill_programs": eng.prefill_programs,
         "wall_s": wall, "tokens_per_s": n_tokens / wall,
         "ttft_p50_ms": 1e3 * float(np.percentile(ttft, 50)),
-        "launches": launches,
+        "launches": launches, "host_launches": run["host_launches"],
         "reserve_launches": reserves["fused_lstm_fwd"],
         "expected_launches": expected,
         "launches_per_decode_step": (launches["fused_lstm_fwd"]
@@ -704,23 +765,32 @@ def host_ms(torch, fn, iters: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def profile_decode(torch, eng, reqs, steps: int = 20):
+def profile_decode(torch, eng, reqs, want, steps: int = 20):
     """A steady window of full-pool decode steps (the workload's mix of
     greedy and sampled knobs) under torch.profiler: host ms per step,
-    device busy share, device time by kernel; then, on the same full pool,
-    the wall ms of the network's forward alone and of the sampler alone."""
+    device busy share, device time by kernel, and the launches of each
+    kernel of ``want`` ({device function: launches a step}) that the
+    profiler saw inside the replayed graphs, which must be ``want``'s (the
+    window is profiled again while the profiler drops records); then, on
+    the same full pool, the wall ms of a replay alone, of the same step run
+    eagerly through ``adapter.decode`` (what the graph holds), and of the
+    sampler alone."""
     from deeplearning4j_tpu_torch.generation import sample_logits
 
     for r in reqs[:eng.pool.n_slots]:
-        eng.submit(**dict(r, max_new_tokens=steps + 40))
+        eng.submit(**dict(r, max_new_tokens=4 * steps + 40))
     # the warm-up call inside profile_device admits (prefills) all slots
-    by_kernel, wall_ms = profile_device(torch, eng.step, steps)
+    by_kernel, wall_ms, seen = profile_showing(torch, eng.step, steps, want)
+    if any(seen[k] != n * steps for k, n in want.items()):
+        fail(f"the profiler saw {seen} launches in {steps} replayed decode "
+             f"steps; want {want} a step")
     pool = eng.pool
     act = pool.active_slots()
-    tokens = torch.as_tensor(pool.tokens, dtype=torch.long, device="cuda")
-    logits = eng.adapter.decode(pool.state, tokens)[0]
+    tokens, pos = eng._inputs[0], eng._inputs[1]
+    logits = eng.adapter.decode(pool.state, tokens, pos)[0]
     forward_ms = host_ms(
-        torch, lambda: eng.adapter.decode(pool.state, tokens), steps)
+        torch, lambda: eng.adapter.decode(pool.state, tokens, pos), steps)
+    replay_ms = host_ms(torch, eng.decode_pool, steps)
     sample_ms = host_ms(torch, lambda: sample_logits(
         logits, seeds=pool.seeds, pos=pool.pos, temperature=pool.temps,
         top_k=pool.top_k, top_p=pool.top_p, rows=act), steps)
@@ -732,12 +802,14 @@ def profile_decode(torch, eng, reqs, steps: int = 20):
         "steps": steps, "wall_ms_per_step": wall_ms / steps,
         "device_ms_per_step": busy / steps,
         "device_busy_share": busy / wall_ms if by_kernel else None,
+        "kernels_per_step": sum(n for _, n in by_kernel.values()) / steps,
+        "profiled_launches": seen,
         "top_kernels_ms_per_step": {k[:60]: t / steps
                                     for k, (t, _) in top},
         "active_slots": len(act),
         "sampled_slots": int(sum(pool.temps[s] > 0 for s in act)),
-        "unprofiled_step_ms": step_ms, "forward_ms": forward_ms,
-        "sample_ms": sample_ms,
+        "unprofiled_step_ms": step_ms, "replay_ms": replay_ms,
+        "eager_forward_ms": forward_ms, "sample_ms": sample_ms,
     }
 
 
@@ -753,19 +825,26 @@ def phase_bf16_net(torch, np):
     net = TextGenerationLSTM(seed=SEED, dtype="bf16").init(device="cuda")
     vocab = net.layers[-1].n_out
     eng = GenerationEngine(net, slots=8, max_len=256, device="cuda")
+    eng.generate([1, 2, 3, 4], max_new_tokens=2)  # warm-up, not counted
     rng = np.random.default_rng(SEED + 1)
     prompts = [rng.integers(0, vocab, int(n)).tolist()
                for n in rng.integers(4, 49, 8)]
-    FUSED_LSTM.launches = 0
-    streams = [eng.submit(p, max_new_tokens=16) for p in prompts]
-    eng.drain()
-    torch.cuda.synchronize()
-    launches, steps = FUSED_LSTM.launches, eng.steps_run
+
+    def serve(counted):
+        out = [eng.submit(p, max_new_tokens=16) for p in prompts]
+        eng.drain()
+        return out
+
+    run = _engine_launches(torch, eng, [FUSED_LSTM], serve)
+    streams, replays = run["streams"], run["replays"]
+    launches, steps = run["launches"][FUSED_LSTM.name], run["steps"]
+    _check_replays(eng, steps, "bf16 LSTM serving")
     if any(len(s.tokens) != 16 for s in streams):
         fail("bf16 net: a request did not emit its 16 tokens")
-    if launches < 2 * steps:
+    if launches != 2 * steps + 2 * len(prompts):
         fail(f"bf16 net: fused_lstm_fwd launched {launches} times in "
-             f"{steps} decode steps")
+             f"{steps} decode steps ({replays} replays of "
+             f"{eng.capture_launches}) and {len(prompts)} prefills")
     seq = prompts[0] + streams[0].tokens
     x = torch.nn.functional.one_hot(
         torch.as_tensor([seq[:-1]], device="cuda"), vocab).to(torch.bfloat16)
@@ -784,6 +863,7 @@ def phase_bf16_net(torch, np):
     if not bool(torch.isfinite(logits[0]).all()) or err > TOL_BF16_LOGITS:
         fail(f"bf16 net: kernel vs plain logits {err} > {TOL_BF16_LOGITS}")
     return {"decode_steps": steps, "launches": launches,
+            "replays": replays,
             "logits_max_abs_err_kernel_vs_plain": err,
             "logit_max_abs": float(logits[1].abs().max())}
 
@@ -969,6 +1049,104 @@ def _count_launches(torch, kernels, fn):
     return (out, {k.name: k.launches for k in kernels},
             {k.name: k.reserves for k in kernels if hasattr(k, "reserves")},
             wall)
+
+
+def device_functions():
+    """{kernel name: the device functions its launcher may run}, as the
+    profiler names them: a kernel's launches counted on the device."""
+    from deeplearning4j_tpu_torch.ops.cuda import (
+        FLASH_DKV, FLASH_DQ, FLASH_FWD, FUSED_GRU, FUSED_GRU_BWD, FUSED_LSTM,
+        FUSED_LSTM_BWD, LRN_BWD, LRN_FWD, flash_attention, fused_gru,
+        fused_lstm,
+    )
+
+    return {FUSED_LSTM.name: tuple(fused_lstm.FWD_KERNEL_NAMES.values()),
+            FUSED_LSTM_BWD.name: tuple(fused_lstm.BWD_KERNEL_NAMES.values()),
+            FUSED_GRU.name: tuple(fused_gru.FWD_KERNEL_NAMES.values()),
+            FUSED_GRU_BWD.name: tuple(fused_gru.BWD_KERNEL_NAMES.values()),
+            FLASH_FWD.name: tuple(flash_attention.FWD_KERNEL_NAMES.values()),
+            FLASH_DQ.name: tuple(flash_attention.DQ_KERNEL_NAMES.values()),
+            FLASH_DKV.name: tuple(flash_attention.DKV_KERNEL_NAMES.values()),
+            LRN_FWD.name: ("lrn_fwd_kernel",),
+            LRN_BWD.name: ("lrn_bwd_kernel",)}
+
+
+def _device_launches(by_kernel, kernels):
+    """{kernel name: device records of its device functions} in a profile
+    ``by_kernel`` ({record name: (ms, count)})."""
+    names = device_functions()
+    out = {}
+    for k in kernels:
+        pats = [re.compile(rf"(?<!\w){f}(?!\w)") for f in names[k.name]]
+        out[k.name] = sum(c for key, (_, c) in by_kernel.items()
+                          if any(p.search(key) for p in pats))
+    return out
+
+
+def _engine_launches(torch, eng, kernels, fn, tries: int = 3):
+    """Drive ``eng`` through ``fn`` twice: a timed run (``fn(counted=
+    False)``, synced wall s, no counts read), then the counted run
+    (``fn(counted=True)``) with every kernel's counts zeroed just before
+    and read just after, under torch.profiler. A kernel's launches in the
+    counted run are the profiler's records of its device functions, which
+    see the kernels inside a replayed graph; the host counters cannot (the
+    wrappers count on the host, and a replay calls none). The records are
+    held against the host's account: the wrappers' counts (the prefills)
+    plus the captured step's launches (``capture_launches``) times the
+    run's replays. A counted run whose records fall short of it is run and
+    profiled again (the profiler now and then drops a window's records), up
+    to ``tries`` times; then the run fails. The graph must have been
+    captured before (a warm-up request): a capture inside a run fails it,
+    and so do streams (``fn``'s result) that differ between the runs.
+    Returns {"streams": the counted run's streams, "timed": the timed
+    run's, "wall_s": the timed run's, "launches": the measured launches,
+    "host_launches", "reserves", "steps": decode steps, "replays"} (steps
+    and replays of the counted run)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    captures0 = eng.captures
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = fn(counted=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for _ in range(tries):
+        replays0, steps0 = eng.replays, eng.steps_run
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out, host, reserves, _ = _count_launches(
+                torch, kernels, lambda: fn(counted=True))
+        if eng.captures != captures0:
+            fail("the engine captured its decode step inside a counted run; "
+                 "warm it up first")
+        replays = eng.replays - replays0
+        by_kernel = {e.key: (_device_us(e) / 1e3, e.count)
+                     for e in prof.key_averages()
+                     if str(getattr(e, "device_type", "")).endswith("CUDA")}
+        launches = _device_launches(by_kernel, kernels)
+        account = {name: n + eng.capture_launches.get(name, 0) * replays
+                   for name, n in host.items()}
+        if launches == account:
+            break
+    else:
+        fail(f"the profiler saw {launches} launches in {replays} replays of "
+             f"{eng.capture_launches} and the prefills' {host}, "
+             f"{tries} times; want {account}")
+    if [s.tokens for s in timed] != [s.tokens for s in out]:
+        fail("the timed run's streams differ from the counted run's")
+    return {"streams": out, "timed": timed, "wall_s": wall,
+            "launches": launches, "host_launches": host,
+            "reserves": reserves, "steps": eng.steps_run - steps0,
+            "replays": replays}
+
+
+def _check_replays(eng, decode_steps, what):
+    """A CUDA engine replays one captured graph for every decode step."""
+    if eng.decode_programs != 1 or eng.captures != 1:
+        fail(f"{what}: {eng.decode_programs} decode programs and "
+             f"{eng.captures} captures; want one graph, captured once")
+    if eng.replays != eng.steps_run or decode_steps == 0:
+        fail(f"{what}: {eng.replays} replays in {eng.steps_run} decode "
+             "steps; every step must replay the graph")
 
 
 def _only(kernels, **counts):
@@ -2378,6 +2556,9 @@ def phase_gru_serving(torch, np):
     from deeplearning4j_tpu_torch.generation import GenerationEngine
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
     from deeplearning4j_tpu_torch.ops.cuda import KERNELS
+    from deeplearning4j_tpu_torch.ops.cuda.fused_gru import (
+        FWD_KERNEL_NAMES as gru_names,
+    )
 
     net = MultiLayerNetwork(gru_charrnn_conf()).init(device="cuda")
     vocab = GRU_VOCAB
@@ -2392,21 +2573,24 @@ def phase_gru_serving(torch, np):
                  **({} if i % 2 == 0 else
                     dict(temperature=0.8, top_k=40, seed=1000 + i)))
             for i, (n, m) in enumerate(zip(lens, news))]
-    steps0 = eng.steps_run
 
-    def serve():
+    def serve(counted):
         out = [eng.submit(r.pop("prompt"), **r) for r in
                [dict(q) for q in reqs]]
         eng.drain()
         return out
 
-    streams, launches, reserves, wall = _count_launches(torch, KERNELS, serve)
-    decode_steps = eng.steps_run - steps0
+    run = _engine_launches(torch, eng, KERNELS, serve)
+    streams, launches, reserves = (run["streams"], run["launches"],
+                                   run["reserves"])
+    decode_steps, replays = run["steps"], run["replays"]
+    _check_replays(eng, decode_steps, "GRU serving")
     n_prefill = sum(1 for r in reqs if len(r["prompt"]) > 1)
     want = _only(KERNELS, fused_gru_fwd=2 * decode_steps + 2 * n_prefill)
     if launches != want or any(reserves.values()):
         fail(f"GRU serving launched {launches} ({reserves} with reserve) in "
-             f"{decode_steps} decode steps and {n_prefill} prefills; want "
+             f"{decode_steps} decode steps ({replays} replays of "
+             f"{eng.capture_launches}) and {n_prefill} prefills; want "
              f"{want} and no reserve")
     for i, (s, r) in enumerate(zip(streams, reqs)):
         if s.finish_reason != "length" or len(s.tokens) != r["max_new_tokens"]:
@@ -2430,7 +2614,7 @@ def phase_gru_serving(torch, np):
             env.disable_kernels = disable
             try:
                 logits[disable], carries[disable] = eng.adapter.decode(
-                    carries[disable], toks[j])
+                    carries[disable], toks[j], None)
             finally:
                 env.reload()
         err = float((logits[False] - logits[True]).abs().max())
@@ -2458,7 +2642,8 @@ def phase_gru_serving(torch, np):
             fail("GRU greedy tokens differ from the teacher-forced argmax")
 
     n_tokens = sum(len(s.tokens) for s in streams)
-    ttft = sorted(s.first_token_at - s.submitted_at for s in streams)
+    wall = run["wall_s"]
+    ttft = sorted(s.first_token_at - s.submitted_at for s in run["timed"])
     return {
         "model": "GRU char-RNN (GRULayer(256) x 2, vocab 77; "
                  "TextGenerationLSTM's topology with GRU cells)",
@@ -2467,12 +2652,16 @@ def phase_gru_serving(torch, np):
         "prefills": n_prefill, "wall_s": wall,
         "tokens_per_s": n_tokens / wall,
         "ttft_p50_ms": 1e3 * float(np.percentile(ttft, 50)),
-        "launches": launches,
+        "launches": launches, "host_launches": run["host_launches"],
+        "replays": replays, "capture_launches": eng.capture_launches,
+        "decode_programs": eng.decode_programs,
+        "prefill_programs": eng.prefill_programs,
         "launches_per_decode_step": (launches["fused_gru_fwd"]
                                      - 2 * n_prefill) / decode_steps,
         "decode_logits_max_abs_err_kernel_vs_plain": worst,
         "decode_logit_max_abs": logit_max,
-        "decode_profile": profile_decode(torch, eng, reqs),
+        "decode_profile": profile_decode(
+            torch, eng, reqs, want={gru_names["stream"]: 2}),
     }
 
 
@@ -3799,6 +3988,562 @@ def phase_tf_import_lrn(torch, np):
             "conv_weight_grad_rel_err_vs_plain": grad_rel}
 
 
+# ------------------------------------------------ phases 29-31: transformers
+# bench.py's decode lane (bench.py:2226-2236): d 256, 8 heads, 4 causal
+# layers, vocabulary 512, max_len 96, f32, seed 1
+LANE = dict(d=256, heads=8, layers=4, vocab=512, max_len=96)
+LANE_SEED = 1
+# a causal LM at zoo BertBase's widths (zoo/bert.py:32-38 of the JAX
+# package) with BERT's 512-position table, bf16
+FULL_LM = dict(d=768, heads=12, layers=12, vocab=30522, max_len=512,
+               d_ff=3072)
+TOL_LANE_PROB = 1e-2     # bench.py's int8 lane: post-softmax max difference
+TOL_LM_CPU_REL = 1e-5    # f32 card against the CPU, and against recompute
+# phase 30, the replayed graph's greedy tokens against the full causal
+# recompute: the least share that are a top-1 token of the recompute (a
+# row whose largest bf16 logit two tokens share exactly has both as its
+# top-1; the strict argmax-index agreement is printed beside it). bf16:
+# the contract's 0.98; int8: under the 0.975-0.977 read on the H100
+TOP1_FULL = {"bf16": 0.98, "int8": 0.96}
+# ... and the largest logit difference of the replay from the recompute.
+# Read on the H100: 0.031-0.043 where sound, 0.156-0.172 with the middle
+# layer's ring left stale (0.30-0.31 the first layer's), which must fail
+# it (stale_ring_control)
+TOL_FULL_LOGIT = {"bf16": 0.08, "int8": 0.08}
+N_LANE_ACC_STEPS = 32    # bench.py: t = 11 .. 42
+N_TEACHER_STEPS = 16
+N_DECODE_PROFILE = 20
+SESSION_RING = 32        # phase 31: the adapter's ring, under max_len 96
+SESSION_KILLS = (3, 12, 30)   # 30: every prompt + 30 > 32, past the wrap
+SESSION_NEW = 40
+
+
+def lm_conf(d, heads, layers, vocab, max_len, d_ff=None, dtype="float32",
+            seed=SEED):
+    """bench.py's decode-lane stack: EmbeddingSequence -> Positional ->
+    ``layers`` x causal TransformerEncoder (dropout 0) -> RnnOutput
+    softmax."""
+    from deeplearning4j_tpu_torch.nn.conf.builders import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers import (
+        EmbeddingSequenceLayer, RnnOutputLayer,
+    )
+    from deeplearning4j_tpu_torch.nn.layers.attention import (
+        PositionalEmbeddingLayer, TransformerEncoderLayer,
+    )
+
+    b = (NeuralNetConfiguration.builder().seed(seed).data_type(dtype).list()
+         .layer(EmbeddingSequenceLayer(n_out=d, n_in=vocab))
+         .layer(PositionalEmbeddingLayer(max_len=max_len)))
+    for _ in range(layers):
+        b = b.layer(TransformerEncoderLayer(d_model=d, n_heads=heads,
+                                            d_ff=d_ff, causal=True))
+    return (b.layer(RnnOutputLayer(n_out=vocab, activation="softmax",
+                                   loss="mcxent"))
+            .set_input_type(InputType.recurrent(vocab, 16)).build())
+
+
+def lm_net(torch, device="cuda", **kw):
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    return MultiLayerNetwork(lm_conf(**kw)).init(device=device)
+
+
+def teacher_forced(torch, ad, net, seq, n0, steps, stale=()):
+    """Cached decode against the full causal recompute, teacher-forced:
+    prefill ``seq[:n0 - 1]``, then ``steps`` decode steps feeding seq[t] at
+    position t from t = n0 - 1. The rings of the layers in ``stale`` are
+    put back after each step, as a decode that never kept a step's K/V
+    there would leave them (a control the accuracy gates must catch).
+    Returns (decode logits, the same rows of the net's full causal forward
+    over the sequence), [steps, V] f32."""
+    dev = net.device
+    caches = ad.prefill(torch.as_tensor([seq[:n0 - 1]], device=dev), n0 - 1)
+    got = []
+    for t in range(n0 - 1, n0 - 1 + steps):
+        kept = {i: [c.clone() for c in caches[i]] for i in stale}
+        logits, caches = ad.decode(
+            caches, torch.as_tensor([seq[t]], device=dev),
+            torch.full((1,), t, dtype=torch.long, device=dev))
+        for i, old in kept.items():
+            for c, o in zip(caches[i], old):
+                c.copy_(o)
+        got.append(logits[0])
+    x = torch.as_tensor([seq[:n0 - 1 + steps]], device=dev)
+    with torch.no_grad():
+        pre = net._forward(net._compute_params(), net.state, x, None)[0]
+    return torch.stack(got), pre[0, n0 - 1:].float()
+
+
+def _rel(torch, got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _record_greedy(eng, record):
+    """A stand-in for ``eng.decode_pool`` that also keeps, for every live
+    greedy slot, (its stream, its position, a copy of its logits row): the
+    replayed graph's own logits, with the pool's slots live."""
+    inner = eng.decode_pool
+
+    def decode_pool():
+        logits = inner()
+        pool = eng.pool
+        rows = [s for s in pool.active_slots() if pool.temps[s] == 0]
+        if rows:
+            kept = logits[rows].clone()
+            record.extend((pool.meta[s], int(pool.pos[s]), kept[j])
+                          for j, s in enumerate(rows))
+        return logits
+
+    return decode_pool
+
+
+def _serve_lm(torch, np, eng, reqs, layers, what, record=None):
+    """Drive ``reqs`` through a warmed-up attention engine (_engine_launches:
+    a timed run, then the counted run); every stream must reach its budget,
+    every decode step replay the one graph, and the prefills launch exactly
+    one flash forward a layer and no other kernel, as the profiler counts
+    them. With a list ``record``, the counted run keeps the greedy slots'
+    logits there (_record_greedy). Returns the streams and a summary."""
+    from deeplearning4j_tpu_torch.ops.cuda import KERNELS
+
+    def serve(counted):
+        if counted and record is not None:
+            record.clear()
+            eng.decode_pool = _record_greedy(eng, record)
+        try:
+            out = [eng.submit(r.pop("prompt"), **r) for r in
+                   [dict(q) for q in reqs]]
+            eng.drain()
+        finally:
+            eng.__dict__.pop("decode_pool", None)
+        return out
+
+    run = _engine_launches(torch, eng, KERNELS, serve)
+    streams, launches = run["streams"], run["launches"]
+    decode_steps, replays, wall = run["steps"], run["replays"], run["wall_s"]
+    _check_replays(eng, decode_steps, what)
+    n_prefill = sum(1 for r in reqs if len(r["prompt"]) > 1)
+    want = _only(KERNELS, flash_attention_fwd=layers * n_prefill)
+    if launches != want:
+        fail(f"{what} launched {launches} in {decode_steps} decode steps "
+             f"and {n_prefill} prefills; want {want}")
+    for i, (s, r) in enumerate(zip(streams, reqs)):
+        if s.finish_reason != "length" or len(s.tokens) != r["max_new_tokens"]:
+            fail(f"{what}: request {i} finished {s.finish_reason} with "
+                 f"{len(s.tokens)}/{r['max_new_tokens']} tokens")
+    n_tokens = sum(len(s.tokens) for s in streams)
+    ttft = [s.first_token_at - s.submitted_at for s in run["timed"]]
+    return streams, {
+        "requests": len(reqs), "tokens": n_tokens,
+        "decode_steps": decode_steps, "wall_s": wall,
+        "tokens_per_s": n_tokens / wall,
+        "ttft_p50_ms": 1e3 * float(np.percentile(ttft, 50)),
+        "decode_programs": eng.decode_programs,
+        "prefill_programs": eng.prefill_programs, "replays": replays,
+        "capture_launches": eng.capture_launches,
+        "flash_fwd_launches": launches["flash_attention_fwd"],
+        "prefills": n_prefill, "launches": launches,
+        "host_launches": run["host_launches"]}
+
+
+def phase_lane_serving(torch, np):
+    """bench.py's decode lane at its own shape on the card: the f32 ring
+    against the int8 ring through the engine (tokens/s), then the lane's
+    accuracy contract; then an f32 copy on the CPU (greedy tokens, and
+    decode logits through a ring wrap)."""
+    from deeplearning4j_tpu_torch.generation import (
+        AttentionDecodeAdapter, GenerationEngine,
+    )
+
+    net = lm_net(torch, seed=LANE_SEED, **LANE)
+    V, L = LANE["vocab"], LANE["max_len"]
+    rng = np.random.default_rng(SEED)
+    lens, news = rng.integers(4, 16, N_REQUESTS), rng.integers(12, 40,
+                                                               N_REQUESTS)
+    prompts = [rng.integers(0, V, int(n)).tolist() for n in lens]
+    reqs = [dict(prompt=p, max_new_tokens=int(m), temperature=0.8, top_k=40,
+                 seed=i) for i, (p, m) in enumerate(zip(prompts, news))]
+    out, engines = {"model": f"causal LM d {LANE['d']}, {LANE['layers']} "
+                    f"layers, {LANE['heads']} heads, vocab {V}, f32",
+                    "slots": 8, "max_len": L}, {}
+    for kv in (None, "int8"):
+        eng = GenerationEngine(net, slots=8, max_len=L, kv_dtype=kv,
+                               device="cuda")
+        for p in prompts:   # bench.py's untimed pass: captures the graph
+            eng.submit(p, max_new_tokens=2)
+        eng.drain()
+        _, out[kv or "f32"] = _serve_lm(
+            torch, np, eng, reqs, LANE["layers"],
+            f"bench-lane serving ({kv or 'f32'} ring)")
+        engines[kv] = eng
+    out["int8_speedup"] = out["int8"]["tokens_per_s"] / out["f32"][
+        "tokens_per_s"]
+
+    # the lane's accuracy contract: 8 rows prefilled with 12 tokens, then
+    # 32 steps from t = 11, both rings fed the f32 ring's argmax
+    af = AttentionDecodeAdapter(net, L)
+    aq = AttentionDecodeAdapter(net, L, kv_dtype="int8")
+    pr = torch.as_tensor(rng.integers(0, V, (8, 12)), device="cuda")
+    cf, cq = af.prefill(pr, 12), aq.prefill(pr, 12)
+    toks = pr[:, -1]
+    agree, prob_delta, logit_delta = [], 0.0, 0.0
+    for t in range(11, 11 + N_LANE_ACC_STEPS):
+        pos = torch.full((8,), t, dtype=torch.long, device="cuda")
+        lf, cf = af.decode(cf, toks, pos)
+        lq, cq = aq.decode(cq, toks, pos)
+        prob_delta = max(prob_delta, float(
+            (lf.softmax(-1) - lq.softmax(-1)).abs().max()))
+        logit_delta = max(logit_delta, float((lf - lq).abs().max()))
+        agree.append(float((lf.argmax(-1) == lq.argmax(-1)).float().mean()))
+        toks = lf.argmax(-1)
+    if not prob_delta <= TOL_LANE_PROB:
+        fail(f"bench lane: int8 ring post-softmax difference {prob_delta} > "
+             f"{TOL_LANE_PROB}")
+    out["accuracy"] = {"top1_agreement": float(np.mean(agree)),
+                       "max_prob_delta": prob_delta,
+                       "max_logit_delta": logit_delta,
+                       "steps": N_LANE_ACC_STEPS, "rows": 8}
+
+    # an f32 copy on the CPU: the same greedy tokens, and decode logits
+    # within 1e-5 relative through a ring wrap (ring 8, as the JAX
+    # package's TestRingWraparound)
+    cpu = copy.deepcopy(net).to("cpu")
+    ceng = GenerationEngine(cpu, slots=8, max_len=L, device="cpu")
+    greedy = [dict(prompt=p, max_new_tokens=24) for p in prompts[:8]]
+    runs = []
+    for eng in (engines[None], ceng):
+        streams = [eng.submit(**dict(r)) for r in greedy]
+        eng.drain()
+        runs.append([s.tokens for s in streams])
+    if runs[0] != runs[1]:
+        fail(f"bench lane: greedy tokens on the card {runs[0]} differ from "
+             f"the CPU copy's {runs[1]}")
+    tokens = rng.integers(0, V, (2, 4 + N_TEACHER_STEPS))
+    worst = 0.0
+    logits = {}
+    for m in (net, cpu):
+        ad = AttentionDecodeAdapter(m, 8)
+        caches = ad.prefill(torch.as_tensor(tokens[:, :4], device=m.device),
+                            None)
+        logits[m.device.type] = []
+        for t in range(3, 3 + N_TEACHER_STEPS):
+            lg, caches = ad.decode(
+                caches, torch.as_tensor(tokens[:, t], device=m.device),
+                torch.full((2,), t, dtype=torch.long, device=m.device))
+            logits[m.device.type].append(lg.cpu())
+    for a, b in zip(logits["cuda"], logits["cpu"]):
+        worst = max(worst, _rel(torch, a, b))
+    if not worst <= TOL_LM_CPU_REL:
+        fail(f"bench lane: decode logits through a ring wrap, card against "
+             f"the CPU: {worst} > {TOL_LM_CPU_REL} relative")
+    out["cpu_check"] = {"greedy_streams": len(greedy),
+                        "greedy_tokens_equal": True,
+                        "wrap_ring": 8, "wrap_steps": N_TEACHER_STEPS,
+                        "wrap_logits_max_rel_err": worst}
+    return out
+
+
+def _lm_requests(np, V, max_len):
+    """16 requests from the seed: prompts U[16, 380] tokens (buckets
+    16-511), U[32, 128] new tokens within ``max_len``, half greedy and half
+    sampled (temperature 0.8, top-k 40, seed 1000 + i)."""
+    rng = np.random.default_rng(SEED)
+    reqs = []
+    for i in range(N_REQUESTS):
+        n = int(rng.integers(16, 381))
+        m = int(rng.integers(32, min(128, max_len - n) + 1))
+        reqs.append(dict(prompt=rng.integers(0, V, n).tolist(),
+                         max_new_tokens=m,
+                         **({} if i % 2 == 0 else
+                            dict(temperature=0.8, top_k=40, seed=1000 + i))))
+    return reqs
+
+
+def _steady_decode(torch, eng, reqs):
+    """A full pool in steady decode: the engine step's synced wall ms and
+    its profile (device ms, busy share, kernels a step); a replay alone,
+    timed and profiled; and the same step run eagerly through
+    ``adapter.decode`` on a copy of the pool's state (what the graph
+    holds), timed and profiled. The pool is emptied after."""
+    from deeplearning4j_tpu_torch.common.trees import tree_map
+
+    for r in reqs[:eng.pool.n_slots]:
+        eng.submit(r["prompt"][:64], max_new_tokens=200)
+    eng.step()                                   # admit all slots
+    n = N_DECODE_PROFILE
+    step_prof, step_wall = profile_device(torch, eng.step, n)
+    step_ms = host_ms(torch, eng.step, n)
+    replay_prof, _ = profile_device(torch, eng.decode_pool, n)
+    replay_ms = host_ms(torch, eng.decode_pool, n)
+    state = tree_map(lambda t: t.clone(), eng.pool.state)
+    tokens, pos = eng._inputs[0].clone(), eng._inputs[1].clone()
+    eager = lambda: eng.adapter.decode(state, tokens, pos)  # noqa: E731
+    eager_prof, _ = profile_device(torch, eager, n)
+    eager_ms = host_ms(torch, eager, n)
+    eng.shutdown(timeout=0)
+
+    def summary(prof):
+        dev = sum(t for t, _ in prof.values())
+        return {"device_ms": dev / n if prof else None,
+                "kernels": sum(c for _, c in prof.values()) / n}
+
+    busy = sum(t for t, _ in step_prof.values())
+    top = sorted(step_prof.items(), key=lambda kv: -kv[1][0])[:6]
+    return {
+        "slots": eng.pool.n_slots, "steps": n,
+        "step_wall_ms": step_ms,
+        "step_device_ms": busy / n if step_prof else None,
+        "step_busy_share": busy / step_wall if step_prof else None,
+        "step_kernels": summary(step_prof)["kernels"],
+        "replay_ms": replay_ms, "replay": summary(replay_prof),
+        "eager_decode_ms": eager_ms, "eager": summary(eager_prof),
+        "top_kernels_ms_per_step": {k[:60]: t / n for k, (t, _) in top},
+    }
+
+
+def prefill_flash_times(torch):
+    """The flash forward at one prefill shape of the full-width LM, [1, 12,
+    256, 64] causal bf16: against its plain version, the kernel's time (CUDA
+    events and the profiler's device time), the plain version's, its bound,
+    and scaled_dot_product_attention's on the same inputs (a yardstick the
+    port never calls)."""
+    from deeplearning4j_tpu_torch.ops.cuda.flash_attention import (
+        FWD_KERNEL_NAMES, flash_forward, flash_forward_plain,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    q, k, v, _, _ = _attn_inputs(torch, g, 1, 12, 256, 64, torch.bfloat16,
+                                 False)
+    kw = dict(scale=0.125, causal=True)
+    o, _ = flash_forward(q, k, v, **kw)
+    po, _ = flash_forward_plain(q, k, v, **kw)
+    err, ok = _err_within(torch, o, po, torch.bfloat16)
+    if not ok:
+        fail(f"flash forward at the prefill shape: {err} against plain")
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa
+        q, k, v, is_causal=True)
+    iters = 50
+    out = {"shape": "[1, 12, 256, 64] causal bf16", "max_abs_err": err,
+           "ms": cuda_ms(torch, lambda: flash_forward(q, k, v, **kw), iters),
+           "device_ms": kernel_device_ms(
+               torch, lambda: flash_forward(q, k, v, **kw), iters,
+               FWD_KERNEL_NAMES[torch.bfloat16]),
+           "plain_ms": cuda_ms(torch, lambda: flash_forward_plain(
+               q, k, v, **kw), iters),
+           "library_ms": cuda_ms(torch, sdpa, iters),
+           "library_device_ms": call_device_ms(torch, sdpa, iters)}
+    out["bound_ms"], out["bound_by"] = flash_bound(torch, "fwd", q, k, None,
+                                                   True)
+    return out
+
+
+def replay_against_recompute(torch, net, reqs, streams, record):
+    """The replayed graph's logits of the greedy streams, recorded in the
+    counted run with the pool's slots live (_record_greedy), against the
+    net's full causal forward over each stream: the largest logit
+    difference, and the share of emitted tokens that are a top-1 token of
+    the recompute (a row whose largest bf16 logit several tokens share
+    exactly has each as its top-1); the strict argmax-index agreement and
+    the recompute rows with a tied top-1 beside them."""
+    rows = {}
+    for st, p, row in record:
+        rows.setdefault(id(st), []).append((p, row))
+    diff, agree, strict, ties, argmax_emitted = 0.0, [], [], 0, []
+    for i, (r, s) in enumerate(zip(reqs, streams)):
+        if "temperature" in r:
+            continue
+        n0, seq = len(r["prompt"]), list(r["prompt"]) + s.tokens
+        got = rows.get(id(s), [])
+        if [p for p, _ in got] != list(range(n0 - 1, len(seq) - 1)):
+            fail(f"request {i}: the replay's logits were recorded at "
+                 f"{[p for p, _ in got]}, not at each of its decode steps")
+        x = torch.as_tensor([seq[:-1]], device=net.device)
+        with torch.no_grad():
+            pre = net._forward(net._compute_params(), net.state, x, None)[0]
+        want = pre[0, n0 - 1:].float()
+        dec = torch.stack([row for _, row in got])
+        tok = torch.as_tensor(s.tokens, device=dec.device)
+        top = want.max(-1).values
+        diff = max(diff, float((dec - want).abs().max()))
+        agree += (want.gather(-1, tok[:, None])[:, 0] == top).tolist()
+        strict += (want.argmax(-1) == tok).tolist()
+        argmax_emitted += (dec.argmax(-1) == tok).tolist()
+        ties += int(((want == top[:, None]).sum(-1) > 1).sum())
+    return {"max_logit_diff": diff,
+            "top1_agreement": float(sum(agree) / len(agree)),
+            "argmax_index_agreement": float(sum(strict) / len(strict)),
+            "recorded_argmax_is_emitted": float(sum(argmax_emitted)
+                                                / len(argmax_emitted)),
+            "recompute_rows_with_tied_top1": ties, "steps": len(agree)}
+
+
+def stale_ring_control(torch, ad, net, reqs, streams):
+    """The control of the accuracy gates: the first two greedy streams,
+    teacher-forced eagerly through ``ad`` for N_TEACHER_STEPS steps, once
+    as served and once with the middle encoder layer's ring left stale
+    (each step's K/V put back out of it). Returns both runs' largest logit
+    difference from the full recompute and top-1 agreement (as
+    replay_against_recompute counts it)."""
+    greedy = [(r, s) for r, s in zip(reqs, streams)
+              if "temperature" not in r][:2]
+    mid = ad._tf_layers[len(ad._tf_layers) // 2]
+    out = {"layer": mid, "streams": len(greedy), "steps": N_TEACHER_STEPS}
+    for name, stale in (("sound", ()), ("stale", (mid,))):
+        diff, agree = 0.0, []
+        for r, s in greedy:
+            got, want = teacher_forced(torch, ad, net,
+                                       list(r["prompt"]) + s.tokens,
+                                       len(r["prompt"]), N_TEACHER_STEPS,
+                                       stale=stale)
+            diff = max(diff, float((got - want).abs().max()))
+            top = want.max(-1).values
+            agree += (want.gather(-1, got.argmax(-1, keepdim=True))[:, 0]
+                      == top).tolist()
+        key = "" if name == "stale" else "sound_"
+        out[f"{key}max_logit_diff"] = diff
+        out[f"{key}top1_agreement"] = float(sum(agree) / len(agree))
+    return out
+
+
+def phase_full_width_serving(torch, np):
+    """The causal LM at BERT-base width (bf16) served at slots 8, max_len
+    512, with the bf16 ring and the int8 ring: 16 requests, exact launch
+    counts (12 flash forwards a prefill, the decode on replays), tokens/s,
+    TTFT, a steady decode step replayed and eager, memory, and the
+    replay's own greedy logits against the full causal recompute, with the
+    stale-ring control that the logit gate must catch; then an f32 2-layer
+    copy against its recompute, and the prefill shape's flash times."""
+    from deeplearning4j_tpu_torch.common.trees import tree_leaves
+    from deeplearning4j_tpu_torch.generation import (
+        AttentionDecodeAdapter, GenerationEngine,
+    )
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    net = lm_net(torch, dtype="bf16", **FULL_LM)
+    V, L = FULL_LM["vocab"], FULL_LM["max_len"]
+    reqs = _lm_requests(np, V, L)
+    out = {"model": "causal LM at BertBase width: 12 x 768, 12 heads, d_ff "
+                    "3072, vocab 30522, 512 positions, bf16",
+           "params": net.num_params(), "slots": 8, "max_len": L}
+    for kv in (None, "int8"):
+        what = f"full-width serving ({kv or 'bf16'} ring)"
+        eng = GenerationEngine(net, slots=8, max_len=L, kv_dtype=kv,
+                               device="cuda")
+        # warm-up at the first request's bucket: captures the graph
+        eng.generate(reqs[0]["prompt"], max_new_tokens=2)
+        record = []
+        streams, run = _serve_lm(torch, np, eng, reqs, FULL_LM["layers"],
+                                 what, record=record)
+        if run["prefill_programs"] > len([b for b in eng.buckets
+                                          if b >= 16]):
+            fail(f"{what}: {run['prefill_programs']} prefill shapes")
+        run["kv_ring_bytes"] = sum(t.numel() * t.element_size()
+                                   for t in tree_leaves(eng.pool.state))
+        run["steady"] = _steady_decode(torch, eng, reqs)
+        ring = kv or "bf16"
+        run["recompute"] = replay_against_recompute(torch, net, reqs, streams,
+                                                    record)
+        run["stale_ring_control"] = stale_ring_control(
+            torch, eng.adapter, net, reqs, streams)
+        rc, ctl = run["recompute"], run["stale_ring_control"]
+        if rc["top1_agreement"] < TOP1_FULL[ring]:
+            fail(f"{what}: the replayed greedy tokens agree with the full "
+                 f"recompute's top-1 at {rc['top1_agreement']} < "
+                 f"{TOP1_FULL[ring]}")
+        if not rc["max_logit_diff"] <= TOL_FULL_LOGIT[ring]:
+            fail(f"{what}: replayed logits {rc['max_logit_diff']} from the "
+                 f"full recompute > {TOL_FULL_LOGIT[ring]}")
+        if not ctl["max_logit_diff"] > TOL_FULL_LOGIT[ring]:
+            fail(f"{what}: a stale ring's logits lie {ctl['max_logit_diff']} "
+                 f"from the recompute, within the gate "
+                 f"{TOL_FULL_LOGIT[ring]}: the gate cannot see it")
+        out[kv or "bf16"] = run
+        del eng
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del net
+    torch.cuda.empty_cache()
+
+    # an f32 2-layer copy at full width against its own recompute
+    net2 = lm_net(torch, **dict(FULL_LM, layers=2))
+    seq = np.random.default_rng(SEED + 30).integers(0, V, 96).tolist()
+    got, want = teacher_forced(torch, AttentionDecodeAdapter(net2, L), net2,
+                               seq, 80, N_TEACHER_STEPS)
+    rel = _rel(torch, got, want)
+    if not rel <= TOL_LM_CPU_REL:
+        fail(f"full width, f32 2 layers: cached decode against the full "
+             f"recompute {rel} > {TOL_LM_CPU_REL} relative")
+    out["f32_two_layer_recompute_max_rel_err"] = rel
+    del net2
+    out["prefill_flash"] = prefill_flash_times(torch)
+    return out
+
+
+def phase_session_resume(torch, np):
+    """Session resume on the card: the bench-lane model cut to 1 layer
+    (f32), greedy, with a ring of 32 under max_len 96. Four journaled
+    sessions are interrupted after 3, 12 and 30 decode steps (30: past the
+    ring's wrap, so the resume prefill gathers the wrapped ring), resumed
+    through a new journal into a new engine, and finished; each
+    concatenated stream must equal the uninterrupted run token for
+    token."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.generation import (
+        AttentionDecodeAdapter, GenerationEngine, SessionJournal,
+    )
+
+    net = lm_net(torch, seed=LANE_SEED, **dict(LANE, layers=1))
+    V = LANE["vocab"]
+
+    def engine(journal=None):
+        return GenerationEngine(
+            net, slots=8, max_len=LANE["max_len"], device="cuda",
+            journal=journal,
+            adapter=AttentionDecodeAdapter(net, max_len=SESSION_RING))
+
+    rng = np.random.default_rng(SEED + 31)
+    prompts = [rng.integers(0, V, int(n)).tolist()
+               for n in rng.integers(4, 16, 4)]
+    ref_eng = engine()
+    refs = [ref_eng.submit(p, max_new_tokens=SESSION_NEW) for p in prompts]
+    ref_eng.drain()
+    refs = [s.tokens for s in refs]
+    out = {"sessions": len(prompts), "ring": SESSION_RING,
+           "kills": list(SESSION_KILLS), "resumes": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        for kill in SESSION_KILLS:
+            path = os.path.join(tmp, f"journal{kill}.ndjson")
+            eng = engine(SessionJournal(path))
+            for i, p in enumerate(prompts):
+                eng.submit(p, max_new_tokens=SESSION_NEW,
+                           request_id=f"s{i}")
+            for _ in range(kill):
+                eng.step()
+            eng.shutdown(timeout=0, reason="preempted")
+            eng.journal.close()
+            journal = SessionJournal(path)
+            eng2 = engine(journal)
+            res = journal.resume_into(eng2)
+            if res != {"resumed": len(prompts), "lost": 0, "completed": 0}:
+                fail(f"session resume after {kill} steps: {res}")
+            eng2.drain()
+            _check_replays(eng2, eng2.steps_run, "session resume")
+            for i, ref in enumerate(refs):
+                rec = journal.get(f"s{i}")
+                if rec.tokens != ref or rec.finish_reason != "length":
+                    fail(f"session s{i} resumed after {kill} steps: "
+                         f"{rec.tokens} != {ref}")
+            journal.close()
+            out["resumes"].append({
+                "kill_after": kill,
+                "resume_prompt_lens": [len(p) + kill for p in prompts],
+                "wrapped": all(len(p) + kill > SESSION_RING
+                               for p in prompts)})
+    return out
+
+
 def main() -> None:
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "deeplearning4j_tpu_torch")):
@@ -4056,7 +4801,47 @@ def main() -> None:
               f"{r['f32_check']['side']} against the CPU "
               f"{r['f32_check']['max_rel_err']:.2e}", flush=True)
 
-    # phase 29: kernels line, card line, result line
+    # phase 29: bench.py's decode lane, transformer serving at its shape
+    t0 = time.perf_counter()
+    lane = phase_lane_serving(torch, np)
+    lane["wall_s_phase"] = time.perf_counter() - t0
+    print(json.dumps({"lane_serving": lane, "card": card}), flush=True)
+    for kv in ("f32", "int8"):
+        r = lane[kv]
+        print(f"bench-lane serving ({kv} ring) on {card}: "
+              f"{r['tokens_per_s']:.1f} tokens/s, decode programs "
+              f"{r['decode_programs']}, prefill programs "
+              f"{r['prefill_programs']}, {r['replays']} replays, "
+              f"{r['flash_fwd_launches']} flash forwards", flush=True)
+    print(f"bench-lane int8 ring: top-1 agreement "
+          f"{lane['accuracy']['top1_agreement']:.4f}, post-softmax "
+          f"difference {lane['accuracy']['max_prob_delta']:.2e}", flush=True)
+
+    # phase 30: the causal LM at BERT-base width
+    t0 = time.perf_counter()
+    full = phase_full_width_serving(torch, np)
+    full["wall_s_phase"] = time.perf_counter() - t0
+    print(json.dumps({"full_width_serving": full, "card": card}), flush=True)
+    for kv in ("bf16", "int8"):
+        r = full[kv]
+        st = r["steady"]
+        print(f"full-width LM serving ({kv} ring) on {card}: "
+              f"{r['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+              f"{r['ttft_p50_ms']:.1f} ms; decode step {st['step_wall_ms']:.3f}"
+              f" ms wall, device {st['step_device_ms']} ms, busy "
+              f"{st['step_busy_share']}; replay {st['replay_ms']:.3f} ms "
+              f"against eager {st['eager_decode_ms']:.3f} ms; against the "
+              f"recompute top-1 {r['recompute']['top1_agreement']:.4f}, "
+              f"logits {r['recompute']['max_logit_diff']:.4f} (a stale ring "
+              f"{r['stale_ring_control']['max_logit_diff']:.4f})", flush=True)
+
+    # phase 31: session resume on the card
+    t0 = time.perf_counter()
+    sessions = phase_session_resume(torch, np)
+    sessions["wall_s_phase"] = time.perf_counter() - t0
+    print(json.dumps({"session_resume": sessions, "card": card}), flush=True)
+
+    # phase 32: kernels line, card line, result line
     decode = rows[0]  # the serving path's decode shape [8, 1, 256]
     graves = bwd_rows[0]  # the training path's first layer [64, 64, 200]
     # TextGenerationLSTM's second layer [64, 64, 256], no peepholes: where
@@ -4135,6 +4920,11 @@ def main() -> None:
 
     ft = flash_times["bfloat16"]
     infer_n, bert_n = bert_out["launches"], bert_train["launches"]
+    # the transformer-serving prefills (phases 29-30) run the forward alone
+    serve_paths = {"lane_serving_f32": lane["f32"]["launches"],
+                   "lane_serving_int8": lane["int8"]["launches"],
+                   "full_width_serving_bf16": full["bf16"]["launches"],
+                   "full_width_serving_int8": full["int8"]["launches"]}
     for kern, kind, plain_key, library, design in (
             (ffwd, "fwd", "fwd_plain_ms", ft["library_fwd_ms"],
              "wgmma (tensor cores), cp.async ring"),
@@ -4144,12 +4934,14 @@ def main() -> None:
              "wgmma (tensor cores), cp.async ring"),
             (fdkv, "dkv", "bwd_plain_ms", None,
              "wgmma (tensor cores), cp.async ring")):
+        by_path = {"bert_inference": infer_n[kern.name],
+                   "bert_training": bert_n[kern.name],
+                   **{p: n[kern.name] for p, n in serve_paths.items()}}
         entries.append({
             "name": kern.name, "route": "cuda", "source": kern.source,
             "replaces": kern.replaces,
-            "launches": infer_n[kern.name] + bert_n[kern.name],
-            "launches_by_path": {"bert_inference": infer_n[kern.name],
-                                 "bert_training": bert_n[kern.name]},
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": flash_worst, "max_abs_err_bf16": flash_worst_bf16,
             "ms": ft[f"{kind}_ms"], "device_ms": ft[f"{kind}_device_ms"],
             "plain_ms": ft[plain_key], "bound_ms": ft[f"{kind}_bound_ms"],
@@ -4164,6 +4956,8 @@ def main() -> None:
                  "dkv": DKV_KERNEL_NAMES}[kind][torch.bfloat16]],
             "shape": "[32, 12, 128, 64] bf16, key-padding mask",
         })
+    # the forward at one prefill shape of the full-width LM (phase 30)
+    entries[2]["prefill_shape"] = full["prefill_flash"]
     # the LRN kernels at AlexNet's conv1 LRN shape, f32 (the main path's
     # type); conv2's and the bf16 times are in lrn_times
     lt = lrn_times["alexnet_conv1_float32"]
@@ -4197,6 +4991,8 @@ def main() -> None:
                                   gru_worst_bf16, gru_serve, gru_train,
                                   wide_gru, bidi_gru, gru_sass)
     for e in entries:  # YOLO2 runs none of the nine (phases 26-27)
+        for path, counts in serve_paths.items():
+            e["launches_by_path"].setdefault(path, counts[e["name"]])
         e["launches_by_path"]["yolo2_inference"] = yolo_out["launches"][
             e["name"]]
         e["launches_by_path"]["yolo2_training"] = yolo_train["launches"][

@@ -3,14 +3,15 @@
 Counterpart of ``deeplearning4j_tpu/generation/slots.py``. The pool is one
 state tree whose every tensor has a leading ``[n_slots, ...]`` axis (the
 per-layer carry tuples of a recurrent net: (h, c) for an LSTM, (h,) for a
-GRU) plus small host-side numpy arrays (next token, absolute position,
-sampler knobs). Every decode step runs the whole pool, so the kernel
-always sees the same batch shape.
+GRU; the KV rings of a transformer) plus small host-side numpy arrays
+(next token, absolute position, sampler knobs). Every decode step runs the
+whole pool, so the kernels always see the same batch shape.
 
-Admission overwrites a slot's ENTIRE state row with the newcomer's prefill
-result (``merge_carry_rows``), so nothing a retired sequence left behind can
-leak into it. Eviction is host-side only: the stale row is dead weight until
-the next admission overwrites it.
+The pool's tensors are allocated once and never rebound: admission copies
+the newcomer's prefill result into its slot's ENTIRE state row, in place,
+so nothing a retired sequence left behind can leak into it and a captured
+CUDA graph that reads the pool keeps its addresses. Eviction is host-side
+only: the stale row is dead weight until the next admission overwrites it.
 """
 
 from __future__ import annotations
@@ -18,8 +19,6 @@ from __future__ import annotations
 from typing import Any, Callable, List, Optional
 
 import numpy as np
-
-from deeplearning4j_tpu_torch.nn.multilayer import merge_carry_rows
 
 
 class SlotPool:
@@ -51,11 +50,14 @@ class SlotPool:
     def admit(self, slot: int, sub_state: Any, *, token: int, pos: int,
               seed: int, temperature: float, top_k: int, top_p: float,
               meta: Any = None) -> None:
-        """Claim ``slot``: overwrite its whole state row with ``sub_state``
-        (leaves ``[1, ...]``) and set its host scheduling entries."""
+        """Claim ``slot``: copy ``sub_state`` ({layer: tuple of tensors
+        [1, ...]}, the pool's structure) into its whole state row, in
+        place, and set its host scheduling entries."""
         if self.active[slot]:
             raise ValueError(f"slot {slot} is occupied")
-        self.state = merge_carry_rows(self.state, sub_state, [slot])
+        for layer, rows in self.state.items():
+            for dst, src in zip(rows, sub_state[layer]):
+                dst[slot].copy_(src[0])
         self.tokens[slot] = token
         self.pos[slot] = pos
         self.seeds[slot] = np.uint32(seed)

@@ -10,8 +10,14 @@ as key padding.
 
 Dropout in the encoder draws its masks from the network's
 ``torch.Generator`` (the JAX package splits a key): the two packages agree
-with dropout off. The KV-cache decode path (``init_cache``,
-``apply_step``, ``apply_prefill``) comes with the decode slice.
+with dropout off.
+
+The encoder's KV-cache decode path (``init_cache``, ``apply_step``,
+``apply_prefill``) serves a causal stack token by token. ``apply_step``
+writes the step's K/V into the ring tensors it is given, in place, so a
+captured CUDA graph keeps their addresses; ``apply_prefill`` runs the
+causal ``dot_product_attention``, which takes the flash forward kernel on
+the card.
 """
 
 from __future__ import annotations
@@ -27,10 +33,8 @@ from deeplearning4j_tpu_torch.nn.layers.base import (
 )
 from deeplearning4j_tpu_torch.nn.layers.norm import layer_norm
 from deeplearning4j_tpu_torch.ops.registry import op
+from deeplearning4j_tpu_torch.quantize.kvcache import ring_write_quantized
 import deeplearning4j_tpu_torch.ops  # noqa: F401  (register ops and kernels)
-
-_DECODE = ("the KV-cache decode path is not ported yet; it comes with the "
-           "decode slice (queue A item 1 of ROADMAP.md)")
 
 
 def _attn_mask(mask, Tq, Tk):
@@ -180,11 +184,86 @@ class TransformerEncoderLayer(Layer):
             x = self._ln(x, params, 2)
         return x, state
 
-    def init_cache(self, *args, **kwargs):
-        raise NotImplementedError(_DECODE)
+    # ---------------------------------------------- decode (KV-cache) path
+    def _split_heads(self, t):
+        """[B, D] -> [B, N, Dh]; [B, T, D] -> [B, N, T, Dh]."""
+        B, N = t.shape[0], self.n_heads
+        Dh = self.d_model // N
+        if t.dim() == 2:
+            return t.reshape(B, N, Dh)
+        return t.reshape(B, t.shape[1], N, Dh).transpose(1, 2)
 
-    def apply_step(self, *args, **kwargs):
-        raise NotImplementedError(_DECODE)
+    def init_cache(self, batch: int, max_len: int, dtype=torch.float32,
+                   kv_dtype=None, device=None):
+        """Zeroed KV rings for cached decode: (k, v), each [batch, n_heads,
+        max_len, head_dim] of ``dtype``; with ``kv_dtype="int8"`` the
+        4-tuple (k, v, k_scale, v_scale) of int8 rings and per-(row, head)
+        f32 running absmax scales."""
+        Dh = self.d_model // self.n_heads
+        shape = (batch, self.n_heads, max_len, Dh)
+        if kv_dtype == "int8":
+            scale = (batch, self.n_heads)
+            return (torch.zeros(shape, dtype=torch.int8, device=device),
+                    torch.zeros(shape, dtype=torch.int8, device=device),
+                    torch.zeros(scale, device=device),
+                    torch.zeros(scale, device=device))
+        if kv_dtype is not None:
+            raise ValueError(f"unsupported kv_dtype {kv_dtype!r}")
+        return (torch.zeros(shape, dtype=dtype, device=device),
+                torch.zeros(shape, dtype=dtype, device=device))
 
-    def apply_prefill(self, *args, **kwargs):
-        raise NotImplementedError(_DECODE)
+    def _mlp_half(self, x, params):
+        h = self._ln(x, params, 2) if self.pre_norm else x
+        m = resolve_activation(self.activation)(h @ params["W1"] + params["b1"])
+        x = x + (m @ params["W2"] + params["b2"])
+        if not self.pre_norm:
+            x = self._ln(x, params, 2)
+        return x
+
+    def _qkv(self, x, params):
+        h = self._ln(x, params, 1) if self.pre_norm else x
+        return tuple(self._split_heads(h @ params[f"W{n}"] + params[f"b{n}"])
+                     for n in "qkv")
+
+    def _attn_half(self, x, o, params):
+        x = x + (o @ params["Wo"] + params["bo"])
+        return self._ln(x, params, 1) if not self.pre_norm else x
+
+    def apply_step(self, params, x, cache, pos):
+        """One decode step from the KV ring: x [B, D] (the current token's
+        activations), cache (k, v) [B, N, L, Dh] or the int8 4-tuple of
+        ``init_cache``, pos [B] absolute positions (the write slot is
+        ``pos % L``). Writes the step's K/V into the ring in place (the
+        int8 ring requantizes in place too) and returns (y [B, D], cache).
+        Equals ``apply`` with ``causal=True`` over the whole prefix."""
+        k_cache, v_cache = cache[0], cache[1]
+        L = k_cache.shape[2]
+        B = x.shape[0]
+        q, k, v = self._qkv(x, params)                       # [B, N, Dh]
+        slot = pos % L
+        rows = torch.arange(B, device=x.device)
+        if len(cache) == 4:
+            _, _, k_sc, v_sc = cache
+            ring_write_quantized(k_cache, k_sc, k, rows, slot)
+            ring_write_quantized(v_cache, v_sc, v, rows, slot)
+            scales = dict(k_scale=k_sc, v_scale=v_sc)
+        else:
+            k_cache[rows, :, slot] = k.to(k_cache.dtype)
+            v_cache[rows, :, slot] = v.to(v_cache.dtype)
+            scales = {}
+        o = op("cached_dot_product_attention")(
+            q[:, :, None, :], k_cache, v_cache, pos, **scales)  # [B,N,1,Dh]
+        x = self._attn_half(x, o[:, :, 0, :].reshape(B, -1), params)
+        return self._mlp_half(x, params), cache
+
+    def apply_prefill(self, params, x, *, mask=None):
+        """Causal forward over the whole prompt x [B, T, D] that also
+        returns the K/V heads ([B, N, T, Dh] each), to seed a ring in one
+        pass. Right padding is safe: under the causal mask position i sees
+        only j <= i."""
+        am = _attn_mask(mask, x.shape[1], x.shape[1])
+        q, k, v = self._qkv(x, params)
+        o = op("dot_product_attention")(q, k, v, mask=am, causal=True)
+        B, T = x.shape[0], x.shape[1]
+        x = self._attn_half(x, o.transpose(1, 2).reshape(B, T, -1), params)
+        return self._mlp_half(x, params), (k, v)

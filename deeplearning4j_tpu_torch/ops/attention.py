@@ -10,8 +10,10 @@ register over the same name; they return 0 for such a row, as the JAX
 package's Pallas kernel does.
 
 ``multi_head_attention`` projects, splits heads, attends through the
-registry (so the kernel is reachable) and merges. The decode op
-``cached_dot_product_attention`` comes with the decode slice.
+registry (so the kernel is reachable) and merges.
+``cached_dot_product_attention`` is the single-query decode step over a
+KV ring (``ops/attention.py:50-84`` of the JAX package). It has a plain
+lowering only, as in the JAX package: no kernel registers over it.
 
 Layouts: q/k/v [B, N, T, Dh] (batch, heads, time, head dim); W* [in, out].
 """
@@ -50,6 +52,38 @@ def dot_product_attention(q, k, v, *, mask=None, bias=None, scale=None,
         logits = logits.masked_fill(~mask.to(torch.bool), neg)
     w = torch.softmax(logits, dim=-1)
     return torch.einsum("bnts,bnsd->bntd", w, v)
+
+
+@register_op("cached_dot_product_attention")
+def cached_dot_product_attention(q, k_cache, v_cache, pos, *, scale=None,
+                                 k_scale=None, v_scale=None):
+    """Single-query decode attention over a KV ring buffer.
+
+    q [B, N, 1, Dh]; k_cache/v_cache [B, N, L, Dh]; pos [B], the absolute
+    position of the query token (its k/v already written at ``pos % L``).
+    Ring index c is valid where c <= pos, or everywhere once pos >= L (the
+    ring then holds the L most recent positions; the positional signal was
+    added at the embedding, so their order does not matter).
+
+    Int8 rings pass per-(row, head) scales ``k_scale`` / ``v_scale`` [B, N]:
+    a scale is constant over the ring axis and the head dim, so it
+    commutes out of both contractions and multiplies the logits and the
+    output, and the dequantized ring is never formed. Every operation
+    runs on the device, with no host sync, so a CUDA graph can hold it."""
+    L = k_cache.shape[2]
+    scale = default_scale(q.shape[-1], q.dtype) if scale is None else scale
+    logits = torch.einsum("bntd,bnsd->bnts", q, k_cache.to(q.dtype)) * scale
+    if k_scale is not None:
+        logits = logits * k_scale.to(q.dtype)[:, :, None, None]
+    c = torch.arange(L, device=pos.device)
+    valid = (c[None, :] <= pos[:, None]) | (pos[:, None] >= L)
+    logits = logits.masked_fill(~valid[:, None, None, :],
+                                torch.finfo(logits.dtype).min)
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bnts,bnsd->bntd", w, v_cache.to(q.dtype))
+    if v_scale is not None:
+        out = out * v_scale.to(q.dtype)[:, :, None, None]
+    return out
 
 
 @register_op("multi_head_attention")

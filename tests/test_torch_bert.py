@@ -179,13 +179,6 @@ def test_layer_matches_jax(jax_layer, itype, inp):
         (jax_layer.feed_forward_mask(m, None) is None)
 
 
-def test_decode_path_is_not_ported():
-    enc = TransformerEncoderLayer(d_model=8, n_heads=2)
-    for fn in (enc.init_cache, enc.apply_step, enc.apply_prefill):
-        with pytest.raises(NotImplementedError, match="decode slice"):
-            fn(None, None)
-
-
 def test_encoder_dropout_draws_from_the_generator():
     enc = TransformerEncoderLayer(d_model=8, n_heads=2, dropout_rate=0.5)
     p, _ = enc.init(torch.Generator().manual_seed(0),

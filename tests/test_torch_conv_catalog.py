@@ -222,12 +222,14 @@ def test_space_to_depth_channel_order_is_not_pixel_unshuffle():
 
 
 def test_registry_has_every_jax_op_but_three():
-    """The three left: cached_dot_product_attention (with the KV-cache
-    decode) and the two int8 ops."""
-    left = {"cached_dot_product_attention", "quantized_matmul",
-            "quantized_einsum"}
+    """Of the three this slice left, cached_dot_product_attention has come
+    with the KV-cache decode (a plain lowering only, as in the JAX
+    package); the two int8 ops are left."""
+    left = {"quantized_matmul", "quantized_einsum"}
     assert set(JAX_OPS) - set(PORT_OPS) == left
-    assert len(set(JAX_OPS) & set(PORT_OPS)) == len(JAX_OPS) - 3 == 19
+    assert len(set(JAX_OPS) & set(PORT_OPS)) == len(JAX_OPS) - 2 == 20
+    assert [i.platform for i in
+            PORT_OPS["cached_dot_product_attention"].impls] == ["plain"]
     for name in ("conv1d", "conv3d", "deconv2d", "depthwise_conv2d",
                  "maxpool3d", "avgpool3d", "upsampling2d", "space_to_depth",
                  "depth_to_space"):

@@ -310,10 +310,15 @@ def test_bf16_net_on_card_launches_kernel(cuda_device):
     net = TextGenerationLSTM(seed=0, dtype="bf16", units=64,
                              vocab_size=20).init(device=cuda_device)
     eng = GenerationEngine(net, slots=4, max_len=32, device=cuda_device)
-    before = FUSED_LSTM.launches
+    eng.generate([4], max_new_tokens=1)    # captures the decode step
+    before, replays, steps = FUSED_LSTM.launches, eng.replays, eng.steps_run
     toks = eng.generate([1, 2, 3], max_new_tokens=5)
     assert len(toks) == 5
-    assert FUSED_LSTM.launches - before >= 2 * eng.steps_run
+    # each decode step replays the captured graph, which launches the
+    # kernel once a layer; the host counts only the prefill's launches
+    assert eng.capture_launches == {FUSED_LSTM.name: 2}
+    assert eng.replays - replays == eng.steps_run - steps == 5
+    assert FUSED_LSTM.launches - before == 2
 
 
 def _cluster_launches(fn, calls=3):

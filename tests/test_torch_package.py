@@ -44,7 +44,8 @@ def test_every_port_module_imports_without_jax():
     assert len(names) >= 27
     assert {f"deeplearning4j_tpu_torch.{m}" for m in (
         "ops.losses", "ops.cuda.fused_lstm", "optimize.schedules",
-        "optimize.updaters", "nn.multilayer", "util.serialization")} <= names
+        "optimize.updaters", "nn.multilayer", "util.serialization",
+        "quantize.kvcache", "serving.warmup", "generation.sessions")} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(),
