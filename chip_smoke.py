@@ -292,13 +292,62 @@ Phases (any failure exits non-zero before the result line):
     interrupted after 3, 12 and 30 steps (30: past the ring's wrap),
     resumed from a new journal into a new engine and finished; every
     stream equals the uninterrupted run token for token.
-32. Prints the kernels line (all nine kernels; the LRN entries count the
+32. Truncated BPTT: TextGenerationLSTM at its zoo widths with
+    ``tbptt_fwd_length = tbptt_bwd_length = 50`` at DL4J's
+    GravesLSTMCharModellingExample settings (minibatch 32, example length
+    1000) on a seeded synthetic character stream: one chunk's gradients
+    at [32, 50, 256] from the carries the chunk before left, kernels
+    against the kernel-disabled plain lowering on the card
+    (TOL_TBPTT_CHUNK_GRAD); one ``fit_batch`` against a copy on the plain
+    lowering (TOL_TBPTT_LOSS, TOL_TBPTT_PARAM), and a control copy whose
+    gradients carry a seeded error of TBPTT_CONTROL_NOISE, which must read
+    above the limit; one whose score must be the mean of its 20 chunks
+    run by hand; then 10 calls through ``fit`` over a
+    ``ListDataSetIterator`` with a ``ScoreIterationListener``, each
+    launching exactly 40 LSTM forwards and 40 backwards, and one more
+    call under the profiler whose device records of the cluster kernels
+    must equal the host's 40 and 40; one call at T = 1010 (a trailing
+    chunk of 10: 42 and 42); ms a call, device ms, busy share.
+33. The fit loop at config #1: LeNet on ``MnistDataSetIterator(64)``
+    (synthetic glyphs while no MNIST files are present) through
+    ``EarlyStoppingTrainer`` (at most 3 epochs, score-improvement
+    patience 1, the mean test loss of 4 batches as its score) with a
+    ``PerformanceListener`` and an ``AsyncCheckpointListener``; then
+    ``evaluate`` on the test iterator, which must equal the argmax
+    accuracy of ``output()`` over the same batches; a checkpoint restored
+    into a fresh net gives the saved step's outputs bit for bit, and one
+    truncated by the ``ckpt_corrupt`` fault point is passed over for the
+    step before; one dispatched step under
+    ``torch.cuda.set_sync_debug_mode("error")`` raises nothing and leaves
+    its score in flight; ms a step at ``DL4J_TORCH_ASYNC_STEPS`` 0 and 2
+    (twice each, alternating). Phases 32, 34 and 35 hold one dispatched
+    step of theirs to the sync debug mode too (``no_host_sync``).
+34. Transfer learning at config #2's network: ResNet-50 (bf16, B = 64,
+    224 x 224, N(0, 1) images, labels over 10 classes) through
+    ``TransferLearningGraphBuilder`` (``set_feature_extractor("avgpool")``,
+    the output vertex replaced by a 10-class head, Adam through
+    ``FineTuneConfiguration``): 2 + 10 steps through an iterator, then
+    ``evaluate``; every frozen parameter bit for bit unmoved, the head
+    moved, no kernel of the port launched; ms a step beside phase 21's
+    full step, peak memory.
+35. Remat at config #4's network: BertBase at [32, 128], bf16, dropout
+    0.1, with ``remat`` on and off from the same weights: one step's loss
+    and gradients from the same generator state, with remat against
+    without (bitwise, or within TOL_REMAT_BF16); 2 + 10 steps each,
+    launching 24 flash forwards (12 without remat), 12 dq and 12 dk/dv a
+    step, and one more step under the profiler whose device records must
+    equal the host's count; peak memory and ms a step of each.
+36. Prints the kernels line (all nine kernels; the LRN entries count the
     import path's launches under ``launches_by_path["tf_import"]``, the
     flash forward the serving prefills of phases 29-30 and its prefill
-    shape's times, and every entry YOLO2's, 0, under
-    ``"yolo2_inference"`` and ``"yolo2_training"``), the card line and,
-    last, the result line ``{"ok": true, "device": {...}}``.
+    shape's times, every entry YOLO2's, 0, under ``"yolo2_inference"``
+    and ``"yolo2_training"``, and the training runtime's paths of phases
+    32-35), the card line and, last, the result line ``{"ok": true,
+    "device": {...}}``.
 
+Every phase trains at the fit loop's defaults (``fit_batch`` returns a
+lazy score, a window of 2 steps in flight, tail padding on); a phase turns
+a score into a float where it stores or prints it.
 Every phase runs f32 work with TF32 off (``torch.backends.cuda.matmul``
 and ``torch.backends.cudnn`` ``allow_tf32`` False), the timed ones too.
 """
@@ -370,26 +419,55 @@ def _device_us(evt) -> float:
                          getattr(evt, "cuda_time_total", 0.0)))
 
 
+# short kernels (torch.cuda._sleep's spin_kernel) launched, synced, at the
+# start of every profiler session of this script, before what it profiles.
+# Late in this long process every profiler session drops the first device
+# records of its window, whatever kernels they are (on the H100, the first
+# 13 of a tBPTT window in phase 32, PyTorch's and one LSTM forward, and
+# every record of phase 25's 10 LRN calls; none in a fresh process;
+# PERF.md §7): the lead-in's records take that loss, and the loss is read
+# off them
+PROFILE_LEAD_IN = 64
+
+
+def _lead_in(torch) -> None:
+    """The PROFILE_LEAD_IN spin kernels that open a profiler session."""
+    for _ in range(PROFILE_LEAD_IN):
+        torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+
+
+def _device_records(prof):
+    """A profile's device records, {record name: (device ms, count)}
+    without the lead-in's, and the lead-in records it kept."""
+    out, lead_in = {}, 0
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA") \
+                and _device_us(e) > 0:
+            if "spin_kernel" in e.key:
+                lead_in += e.count
+            else:
+                out[e.key] = (_device_us(e) / 1e3, e.count)
+    return out, lead_in
+
+
 def profile_device(torch, fn, iters: int):
-    """``iters`` calls of ``fn`` under torch.profiler. Returns the device
-    time by kernel name, {name: (total_ms, count)} (empty if the profiler
-    saw no device activity), and the wall ms of the profiled calls."""
+    """``iters`` calls of ``fn`` under torch.profiler, the session opened
+    by the lead-in (_lead_in). Returns the device time by kernel name,
+    {name: (total_ms, count)} (empty if the profiler saw no device
+    activity), and the wall ms of the profiled calls."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _lead_in(torch)
         t0 = time.perf_counter()
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    out = {}
-    for e in prof.key_averages():
-        if str(getattr(e, "device_type", "")).endswith("CUDA") \
-                and _device_us(e) > 0:
-            out[e.key] = (_device_us(e) / 1e3, e.count)
-    return out, wall_ms
+    return _device_records(prof)[0], wall_ms
 
 
 def kernel_device_ms(torch, fn, iters: int, symbol: str, tries: int = 3):
@@ -680,7 +758,7 @@ def phase_main_path(torch, np):
         eng.drain()
         return out
 
-    run = _engine_launches(torch, eng, KERNELS, serve)
+    run = _engine_launches(torch, eng, KERNELS, serve, what="LSTM serving")
     streams, launches, reserves = (run["streams"], run["launches"],
                                    run["reserves"])
     decode_steps, replays = run["steps"], run["replays"]
@@ -835,7 +913,8 @@ def phase_bf16_net(torch, np):
         eng.drain()
         return out
 
-    run = _engine_launches(torch, eng, [FUSED_LSTM], serve)
+    run = _engine_launches(torch, eng, [FUSED_LSTM], serve,
+                           what="bf16 LSTM serving")
     streams, replays = run["streams"], run["replays"]
     launches, steps = run["launches"][FUSED_LSTM.name], run["steps"]
     _check_replays(eng, steps, "bf16 LSTM serving")
@@ -1083,21 +1162,85 @@ def _device_launches(by_kernel, kernels):
     return out
 
 
-def _engine_launches(torch, eng, kernels, fn, tries: int = 3):
+def profiled_launches(torch, kernels, fn, tries: int = 3):
+    """One call of ``fn`` under torch.profiler, every kernel's count zeroed
+    just before it and read just after: the host's launches and the
+    device's records of them, both {kernel name: launches} of that one
+    call. The profile opens with PROFILE_LEAD_IN spin kernels, synced,
+    before the counts are zeroed, so the records a session loses at its
+    start are theirs. A call whose records differ from the host's count,
+    or whose lead-in kept no record (the loss may then reach into the
+    call), is run and profiled again, up to ``tries`` times. Returns
+    (host, device, {record name: (ms, count)} of the call's kernels, wall
+    ms, lead-in records lost) of the last call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _lead_in(torch)
+            for k in kernels:
+                k.launches = 0
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        host = {k.name: k.launches for k in kernels}
+        by_kernel, lead_in = _device_records(prof)
+        device = _device_launches(by_kernel, kernels)
+        if device == host and lead_in:
+            break
+    return host, device, by_kernel, wall_ms, PROFILE_LEAD_IN - lead_in
+
+
+def _stream_differences(timed, counted, third, limit: int = 4):
+    """Where two runs' streams part: for each request whose tokens differ
+    (the first ``limit``), its prompt length, whether it samples, both
+    runs' lengths and finish reasons, the first position that differs,
+    the two tokens there, and which of them a third run agrees with."""
+    out = []
+    for i, (a, b, c) in enumerate(zip(timed, counted, third)):
+        if a.tokens == b.tokens:
+            continue
+        p = next((j for j, (x, y) in enumerate(zip(a.tokens, b.tokens))
+                  if x != y), min(len(a.tokens), len(b.tokens)))
+        req = a.request
+        out.append({
+            "request": i, "prompt_len": len(req.prompt),
+            "sampled": req.temperature > 0,
+            "lengths": [len(a.tokens), len(b.tokens)],
+            "finish": [a.finish_reason, b.finish_reason],
+            "position": p,
+            "tokens": [a.tokens[p:p + 1], b.tokens[p:p + 1]],
+            "third_run_agrees_with": ("both" if c.tokens == a.tokens
+                                      == b.tokens else "timed"
+                                      if c.tokens == a.tokens else
+                                      "counted" if c.tokens == b.tokens
+                                      else "neither")})
+        if len(out) == limit:
+            break
+    return out
+
+
+def _engine_launches(torch, eng, kernels, fn, tries: int = 3,
+                     what: str = "serving"):
     """Drive ``eng`` through ``fn`` twice: a timed run (``fn(counted=
     False)``, synced wall s, no counts read), then the counted run
     (``fn(counted=True)``) with every kernel's counts zeroed just before
-    and read just after, under torch.profiler. A kernel's launches in the
-    counted run are the profiler's records of its device functions, which
-    see the kernels inside a replayed graph; the host counters cannot (the
-    wrappers count on the host, and a replay calls none). The records are
+    and read just after, under torch.profiler (opened by the lead-in,
+    _lead_in). A kernel's launches in the counted run are the profiler's
+    records of its device functions, which see the kernels inside a
+    replayed graph; the host counters cannot (the wrappers count on the
+    host, and a replay calls none). The records are
     held against the host's account: the wrappers' counts (the prefills)
     plus the captured step's launches (``capture_launches``) times the
     run's replays. A counted run whose records fall short of it is run and
     profiled again (the profiler now and then drops a window's records), up
     to ``tries`` times; then the run fails. The graph must have been
     captured before (a warm-up request): a capture inside a run fails it,
-    and so do streams (``fn``'s result) that differ between the runs.
+    and so do streams (``fn``'s result) that differ between the runs; the
+    failure then names ``what`` and says where they part
+    (_stream_differences, with a third run to tell which run is odd).
     Returns {"streams": the counted run's streams, "timed": the timed
     run's, "wall_s": the timed run's, "launches": the measured launches,
     "host_launches", "reserves", "steps": decode steps, "replays"} (steps
@@ -1113,16 +1256,14 @@ def _engine_launches(torch, eng, kernels, fn, tries: int = 3):
     for _ in range(tries):
         replays0, steps0 = eng.replays, eng.steps_run
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _lead_in(torch)
             out, host, reserves, _ = _count_launches(
                 torch, kernels, lambda: fn(counted=True))
         if eng.captures != captures0:
             fail("the engine captured its decode step inside a counted run; "
                  "warm it up first")
         replays = eng.replays - replays0
-        by_kernel = {e.key: (_device_us(e) / 1e3, e.count)
-                     for e in prof.key_averages()
-                     if str(getattr(e, "device_type", "")).endswith("CUDA")}
-        launches = _device_launches(by_kernel, kernels)
+        launches = _device_launches(_device_records(prof)[0], kernels)
         account = {name: n + eng.capture_launches.get(name, 0) * replays
                    for name, n in host.items()}
         if launches == account:
@@ -1132,7 +1273,9 @@ def _engine_launches(torch, eng, kernels, fn, tries: int = 3):
              f"{eng.capture_launches} and the prefills' {host}, "
              f"{tries} times; want {account}")
     if [s.tokens for s in timed] != [s.tokens for s in out]:
-        fail("the timed run's streams differ from the counted run's")
+        third = fn(counted=False)
+        fail(f"{what}: the timed run's streams differ from the counted "
+             f"run's: {json.dumps(_stream_differences(timed, out, third))}")
     return {"streams": out, "timed": timed, "wall_s": wall,
             "launches": launches, "host_launches": host,
             "reserves": reserves, "steps": eng.steps_run - steps0,
@@ -1176,8 +1319,8 @@ def phase_training(torch, np):
     x, y = _char_batch(np, np.random.default_rng(SEED), V, B, T)
 
     # two steps on the card (also its warm-up) against the CPU plain path
-    card = [net.fit_batch((x, y)) for _ in range(2)]
-    cpu = [cpu_net.fit_batch((x, y)) for _ in range(2)]
+    card = [float(net.fit_batch((x, y))) for _ in range(2)]
+    cpu = [float(cpu_net.fit_batch((x, y))) for _ in range(2)]
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
     param_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(
         tree_leaves(net.params), tree_leaves(cpu_net.params)))
@@ -1189,6 +1332,7 @@ def phase_training(torch, np):
     losses, launches, reserves, wall = _count_launches(
         torch, KERNELS,
         lambda: [net.fit_batch((x, y)) for _ in range(N_TRAIN_STEPS)])
+    losses = [float(v) for v in losses]
     if not all(np.isfinite(losses)):
         fail(f"training losses not finite: {losses}")
     if not losses[-1] < losses[0]:
@@ -1256,6 +1400,7 @@ def phase_short_training(torch, np, model, per_step, steps=3):
     net.fit_batch((x, y))  # warm-up, not counted
     losses, launches, reserves, wall = _count_launches(
         torch, KERNELS, lambda: [net.fit_batch((x, y)) for _ in range(steps)])
+    losses = [float(v) for v in losses]
     name = type(model).__name__
     if not all(np.isfinite(losses)):
         fail(f"{name} ({model.dtype}) training losses not finite: {losses}")
@@ -1665,6 +1810,7 @@ def phase_bert_training(torch, np, net):
     losses, launches, _, wall = _count_launches(
         torch, KERNELS,
         lambda: [net.fit_batch((x, y, m)) for _ in range(N_BERT_STEPS)])
+    losses = [float(v) for v in losses]
     if not all(np.isfinite(losses)):
         fail(f"BERT-base training losses not finite: {losses}")
     per = 12 * N_BERT_STEPS
@@ -1701,10 +1847,10 @@ def phase_bert_training(torch, np, net):
     if grad_rel > TOL_BERT_GRAD:
         fail(f"f32 BERT-base gradients, kernels vs plain on the card: "
              f"{grad_rel} > {TOL_BERT_GRAD}")
-    la = [a.fit_batch((x, y, m)) for _ in range(2)]
+    la = [float(a.fit_batch((x, y, m))) for _ in range(2)]
     env.disable_kernels = True
     try:
-        lb = [b.fit_batch((x, y, m)) for _ in range(2)]
+        lb = [float(b.fit_batch((x, y, m))) for _ in range(2)]
     finally:
         env.reload()
     loss_err = max(abs(p - q) / abs(q) for p, q in zip(la, lb))
@@ -2090,6 +2236,7 @@ def phase_alexnet_training(torch, np, net):
     losses, launches, _, wall = _count_launches(
         torch, KERNELS,
         lambda: [net.fit_batch((x, y)) for _ in range(N_ALEXNET_STEPS)])
+    losses = [float(v) for v in losses]
     if not all(np.isfinite(losses)):
         fail(f"AlexNet training losses not finite: {losses}")
     if not np.mean(losses[-3:]) < np.mean(losses[:3]):
@@ -2109,10 +2256,10 @@ def phase_alexnet_training(torch, np, net):
     # seed's untrained weights
     a = MultiLayerNetwork(_without_dropout(net.conf)).init(device="cuda")
     b = copy.deepcopy(a)
-    la = [a.fit_batch((x, y)) for _ in range(2)]
+    la = [float(a.fit_batch((x, y))) for _ in range(2)]
     env.disable_kernels = True
     try:
-        lb = [b.fit_batch((x, y)) for _ in range(2)]
+        lb = [float(b.fit_batch((x, y))) for _ in range(2)]
     finally:
         env.reload()
     loss_err = max(abs(p - q) / abs(q) for p, q in zip(la, lb))
@@ -2159,6 +2306,7 @@ def phase_lenet_training(torch, np):
     losses, launches, _, wall = _count_launches(
         torch, KERNELS,
         lambda: [net.fit_batch((x, y)) for _ in range(N_LENET_STEPS)])
+    losses = [float(v) for v in losses]
     if not all(np.isfinite(losses)):
         fail(f"LeNet training losses not finite: {losses}")
     if not np.mean(losses[-3:]) < np.mean(losses[:3]):
@@ -2580,7 +2728,7 @@ def phase_gru_serving(torch, np):
         eng.drain()
         return out
 
-    run = _engine_launches(torch, eng, KERNELS, serve)
+    run = _engine_launches(torch, eng, KERNELS, serve, what="GRU serving")
     streams, launches, reserves = (run["streams"], run["launches"],
                                    run["reserves"])
     decode_steps, replays = run["steps"], run["replays"]
@@ -2688,10 +2836,11 @@ def phase_gru_training(torch, np, bidi=False, units=GRU_UNITS):
     plain = copy.deepcopy(net)
     B, T = 64, GRU_TIMESTEPS
     x, y = _char_batch(np, np.random.default_rng(SEED + 12), GRU_VOCAB, B, T)
-    card = [net.fit_batch((x, y)) for _ in range(2)]  # also the warm-up
+    # also the warm-up
+    card = [float(net.fit_batch((x, y))) for _ in range(2)]
     env.disable_kernels = True
     try:
-        ref = [plain.fit_batch((x, y)) for _ in range(2)]
+        ref = [float(plain.fit_batch((x, y))) for _ in range(2)]
     finally:
         env.reload()
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(card, ref))
@@ -2710,6 +2859,7 @@ def phase_gru_training(torch, np, bidi=False, units=GRU_UNITS):
              if units == GRU_UNITS else N_WIDE_GRU_STEPS)
     losses, launches, reserves, wall = _count_launches(
         torch, KERNELS, lambda: [net.fit_batch((x, y)) for _ in range(steps)])
+    losses = [float(v) for v in losses]
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         fail(f"{name} losses on a repeated batch did not fall: {losses}")
     want = n * steps
@@ -3018,8 +3168,8 @@ def resnet_cpu_check(torch, np):
 
     err = {"logits": rel(_resnet_logits(torch, card, x),
                          _resnet_logits(torch, cpu, x.cpu()))}
-    lc = card.fit_batch((x, y))
-    lp = cpu.fit_batch((x.cpu(), y.cpu()))
+    lc = float(card.fit_batch((x, y)))
+    lp = float(cpu.fit_batch((x.cpu(), y.cpu())))
     err["step_loss"] = abs(lc - lp) / abs(lp)
     err["bn_running_mean"] = max(
         rel(card.state[k]["mean"], cpu.state[k]["mean"]) for k in cpu.state)
@@ -3039,10 +3189,11 @@ def phase_resnet_training(torch, np, net):
     x, y = _resnet_batch(torch, SEED + 12, RESNET_BATCH, torch.bfloat16)
     means = {k: s["mean"].clone() for k, s in net.state.items()}
     torch.cuda.reset_peak_memory_stats()
-    warm = [net.fit_batch((x, y)) for _ in range(N_RESNET_WARM)]
+    warm = [float(net.fit_batch((x, y))) for _ in range(N_RESNET_WARM)]
     timed, launches, _, wall = _count_launches(
         torch, KERNELS,
         lambda: [net.fit_batch((x, y)) for _ in range(N_RESNET_STEPS)])
+    timed = [float(v) for v in timed]
     losses = warm + timed
     if not all(np.isfinite(losses)):
         fail(f"ResNet-50 training losses not finite: {losses}")
@@ -3068,6 +3219,9 @@ def phase_resnet_training(torch, np, net):
     prof = _profile_summary(by_kernel, prof_wall, steps, "step", top_n=10)
     step_ms = 1e3 * wall / N_RESNET_STEPS
     flops = 3 * forward_flops(net, RESNET_BATCH)
+    # ms a step at async windows 0 and 2 (at 2 the host may dispatch the
+    # next step while the card still runs this one)
+    by_window = window_step_ms(torch, net, (x, y), N_RESNET_STEPS)
     return {
         "model": "ResNet50, bf16, Nesterovs 0.1 momentum 0.9",
         "batch": RESNET_BATCH, "warm_steps": N_RESNET_WARM,
@@ -3082,6 +3236,7 @@ def phase_resnet_training(torch, np, net):
                                / BF16_FLOP_PER_S),
         "profile": prof,
         "device_ms_per_step_by_kind": _ms_by_kind(by_kernel, steps),
+        "ms_per_step_by_window": by_window,
         "f32_card_vs_cpu": resnet_cpu_check(torch, np),
     }
 
@@ -3159,8 +3314,8 @@ def yolo2_cpu_check(torch, np):
     x = _images(torch, SEED + 23, 2, 608, 608, torch.float32)
     y = torch.tensor(yolo2_labels(np, SEED + 24, 2))
     err = {"output": _max_rel(card.output(x), cpu.output(x.cpu()))}
-    lc = card.fit_batch((x, y.cuda()))
-    lp = cpu.fit_batch((x.cpu(), y))
+    lc = float(card.fit_batch((x, y.cuda())))
+    lp = float(cpu.fit_batch((x.cpu(), y)))
     err["step_loss"] = abs(lc - lp) / abs(lp)
     err["bn_running_mean"] = max(
         _max_rel(card.state[k]["mean"], cpu.state[k]["mean"])
@@ -3245,10 +3400,11 @@ def phase_yolo2_training(torch, np, net):
     x = _images(torch, SEED + 22, YOLO2_BATCH, 608, 608, torch.bfloat16)
     y = torch.tensor(yolo2_labels(np, SEED + 25, YOLO2_BATCH), device="cuda")
     torch.cuda.reset_peak_memory_stats()
-    warm = [net.fit_batch((x, y)) for _ in range(N_YOLO2_WARM)]
+    warm = [float(net.fit_batch((x, y))) for _ in range(N_YOLO2_WARM)]
     timed, launches, _, wall = _count_launches(
         torch, KERNELS,
         lambda: [net.fit_batch((x, y)) for _ in range(N_YOLO2_STEPS)])
+    timed = [float(v) for v in timed]
     losses = warm + timed
     if not all(np.isfinite(losses)):
         fail(f"YOLO2 training losses not finite: {losses}")
@@ -3326,6 +3482,7 @@ def phase_zoo(torch, np):
                                      SEED + 40 + i), device="cuda")
         loss, launches_fit, _, fit_wall = _count_launches(
             torch, KERNELS, lambda: net.fit_batch((x, y)))
+        loss = float(loss)
         if not (bool(torch.isfinite(out).all()) and np.isfinite(loss)):
             fail(f"{name} on the card: output finite "
                  f"{bool(torch.isfinite(out).all())}, loss {loss}")
@@ -3930,10 +4087,11 @@ def phase_tf_import_lrn(torch, np):
              f"LRN forward")
     # the device's own record: a window of 10 calls must name the LRN
     # forward kernel and no other kernel of the port. Its count is read
-    # from the launch counters: at this point of the full run the profiler
-    # keeps only some of a short window's records (7 of 10 on an H100; all
-    # of them in a process that runs this phase alone), so the window is
-    # profiled again while it falls short, and then taken as it is.
+    # from the launch counters: at this point of the full run a profiler
+    # session drops the first records of its window (7 of 10 kept on an
+    # H100, or none; all of them in a process that runs this phase alone),
+    # which the lead-in (_lead_in) takes; the window is still profiled
+    # again while it falls short, and then taken as it is.
     calls = 10
 
     def call():
@@ -4119,7 +4277,7 @@ def _serve_lm(torch, np, eng, reqs, layers, what, record=None):
             eng.__dict__.pop("decode_pool", None)
         return out
 
-    run = _engine_launches(torch, eng, KERNELS, serve)
+    run = _engine_launches(torch, eng, KERNELS, serve, what=what)
     streams, launches = run["streams"], run["launches"]
     decode_steps, replays, wall = run["steps"], run["replays"], run["wall_s"]
     _check_replays(eng, decode_steps, what)
@@ -4544,6 +4702,671 @@ def phase_session_resume(torch, np):
     return out
 
 
+# ---------------------------------------------- the training runtime slice
+
+TBPTT_BATCH = 32      # DL4J's GravesLSTMCharModellingExample: minibatch 32,
+TBPTT_T = 1000        # example length 1000,
+TBPTT_LEN = 50        # tBPTT length 50
+N_TBPTT_WARM = 2
+N_TBPTT_STEPS = 10
+# one fit_batch at T = 1000 (20 chunks, each an RMSProp step with clipping
+# 5.0), kernels against the plain lowering on the card, f32: the score
+# relative, the parameters absolute. Read on the H100: score equal,
+# parameters 1.9e-7 apart. The parameters move about linearly in a
+# gradient error, and the control (TBPTT_CONTROL_NOISE) must read above
+# TOL_TBPTT_PARAM; the score barely moves with the gradients, so it is
+# held to a few f32 rounding steps
+TOL_TBPTT_LOSS = 1e-6
+TOL_TBPTT_PARAM = 2e-6
+# the control: the plain copy again with every chunk's gradients off by a
+# seeded relative error of this size an element (a different draw each
+# chunk, so RMSProp's division by the gradient's own scale cannot cancel
+# it), against the plain copy
+TBPTT_CONTROL_NOISE = 1e-4
+# one chunk's gradients at [32, 50, 256] from carried (detached) state,
+# kernels against the plain lowering: each leaf's max |k - p| over its
+# max |p| (f32 sums in other orders over 50 steps). A gradient off by a
+# factor 1 + e reads e here, where RMSProp would hide it
+TOL_TBPTT_CHUNK_GRAD = 1e-5
+# the score of a tBPTT call against the mean of its chunks run by hand
+# from the same state on the same kernels
+TOL_TBPTT_MEAN = 1e-6
+N_FIT_EPOCHS = 3      # phase 33: LeNet through EarlyStoppingTrainer
+N_ASYNC_TIMED = 50    # phase 33: steps timed at each async window
+N_TL_WARM = 2         # phase 34: ResNet-50 transfer learning
+N_TL_STEPS = 10
+TL_CLASSES = 10
+N_REMAT_WARM = 2      # phase 35: BertBase with remat on and off
+N_REMAT_STEPS = 10
+# BertBase bf16, one step's loss and gradients with remat against without
+# from the same params, generator state and batch: bitwise where the
+# kernels are deterministic, else each leaf within this of its largest
+# gradient (floored at 1e-3 of the largest of all)
+TOL_REMAT_BF16 = 1e-2
+def no_host_sync(torch, fn, what):
+    """Run ``fn`` (one dispatched train step) under
+    ``torch.cuda.set_sync_debug_mode("error")``: a synchronizing call in it
+    (``.item()``, a copy to the host, a pageable copy to the card, a
+    stream or device sync) raises, and the phase fails. Returns ``fn``'s
+    result."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    except RuntimeError as e:
+        fail(f"{what}: a dispatched step synced the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def _char_stream(np, seed, n, V):
+    """A seeded synthetic character stream: each character follows from
+    the one before by a fixed map, one in eight drawn at random."""
+    rng = np.random.default_rng(seed)
+    out = np.empty(n, np.int64)
+    out[0] = rng.integers(0, V)
+    noise = rng.integers(0, V, n)
+    jump = rng.random(n) < 0.125
+    for i in range(1, n):
+        out[i] = noise[i] if jump[i] else (out[i - 1] * 7 + 3) % V
+    return out
+
+
+def _tbptt_batches(np, seed, n, V, T=None):
+    """``n`` DataSets of TBPTT_BATCH rows of T + 1 (TBPTT_T + 1)
+    consecutive stream characters: one-hot inputs and next-character
+    labels."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+
+    B, T = TBPTT_BATCH, T or TBPTT_T
+    stream = _char_stream(np, seed, 64 * T, V)
+    rng = np.random.default_rng(seed + 1)
+    eye = np.eye(V, dtype=np.float32)
+    out = []
+    for _ in range(n):
+        starts = rng.integers(0, len(stream) - T - 1, B)
+        rows = np.stack([stream[s:s + T + 1] for s in starts])
+        out.append(DataSet(eye[rows[:, :-1]], eye[rows[:, 1:]]))
+    return out
+
+
+def _tbptt_net(torch, device="cuda"):
+    import dataclasses
+
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+
+    conf = dataclasses.replace(TextGenerationLSTM(seed=SEED).conf(),
+                               tbptt_fwd_length=TBPTT_LEN,
+                               tbptt_bwd_length=TBPTT_LEN)
+    return MultiLayerNetwork(conf).init(device=device)
+
+
+def _tbptt_chunk_grads(torch, net, x, y, carries):
+    """One tBPTT chunk's loss and gradients (no update) from ``carries``,
+    the dropout generator seeded."""
+    from deeplearning4j_tpu_torch.common.dtypes import cast_floating
+    from deeplearning4j_tpu_torch.common.trees import tree_leaves
+
+    net._rng = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    params = net._differentiable(net.params)
+    loss = net._loss_terms(
+        cast_floating(params, net._policy.compute_dtype), x, y, None, None,
+        train=True, rng=net._rng, carries=carries)[0].float()
+    return loss.detach(), torch.autograd.grad(loss, tree_leaves(params))
+
+
+def _noisy_updates(torch, net, noise, seed):
+    """Make ``net``'s updates see every gradient off by a seeded relative
+    error of ``noise`` an element, drawn anew each step (the control of
+    phase 32's parameter check)."""
+    from deeplearning4j_tpu_torch.common.trees import tree_map
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    apply = net._apply_updaters
+
+    def noisy(grads, params, opt_state, step):
+        grads = tree_map(lambda g: g * (1 + noise * torch.randn(
+            g.shape, device=g.device, generator=gen)), grads)
+        return apply(grads, params, opt_state, step)
+
+    net._apply_updaters = noisy
+
+
+def phase_tbptt(torch, np):
+    """TextGenerationLSTM under truncated BPTT at DL4J's char-modelling
+    settings, on the card: launches a fit_batch (the host's and the
+    device's), the chunk mean, one chunk's gradients from carried state and
+    one call's parameters, kernels against the plain lowering."""
+    import copy as _copy
+
+    from deeplearning4j_tpu_torch.common.env import env
+    from deeplearning4j_tpu_torch.common.trees import tree_leaves, tree_map
+    from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
+    from deeplearning4j_tpu_torch.ops.cuda import (
+        FUSED_LSTM, FUSED_LSTM_BWD, KERNELS,
+    )
+    from deeplearning4j_tpu_torch.optimize.async_dispatch import drain_scores
+    from deeplearning4j_tpu_torch.optimize.listeners import (
+        ScoreIterationListener,
+    )
+
+    net = _tbptt_net(torch)
+    V = net.layers[-1].n_out
+    batches = _tbptt_batches(np, SEED + 20, N_TBPTT_WARM + N_TBPTT_STEPS, V)
+    chunks = -(-TBPTT_T // TBPTT_LEN)
+    per_call = 2 * chunks  # two LSTM layers, one launch each a chunk
+
+    def params_apart(a, b):
+        return max(float((p - q).abs().max()) for p, q in zip(
+            tree_leaves(a.params), tree_leaves(b.params)))
+
+    # one chunk's gradients from carried (detached) state: the carries
+    # chunk 0 leaves, then chunk 1, kernels against the plain lowering
+    x, y = net._input(batches[0].features), net._labels(batches[0].labels)
+    with torch.no_grad():
+        carries = tree_map(lambda c: c.detach(), net._forward_carry(
+            net._compute_params(), net.state, x[:, :TBPTT_LEN],
+            net._init_carries(TBPTT_BATCH))[2])
+    chunk = (x[:, TBPTT_LEN:2 * TBPTT_LEN], y[:, TBPTT_LEN:2 * TBPTT_LEN])
+    k_loss, k_grads = _tbptt_chunk_grads(torch, net, *chunk, carries)
+    env.disable_kernels = True
+    try:
+        p_loss, p_grads = _tbptt_chunk_grads(torch, net, *chunk, carries)
+    finally:
+        env.reload()
+    chunk_grad_err = max(float((a - b).abs().max())
+                         / (float(b.abs().max()) or 1.0)
+                         for a, b in zip(k_grads, p_grads))
+    chunk_loss_err = float((k_loss - p_loss).abs() / p_loss.abs())
+    if chunk_grad_err > TOL_TBPTT_CHUNK_GRAD or \
+            chunk_loss_err > TOL_TBPTT_LOSS:
+        fail(f"tBPTT chunk [{TBPTT_BATCH}, {TBPTT_LEN}, 256] from carried "
+             f"state, kernels vs plain: gradients rel err {chunk_grad_err} "
+             f"(tol {TOL_TBPTT_CHUNK_GRAD}), loss rel err {chunk_loss_err}")
+    del k_grads, p_grads
+
+    # the kernels against the plain lowering: one call from the same state,
+    # and the control, the plain lowering with noisy gradients
+    plain, control = _copy.deepcopy(net), _copy.deepcopy(net)
+    _noisy_updates(torch, control, TBPTT_CONTROL_NOISE, SEED + 23)
+    first = float(net.fit_batch(batches[0]))
+    env.disable_kernels = True
+    try:
+        first_plain = float(plain.fit_batch(batches[0]))
+        first_control = float(control.fit_batch(batches[0]))
+    finally:
+        env.reload()
+    loss_err = abs(first - first_plain) / abs(first_plain)
+    param_err = params_apart(net, plain)
+    control_loss_err = abs(first_control - first_plain) / abs(first_plain)
+    control_param_err = params_apart(control, plain)
+    del plain, control
+    if loss_err > TOL_TBPTT_LOSS or param_err > TOL_TBPTT_PARAM:
+        fail(f"tBPTT fit_batch, kernels vs plain on the card: score rel err "
+             f"{loss_err} (tol {TOL_TBPTT_LOSS}), param abs err {param_err} "
+             f"(tol {TOL_TBPTT_PARAM})")
+    if control_param_err <= TOL_TBPTT_PARAM:
+        fail(f"tBPTT: gradients off by {TBPTT_CONTROL_NOISE} an element move "
+             f"the parameters {control_param_err}, within the check's "
+             f"{TOL_TBPTT_PARAM}: the check cannot see such an error")
+
+    # the score is the mean of the chunk losses: the chunks by hand on a
+    # copy, each from the carries the chunk before left, one step index
+    ref = _copy.deepcopy(net)
+    ds = batches[1]
+    got = float(net.fit_batch(ds))
+    x, y = ref._input(ds.features), ref._labels(ds.labels)
+    carries, total = ref._init_carries(TBPTT_BATCH), 0.0
+    for s in range(0, TBPTT_T, TBPTT_LEN):
+        loss, carries = ref._train_step(x[:, s:s + TBPTT_LEN],
+                                        y[:, s:s + TBPTT_LEN], None, None,
+                                        carries)
+        total += float(loss)
+    mean_err = abs(got - total / chunks) / abs(got)
+    if mean_err > TOL_TBPTT_MEAN:
+        fail(f"tBPTT score {got} against the mean of its {chunks} chunks "
+             f"{total / chunks}: rel err {mean_err}")
+    del ref
+
+    # the main path: N fit_batch calls through fit() with a listener
+    lines = []
+    net.set_listeners(ScoreIterationListener(5, log=lines.append))
+    it = ListDataSetIterator(batches[N_TBPTT_WARM:])
+    _, launches, reserves, wall = _count_launches(
+        torch, KERNELS, lambda: net.fit(it, epochs=1))
+    want = per_call * N_TBPTT_STEPS
+    if (launches != _only(KERNELS, fused_lstm_fwd=want, fused_lstm_bwd=want)
+            or reserves != _reserves_only(KERNELS, fused_lstm_fwd=want)):
+        fail(f"tBPTT: {N_TBPTT_STEPS} fit_batch calls launched {launches} "
+             f"({reserves} with reserve); want {per_call} forward and "
+             f"{per_call} backward a call")
+    losses = [float(ln.split(": ")[1]) for ln in lines]
+    if len(lines) != 2 or not all(np.isfinite(losses)):
+        fail(f"tBPTT listener lines: {lines}")
+
+    # under the profiler: one more call, the host's and the device's count
+    design, _ = lstm_design("tBPTT chunk", TBPTT_LEN, TBPTT_BATCH, 256,
+                            torch.float32, "cluster")
+    b_design, _ = lstm_design("tBPTT chunk", TBPTT_LEN, TBPTT_BATCH, 256,
+                              torch.float32, "cluster", backward=True)
+    lstm = [FUSED_LSTM, FUSED_LSTM_BWD]
+    host, device, by_kernel, prof_wall, lost = profiled_launches(
+        torch, lstm, lambda: (net.fit_batch(batches[0]), drain_scores(net)))
+    want_call = {FUSED_LSTM.name: per_call, FUSED_LSTM_BWD.name: per_call}
+    if host != want_call or device != want_call or lost == PROFILE_LEAD_IN:
+        fail(f"tBPTT: a profiled fit_batch call launched {host} and the "
+             f"device recorded {device} ({lost} of {PROFILE_LEAD_IN} "
+             f"lead-in records lost); want {per_call} of each kernel")
+    prof = _profile_summary(by_kernel, prof_wall, 1, "call")
+
+    # a trailing chunk of 10: one call at T = 1010
+    longer = _tbptt_batches(np, SEED + 21, 1, V, T=TBPTT_T + 10)[0]
+    tail_launches = _count_launches(
+        torch, KERNELS, lambda: float(net.fit_batch(longer)))[1]
+    want_tail = 2 * (chunks + 1)
+    if tail_launches != _only(KERNELS, fused_lstm_fwd=want_tail,
+                              fused_lstm_bwd=want_tail):
+        fail(f"tBPTT at T = {TBPTT_T + 10}: {tail_launches}; want "
+             f"{want_tail} of each")
+    # one dispatched call (20 chunks) raises nothing under the sync debug
+    # mode, its score left in flight
+    drain_scores(net)
+    h = no_host_sync(torch, lambda: net.fit_batch(batches[2]), "tBPTT")
+    if h.ready():
+        fail("the dispatched tBPTT call's score was fetched at dispatch")
+    drain_scores(net)
+    return {
+        "model": "TextGenerationLSTM(LSTM 256 x 2, vocab 77), RMSProp 1e-3, "
+                 "clipping 5.0, tBPTT 50 / 50",
+        "batch": TBPTT_BATCH, "timesteps": TBPTT_T, "tbptt_length": TBPTT_LEN,
+        "chunks_per_call": chunks, "calls": N_TBPTT_STEPS,
+        "launches": launches, "launches_per_call": {
+            k: v / N_TBPTT_STEPS for k, v in launches.items() if v},
+        "listener_lines": lines,
+        "wall_s": wall, "ms_per_call": 1e3 * wall / N_TBPTT_STEPS,
+        "samples_per_s": TBPTT_BATCH * N_TBPTT_STEPS / wall,
+        "chunk_mean_rel_err": mean_err,
+        "chunk_check": {"shape": [TBPTT_BATCH, TBPTT_LEN, 256],
+                        "grad_max_rel_err": chunk_grad_err,
+                        "loss_rel_err": chunk_loss_err},
+        "plain_check": {"score": first, "plain_score": first_plain,
+                        "score_rel_err": loss_err,
+                        "param_max_abs_err": param_err,
+                        "control_noise": TBPTT_CONTROL_NOISE,
+                        "control_score_rel_err": control_loss_err,
+                        "control_param_max_abs_err": control_param_err},
+        "fwd_design": design._asdict(), "bwd_design": b_design._asdict(),
+        "profile": prof, "host_launches_profiled_call": host,
+        "device_launches_per_call": device,
+        "profiler_lead_in_records_lost": lost,
+        "trailing_chunk": {"timesteps": TBPTT_T + 10,
+                           "launches": tail_launches},
+    }
+
+
+def window_step_ms(torch, net, batch, steps):
+    """Wall ms a ``fit_batch`` of ``batch`` over ``steps`` steps at
+    ``DL4J_TORCH_ASYNC_STEPS`` 0 and 2, twice each, alternating (one
+    untimed step first at each): {"async_steps_0": [ms, ms],
+    "async_steps_2": [ms, ms]}."""
+    from deeplearning4j_tpu_torch.common.env import env
+    from deeplearning4j_tpu_torch.optimize.async_dispatch import drain_scores
+
+    timing = {}
+    try:
+        for window in (0, 2, 0, 2):
+            env.async_steps = window
+            net.fit_batch(batch)
+            drain_scores(net)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                net.fit_batch(batch)
+            drain_scores(net)
+            torch.cuda.synchronize()
+            timing.setdefault(f"async_steps_{window}", []).append(
+                1e3 * (time.perf_counter() - t0) / steps)
+    finally:
+        env.reload()
+    return timing
+
+
+def _lenet_mnist_score(np, net, it, batches=4):
+    """Mean loss of the first ``batches`` test batches (early stopping's
+    score, lower is better)."""
+    scores = []
+    for i, ds in enumerate(it):
+        if i == batches:
+            break
+        scores.append(net.score(ds))
+    it.reset()
+    return float(np.mean(scores))
+
+
+def phase_fit_loop(torch, np):
+    """LeNet (config #1) through the fit loop on MNIST: early stopping
+    with listeners and background checkpoints, evaluate, a restore from
+    the checkpoints (a corrupted one passed over), a dispatched step with
+    no host sync, and ms a step at async windows 0 and 2."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch import faults
+    from deeplearning4j_tpu_torch.datasets import MnistDataSetIterator
+    from deeplearning4j_tpu_torch.ops.cuda import KERNELS
+    from deeplearning4j_tpu_torch.optimize.async_dispatch import drain_scores
+    from deeplearning4j_tpu_torch.optimize.earlystopping import (
+        EarlyStoppingConfiguration, EarlyStoppingTrainer,
+        MaxEpochsTerminationCondition,
+        ScoreImprovementEpochTerminationCondition,
+    )
+    from deeplearning4j_tpu_torch.optimize.listeners import PerformanceListener
+    from deeplearning4j_tpu_torch.util.checkpoints import (
+        AsyncCheckpointListener, TrainingCheckpointer,
+    )
+    from deeplearning4j_tpu_torch.zoo import LeNet
+
+    train = MnistDataSetIterator(LENET_BATCH, train=True, seed=SEED)
+    test = MnistDataSetIterator(LENET_BATCH, train=False, seed=SEED,
+                                shuffle=False)
+    net = LeNet(seed=SEED).init(device="cuda")
+    tmp = tempfile.mkdtemp(prefix="dl4j-ckpt-")
+    lines = []
+    perf = PerformanceListener(frequency=32, log=lines.append)
+    perf.batch_size = LENET_BATCH
+    ckl = AsyncCheckpointListener(tmp, save_every_n_iterations=100,
+                                  keep_last=2)
+    net.set_listeners(perf, ckl)
+    cfg = EarlyStoppingConfiguration(
+        epoch_termination_conditions=[
+            MaxEpochsTerminationCondition(N_FIT_EPOCHS),
+            ScoreImprovementEpochTerminationCondition(1)],
+        score_calculator=lambda m: _lenet_mnist_score(np, m, test))
+    t0 = time.perf_counter()
+    result, launches, _, _ = _count_launches(
+        torch, KERNELS,
+        lambda: EarlyStoppingTrainer(cfg, net, train).fit())
+    fit_s = time.perf_counter() - t0
+    if any(launches.values()):
+        fail(f"LeNet's fit loop launched {launches}; its path runs none of "
+             f"the port's kernels")
+    ckl.checkpointer.wait()
+    saved = ckl.checkpointer.all_steps()
+    if not saved:
+        fail("the checkpoint listener saved no step")
+
+    # evaluate against the argmax of output() over the same batches
+    ev = net.evaluate(test)
+    hits = n = 0
+    for ds in test:
+        out = net.output(ds.features)
+        hits += int((out.argmax(-1).cpu().numpy()
+                     == ds.labels.argmax(-1)).sum())
+        n += len(ds.labels)
+    test.reset()
+    if ev.num_examples() != n or abs(ev.accuracy() - hits / n) > 1e-12:
+        fail(f"evaluate: accuracy {ev.accuracy()} over {ev.num_examples()} "
+             f"examples; output() argmax {hits / n} over {n}")
+
+    # restore: a clean save, then one the ckpt_corrupt point truncates
+    probe = next(iter(test)).features
+    test.reset()
+    ck = TrainingCheckpointer(tmp + "-restore", keep_last=3)
+    s1 = net.step_count
+    ck.save(s1, net)
+    want = net.output(probe).clone()
+    fresh = LeNet(seed=SEED + 1).init(device="cuda")
+    if ck.restore_latest(fresh) != s1 or not torch.equal(
+            fresh.output(probe), want):
+        fail("restore_latest did not give the checkpointed step's outputs "
+             "bit for bit")
+    net.fit_batch(next(iter(train)))
+    train.reset()
+    drain_scores(net)
+    s2 = net.step_count
+    with faults.injected(f"ckpt_corrupt:1@step=={s2}") as plan:
+        ck.save(s2, net)
+    ck.wait()
+    fresh = LeNet(seed=SEED + 2).init(device="cuda")
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        got = ck.restore_latest(fresh)
+    if (plan.injected["ckpt_corrupt"] != 1 or got != s1
+            or not torch.equal(fresh.output(probe), want)
+            or not any("not restorable" in str(w.message) for w in caught)):
+        fail(f"a corrupted step {s2} was not passed over: restored {got}, "
+             f"want {s1}")
+    ck.close()
+
+    # one dispatched step raises nothing under the sync debug mode
+    net.set_listeners()
+    ds = next(iter(train))
+    train.reset()
+    x, y = ds.features, ds.labels
+    net.fit_batch((x, y))
+    drain_scores(net)
+    h = no_host_sync(torch, lambda: net.fit_batch((x, y)), "LeNet")
+    if h.ready():
+        fail("the dispatched step's score was fetched at dispatch")
+    drain_scores(net)
+
+    # ms a step at the two windows
+    timing = window_step_ms(torch, net, (x, y), N_ASYNC_TIMED)
+    return {
+        "model": "LeNet(28 x 28 x 1, conv 20-50, dense 500, 10 classes), "
+                 "f32, Adam 1e-3",
+        "data": "MnistDataSetIterator(64)", "synthetic": train.synthetic,
+        "train_examples": int(train.features.shape[0]),
+        "test_examples": n, "epochs": result.total_epochs,
+        "best_epoch": result.best_epoch, "best_score": result.best_score,
+        "termination": f"{result.termination_reason} "
+                       f"({result.termination_details})",
+        "score_vs_epoch": result.score_vs_epoch,
+        "steps": net.step_count, "fit_s": fit_s, "launches": launches,
+        "accuracy": ev.accuracy(), "f1": ev.f1(),
+        "performance_lines": lines[-3:],
+        "iters_per_s": perf.last_iters_per_sec,
+        "device_mem_in_use_mb": perf.last_system.get("device_mem_in_use_mb"),
+        "checkpoint_steps": saved, "restored_step": s1,
+        "corrupted_step_passed_over": s2,
+        "ms_per_step": timing,
+    }
+
+
+def phase_transfer_learning(torch, np, full_step_ms):
+    """ResNet-50 (config #2's network) cut to a 10-class head on a frozen
+    trunk: steps through an iterator, evaluate, frozen params unmoved."""
+    from deeplearning4j_tpu_torch.datasets import DataSet, ListDataSetIterator
+    from deeplearning4j_tpu_torch.nn.layers import OutputLayer
+    from deeplearning4j_tpu_torch.nn.transferlearning import (
+        FineTuneConfiguration, TransferLearningGraphBuilder,
+    )
+    from deeplearning4j_tpu_torch.ops.cuda import KERNELS
+    from deeplearning4j_tpu_torch.optimize.async_dispatch import drain_scores
+    from deeplearning4j_tpu_torch.optimize.updaters import Adam
+    from deeplearning4j_tpu_torch.zoo import ResNet50
+
+    base = ResNet50(seed=SEED).init(device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    net = (TransferLearningGraphBuilder(base)
+           .fine_tune_configuration(FineTuneConfiguration(
+               updater=Adam(lr=1e-3)))
+           .set_feature_extractor("avgpool")
+           .remove_vertex_and_connections("output")
+           .add_layer("output", OutputLayer(n_out=TL_CLASSES,
+                                            activation="softmax",
+                                            loss="mcxent"), "avgpool")
+           .set_outputs("output").build())
+    del base
+    frozen = [n for n, v in net.conf.vertices.items()
+              if hasattr(v, "layer") and not v.layer.trainable]
+    before = {n: {k: t.clone() for k, t in net.params[n].items()}
+              for n in frozen if n in net.params}
+    head = {k: t.clone() for k, t in net.params["output"].items()}
+    g = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    sets = []
+    for _ in range(3):
+        x = torch.randn((RESNET_BATCH, 224, 224, 3), device="cuda",
+                        generator=g).to(torch.bfloat16)
+        y = torch.nn.functional.one_hot(torch.randint(
+            0, TL_CLASSES, (RESNET_BATCH,), device="cuda", generator=g),
+            TL_CLASSES).float()
+        sets.append(DataSet(x, y))
+    net.fit(ListDataSetIterator(sets[:N_TL_WARM]))
+    timed = ListDataSetIterator([sets[i % 3] for i in range(N_TL_STEPS)])
+    _, launches, _, wall = _count_launches(
+        torch, KERNELS, lambda: net.fit(timed))
+    if any(launches.values()):
+        fail(f"ResNet-50 transfer learning launched {launches}")
+    losses = [float(net.score_value)]
+    moved = [n for n, p in before.items()
+             if not all(torch.equal(p[k], net.params[n][k]) for k in p)]
+    if moved or not before:
+        fail(f"frozen vertices moved: {moved} (of {len(before)})")
+    if all(torch.equal(head[k], net.params["output"][k]) for k in head):
+        fail("the new head did not move")
+    ev = net.evaluate(ListDataSetIterator(sets))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    drain_scores(net)
+    no_host_sync(torch, lambda: net.fit_batch(sets[1]), "ResNet-50 transfer")
+    drain_scores(net)
+    step_ms = 1e3 * wall / N_TL_STEPS
+    by_kernel, prof_wall = profile_device(
+        torch, lambda: (net.fit_batch(sets[0]), drain_scores(net)), 3)
+    return {
+        "model": "ResNet50 trunk frozen through avgpool, new 10-class "
+                 "output, Adam 1e-3 (FineTuneConfiguration), bf16",
+        "batch": RESNET_BATCH, "frozen_vertices": len(frozen),
+        "frozen_param_vertices": len(before), "warm_steps": N_TL_WARM,
+        "steps": N_TL_STEPS, "last_loss": losses[-1], "launches": launches,
+        "wall_s": wall, "step_wall_ms": step_ms,
+        "full_step_wall_ms_phase_21": full_step_ms,
+        "step_over_full_step": step_ms / full_step_ms,
+        "samples_per_s": RESNET_BATCH * N_TL_STEPS / wall,
+        "peak_memory_gb": peak, "eval_accuracy": ev.accuracy(),
+        "eval_examples": ev.num_examples(),
+        "profile": _profile_summary(by_kernel, prof_wall, 3, "step"),
+    }
+
+
+def _step_loss_grads(torch, net, x, y, m, seed):
+    """One training forward's loss and its gradients (no update), the
+    dropout generator seeded with ``seed``."""
+    from deeplearning4j_tpu_torch.common.dtypes import cast_floating
+    from deeplearning4j_tpu_torch.common.trees import tree_leaves, tree_map
+
+    net._rng = torch.Generator(device="cuda").manual_seed(seed)
+    params = tree_map(lambda p: p.detach().requires_grad_(), net.params)
+    loss = net._loss_terms(
+        cast_floating(params, net._policy.compute_dtype), net._input(x),
+        net._labels(y), net._mask(m), None, train=True,
+        rng=net._rng)[0].float()
+    grads = torch.autograd.grad(loss, tree_leaves(params))
+    return loss.detach(), grads
+
+
+def phase_remat(torch, np):
+    """BertBase at [32, 128], bf16, dropout 0.1, with remat on and off:
+    flash launches a step, one step's loss and gradients with remat
+    against without, peak memory and ms a step of each."""
+    import dataclasses
+
+    from deeplearning4j_tpu_torch.common.trees import tree_map
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops.cuda import (
+        FLASH_DKV, FLASH_DQ, FLASH_FWD, KERNELS,
+    )
+    from deeplearning4j_tpu_torch.optimize.async_dispatch import drain_scores
+    from deeplearning4j_tpu_torch.zoo import BertBase
+
+    x, y, m = _bert_batch(np, SEED + 40)
+    conf = BertBase(seed=SEED, max_len=128).conf()
+    out, params = {}, None
+    for remat in (True, False):
+        torch.cuda.empty_cache()
+        net = MultiLayerNetwork(dataclasses.replace(conf, remat=remat)).init(
+            device="cuda")
+        if params is None:
+            params = net.params
+        else:
+            net.params = tree_map(lambda t: t.clone(), params)
+        # one step's loss and gradients from the shared params and seed
+        loss, grads = _step_loss_grads(torch, net, x, y, m, SEED + 41)
+        out[remat] = {"loss": loss, "grads": grads}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(N_REMAT_WARM):
+            net.fit_batch((x, y, m))
+        drain_scores(net)
+        _, launches, _, wall = _count_launches(
+            torch, KERNELS, lambda: ([net.fit_batch((x, y, m))
+                                      for _ in range(N_REMAT_STEPS)],
+                                     drain_scores(net)))
+        per = 12 * N_REMAT_STEPS
+        want = _only(KERNELS, flash_attention_fwd=per * (2 if remat else 1),
+                     flash_attention_dq=per, flash_attention_dkv=per)
+        if launches != want:
+            fail(f"BertBase remat={remat}: {N_REMAT_STEPS} steps launched "
+                 f"{launches}; want {want}")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        no_host_sync(torch, lambda: net.fit_batch((x, y, m)),
+                     f"BertBase remat={remat}")
+        drain_scores(net)
+        # under the profiler: one more step, the host's and the device's
+        # count
+        flash = [FLASH_FWD, FLASH_DQ, FLASH_DKV]
+        host, device, by_kernel, prof_wall, lost = profiled_launches(
+            torch, flash,
+            lambda: (net.fit_batch((x, y, m)), drain_scores(net)))
+        want_step = {FLASH_FWD.name: 24 if remat else 12, FLASH_DQ.name: 12,
+                     FLASH_DKV.name: 12}
+        if host != want_step or device != want_step \
+                or lost == PROFILE_LEAD_IN:
+            fail(f"BertBase remat={remat}: a profiled step launched {host} "
+                 f"and the device recorded {device} ({lost} of "
+                 f"{PROFILE_LEAD_IN} lead-in records lost); want "
+                 f"{want_step}")
+        out[remat].update({
+            "launches": launches, "launches_per_step": {
+                k: v / N_REMAT_STEPS for k, v in launches.items() if v},
+            "device_launches_per_step": device,
+            "profiler_lead_in_records_lost": lost,
+            "wall_s": wall, "step_wall_ms": 1e3 * wall / N_REMAT_STEPS,
+            "samples_per_s": 32 * N_REMAT_STEPS / wall,
+            "peak_memory_gb": peak,
+            "profile": _profile_summary(by_kernel, prof_wall, 1, "step"),
+        })
+        del net
+    on, off = out[True], out[False]
+    bitwise = bool(torch.equal(on["loss"], off["loss"])) and all(
+        torch.equal(a, b) for a, b in zip(on["grads"], off["grads"]))
+    floor = 1e-3 * max(float(b.abs().max()) for b in off["grads"])
+    grad_rel = max(float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                    floor)
+                   for a, b in zip(on["grads"], off["grads"]))
+    loss_rel = float((on["loss"] - off["loss"]).abs() / off["loss"].abs())
+    if not bitwise and (grad_rel > TOL_REMAT_BF16
+                        or loss_rel > TOL_REMAT_BF16):
+        fail(f"BertBase one step with remat against without: loss rel "
+             f"{loss_rel}, gradients rel {grad_rel} (tol {TOL_REMAT_BF16})")
+    for d in (on, off):
+        d["loss"] = float(d.pop("loss"))
+        d.pop("grads")
+    return {
+        "model": "BertBase(12 x 768, 12 heads, d_ff 3072, vocab 30522, "
+                 "max_len 128), bf16, AdamW 2e-5 warmup-cosine, clip 1.0, "
+                 "dropout 0.1",
+        "batch": 32, "timesteps": 128, "steps": N_REMAT_STEPS,
+        "remat": on, "no_remat": off,
+        "step_vs_no_remat": {"bitwise": bitwise, "loss_rel_err": loss_rel,
+                             "grad_max_rel_err": grad_rel},
+        "peak_memory_ratio": on["peak_memory_gb"] / off["peak_memory_gb"],
+        "step_ms_ratio": on["step_wall_ms"] / off["step_wall_ms"],
+    }
+
+
 def main() -> None:
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "deeplearning4j_tpu_torch")):
@@ -4841,7 +5664,50 @@ def main() -> None:
     sessions["wall_s_phase"] = time.perf_counter() - t0
     print(json.dumps({"session_resume": sessions, "card": card}), flush=True)
 
-    # phase 32: kernels line, card line, result line
+    # phase 32: truncated BPTT through the LSTM kernels
+    t0 = time.perf_counter()
+    tbptt = phase_tbptt(torch, np)
+    tbptt["wall_s_phase"] = time.perf_counter() - t0
+    print(json.dumps({"tbptt_charrnn": tbptt, "card": card}), flush=True)
+    print(f"tBPTT char-RNN on {card}: {tbptt['ms_per_call']:.1f} ms a "
+          f"fit_batch of {TBPTT_BATCH} x {TBPTT_T} ({tbptt['chunks_per_call']}"
+          f" chunks), device {tbptt['profile']['device_ms_per_call']:.2f} ms, "
+          f"busy {tbptt['profile']['device_busy_share']}, "
+          f"{tbptt['launches_per_call']} launches a call", flush=True)
+
+    # phase 33: the fit loop at config #1
+    t0 = time.perf_counter()
+    fit_loop = phase_fit_loop(torch, np)
+    fit_loop["wall_s_phase"] = time.perf_counter() - t0
+    print(json.dumps({"fit_loop_lenet": fit_loop, "card": card}), flush=True)
+    print(f"LeNet fit loop on {card}: MNIST synthetic {fit_loop['synthetic']}"
+          f", {fit_loop['epochs']} epochs ({fit_loop['termination']}), "
+          f"accuracy {fit_loop['accuracy']:.4f}; ms a step "
+          f"{fit_loop['ms_per_step']}", flush=True)
+
+    # phase 34: transfer learning at config #2's network
+    t0 = time.perf_counter()
+    transfer = phase_transfer_learning(torch, np, rn_train["step_wall_ms"])
+    transfer["wall_s_phase"] = time.perf_counter() - t0
+    print(json.dumps({"transfer_resnet50": transfer, "card": card}),
+          flush=True)
+    print(f"ResNet-50 transfer learning on {card}: "
+          f"{transfer['step_wall_ms']:.2f} ms a step (the full step "
+          f"{rn_train['step_wall_ms']:.2f}), peak "
+          f"{transfer['peak_memory_gb']:.2f} GB", flush=True)
+
+    # phase 35: remat at config #4's network
+    t0 = time.perf_counter()
+    remat = phase_remat(torch, np)
+    remat["wall_s_phase"] = time.perf_counter() - t0
+    print(json.dumps({"remat_bert": remat, "card": card}), flush=True)
+    for k in ("remat", "no_remat"):
+        r = remat[k]
+        print(f"BertBase {k} on {card}: {r['step_wall_ms']:.2f} ms a step, "
+              f"peak {r['peak_memory_gb']:.2f} GB, flash launches a step "
+              f"{r['launches_per_step']}", flush=True)
+
+    # phase 36: kernels line, card line, result line
     decode = rows[0]  # the serving path's decode shape [8, 1, 256]
     graves = bwd_rows[0]  # the training path's first layer [64, 64, 200]
     # TextGenerationLSTM's second layer [64, 64, 256], no peepholes: where
@@ -4997,6 +5863,15 @@ def main() -> None:
             e["name"]]
         e["launches_by_path"]["yolo2_training"] = yolo_train["launches"][
             e["name"]]
+    for e in entries:  # the training runtime's paths (phases 32-35)
+        paths = {"tbptt_charrnn": tbptt["launches"][e["name"]],
+                 "fit_loop_lenet": fit_loop["launches"][e["name"]],
+                 "transfer_resnet50": transfer["launches"][e["name"]],
+                 "bert_training_remat": remat["remat"]["launches"][e["name"]],
+                 "bert_training_no_remat": remat["no_remat"]["launches"][
+                     e["name"]]}
+        e["launches_by_path"].update(paths)
+        e["launches"] += sum(paths.values())
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

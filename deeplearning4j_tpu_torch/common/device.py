@@ -28,3 +28,17 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+def to_device(a, device: torch.device) -> torch.Tensor:
+    """``a`` (a numpy array, a tensor or a scalar) as a tensor on
+    ``device``. A host array bound for the card is staged in pinned memory
+    and copied without blocking the host: a copy from pageable memory waits
+    for every kernel queued before it, which would end the async fit loop's
+    lead over the device. A tensor already there is returned as it is."""
+    t = torch.as_tensor(a)
+    if t.device == device:
+        return t
+    if device.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)

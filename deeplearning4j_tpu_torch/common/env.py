@@ -1,11 +1,14 @@
 """Runtime environment flags, read from process env vars.
 
 Counterpart of ``deeplearning4j_tpu/common/env.py`` under the port's own
-``DL4J_TORCH_`` prefix. Only the flags the ported slice reads are carried
-over: the kernel kill switch, the force switch, verbose dispatch logging
-and the import-graph optimizer's switch; and the switches of training features the port has not taken over
-yet (guardrails, fault plans), so that ``fit_batch`` refuses them instead of
-training without them.
+``DL4J_TORCH_`` prefix, with the JAX package's defaults. Only the flags the
+ported slices read are carried over: the kernel kill switch, the force
+switch, verbose dispatch logging, the import-graph optimizer's switch, the
+async fit loop's window and tail padding, the fault plan's spec, seed and
+delay (parsed by ``faults.configure``), and the guardrails switch, which
+``fit_batch`` refuses until the guardrails are ported instead of training
+without them. The dataset modules read ``DL4J_TORCH_DATA_DIR`` (where the
+MNIST / CIFAR / SVHN files are looked for first) themselves.
 """
 
 from __future__ import annotations
@@ -18,6 +21,16 @@ def _flag(name: str, default: bool = False) -> bool:
     if v is None:
         return default
     return v.strip().lower() not in ("", "0", "false", "off", "no")
+
+
+def _int(name: str, default: int) -> int:
+    v = os.environ.get(name)
+    if v is None or not v.strip():
+        return default
+    try:
+        return int(v.strip())
+    except ValueError:
+        return default
 
 
 class Environment:
@@ -33,9 +46,19 @@ class Environment:
     # The import-graph optimizer runs at import (default on; 0 keeps the
     # raw parsed graph).
     IMPORT_OPT = "DL4J_TORCH_IMPORT_OPT"
-    # Not ported yet: arming training guardrails, installing a fault plan.
+    # Not ported yet: arming training guardrails.
     GUARDRAILS = "DL4J_TORCH_GUARDRAILS"
+    # Fault injection (``faults``): spec "cls:rate[@cond]", its seed and
+    # the simulated straggler delay, read by faults.configure()/reset().
     FAULTS = "DL4J_TORCH_FAULTS"
+    FAULTS_SEED = "DL4J_TORCH_FAULTS_SEED"
+    FAULTS_DELAY_S = "DL4J_TORCH_FAULTS_DELAY_S"
+    # Async fit loop (optimize/async_dispatch.py): train steps in flight
+    # before fit_batch drains the oldest loss; 0 returns eager floats.
+    ASYNC_STEPS = "DL4J_TORCH_ASYNC_STEPS"
+    # Pad partial epoch-tail batches up to the pow2 bucket of the largest
+    # batch seen (labels mask zeroed: loss-exact); 0 feeds them raw.
+    PAD_TAIL = "DL4J_TORCH_PAD_TAIL"
 
     def __init__(self) -> None:
         self.reload()
@@ -46,7 +69,8 @@ class Environment:
         self.verbose = _flag(self.VERBOSE)
         self.import_opt = _flag(self.IMPORT_OPT, default=True)
         self.guardrails = _flag(self.GUARDRAILS)
-        self.faults = os.environ.get(self.FAULTS, "").strip()
+        self.async_steps = max(0, _int(self.ASYNC_STEPS, 2))
+        self.pad_tail = _flag(self.PAD_TAIL, default=True)
 
 
 env = Environment()

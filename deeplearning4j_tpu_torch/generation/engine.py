@@ -53,7 +53,8 @@ gate a padded carry, and the JAX package's gated scan gives the same carry
 
 A ``journal`` (``generation/sessions.py``) makes requests submitted with a
 ``request_id`` durable. Not ported: request tracing, monitoring and the
-fault hooks.
+engine's fault hooks (its ``faults.active()`` preempt points; ``faults``
+itself is ported), which come with the monitoring layer.
 """
 
 from __future__ import annotations

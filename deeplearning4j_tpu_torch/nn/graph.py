@@ -4,13 +4,13 @@ Counterpart of ``deeplearning4j_tpu/nn/graph.py``: ``init``, the walk of
 the topological order (``_forward``, ``graph.py:103``), ``output``, the
 loss over every output vertex with per-output label masks (``_loss``,
 ``:283``; ``_labels_masks_for``, ``:451``) and training: ``fit_batch``,
-``fit``, ``score``, ``save``/``load``.
+``fit``, ``score``, ``evaluate``, ``save``/``load``.
 
 One train step is what the JAX package's jitted ``train_step`` (``:391``)
 does, run eagerly: the forward, the loss, ``torch.autograd.grad``, the
 global-norm clip and each vertex's updater (with its clipnorm override),
 threading each layer's new state (BatchNormalization's running
-statistics). The clip and updater step and the refusals of unported
+statistics). The clip and updater step and the refusal of unported
 training features are MultiLayerNetwork's own (``nn/multilayer.py``).
 Convolutional activations walk the graph as NHWC tensors (channels_last
 views on the card), as in the JAX package.
@@ -22,12 +22,14 @@ card. Weights and optimizer state cross from the JAX package through
 :func:`load_jax_params` and :func:`load_jax_opt_state`, or the graph zip
 (``util/serialization.py``), which both packages read and write.
 
-Not ported yet: ``rnn_time_step``, ``as_loss_fn``, ``evaluate``,
-``quantize``, listeners and async score dispatch (``fit_batch`` returns the
-loss as a float), tail padding of short batches, and the training features
-MultiLayerNetwork refuses (gradient checkpointing, guardrails, fault
-plans). A ``CenterLossOutputLayer`` output adds its center term and moves
-its centers every step (``nn/graph.py:294,345-352`` there).
+The training runtime around the step is MultiLayerNetwork's: ``remat``
+(each vertex under ``remat_apply``, the JAX package's ``jax.checkpoint``
+of every vertex), fault plans, the async fit loop with listeners and tail
+padding, ``evaluate`` (of the first output), ``score_value`` and
+``rnn_time_step``. Not ported yet: ``as_loss_fn`` (with the parallel
+trainers), ``quantize``, and guardrails, which ``fit_batch`` refuses. A
+``CenterLossOutputLayer`` output adds its center term and moves its
+centers every step (``nn/graph.py:294,345-352`` there).
 """
 
 from __future__ import annotations
@@ -37,20 +39,30 @@ from typing import Optional
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch.common.device import DeviceLike, resolve_device
+from deeplearning4j_tpu_torch import faults
+from deeplearning4j_tpu_torch.common.device import (
+    DeviceLike, resolve_device, to_device,
+)
 from deeplearning4j_tpu_torch.common.dtypes import BF16, FLOAT32, cast_floating
+from deeplearning4j_tpu_torch.common.env import env
 from deeplearning4j_tpu_torch.common.trees import (
     tree_leaves, tree_map, tree_unflatten,
 )
 from deeplearning4j_tpu_torch.nn.conf.builders import (
     ComputationGraphConfiguration,
 )
+from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
 from deeplearning4j_tpu_torch.nn.conf.graph import LayerVertex
 from deeplearning4j_tpu_torch.nn.multilayer import (  # noqa: F401 (re-exported)
-    MultiLayerNetwork, _canonical, _center_term, _layer_seed, _unpack,
-    load_jax_opt_state, load_jax_params,
+    MultiLayerNetwork, _canonical, _center_term, _check_carry_batch, _grads,
+    _layer_seed, _unpack, host_array, load_jax_opt_state, load_jax_params,
+    remat_apply,
 )
 from deeplearning4j_tpu_torch.nn.layers.output import CenterLossOutputLayer
+from deeplearning4j_tpu_torch.optimize.async_dispatch import (
+    deliver_score, get_window, leading_dim, pad_tail_batch,
+    supports_tail_padding,
+)
 from deeplearning4j_tpu_torch.optimize.updaters import NoOp, get_updater
 
 
@@ -67,6 +79,7 @@ class ComputationGraph:
         self.step_count = 0
         self.epoch_count = 0
         self.score_value = float("nan")
+        self.listeners: list = []
         self.device: Optional[torch.device] = None
         self._policy = BF16 if conf.dtype in ("bf16", "bfloat16") else FLOAT32
         self._updaters = {}
@@ -81,15 +94,20 @@ class ComputationGraph:
             else:
                 self._updaters[name] = conf.updater
         self._rng: Optional[torch.Generator] = None  # dropout masks
+        self._rnn_carries = None
 
     # MultiLayerNetwork's clip and updater step (over dicts by vertex name
-    # here), its refusals of the train step's unported parts, its dropout
-    # generator, parameter count and epoch loop
+    # here), its refusal of the train step's unported parts, its dropout
+    # generator, parameter count, epoch loop with listeners, score and
+    # listener surface
     _apply_updaters = MultiLayerNetwork._apply_updaters
     _check_trainable = MultiLayerNetwork._check_trainable
+    _differentiable = MultiLayerNetwork._differentiable
     _generator = MultiLayerNetwork._generator
     num_params = MultiLayerNetwork.num_params
     fit = MultiLayerNetwork.fit
+    set_listeners = MultiLayerNetwork.set_listeners
+    score_value = MultiLayerNetwork.score_value
 
     # ------------------------------------------------------------------ init
     def init(self, seed: Optional[int] = None,
@@ -109,6 +127,7 @@ class ComputationGraph:
                           for n, p in self.params.items()}
         self.device = dev
         self._rng = None
+        self._rnn_carries = None
         return self
 
     def _vertex_input_types(self, name):
@@ -156,7 +175,14 @@ class ComputationGraph:
                 if s:
                     new_state[name] = s
                 continue
-            out, s2 = v.apply(p, s, ins, train=train, rng=rng, masks=masks)
+            if self.conf.remat and train:
+                out, s2 = remat_apply(
+                    lambda g, pp, ss, ii, _v=v: _v.apply(
+                        pp, ss, ii, train=True, rng=g, masks=masks),
+                    rng, p, s, ins)
+            else:
+                out, s2 = v.apply(p, s, ins, train=train, rng=rng,
+                                  masks=masks)
             acts[name] = out
             if s2:
                 new_state[name] = s2
@@ -171,7 +197,7 @@ class ComputationGraph:
             xs = dict(zip(self.conf.network_inputs, xs))
         out = {}
         for k, x in xs.items():
-            x = torch.as_tensor(x, device=self.device)
+            x = to_device(x, self.device)
             if x.is_floating_point():
                 x = x.to(self._policy.compute_dtype if cast
                          else _canonical(x.dtype))
@@ -184,14 +210,14 @@ class ComputationGraph:
             y = dict(zip(self.conf.network_outputs, ys))
         out = {}
         for k, v in y.items():
-            v = torch.as_tensor(v, device=self.device)
+            v = to_device(v, self.device)
             out[k] = v.float() if v.is_floating_point() else v
         return out
 
     def _mask_list(self, mask):
         """The shared forward mask as the list the vertices take."""
         return (None if mask is None
-                else [torch.as_tensor(mask, device=self.device).float()])
+                else [to_device(mask, self.device).float()])
 
     # ---------------------------------------------------------------- output
     @torch.no_grad()
@@ -290,7 +316,7 @@ class ComputationGraph:
         if label_mask is None:
             return None
         outs = self.conf.network_outputs
-        on = lambda m: torch.as_tensor(m, device=self.device).float()  # noqa: E731
+        on = lambda m: to_device(m, self.device).float()  # noqa: E731
         if isinstance(label_mask, dict):
             unknown = set(label_mask) - set(outs)
             if unknown:
@@ -308,7 +334,7 @@ class ComputationGraph:
             if label_mask is mask or (
                     mask is not None
                     and np.shape(mask) == np.shape(label_mask)
-                    and bool((on(mask) == on(label_mask)).all())):
+                    and _equal(mask, label_mask)):
                 return None  # the shared path already covers it
             d = {n: on(label_mask) for n in outs}
         return d or None
@@ -317,15 +343,12 @@ class ComputationGraph:
         """One step (forward, loss, backward, clip, update) on tensors
         already on the device; stores the vertices' new states and returns
         the loss as a 0-d f32 tensor."""
-        params = tree_map(lambda p: p.detach().requires_grad_(), self.params)
-        leaves = tree_leaves(params)
+        params = self._differentiable(self.params)
         loss, new_state = self._loss(
             cast_floating(params, self._policy.compute_dtype), self.state,
             inputs, labels, self._generator(), masks, labels_masks)
         loss = loss.float()
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(leaves, grads)]
+        grads = _grads(loss, tree_leaves(params))
         with torch.no_grad():
             self.params, self.opt_state = self._apply_updaters(
                 tree_unflatten(self.params, grads), self.params,
@@ -335,19 +358,51 @@ class ComputationGraph:
         self.state = tree_map(lambda a: a.detach(), new_state)
         return loss.detach()
 
-    def fit_batch(self, ds) -> float:
+    def _tail_padding_ok(self) -> bool:
+        """Tail padding is loss-exact for a DAG iff no vertex computes
+        cross-example batch statistics and every network output is a
+        per-example-loss head (supports_tail_padding over the vertices)."""
+        ok = getattr(self, "_pad_ok", None)
+        if ok is None:
+            vs = self.conf.vertices
+            ok = self._pad_ok = supports_tail_padding(
+                [v.layer for v in vs.values() if isinstance(v, LayerVertex)],
+                [vs[n].layer if isinstance(vs[n], LayerVertex) else None
+                 for n in self.conf.network_outputs])
+        return ok
+
+    def fit_batch(self, ds):
         """One optimization step on a DataSet/MultiDataSet-like object or a
         (features, labels[, mask[, labels_mask]]) tuple; features and labels
         are one array, a list in input/output order, or a dict by name.
-        Returns the step's loss."""
+        Sync mode returns the loss as a float, async mode (the default) a
+        lazy ScoreHandle: see MultiLayerNetwork.fit_batch."""
         x, y, mask, label_mask = _unpack(ds)
-        self._check_trainable(x)
+        self._check_trainable()
+        plan = faults.active()
+        if plan is not None:
+            # the numeric fault classes poison the host batch before the step
+            x, y = faults.poison_batch(plan, x, y, step=self.step_count)
+        if env.pad_tail and not isinstance(y, (list, tuple, dict)):
+            # pad partial epoch tails up to a pow2 bucket (loss-exact by a
+            # zeroed labels mask); multi-input x pads per entry, but a
+            # per-output labels list or dict keeps its raw shape
+            b = leading_dim(x)
+            max_b = getattr(self, "_fit_max_batch", 0)
+            if b > max_b:
+                self._fit_max_batch = b
+            elif b < max_b and self._tail_padding_ok():
+                x, y, mask, label_mask = pad_tail_batch(
+                    x, y, mask, label_mask, max_b)
+        window = get_window(self)
+        # monitoring's phases wait for the monitoring slice: this is the
+        # JAX package's monitoring-off branch
         loss = self._train_step(self._as_input_dict(x, cast=True),
                                 self._as_label_dict(y), self._mask_list(mask),
                                 self._labels_masks_for(mask, label_mask))
+        result = deliver_score(self, loss, window)
         self.step_count += 1
-        self.score_value = float(loss)
-        return self.score_value
+        return result
 
     def score(self, ds=None) -> float:
         """Loss on a batch without updating; with no batch, the last
@@ -365,6 +420,89 @@ class ComputationGraph:
                 self._labels_masks_for(mask, label_mask), train=False)
         return float(loss)
 
+    # ------------------------------------------------------------------ eval
+    def evaluate(self, iterator, evaluation=None) -> Evaluation:
+        """Classification statistics of the first output over the batches
+        (ComputationGraph.evaluate): the forward sees the padding mask, the
+        statistics that output's labels mask (validated as ``fit_batch``
+        validates it) or the padding mask."""
+        ev = evaluation or Evaluation()
+        for ds in iterator:
+            x, y, mask, label_mask = _unpack(ds)
+            out = self.output(x, mask=mask)
+            if isinstance(out, list):
+                out = out[0]
+                y = y[0] if isinstance(y, (list, tuple)) else y
+            lms = self._labels_masks_for(mask, label_mask)
+            lm = None if lms is None else lms.get(self.conf.network_outputs[0])
+            ev.eval(host_array(y), host_array(out),
+                    mask=host_array(lm if lm is not None else mask))
+        if hasattr(iterator, "reset"):
+            iterator.reset()
+        return ev
+
+    # --------------------------------------------------------- rnnTimeStep
+    def _rnn_vertices(self):
+        return [name for name, v in self.conf.vertices.items()
+                if isinstance(v, LayerVertex)
+                and hasattr(v.layer, "apply_with_carry")]
+
+    def _init_carries(self, batch: int):
+        """Zero carries in f32, as the JAX package's ``initial_carry``."""
+        return {name: self.conf.vertices[name].layer.initial_carry(
+                    batch, torch.float32, self.device)
+                for name in self._rnn_vertices()}
+
+    def _forward_carries(self, params, state, inputs, carries):
+        """The topological walk threading explicit RNN carries (the
+        ComputationGraph.rnnTimeStep walk): (outputs, new carries)."""
+        acts = dict(inputs)
+        new_carries = {}
+        for name in self.conf.topological_order:
+            v = self.conf.vertices[name]
+            ins = [acts[d] for d in self.conf.vertex_inputs.get(name, [])]
+            if name in self.conf.preprocessors:
+                ins = [self.conf.preprocessors[name](ins[0])]
+            p = params.get(name, {})
+            if name in carries:
+                acts[name], new_carries[name] = v.layer.apply_with_carry(
+                    p, ins[0], carries[name])
+            else:
+                acts[name], _ = v.apply(p, state.get(name, {}), ins,
+                                        train=False)
+        return [acts[n] for n in self.conf.network_outputs], new_carries
+
+    @torch.no_grad()
+    def rnn_time_step(self, *xs):
+        """Streaming inference with persisted RNN state
+        (ComputationGraph.rnnTimeStep). Inputs [B, T, F] or [B, F] (single
+        step); the state persists until rnn_clear_previous_state(). The
+        params are cast to the compute type and the inputs are not, and
+        the carries start in f32, as in the JAX package."""
+        inputs = self._as_input_dict(xs[0] if len(xs) == 1 else list(xs),
+                                     cast=False)
+        single = all(v.dim() == 2 for v in inputs.values())
+        if single:
+            inputs = {k: v[:, None, :] for k, v in inputs.items()}
+        batch = next(iter(inputs.values())).shape[0]
+        carries = self._rnn_carries
+        if carries is not None:
+            _check_carry_batch(carries, batch)
+        else:
+            carries = self._init_carries(batch)
+        outs, new_carries = self._forward_carries(
+            cast_floating(self.params, self._policy.compute_dtype),
+            self.state, inputs, carries)
+        # the walk visits every rnn vertex, so new_carries is complete
+        self._rnn_carries = new_carries
+        outs = [o.to(self._policy.output_dtype) for o in outs]
+        if single:
+            outs = [o[:, 0] if o.dim() == 3 else o for o in outs]
+        return outs[0] if len(outs) == 1 else outs
+
+    def rnn_clear_previous_state(self):
+        self._rnn_carries = None
+
     # ----------------------------------------------------------------- serde
     def save(self, path: str, save_updater: bool = True):
         from deeplearning4j_tpu_torch.util.serialization import write_model
@@ -380,3 +518,12 @@ class ComputationGraph:
 
         return restore_computation_graph(path, device=device,
                                          load_updater=load_updater)
+
+
+def _equal(a, b) -> bool:
+    """Elementwise equality of two masks: on the host for host arrays, as
+    the JAX package compares them; tensors compare where they lie."""
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        a, b = torch.as_tensor(a), torch.as_tensor(b)
+        return bool(torch.equal(a.to(b.device, b.dtype), b))
+    return bool(np.array_equal(np.asarray(a), np.asarray(b)))

@@ -269,7 +269,10 @@ class FusedGRUFunction(torch.autograd.Function):
             dR = dR.to(R.dtype)
         if need[4]:
             db = dg.reshape(T * B, G).sum(0).to(ctx.b_dtype)
-        return dx, dh0.to(h0.dtype), dW, dR, db, None
+        # a carry that needs no gradient (a tBPTT chunk's detached h0) gets
+        # None, as autograd expects
+        return (dx, dh0.to(h0.dtype) if need[1] else None, dW, dR, db,
+                None)
 
 
 def fused_gru_layer(x, h0, W, R, b, *, reverse=False):

@@ -279,7 +279,10 @@ class FusedLSTMFunction(torch.autograd.Function):
             dp_f = (dgf[0] * c0f).sum(0) + (dgf[1:] * cseq[:-1]).sum((0, 1))
             dp_o = (dgo * cseq).sum((0, 1))
             dp = torch.cat((dp_i, dp_f, dp_o)).to(peephole.dtype)
-        return (dx, dh0, dc0.to(c0.dtype), dW, dR, db, dp, None, None)
+        # a carry that needs no gradient (a tBPTT chunk's detached h0, c0)
+        # gets None, as autograd expects
+        return (dx, dh0, dc0.to(c0.dtype) if need[2] else None, dW, dR, db,
+                dp, None, None)
 
 
 def _needs_grad(tensors) -> bool:

@@ -338,3 +338,39 @@ class TestSlots:
                                   [2, 0])
         assert merged[0][0][2].tolist() == [106.0, 107.0, 108.0]
         assert carries[0][0][2].tolist() == [6.0, 7.0, 8.0]  # not mutated
+
+
+def _served_twice_mix():
+    return [dict(prompt=p, max_new_tokens=n,
+                 **({} if i % 2 == 0 else
+                    dict(temperature=0.8, top_k=4, seed=1000 + i)))
+            for i, (p, n) in enumerate(zip(PROMPTS * 2, (3, 6, 9, 4) * 2))]
+
+
+def test_same_mix_served_twice_gives_the_same_streams(nets):
+    """One engine serving a mix of greedy and sampled requests twice emits
+    the same streams both times (chip_smoke.py holds a timed run's streams
+    against its counted run's); a stream that differs is located by
+    chip_smoke._stream_differences."""
+    import chip_smoke
+
+    _, net = nets
+    eng = GenerationEngine(net, slots=3, max_len=32, device="cpu")
+    reqs = _served_twice_mix()
+
+    def serve():
+        out = [eng.submit(r.pop("prompt"), **r) for r in
+               [dict(q) for q in reqs]]
+        eng.drain()
+        return out
+
+    first, second, third = serve(), serve(), serve()
+    assert [s.tokens for s in first] == [s.tokens for s in second]
+    assert chip_smoke._stream_differences(first, second, third) == []
+    second[5].tokens[2] = (second[5].tokens[2] + 1) % V
+    diff = chip_smoke._stream_differences(first, second, third)
+    assert diff == [{
+        "request": 5, "prompt_len": len(PROMPTS[1]), "sampled": True,
+        "lengths": [6, 6], "finish": ["length", "length"], "position": 2,
+        "tokens": [first[5].tokens[2:3], second[5].tokens[2:3]],
+        "third_run_agrees_with": "timed"}]

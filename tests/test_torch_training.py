@@ -11,6 +11,7 @@ autograd; the kernel path's gradients are held to the same references in
 tests/test_torch_fused_lstm_bwd.py.
 """
 
+import contextlib
 import dataclasses
 
 import jax
@@ -338,10 +339,12 @@ def test_slice_trains_like_jax(jax_cls, port_cls, kw):
         jnet.params)
     net = _port_of(jnet, port_cls(**kw))
     for x, y in _batches(3, kw["vocab_size"], seed=1):
-        want = float(jnet.fit_batch((x, y)))
+        raw = jnet.fit_batch((x, y))
         got = net.fit_batch((x, y))
-        assert isinstance(got, float)
-        np.testing.assert_allclose(got, want, rtol=1e-5)
+        # both packages return the same kind of score: in their default
+        # async mode a lazy handle that drains to the step's float
+        assert type(got).__name__ == type(raw).__name__
+        np.testing.assert_allclose(float(got), float(raw), rtol=1e-5)
     assert net.step_count == jnet.step_count == 3
     _assert_trees_close(net.params, jnet.params)
     _assert_trees_close(net.opt_state, jnet.opt_state)
@@ -466,6 +469,11 @@ def _tiny(**conf_kw):
 
 @pytest.mark.parametrize("case", ["tbptt", "remat", "guardrails", "faults"])
 def test_unported_train_step_parts_raise(case, monkeypatch):
+    """Guardrails, the one part of the JAX train step not ported yet, are
+    refused before the step runs; truncated BPTT, remat and fault plans,
+    refused until they were ported, now take the step."""
+    from deeplearning4j_tpu_torch import faults
+
     (x, y), = _batches(1, 5, T=6, B=2, seed=8)
     if case == "tbptt":
         net = _tiny(tbptt_fwd_length=3, tbptt_bwd_length=3)
@@ -473,13 +481,21 @@ def test_unported_train_step_parts_raise(case, monkeypatch):
         net = _tiny(remat=True)
     else:
         net = _tiny()
-        monkeypatch.setattr(env, case, "1" if case == "faults" else True)
+        if case == "guardrails":
+            monkeypatch.setattr(env, case, True)
     net.init(device="cpu")
     before = [p["W"].clone() for p in net.params]
-    with pytest.raises(NotImplementedError, match="not ported"):
-        net.fit_batch((x, y))
-    assert net.step_count == 0
-    assert all(torch.equal(p["W"], b) for p, b in zip(net.params, before))
+    if case == "guardrails":
+        with pytest.raises(NotImplementedError, match="not ported"):
+            net.fit_batch((x, y))
+        assert net.step_count == 0
+        assert all(torch.equal(p["W"], b) for p, b in zip(net.params, before))
+        return
+    with (faults.injected("data_corrupt:1") if case == "faults"
+          else contextlib.nullcontext()):
+        assert np.isfinite(float(net.fit_batch((x, y))))
+    assert net.step_count == 1
+    assert all(not torch.equal(p["W"], b) for p, b in zip(net.params, before))
 
 
 def test_tbptt_length_covering_the_sequence_trains():
