@@ -337,13 +337,38 @@ Phases (any failure exits non-zero before the result line):
     launching 24 flash forwards (12 without remat), 12 dq and 12 dk/dv a
     step, and one more step under the profiler whose device records must
     equal the host's count; peak memory and ms a step of each.
-36. Prints the kernels line (all nine kernels; the LRN entries count the
+36. The observability slice. (a) BidirectionalGravesLSTMCharRnn (config
+    #3) at B = 64, T = 64 with the guardrails armed from
+    ``DL4J_TORCH_GUARDRAILS`` and ``DL4J_TORCH_GUARDRAILS_DIR`` (a temp
+    directory): 6 clean armed steps bit for bit (``torch.equal``) the
+    unarmed run from the same init, 4 + 4 LSTM launches a guarded step,
+    one guarded step dispatched under the sync debug mode; then
+    ``nan_grad`` at steps 6 and 7 under a ladder of skip budget 1: step 6
+    skipped, step 7 clip-retried (the NaN survives the clip) and rolled
+    back, the bisection naming step 7, every parameter finite, the launches
+    of 12 steps and the ladder's replays. (b) BertBase at [32, 128] bf16
+    armed (no rollback directory) against unarmed on one net, in turns
+    unarmed, armed, armed, unarmed: wall ms, device ms and kernels a step,
+    12 + 12 + 12 flash launches a step. (c) Phase 4's mix served with
+    monitoring on and one ``RequestTrace`` a request, counted as in phase 4:
+    the ``dl4j_generate_*`` counts equal to the streams, which equal the
+    monitoring-off runs' bit for bit, every trace's spans nested, tokens/s
+    on against off. (d) ``profiler.trace`` around two guarded config #3
+    steps writes a Chrome trace naming the LSTM kernels;
+    ``device_memory_mb`` against ``torch.cuda.memory_allocated``.
+37. Prints the kernels line (all nine kernels; the LRN entries count the
     import path's launches under ``launches_by_path["tf_import"]``, the
     flash forward the serving prefills of phases 29-30 and its prefill
     shape's times, every entry YOLO2's, 0, under ``"yolo2_inference"``
-    and ``"yolo2_training"``, and the training runtime's paths of phases
-    32-35), the card line and, last, the result line ``{"ok": true,
-    "device": {...}}``.
+    and ``"yolo2_training"``, the training runtime's paths of phases
+    32-35 and the observability paths of phase 36), the card line and,
+    last, the result line ``{"ok": true, "device": {...}}``.
+
+Every phase's JSON record carries
+``profiler_lead_in_records_lost_by_window``: for each window it profiled,
+how many of the PROFILE_LEAD_IN spin kernels that open the session lost
+their device records (a window that kept none is profiled again, up to
+its ``tries``).
 
 Every phase trains at the fit loop's defaults (``fit_batch`` returns a
 lazy score, a window of 2 steps in flight, tail padding on); a phase turns
@@ -388,6 +413,16 @@ N_TRAIN_STEPS = 20
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def emit(card: str, record: dict) -> None:
+    """Print one phase's JSON record, with the card and the lead-in
+    records each of the phase's profiled windows lost
+    (take_lead_in_losses)."""
+    record = dict(record, card=card,
+                  profiler_lead_in_records_lost_by_window=(
+                      take_lead_in_losses()))
+    print(json.dumps(record), flush=True)
 
 
 def card_line() -> str:
@@ -437,9 +472,25 @@ def _lead_in(torch) -> None:
     torch.cuda.synchronize()
 
 
+# the lead-in records each profiled window lost (PROFILE_LEAD_IN less the
+# spin kernels' records it kept), window by window, since the last phase
+# record took them (take_lead_in_losses): every phase's JSON record prints
+# its windows' losses. A loss of PROFILE_LEAD_IN means the loss may have
+# run past the lead-in into the profiled calls.
+LEAD_IN_LOSSES: list = []
+
+
+def take_lead_in_losses() -> list:
+    """The lead-in losses logged since the last call, and clear the log."""
+    out = list(LEAD_IN_LOSSES)
+    LEAD_IN_LOSSES.clear()
+    return out
+
+
 def _device_records(prof):
     """A profile's device records, {record name: (device ms, count)}
-    without the lead-in's, and the lead-in records it kept."""
+    without the lead-in's, and the lead-in records it kept (the window's
+    loss is logged in LEAD_IN_LOSSES)."""
     out, lead_in = {}, 0
     for e in prof.key_averages():
         if str(getattr(e, "device_type", "")).endswith("CUDA") \
@@ -448,26 +499,34 @@ def _device_records(prof):
                 lead_in += e.count
             else:
                 out[e.key] = (_device_us(e) / 1e3, e.count)
+    LEAD_IN_LOSSES.append(PROFILE_LEAD_IN - lead_in)
     return out, lead_in
 
 
-def profile_device(torch, fn, iters: int):
+def profile_device(torch, fn, iters: int, tries: int = 3):
     """``iters`` calls of ``fn`` under torch.profiler, the session opened
-    by the lead-in (_lead_in). Returns the device time by kernel name,
-    {name: (total_ms, count)} (empty if the profiler saw no device
-    activity), and the wall ms of the profiled calls."""
+    by the lead-in (_lead_in). A window whose lead-in kept no record (its
+    loss may then reach into the calls, and its device times be short) is
+    profiled again, up to ``tries`` windows. Returns the device time by
+    kernel name, {name: (total_ms, count)} (empty if the profiler saw no
+    device activity), the wall ms of the profiled calls, and the lead-in
+    records the last window lost."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _lead_in(torch)
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    return _device_records(prof)[0], wall_ms
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _lead_in(torch)
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        by_kernel, lead_in = _device_records(prof)
+        if lead_in:
+            break
+    return by_kernel, wall_ms, PROFILE_LEAD_IN - lead_in
 
 
 def kernel_device_ms(torch, fn, iters: int, symbol: str, tries: int = 3):
@@ -477,7 +536,7 @@ def kernel_device_ms(torch, fn, iters: int, symbol: str, tries: int = 3):
     the kernel is profiled again, at twice the calls, up to ``tries``
     times; None if none shows it."""
     for _ in range(tries):
-        by_kernel, _ = profile_device(torch, fn, iters)
+        by_kernel, _, _ = profile_device(torch, fn, iters)
         hits = [(t, n) for k, (t, n) in by_kernel.items() if symbol in k]
         total, count = sum(t for t, _ in hits), sum(n for _, n in hits)
         if count:
@@ -493,7 +552,7 @@ def profile_showing(torch, fn, calls: int, want: dict, tries: int = 3):
     window's records. Returns (by_kernel, wall ms, {name: launches
     seen})."""
     for _ in range(tries):
-        by_kernel, wall_ms = profile_device(torch, fn, calls)
+        by_kernel, wall_ms, _ = profile_device(torch, fn, calls)
         seen = {name: sum(c for key, (_, c) in by_kernel.items()
                           if name in key) for name in want}
         if all(seen[k] == n * calls for k, n in want.items()):
@@ -504,7 +563,7 @@ def profile_showing(torch, fn, calls: int, want: dict, tries: int = 3):
 def call_device_ms(torch, fn, iters: int):
     """Device time of one call of ``fn``: the sum of every kernel it runs
     (a library call's yardstick, free of the host's clock)."""
-    by_kernel, _ = profile_device(torch, fn, iters)
+    by_kernel, _, _ = profile_device(torch, fn, iters)
     return (sum(t for t, _ in by_kernel.values()) / iters
             if by_kernel else None)
 
@@ -732,6 +791,19 @@ def phase_kernels(torch):
     return rows, worst[f32], worst[bf16]
 
 
+def lstm_serving_requests(np, vocab):
+    """Phase 4's mix: N_REQUESTS prompts of 4-48 tokens asking 8-64 new
+    ones, greedy and sampled (top-k 40) in turn, from SEED."""
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(4, 49, N_REQUESTS)
+    news = rng.integers(8, 65, N_REQUESTS)
+    return [dict(prompt=rng.integers(0, vocab, int(n)).tolist(),
+                 max_new_tokens=int(m),
+                 **({} if i % 2 == 0 else
+                    dict(temperature=0.8, top_k=40, seed=1000 + i)))
+            for i, (n, m) in enumerate(zip(lens, news))]
+
+
 def phase_main_path(torch, np):
     """Serve TextGenerationLSTM through the engine; returns a summary."""
     from deeplearning4j_tpu_torch.generation import GenerationEngine
@@ -742,15 +814,7 @@ def phase_main_path(torch, np):
     vocab = net.layers[-1].n_out
     eng = GenerationEngine(net, slots=8, max_len=256, device="cuda")
     eng.generate([1, 2, 3, 4], max_new_tokens=2)  # warm-up, not counted
-
-    rng = np.random.default_rng(SEED)
-    lens = rng.integers(4, 49, N_REQUESTS)
-    news = rng.integers(8, 65, N_REQUESTS)
-    reqs = [dict(prompt=rng.integers(0, vocab, int(n)).tolist(),
-                 max_new_tokens=int(m),
-                 **({} if i % 2 == 0 else
-                    dict(temperature=0.8, top_k=40, seed=1000 + i)))
-            for i, (n, m) in enumerate(zip(lens, news))]
+    reqs = lstm_serving_requests(np, vocab)
 
     def serve(counted):
         out = [eng.submit(r.pop("prompt"), **r) for r in
@@ -1714,7 +1778,7 @@ def phase_bert_inference(torch, np):
              f"> {TOL_BERT_OUT}")
     del net32
 
-    by_kernel, prof_wall = profile_device(
+    by_kernel, prof_wall, _ = profile_device(
         torch, lambda: net.output(x, mask=mask), calls)
     busy = sum(t for t, _ in by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:8]
@@ -1820,7 +1884,7 @@ def phase_bert_training(torch, np, net):
         fail(f"BERT-base: {N_BERT_STEPS} steps launched {launches}; want 12 "
              f"forward, 12 dq and 12 dk/dv a step")
     steps = 3
-    by_kernel, prof_wall = profile_device(
+    by_kernel, prof_wall, _ = profile_device(
         torch, lambda: net.fit_batch((x, y, m)), steps)
     busy = sum(t for t, _ in by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:10]
@@ -2190,7 +2254,8 @@ def phase_alexnet_inference(torch, np):
         fail(f"AlexNet f32 logits, kernels vs plain on the card: {err} > "
              f"{TOL_ALEXNET_LOGITS} (relative)")
 
-    by_kernel, prof_wall = profile_device(torch, lambda: net.output(x), calls)
+    by_kernel, prof_wall, _ = profile_device(torch, lambda: net.output(x),
+                                             calls)
     # PyTorch's copy kernels in a call: the conv weights' channels_last
     # copies (one a conv layer); an activation copied before the LRN
     # kernel or a pool would add more
@@ -2246,7 +2311,7 @@ def phase_alexnet_training(torch, np, net):
         fail(f"AlexNet: {N_ALEXNET_STEPS} steps launched {launches}; want 2 "
              f"LRN forward and 2 LRN backward a step and nothing else")
     steps = 3
-    by_kernel, prof_wall = profile_device(
+    by_kernel, prof_wall, _ = profile_device(
         torch, lambda: net.fit_batch((x, y)), steps)
     step_ms = host_ms(torch, lambda: net.fit_batch((x, y)), 3)
     split = split_step_ms(torch, net, x, y, None)
@@ -2315,7 +2380,7 @@ def phase_lenet_training(torch, np):
         fail(f"LeNet launched {launches}; its path runs none of the port's "
              f"kernels")
     steps = 5
-    by_kernel, prof_wall = profile_device(
+    by_kernel, prof_wall, _ = profile_device(
         torch, lambda: net.fit_batch((x, y)), steps)
     return {
         "model": "LeNet(28 x 28 x 1 flat, conv 20-50, dense 500, 10 "
@@ -3128,7 +3193,7 @@ def phase_resnet_inference(torch, np):
             or float((out.sum(-1) - 1).abs().max()) > 1e-2):
         fail(f"ResNet-50 output() gave {tuple(out.shape)} {out.dtype}, "
              f"finite {bool(torch.isfinite(out).all())}")
-    by_kernel, prof_wall = profile_device(torch, lambda: net.output(x),
+    by_kernel, prof_wall, _ = profile_device(torch, lambda: net.output(x),
                                           N_RESNET_CALLS)
     flops = forward_flops(net, RESNET_BATCH)
     if flops != RESNET50_FORWARD_FLOPS * RESNET_BATCH:
@@ -3214,7 +3279,7 @@ def phase_resnet_training(torch, np, net):
              f"not move: {still}")
     peak = torch.cuda.max_memory_allocated() / 1e9
     steps = 3
-    by_kernel, prof_wall = profile_device(
+    by_kernel, prof_wall, _ = profile_device(
         torch, lambda: net.fit_batch((x, y)), steps)
     prof = _profile_summary(by_kernel, prof_wall, steps, "step", top_n=10)
     step_ms = 1e3 * wall / N_RESNET_STEPS
@@ -3352,7 +3417,7 @@ def phase_yolo2_inference(torch, np):
             or not bool(torch.isfinite(out).all())):
         fail(f"YOLO2 output() gave {tuple(out.shape)} {out.dtype}, finite "
              f"{bool(torch.isfinite(out).all())}; want {want} float32")
-    by_kernel, prof_wall = profile_device(torch, lambda: net.output(x),
+    by_kernel, prof_wall, _ = profile_device(torch, lambda: net.output(x),
                                           N_YOLO2_CALLS)
     layer = net.conf.vertices["output"].layer
     t0 = time.perf_counter()
@@ -3420,7 +3485,7 @@ def phase_yolo2_training(torch, np, net):
         _, prof_launches, _, _ = _count_launches(
             torch, KERNELS, lambda: net.fit_batch((x, y)))
 
-    by_kernel, prof_wall = profile_device(torch, window, steps)
+    by_kernel, prof_wall, _ = profile_device(torch, window, steps)
     named = [k for k in by_kernel if any(p in k for p in HAND_KERNEL_NAMES)]
     if any(prof_launches.values()) or named:
         fail(f"YOLO2's profiled steps launched {prof_launches} {named}")
@@ -3883,7 +3948,7 @@ def _import_train(torch, np, loss_fn, params, lr, warm, steps, profile=2):
     params, losses = _adam_steps(torch, loss_fn, params, lr, steps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    by_kernel, prof_wall = profile_device(
+    by_kernel, prof_wall, _ = profile_device(
         torch, lambda: _adam_steps(torch, loss_fn, params, lr, 1), profile)
     losses = [float(v) for v in warm_losses + losses]
     if not all(np.isfinite(losses)):
@@ -4019,7 +4084,7 @@ def phase_bert_tf_import(torch, np, zoo_step_ms):
     if any(launches.values()):
         fail(f"BERT-base GraphDef output() launched {launches}; its fused "
              f"attention carries the mask as a bias (plain lowering)")
-    by_kernel, prof_wall = profile_device(torch, lambda: imp.output(big), 2)
+    by_kernel, prof_wall, _ = profile_device(torch, lambda: imp.output(big), 2)
     inference = {"calls": N_BERT_TF_CALLS,
                  "ms_per_call": 1e3 * wall / N_BERT_TF_CALLS,
                  "profile": _profile_summary(by_kernel, prof_wall, 2, "call")}
@@ -4430,14 +4495,14 @@ def _steady_decode(torch, eng, reqs):
         eng.submit(r["prompt"][:64], max_new_tokens=200)
     eng.step()                                   # admit all slots
     n = N_DECODE_PROFILE
-    step_prof, step_wall = profile_device(torch, eng.step, n)
+    step_prof, step_wall, _ = profile_device(torch, eng.step, n)
     step_ms = host_ms(torch, eng.step, n)
-    replay_prof, _ = profile_device(torch, eng.decode_pool, n)
+    replay_prof, _, _ = profile_device(torch, eng.decode_pool, n)
     replay_ms = host_ms(torch, eng.decode_pool, n)
     state = tree_map(lambda t: t.clone(), eng.pool.state)
     tokens, pos = eng._inputs[0].clone(), eng._inputs[1].clone()
     eager = lambda: eng.adapter.decode(state, tokens, pos)  # noqa: E731
-    eager_prof, _ = profile_device(torch, eager, n)
+    eager_prof, _, _ = profile_device(torch, eager, n)
     eager_ms = host_ms(torch, eager, n)
     eng.shutdown(timeout=0)
 
@@ -5233,7 +5298,7 @@ def phase_transfer_learning(torch, np, full_step_ms):
     no_host_sync(torch, lambda: net.fit_batch(sets[1]), "ResNet-50 transfer")
     drain_scores(net)
     step_ms = 1e3 * wall / N_TL_STEPS
-    by_kernel, prof_wall = profile_device(
+    by_kernel, prof_wall, _ = profile_device(
         torch, lambda: (net.fit_batch(sets[0]), drain_scores(net)), 3)
     return {
         "model": "ResNet50 trunk frozen through avgpool, new 10-class "
@@ -5367,6 +5432,456 @@ def phase_remat(torch, np):
     }
 
 
+# ------------------------------------------------ the observability slice
+
+N_GUARD_STEPS = 6        # phase 36(a): the armed and unarmed clean runs
+GUARD_FAULT_STEP = 6     # phase 36(a): nan_grad at this step and the next
+N_GUARD_FAULT_STEPS = 12
+GUARD_CLIPNORM = 5.0     # the ladder's clip, config #3's own clipping
+N_GUARD_COST_STEPS = 5   # phase 36(b): timed BertBase steps a turn
+N_GUARD_COST_PROFILED = 2
+
+
+def _arm_from_env(**values):
+    """Set (a string) or clear (None) DL4J_TORCH_<name> variables and
+    reload the port's env."""
+    from deeplearning4j_tpu_torch.common.env import env
+
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(f"DL4J_TORCH_{k}", None)
+        else:
+            os.environ[f"DL4J_TORCH_{k}"] = v
+    env.reload()
+
+
+def _flight_actions(rec):
+    """The numeric_trip incidents the flight recorder holds: [(step,
+    action, trip kind, culprit step)]."""
+    return [(e["step"], e["action"], e["trip"], e.get("culprit_step"))
+            for e in rec.tail() if e["kind"] == "numeric_trip"]
+
+
+def phase_guardrails(torch, np):
+    """36(a): BidirectionalGravesLSTMCharRnn (config #3) at B = 64, T = 64
+    with the guardrails armed from DL4J_TORCH_GUARDRAILS(_DIR): a clean
+    armed run bit for bit the unarmed run from the same init, 4 + 4 LSTM
+    launches a guarded step, one guarded step dispatched with no host
+    sync; then nan_grad at steps GUARD_FAULT_STEP and the next under a
+    ladder of skip budget 1: the first trip skipped, the second clip-retried
+    (the NaN survives the clip) and rolled back, the bisection naming it,
+    every parameter finite at the end. Returns the record and the armed
+    net (phase 36(d) traces it)."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch import faults, guardrails, monitoring
+    from deeplearning4j_tpu_torch.common.trees import tree_leaves
+    from deeplearning4j_tpu_torch.guardrails import GuardrailPolicy
+    from deeplearning4j_tpu_torch.ops.cuda import KERNELS
+    from deeplearning4j_tpu_torch.optimize.async_dispatch import drain_scores
+    from deeplearning4j_tpu_torch.zoo import BidirectionalGravesLSTMCharRnn
+
+    model = BidirectionalGravesLSTMCharRnn(seed=SEED)
+    V, B, T = model.vocab_size, 64, model.timesteps
+    n_lstm = 2 * model.layers
+    rng = np.random.default_rng(SEED + 60)
+    batches = [_char_batch(np, rng, V, B, T)
+               for _ in range(N_GUARD_FAULT_STEPS)]
+    tmp = tempfile.mkdtemp(prefix="dl4j-guard-")
+
+    # the clean runs: unarmed, then armed from the environment
+    plain = model.init(device="cuda")
+    init = [t.clone() for t in tree_leaves(plain.params)]
+    plain_losses = [float(v) for v in
+                    [plain.fit_batch(b) for b in batches[:N_GUARD_STEPS]]]
+    _arm_from_env(GUARDRAILS="1", GUARDRAILS_DIR=tmp)
+    try:
+        armed = model.init(device="cuda")
+        if not all(torch.equal(a, b) for a, b in
+                   zip(tree_leaves(armed.params), init)):
+            fail("config #3: two inits from one seed differ")
+        losses, launches, _, wall = _count_launches(
+            torch, KERNELS,
+            lambda: [armed.fit_batch(b) for b in batches[:N_GUARD_STEPS]])
+        losses = [float(v) for v in losses]
+        guard = guardrails.get_guard(armed)
+    finally:
+        _arm_from_env(GUARDRAILS=None, GUARDRAILS_DIR=None)
+    if guard is None or guard.checkpointer is None \
+            or guard.checkpointer.directory != tmp:
+        fail("DL4J_TORCH_GUARDRAILS(_DIR) did not arm config #3 with its "
+             "rollback directory")
+    want = n_lstm * N_GUARD_STEPS
+    if launches != _only(KERNELS, fused_lstm_fwd=want, fused_lstm_bwd=want):
+        fail(f"config #3: {N_GUARD_STEPS} guarded steps launched {launches}"
+             f"; want {n_lstm} of each LSTM kernel a step")
+    bitwise = losses == plain_losses and all(
+        torch.equal(a, b) for a, b in zip(
+            tree_leaves((armed.params, armed.opt_state, armed.state)),
+            tree_leaves((plain.params, plain.opt_state, plain.state))))
+    if not bitwise or guard.trips:
+        fail(f"config #3: the armed, untripped run ({guard.trips} trips) is "
+             f"not the unarmed run bit for bit: losses {losses} against "
+             f"{plain_losses}")
+    drain_scores(armed)
+    h = no_host_sync(torch, lambda: armed.fit_batch(batches[0]),
+                     "guarded config #3")
+    if h.ready():
+        fail("the guarded step's score was fetched at dispatch")
+    drain_scores(armed)
+
+    # the ladder: nan_grad at two steps in a row
+    net = model.init(device="cuda")
+    guard_f = guardrails.arm(net, GuardrailPolicy(
+        skip_budget=1, clip_retry=True, clipnorm=GUARD_CLIPNORM,
+        checkpoint_every=4, warmup_steps=10_000),
+        checkpoint_dir=tempfile.mkdtemp(prefix="dl4j-ladder-"))
+    replays = []
+    replay_one = guard_f._replay_one
+
+    def counted_replay(model_, entry, clip):
+        replays.append((int(entry[0]), float(clip)))
+        return replay_one(model_, entry, clip)
+
+    guard_f._replay_one = counted_replay
+    rec = monitoring.flight.configure(enabled=True)
+    S = GUARD_FAULT_STEP
+    try:
+        def ladder():
+            out = [net.fit_batch(b) for b in batches]
+            drain_scores(net)  # the last trips resolve inside the count
+            return out
+
+        with faults.injected(f"nan_grad:2@step>={S}"):
+            handles, ladder_launches, _, ladder_wall = _count_launches(
+                torch, KERNELS, ladder)
+        actions = _flight_actions(rec)
+    finally:
+        monitoring.flight.reset()
+    scores = [float(h) for h in handles]
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in tree_leaves((net.params, net.opt_state)))
+    want_actions = [(S, "skip", "nonfinite", None),
+                    (S + 1, "rollback", "nonfinite", S + 1)]
+    bad = [i for i, v in enumerate(scores) if not np.isfinite(v)]
+    if (actions != want_actions or guard_f.quarantined != [S, S + 1]
+            or guard_f.rollbacks != 1 or not replays
+            or replays[0] != (S + 1, GUARD_CLIPNORM) or not finite
+            or bad != [S, S + 1]):
+        fail(f"config #3 under nan_grad at steps {S} and {S + 1}: actions "
+             f"{actions} (want {want_actions}), quarantined "
+             f"{guard_f.quarantined}, {guard_f.rollbacks} rollbacks, "
+             f"replays {replays}, params finite {finite}, non-finite "
+             f"scores at {bad}")
+    want_l = n_lstm * (N_GUARD_FAULT_STEPS + len(replays))
+    if ladder_launches != _only(KERNELS, fused_lstm_fwd=want_l,
+                                fused_lstm_bwd=want_l):
+        fail(f"config #3 ladder: {ladder_launches}; want {want_l} of each "
+             f"LSTM kernel ({N_GUARD_FAULT_STEPS} steps and "
+             f"{len(replays)} replays)")
+    return {
+        "model": "BidirectionalGravesLSTMCharRnn(units=200, layers=2, "
+                 "vocab=77), Adam 1e-3, clipping 5.0",
+        "batch": B, "timesteps": T,
+        "clean": {"steps": N_GUARD_STEPS, "bitwise_vs_unarmed": bitwise,
+                  "losses": losses, "launches": launches,
+                  "launches_per_step": {k: v / N_GUARD_STEPS
+                                        for k, v in launches.items() if v},
+                  "step_wall_ms": 1e3 * wall / N_GUARD_STEPS,
+                  "checkpoint_dir_from_env": True,
+                  "no_host_sync_step": True},
+        "ladder": {"fault": f"nan_grad:2@step>={S}", "steps":
+                   N_GUARD_FAULT_STEPS, "actions": actions,
+                   "culprit_step": actions[-1][3],
+                   "quarantined": guard_f.quarantined,
+                   "trips": guard_f.trips, "rollbacks": guard_f.rollbacks,
+                   "steps_lost": guard_f.steps_lost,
+                   "bisect_probes": guard_f.last_bisect_probes,
+                   "replays": replays, "scores": scores,
+                   "params_finite": finite, "launches": ladder_launches,
+                   "wall_s": ladder_wall},
+    }, armed, batches[0]
+
+
+def phase_guardrail_cost(torch, np):
+    """36(b): BertBase at [32, 128] bf16, the guardrails armed (no rollback
+    directory) against unarmed on one net, in turns unarmed, armed, armed,
+    unarmed: wall ms a step over N_GUARD_COST_STEPS, device ms and kernels
+    a step under the profiler, and 12 + 12 + 12 flash launches a step."""
+    from deeplearning4j_tpu_torch import guardrails
+    from deeplearning4j_tpu_torch.ops.cuda import KERNELS
+    from deeplearning4j_tpu_torch.optimize.async_dispatch import drain_scores
+    from deeplearning4j_tpu_torch.zoo import BertBase
+
+    x, y, m = _bert_batch(np, SEED + 61)
+    net = BertBase(seed=SEED, max_len=128).init(device="cuda")
+
+    def steps(n):
+        out = [net.fit_batch((x, y, m)) for _ in range(n)]
+        drain_scores(net)
+        return out
+
+    turns, launches_by = [], {}
+    for armed in (False, True, True, False):
+        if armed:
+            guard = guardrails.arm(net)
+        steps(1)  # warm-up, not counted
+        out, launches, _, wall = _count_launches(
+            torch, KERNELS, lambda: steps(N_GUARD_COST_STEPS))
+        per = 12 * N_GUARD_COST_STEPS
+        if launches != _only(KERNELS, flash_attention_fwd=per,
+                             flash_attention_dq=per,
+                             flash_attention_dkv=per):
+            fail(f"BertBase armed={armed}: {N_GUARD_COST_STEPS} steps "
+                 f"launched {launches}; want 12 of each flash kernel a step")
+        if not all(np.isfinite(float(v)) for v in out):
+            fail(f"BertBase armed={armed}: losses {out}")
+        by_kernel, prof_wall, lost = profile_device(
+            torch, lambda: steps(1), N_GUARD_COST_PROFILED)
+        key = "armed" if armed else "unarmed"
+        for k, v in launches.items():
+            launches_by.setdefault(key, {}).setdefault(k, 0)
+            launches_by[key][k] += v
+        turns.append({"armed": armed,
+                      "step_wall_ms": 1e3 * wall / N_GUARD_COST_STEPS,
+                      "profile": _profile_summary(
+                          by_kernel, prof_wall, N_GUARD_COST_PROFILED,
+                          "step"),
+                      "lead_in_records_lost": lost})
+        if armed:
+            if guard.trips:
+                fail(f"BertBase: the armed run tripped {guard.trips} times")
+            guardrails.disarm(net)
+
+    def mean(key, armed):
+        vals = [t["profile"][key] if key in t["profile"] else t[key]
+                for t in turns if t["armed"] == armed]
+        return sum(vals) / len(vals)
+
+    # the guarded step's two additions alone, on this net's trees: the
+    # sentinel's screen of the gradients (the hot variant) and the select
+    # of params and Adam moments
+    from deeplearning4j_tpu_torch.common.trees import (
+        tree_leaves, tree_unflatten,
+    )
+    from deeplearning4j_tpu_torch.guardrails import sentinel
+
+    grads = tree_unflatten(net.params, list(_bert_grads(torch, net, x, y,
+                                                        m)))
+    loss = torch.ones((), device="cuda")
+    ctrl = torch.tensor([0.0, 0.0, 6.0, 0.0, -1.0], device="cuda")
+    ok = torch.ones((), dtype=torch.bool, device="cuda")
+
+    def screen():
+        return sentinel.screen(grads, loss, ctrl, with_clip=False)
+
+    def select():
+        return (sentinel.tree_select(ok, net.params, net.params),
+                sentinel.tree_select(ok, net.opt_state, net.opt_state))
+
+    leaves = len(tree_leaves(net.params))
+    parts = {"param_leaves": leaves,
+             "param_bytes": sum(t.numel() * t.element_size()
+                                for t in tree_leaves(net.params)),
+             "screen_host_ms": host_ms(torch, screen, 5),
+             "screen_device_ms": call_device_ms(torch, screen, 3),
+             "select_host_ms": host_ms(torch, select, 5),
+             "select_device_ms": call_device_ms(torch, select, 3)}
+    del grads
+
+    summary = {k: {"unarmed": mean(k, False), "armed": mean(k, True)}
+               for k in ("step_wall_ms", "device_ms_per_step",
+                         "device_kernels_per_step")}
+    for v in summary.values():
+        v["armed_minus_unarmed"] = v["armed"] - v["unarmed"]
+    return {"model": "BertBase(12 x 768, max_len 128), bf16, AdamW",
+            "batch": 32, "timesteps": 128, "turns": turns,
+            "summary": summary, "parts": parts, "launches": launches_by,
+            "flash_launches_per_step": {"fwd": 12, "dq": 12, "dkv": 12}}
+
+
+def _nested(doc):
+    """A request trace's "X" spans as B/E pairs on one track (outer spans
+    first, a span that ends where the next begins closed first), for
+    validate_nesting: a span that starts inside another and ends after it
+    comes out unbalanced. Zero-length spans cannot overlap and are left
+    out."""
+    # times in whole nanoseconds, the monotonic clock's resolution: a span
+    # that ends where the next begins may otherwise end an ulp after it
+    def ns(us):
+        return round(us * 1e3)
+
+    xs = sorted((e for e in doc["traceEvents"]
+                 if e["ph"] == "X" and ns(e["dur"]) > 0),
+                key=lambda e: (ns(e["ts"]), -ns(e["dur"])))
+    marks = []
+    for i, e in enumerate(xs):
+        marks.append(((ns(e["ts"]), 1, i), {"ph": "B", "name": e["name"],
+                                            "tid": 0}))
+        marks.append(((ns(e["ts"] + e["dur"]), 0, -i),
+                      {"ph": "E", "name": e["name"], "tid": 0}))
+    return [ev for _, ev in sorted(marks, key=lambda m: m[0])]
+
+
+def phase_monitored_serving(torch, np):
+    """36(c): phase 4's mix (TextGenerationLSTM, 8 slots, 16 requests)
+    served with monitoring on and one RequestTrace a request, against the
+    same engine with monitoring off: the streams bit for bit, the
+    dl4j_generate_* counts equal to the streams, every trace's spans
+    nested, and tokens/s on against off."""
+    from deeplearning4j_tpu_torch import monitoring
+    from deeplearning4j_tpu_torch.generation import GenerationEngine
+    from deeplearning4j_tpu_torch.monitoring import validate_nesting
+    from deeplearning4j_tpu_torch.monitoring.context import RequestTracer
+    from deeplearning4j_tpu_torch.ops.cuda import KERNELS
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+
+    net = TextGenerationLSTM(seed=SEED).init(device="cuda")
+    vocab = net.layers[-1].n_out
+    eng = GenerationEngine(net, slots=8, max_len=256, device="cuda")
+    eng.generate([1, 2, 3, 4], max_new_tokens=2)  # warm-up, the capture
+    reqs = lstm_serving_requests(np, vocab)
+    traced = {}
+
+    def serve(counted, on=True):
+        monitoring.reset()
+        if on:
+            monitoring.enable()
+        tracer = RequestTracer(capacity=2 * N_REQUESTS)
+        traces = ([tracer.begin("generate") for _ in reqs] if on
+                  else [None] * len(reqs))
+        out = [eng.submit(r.pop("prompt"), trace=t, **r)
+               for r, t in zip([dict(q) for q in reqs], traces)]
+        eng.drain()
+        if on:
+            for t, st in zip(traces, out):
+                tracer.finish(t, "served", reason=st.finish_reason)
+            traced["traces"] = traces
+        return out
+
+    def timed_off():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = serve(False, on=False)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    off, off_wall = timed_off()
+    try:
+        run = _engine_launches(torch, eng, KERNELS, serve,
+                               what="monitored, traced LSTM serving")
+        reg = monitoring.registry()
+        fam = {n: reg.get(f"dl4j_generate_{n}") for n in (
+            "tokens_total", "requests_total", "ttft_seconds",
+            "inter_token_seconds", "decode_steps_total", "prefill_seconds")}
+        counts = {
+            "tokens_total": fam["tokens_total"].value,
+            "requests_total": {k[0]: c.value for k, c in
+                               fam["requests_total"].children()},
+            "ttft_count": fam["ttft_seconds"].count,
+            "inter_token_count": fam["inter_token_seconds"].count,
+            "decode_steps_total": fam["decode_steps_total"].value,
+            "prefill_count": fam["prefill_seconds"].count}
+        exemplars = {e[0]["trace_id"] for e in
+                     fam["ttft_seconds"]._only().exemplars().values()}
+    finally:
+        monitoring.reset()
+    off2, off2_wall = timed_off()
+    streams, traces = run["streams"], traced["traces"]
+    n_tokens = sum(len(st.tokens) for st in streams)
+    if [st.tokens for st in streams] != [st.tokens for st in off] \
+            or [st.tokens for st in off2] != [st.tokens for st in off]:
+        fail("monitored serving: the streams differ from the monitoring-off"
+             " run's")
+    want = {"tokens_total": n_tokens, "requests_total": {"length": N_REQUESTS},
+            "ttft_count": N_REQUESTS,
+            "inter_token_count": n_tokens - N_REQUESTS,
+            "decode_steps_total": run["steps"],
+            "prefill_count": N_REQUESTS}
+    ids = {t.trace_id for t in traces}
+    if counts != want or not exemplars or not exemplars <= ids:
+        fail(f"monitored serving: dl4j_generate_* {counts}; want {want} "
+             f"(TTFT exemplars {sorted(exemplars)[:3]})")
+    for t in traces:
+        summ = t.summary()
+        stages = {k: v["count"] for k, v in summ["stages"].items()}
+        if stages != {"queue_wait": 1, "prefill": 1, "decode": 1} \
+                or summ["events"] != ["admit", "retire"]:
+            fail(f"trace {t.trace_id}: stages {stages}, events "
+                 f"{summ['events']}")
+        try:
+            validate_nesting(_nested(t.to_chrome()))
+        except ValueError as e:
+            fail(f"trace {t.trace_id}: {e}")
+    n_prefill = sum(1 for r in reqs if len(r["prompt"]) > 1)
+    if run["launches"] != _only(KERNELS, fused_lstm_fwd=(
+            2 * run["steps"] + 2 * n_prefill)):
+        fail(f"monitored serving launched {run['launches']}")
+    tps_on = n_tokens / run["wall_s"]
+    tps_off = [n_tokens / w for w in (off_wall, off2_wall)]
+    return {
+        "model": "TextGenerationLSTM(units=256, layers=2, vocab=77)",
+        "slots": 8, "requests": N_REQUESTS, "tokens": n_tokens,
+        "decode_steps": run["steps"], "replays": run["replays"],
+        "generate_counts": counts, "traces": len(traces),
+        "trace_stages": {"queue_wait": 1, "prefill": 1, "decode": 1},
+        "streams_equal_monitoring_off": True,
+        "tokens_per_s_on": tps_on, "tokens_per_s_off": tps_off,
+        "wall_s_on": run["wall_s"], "wall_s_off": [off_wall, off2_wall],
+        "launches": run["launches"],
+    }
+
+
+def phase_profiler_sysmetrics(torch, np, net, batch):
+    """36(d): ``profiler.trace`` around two guarded config #3 steps writes a
+    Chrome trace that names the LSTM forward and backward kernels (the
+    session opened by the lead-in, whose kept records are counted); and
+    ``device_memory_mb`` reads what torch.cuda.memory_allocated reads."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch import profiler
+    from deeplearning4j_tpu_torch.common.sysmetrics import device_memory_mb
+    from deeplearning4j_tpu_torch.ops.cuda import KERNELS, fused_lstm
+    from deeplearning4j_tpu_torch.optimize.async_dispatch import drain_scores
+
+    drain_scores(net)
+    logdir = tempfile.mkdtemp(prefix="dl4j-trace-")
+    fwd_names = set(fused_lstm.FWD_KERNEL_NAMES.values())
+    bwd_names = set(fused_lstm.BWD_KERNEL_NAMES.values())
+    for _ in range(3):
+        with profiler.trace(logdir) as prof:
+            _lead_in(torch)
+            _, launches, _, _ = _count_launches(
+                torch, KERNELS, lambda: ([net.fit_batch(batch)
+                                          for _ in range(2)],
+                                         drain_scores(net)))
+        doc = json.load(open(prof.trace_path))
+        kernels = [e["name"] for e in doc["traceEvents"]
+                   if e.get("cat") == "kernel"]
+        lead_in = sum("spin_kernel" in k for k in kernels)
+        LEAD_IN_LOSSES.append(PROFILE_LEAD_IN - lead_in)
+        seen = {"fwd": sum(any(f in k for f in fwd_names) for k in kernels),
+                "bwd": sum(any(f in k for f in bwd_names) for k in kernels)}
+        if seen["fwd"] == launches["fused_lstm_fwd"] \
+                and seen["bwd"] == launches["fused_lstm_bwd"]:
+            break
+    if not (seen["fwd"] and seen["bwd"]):
+        fail(f"the Chrome trace of two guarded steps names no LSTM kernel: "
+             f"{sorted(set(kernels))[:8]}")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mem = device_memory_mb(dev)
+    allocated = torch.cuda.memory_allocated(dev) / (1 << 20)
+    if mem.get("device_mem_in_use_mb") != allocated \
+            or not mem["device_mem_peak_mb"] >= allocated \
+            or not mem["device_mem_limit_mb"] > allocated:
+        fail(f"device_memory_mb {mem} against memory_allocated {allocated}")
+    return {"trace_bytes": os.path.getsize(prof.trace_path),
+            "trace_kernel_events": len(kernels),
+            "lstm_kernels_named": seen, "launches": launches,
+            "lead_in_records_kept": lead_in,
+            "device_memory_mb": mem, "memory_allocated_mb": allocated}
+
+
 def main() -> None:
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "deeplearning4j_tpu_torch")):
@@ -5398,24 +5913,24 @@ def main() -> None:
 
     # phase 3: forward kernel against plain
     rows, worst, worst_bf16 = phase_kernels(torch)
-    print(json.dumps({"kernel_shapes": rows}), flush=True)
+    emit(card, {"kernel_shapes": rows})
 
     # phase 4: serving main path
     main_path = phase_main_path(torch, np)
-    print(json.dumps({"main_path": main_path, "card": card}), flush=True)
+    emit(card, {"main_path": main_path, "card": card})
     print(f"main path on {card}: {main_path['tokens_per_s']:.1f} tokens/s, "
           f"TTFT p50 {main_path['ttft_p50_ms']:.2f} ms", flush=True)
 
     # phase 5: the bf16 net
-    print(json.dumps({"bf16_net": phase_bf16_net(torch, np)}), flush=True)
+    emit(card, {"bf16_net": phase_bf16_net(torch, np)})
 
     # phase 6: backward kernel against plain
     bwd_rows, bwd_worst, bwd_worst_bf16 = phase_bwd_kernels(torch)
-    print(json.dumps({"bwd_kernel_shapes": bwd_rows}), flush=True)
+    emit(card, {"bwd_kernel_shapes": bwd_rows})
 
     # phase 7: training main path
     train = phase_training(torch, np)
-    print(json.dumps({"training": train, "card": card}), flush=True)
+    emit(card, {"training": train, "card": card})
     print(f"training on {card}: {train['step_wall_ms']:.2f} ms a step, "
           f"{train['samples_per_s']:.1f} samples/s", flush=True)
 
@@ -5427,22 +5942,22 @@ def main() -> None:
     short = [phase_short_training(torch, np, TextGenerationLSTM(seed=SEED), 2),
              phase_short_training(torch, np, BidirectionalGravesLSTMCharRnn(
                  seed=SEED, dtype="bf16"), 4)]
-    print(json.dumps({"short_training": short}), flush=True)
+    emit(card, {"short_training": short})
 
     # phase 9: flash kernels against plain, the bf16 ones on tensor cores
     tensor_cores = flash_tensor_cores(torch)
-    print(json.dumps({"flash_tensor_cores": tensor_cores}), flush=True)
+    emit(card, {"flash_tensor_cores": tensor_cores})
     print("tensor-core instructions: " + ", ".join(
         f"{k} {v}" for k, v in tensor_cores["sass"].items()), flush=True)
     flash_rows, flash_times, flash_grad_rel, flash_worst, flash_worst_bf16 = \
         phase_flash_kernels(torch)
-    print(json.dumps({"flash_kernel_shapes": flash_rows,
+    emit(card, {"flash_kernel_shapes": flash_rows,
                       "flash_function_grad_max_rel_err": flash_grad_rel,
-                      "flash_times": flash_times, "card": card}), flush=True)
+                      "flash_times": flash_times, "card": card})
 
     # phase 10: BERT-base inference
     bert_out, bert_net = phase_bert_inference(torch, np)
-    print(json.dumps({"bert_inference": bert_out, "card": card}), flush=True)
+    emit(card, {"bert_inference": bert_out, "card": card})
     print(f"BERT-base output() on {card}: "
           f"{bert_out['wall_ms_per_call']:.2f} ms a call of 32 x 128, "
           f"device busy {bert_out['profile']['device_busy_share']}",
@@ -5451,7 +5966,7 @@ def main() -> None:
     # phase 11: BERT-base fine-tuning
     bert_train = phase_bert_training(torch, np, bert_net)
     del bert_net
-    print(json.dumps({"bert_training": bert_train, "card": card}), flush=True)
+    emit(card, {"bert_training": bert_train, "card": card})
     print(f"BERT-base fine-tuning on {card}: "
           f"{bert_train['step_wall_ms']:.2f} ms a step, "
           f"{bert_train['samples_per_s']:.1f} samples/s", flush=True)
@@ -5459,14 +5974,13 @@ def main() -> None:
     # phase 12: LRN kernels against plain
     lrn_rows, lrn_times, lrn_grad_rel, lrn_worst, lrn_worst_bf16 = \
         phase_lrn_kernels(torch)
-    print(json.dumps({"lrn_kernel_shapes": lrn_rows,
+    emit(card, {"lrn_kernel_shapes": lrn_rows,
                       "lrn_function_grad_max_rel_err": lrn_grad_rel,
-                      "lrn_times": lrn_times, "card": card}), flush=True)
+                      "lrn_times": lrn_times, "card": card})
 
     # phase 13: AlexNet inference
     alex_out, alex_net = phase_alexnet_inference(torch, np)
-    print(json.dumps({"alexnet_inference": alex_out, "card": card}),
-          flush=True)
+    emit(card, {"alexnet_inference": alex_out, "card": card})
     print(f"AlexNet output() on {card}: {alex_out['wall_ms_per_call']:.2f} "
           f"ms a call of {ALEXNET_BATCH} images, device busy "
           f"{alex_out['profile']['device_busy_share']}", flush=True)
@@ -5474,28 +5988,26 @@ def main() -> None:
     # phase 14: AlexNet training
     alex_train = phase_alexnet_training(torch, np, alex_net)
     del alex_net
-    print(json.dumps({"alexnet_training": alex_train, "card": card}),
-          flush=True)
+    emit(card, {"alexnet_training": alex_train, "card": card})
     print(f"AlexNet training on {card}: {alex_train['step_wall_ms']:.2f} ms "
           f"a step, {alex_train['samples_per_s']:.1f} samples/s", flush=True)
 
     # phase 15: LeNet training
     lenet = phase_lenet_training(torch, np)
-    print(json.dumps({"lenet_training": lenet, "card": card}), flush=True)
+    emit(card, {"lenet_training": lenet, "card": card})
     print(f"LeNet training on {card}: {lenet['step_wall_ms']:.2f} ms a "
           f"step, {lenet['samples_per_s']:.1f} samples/s", flush=True)
 
     # phase 16: GRU kernels against plain, the bf16 grid products on the
     # tensor cores
     gru_sass = gru_grid_tensor_cores()
-    print(json.dumps({"gru_grid_tensor_cores": gru_sass}), flush=True)
+    emit(card, {"gru_grid_tensor_cores": gru_sass})
     gru_rows, gru_worst, gru_worst_bf16 = phase_gru_kernels(torch)
-    print(json.dumps({"gru_kernel_shapes": gru_rows, "card": card}),
-          flush=True)
+    emit(card, {"gru_kernel_shapes": gru_rows, "card": card})
 
     # phase 17: GRU char-RNN serving
     gru_serve = phase_gru_serving(torch, np)
-    print(json.dumps({"gru_serving": gru_serve, "card": card}), flush=True)
+    emit(card, {"gru_serving": gru_serve, "card": card})
     print(f"GRU char-RNN serving on {card}: "
           f"{gru_serve['tokens_per_s']:.1f} tokens/s, TTFT p50 "
           f"{gru_serve['ttft_p50_ms']:.2f} ms, device busy "
@@ -5504,10 +6016,9 @@ def main() -> None:
     # phase 18: GRU char-RNN training, GRULayer(256) x 2 (the cluster
     # kernels) and GRULayer(1024) x 2 (the grid kernels)
     gru_train = phase_gru_training(torch, np)
-    print(json.dumps({"gru_training": gru_train, "card": card}), flush=True)
+    emit(card, {"gru_training": gru_train, "card": card})
     wide_gru = phase_gru_training(torch, np, units=WIDE_GRU_UNITS)
-    print(json.dumps({"gru1024_training": wide_gru, "card": card}),
-          flush=True)
+    emit(card, {"gru1024_training": wide_gru, "card": card})
     for what, run in (("GRU char-RNN", gru_train),
                       ("GRU(1024) x 2 char-RNN", wide_gru)):
         print(f"{what} training on {card}: {run['step_wall_ms']:.2f} ms a "
@@ -5517,13 +6028,11 @@ def main() -> None:
 
     # phase 19: Bidirectional(GRU(200)) x 2 training
     bidi_gru = phase_gru_training(torch, np, bidi=True)
-    print(json.dumps({"bidi_gru_training": bidi_gru, "card": card}),
-          flush=True)
+    emit(card, {"bidi_gru_training": bidi_gru, "card": card})
 
     # phase 20: ResNet-50 inference (BASELINE.json config #2)
     rn_out, rn_net = phase_resnet_inference(torch, np)
-    print(json.dumps({"resnet50_inference": rn_out, "card": card}),
-          flush=True)
+    emit(card, {"resnet50_inference": rn_out, "card": card})
     print(f"ResNet-50 output() on {card}: {rn_out['wall_ms_per_call']:.2f} "
           f"ms a call of {RESNET_BATCH} images, device busy "
           f"{rn_out['profile']['device_busy_share']}", flush=True)
@@ -5531,8 +6040,7 @@ def main() -> None:
     # phase 21: ResNet-50 training
     rn_train = phase_resnet_training(torch, np, rn_net)
     del rn_net
-    print(json.dumps({"resnet50_training": rn_train, "card": card}),
-          flush=True)
+    emit(card, {"resnet50_training": rn_train, "card": card})
     print(f"ResNet-50 training on {card}: {rn_train['step_wall_ms']:.2f} ms "
           f"a step, {rn_train['samples_per_s']:.1f} samples/s, MFU "
           f"{rn_train['mfu']:.4f}, device busy "
@@ -5542,7 +6050,7 @@ def main() -> None:
     t0 = time.perf_counter()
     golden = phase_onnx_golden(torch, np)
     golden["wall_s"] = time.perf_counter() - t0
-    print(json.dumps({"onnx_golden": golden, "card": card}), flush=True)
+    emit(card, {"onnx_golden": golden, "card": card})
     print(f"bert_tiny.onnx on {card}: {golden['off']['nodes']} -> "
           f"{golden['on']['nodes']} nodes, rewrites "
           f"{golden['on']['rewrites']}", flush=True)
@@ -5551,8 +6059,7 @@ def main() -> None:
     t0 = time.perf_counter()
     bert_import = phase_bert_import_training(torch, np)
     bert_import["wall_s"] = time.perf_counter() - t0
-    print(json.dumps({"bert_import_training": bert_import, "card": card}),
-          flush=True)
+    emit(card, {"bert_import_training": bert_import, "card": card})
     for k in ("on", "off"):
         r = bert_import[k]
         print(f"bert_import (optimizer {k}) on {card}: "
@@ -5565,7 +6072,7 @@ def main() -> None:
     t0 = time.perf_counter()
     bert_tf = phase_bert_tf_import(torch, np, bert_train["step_wall_ms"])
     bert_tf["wall_s"] = time.perf_counter() - t0
-    print(json.dumps({"bert_tf_import": bert_tf, "card": card}), flush=True)
+    emit(card, {"bert_tf_import": bert_tf, "card": card})
     tr = bert_tf["training"]
     print(f"BERT-base TF import on {card}: build {bert_tf['build_s']:.1f} s, "
           f"parse {bert_tf['parse_s']:.1f} s, import "
@@ -5581,15 +6088,13 @@ def main() -> None:
     t0 = time.perf_counter()
     lrn_import = phase_tf_import_lrn(torch, np)
     lrn_import["wall_s"] = time.perf_counter() - t0
-    print(json.dumps({"tf_import_lrn": lrn_import, "card": card}),
-          flush=True)
+    emit(card, {"tf_import_lrn": lrn_import, "card": card})
 
     # phase 26: YOLO2 inference at full width
     t0 = time.perf_counter()
     yolo_out, yolo_net = phase_yolo2_inference(torch, np)
     yolo_out["wall_s"] = time.perf_counter() - t0
-    print(json.dumps({"yolo2_inference": yolo_out, "card": card}),
-          flush=True)
+    emit(card, {"yolo2_inference": yolo_out, "card": card})
     dec = yolo_out["decode"]
     print(f"YOLO2 output() on {card}: {yolo_out['wall_ms_per_call']:.2f} ms "
           f"a call of {YOLO2_BATCH} images, device "
@@ -5603,8 +6108,7 @@ def main() -> None:
     yolo_train = phase_yolo2_training(torch, np, yolo_net)
     yolo_train["wall_s_phase"] = time.perf_counter() - t0
     del yolo_net
-    print(json.dumps({"yolo2_training": yolo_train, "card": card}),
-          flush=True)
+    emit(card, {"yolo2_training": yolo_train, "card": card})
     print(f"YOLO2 training on {card}: {yolo_train['step_wall_ms']:.2f} ms a "
           f"step, {yolo_train['samples_per_s']:.1f} samples/s, MFU "
           f"{yolo_train['mfu']:.4f}, device "
@@ -5615,8 +6119,8 @@ def main() -> None:
     # phase 28: the rest of the CNN zoo
     t0 = time.perf_counter()
     zoo_rows = phase_zoo(torch, np)
-    print(json.dumps({"zoo": zoo_rows, "card": card,
-                      "wall_s": time.perf_counter() - t0}), flush=True)
+    emit(card, {"zoo": zoo_rows, "card": card,
+                      "wall_s": time.perf_counter() - t0})
     for zname, r in zoo_rows.items():
         print(f"{zname} on {card}: output() {r['first_output_ms']:.1f} ms, "
               f"fit_batch {r['first_fit_batch_ms']:.1f} ms (first calls, B="
@@ -5628,7 +6132,7 @@ def main() -> None:
     t0 = time.perf_counter()
     lane = phase_lane_serving(torch, np)
     lane["wall_s_phase"] = time.perf_counter() - t0
-    print(json.dumps({"lane_serving": lane, "card": card}), flush=True)
+    emit(card, {"lane_serving": lane, "card": card})
     for kv in ("f32", "int8"):
         r = lane[kv]
         print(f"bench-lane serving ({kv} ring) on {card}: "
@@ -5644,7 +6148,7 @@ def main() -> None:
     t0 = time.perf_counter()
     full = phase_full_width_serving(torch, np)
     full["wall_s_phase"] = time.perf_counter() - t0
-    print(json.dumps({"full_width_serving": full, "card": card}), flush=True)
+    emit(card, {"full_width_serving": full, "card": card})
     for kv in ("bf16", "int8"):
         r = full[kv]
         st = r["steady"]
@@ -5662,13 +6166,13 @@ def main() -> None:
     t0 = time.perf_counter()
     sessions = phase_session_resume(torch, np)
     sessions["wall_s_phase"] = time.perf_counter() - t0
-    print(json.dumps({"session_resume": sessions, "card": card}), flush=True)
+    emit(card, {"session_resume": sessions, "card": card})
 
     # phase 32: truncated BPTT through the LSTM kernels
     t0 = time.perf_counter()
     tbptt = phase_tbptt(torch, np)
     tbptt["wall_s_phase"] = time.perf_counter() - t0
-    print(json.dumps({"tbptt_charrnn": tbptt, "card": card}), flush=True)
+    emit(card, {"tbptt_charrnn": tbptt, "card": card})
     print(f"tBPTT char-RNN on {card}: {tbptt['ms_per_call']:.1f} ms a "
           f"fit_batch of {TBPTT_BATCH} x {TBPTT_T} ({tbptt['chunks_per_call']}"
           f" chunks), device {tbptt['profile']['device_ms_per_call']:.2f} ms, "
@@ -5679,7 +6183,7 @@ def main() -> None:
     t0 = time.perf_counter()
     fit_loop = phase_fit_loop(torch, np)
     fit_loop["wall_s_phase"] = time.perf_counter() - t0
-    print(json.dumps({"fit_loop_lenet": fit_loop, "card": card}), flush=True)
+    emit(card, {"fit_loop_lenet": fit_loop, "card": card})
     print(f"LeNet fit loop on {card}: MNIST synthetic {fit_loop['synthetic']}"
           f", {fit_loop['epochs']} epochs ({fit_loop['termination']}), "
           f"accuracy {fit_loop['accuracy']:.4f}; ms a step "
@@ -5689,8 +6193,7 @@ def main() -> None:
     t0 = time.perf_counter()
     transfer = phase_transfer_learning(torch, np, rn_train["step_wall_ms"])
     transfer["wall_s_phase"] = time.perf_counter() - t0
-    print(json.dumps({"transfer_resnet50": transfer, "card": card}),
-          flush=True)
+    emit(card, {"transfer_resnet50": transfer, "card": card})
     print(f"ResNet-50 transfer learning on {card}: "
           f"{transfer['step_wall_ms']:.2f} ms a step (the full step "
           f"{rn_train['step_wall_ms']:.2f}), peak "
@@ -5700,14 +6203,48 @@ def main() -> None:
     t0 = time.perf_counter()
     remat = phase_remat(torch, np)
     remat["wall_s_phase"] = time.perf_counter() - t0
-    print(json.dumps({"remat_bert": remat, "card": card}), flush=True)
+    emit(card, {"remat_bert": remat, "card": card})
     for k in ("remat", "no_remat"):
         r = remat[k]
         print(f"BertBase {k} on {card}: {r['step_wall_ms']:.2f} ms a step, "
               f"peak {r['peak_memory_gb']:.2f} GB, flash launches a step "
               f"{r['launches_per_step']}", flush=True)
 
-    # phase 36: kernels line, card line, result line
+    # phase 36: the observability slice: guardrails on config #3, their
+    # cost on BertBase, monitored and traced serving, the profiler
+    t0 = time.perf_counter()
+    guard_run, guard_net, guard_batch = phase_guardrails(torch, np)
+    guard_cost = phase_guardrail_cost(torch, np)
+    monitored = phase_monitored_serving(torch, np)
+    traced = phase_profiler_sysmetrics(torch, np, guard_net, guard_batch)
+    del guard_net
+    emit(card, {"observability": {
+        "guardrails_config3": guard_run, "guardrail_cost_bert": guard_cost,
+        "monitored_serving": monitored, "profiler_sysmetrics": traced,
+        "wall_s_phase": time.perf_counter() - t0}})
+    ladder = guard_run["ladder"]
+    gsum = guard_cost["summary"]
+    print(f"guardrails on {card}: config #3 armed = unarmed bit for bit, "
+          f"{guard_run['clean']['launches_per_step']} launches a guarded "
+          f"step; nan_grad ladder {ladder['actions']}, culprit step "
+          f"{ladder['culprit_step']}", flush=True)
+    print(f"guardrail cost on {card}: BertBase [32, 128] bf16 step wall "
+          f"{gsum['step_wall_ms']['unarmed']:.2f} -> "
+          f"{gsum['step_wall_ms']['armed']:.2f} ms, device "
+          f"{gsum['device_ms_per_step']['unarmed']:.3f} -> "
+          f"{gsum['device_ms_per_step']['armed']:.3f} ms, kernels "
+          f"{gsum['device_kernels_per_step']['unarmed']:.0f} -> "
+          f"{gsum['device_kernels_per_step']['armed']:.0f} a step", flush=True)
+    print(f"monitored serving on {card}: {monitored['generate_counts']}, "
+          f"streams equal to monitoring off; tokens/s on "
+          f"{monitored['tokens_per_s_on']:.1f}, off "
+          f"{monitored['tokens_per_s_off']}", flush=True)
+    print(f"profiler trace on {card}: LSTM kernels named "
+          f"{traced['lstm_kernels_named']}, device memory "
+          f"{traced['device_memory_mb']['device_mem_in_use_mb']:.1f} MB",
+          flush=True)
+
+    # phase 37: kernels line, card line, result line
     decode = rows[0]  # the serving path's decode shape [8, 1, 256]
     graves = bwd_rows[0]  # the training path's first layer [64, 64, 200]
     # TextGenerationLSTM's second layer [64, 64, 256], no peepholes: where
@@ -5870,6 +6407,18 @@ def main() -> None:
                  "bert_training_remat": remat["remat"]["launches"][e["name"]],
                  "bert_training_no_remat": remat["no_remat"]["launches"][
                      e["name"]]}
+        e["launches_by_path"].update(paths)
+        e["launches"] += sum(paths.values())
+    for e in entries:  # the observability slice's paths (phase 36)
+        n = e["name"]
+        paths = {
+            "guardrails_config3": guard_run["clean"]["launches"][n],
+            "guardrails_ladder_config3": ladder["launches"][n],
+            "guardrail_cost_bert_armed": guard_cost["launches"]["armed"][n],
+            "guardrail_cost_bert_unarmed": guard_cost["launches"][
+                "unarmed"][n],
+            "monitored_lstm_serving": monitored["launches"][n],
+            "profiler_trace_config3": traced["launches"][n]}
         e["launches_by_path"].update(paths)
         e["launches"] += sum(paths.values())
     print(json.dumps({"kernels": entries}), flush=True)

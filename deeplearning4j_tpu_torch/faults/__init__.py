@@ -21,9 +21,9 @@ Spec grammar (``DL4J_TORCH_FAULTS`` or :func:`configure`)::
 ``DL4J_TORCH_FAULTS_SEED`` (default 0) seeds the probability draws;
 ``DL4J_TORCH_FAULTS_DELAY_S`` (default 0.05) is the simulated straggler
 delay. With no spec, :func:`active` returns None and every injection point
-is a single None check. The JAX package also counts each injected fault in
-its monitoring registry and flight recorder; those wait for the port's
-monitoring slice.
+is a single None check. Each injected fault counts in
+``dl4j_faults_injected_total{cls}`` (monitoring on) and is recorded as a
+``fault_injected`` flight-recorder event (recorder armed).
 """
 
 from __future__ import annotations
@@ -195,8 +195,17 @@ class FaultPlan:
                     break
             if hit:
                 self.injected[cls] += 1
-        # the injected-fault counter and the flight recorder's entry wait
-        # for the monitoring slice
+        if hit:
+            from deeplearning4j_tpu_torch import monitoring
+
+            mon = monitoring.recovery_monitor()
+            if mon is not None:
+                mon.faults_injected.labels(cls=cls).inc()
+            rec = monitoring.flight.recorder()
+            if rec is not None:
+                rec.record("fault_injected", cls=cls,
+                           **{k: v for k, v in ctx.items()
+                              if isinstance(v, (int, float, str))})
         return hit
 
     def describe(self) -> dict:

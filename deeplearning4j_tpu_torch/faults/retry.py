@@ -2,9 +2,10 @@
 
 Counterpart of ``deeplearning4j_tpu/faults/retry.py``, copied: the policy
 is explicit and shared by every transient-failure site of the port
-(checkpoint I/O, dataset reads). The JAX package also counts every retry
-and recovery outcome in its monitoring registry; those counters wait for
-the port's monitoring slice.
+(checkpoint I/O, dataset reads), and counted through
+``monitoring.recovery_monitor()``: every retry attempt in
+``dl4j_retry_attempts_total{component}``, every outcome in
+``dl4j_recovery_total{component,outcome}``.
 """
 
 from __future__ import annotations
@@ -26,8 +27,11 @@ class RetryPolicy:
         out = policy.call(flaky_fn, arg, component="checkpoint")
 
     ``retry_on``: exception types treated as transient; anything else
-    propagates immediately. ``component`` names the site in the deadline
-    error (the JAX package also labels its recovery counters with it).
+    propagates immediately. The ``component`` label threads through to
+    ``dl4j_retry_attempts_total{component}`` and
+    ``dl4j_recovery_total{component,outcome}`` (outcomes: ``retried_ok``
+    when an attempt after the first succeeds, ``gave_up`` when the budget
+    runs out).
     """
 
     def __init__(self, max_attempts: int = 4, base_delay_s: float = 0.05,
@@ -59,6 +63,8 @@ class RetryPolicy:
              **kw):
         """Run ``fn(*args, **kw)`` under the policy. ``on_retry(attempt,
         error)`` fires before each backoff sleep."""
+        from deeplearning4j_tpu_torch import monitoring
+
         start = time.monotonic()
         attempt = 0
         while True:
@@ -66,11 +72,17 @@ class RetryPolicy:
                 out = fn(*args, **kw)
             except self.retry_on as e:
                 attempt += 1
+                mon = monitoring.recovery_monitor()
+                if mon is not None:
+                    mon.retry_attempts.labels(component=component).inc()
                 delay = self.delay_for(attempt)
                 exhausted = attempt >= self.max_attempts
                 past_deadline = (time.monotonic() - start + delay
                                  > self.deadline_s)
                 if exhausted or past_deadline:
+                    if mon is not None:
+                        mon.recovery_total.labels(
+                            component=component, outcome="gave_up").inc()
                     if past_deadline and not exhausted:
                         raise RetryDeadlineExceeded(
                             f"{component or 'operation'} still failing after "
@@ -81,6 +93,9 @@ class RetryPolicy:
                     on_retry(attempt, e)
                 self._sleep(delay)
                 continue
-            # the recovery counters (retried_ok, gave_up) wait for the
-            # monitoring slice
+            if attempt > 0:
+                mon = monitoring.recovery_monitor()
+                if mon is not None:
+                    mon.recovery_total.labels(
+                        component=component, outcome="retried_ok").inc()
             return out

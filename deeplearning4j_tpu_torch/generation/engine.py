@@ -52,9 +52,22 @@ gate a padded carry, and the JAX package's gated scan gives the same carry
 (the tests hold the two against each other).
 
 A ``journal`` (``generation/sessions.py``) makes requests submitted with a
-``request_id`` durable. Not ported: request tracing, monitoring and the
-engine's fault hooks (its ``faults.active()`` preempt points; ``faults``
-itself is ported), which come with the monitoring layer.
+``request_id`` durable.
+
+Observability, as in the JAX package: a request submitted with ``trace=``
+(a ``monitoring.context.RequestTrace``) records its ``queue_wait``,
+``prefill`` and ``decode`` spans and its ``admit`` and ``retire`` events;
+an engine built with a ``tracer`` (a ``RequestTracer``, or one made when
+``DL4J_TORCH_TRACING`` is set) begins a trace for every request submitted
+without one and finishes it at retirement. With monitoring on, the
+``dl4j_generate_*`` families count requests by outcome, tokens, decode
+steps, prefill time, slot occupancy, time to first token (with the
+request's trace id as its exemplar) and inter-token gaps. With both off
+(no trace on a stream, monitoring off) ``step`` makes no tracer or
+registry call. :meth:`GenerationStream.follow` lets any number of
+reconnecting consumers read one stream. Not ported: the ``faults``
+preempt point of ``step``, which hands off to the serving lifecycle
+(``serving/lifecycle.py``, not ported yet).
 """
 
 from __future__ import annotations
@@ -69,7 +82,9 @@ from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 
+from deeplearning4j_tpu_torch import monitoring
 from deeplearning4j_tpu_torch.common.device import DeviceLike, resolve_device
+from deeplearning4j_tpu_torch.common.env import env
 from deeplearning4j_tpu_torch.common.trees import tree_leaves
 from deeplearning4j_tpu_torch.generation.sampler import sample_logits
 from deeplearning4j_tpu_torch.generation.slots import SlotPool
@@ -104,7 +119,8 @@ class GenerationStream:
     emits them. ``finish_reason`` is eos / length / cancelled / preempted
     afterwards. A journaled stream carries its ``request_id`` and ``seq0``,
     the tokens its session emitted before this stream (non-zero on a
-    resume)."""
+    resume). ``__iter__`` is the single-consumer path (a queue);
+    :meth:`follow` the multi-consumer reconnect path."""
 
     def __init__(self, request: GenerationRequest,
                  request_id: Optional[str] = None):
@@ -116,16 +132,26 @@ class GenerationStream:
         self.submitted_at = time.monotonic()
         self.first_token_at: Optional[float] = None
         self.finished_at: Optional[float] = None
+        #: RequestTrace riding this stream; the engine records its
+        #: queue_wait / prefill / decode spans into it. None: the engine
+        #: makes no trace call for this stream
+        self.trace = None
         self._q: "queue.SimpleQueue" = queue.SimpleQueue()
         self._cancelled = False
         self._cancel_reason = "cancelled"
+        self._last_at: Optional[float] = None
         self._done_evt = threading.Event()
+        self._cv = threading.Condition()
 
     # engine side -----------------------------------------------------
-    def _emit(self, token: int) -> None:
+    def _emit(self, token: int, now: Optional[float] = None) -> None:
+        now = time.monotonic() if now is None else now
         if self.first_token_at is None:
-            self.first_token_at = time.monotonic()
-        self.tokens.append(token)
+            self.first_token_at = now
+        self._last_at = now
+        with self._cv:
+            self.tokens.append(token)
+            self._cv.notify_all()
         self._q.put(token)
 
     def _finish(self, reason: str) -> None:
@@ -133,6 +159,8 @@ class GenerationStream:
         self.finished_at = time.monotonic()
         self._q.put(_DONE)
         self._done_evt.set()
+        with self._cv:
+            self._cv.notify_all()
 
     # consumer side ---------------------------------------------------
     def cancel(self, reason: str = "cancelled") -> None:
@@ -155,6 +183,25 @@ class GenerationStream:
             if item is _DONE:
                 return
             yield item
+
+    def follow(self, last_seq: int = 0):
+        """Yield ``(seq, token)`` pairs with absolute sequence numbers
+        strictly greater than ``last_seq`` (1-based), then return when the
+        stream finishes. Unlike ``__iter__`` this does not consume the
+        queue, so any number of reconnecting consumers can follow one
+        stream concurrently and each sees every token exactly once."""
+        i = max(0, int(last_seq) - self.seq0)
+        while True:
+            with self._cv:
+                while len(self.tokens) <= i and not self.done:
+                    self._cv.wait(timeout=0.1)
+                avail = len(self.tokens)
+                done = self.done
+            while i < avail:
+                yield (self.seq0 + i + 1, self.tokens[i])
+                i += 1
+            if done and i >= len(self.tokens):
+                return
 
     def wait(self, timeout: Optional[float] = None) -> bool:
         """Block until the request finishes; False if ``timeout`` expired."""
@@ -415,12 +462,14 @@ class GenerationEngine:
     (``step()``/``drain()``/``generate()``) or start the background loop
     (``start()``) and consume ``submit()`` streams from other threads.
     Only one thread may call ``step()``; ``submit()``/``cancel()`` are
-    thread-safe."""
+    thread-safe. ``tracer`` (a ``RequestTracer``; one is made when
+    ``DL4J_TORCH_TRACING`` is set) traces every request submitted without
+    a trace of its own."""
 
     def __init__(self, net, *, slots: int = 8, max_len: int = 128,
                  eos_id: Optional[int] = None, continuous: bool = True,
                  adapter=None, codec=None, kv_dtype: Optional[str] = None,
-                 journal=None, device: DeviceLike = "cuda"):
+                 journal=None, device: DeviceLike = "cuda", tracer=None):
         self.device = resolve_device(device)
         if net.device != self.device:
             raise ValueError(f"net lives on {net.device}, the engine was "
@@ -433,6 +482,14 @@ class GenerationEngine:
         #: SessionJournal or None; with None the engine makes no journal
         #: call
         self.journal = journal
+        if tracer is None and env.tracing:
+            from deeplearning4j_tpu_torch.monitoring.context import (
+                RequestTracer,
+            )
+
+            tracer = RequestTracer()
+        #: RequestTracer or None: the traces the engine begins itself
+        self.tracer = tracer
         if adapter is not None and kv_dtype is not None:
             raise ValueError("pass kv_dtype to the adapter OR let the "
                              "engine build one, not both")
@@ -545,13 +602,15 @@ class GenerationEngine:
                max_new_tokens: int = 32, temperature: float = 0.0,
                top_k: int = 0, top_p: float = 1.0, seed: int = 0,
                eos_id: Optional[int] = None,
-               klass: Optional[str] = None,
+               klass: Optional[str] = None, trace=None,
                request_id: Optional[str] = None) -> GenerationStream:
         """Queue a request; returns its token stream immediately.
-        ``klass="batch"`` rides the low-priority pending lane. On a
-        journal-armed engine a ``request_id`` makes the session durable; a
-        known id is a resume, whose sequence numbers continue the
-        journal's."""
+        ``klass="batch"`` rides the low-priority pending lane. ``trace`` (a
+        RequestTrace, if any; else one the engine's tracer begins) is
+        attached before the stream is enqueued, so the engine loop never
+        races a late assignment. On a journal-armed engine a
+        ``request_id`` makes the session durable; a known id is a resume,
+        whose sequence numbers continue the journal's."""
         if isinstance(prompt, str):
             if self.codec is None:
                 raise ValueError("string prompt needs a codec")
@@ -574,6 +633,10 @@ class GenerationEngine:
             top_p=float(top_p), seed=int(seed),
             eos_id=self.eos_id if eos_id is None else eos_id)
         stream = GenerationStream(req, request_id=request_id)
+        if trace is None and self.tracer is not None:
+            trace = self.tracer.begin("generate", prompt_len=len(ids),
+                                      session=request_id)
+        stream.trace = trace
         with self._cond:
             if not self._accepting:
                 raise RuntimeError("engine is shut down")
@@ -616,6 +679,7 @@ class GenerationEngine:
                 self._finish_stream(stream, stream._cancel_reason)
                 continue
             ids = stream.request.prompt
+            t0 = time.monotonic()
             self._admitting = stream
             try:
                 sub = self._prefill_state(ids)
@@ -625,15 +689,44 @@ class GenerationEngine:
                 self._finish_stream(stream, stream._cancel_reason)
                 continue
             req = stream.request
+            slot = free.pop(0)
             self.pool.admit(
-                free.pop(0), sub, token=ids[-1], pos=len(ids) - 1,
+                slot, sub, token=ids[-1], pos=len(ids) - 1,
                 seed=req.seed, temperature=req.temperature, top_k=req.top_k,
                 top_p=req.top_p, meta=stream)
+            t1 = time.monotonic()
+            mon = monitoring.generate_monitor()
+            if mon is not None:
+                mon.prefill_seconds.observe(t1 - t0)
+            if stream.trace is not None:
+                # queue_wait is retroactive (submit -> slot grant), exact
+                # because both ends are monotonic instants
+                stream.trace.add_span("queue_wait", stream.submitted_at, t0)
+                stream.trace.add_span("prefill", t0, t1,
+                                      prompt_len=len(ids))
+                stream.trace.event("admit", slot=slot)
 
     def _finish_stream(self, stream: GenerationStream, reason: str) -> None:
         if self.journal is not None and stream.request_id is not None:
             self.journal.finished(stream, reason)
         stream._finish(reason)
+        if stream.trace is not None:
+            if stream.first_token_at is not None:
+                # the aggregate decode span: first token -> finish, one
+                # span whatever the token count
+                stream.trace.add_span("decode", stream.first_token_at,
+                                      stream.finished_at,
+                                      tokens=len(stream.tokens))
+            stream.trace.event("retire", reason=reason)
+            if self.tracer is not None and self.tracer.get(
+                    stream.trace.trace_id) is stream.trace:
+                self.tracer.finish(
+                    stream.trace,
+                    "served" if reason in ("eos", "length") else reason,
+                    reason=reason)
+        mon = monitoring.generate_monitor()
+        if mon is not None:
+            mon.requests_total.labels(outcome=reason).inc()
 
     def _retire(self, slot: int, reason: str) -> None:
         self._finish_stream(self.pool.retire(slot), reason)
@@ -646,7 +739,10 @@ class GenerationEngine:
             if self.pool.meta[s].cancelled:
                 self._retire(s, self.pool.meta[s]._cancel_reason)
         act = self.pool.active_slots()
+        mon = monitoring.generate_monitor()
         if not act:
+            if mon is not None:
+                mon.slot_occupancy.set(0)
             return False
         pool = self.pool
         staged = self._staging.numpy()
@@ -657,6 +753,7 @@ class GenerationEngine:
         nxt = sample_logits(logits, seeds=pool.seeds, pos=pool.pos,
                             temperature=pool.temps, top_k=pool.top_k,
                             top_p=pool.top_p, rows=act)
+        now = time.monotonic()
         self.steps_run += 1
         for s in act:
             stream: GenerationStream = pool.meta[s]
@@ -670,11 +767,23 @@ class GenerationEngine:
             if req.eos_id is not None and tok == req.eos_id:
                 self._retire(s, "eos")
                 continue
-            stream._emit(tok)
+            if mon is not None:
+                if stream.first_token_at is None:
+                    mon.ttft_seconds.observe(
+                        now - stream.submitted_at,
+                        exemplar=({"trace_id": stream.trace.trace_id}
+                                  if stream.trace is not None else None))
+                elif stream._last_at is not None:
+                    mon.inter_token_seconds.observe(now - stream._last_at)
+            stream._emit(tok, now)
             if self.journal is not None and stream.request_id is not None:
                 self.journal.emitted(stream, tok)
             if len(stream.tokens) >= req.max_new_tokens:
                 self._retire(s, "length")
+        if mon is not None:
+            mon.tokens_total.inc(len(act))
+            mon.decode_steps_total.inc()
+            mon.slot_occupancy.set(self.pool.occupancy())
         return True
 
     def drain(self, max_steps: Optional[int] = None) -> int:

@@ -23,9 +23,10 @@ field, so a journal written by either package replays in the other::
 A session with no ``fin`` line is interrupted (a shutdown with
 ``reason="preempted"`` deliberately writes none). A torn tail or a
 sequence gap marks the affected sessions corrupt: they are never resumed.
-An engine without a journal makes no journal call at all. The JAX
-package's recovery counter and flight-recorder event wait for the
-monitoring layer.
+An engine without a journal makes no journal call at all. Each resumed or
+lost session counts in ``dl4j_recovery_total{component="generation"}``
+(monitoring on), and a resume pass that found any is one
+``session_resume`` flight-recorder event (recorder armed).
 """
 
 from __future__ import annotations
@@ -279,8 +280,13 @@ class SessionJournal:
         sets ``pos = len(prompt) - 1``, so the next sampler key is
         drawn from ``(seed, pos)`` exactly as in the uninterrupted run.
 
-        Returns ``{"resumed", "lost", "completed"}``.
+        Returns ``{"resumed", "lost", "completed"}``; outcomes land in
+        ``dl4j_recovery_total{component="generation"}`` and one
+        ``session_resume`` flight event summarizes the pass.
         """
+        from deeplearning4j_tpu_torch import monitoring
+
+        mon = monitoring.recovery_monitor()
         resumed = lost = completed = 0
         for rec in self.interrupted():
             remaining = rec.max_new_tokens - rec.emitted
@@ -302,9 +308,18 @@ class SessionJournal:
                     eos_id=rec.eos_id, klass=rec.klass,
                     request_id=rec.request_id)
                 resumed += 1
+                outcome = "session_resumed"
             except (ValueError, RuntimeError):
                 rec.lost = True
                 lost += 1
+                outcome = "session_lost"
+            if mon is not None:
+                mon.recovery_total.labels(component="generation",
+                                          outcome=outcome).inc()
+        rec_flight = monitoring.flight.recorder()
+        if rec_flight is not None and (resumed or lost or completed):
+            rec_flight.record("session_resume", resumed=resumed, lost=lost,
+                              completed=completed, path=self.path)
         return {"resumed": resumed, "lost": lost, "completed": completed}
 
 

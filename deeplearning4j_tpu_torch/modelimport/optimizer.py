@@ -10,7 +10,8 @@ attention out of primitive ops; this pass removes the first and rewrites
 the second onto the registry's ``dot_product_attention``.
 
 Rule catalog (each counted per rule on the imported graph's
-``import_opt_stats``; the port has no monitoring registry yet):
+``import_opt_stats``, and with monitoring on in
+``dl4j_import_opt_rewrites_total{frontend,rule}``):
 
 - ``fold_constants``     evaluate nodes fed only by non-parameter constants
                          (incl. Shape/Size/Rank of statically-known shapes
@@ -1143,6 +1144,21 @@ RULES: List[Tuple[str, Callable[[_View], int]]] = [
 ]
 
 
+def record_stats(frontend: str, stats: Dict[str, int]) -> None:
+    """Emit per-rule rewrite counters through the monitoring registry."""
+    try:
+        from deeplearning4j_tpu_torch import monitoring
+
+        mon = monitoring.import_monitor()
+        if mon is None:
+            return
+        for rule, c in stats.items():
+            if c:
+                mon.rewrites.labels(frontend=frontend, rule=rule).inc(c)
+    except Exception:
+        pass  # metrics are observability, never an import failure
+
+
 def run_rules(view: _View) -> Dict[str, int]:
     stats: Dict[str, int] = {name: 0 for name, _ in RULES}
     for _ in range(_MAX_PASSES):
@@ -1153,6 +1169,7 @@ def run_rules(view: _View) -> Dict[str, int]:
             changed += c
         if not changed:
             break
+    record_stats(view.frontend, stats)
     return stats
 
 

@@ -10,8 +10,9 @@ One train step is what the JAX package's jitted ``train_step`` (``:391``)
 does, run eagerly: the forward, the loss, ``torch.autograd.grad``, the
 global-norm clip and each vertex's updater (with its clipnorm override),
 threading each layer's new state (BatchNormalization's running
-statistics). The clip and updater step and the refusal of unported
-training features are MultiLayerNetwork's own (``nn/multilayer.py``).
+statistics). The clip and updater step, the guarded variant of the step
+and the dispatch to the guardrails and the monitoring phases are
+MultiLayerNetwork's own (``nn/multilayer.py``).
 Convolutional activations walk the graph as NHWC tensors (channels_last
 views on the card), as in the JAX package.
 
@@ -26,8 +27,9 @@ The training runtime around the step is MultiLayerNetwork's: ``remat``
 (each vertex under ``remat_apply``, the JAX package's ``jax.checkpoint``
 of every vertex), fault plans, the async fit loop with listeners and tail
 padding, ``evaluate`` (of the first output), ``score_value`` and
-``rnn_time_step``. Not ported yet: ``as_loss_fn`` (with the parallel
-trainers), ``quantize``, and guardrails, which ``fit_batch`` refuses. A
+``rnn_time_step``, and the guardrails and monitoring of ``fit_batch``.
+Not ported yet: ``as_loss_fn`` (with the parallel trainers) and
+``quantize``. A
 ``CenterLossOutputLayer`` output adds its center term and moves its
 centers every step (``nn/graph.py:294,345-352`` there).
 """
@@ -45,9 +47,7 @@ from deeplearning4j_tpu_torch.common.device import (
 )
 from deeplearning4j_tpu_torch.common.dtypes import BF16, FLOAT32, cast_floating
 from deeplearning4j_tpu_torch.common.env import env
-from deeplearning4j_tpu_torch.common.trees import (
-    tree_leaves, tree_map, tree_unflatten,
-)
+from deeplearning4j_tpu_torch.common.trees import tree_map
 from deeplearning4j_tpu_torch.nn.conf.builders import (
     ComputationGraphConfiguration,
 )
@@ -60,8 +60,7 @@ from deeplearning4j_tpu_torch.nn.multilayer import (  # noqa: F401 (re-exported)
 )
 from deeplearning4j_tpu_torch.nn.layers.output import CenterLossOutputLayer
 from deeplearning4j_tpu_torch.optimize.async_dispatch import (
-    deliver_score, get_window, leading_dim, pad_tail_batch,
-    supports_tail_padding,
+    leading_dim, pad_tail_batch, supports_tail_padding,
 )
 from deeplearning4j_tpu_torch.optimize.updaters import NoOp, get_updater
 
@@ -97,11 +96,12 @@ class ComputationGraph:
         self._rnn_carries = None
 
     # MultiLayerNetwork's clip and updater step (over dicts by vertex name
-    # here), its refusal of the train step's unported parts, its dropout
-    # generator, parameter count, epoch loop with listeners, score and
-    # listener surface
+    # here) with its guarded variant, its dispatch of a step to the guard
+    # or through the monitoring phases, its dropout generator, parameter
+    # count, epoch loop with listeners, score and listener surface
     _apply_updaters = MultiLayerNetwork._apply_updaters
-    _check_trainable = MultiLayerNetwork._check_trainable
+    _step_update = MultiLayerNetwork._step_update
+    _step_and_deliver = MultiLayerNetwork._step_and_deliver
     _differentiable = MultiLayerNetwork._differentiable
     _generator = MultiLayerNetwork._generator
     num_params = MultiLayerNetwork.num_params
@@ -339,24 +339,22 @@ class ComputationGraph:
             d = {n: on(label_mask) for n in outs}
         return d or None
 
-    def _train_step(self, inputs, labels, masks, labels_masks) -> torch.Tensor:
+    def _train_step(self, inputs, labels, masks, labels_masks, ctrl=None,
+                    clip_active=False, step=None):
         """One step (forward, loss, backward, clip, update) on tensors
         already on the device; stores the vertices' new states and returns
-        the loss as a 0-d f32 tensor."""
+        the loss as a 0-d f32 tensor. With ``ctrl`` it is the guarded step
+        and returns (loss, health word), as MultiLayerNetwork's."""
         params = self._differentiable(self.params)
         loss, new_state = self._loss(
             cast_floating(params, self._policy.compute_dtype), self.state,
             inputs, labels, self._generator(), masks, labels_masks)
         loss = loss.float()
-        grads = _grads(loss, tree_leaves(params))
-        with torch.no_grad():
-            self.params, self.opt_state = self._apply_updaters(
-                tree_unflatten(self.params, grads), self.params,
-                self.opt_state, self.step_count)
         for k, v in self.state.items():  # unchanged entries carry forward
             new_state.setdefault(k, v)
-        self.state = tree_map(lambda a: a.detach(), new_state)
-        return loss.detach()
+        word = self._step_update(loss, params, new_state, ctrl, clip_active,
+                                 step)
+        return loss.detach() if word is None else (loss.detach(), word)
 
     def _tail_padding_ok(self) -> bool:
         """Tail padding is loss-exact for a DAG iff no vertex computes
@@ -378,7 +376,6 @@ class ComputationGraph:
         Sync mode returns the loss as a float, async mode (the default) a
         lazy ScoreHandle: see MultiLayerNetwork.fit_batch."""
         x, y, mask, label_mask = _unpack(ds)
-        self._check_trainable()
         plan = faults.active()
         if plan is not None:
             # the numeric fault classes poison the host batch before the step
@@ -394,15 +391,9 @@ class ComputationGraph:
             elif b < max_b and self._tail_padding_ok():
                 x, y, mask, label_mask = pad_tail_batch(
                     x, y, mask, label_mask, max_b)
-        window = get_window(self)
-        # monitoring's phases wait for the monitoring slice: this is the
-        # JAX package's monitoring-off branch
-        loss = self._train_step(self._as_input_dict(x, cast=True),
-                                self._as_label_dict(y), self._mask_list(mask),
-                                self._labels_masks_for(mask, label_mask))
-        result = deliver_score(self, loss, window)
-        self.step_count += 1
-        return result
+        return self._step_and_deliver(
+            (self._as_input_dict(x, cast=True), self._as_label_dict(y)),
+            (self._mask_list(mask), self._labels_masks_for(mask, label_mask)))
 
     def score(self, ds=None) -> float:
         """Loss on a batch without updating; with no batch, the last

@@ -44,12 +44,16 @@ The training runtime around the step is the JAX package's:
   the loss on the device and returns a lazy score, listeners see each
   (iteration, epoch, score) at drain time, ``fit`` drains before the
   epoch-end listeners; partial tail batches pad up to a pow2 bucket;
-- ``evaluate``, ``feed_forward``, ``params_table``, the carry-row API.
-
-Guardrails are not ported yet, and refused with ``NotImplementedError``
-rather than trained around. Where the JAX fit loop reads the monitoring
-layer, the port takes its monitoring-off branch until the monitoring
-slice ports it.
+- ``evaluate``, ``feed_forward``, ``params_table``, the carry-row API;
+- the guardrails (``guardrails``): armed, ``fit_batch`` hands the step to
+  the guard, which runs ``_train_step`` with a control tensor: the raw
+  gradients are screened on the device, then clipped and applied, and
+  params, updater state and layer state are selected on the device
+  (``_step_update``);
+- the monitoring layer (``monitoring``): with it on, ``fit_batch`` times
+  the ``device_step`` (sync) or ``dispatch`` (async) phase and the
+  listeners, ``fit`` the ``data_wait`` phase. Off, the fit path makes no
+  registry, tracer or guard call: each is gated by one None check.
 """
 
 from __future__ import annotations
@@ -59,7 +63,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch import faults
+from deeplearning4j_tpu_torch import faults, guardrails, monitoring
 from deeplearning4j_tpu_torch.common.device import (
     DeviceLike, resolve_device, to_device,
 )
@@ -69,12 +73,13 @@ from deeplearning4j_tpu_torch.common.trees import (
     tree_leaves, tree_map, tree_unflatten,
 )
 from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
+from deeplearning4j_tpu_torch.guardrails import sentinel
 from deeplearning4j_tpu_torch.nn.conf.builders import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.layers.base import resolve_activation
 from deeplearning4j_tpu_torch.nn.layers.output import CenterLossOutputLayer
 from deeplearning4j_tpu_torch.optimize.async_dispatch import (
-    deliver_score, drain_scores, get_window, leading_dim, pad_tail_batch,
-    supports_tail_padding,
+    _fetch_scalar, deliver_score, drain_scores, get_window, leading_dim,
+    pad_tail_batch, supports_tail_padding,
 )
 from deeplearning4j_tpu_torch.optimize.updaters import NoOp, get_updater
 
@@ -82,7 +87,7 @@ from deeplearning4j_tpu_torch.optimize.updaters import NoOp, get_updater
 def global_norm_clip(grads, max_norm):
     """Scale a gradient tree to at most ``max_norm`` global L2 norm (DL4J
     GradientNormalization.ClipL2PerParamType, global form)."""
-    norm = torch.sqrt(sum((g.float() ** 2).sum() for g in tree_leaves(grads)))
+    norm = sentinel.global_norm(grads)
     scale = torch.clamp(max_norm / (norm + 1e-12), max=1.0)
     return tree_map(lambda g: g * scale, grads)
 
@@ -489,33 +494,60 @@ class MultiLayerNetwork:
                               params[k])
         return out if isinstance(params, dict) else list(out.values())
 
-    def _train_step(self, x, y, mask, label_mask, carries=None):
+    def _train_step(self, x, y, mask, label_mask, carries=None, ctrl=None,
+                    clip_active=False, step=None):
         """One step (forward, loss, backward, clip, update) on tensors
         already on the device; stores the layers' new states (the JAX
         step's ``new_states``) and returns the loss as a 0-d f32 tensor,
         and with ``carries`` (a tBPTT chunk) the new carries, detached: no
-        gradient crosses a chunk boundary."""
+        gradient crosses a chunk boundary. With ``ctrl`` (the guardrails'
+        control lanes) it is the guarded step and returns (loss, health
+        word): see :meth:`_step_update`. ``step`` is the updaters' step
+        (default ``step_count``; a guardrail replay passes its own)."""
         params = self._differentiable(self.params)
         out = self._loss_terms(
             cast_floating(params, self._policy.compute_dtype), x, y, mask,
             label_mask, train=True, rng=self._generator(), carries=carries)
         loss = out[0].float()
-        grads = _grads(loss, tree_leaves(params))
-        with torch.no_grad():
-            self.params, self.opt_state = self._apply_updaters(
-                tree_unflatten(self.params, grads), self.params,
-                self.opt_state, self.step_count)
-        self.state = tree_map(lambda a: a.detach(), out[1])
+        word = self._step_update(loss, params, out[1], ctrl, clip_active,
+                                 step)
+        if word is not None:
+            return loss.detach(), word
         if carries is None:
             return loss.detach()
         return loss.detach(), tree_map(lambda a: a.detach(), out[2])
 
-    def _check_trainable(self):
-        """Refuse the part of the JAX train step the port has not taken
-        over, instead of training without it (shared with
-        ComputationGraph)."""
-        if env.guardrails:
-            raise NotImplementedError("training guardrails are not ported yet")
+    def _step_update(self, loss, params, new_state, ctrl=None,
+                     clip_active=False, step=None):
+        """The backward pass of ``loss`` to ``params`` (the detached copies
+        of ``self.params`` it was computed from), the clips and the
+        updaters; stores the new params, updater state and layer state
+        ``new_state``. Guarded (``ctrl`` given), the raw gradients are
+        screened first (``sentinel.screen``, scaled by the control clip
+        only in the ``clip_active`` variant), and the new trees are
+        selected against the old ones on the device by the word's ok lane;
+        returns the word (None unguarded). No updater writes its state in
+        place, so the old trees the select keeps are intact (shared with
+        ComputationGraph, whose trees are dicts by vertex name)."""
+        grads = tree_unflatten(self.params, _grads(loss, tree_leaves(params)))
+        word = None
+        with torch.no_grad():
+            if ctrl is not None:
+                grads, word = sentinel.screen(grads, loss, ctrl,
+                                              with_clip=clip_active)
+            new_params, new_opt = self._apply_updaters(
+                grads, self.params, self.opt_state,
+                self.step_count if step is None else step)
+            new_state = tree_map(lambda a: a.detach(), new_state)
+            if word is not None:
+                # a tripped step keeps the old params, updater state and
+                # layer state on the device
+                ok = word[sentinel.WORD_OK] > 0
+                new_params = sentinel.tree_select(ok, new_params, self.params)
+                new_opt = sentinel.tree_select(ok, new_opt, self.opt_state)
+                new_state = sentinel.tree_select(ok, new_state, self.state)
+        self.params, self.opt_state, self.state = new_params, new_opt, new_state
+        return word
 
     def _fit_tbptt(self, x, y, mask, label_mask):
         """Truncated BPTT over one batch: full chunks of
@@ -539,7 +571,8 @@ class MultiLayerNetwork:
                 x[:, sl], y[:, sl], None if mask is None else mask[:, sl],
                 None if label_mask is None else label_mask[:, sl], carries)
             total = loss if total is None else total + loss
-        result = deliver_score(self, total / len(starts), get_window(self))
+        result = deliver_score(self, total / len(starts), get_window(self),
+                               monitoring.fit_monitor())
         self.step_count += 1
         return result
 
@@ -555,7 +588,6 @@ class MultiLayerNetwork:
         drains to a float."""
         x, y, mask, label_mask = _unpack(ds)
         label_mask = _single_mask(label_mask)
-        self._check_trainable()
         plan = faults.active()
         if plan is not None:
             # the numeric fault classes poison the host batch before the
@@ -574,12 +606,47 @@ class MultiLayerNetwork:
             elif b < max_b and self._tail_padding_ok():
                 x, y, mask, label_mask = pad_tail_batch(
                     x, y, mask, label_mask, max_b)
+        return self._step_and_deliver(
+            (self._input(x), self._labels(y)),
+            (self._mask(mask), self._mask(label_mask)))
+
+    def _step_and_deliver(self, data, masks):
+        """One train step on device-ready (features, labels) and (mask,
+        labels mask) pairs and the delivery of its score, as the JAX
+        package's ``fit_batch`` dispatches it: to the armed guard, or
+        through the monitoring phases, or (both off: one None check each)
+        straight (shared with ComputationGraph)."""
         window = get_window(self)
-        # monitoring's phases wait for the monitoring slice: this is the
-        # JAX package's monitoring-off branch
-        loss = self._train_step(self._input(x), self._labels(y),
-                                self._mask(mask), self._mask(label_mask))
-        result = deliver_score(self, loss, window)
+        mon = monitoring.fit_monitor()
+        guard = guardrails.get_guard(self)
+        if guard is not None:
+            result = guard.step(self, data, masks, window, mon)
+            self.step_count += 1
+            return result
+        if mon is None:
+            # hot path: monitoring off means no registry or tracer call
+            loss = self._train_step(*data, *masks)
+            result = deliver_score(self, loss, window)
+        elif window is None:
+            with mon.phase("device_step"):
+                loss = self._train_step(*data, *masks)
+                # the host fetch is the device sync: step time includes it
+                result = self._score_value = _fetch_scalar(loss)
+            with mon.phase("listeners"):
+                for lst in self.listeners:
+                    lst.iteration_done(self, self.step_count,
+                                       self.epoch_count, result)
+            mon.iteration_done(result)
+        else:
+            with mon.phase("dispatch"):
+                loss = self._train_step(*data, *masks)
+            try:
+                result = window.submit(loss)  # drains oldest over capacity
+            except BaseException:
+                # a drain error of an older step: this step is queued, and
+                # consumes its id either way (see deliver_score)
+                self.step_count += 1
+                raise
         self.step_count += 1
         return result
 
@@ -601,9 +668,11 @@ class MultiLayerNetwork:
         for _ in range(epochs):
             for lst in self.listeners:
                 lst.on_epoch_start(self, self.epoch_count)
-            # monitoring's data-wait spans wait for the monitoring slice
+            # data-wait phases time the iterator pull per batch (the host
+            # input pipeline against the step); None = monitoring off
+            mon = monitoring.fit_monitor()
             try:
-                for ds in data:
+                for ds in (data if mon is None else mon.wrap_batches(data)):
                     self.fit_batch(ds)
             except BaseException:
                 # best-effort drain; the batch loop's exception wins

@@ -7,9 +7,13 @@ shared library at first use (never at import), and is called through
 PyTorch headers are compiled, so a build takes seconds.
 
 Libraries go into ``deeplearning4j_tpu_torch/_build/`` (listed in
-``.gitignore``), named by a hash of the source, the shared headers
-(``csrc/*.cuh``) and the flags, so an edited source rebuilds and an
-unchanged one loads the cached library.
+``.gitignore``), or the directory ``DL4J_TORCH_COMPILE_CACHE`` or
+``monitoring.compile.configure_compile_cache`` names, named by a hash of
+the source, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source rebuilds and an unchanged one loads the cached library.
+With monitoring on, each build counts in ``dl4j_compiles_total`` and
+``dl4j_compile_seconds`` and each probe of the directory in
+``dl4j_compile_cache_events_total`` (``monitoring/compile.py``).
 
 :class:`CudaKernel` pairs a library with its launch count, and
 :func:`launch` calls one of its C launchers on PyTorch's current stream.
@@ -30,9 +34,13 @@ from typing import Optional, Sequence
 
 import torch
 
+from deeplearning4j_tpu_torch.common.env import env
+from deeplearning4j_tpu_torch.monitoring import compile as compile_metrics
+
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
-BUILD_DIR = PACKAGE_DIR / "_build"
+BUILD_DIR = (Path(env.compile_cache_dir) if env.compile_cache_dir
+             else PACKAGE_DIR / "_build")
 ARCH = "sm_90a"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -87,6 +95,7 @@ class CudaLibrary:
         path = self.library_path()
         if path.exists():
             self.build_seconds = 0.0
+            compile_metrics.record_cache("hit")
             return path
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
@@ -104,13 +113,15 @@ class CudaLibrary:
                 os.unlink(tmp)
         self.build_seconds = time.perf_counter() - t0
         self.build_log = proc.stdout + proc.stderr
+        compile_metrics.record_build(self.build_seconds)
         return path
 
     def sass(self) -> dict:
         """The built library's machine code by device function, as
         ``cuobjdump -sass`` (beside nvcc) prints it: {mangled name: text}."""
         tool = Path(find_nvcc()).with_name("cuobjdump")
-        proc = subprocess.run([str(tool), "-sass", str(self.build())],
+        path = self.library_path() if self._lib is not None else self.build()
+        proc = subprocess.run([str(tool), "-sass", str(path)],
                               capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"cuobjdump failed on {self.source.name}:\n"

@@ -20,11 +20,18 @@ The JAX registry chooses once, at trace time. PyTorch runs eagerly, so the
 port chooses on every call and caches the choice per (op, device, dtypes,
 shapes, contiguity, whether autograd will need gradients, flags) to keep
 the predicates off the hot path: a kernel's ``requires`` may depend on all
-of them (the recurrent kernels' backward has its own limit on H).
+of them (the recurrent kernels' backward has its own limit on H). The
+cache is a bounded LRU (``CHOICE_CACHE_SIZE`` entries an op): the choice is
+a function of the key alone, so an evicted key is chosen again the same
+way, and a server that sees a new shape per prompt length holds memory
+flat. ``DL4J_TORCH_NAN_PANIC`` checks every op's floating outputs and
+raises ``FloatingPointError`` naming the op on a NaN or Inf (the JAX
+registry's panic mode; a host read an op).
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Any, Callable, Optional
 
@@ -33,6 +40,8 @@ import torch
 from deeplearning4j_tpu_torch.common.env import env
 
 PLAIN = "plain"
+# selection-cache entries kept per op (least recently used evicted first)
+CHOICE_CACHE_SIZE = 256
 
 
 @dataclasses.dataclass
@@ -78,7 +87,7 @@ class _Op:
     def __init__(self, name: str):
         self.name = name
         self.impls: list[OpImpl] = []
-        self._choices: dict = {}
+        self._choices: collections.OrderedDict = collections.OrderedDict()
 
     @property
     def plain(self) -> OpImpl:
@@ -103,13 +112,31 @@ class _Op:
         if impl is None:
             impl = self._choose(args, kwargs)
             self._choices[key] = impl
+            if len(self._choices) > CHOICE_CACHE_SIZE:
+                self._choices.popitem(last=False)
             if env.verbose:
                 print(f"[dl4j-torch] op {self.name} -> {impl.platform} "
                       f"for {key[3]}")
+        else:
+            self._choices.move_to_end(key)
         return impl
 
     def __call__(self, *args, **kwargs):
-        return self.select(*args, **kwargs).fn(*args, **kwargs)
+        out = self.select(*args, **kwargs).fn(*args, **kwargs)
+        if env.nan_panic:
+            _nan_check(self.name, out)
+        return out
+
+
+def _nan_check(name: str, out) -> None:
+    """Raise FloatingPointError if a floating tensor of ``out`` (nested
+    tuples and lists) holds a NaN or an Inf."""
+    if isinstance(out, (tuple, list)):
+        for o in out:
+            _nan_check(name, o)
+    elif (isinstance(out, torch.Tensor) and out.is_floating_point()
+          and not bool(torch.isfinite(out).all())):
+        raise FloatingPointError(f"NaN/Inf in op {name}")
 
 
 _REGISTRY: dict[str, _Op] = {}

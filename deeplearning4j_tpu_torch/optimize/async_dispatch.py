@@ -22,9 +22,13 @@ every step to finish before the host could prepare the next. Three pieces:
 - **_fetch_scalar**: the one place the fit path turns a loss into a float,
   so tests can count the host syncs.
 
-Not here yet: the guardrails' sentinel words and rollback re-queueing (the
-guardrails slice), and the request trace of a dispatched step
-(``trace_id`` stays None until ``monitoring/context.py`` is ported).
+Guarded steps (``guardrails``) carry their sentinel word through the
+window, copied to the host the way a loss is, and are screened at drain;
+a rollback takes the in-flight entries and re-queues them resolved on the
+host. Each handle stamps the ambient request trace
+(``monitoring.context.current_trace_id``) at dispatch. With monitoring on,
+the drain and the deferred listeners are timed as the fit loop's
+``drain`` and ``listeners`` phases.
 """
 
 from __future__ import annotations
@@ -35,7 +39,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch import monitoring
 from deeplearning4j_tpu_torch.common.env import env
+from deeplearning4j_tpu_torch.monitoring import context as trace_context
 from deeplearning4j_tpu_torch.serving.warmup import bucket_for, pow2_buckets
 
 
@@ -75,18 +81,25 @@ def _fetch_scalar(arr) -> float:
 class AsyncStepError(RuntimeError):
     """An in-flight train step failed; raised at drain time with the step
     it belongs to (not the step the host had reached when it surfaced).
-    ``trace_id`` names the request trace that dispatched the step (None
-    until the monitoring slice)."""
+    ``trace_id`` names the request trace that dispatched the step (the
+    ambient :func:`monitoring.context.bind` at submit time). A guarded
+    step's error also carries ``sentinel``, the tripping step's [ok,
+    gnorm, loss, z] health word."""
 
     def __init__(self, step: int, epoch: int, cause: BaseException,
-                 trace_id: Optional[str] = None):
+                 trace_id: Optional[str] = None, sentinel=None):
+        sentinel = (None if sentinel is None
+                    else [float(v) for v in sentinel])
         msg = f"async train step {step} (epoch {epoch}) failed: {cause}"
+        if sentinel is not None:
+            msg += f" [sentinel {[round(v, 4) for v in sentinel]}]"
         if trace_id:
             msg += f" [trace {trace_id}]"
         super().__init__(msg)
         self.step = step
         self.epoch = epoch
         self.trace_id = trace_id
+        self.sentinel = sentinel
         self.__cause__ = cause
 
 
@@ -104,7 +117,9 @@ class ScoreHandle:
         self._window = window
         self.step = step
         self.epoch = epoch
-        self.trace_id = None  # the monitoring slice stamps the ambient trace
+        # the ambient request trace at dispatch (None untraced), so a
+        # deferred drain error still names its origin
+        self.trace_id = trace_context.current_trace_id()
         self._value: Optional[float] = None
         self._error: Optional[AsyncStepError] = None
 
@@ -211,33 +226,79 @@ class AsyncScoreWindow:
     def __len__(self) -> int:
         return len(self._pending)
 
-    def submit(self, loss) -> ScoreHandle:
+    def submit(self, loss, word=None, guard=None) -> ScoreHandle:
         """Register one dispatched step's loss (a device tensor, its copy to
         the host queued here); returns its lazy handle. Called with the
-        model's pre-increment step and epoch counters."""
+        model's pre-increment step and epoch counters. A guarded step
+        carries its sentinel ``word`` (copied to the host in its place: the
+        word's loss lane replaces the bare loss fetch) and the ``guard``
+        that screens it at drain."""
         m = self.model
         handle = ScoreHandle(self, m.step_count, m.epoch_count)
         # snapshot: set_listeners() between dispatch and drain must not
         # change who observes this iteration
-        self._pending.append((handle, _start_fetch(loss), tuple(m.listeners)))
+        if guard is None:
+            entry = (handle, _start_fetch(loss), tuple(m.listeners), None,
+                     None)
+        else:
+            entry = (handle, None, tuple(m.listeners), _start_fetch(word),
+                     guard)
+        self._pending.append(entry)
         while len(self._pending) > self.max_in_flight:
             self._drain_one()
         return handle
 
+    def take_pending(self):
+        """Remove and return every in-flight entry (a guardrail rollback:
+        the checkpoint restore erases the device-side effects of in-flight
+        steps, so the guard re-resolves their handles on the host from the
+        replayed window and re-queues them for FIFO delivery)."""
+        out = list(self._pending)
+        self._pending.clear()
+        return out
+
+    def requeue(self, handle, listeners, word, guard) -> None:
+        """Re-queue a taken entry with a host-side resolution in place of
+        its (now stale) device values; delivered by the normal drain."""
+        self._pending.append((handle, None, listeners, word, guard))
+
+    def _deliver(self, handle, loss, word, guard) -> float:
+        if guard is None:
+            return _fetch_scalar(loss)
+        from deeplearning4j_tpu_torch import guardrails
+
+        if isinstance(word, guardrails._Resolved):
+            # a rollback already re-resolved this step on the host
+            return word.value
+        return guard.deliver(self.model, handle.step, handle.epoch,
+                             guardrails._fetch_word(word), self)
+
     def _drain_one(self) -> None:
-        # monitoring's drain and listener phases wait for the monitoring
-        # slice: this is the JAX package's monitoring-off branch
-        handle, loss, listeners = self._pending.popleft()
+        handle, loss, listeners, word, guard = self._pending.popleft()
+        mon = monitoring.fit_monitor()
         try:
-            value = _fetch_scalar(loss)
+            if mon is None:
+                value = self._deliver(handle, loss, word, guard)
+            else:
+                with mon.phase("drain"):
+                    value = self._deliver(handle, loss, word, guard)
         except Exception as e:  # surfaced with the step it belongs to
             handle._error = AsyncStepError(handle.step, handle.epoch, e,
-                                           trace_id=handle.trace_id)
+                                           trace_id=handle.trace_id,
+                                           sentinel=getattr(e, "word", None))
             raise handle._error
         handle._value = value
         self.model._score_value = value
-        for lst in listeners:
-            lst.iteration_done(self.model, handle.step, handle.epoch, value)
+        if mon is None:
+            for lst in listeners:
+                lst.iteration_done(self.model, handle.step, handle.epoch,
+                                   value)
+        else:
+            with mon.phase("listeners"):
+                for lst in listeners:
+                    lst.iteration_done(self.model, handle.step, handle.epoch,
+                                       value)
+            mon.iteration_done(value)
 
     def drain(self) -> None:
         """Retire every in-flight step (epoch end / fit end / score read)."""
@@ -285,9 +346,10 @@ def drain_scores(model, suppress: bool = False) -> None:
         pass
 
 
-def deliver_score(model, loss, window: Optional[AsyncScoreWindow]
-                  ) -> "float | ScoreHandle":
-    """Sync path: fetch, set ``_score_value``, run the listeners. Async:
+def deliver_score(model, loss, window: Optional[AsyncScoreWindow],
+                  mon=None) -> "float | ScoreHandle":
+    """Sync path: fetch, set ``_score_value``, run the listeners (timed as
+    the ``listeners`` phase when ``mon``, the fit monitor, is on). Async:
     submit to the window. The caller increments ``step_count`` after."""
     if window is not None:
         try:
@@ -298,11 +360,18 @@ def deliver_score(model, loss, window: Optional[AsyncScoreWindow]
             # queued and consumes its id
             model.step_count += 1
             raise
-    # monitoring's listener phase waits for the monitoring slice
     value = _fetch_scalar(loss)
     model._score_value = value
-    for lst in model.listeners:
-        lst.iteration_done(model, model.step_count, model.epoch_count, value)
+    if mon is None:
+        for lst in model.listeners:
+            lst.iteration_done(model, model.step_count, model.epoch_count,
+                               value)
+    else:
+        with mon.phase("listeners"):
+            for lst in model.listeners:
+                lst.iteration_done(model, model.step_count,
+                                   model.epoch_count, value)
+        mon.iteration_done(value)
     return value
 
 

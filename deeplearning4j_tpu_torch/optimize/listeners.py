@@ -154,22 +154,10 @@ class CheckpointListener(TrainingListener):
 
 
 def _system_metrics(model) -> dict:
-    """Host RSS and, for a model on the card, the memory PyTorch has
-    allocated there (the two keys of the JAX package's ``system_metrics``
-    that PerformanceListener prints; the rest of ``common/sysmetrics.py``
-    waits for the observability slice)."""
-    import os
+    """``common/sysmetrics.system_metrics`` of the model's device: host
+    RSS, and for a model on the card the memory PyTorch has allocated
+    there, its peak and the card's total."""
+    from deeplearning4j_tpu_torch.common.sysmetrics import system_metrics
 
-    out = {}
-    try:
-        with open("/proc/self/statm") as f:
-            rss_pages = int(f.read().split()[1])
-        out["host_rss_mb"] = rss_pages * os.sysconf("SC_PAGE_SIZE") / 2**20
-    except (OSError, ValueError, IndexError):
-        pass
     dev = getattr(model, "device", None)
-    if dev is not None and dev.type == "cuda":
-        import torch
-
-        out["device_mem_in_use_mb"] = torch.cuda.memory_allocated(dev) / 2**20
-    return out
+    return system_metrics(dev if dev is not None else "cpu")

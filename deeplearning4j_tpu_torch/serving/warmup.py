@@ -6,14 +6,15 @@ run each once at load: here that builds the kernels, fills the op
 registry's choice cache and the recurrent launchers' plan caches, and
 warms PyTorch's allocator, before any request waits on them. The
 generation engine pads attention prompts to these buckets
-(``bucket_for(n - 1, pow2_buckets(max_len - 1))``). The JAX package also
-records each warm-up in a histogram; that waits for the monitoring layer.
+(``bucket_for(n - 1, pow2_buckets(max_len - 1))``). With monitoring on and
+a (model, version) label pair, each bucket's warm-up lands in
+``dl4j_serving_warmup_seconds``.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -40,10 +41,14 @@ def bucket_for(n: int, buckets: Sequence[int]) -> int:
 
 def warmup_model(model, example_shape: Sequence[int],
                  buckets: Sequence[int],
-                 dtype=np.float32) -> Dict[int, float]:
+                 dtype=np.float32,
+                 labels: Optional[Tuple[str, str]] = None) -> Dict[int, float]:
     """``model.output`` once per bucket on zeros of ``(bucket,
     *example_shape)``; returns {bucket: seconds}, each synced to the
-    device."""
+    device. ``labels``: an optional (model, version) pair for the
+    warm-up duration histogram."""
+    from deeplearning4j_tpu_torch import monitoring
+
     timings: Dict[int, float] = {}
     shape = tuple(int(d) for d in example_shape)
     for b in sorted(set(int(b) for b in buckets)):
@@ -53,4 +58,9 @@ def warmup_model(model, example_shape: Sequence[int],
         if isinstance(out, torch.Tensor) and out.is_cuda:
             torch.cuda.synchronize(out.device)
         timings[b] = time.perf_counter() - t0
+    mon = monitoring.serving_monitor()
+    if mon is not None and labels is not None:
+        for dt in timings.values():
+            mon.warmup_seconds.labels(model=labels[0],
+                                      version=labels[1]).observe(dt)
     return timings

@@ -26,8 +26,12 @@ without blocking the host, then a writer thread waits for that copy,
 checksums and writes; :meth:`wait` joins every pending write and raises
 the first error. Fault points (``faults``): ``ckpt_io`` fails a save
 submit or a restore read with an OSError; ``ckpt_corrupt`` truncates a
-committed step's payload after the save. The recovery counters of the JAX
-package (fallbacks, give-ups) wait for the monitoring slice.
+committed step's payload after the save. With monitoring on, a save is
+a ``checkpoint.save`` span and counts in ``dl4j_checkpoint_save_seconds``
+(the submit time under async saves), ``dl4j_checkpoint_bytes_total`` and
+``dl4j_checkpoint_saves_total``; a restore that falls back past an invalid
+step counts ``dl4j_recovery_total{component="checkpoint",
+outcome="fallback"}``, and finding none ``outcome="no_valid_checkpoint"``.
 """
 
 from __future__ import annotations
@@ -140,7 +144,7 @@ class TrainingCheckpointer:
 
     # ------------------------------------------------------------- saving
     def save(self, step: int, model) -> None:
-        from deeplearning4j_tpu_torch import faults
+        from deeplearning4j_tpu_torch import faults, monitoring
 
         step = int(step)
         plan = faults.active()
@@ -159,7 +163,25 @@ class TrainingCheckpointer:
                 ready.record()
             return payload, ready
 
-        payload, ready = self._retry.call(submit, component="checkpoint")
+        mon = monitoring.checkpoint_monitor()
+        if mon is None:
+            payload, ready = self._retry.call(submit, component="checkpoint")
+        else:
+            from deeplearning4j_tpu_torch.common.trees import tree_leaves
+
+            trees = (model.params, model.state, model.opt_state)
+            nbytes = sum(t.numel() * t.element_size()
+                         for t in tree_leaves(trees)
+                         if isinstance(t, torch.Tensor))
+            with monitoring.span("checkpoint.save", step=step, bytes=nbytes):
+                t0 = time.perf_counter()
+                # async saves: this is the submit cost the fit loop pays;
+                # the background write finishes under wait()
+                payload, ready = self._retry.call(submit,
+                                                  component="checkpoint")
+                mon.save_seconds.observe(time.perf_counter() - t0)
+            mon.saved_bytes.inc(nbytes)
+            mon.saves.inc()
         if self.async_save:
             if self._pool is None:
                 self._pool = ThreadPoolExecutor(
@@ -271,12 +293,15 @@ class TrainingCheckpointer:
 
     def restore_latest(self, model) -> Optional[int]:
         """Restore the newest valid checkpoint: a step that fails to read
-        or to validate is skipped (with a warning), not raised."""
+        or to validate is skipped (with a warning, counted as a
+        ``fallback`` recovery), not raised."""
+        from deeplearning4j_tpu_torch import monitoring
+
         self.wait()
         steps = sorted(self.all_steps(), reverse=True)
-        for step in steps:
+        for i, step in enumerate(steps):
             try:
-                return self.restore(step, model)
+                restored = self.restore(step, model)
             except KeyboardInterrupt:
                 raise
             except Exception as e:  # noqa: BLE001 — an unreadable or
@@ -285,7 +310,19 @@ class TrainingCheckpointer:
                 warnings.warn(f"checkpoint step {step} is not restorable "
                               f"({type(e).__name__}: {e}); falling back to "
                               f"the previous step")
+                continue
+            if i > 0:
+                mon = monitoring.recovery_monitor()
+                if mon is not None:
+                    mon.recovery_total.labels(
+                        component="checkpoint", outcome="fallback").inc()
+            return restored
         if steps:
+            mon = monitoring.recovery_monitor()
+            if mon is not None:
+                mon.recovery_total.labels(
+                    component="checkpoint",
+                    outcome="no_valid_checkpoint").inc()
             warnings.warn(f"no restorable checkpoint among steps {steps}; "
                           f"starting from scratch")
         return None

@@ -12,8 +12,9 @@ The fused attention runs through the port's registry
 ``dot_product_attention`` with the exporter's mask as ``bias``, which the
 flash kernels refuse. The escape hatch (``optimize=False``,
 ``DL4J_TORCH_IMPORT_OPT=0``) restores the raw parse. The port counts the
-rewrites on ``import_opt_stats`` only: it has no monitoring registry yet
-(ROADMAP A6). ``prune_keras_layers``, the Keras frontend's layer pass, is
+rewrites on ``import_opt_stats`` and, with monitoring on, in
+``dl4j_import_opt_rewrites_total`` (``tests/test_torch_monitoring.py``).
+``prune_keras_layers``, the Keras frontend's layer pass, is
 held against the JAX function on its own (Keras import waits for A3).
 """
 

@@ -469,10 +469,11 @@ def _tiny(**conf_kw):
 
 @pytest.mark.parametrize("case", ["tbptt", "remat", "guardrails", "faults"])
 def test_unported_train_step_parts_raise(case, monkeypatch):
-    """Guardrails, the one part of the JAX train step not ported yet, are
-    refused before the step runs; truncated BPTT, remat and fault plans,
-    refused until they were ported, now take the step."""
-    from deeplearning4j_tpu_torch import faults
+    """Truncated BPTT, remat, fault plans and the guardrails, each refused
+    until its slice ported it (the name is kept from then), now take the
+    step: params move and ``step_count`` is 1. Armed by the environment,
+    the guardrails attach a guard to the network at its first step."""
+    from deeplearning4j_tpu_torch import faults, guardrails
 
     (x, y), = _batches(1, 5, T=6, B=2, seed=8)
     if case == "tbptt":
@@ -483,19 +484,17 @@ def test_unported_train_step_parts_raise(case, monkeypatch):
         net = _tiny()
         if case == "guardrails":
             monkeypatch.setattr(env, case, True)
+            monkeypatch.setattr(env, "guardrails_dir", None)
     net.init(device="cpu")
     before = [p["W"].clone() for p in net.params]
-    if case == "guardrails":
-        with pytest.raises(NotImplementedError, match="not ported"):
-            net.fit_batch((x, y))
-        assert net.step_count == 0
-        assert all(torch.equal(p["W"], b) for p, b in zip(net.params, before))
-        return
     with (faults.injected("data_corrupt:1") if case == "faults"
           else contextlib.nullcontext()):
         assert np.isfinite(float(net.fit_batch((x, y))))
     assert net.step_count == 1
     assert all(not torch.equal(p["W"], b) for p, b in zip(net.params, before))
+    if case == "guardrails":
+        guard = guardrails.get_guard(net)
+        assert isinstance(guard, guardrails.Guardrail) and guard.trips == 0
 
 
 def test_tbptt_length_covering_the_sequence_trains():
