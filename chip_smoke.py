@@ -356,13 +356,52 @@ Phases (any failure exits non-zero before the result line):
     on against off. (d) ``profiler.trace`` around two guarded config #3
     steps writes a Chrome trace naming the LSTM kernels;
     ``device_memory_mb`` against ``torch.cuda.memory_allocated``.
-37. Prints the kernels line (all nine kernels; the LRN entries count the
+37. Keras import: keras.io's "Bidirectional LSTM on IMDB" (Embedding
+    20000 x 128, Bidirectional(LSTM(64)) twice, Dense(1, sigmoid); maxlen
+    200, batch 32) as a Keras-3 Sequential config written here, with
+    random weights from the seed in Keras's layout, imported through the
+    config-JSON half (``_build`` and the weight loader's ``reader=`` seam
+    over a {name: [arrays]} mapping: the card's machine has no h5py):
+    5 ``output()`` calls (4 LSTM forwards a call), 3 ``fit_batch`` steps
+    against the port's CPU run of the same import (output and losses
+    within TOL_KERAS_CPU relative, params within TOL_TRAIN_PARAM
+    absolute), 10 counted steps (4 + 4 a step, losses
+    falling) and a profiled call and step whose device records equal the
+    host's counts. Then keras.io's "Simple MNIST convnet" at batch 128 on
+    synthetic MNIST: a dropout-0 import's ``output()`` and 3 steps
+    against the CPU, 3 steps of the import as it is (no kernel of the
+    port).
+38. The pretrain tier: dl4j-examples' VaeMNIST2dPlots VAE (784 -> 256,
+    256 -> 2 -> 256, 256, leakyrelu, Bernoulli, RMSProp 1e-3, l2 1e-4)
+    through ``pretrain`` over ``MnistDataSetIterator(128)`` (one epoch,
+    at least 50 steps): the ELBO of a held batch under fixed noise
+    before and after, and of the first batch's step before and after,
+    must fall; no NaN; ms a step (wall over the epoch, device over 10
+    steps on one batch); ``reconstruct`` in [0, 1]. Then a stacked
+    denoising autoencoder (500, 250, corruption 0.3, xent, a 10-class
+    head): ``pretrain``, then 10 ``fit_batch`` steps. No kernel of the
+    port runs.
+39. Quantized serving: ``net.quantize()`` of phase 30's LM (the pass's
+    tensors and weight bytes through the monitoring bundle's
+    ``observe_pass``) in ``GenerationEngine(slots=8, max_len=512,
+    kv_dtype="int8")`` with phase 30's 16 requests, counted as in phase
+    30 (12 flash forwards a prefill, one decode program replayed every
+    step); tokens/s, TTFT and a steady decode step beside phase 30's bf16
+    and int8 rings; an eager greedy rollout against the unquantized net
+    (post-softmax difference, top-1 agreement); the witness over an
+    eager prefill and decode step (nothing flagged) and its control (a
+    weight dequantized by ``q * scale``, flagged). Then ResNet-50 (f32)
+    quantized through ``ComputationGraph.quantize`` (the conv int8
+    branch): logits at B = 64 on the card against the same view on the
+    CPU within TOL_RESNET_CPU, ms a call beside the f32 graph's.
+40. Prints the kernels line (all nine kernels; the LRN entries count the
     import path's launches under ``launches_by_path["tf_import"]``, the
     flash forward the serving prefills of phases 29-30 and its prefill
     shape's times, every entry YOLO2's, 0, under ``"yolo2_inference"``
     and ``"yolo2_training"``, the training runtime's paths of phases
-    32-35 and the observability paths of phase 36), the card line and,
-    last, the result line ``{"ok": true, "device": {...}}``.
+    32-35, the observability paths of phase 36 and the import, pretrain
+    and quantized paths of phases 37-39), the card line and, last, the
+    result line ``{"ok": true, "device": {...}}``.
 
 Every phase's JSON record carries
 ``profiler_lead_in_records_lost_by_window``: for each window it profiled,
@@ -5882,6 +5921,644 @@ def phase_profiler_sysmetrics(torch, np, net, batch):
             "device_memory_mb": mem, "memory_allocated_mb": allocated}
 
 
+# ------------------------- Keras import, pretrain tier, int8 weights
+# phase 37: keras.io's "Bidirectional LSTM on IMDB" (max_features 20000,
+# maxlen 200, Embedding 128, two Bidirectional(LSTM(64)), batch 32) and
+# "Simple MNIST convnet" (batch 128), imported from Keras-3 config JSON
+IMDB_VOCAB, IMDB_MAXLEN, IMDB_BATCH = 20000, 200, 32
+IMDB_EMBED, IMDB_UNITS = 128, 64
+N_KERAS_CALLS = 5
+N_KERAS_STEPS = 10
+N_KERAS_CPU_STEPS = 3
+MNIST_CNN_BATCH = 128
+# the imported nets on the card against the port's CPU run of the same
+# import, f32, TF32 off: outputs and losses at the earlier card-against-CPU
+# phases' relative limit (max |card - cpu| over max |cpu|); params after
+# Adam steps at phase 7's TOL_TRAIN_PARAM (_against_cpu says why)
+TOL_KERAS_CPU = 1e-5
+# phase 38: dl4j-examples' VaeMNIST2dPlots (784 -> 256, 256 -> 2 -> 256,
+# 256, leakyrelu, Bernoulli, RMSProp 1e-3, l2 1e-4, minibatch 128)
+VAE_BATCH = 128
+N_VAE_MIN_STEPS = 50
+N_VAE_DEVICE_STEPS = 10
+N_SDA_STEPS = 10
+# phase 39: the quantized full-width LM and ResNet-50
+N_QUANT_ROLLOUT = 32
+QUANT_ROLLOUT_PROMPT = 64
+QUANT_RESNET_BATCH = 64
+
+
+def _glorot(np, rng, shape, fan_in, fan_out):
+    """Keras's glorot_uniform."""
+    a = np.sqrt(6.0 / (fan_in + fan_out))
+    return rng.uniform(-a, a, shape).astype(np.float32)
+
+
+def _keras_lstm_weights(np, rng, F, H):
+    """One Keras LSTM's variables as Keras lays them out (kernel [F, 4H],
+    recurrent kernel [H, 4H], bias [4H]; gates i, f, c, o) at Keras's
+    initializers: glorot_uniform, orthogonal, zeros with the forget gate's
+    bias at 1 (unit_forget_bias)."""
+    q, r = np.linalg.qr(rng.normal(size=(4 * H, H)))
+    rec = (q * np.sign(np.diag(r))).T.astype(np.float32)
+    bias = np.zeros(4 * H, np.float32)
+    bias[H:2 * H] = 1.0
+    return [_glorot(np, rng, (F, 4 * H), F, 4 * H), rec, bias]
+
+
+def imdb_bilstm(np):
+    """keras.io's "Bidirectional LSTM on IMDB" as a Keras-3 Sequential
+    config, at maxlen 200, and its weights from the seed in Keras's layout
+    ({Keras layer name: [arrays]}; a Bidirectional's forward variables,
+    then its backward ones)."""
+    def bidi(name, inner, seq):
+        return {"class_name": "Bidirectional", "config": {
+            "name": name, "merge_mode": "concat", "layer": {
+                "class_name": "LSTM", "config": {
+                    "name": inner, "units": IMDB_UNITS,
+                    "activation": "tanh", "recurrent_activation": "sigmoid",
+                    "return_sequences": seq}}}}
+
+    cfg = {"class_name": "Sequential", "config": {"name": "sequential",
+                                                  "layers": [
+        {"class_name": "InputLayer", "config": {
+            "name": "input_layer", "batch_shape": [None, IMDB_MAXLEN],
+            "dtype": "int32"}},
+        {"class_name": "Embedding", "config": {
+            "name": "embedding", "input_dim": IMDB_VOCAB,
+            "output_dim": IMDB_EMBED}},
+        bidi("bidirectional", "forward_lstm", True),
+        bidi("bidirectional_1", "forward_lstm_1", False),
+        {"class_name": "Dense", "config": {"name": "dense", "units": 1,
+                                           "activation": "sigmoid"}}]}}
+    rng = np.random.default_rng(SEED)
+    H, E = IMDB_UNITS, IMDB_EMBED
+    weights = {
+        "embedding": [rng.uniform(-0.05, 0.05, (IMDB_VOCAB, E)).astype(
+            np.float32)],
+        "bidirectional": (_keras_lstm_weights(np, rng, E, H)
+                          + _keras_lstm_weights(np, rng, E, H)),
+        "bidirectional_1": (_keras_lstm_weights(np, rng, 2 * H, H)
+                            + _keras_lstm_weights(np, rng, 2 * H, H)),
+        "dense": [_glorot(np, rng, (2 * H, 1), 2 * H, 1),
+                  np.zeros(1, np.float32)]}
+    return cfg, weights
+
+
+def mnist_convnet(np, dropout=0.5):
+    """keras.io's "Simple MNIST convnet" as a Keras-3 Sequential config and
+    its weights from the seed (glorot_uniform kernels, zero biases)."""
+    def conv(name, filters):
+        return {"class_name": "Conv2D", "config": {
+            "name": name, "filters": filters, "kernel_size": [3, 3],
+            "activation": "relu", "padding": "valid"}}
+
+    def pool(name):
+        return {"class_name": "MaxPooling2D", "config": {
+            "name": name, "pool_size": [2, 2]}}
+
+    cfg = {"class_name": "Sequential", "config": {"name": "sequential",
+                                                  "layers": [
+        {"class_name": "InputLayer", "config": {
+            "name": "input_layer", "batch_shape": [None, 28, 28, 1]}},
+        conv("conv2d", 32), pool("max_pooling2d"),
+        conv("conv2d_1", 64), pool("max_pooling2d_1"),
+        {"class_name": "Flatten", "config": {"name": "flatten"}},
+        {"class_name": "Dropout", "config": {"name": "dropout",
+                                             "rate": dropout}},
+        {"class_name": "Dense", "config": {"name": "dense", "units": 10,
+                                           "activation": "softmax"}}]}}
+    rng = np.random.default_rng(SEED + 1)
+    weights = {
+        "conv2d": [_glorot(np, rng, (3, 3, 1, 32), 9, 288),
+                   np.zeros(32, np.float32)],
+        "conv2d_1": [_glorot(np, rng, (3, 3, 32, 64), 288, 576),
+                     np.zeros(64, np.float32)],
+        "dense": [_glorot(np, rng, (1600, 10), 1600, 10),
+                  np.zeros(10, np.float32)]}
+    return cfg, weights
+
+
+def keras_import(cfg, weights, device):
+    """The config-JSON half of the Keras importer: ``_build`` on
+    ``device``, then the weights through the loader's ``reader=`` seam
+    from the {name: [arrays]} mapping (no h5py: the card's machine has
+    none)."""
+    from deeplearning4j_tpu_torch.modelimport import KerasModelImport
+
+    net = KerasModelImport._build(cfg, device=device)
+    KerasModelImport._load_weights(net, weights, cfg,
+                                   reader=lambda w, name: w.get(name, []))
+    return net
+
+
+def _param_diffs(torch, net, cpu):
+    """The params of the card's net against the CPU's: the largest
+    absolute difference, the same over the tree's largest magnitude, and
+    the three leaves of the largest difference with their magnitudes."""
+    got, want = net.params_table(), cpu.params_table()
+    rows = sorted(((float((got[k].float().cpu() - w.float()).abs().max()),
+                    float(w.float().abs().max()), k)
+                   for k, w in want.items()), reverse=True)
+    top = max(m for _, m, _ in rows)
+    return rows[0][0], rows[0][0] / top, [
+        {"leaf": k, "max_abs_diff": d, "max_abs": m} for d, m, k in rows[:3]]
+
+
+def _against_cpu(torch, np, net, cpu, x, y, steps, what):
+    """``output()`` and ``steps`` fit_batch steps of the card's import
+    against the CPU's: the output and the losses within TOL_KERAS_CPU
+    relative, the params within phase 7's TOL_TRAIN_PARAM absolute. Adam's
+    update lr * m / (sqrt(v) + eps) turns the rounding of a gradient
+    component near eps (a sum that cancels, summed in another order on
+    the card) into a difference up to lr / (4 eps) = 2.5e4 times larger:
+    the MNIST convnet's dense W read 2.1e-6 apart after 3 steps (3.2e-5
+    of that leaf's largest weight) where its outputs and losses agree to
+    3e-7."""
+    out = _rel(torch, net.output(x).cpu(), cpu.output(x))
+    card = [float(net.fit_batch((x, y))) for _ in range(steps)]
+    host = [float(cpu.fit_batch((x, y))) for _ in range(steps)]
+    pabs, prel, worst = _param_diffs(torch, net, cpu)
+    err = {"output": out,
+           "losses": max(abs(a - b) / abs(b) for a, b in zip(card, host))}
+    if not (all(e <= TOL_KERAS_CPU for e in err.values())
+            and pabs <= TOL_TRAIN_PARAM):
+        fail(f"{what}, card against CPU: {err} relative (tolerance "
+             f"{TOL_KERAS_CPU}), params {pabs} absolute (tolerance "
+             f"{TOL_TRAIN_PARAM}), worst leaves {worst}")
+    return {"max_rel_err": err, "param_max_abs_err": pabs,
+            "param_max_err_over_largest_param": prel,
+            "worst_param_leaves": worst, "steps": steps,
+            "card_losses": card, "cpu_losses": host}
+
+
+def phase_keras_import(torch, np):
+    """The imported IMDB BiLSTM on the card: output() calls and fit_batch
+    steps through the LSTM kernels, counted, against the CPU; then the
+    imported MNIST convnet against the CPU."""
+    from deeplearning4j_tpu_torch.datasets import MnistDataSetIterator
+    from deeplearning4j_tpu_torch.ops.cuda import KERNELS
+
+    cfg, weights = imdb_bilstm(np)
+    t0 = time.perf_counter()
+    net = keras_import(cfg, weights, "cuda")
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    kinds = [type(l).__name__ for l in net.layers]
+    if kinds != ["EmbeddingSequenceLayer", "BidirectionalLayer",
+                 "LastTimeStepLayer", "OutputLayer"] or \
+            net.layers[-1].loss != "xent":
+        fail(f"the IMDB BiLSTM imported as {kinds}")
+    cpu = keras_import(cfg, weights, "cpu")
+    rng = np.random.default_rng(SEED + 37)
+    x = rng.integers(1, IMDB_VOCAB, (IMDB_BATCH, IMDB_MAXLEN))
+    y = rng.integers(0, 2, (IMDB_BATCH, 1)).astype(np.float32)
+    n_lstm = 4  # two Bidirectional layers, two directions each
+
+    net.output(x)  # warm-up
+    outs, launches, _, wall = _count_launches(
+        torch, KERNELS, lambda: [net.output(x) for _ in range(N_KERAS_CALLS)])
+    if launches != _only(KERNELS, fused_lstm_fwd=n_lstm * N_KERAS_CALLS):
+        fail(f"{N_KERAS_CALLS} imported BiLSTM output() calls launched "
+             f"{launches}; want {n_lstm} LSTM forwards a call")
+    out = outs[-1]
+    if tuple(out.shape) != (IMDB_BATCH, 1) or not bool(
+            torch.isfinite(out).all()):
+        fail(f"the imported BiLSTM's output() gave {tuple(out.shape)}")
+    host, call_device, by_kernel, call_wall, _ = profiled_launches(
+        torch, KERNELS, lambda: net.output(x))
+    if call_device != host or call_device != _only(KERNELS,
+                                                   fused_lstm_fwd=n_lstm):
+        fail(f"a profiled output() call: host {host}, device {call_device};"
+             f" want {n_lstm} LSTM forwards")
+    call_profile = _profile_summary(by_kernel, call_wall, 1, "call")
+
+    cpu_check = _against_cpu(torch, np, net, cpu, x, y, N_KERAS_CPU_STEPS,
+                             "the imported BiLSTM")
+    losses, step_launches, reserves, step_wall = _count_launches(
+        torch, KERNELS,
+        lambda: [net.fit_batch((x, y)) for _ in range(N_KERAS_STEPS)])
+    losses = [float(v) for v in losses]
+    want = n_lstm * N_KERAS_STEPS
+    if (step_launches != _only(KERNELS, fused_lstm_fwd=want,
+                               fused_lstm_bwd=want)
+            or reserves != _reserves_only(KERNELS, fused_lstm_fwd=want)):
+        fail(f"{N_KERAS_STEPS} imported BiLSTM steps launched "
+             f"{step_launches} ({reserves} with reserve); want {n_lstm} + "
+             f"{n_lstm} a step")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"the imported BiLSTM's losses on a repeated batch: {losses}")
+    host, device, by_kernel, step_prof_wall, _ = profiled_launches(
+        torch, KERNELS, lambda: net.fit_batch((x, y)))
+    if device != host or device != _only(KERNELS, fused_lstm_fwd=n_lstm,
+                                         fused_lstm_bwd=n_lstm):
+        fail(f"a profiled imported BiLSTM step: host {host}, device "
+             f"{device}; want {n_lstm} + {n_lstm}")
+    bilstm = {
+        "model": "keras.io Bidirectional LSTM on IMDB: Embedding(20000, "
+                 "128) -> Bidirectional(LSTM(64, return_sequences)) -> "
+                 "Bidirectional(LSTM(64)) -> Dense(1, sigmoid); maxlen 200",
+        "batch": IMDB_BATCH, "params": net.num_params(),
+        "import_s": import_s, "layers": kinds,
+        "calls": N_KERAS_CALLS, "launches_output": launches,
+        "ms_per_call": 1e3 * wall / N_KERAS_CALLS,
+        "call_profile": call_profile, "call_device_launches": call_device,
+        "step_device_launches": device,
+        "cpu_check": cpu_check, "steps": N_KERAS_STEPS, "losses": losses,
+        "launches_fit": step_launches,
+        "reserve_launches": reserves["fused_lstm_fwd"],
+        "step_wall_ms": 1e3 * step_wall / N_KERAS_STEPS,
+        "samples_per_s": IMDB_BATCH * N_KERAS_STEPS / step_wall,
+        "step_profile": _profile_summary(by_kernel, step_prof_wall, 1,
+                                         "step"),
+        "launches": {k: launches[k] + step_launches[k] for k in launches}}
+
+    # the MNIST convnet: output() and 3 steps against the CPU on a dropout-0
+    # import of the same weights (the two sides' dropout generators differ),
+    # then 3 steps of the import as it is
+    ccfg, cweights = mnist_convnet(np)
+    it = MnistDataSetIterator(MNIST_CNN_BATCH, seed=SEED)
+    ds = next(iter(it))
+    xc, yc = ds.features, ds.labels
+    cnet = keras_import(ccfg, cweights, "cuda")
+    ckinds = [type(l).__name__ for l in cnet.layers]
+    cfg0, _ = mnist_convnet(np, dropout=0.0)
+    conv_check = _against_cpu(torch, np, keras_import(cfg0, cweights, "cuda"),
+                              keras_import(cfg0, cweights, "cpu"), xc, yc,
+                              N_KERAS_CPU_STEPS, "the imported MNIST convnet")
+    closses, claunches, _, cwall = _count_launches(
+        torch, KERNELS, lambda: [cnet.fit_batch((xc, yc))
+                                 for _ in range(N_KERAS_CPU_STEPS)])
+    closses = [float(v) for v in closses]
+    if any(claunches.values()) or not all(np.isfinite(closses)):
+        fail(f"the imported MNIST convnet's steps: launches {claunches}, "
+             f"losses {closses}")
+    convnet = {
+        "model": "keras.io Simple MNIST convnet: Conv2D(32, 3x3) -> "
+                 "MaxPool 2 -> Conv2D(64, 3x3) -> MaxPool 2 -> Flatten -> "
+                 "Dropout(0.5) -> Dense(10, softmax)",
+        "batch": MNIST_CNN_BATCH, "layers": ckinds,
+        "synthetic_mnist": it.synthetic,
+        "cpu_check_dropout_0": conv_check, "losses": closses,
+        "launches": claunches,
+        "step_wall_ms": 1e3 * cwall / N_KERAS_CPU_STEPS}
+    return {"imdb_bilstm": bilstm, "mnist_convnet": convnet,
+            "launches": bilstm["launches"]}
+
+
+def vae_mnist_conf():
+    """dl4j-examples' VaeMNIST2dPlots network: one
+    VariationalAutoencoderLayer, 784 -> encoder 256, 256 -> latent 2 ->
+    decoder 256, 256, leakyrelu, Bernoulli reconstruction, RMSProp 1e-3,
+    l2 1e-4, xavier; no output layer (the example pretrains only)."""
+    from deeplearning4j_tpu_torch.nn.conf.builders import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers import VariationalAutoencoderLayer
+    from deeplearning4j_tpu_torch.optimize.updaters import RMSProp
+
+    return (NeuralNetConfiguration.builder().seed(SEED)
+            .updater(RMSProp(lr=1e-3)).list()
+            .layer(VariationalAutoencoderLayer(
+                n_out=2, encoder_layer_sizes=(256, 256),
+                decoder_layer_sizes=(256, 256), activation="leakyrelu",
+                reconstruction_distribution="bernoulli", l2=1e-4))
+            .set_input_type(InputType.feed_forward(784)).build())
+
+
+def sda_conf():
+    """A stacked denoising autoencoder on MNIST: AutoEncoderLayer(500) ->
+    AutoEncoderLayer(250) (corruption 0.3, xent) -> OutputLayer(10),
+    RMSProp 1e-3."""
+    from deeplearning4j_tpu_torch.nn.conf.builders import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers import AutoEncoderLayer, OutputLayer
+    from deeplearning4j_tpu_torch.optimize.updaters import RMSProp
+
+    return (NeuralNetConfiguration.builder().seed(SEED)
+            .updater(RMSProp(lr=1e-3)).list()
+            .layer(AutoEncoderLayer(n_out=500, corruption_level=0.3,
+                                    loss="xent"))
+            .layer(AutoEncoderLayer(n_out=250, corruption_level=0.3,
+                                    loss="xent"))
+            .layer(OutputLayer(n_out=10, activation="softmax",
+                               loss="mcxent"))
+            .set_input_type(InputType.feed_forward(784)).build())
+
+
+def phase_pretrain(torch, np):
+    """The pretrain tier on the card: the MNIST VAE through ``pretrain``
+    over MnistDataSetIterator(128) (one epoch), its ELBO on a held batch
+    before and after under fixed noise, the first and last step's loss on
+    one batch, ms a step (wall, device) and ``reconstruct``; then a stacked
+    denoising autoencoder pretrained and fine-tuned."""
+    from deeplearning4j_tpu_torch.common.trees import tree_leaves
+    from deeplearning4j_tpu_torch.datasets import MnistDataSetIterator
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops.cuda import KERNELS
+
+    it = MnistDataSetIterator(VAE_BATCH, seed=SEED)
+    n_steps = sum(1 for _ in it)
+    it.reset()
+    if n_steps < N_VAE_MIN_STEPS:
+        fail(f"MnistDataSetIterator({VAE_BATCH}) gives {n_steps} batches "
+             f"an epoch; the phase wants {N_VAE_MIN_STEPS}")
+    x0 = next(iter(it)).features
+    it.reset()
+    net = MultiLayerNetwork(vae_mnist_conf()).init(device="cuda")
+    layer = net.layers[0]
+    held = torch.as_tensor(x0, device="cuda").reshape(VAE_BATCH, -1)
+    eps = layer.pretrain_noise(
+        held, torch.Generator(device="cuda").manual_seed(SEED))
+
+    def held_elbo():
+        with torch.no_grad():
+            return float(layer.pretrain_loss(net.params[0], held, noise=eps))
+
+    elbo_before = held_elbo()
+    first = net.pretrain_layer(0, x0)          # one step, the first batch
+    torch.cuda.synchronize()
+    _, launches, _, wall = _count_launches(
+        torch, KERNELS, lambda: net.pretrain(it, epochs=1))
+    last = net.pretrain_layer(0, x0)           # one more step, same batch
+    elbo_after = held_elbo()
+    by_kernel, dev_wall, _ = profile_device(
+        torch, lambda: net.pretrain_layer(0, held, epochs=N_VAE_DEVICE_STEPS),
+        1)
+    recon = layer.reconstruct(net.params[0], held)
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in tree_leaves(net.params))
+    if any(launches.values()):
+        fail(f"VAE pretraining launched {launches}; its path runs no kernel "
+             "of the port")
+    if not (finite and np.isfinite([first, last, elbo_before, elbo_after])
+            .all()):
+        fail(f"VAE pretraining: NaN (params finite {finite}, losses "
+             f"{first}, {last}, held ELBO {elbo_before} -> {elbo_after})")
+    if not (elbo_after < elbo_before and last < first):
+        fail(f"VAE pretraining: the ELBO did not fall (held batch "
+             f"{elbo_before} -> {elbo_after}; first batch {first} -> "
+             f"{last})")
+    if (tuple(recon.shape) != (VAE_BATCH, 784)
+            or not bool(torch.isfinite(recon).all())
+            or float(recon.min()) < 0 or float(recon.max()) > 1):
+        fail(f"VAE reconstruct gave {tuple(recon.shape)}, range "
+             f"[{float(recon.min())}, {float(recon.max())}]")
+    vae = {
+        "model": "dl4j-examples VaeMNIST2dPlots: VAE 784 -> 256, 256 -> 2 "
+                 "-> 256, 256, leakyrelu, Bernoulli, RMSProp 1e-3, l2 1e-4 "
+                 "(no l2 term in pretraining, as in the JAX package)",
+        "batch": VAE_BATCH, "synthetic_mnist": it.synthetic,
+        "params": net.num_params(), "pretrain_steps": n_steps,
+        "launches": launches,
+        "held_elbo_before": elbo_before, "held_elbo_after": elbo_after,
+        "first_step_elbo": first, "last_step_elbo": last,
+        "step_wall_ms": 1e3 * wall / n_steps,
+        "device_ms_per_step": sum(t for t, _ in by_kernel.values())
+        / N_VAE_DEVICE_STEPS if by_kernel else None,
+        "device_kernels_per_step": sum(c for _, c in by_kernel.values())
+        / N_VAE_DEVICE_STEPS,
+        "synced_ms_per_step_batch_on_card": dev_wall / N_VAE_DEVICE_STEPS,
+        "reconstruct_range": [float(recon.min()), float(recon.max())]}
+
+    sda = MultiLayerNetwork(sda_conf()).init(device="cuda")
+    it.reset()
+    t0 = time.perf_counter()
+    _, sda_pre, _, _ = _count_launches(torch, KERNELS,
+                                       lambda: sda.pretrain(it, epochs=1))
+    pre_s = time.perf_counter() - t0
+    ds = next(iter(it))
+    xs, ys = ds.features, ds.labels
+    losses, sda_fit, _, fit_wall = _count_launches(
+        torch, KERNELS,
+        lambda: [sda.fit_batch((xs, ys)) for _ in range(N_SDA_STEPS)])
+    losses = [float(v) for v in losses]
+    if any(sda_pre.values()) or any(sda_fit.values()) or not all(
+            np.isfinite(losses)):
+        fail(f"stacked denoising autoencoder: launches {sda_pre} / "
+             f"{sda_fit}, losses {losses}")
+    return {"vae": vae, "stacked_denoising": {
+        "model": "AutoEncoderLayer(500) -> AutoEncoderLayer(250) "
+                 "(corruption 0.3, xent) -> OutputLayer(10), RMSProp 1e-3",
+        "batch": VAE_BATCH, "pretrain_steps": 2 * n_steps,
+        "pretrain_s": pre_s, "losses": losses,
+        "step_wall_ms": 1e3 * fit_wall / N_SDA_STEPS},
+        "launches": {k: launches[k] + sda_pre[k] + sda_fit[k]
+                     for k in launches}}
+
+
+def _metric(text, name):
+    """The value of an unlabelled metric in a Prometheus exposition."""
+    for line in text.splitlines():
+        if line.startswith(name + " "):
+            return float(line.split()[1])
+    return None
+
+
+def quantized_rollout(torch, np, net, qnet):
+    """The quantized LM against the unquantized one over one greedy
+    rollout, both with the int8 ring and eager: 8 prompts of
+    QUANT_ROLLOUT_PROMPT tokens, N_QUANT_ROLLOUT steps, both fed the
+    unquantized net's greedy token. The largest post-softmax difference
+    and the share of steps whose top-1 tokens agree."""
+    from deeplearning4j_tpu_torch.generation import AttentionDecodeAdapter
+
+    L = FULL_LM["max_len"]
+    ids = torch.as_tensor(np.random.default_rng(SEED + 39).integers(
+        0, FULL_LM["vocab"], (8, QUANT_ROLLOUT_PROMPT)), device="cuda")
+    ads = [AttentionDecodeAdapter(m, L, kv_dtype="int8") for m in (net, qnet)]
+    with torch.no_grad():
+        caches = [ad.prefill(ids, None) for ad in ads]
+        tok, delta, agree = ids[:, -1], 0.0, []
+        for t in range(QUANT_ROLLOUT_PROMPT - 1,
+                       QUANT_ROLLOUT_PROMPT - 1 + N_QUANT_ROLLOUT):
+            pos = torch.full((8,), t, dtype=torch.long, device="cuda")
+            out = [ad.decode(c, tok, pos) for ad, c in zip(ads, caches)]
+            (lf, caches[0]), (lq, caches[1]) = out
+            pf, pq = (torch.softmax(v.float(), -1) for v in (lf, lq))
+            delta = max(delta, float((pf - pq).abs().max()))
+            agree += (lf.argmax(-1) == lq.argmax(-1)).tolist()
+            tok = lf.argmax(-1)
+    return {"rows": 8, "prompt": QUANT_ROLLOUT_PROMPT,
+            "steps": N_QUANT_ROLLOUT, "ring": "int8 (both)",
+            "max_prob_delta": delta,
+            "top1_agreement": float(sum(agree) / len(agree))}
+
+
+def quantized_witness(torch, qnet):
+    """The witness over one eager prefill and one eager decode step of the
+    quantized LM on the card (int8 ring): no mul at a quantized weight's
+    shape; and its control, a weight dequantized by ``q * scale``, which
+    must be flagged."""
+    from deeplearning4j_tpu_torch.generation import AttentionDecodeAdapter
+    from deeplearning4j_tpu_torch.quantize import (
+        QuantizedTensor, find_dequantized_weights,
+    )
+    from deeplearning4j_tpu_torch.common.trees import tree_leaves
+
+    wshapes = {tuple(v.q.shape) for p in qnet.params for v in p.values()
+               if isinstance(v, QuantizedTensor)}
+    ad = AttentionDecodeAdapter(qnet, FULL_LM["max_len"], kv_dtype="int8")
+    ids = torch.arange(1, 65, device="cuda")[None]
+    with torch.no_grad():
+        pre = find_dequantized_weights(lambda: ad.prefill(ids, None),
+                                       weight_shapes=wshapes)
+        caches = ad.prefill(ids, None)
+        dec = find_dequantized_weights(
+            ad.decode, caches, ids[:, -1],
+            torch.full((1,), 64, dtype=torch.long, device="cuda"),
+            weight_shapes=wshapes)
+        w = qnet.params[2]["W1"]
+        x = torch.ones((8, w.shape[0]), dtype=torch.bfloat16, device="cuda")
+        control = find_dequantized_weights(
+            lambda: x @ (w.q.to(torch.bfloat16) * w.scale.to(torch.bfloat16)),
+            weight_shapes=wshapes)
+    if pre or dec:
+        fail(f"the quantized LM materializes dequantized weights: prefill "
+             f"{pre[:3]}, decode {dec[:3]}")
+    if not control:
+        fail("the witness did not flag its control (q * scale at a weight's "
+             "shape)")
+    return {"weight_shapes": len(wshapes),
+            "quantized_tensors": sum(
+                1 for p in qnet.params for v in p.values()
+                if isinstance(v, QuantizedTensor)),
+            "flagged_prefill": len(pre), "flagged_decode": len(dec),
+            "control_flagged": len(control),
+            "int8_leaves": sum(1 for t in tree_leaves(qnet.params)
+                               if t.dtype == torch.int8)}
+
+
+def quantized_resnet(torch, np):
+    """ResNet-50 (f32) quantized (``ComputationGraph.quantize``, the conv
+    int8 branch) on the card against the same quantized view on the CPU
+    at B = 64: logits within TOL_RESNET_CPU; ms a call beside the
+    unquantized f32 graph's; the witness over a B = 2 call."""
+    from deeplearning4j_tpu_torch.ops.cuda import KERNELS
+    from deeplearning4j_tpu_torch.quantize import (
+        QuantizedTensor, find_dequantized_weights,
+    )
+    from deeplearning4j_tpu_torch.zoo import ResNet50
+
+    cpu = ResNet50(seed=SEED + 2, dtype="float32").init(device="cpu")
+    t0 = time.perf_counter()
+    qcpu = cpu.quantize()
+    quantize_s = time.perf_counter() - t0
+    qcard = copy.copy(qcpu).to("cuda")
+    full = copy.deepcopy(cpu).to("cuda")
+    x, _ = _resnet_batch(torch, SEED + 17, QUANT_RESNET_BATCH, torch.float32)
+    got = _resnet_logits(torch, qcard, x)
+    t0 = time.perf_counter()
+    want = _resnet_logits(torch, qcpu, x.cpu())
+    cpu_s = time.perf_counter() - t0
+    rel = float((got.cpu() - want).abs().max()) / float(want.abs().max())
+    if not rel <= TOL_RESNET_CPU:
+        fail(f"quantized ResNet-50 at B = {QUANT_RESNET_BATCH}, card against "
+             f"CPU: {rel} > {TOL_RESNET_CPU} relative")
+    _, launches, _, _ = _count_launches(torch, KERNELS,
+                                        lambda: qcard.output(x))
+    if any(launches.values()):
+        fail(f"quantized ResNet-50 launched {launches}")
+    wshapes = {tuple(v.q.shape) for p in qcard.params.values()
+               for v in p.values() if isinstance(v, QuantizedTensor)}
+    with torch.no_grad():
+        bad = find_dequantized_weights(lambda: qcard.output(x[:2]),
+                                       weight_shapes=wshapes)
+    if bad:
+        fail(f"quantized ResNet-50 materializes dequantized kernels: "
+             f"{bad[:3]}")
+    n = N_RESNET_CALLS
+    qdev = call_device_ms(torch, lambda: qcard.output(x), n)
+    fdev = call_device_ms(torch, lambda: full.output(x), n)
+    return {"model": "ResNet50 f32, weight-only int8 (conv and dense "
+                     "kernels), random weights from the seed",
+            "batch": QUANT_RESNET_BATCH, "tf32": False,
+            "quantized_tensors": sum(
+                1 for p in qcard.params.values() for v in p.values()
+                if isinstance(v, QuantizedTensor)),
+            "quantize_s": quantize_s, "cpu_output_s": cpu_s,
+            "logits_max_rel_err_card_vs_cpu": rel,
+            "tolerance": TOL_RESNET_CPU, "witness_flagged": len(bad),
+            "launches": launches,
+            "ms_per_call": host_ms(torch, lambda: qcard.output(x), n),
+            "device_ms_per_call": qdev,
+            "f32_ms_per_call": host_ms(torch, lambda: full.output(x), n),
+            "f32_device_ms_per_call": fdev}
+
+
+def phase_quantized_serving(torch, np, full):
+    """``net.quantize()`` of phase 30's full-width causal LM (bf16) served
+    with the int8 ring at slots 8, max_len 512, phase 30's 16 requests,
+    through the captured decode graph: exact launch counts (12 flash
+    forwards a prefill), one decode program, tokens/s, TTFT and a steady
+    decode step beside phase 30's two rings; the pass's weight bytes
+    (``observe_pass``); the rollout against the unquantized net; the
+    witness and its control; then the quantized ResNet-50."""
+    from deeplearning4j_tpu_torch import monitoring
+    from deeplearning4j_tpu_torch.generation import GenerationEngine
+
+    torch.cuda.empty_cache()
+    parts, t_part = {}, time.perf_counter()
+
+    def part(name):
+        nonlocal t_part
+        now = time.perf_counter()
+        parts[name] = now - t_part
+        t_part = now
+
+    net = lm_net(torch, dtype="bf16", **FULL_LM)
+    part("init")
+    monitoring.enable()
+    try:
+        t0 = time.perf_counter()
+        qnet = net.quantize()
+        quantize_s = time.perf_counter() - t0
+        text = monitoring.registry().exposition()
+    finally:
+        monitoring.disable()
+        monitoring.reset()
+    part("quantize")
+    pass_record = {
+        "seconds": quantize_s,
+        "tensors": _metric(text, "dl4j_quantize_tensors_total"),
+        "bytes_before": _metric(text, "dl4j_quantize_bytes_before"),
+        "bytes_after": _metric(text, "dl4j_quantize_bytes_after")}
+    if not (pass_record["tensors"] == 6 * FULL_LM["layers"] + 1
+            and pass_record["bytes_after"] < pass_record["bytes_before"]):
+        fail(f"the quantize pass recorded {pass_record}")
+    V, L = FULL_LM["vocab"], FULL_LM["max_len"]
+    reqs = _lm_requests(np, V, L)
+    what = "quantized full-width serving (int8 weights, int8 ring)"
+    eng = GenerationEngine(qnet, slots=8, max_len=L, kv_dtype="int8",
+                           device="cuda")
+    eng.generate(reqs[0]["prompt"], max_new_tokens=2)  # captures the graph
+    part("capture")
+    _, run = _serve_lm(torch, np, eng, reqs, FULL_LM["layers"], what)
+    part("serve")
+    run["steady"] = _steady_decode(torch, eng, reqs)
+    part("steady")
+    del eng
+    rollout = quantized_rollout(torch, np, net, qnet)
+    part("rollout")
+    witness = quantized_witness(torch, qnet)
+    part("witness")
+    out = {"model": "phase 30's causal LM (12 x 768, 12 heads, d_ff 3072, "
+                    "vocab 30522, bf16), weight-only int8",
+           "quantize_pass": pass_record, "serving": run,
+           "phase30": {ring: {
+               "tokens_per_s": full[ring]["tokens_per_s"],
+               "ttft_p50_ms": full[ring]["ttft_p50_ms"],
+               "step_wall_ms": full[ring]["steady"]["step_wall_ms"],
+               "step_device_ms": full[ring]["steady"]["step_device_ms"]}
+               for ring in ("bf16", "int8")},
+           "rollout_vs_unquantized": rollout, "witness": witness,
+           "launches": run["launches"], "seconds_by_part": parts}
+    del net, qnet
+    torch.cuda.empty_cache()
+    out["resnet50"] = quantized_resnet(torch, np)
+    part("resnet50")
+    return out
+
+
 def main() -> None:
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "deeplearning4j_tpu_torch")):
@@ -6244,7 +6921,53 @@ def main() -> None:
           f"{traced['device_memory_mb']['device_mem_in_use_mb']:.1f} MB",
           flush=True)
 
-    # phase 37: kernels line, card line, result line
+    # phase 37: Keras import, the IMDB BiLSTM through the LSTM kernels
+    t0 = time.perf_counter()
+    keras = phase_keras_import(torch, np)
+    keras["wall_s_phase"] = time.perf_counter() - t0
+    emit(card, {"keras_import": keras})
+    kb, kc = keras["imdb_bilstm"], keras["mnist_convnet"]
+    print(f"Keras IMDB BiLSTM on {card}: output() {kb['ms_per_call']:.2f} ms "
+          f"a call of {IMDB_BATCH} (device "
+          f"{kb['call_profile']['device_ms_per_call']:.3f}), fit_batch "
+          f"{kb['step_wall_ms']:.2f} ms a step (device "
+          f"{kb['step_profile']['device_ms_per_step']:.3f}), 4 + 4 LSTM "
+          f"launches a step; against the CPU "
+          f"{kb['cpu_check']['max_rel_err']}; MNIST convnet against the CPU "
+          f"{kc['cpu_check_dropout_0']['max_rel_err']}", flush=True)
+
+    # phase 38: the pretrain tier, the MNIST VAE and a stacked denoising AE
+    t0 = time.perf_counter()
+    pretrain = phase_pretrain(torch, np)
+    pretrain["wall_s_phase"] = time.perf_counter() - t0
+    emit(card, {"pretrain": pretrain})
+    v = pretrain["vae"]
+    print(f"VAE pretraining on {card}: {v['pretrain_steps']} steps, "
+          f"{v['step_wall_ms']:.2f} ms a step (device "
+          f"{v['device_ms_per_step']:.3f}), held-batch ELBO "
+          f"{v['held_elbo_before']:.2f} -> {v['held_elbo_after']:.2f}",
+          flush=True)
+
+    # phase 39: quantized serving of phase 30's LM, quantized ResNet-50
+    t0 = time.perf_counter()
+    quant = phase_quantized_serving(torch, np, full)
+    quant["wall_s_phase"] = time.perf_counter() - t0
+    emit(card, {"quantized_serving": quant})
+    qs, qst = quant["serving"], quant["serving"]["steady"]
+    print(f"quantized LM serving (int8 weights, int8 ring) on {card}: "
+          f"{qs['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+          f"{qs['ttft_p50_ms']:.1f} ms, decode step "
+          f"{qst['step_wall_ms']:.3f} ms wall, device "
+          f"{qst['step_device_ms']} ms; weights "
+          f"{quant['quantize_pass']['bytes_before']:.0f} -> "
+          f"{quant['quantize_pass']['bytes_after']:.0f} bytes; against the "
+          f"unquantized net top-1 "
+          f"{quant['rollout_vs_unquantized']['top1_agreement']:.4f}, "
+          f"post-softmax {quant['rollout_vs_unquantized']['max_prob_delta']:.2e}"
+          f"; quantized ResNet-50 {quant['resnet50']['ms_per_call']:.2f} ms "
+          f"a call of {QUANT_RESNET_BATCH}", flush=True)
+
+    # phase 40: kernels line, card line, result line
     decode = rows[0]  # the serving path's decode shape [8, 1, 256]
     graves = bwd_rows[0]  # the training path's first layer [64, 64, 200]
     # TextGenerationLSTM's second layer [64, 64, 256], no peepholes: where
@@ -6419,6 +7142,13 @@ def main() -> None:
                 "unarmed"][n],
             "monitored_lstm_serving": monitored["launches"][n],
             "profiler_trace_config3": traced["launches"][n]}
+        e["launches_by_path"].update(paths)
+        e["launches"] += sum(paths.values())
+    for e in entries:  # the import, pretrain and quantized paths (37-39)
+        n = e["name"]
+        paths = {"keras_imdb_bilstm": keras["launches"][n],
+                 "pretrain_mnist": pretrain["launches"][n],
+                 "quantized_lm_serving": quant["launches"][n]}
         e["launches_by_path"].update(paths)
         e["launches"] += sum(paths.values())
     print(json.dumps({"kernels": entries}), flush=True)

@@ -32,7 +32,11 @@ BF16 = DtypePolicy(param_dtype=torch.float32, compute_dtype=torch.bfloat16)
 
 
 def cast_floating(tree, dtype: torch.dtype):
-    """Cast every floating tensor of a nested list/dict/tuple."""
+    """Cast every floating tensor of a nested list/dict/tuple. A quantized
+    weight (``quantize.QuantizedTensor``) keeps its int8 payload and casts
+    its scale, as the JAX package's per-leaf cast leaves it."""
+    if getattr(tree, "is_quantized", False):
+        return tree.astype(dtype)
     if isinstance(tree, dict):
         return {k: cast_floating(v, dtype) for k, v in tree.items()}
     if isinstance(tree, list):
@@ -60,6 +64,10 @@ def widen(*tensors):
 
 def matmul(x, w):
     """``x @ w`` over the two operands' promoted type (:func:`widen`):
-    torch's matmul refuses mixed types, where jnp's promotes."""
+    torch's matmul refuses mixed types, where jnp's promotes. A quantized
+    ``w`` takes the product through its ``__rmatmul__`` (the
+    ``quantized_matmul`` op) in ``x``'s type."""
+    if getattr(w, "is_quantized", False):
+        return x @ w
     x, w = widen(x, w)
     return x @ w

@@ -28,10 +28,11 @@ The training runtime around the step is MultiLayerNetwork's: ``remat``
 of every vertex), fault plans, the async fit loop with listeners and tail
 padding, ``evaluate`` (of the first output), ``score_value`` and
 ``rnn_time_step``, and the guardrails and monitoring of ``fit_batch``.
-Not ported yet: ``as_loss_fn`` (with the parallel trainers) and
-``quantize``. A
-``CenterLossOutputLayer`` output adds its center term and moves its
-centers every step (``nn/graph.py:294,345-352`` there).
+``quantize()`` returns the int8 inference view (``quantize/passes.py``),
+which ``fit_batch`` refuses to train. Not ported yet: ``as_loss_fn`` (with
+the parallel trainers). A ``CenterLossOutputLayer`` output adds its center
+term and moves its centers every step (``nn/graph.py:294,345-352``
+there).
 """
 
 from __future__ import annotations
@@ -55,8 +56,8 @@ from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
 from deeplearning4j_tpu_torch.nn.conf.graph import LayerVertex
 from deeplearning4j_tpu_torch.nn.multilayer import (  # noqa: F401 (re-exported)
     MultiLayerNetwork, _canonical, _center_term, _check_carry_batch, _grads,
-    _layer_seed, _unpack, host_array, load_jax_opt_state, load_jax_params,
-    remat_apply,
+    _layer_seed, _refuse_view, _unpack, host_array, load_jax_opt_state,
+    load_jax_params, remat_apply,
 )
 from deeplearning4j_tpu_torch.nn.layers.output import CenterLossOutputLayer
 from deeplearning4j_tpu_torch.optimize.async_dispatch import (
@@ -375,6 +376,7 @@ class ComputationGraph:
         are one array, a list in input/output order, or a dict by name.
         Sync mode returns the loss as a float, async mode (the default) a
         lazy ScoreHandle: see MultiLayerNetwork.fit_batch."""
+        _refuse_view(self)
         x, y, mask, label_mask = _unpack(ds)
         plan = faults.active()
         if plan is not None:
@@ -493,6 +495,14 @@ class ComputationGraph:
 
     def rnn_clear_previous_state(self):
         self._rnn_carries = None
+
+    # ------------------------------------------------------------- quantize
+    def quantize(self, dtype: str = "int8") -> "ComputationGraph":
+        """Weight-only int8 inference view of this graph (the original
+        stays trainable); see ``deeplearning4j_tpu_torch.quantize``."""
+        from deeplearning4j_tpu_torch.quantize import quantize_network
+
+        return quantize_network(self, dtype)
 
     # ----------------------------------------------------------------- serde
     def save(self, path: str, save_updater: bool = True):

@@ -1,8 +1,8 @@
 """Layer catalog (config+impl unified, JSON round-trippable).
 
 Counterpart of ``deeplearning4j_tpu/nn/layers``: every layer of its
-``__all__`` but ``AutoEncoderLayer`` and ``VariationalAutoencoderLayer``
-(the pretrain tier, not ported yet), plus the port's
+``__all__``, the pretrain tier's ``AutoEncoderLayer`` and
+``VariationalAutoencoderLayer`` included, plus the port's
 ``PositionalEmbeddingLayer``. A configuration naming any other layer fails
 to load with an error that names it.
 """
@@ -36,6 +36,9 @@ from deeplearning4j_tpu_torch.nn.layers.recurrent import (
     LastTimeStepLayer, LSTMLayer, MaskZeroLayer, SimpleRnnLayer,
     TimeDistributedLayer,
 )
+from deeplearning4j_tpu_torch.nn.layers.variational import (
+    AutoEncoderLayer, VariationalAutoencoderLayer,
+)
 
 __all__ = [
     "Layer", "register_layer",
@@ -56,4 +59,5 @@ __all__ = [
     "SelfAttentionLayer", "LearnedSelfAttentionLayer",
     "TransformerEncoderLayer", "PositionalEmbeddingLayer",
     "Yolo2OutputLayer",
+    "AutoEncoderLayer", "VariationalAutoencoderLayer",
 ]

@@ -81,6 +81,9 @@ class Layer:
         for k, v in params.items():
             if k in ("b", "beta", "gamma"):
                 continue
+            if getattr(v, "is_quantized", False):
+                # quantized inference view: frozen weights, no penalty
+                continue
             for a in tree_leaves(v):
                 s = s + self.l1 * a.abs().sum() + self.l2 * 0.5 * (a * a).sum()
         return s

@@ -23,8 +23,8 @@ lax.conv_transpose's size (VALID (h-1)s + max(k, s), explicit s(h-1) +
 2p - k + 2): the two agree only where k = 2p + 1 (VALID: k >= s and
 k = 1). Both are the JAX package's as they are.
 
-The JAX ``ConvolutionLayer`` also convolves an int8-quantized kernel; the
-port has no quantized params (quantized zips are refused on load).
+``ConvolutionLayer`` also convolves an int8-quantized kernel
+(``net.quantize()``), as the JAX layer does (``conv.py:73-81``).
 """
 
 from __future__ import annotations
@@ -95,9 +95,19 @@ class ConvolutionLayer(Layer):
 
     def apply(self, params, state, x, *, train=False, rng=None, mask=None):
         x = self._maybe_dropout(x, train, rng)
-        y = op("conv2d")(x, params["W"], strides=_t2(self.strides),
-                         padding=self.padding, dilation=_t2(self.dilation),
-                         groups=self.groups)
+        W = params["W"]
+        if getattr(W, "is_quantized", False):
+            # int8 view: convolve the int8 kernel cast to x's type and
+            # scale the output per channel (the kernel's output-channel
+            # axis is last, as the result's), never the kernel itself
+            y = op("conv2d")(x, W.q.to(x.dtype), strides=_t2(self.strides),
+                             padding=self.padding,
+                             dilation=_t2(self.dilation),
+                             groups=self.groups) * W.scale.to(x.dtype)
+        else:
+            y = op("conv2d")(x, W, strides=_t2(self.strides),
+                             padding=self.padding,
+                             dilation=_t2(self.dilation), groups=self.groups)
         if self.has_bias:
             y = y + params["b"]
         return resolve_activation(self.activation)(y), state

@@ -45,6 +45,10 @@ The training runtime around the step is the JAX package's:
   (iteration, epoch, score) at drain time, ``fit`` drains before the
   epoch-end listeners; partial tail batches pad up to a pow2 bucket;
 - ``evaluate``, ``feed_forward``, ``params_table``, the carry-row API;
+- greedy layer-wise pretraining (``pretrain``, ``pretrain_layer``) of
+  the autoencoder layers (``nn/layers/variational.py``);
+- ``quantize()``: the int8 inference view (``quantize/passes.py``), which
+  ``fit_batch`` refuses to train;
 - the guardrails (``guardrails``): armed, ``fit_batch`` hands the step to
   the guard, which runs ``_train_step`` with a control tensor: the raw
   gradients are screened on the device, then clipped and applied, and
@@ -586,6 +590,7 @@ class MultiLayerNetwork:
         ScoreHandle and keeps up to ``DL4J_TORCH_ASYNC_STEPS`` steps in
         flight; any numeric use of the handle (or reading ``score()``)
         drains to a float."""
+        _refuse_view(self)
         x, y, mask, label_mask = _unpack(ds)
         label_mask = _single_mask(label_mask)
         plan = faults.active()
@@ -691,6 +696,74 @@ class MultiLayerNetwork:
     def set_listeners(self, *listeners):
         self.listeners = list(listeners)
         return self
+
+    # -------------------------------------------------------------- pretrain
+    def pretrain(self, data, epochs: int = 1):
+        """Greedy layer-wise unsupervised pretraining
+        (MultiLayerNetwork.pretrain): each layer with a ``pretrain_loss``
+        (AutoEncoderLayer, VariationalAutoencoderLayer) is trained on the
+        activations of the frozen layers below it, in order."""
+        for i, layer in enumerate(self.layers):
+            if hasattr(layer, "pretrain_loss"):
+                self.pretrain_layer(i, data, epochs=epochs)
+        return self
+
+    def pretrain_layer(self, layer_index: int, data, epochs: int = 1):
+        """Pretrain one layer (MultiLayerNetwork.pretrainLayer), as the JAX
+        package's step does (``nn/multilayer.py:611-664`` there): the
+        layers below run in eval mode with their preprocessors, on uncast
+        params and input; the layer's updater starts from ``init_state``,
+        its step counted across epochs; the loss is the layer's own
+        objective alone (no l1/l2 term, no clipping). ``data`` is a
+        features array (one step an epoch) or an iterator of batches (with
+        ``reset`` between epochs). The steps queue on the device with no
+        host sync; returns the last loss as a float."""
+        layer = self.layers[layer_index]
+        if not hasattr(layer, "pretrain_loss"):
+            raise ValueError(f"layer {layer_index} has no pretrain objective")
+        updater = self._updaters[layer_index]
+        lparams = self.params[layer_index]
+        opt = updater.init_state(lparams)
+        rng = self._generator()
+
+        def step(x, lparams, opt, i):
+            h = self._input(x, cast=False)
+            with torch.no_grad():
+                for j in range(layer_index):
+                    if j in self.conf.preprocessors:
+                        h = self.conf.preprocessors[j](h)
+                    h, _ = self.layers[j].apply(self.params[j], self.state[j],
+                                                h, train=False)
+                if layer_index in self.conf.preprocessors:
+                    h = self.conf.preprocessors[layer_index](h)
+            p = tree_map(lambda a: a.detach().requires_grad_(True), lparams)
+            loss = layer.pretrain_loss(p, h, rng)
+            grads = tree_unflatten(lparams, torch.autograd.grad(
+                loss, tree_leaves(p)))
+            with torch.no_grad():
+                upd, opt = updater.update(grads, opt, lparams, i)
+                lparams = tree_map(lambda a, d: a - d, lparams, upd)
+            return lparams, opt, loss.detach()
+
+        loss, i = None, 0
+        for _ in range(epochs):
+            batches = [data] if hasattr(data, "shape") else data
+            for ds in batches:
+                x = ds if hasattr(ds, "shape") else _unpack(ds)[0]
+                lparams, opt, loss = step(x, lparams, opt, i)
+                i += 1
+            if hasattr(data, "reset"):
+                data.reset()
+        self.params[layer_index] = lparams
+        return float("nan") if loss is None else float(loss)
+
+    # ------------------------------------------------------------- quantize
+    def quantize(self, dtype: str = "int8") -> "MultiLayerNetwork":
+        """Weight-only int8 inference view of this network (the original
+        stays trainable); see ``deeplearning4j_tpu_torch.quantize``."""
+        from deeplearning4j_tpu_torch.quantize import quantize_network
+
+        return quantize_network(self, dtype)
 
     # ----------------------------------------------------------------- score
     @property
@@ -803,6 +876,14 @@ def _canonical(dtype: torch.dtype) -> torch.dtype:
     return torch.float32 if dtype == torch.float64 else dtype
 
 
+def _refuse_view(net):
+    """``fit_batch`` refuses an int8 inference view (``quantize()``)."""
+    if getattr(net, "_quantized", False):
+        raise RuntimeError(
+            "this network is an int8 inference view (quantize()); "
+            "train the original f32 network instead")
+
+
 def _single_mask(lm):
     """A MultiLayerNetwork has one output: a per-output list/dict labels
     mask (a ComputationGraph shape) is refused."""
@@ -854,6 +935,13 @@ def _tensors_like(mine, theirs, where: str):
                              f"{len(mine)}")
         return type(mine)(_tensors_like(m, t, f"{where}/{i}")
                           for i, (m, t) in enumerate(zip(mine, theirs)))
+    if getattr(theirs, "is_quantized", False):
+        # a quantized weight (a quantized zip) where the net holds floats:
+        # its payload and scale move to the net's device as they are
+        if tuple(theirs.shape) != tuple(mine.shape):
+            raise ValueError(f"{where}: shape {tuple(theirs.shape)} != "
+                             f"{tuple(mine.shape)}")
+        return theirs.to(mine.device)
     arr = np.asarray(theirs)
     if tuple(arr.shape) != tuple(mine.shape):
         raise ValueError(f"{where}: shape {arr.shape} != {tuple(mine.shape)}")

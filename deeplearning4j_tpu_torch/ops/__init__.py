@@ -10,7 +10,7 @@ from deeplearning4j_tpu_torch.ops.registry import (
     OpImpl, get_op, op, register_impl, register_op,
 )
 from deeplearning4j_tpu_torch.ops import (  # noqa: F401
-    activations, attention, convolution, recurrent,
+    activations, attention, convolution, quantized, recurrent,
 )
 from deeplearning4j_tpu_torch.ops import cuda  # noqa: F401  (register kernels)
 

@@ -13,7 +13,12 @@ MultiLayerNetwork and a ComputationGraph. A model zip holds:
 so a zip written by either package restores in the other with its params,
 updater state and counters. Params keep the JAX package's layouts (a
 conv kernel ``W`` is HWIO, [kh, kw, cin, cout]), so they cross unchanged.
-Int8-quantized zips are not ported yet.
+An int8 inference view (``quantize()``) writes each quantized weight as
+three entries, ``<path>/__q__`` (the int8 payload), ``__scale__`` and
+``__axis__``, with ``"quantized": true`` in ``meta.json`` and no updater
+state, as the JAX package does (``util/serialization.py:30-126`` there);
+it restores as a view (``fit_batch`` refused) without ever being
+dequantized.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import json
 import zipfile
 
 import numpy as np
+import torch
 
 from deeplearning4j_tpu_torch.common.device import DeviceLike
 
@@ -30,7 +36,9 @@ FORMAT_VERSION = 1
 
 
 def _flatten(tree, prefix=""):
-    """Flatten nested lists/dicts of tensors into {path: numpy array}."""
+    """Flatten nested lists/dicts of tensors into {path: numpy array}; a
+    QuantizedTensor becomes its ``__q__``/``__scale__``/``__axis__``
+    entries."""
     out = {}
     if isinstance(tree, dict):
         for k, v in tree.items():
@@ -38,6 +46,11 @@ def _flatten(tree, prefix=""):
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
             out.update(_flatten(v, f"{prefix}{i}/"))
+    elif getattr(tree, "is_quantized", False):
+        key = prefix.rstrip("/")
+        out[key + "/__q__"] = tree.q.detach().cpu().numpy()
+        out[key + "/__scale__"] = tree.scale.detach().cpu().numpy()
+        out[key + "/__axis__"] = np.asarray(tree.axis)
     elif tree is not None:
         out[prefix.rstrip("/")] = tree.detach().cpu().numpy()
     return out
@@ -45,7 +58,9 @@ def _flatten(tree, prefix=""):
 
 def _unflatten(template, flat: dict, what: str):
     """Arrays shaped like ``template`` (nested lists/dicts) from the zip's
-    flat names."""
+    flat names; a ``__q__``/``__scale__``/``__axis__`` triple rebuilds into
+    a QuantizedTensor (on the CPU) where the template holds a float
+    tensor."""
 
     def rebuild(t, prefix):
         if isinstance(t, dict):
@@ -54,8 +69,13 @@ def _unflatten(template, flat: dict, what: str):
             return type(t)(rebuild(v, f"{prefix}{i}/") for i, v in enumerate(t))
         key = prefix.rstrip("/")
         if key + "/__q__" in flat:
-            raise ValueError(f"{key} is an int8-quantized tensor; "
-                             "quantized models are not ported yet")
+            from deeplearning4j_tpu_torch.quantize.tensor import (
+                QuantizedTensor,
+            )
+
+            return QuantizedTensor(torch.from_numpy(flat[key + "/__q__"]),
+                                   torch.from_numpy(flat[key + "/__scale__"]),
+                                   int(flat[key + "/__axis__"]))
         if key not in flat:
             raise ValueError(f"{what} has no entry {key}")
         return flat[key]
@@ -82,7 +102,7 @@ def write_model(model, path: str, save_updater: bool = True):
                         else "MultiLayerNetwork"),
         "step_count": model.step_count,
         "epoch_count": model.epoch_count,
-        "quantized": False,
+        "quantized": bool(getattr(model, "_quantized", False)),
     }
     with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as z:
         z.writestr("configuration.json", model.conf.to_json())
@@ -112,9 +132,6 @@ def _restore(path: str, model_class: str, model_factory, conf_parser,
         if meta.get("model_class", "MultiLayerNetwork") != model_class:
             raise ValueError(f"{path} holds a {meta['model_class']}, "
                              f"not a {model_class}")
-        if meta.get("quantized"):
-            raise ValueError(f"{path} holds an int8-quantized model; "
-                             "quantized models are not ported yet")
         conf = conf_parser(z.read("configuration.json").decode())
         coeffs = _npz_load(z.read("coefficients.npz"))
         states = (_npz_load(z.read("state.npz"))
@@ -129,6 +146,11 @@ def _restore(path: str, model_class: str, model_factory, conf_parser,
         load_jax_opt_state(net, _unflatten(net.opt_state, upd, "updater.npz"))
     net.step_count = int(meta.get("step_count", 0))
     net.epoch_count = int(meta.get("epoch_count", 0))
+    if meta.get("quantized"):
+        net._quantized = True
+        # an inference view carries no updater state (fit_batch refuses it)
+        net.opt_state = ([{} for _ in net.params]
+                         if isinstance(net.params, list) else {})
     return net
 
 
