@@ -394,13 +394,45 @@ Phases (any failure exits non-zero before the result line):
     quantized through ``ComputationGraph.quantize`` (the conv int8
     branch): logits at B = 64 on the card against the same view on the
     CPU within TOL_RESNET_CPU, ms a call beside the f32 graph's.
-40. Prints the kernels line (all nine kernels; the LRN entries count the
+40. The serving tier over real HTTP on the loopback, one
+    ``ServingGateway(device="cuda")``. (a) Config #3
+    (``BidirectionalGravesLSTMCharRnn``, f32) written with ``write_model``
+    and loaded through ``POST /models/load`` as charrnn/v1 (warm-up at
+    the pow2 buckets of batch limit 32, seconds a bucket printed); 8
+    client threads send 64 one-hot [64, 77] sequences, one a request,
+    through ModelRegistry, AdmissionController and ParallelInference to
+    ``net.output()``: timed (requests/s, latency p50 and p99, batch
+    sizes), then counted under the profiler (4 LSTM forwards a
+    dispatched batch, device records equal to the host's count); every
+    response 200 and within TOL_SERVE of ``net.output()``; one batch
+    dispatched under the sync debug mode (its host syncs and their call
+    sites reported) and the host's JSON work a request, timed alone.
+    (b) The zip loaded with ``quantize: "int8"`` as v2 (``/models`` shows
+    it quantized; alone, within TOL_SERVE_INT8 of
+    ``net.quantize().output()``), a 90/10 split, v1 hot-reloaded under
+    load (every response 200 and within its version's tolerance), int4
+    refused with 400. (c) Phase 30's full-width LM (bf16 ring, 8 slots)
+    registered with a session journal: phase 30's 16 requests as
+    concurrent streaming ``POST /v1/lm/generate`` calls, timed (tokens/s,
+    TTFT p50, beside the engine driven directly in the same process),
+    then counted (12 flash forwards a prefill on the device), every
+    ndjson stream equal to the direct engine's token for token. (d)
+    Phase 31's 1-layer cut behind a journaled gateway with a
+    ``LifecycleManager`` (stub ``exit_fn``): ``preempt`` injected through
+    ``faults`` at a decode step drains and journals four durable greedy
+    sessions; a second engine and gateway resume them and each client
+    reconnects with ``last_seq``: every stream equals the uninterrupted
+    run. (e) One gateway serving both models at once: the predicts while
+    a fresh engine's thread captures and replays its decode graph, the
+    streams and the predicts held as before.
+41. Prints the kernels line (all nine kernels; the LRN entries count the
     import path's launches under ``launches_by_path["tf_import"]``, the
     flash forward the serving prefills of phases 29-30 and its prefill
     shape's times, every entry YOLO2's, 0, under ``"yolo2_inference"``
     and ``"yolo2_training"``, the training runtime's paths of phases
-    32-35, the observability paths of phase 36 and the import, pretrain
-    and quantized paths of phases 37-39), the card line and, last, the
+    32-35, the observability paths of phase 36, the import, pretrain
+    and quantized paths of phases 37-39 and the serving tier's predict
+    and generate paths of phase 40), the card line and, last, the
     result line ``{"ok": true, "device": {...}}``.
 
 Every phase's JSON record carries
@@ -6559,6 +6591,595 @@ def phase_quantized_serving(torch, np, full):
     return out
 
 
+# ---------------------------------------------------------- the serving tier
+SERVE_REQUESTS = 64       # phase 40: config #3 predicts, one sequence each
+SERVE_CLIENTS = 8
+SERVE_BATCH_LIMIT = 32
+SERVE_PREEMPT_STEP = 6    # the session's decode step the preempt fires at
+# a predict against ``net.output()`` on the same rows on the card: the
+# batch composition and the pow2 padding differ from the direct call
+TOL_SERVE = 1e-5
+# load-time int8 against ``net.quantize().output()``: the JAX package's
+# tests/test_quantize.py::TestServingQuantize tolerance (rtol, atol)
+TOL_SERVE_INT8 = (1e-4, 1e-5)
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def _http_json(base, path, payload=None, timeout=300):
+    """A GET (no payload) or a JSON POST: (status, parsed body)."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(base + path, data=data,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def _ndjson(port, name, payload, headers=None, timeout=600):
+    """One streaming ``POST /v1/<name>/generate``: (status, the parsed
+    lines, seconds from the request to its first line)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", f"/v1/{name}/generate",
+                     json.dumps(payload).encode(),
+                     {"Content-Type": "application/json", **(headers or {})})
+        r = conn.getresponse()
+        lines, first = [], None
+        for raw in r:
+            if raw.strip():
+                if first is None:
+                    first = time.perf_counter() - t0
+                lines.append(json.loads(raw))
+        return r.status, lines, first
+    finally:
+        conn.close()
+
+
+def _predict_load(base, xs, clients, stop=None):
+    """``clients`` threads send ``xs`` one sequence a request to
+    ``/v1/charrnn/predict``, each its share in turn (over and over until
+    ``stop`` is set, when one is given). Returns ([(row, status, body,
+    seconds)], wall s)."""
+    import threading
+
+    out, lock = [], threading.Lock()
+
+    def client(k):
+        while True:
+            for i in range(k, len(xs), clients):
+                t0 = time.perf_counter()
+                code, body = _http_json(base, "/v1/charrnn/predict",
+                                        {"inputs": [xs[i].tolist()]})
+                with lock:
+                    out.append((i, code, body, time.perf_counter() - t0))
+            if stop is None or stop.is_set():
+                return
+
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    return out, time.perf_counter() - t0
+
+
+def _check_predicts(np, results, refs, what):
+    """Every response 200 and within its version's tolerance of that
+    version's reference rows; refs: {version: (rows, rtol, atol)}.
+    Returns {version: (requests, max abs err)}."""
+    seen = {}
+    for i, code, body, _ in results:
+        if code != 200:
+            fail(f"{what}: request {i} answered {code}: {body}")
+        ver = body["version"]
+        if ver not in refs:
+            fail(f"{what}: request {i} was served by version {ver}")
+        want, rtol, atol = refs[ver]
+        got = np.asarray(body["outputs"][0], np.float32)
+        if got.shape != want[i].shape or not np.all(
+                np.abs(got - want[i]) <= atol + rtol * np.abs(want[i])):
+            fail(f"{what}: request {i} ({ver}) lies "
+                 f"{float(np.abs(got - want[i]).max())} from its reference "
+                 f"(rtol {rtol}, atol {atol})")
+        n, err = seen.get(ver, (0, 0.0))
+        seen[ver] = (n + 1, max(err, float(np.abs(got - want[i]).max())))
+    return seen
+
+
+def _latency_summary(np, results, wall):
+    lat = [s for _, _, _, s in results]
+    return {"requests": len(results), "wall_s": wall,
+            "requests_per_s": len(results) / wall,
+            "latency_p50_ms": 1e3 * float(np.percentile(lat, 50)),
+            "latency_p99_ms": 1e3 * float(np.percentile(lat, 99))}
+
+
+def _tier_predict(torch, np, gw, tmp):
+    """40(a): config #3 written to a zip, loaded through ``/models/load``
+    (warm-up at the pow2 buckets), 64 one-hot [64, 77] sequences from 8
+    client threads, twice: timed (monitoring on for the batch sizes), then
+    counted under the profiler (4 LSTM forwards a dispatched batch); one
+    dispatch under the sync debug mode."""
+    import warnings
+
+    from deeplearning4j_tpu_torch import monitoring
+    from deeplearning4j_tpu_torch.monitoring import SIZE_BUCKETS
+    from deeplearning4j_tpu_torch.ops.cuda import KERNELS, fused_lstm
+    from deeplearning4j_tpu_torch.util.serialization import write_model
+    from deeplearning4j_tpu_torch.zoo import BidirectionalGravesLSTMCharRnn
+
+    base = f"http://127.0.0.1:{gw.port}"
+    model = BidirectionalGravesLSTMCharRnn(seed=SEED)
+    net = model.init(device="cuda")
+    V, T = model.vocab_size, model.timesteps
+    path = os.path.join(tmp, "charrnn.zip")
+    write_model(net, path)
+    rng = np.random.default_rng(SEED + 40)
+    xs = np.eye(V, dtype=np.float32)[rng.integers(0, V, (SERVE_REQUESTS, T))]
+    ref = net.output(xs).cpu().numpy()
+    load = {"name": "charrnn", "path": path, "warmup_shape": [T, V],
+            "batch_limit": SERVE_BATCH_LIMIT}
+    t0 = time.perf_counter()
+    code, body = _http_json(base, "/models/load", dict(load, version="v1"))
+    load_s = time.perf_counter() - t0
+    if code != 200:
+        fail(f"serving tier: /models/load answered {code}: {body}")
+    mv = gw.registry.get("charrnn", "v1")
+    if mv.model.device != torch.device("cuda", 0):
+        fail(f"serving tier: the zip was restored on {mv.model.device}")
+    warm = {b: s for b, s in sorted(mv.warmup_timings.items())}
+    print("serving tier warm-up s a bucket: " + ", ".join(
+        f"{b}: {s:.3f}" for b, s in warm.items()), flush=True)
+
+    monitoring.reset()
+    monitoring.enable()
+    try:
+        b0 = mv.pi.batches
+        timed, wall = _predict_load(base, xs, SERVE_CLIENTS)
+        timed_batches = mv.pi.batches - b0
+        cum, total, n = monitoring.registry().get(
+            "dl4j_serving_batch_size")._only().snapshot()
+    finally:
+        monitoring.reset()
+    _check_predicts(np, timed, {"v1": (ref, 0.0, TOL_SERVE)},
+                    "config #3 predict (timed)")
+    held = {}
+
+    def counted():
+        b = mv.pi.batches
+        held["results"], held["wall"] = _predict_load(base, xs, SERVE_CLIENTS)
+        held["batches"] = mv.pi.batches - b
+
+    host, device, by_kernel, _, lost = profiled_launches(torch, KERNELS,
+                                                         counted)
+    want = _only(KERNELS, fused_lstm_fwd=4 * held["batches"])
+    if host != want or device != want:
+        fail(f"config #3 predict: {held['batches']} dispatched batches "
+             f"launched {host} on the host, {device} on the device; want "
+             f"{want}")
+    seen = _check_predicts(np, held["results"],
+                           {"v1": (ref, 0.0, TOL_SERVE)},
+                           "config #3 predict (counted)")
+    names = sorted({k for k in by_kernel for f in
+                    fused_lstm.FWD_KERNEL_NAMES.values()
+                    if re.search(rf"(?<!\w){f}(?!\w)", k)})
+
+    # one batch of 5 rows padded to 8, dispatched by hand under the sync
+    # debug mode: where the host waits for the card in a dispatch
+    xb = np.concatenate([xs[:5], np.zeros((3, T, V), np.float32)])
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            one = mv.pi._forward(xb, 5)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    sync_sites = [f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+                  for w in caught if "synchroniz" in str(w.message)]
+    # the host's own work a request, one thread: the JSON each way and
+    # the conversions the gateway and a client make
+    t0 = time.perf_counter()
+    for i in range(16):
+        req = json.loads(json.dumps({"inputs": [xs[i].tolist()]}))
+        np.asarray(req["inputs"], np.float32)
+        json.loads(json.dumps({"outputs": [ref[i].tolist()]}))
+    json_ms = 1e3 * (time.perf_counter() - t0) / 16
+    if not np.abs(one - ref[:5]).max() <= TOL_SERVE:
+        fail("config #3 predict: a hand-dispatched batch differs from "
+             "net.output()")
+    rec = {"model": "BidirectionalGravesLSTMCharRnn(units=200, layers=2, "
+                    "vocab=77), f32, restored by /models/load",
+           "params": net.num_params(), "request_shape": [T, V],
+           "batch_limit": SERVE_BATCH_LIMIT, "clients": SERVE_CLIENTS,
+           "load_s": load_s, "warmup_s_by_bucket": warm,
+           "timed": dict(_latency_summary(np, timed, wall),
+                         batches=timed_batches,
+                         mean_batch_size=total / n if n else None,
+                         batch_size_cumulative={
+                             str(b): c for b, c in zip(
+                                 list(SIZE_BUCKETS) + ["+Inf"], cum)}),
+           "counted": dict(_latency_summary(np, held["results"],
+                                            held["wall"]),
+                           batches=held["batches"]),
+           "max_abs_err": seen["v1"][1], "launches": device,
+           "host_launches": host, "lstm_fwd_device_functions": names,
+           "host_syncs_in_one_dispatch": len(sync_sites),
+           "host_sync_sites": sync_sites,
+           "json_host_ms_per_request": json_ms,
+           "profiler_lead_in_records_lost": lost}
+    return rec, net, xs, ref, load
+
+
+def _tier_int8_canary(torch, np, gw, net, xs, ref, load):
+    """40(b): the same zip loaded with ``quantize: "int8"`` as v2 (served
+    alone, against ``net.quantize().output()``), then a 90/10 split and a
+    hot reload of v1 under load (nothing but 200s), and int4 refused."""
+    import threading
+
+    base = f"http://127.0.0.1:{gw.port}"
+    code, body = _http_json(base, "/models/load",
+                            dict(load, version="v2", quantize="int8",
+                                 weight=0.0))
+    if code != 200 or not body["loaded"]["quantized"]:
+        fail(f"serving tier: int8 load answered {code}: {body}")
+    code, body = _http_json(base, "/models")
+    flags = {v: d["quantized"] for v, d in
+             body["models"]["charrnn"]["versions"].items()}
+    if flags != {"v1": False, "v2": True}:
+        fail(f"serving tier: /models shows quantized {flags}")
+    qref = net.quantize().output(xs).cpu().numpy()
+    refs = {"v1": (ref, 0.0, TOL_SERVE), "v2": (qref,) + TOL_SERVE_INT8}
+    _http_json(base, "/models/split",
+               {"name": "charrnn", "split": {"v2": 1.0}})
+    alone, _ = _predict_load(base, xs[:16], 4)
+    v2 = _check_predicts(np, alone, refs, "int8 v2 predict")
+    code, body = _http_json(base, "/models/split",
+                            {"name": "charrnn",
+                             "split": {"v1": 0.9, "v2": 0.1}})
+    if code != 200:
+        fail(f"serving tier: /models/split answered {code}: {body}")
+    old = gw.registry.get("charrnn", "v1")
+    stop, held = threading.Event(), {}
+
+    def hammer():
+        held["results"], held["wall"] = _predict_load(base, xs,
+                                                      SERVE_CLIENTS, stop)
+
+    th = threading.Thread(target=hammer)
+    th.start()
+    time.sleep(0.3)
+    t0 = time.perf_counter()
+    code, body = _http_json(base, "/models/reload", dict(load, version="v1"))
+    reload_s = time.perf_counter() - t0
+    time.sleep(0.3)
+    stop.set()
+    th.join(timeout=600)
+    if code != 200 or gw.registry.get("charrnn", "v1") is old:
+        fail(f"serving tier: the hot reload answered {code}: {body}")
+    during = _check_predicts(np, held["results"], refs,
+                             "predicts across the hot reload")
+    bad, _ = _http_json(base, "/models/load",
+                        dict(load, version="v3", quantize="int4"))
+    if bad != 400:
+        fail(f"serving tier: quantize int4 answered {bad}, want 400")
+    return {"quantized": flags,
+            "int8_alone": {"requests": v2["v2"][0],
+                           "max_abs_err_vs_quantize_output": v2["v2"][1],
+                           "max_abs_err_vs_f32_output": float(
+                               np.abs(qref - ref).max())},
+            "hot_reload": {"split": {"v1": 0.9, "v2": 0.1},
+                           "reload_s": reload_s,
+                           "requests": len(held["results"]),
+                           "by_version": {v: n for v, (n, _) in
+                                          during.items()},
+                           "codes": sorted({c for _, c, _, _ in
+                                            held["results"]})},
+            "int4_status": bad}
+
+
+def _lm_http_run(gw_port, name, reqs):
+    """``reqs`` as concurrent streaming generates, one thread each:
+    ([(status, lines, first-line s)], wall s)."""
+    import threading
+
+    out = [None] * len(reqs)
+
+    def client(i):
+        r = dict(reqs[i])
+        out[i] = _ndjson(gw_port, name, dict(r, prompt_ids=r.pop("prompt")))
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(reqs))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    return out, time.perf_counter() - t0
+
+
+def _check_http_streams(direct, got, what, rerun):
+    """Every HTTP stream 200 and equal, token for token, to the same
+    request's stream from the engine driven directly; on a difference,
+    where they part (_stream_differences, a second direct run third)."""
+    from types import SimpleNamespace
+
+    views = []
+    for i, (st, lines, _) in enumerate(got):
+        if st != 200 or not lines or not lines[-1].get("done"):
+            fail(f"{what}: request {i} answered {st}: {lines[-1:]}")
+        views.append(SimpleNamespace(
+            tokens=[d["token"] for d in lines[:-1]],
+            finish_reason=lines[-1]["finish_reason"],
+            request=direct[i].request))
+    if [v.tokens for v in views] != [s.tokens for s in direct]:
+        fail(f"{what}: HTTP streams differ from the direct engine's: "
+             f"{json.dumps(_stream_differences(direct, views, rerun()))}")
+    return sum(len(v.tokens) for v in views)
+
+
+def _tier_generate(torch, np, gw, tmp):
+    """40(c): phase 30's full-width LM (bf16 ring, 8 slots) behind
+    ``/v1/lm/generate`` with a session journal: the 16 requests as
+    concurrent streams, timed, then counted under the profiler (12 flash
+    forwards a prefill), each stream equal to the engine driven directly
+    on the same weights."""
+    from deeplearning4j_tpu_torch.generation import GenerationEngine
+    from deeplearning4j_tpu_torch.ops.cuda import KERNELS
+
+    lm = lm_net(torch, dtype="bf16", **FULL_LM)
+    V, L = FULL_LM["vocab"], FULL_LM["max_len"]
+    reqs = _lm_requests(np, V, L)
+    direct = GenerationEngine(lm, slots=8, max_len=L, device="cuda")
+    direct.generate(reqs[0]["prompt"], max_new_tokens=2)   # the capture
+
+    def direct_run():
+        out = [direct.submit(r.pop("prompt"), **r)
+               for r in [dict(q) for q in reqs]]
+        direct.drain()
+        return out
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dstreams = direct_run()
+    torch.cuda.synchronize()
+    dwall = time.perf_counter() - t0
+    eng = GenerationEngine(lm, slots=8, max_len=L, device="cuda")
+    eng.generate(reqs[0]["prompt"], max_new_tokens=2)
+    gw.register_generator("lm", eng,
+                          sessions=os.path.join(tmp, "lm_sessions.ndjson"))
+    timed, twall = _lm_http_run(gw.port, "lm", reqs)
+    n_tokens = _check_http_streams(dstreams, timed, "generate (timed)",
+                                   direct_run)
+    held = {}
+
+    def counted():
+        held["got"], held["wall"] = _lm_http_run(gw.port, "lm", reqs)
+
+    host, device, _, _, lost = profiled_launches(torch, KERNELS, counted)
+    n_prefill = sum(1 for r in reqs if len(r["prompt"]) > 1)
+    want = _only(KERNELS, flash_attention_fwd=FULL_LM["layers"] * n_prefill)
+    if host != want or device != want:
+        fail(f"generate: {n_prefill} prefills launched {host} on the host, "
+             f"{device} on the device; want {want}")
+    _check_http_streams(dstreams, held["got"], "generate (counted)",
+                        direct_run)
+    ttft_http = [f for _, _, f in timed]
+    ttft_direct = [s.first_token_at - s.submitted_at for s in dstreams]
+    rec = {"model": "causal LM at BertBase width: 12 x 768, 12 heads, d_ff "
+                    "3072, vocab 30522, 512 positions, bf16, bf16 ring",
+           "slots": 8, "requests": len(reqs), "tokens": n_tokens,
+           "http": {"wall_s": twall, "tokens_per_s": n_tokens / twall,
+                    "ttft_p50_ms": 1e3 * float(np.percentile(ttft_http,
+                                                             50))},
+           "direct": {"wall_s": dwall, "tokens_per_s": n_tokens / dwall,
+                      "ttft_p50_ms": 1e3 * float(np.percentile(ttft_direct,
+                                                               50))},
+           "streams_equal_direct": True, "prefills": n_prefill,
+           "launches": device, "host_launches": host,
+           "engine_captures": eng.captures, "engine_replays": eng.replays,
+           "profiler_lead_in_records_lost": lost}
+    return rec, lm, reqs, dstreams, direct_run
+
+
+def _tier_preempt(torch, np, tmp):
+    """40(d): phase 31's 1-layer cut behind a gateway with a session
+    journal and a LifecycleManager over the gateway, the engine and the
+    journal (a stub ``exit_fn``). Four greedy durable streams start
+    together; ``preempt`` fires at a decode step through ``faults``; the
+    drain leaves every session open in the journal. A second engine and
+    gateway on the same weights resume them (``resume=True``), and each
+    client reconnects with ``last_seq``: every stream, the lines before
+    the preemption then the reconnect's, equals the uninterrupted run."""
+    import threading
+
+    from deeplearning4j_tpu_torch import faults
+    from deeplearning4j_tpu_torch.generation import (
+        AttentionDecodeAdapter, GenerationEngine, SessionJournal,
+    )
+    from deeplearning4j_tpu_torch.serving import (
+        LifecycleManager, ServingGateway, lifecycle,
+    )
+
+    net = lm_net(torch, seed=LANE_SEED, **dict(LANE, layers=1))
+
+    def engine():
+        eng = GenerationEngine(
+            net, slots=8, max_len=LANE["max_len"], device="cuda",
+            adapter=AttentionDecodeAdapter(net, max_len=SESSION_RING))
+        eng.generate([1, 2, 3], max_new_tokens=2)   # the capture
+        return eng
+
+    rng = np.random.default_rng(SEED + 40)
+    prompts = [rng.integers(0, LANE["vocab"], int(n)).tolist()
+               for n in rng.integers(4, 16, 4)]
+    ref_eng = engine()
+    refs = [ref_eng.submit(p, max_new_tokens=SESSION_NEW) for p in prompts]
+    ref_eng.drain()
+    refs = [s.tokens for s in refs]
+    path = os.path.join(tmp, "preempt_sessions.ndjson")
+    eng = engine()
+    # hold the loop's first step until all four sessions are queued, so
+    # they are admitted together and the fault's step is theirs
+    gate, inner = threading.Event(), eng.step
+    eng.step = lambda: gate.wait() and inner()
+    gw = ServingGateway(port=0, device="cuda").start()
+    gw.register_generator("lm1", eng, sessions=path)
+    journal = gw._sessions["lm1"]
+    exits = []
+    mgr = (LifecycleManager(grace_s=0.0, exit_fn=exits.append)
+           .register_gateway(gw).register_engine(eng)
+           .register_journal(journal).install(signals=()))
+    pre = [None] * len(prompts)
+
+    def client(i):
+        pre[i] = _ndjson(gw.port, "lm1",
+                         {"prompt_ids": prompts[i],
+                          "max_new_tokens": SESSION_NEW},
+                         headers={"X-Request-Id": f"p{i}"})
+
+    at = eng.steps_run + SERVE_PREEMPT_STEP
+    try:
+        with faults.injected(f"preempt:1@step>={at}") as plan:
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(len(prompts))]
+            for t in threads:
+                t.start()
+            deadline = time.monotonic() + 60
+            while (eng.pending_count() < len(prompts)
+                   and time.monotonic() < deadline):
+                time.sleep(0.005)
+            gate.set()
+            for t in threads:
+                t.join(timeout=120)
+            if not mgr.wait(120):
+                fail("preemption: the drain did not finish")
+            fired = plan.injected["preempt"]
+    finally:
+        gate.set()
+        lifecycle.reset()
+    journal.close()
+    if fired != 1 or exits != [0] or mgr.errors:
+        fail(f"preemption: fired {fired}, exit {exits}, errors {mgr.errors}")
+    before = []
+    for i, (st, lines, _) in enumerate(pre):
+        if st != 200 or lines[-1].get("finish_reason") != "preempted":
+            fail(f"preemption: stream p{i} answered {st}, ended "
+                 f"{lines[-1:]}")
+        before.append([d["token"] for d in lines[:-1]])
+    j2 = SessionJournal(path)
+    open_ids = sorted(r.request_id for r in j2.interrupted())
+    if open_ids != [f"p{i}" for i in range(len(prompts))]:
+        fail(f"preemption: the journal holds {open_ids} open")
+    eng2 = engine()
+    gw2 = ServingGateway(port=0, device="cuda").start()
+    try:
+        gw2.register_generator("lm1", eng2, sessions=j2, resume=True)
+        tails = []
+        for i, toks in enumerate(before):
+            st, lines, _ = _ndjson(gw2.port, "lm1", {"last_seq": len(toks)},
+                                   headers={"X-Request-Id": f"p{i}"})
+            seqs = [d["seq"] for d in lines[:-1]]
+            if st != 200 or seqs != list(range(len(toks) + 1,
+                                               len(toks) + 1 + len(seqs))):
+                fail(f"preemption: reconnect p{i} answered {st}, seq {seqs}")
+            tails.append([d["token"] for d in lines[:-1]])
+            if toks + tails[-1] != refs[i]:
+                fail(f"preemption: p{i} before + after the restart "
+                     f"{toks + tails[-1]} != the uninterrupted {refs[i]}")
+    finally:
+        gw2.stop(timeout=30)
+        j2.close()
+    return {"model": "phase 31's 1-layer cut (d 256, 8 heads, vocab 512), "
+                     f"ring {SESSION_RING}, greedy",
+            "sessions": len(prompts), "preempt_at_step": SERVE_PREEMPT_STEP,
+            "tokens_before": [len(t) for t in before],
+            "tokens_after": [len(t) for t in tails],
+            "exit_codes": exits, "journaled_open": len(open_ids),
+            "streams_equal_uninterrupted": True}
+
+
+def _tier_both_routes(torch, np, gw, lm, reqs, dstreams, direct_run, xs,
+                      ref):
+    """40(e): one gateway serving both models: config #3 predicts from the
+    worker threads while a fresh engine's thread captures its decode
+    graph at its first step and replays it."""
+    import threading
+
+    from deeplearning4j_tpu_torch.generation import GenerationEngine
+
+    base = f"http://127.0.0.1:{gw.port}"
+    gw.unregister_generator("lm")
+    eng = GenerationEngine(lm, slots=8, max_len=FULL_LM["max_len"],
+                           device="cuda")      # not warmed: captures here
+    gw.register_generator("lm", eng)
+    _http_json(base, "/models/split",
+               {"name": "charrnn", "split": {"v1": 1.0}})
+    held = {}
+
+    def predicts():
+        held["results"], held["wall"] = _predict_load(base, xs,
+                                                      SERVE_CLIENTS)
+
+    th = threading.Thread(target=predicts)
+    th.start()
+    time.sleep(0.05)
+    got, wall = _lm_http_run(gw.port, "lm", reqs)
+    th.join(timeout=600)
+    _check_http_streams(dstreams, got, "both routes: generate", direct_run)
+    seen = _check_predicts(np, held["results"], {"v1": (ref, 0.0, TOL_SERVE)},
+                           "both routes: predict")
+    _check_replays(eng, eng.steps_run, "both routes")
+    return {"predicts": len(held["results"]),
+            "predict_max_abs_err": seen["v1"][1],
+            "streams_equal_direct": True, "generate_wall_s": wall,
+            "predict_wall_s": held["wall"], "captures": eng.captures,
+            "replays": eng.replays}
+
+
+def phase_serving_tier(torch, np):
+    """Phase 40: the serving tier over real HTTP on the loopback, config
+    #3's char-RNN and the full-width causal LM behind one
+    ``ServingGateway``; see the module docstring."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.serving import ServingGateway
+
+    torch.cuda.empty_cache()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        gw = ServingGateway(port=0, seed=SEED, batch_limit=SERVE_BATCH_LIMIT,
+                            max_queue=4 * SERVE_REQUESTS,
+                            device="cuda").start()
+        try:
+            out["predict"], net, xs, ref, load = _tier_predict(torch, np, gw,
+                                                               tmp)
+            out["int8_canary"] = _tier_int8_canary(torch, np, gw, net, xs,
+                                                   ref, load)
+            (out["generate"], lm, reqs, dstreams,
+             direct_run) = _tier_generate(torch, np, gw, tmp)
+            out["preemption"] = _tier_preempt(torch, np, tmp)
+            out["both_routes"] = _tier_both_routes(
+                torch, np, gw, lm, reqs, dstreams, direct_run, xs, ref)
+        finally:
+            gw.stop(timeout=60)
+    out["launches"] = {k: out["predict"]["launches"][k]
+                       + out["generate"]["launches"][k]
+                       for k in out["predict"]["launches"]}
+    return out
+
+
 def main() -> None:
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "deeplearning4j_tpu_torch")):
@@ -6967,7 +7588,30 @@ def main() -> None:
           f"; quantized ResNet-50 {quant['resnet50']['ms_per_call']:.2f} ms "
           f"a call of {QUANT_RESNET_BATCH}", flush=True)
 
-    # phase 40: kernels line, card line, result line
+    # phase 40: the serving tier over HTTP, config #3 and the full-width LM
+    t0 = time.perf_counter()
+    tier = phase_serving_tier(torch, np)
+    tier["wall_s_phase"] = time.perf_counter() - t0
+    emit(card, {"serving_tier": tier})
+    tp, tg, tpr = tier["predict"], tier["generate"], tier["preemption"]
+    print(f"serving tier on {card}: config #3 predict "
+          f"{tp['timed']['requests_per_s']:.1f} requests/s, latency p50 "
+          f"{tp['timed']['latency_p50_ms']:.2f} ms, p99 "
+          f"{tp['timed']['latency_p99_ms']:.2f} ms, mean batch "
+          f"{tp['timed']['mean_batch_size']}, {tp['counted']['batches']} "
+          f"batches x 4 LSTM forwards, {tp['host_syncs_in_one_dispatch']} "
+          f"host syncs a dispatch, JSON "
+          f"{tp['json_host_ms_per_request']:.2f} ms of host a request; LM "
+          f"generate over HTTP "
+          f"{tg['http']['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+          f"{tg['http']['ttft_p50_ms']:.1f} ms (direct "
+          f"{tg['direct']['tokens_per_s']:.1f} tokens/s, "
+          f"{tg['direct']['ttft_p50_ms']:.1f} ms), "
+          f"{tg['launches']['flash_attention_fwd']} flash forwards; "
+          f"{tpr['sessions']} sessions preempted and resumed equal",
+          flush=True)
+
+    # the kernels line, card line, result line
     decode = rows[0]  # the serving path's decode shape [8, 1, 256]
     graves = bwd_rows[0]  # the training path's first layer [64, 64, 200]
     # TextGenerationLSTM's second layer [64, 64, 256], no peepholes: where
@@ -7149,6 +7793,12 @@ def main() -> None:
         paths = {"keras_imdb_bilstm": keras["launches"][n],
                  "pretrain_mnist": pretrain["launches"][n],
                  "quantized_lm_serving": quant["launches"][n]}
+        e["launches_by_path"].update(paths)
+        e["launches"] += sum(paths.values())
+    for e in entries:  # the serving tier's paths (phase 40)
+        n = e["name"]
+        paths = {"serving_tier_predict": tp["launches"][n],
+                 "serving_tier_generate": tg["launches"][n]}
         e["launches_by_path"].update(paths)
         e["launches"] += sum(paths.values())
     print(json.dumps({"kernels": entries}), flush=True)

@@ -6,9 +6,12 @@ the same spec and seed fires at the same calls and poisons the same bytes
 in both packages. The port's injection points: ``ckpt_io`` and
 ``ckpt_corrupt`` (``util/checkpoints.py``), ``data_io`` (the dataset
 iterators and the MNIST reader) and ``nan_grad`` / ``loss_spike`` /
-``data_corrupt`` (``fit_batch``'s input path, :func:`poison_batch`). The
-other classes parse and fire as in the JAX package; the modules that
-consume them (distributed training, serving workers) are not ported yet.
+``data_corrupt`` (``fit_batch``'s input path, :func:`poison_batch`),
+``infer_crash`` / ``worker_crash`` / ``slow_worker`` (the serving tier's
+``ParallelInference`` workers) and ``preempt`` (``GenerationEngine.step``,
+handed to ``serving/lifecycle.py``). The other classes parse and fire as
+in the JAX package; the modules that consume them (distributed training)
+are not ported yet.
 
 Spec grammar (``DL4J_TORCH_FAULTS`` or :func:`configure`)::
 

@@ -65,9 +65,13 @@ steps, prefill time, slot occupancy, time to first token (with the
 request's trace id as its exemplar) and inter-token gaps. With both off
 (no trace on a stream, monitoring off) ``step`` makes no tracer or
 registry call. :meth:`GenerationStream.follow` lets any number of
-reconnecting consumers read one stream. Not ported: the ``faults``
-preempt point of ``step``, which hands off to the serving lifecycle
-(``serving/lifecycle.py``, not ported yet).
+reconnecting consumers read one stream. ``step`` is the ``faults`` class
+``preempt``'s injection point: with a plan armed, a firing hands off to
+the serving lifecycle (``serving/lifecycle.deliver_preemption``, imported
+when it fires, so this module pulls in no HTTP stack), which drains and
+journals from its own thread, or raises ``PreemptionFault`` where no
+``LifecycleManager`` is installed (the background loop then ends every
+stream ``preempted``, journal records left open, and stops).
 """
 
 from __future__ import annotations
@@ -82,7 +86,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 
-from deeplearning4j_tpu_torch import monitoring
+from deeplearning4j_tpu_torch import faults, monitoring
 from deeplearning4j_tpu_torch.common.device import DeviceLike, resolve_device
 from deeplearning4j_tpu_torch.common.env import env
 from deeplearning4j_tpu_torch.common.trees import tree_leaves
@@ -734,6 +738,14 @@ class GenerationEngine:
     def step(self) -> bool:
         """Admit + one decode step for the whole pool. Returns False when
         there was nothing to do. One calling thread only."""
+        plan = faults.active()
+        if plan is not None and plan.fires("preempt", step=self.steps_run):
+            # the in-process SIGTERM: the lifecycle manager drains and
+            # journals from its own thread; unmanaged, this raises
+            from deeplearning4j_tpu_torch.serving import lifecycle
+
+            lifecycle.deliver_preemption(source="generation",
+                                         step=self.steps_run)
         self._admit()
         for s in self.pool.active_slots():
             if self.pool.meta[s].cancelled:
@@ -821,7 +833,29 @@ class GenerationEngine:
                     self._cond.wait(timeout=0.05)
                 if not self._running and not self.has_work():
                     return
-            self.step()
+            try:
+                self.step()
+            except faults.PreemptionFault:
+                # an injected preemption with no lifecycle manager: as if
+                # the process died mid-decode, everything in flight ends
+                # "preempted" (journal records stay open) and the loop stops
+                self._self_preempt()
+                return
+
+    def _self_preempt(self) -> None:
+        """Hard in-loop preemption; runs ON the loop thread, so it does not
+        join it."""
+        with self._cond:
+            self._accepting = False
+            self._running = False
+            pending = list(self._pending) + list(self._pending_lo)
+            self._pending.clear()
+            self._pending_lo.clear()
+            self._cond.notify_all()
+        for stream in pending:
+            self._finish_stream(stream, "preempted")
+        for s in self.pool.active_slots():
+            self._retire(s, "preempted")
 
     def shutdown(self, timeout: float = 10.0,
                  reason: str = "cancelled") -> None:

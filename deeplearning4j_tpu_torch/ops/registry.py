@@ -24,7 +24,9 @@ of them (the recurrent kernels' backward has its own limit on H). The
 cache is a bounded LRU (``CHOICE_CACHE_SIZE`` entries an op): the choice is
 a function of the key alone, so an evicted key is chosen again the same
 way, and a server that sees a new shape per prompt length holds memory
-flat. ``DL4J_TORCH_NAN_PANIC`` checks every op's floating outputs and
+flat. The cache is shared by every thread that runs ops (a server's
+inference workers and its engine's step loop), so each op guards it
+with a lock. ``DL4J_TORCH_NAN_PANIC`` checks every op's floating outputs and
 raises ``FloatingPointError`` naming the op on a NaN or Inf (the JAX
 registry's panic mode; a host read an op).
 """
@@ -33,6 +35,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import threading
 from typing import Any, Callable, Optional
 
 import torch
@@ -88,6 +91,11 @@ class _Op:
         self.name = name
         self.impls: list[OpImpl] = []
         self._choices: collections.OrderedDict = collections.OrderedDict()
+        # serving threads (inference workers, the engine's step loop)
+        # select concurrently: the lookup, insert, eviction and reorder
+        # of the LRU happen under this lock, so no thread's reorder meets
+        # a key another thread just evicted
+        self._lock = threading.Lock()
 
     @property
     def plain(self) -> OpImpl:
@@ -108,17 +116,19 @@ class _Op:
         key = (env.disable_kernels, env.force_kernels,
                torch.is_grad_enabled(), _signature(args),
                _signature(tuple(sorted(kwargs.items()))))
-        impl = self._choices.get(key)
-        if impl is None:
-            impl = self._choose(args, kwargs)
+        with self._lock:
+            impl = self._choices.get(key)
+            if impl is not None:
+                self._choices.move_to_end(key)
+                return impl
+        impl = self._choose(args, kwargs)
+        with self._lock:
             self._choices[key] = impl
             if len(self._choices) > CHOICE_CACHE_SIZE:
                 self._choices.popitem(last=False)
-            if env.verbose:
-                print(f"[dl4j-torch] op {self.name} -> {impl.platform} "
-                      f"for {key[3]}")
-        else:
-            self._choices.move_to_end(key)
+        if env.verbose:
+            print(f"[dl4j-torch] op {self.name} -> {impl.platform} "
+                  f"for {key[3]}")
         return impl
 
     def __call__(self, *args, **kwargs):

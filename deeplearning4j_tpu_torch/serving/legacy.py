@@ -1,0 +1,97 @@
+"""Single-model servers predating the gateway (kept as the simple tier).
+
+Counterpart of ``deeplearning4j_tpu/serving/legacy.py``. ``ModelServer`` is
+copied whole, with a ``device`` (the card unless the caller passes
+``device="cpu"``) for its ParallelInference. ``KNNServer`` serves the
+nearest-neighbour structures of ``neighbors/``, which the port does not
+have yet: building one raises ``ImportError``.
+
+Reference analog: the reference's serving tier — ParallelInference behind
+a REST endpoint (deeplearning4j model server / nearest-neighbors-server
+pattern). Stdlib-only HTTP: POST /predict with JSON {"inputs": [[...]]}
+returns {"outputs": [[...]]}; batching + async execution come from
+ParallelInference underneath, so concurrent requests share device batches.
+
+For multi-model registry / canary splits / admission control / warmup, use
+:class:`deeplearning4j_tpu_torch.serving.ServingGateway`.
+"""
+
+from __future__ import annotations
+
+import queue
+import time
+
+import numpy as np
+
+from deeplearning4j_tpu_torch.common.device import DeviceLike
+from deeplearning4j_tpu_torch.parallel.inference import (
+    DeadlineExceeded, ParallelInference,
+)
+from deeplearning4j_tpu_torch.serving.http import (
+    HttpError, _HttpServerMixin, serve_json,
+)
+
+
+class ModelServer(_HttpServerMixin):
+    """Serve a model's output() via JSON HTTP.
+
+        server = ModelServer(model, port=0).start()
+        ... POST http://host:port/predict {"inputs": [...]}
+        server.stop()
+    """
+
+    def __init__(self, model, port: int = 0, host: str = "127.0.0.1",
+                 batch_limit: int = 32, queue_timeout: float = 30.0,
+                 device: DeviceLike = "cuda"):
+        self.model = model
+        self._host, self._port = host, port
+        self._timeout = queue_timeout
+        self._pi = ParallelInference(model, batch_limit=batch_limit,
+                                     device=device)
+
+    def start(self) -> "ModelServer":
+        self._pi.start()
+        pi, timeout = self._pi, self._timeout
+
+        def predict(body):
+            xs = np.asarray(body["inputs"], np.float32)
+            # one shared deadline for the whole request: when the first
+            # result times out, the worker sheds the expired siblings too
+            # instead of computing for (and orphaning) a gone client
+            deadline = time.monotonic() + timeout
+            queues = [pi.submit(x, deadline=deadline) for x in xs]
+            outs = []
+            for q in queues:
+                try:
+                    r = q.get(timeout=max(deadline - time.monotonic(), 0.001))
+                except queue.Empty:
+                    raise HttpError(504, "prediction timed out") from None
+                if isinstance(r, DeadlineExceeded):
+                    raise HttpError(504, "prediction timed out") from None
+                if isinstance(r, BaseException):
+                    raise HttpError(500, f"forward pass failed: {r}") from None
+                outs.append(np.asarray(r).tolist())
+            return {"outputs": outs}
+
+        self._httpd, self._thread = serve_json(
+            self._host, self._port,
+            post_routes={"/predict": predict},
+            get_routes={"/health": lambda _: {"status": "ok"}})
+        return self
+
+    def stop(self):
+        self._stop_httpd()
+        self._pi.drain()
+
+
+class KNNServer(_HttpServerMixin):
+    """Nearest-neighbors HTTP server (``POST /knn``, ``POST /knnvec``,
+    ``GET /health`` in the JAX package). Its VP-tree, k-d tree and brute
+    search live in ``neighbors/``, which the port has not taken yet
+    (ROADMAP A9): building one raises ``ImportError``."""
+
+    def __init__(self, points, port: int = 0, host: str = "127.0.0.1",
+                 backend: str = "vptree"):
+        raise ImportError(
+            "KNNServer needs deeplearning4j_tpu_torch.neighbors, which is "
+            "not ported yet (ROADMAP A9, with neighbors/)")

@@ -464,3 +464,50 @@ def test_choice_cache_bounded_under_300_prompt_lengths(monkeypatch):
     assert all(unbounded[k] is impl for k, impl in bounded.items())
     assert list(bounded) == list(unbounded)[-registry.CHOICE_CACHE_SIZE:]
     assert tokens == tokens_ref
+
+
+def test_choice_cache_eviction_race_between_threads(monkeypatch):
+    """A second thread evicts the key that the first thread's lookup just
+    found, between that lookup and its reorder (the cache is bounded at 2
+    here). The lookup must still return its choice: unguarded, the reorder
+    raised ``KeyError`` in the middle of a forward. The choices stay what
+    they were."""
+    import collections
+    import threading
+
+    import torch
+
+    from deeplearning4j_tpu_torch.ops import registry
+
+    op = registry._Op("race_probe")
+    op.impls.append(registry.OpImpl("race_probe", registry.PLAIN,
+                                    lambda x: x))
+    monkeypatch.setattr(registry, "CHOICE_CACHE_SIZE", 2)
+    x = torch.zeros(1)
+    impl = op.select(x)
+    others = []
+
+    def evict():  # two new signatures push the first key out
+        others.extend(op.select(torch.zeros(n)) for n in (2, 3))
+
+    class Interleaved(collections.OrderedDict):
+        hit = False
+
+        def get(self, key, default=None):
+            found = super().get(key, default)
+            if found is not None and not Interleaved.hit:
+                Interleaved.hit = True
+                t = threading.Thread(target=evict)
+                t.start()
+                t.join(timeout=0.5)   # blocks here while select holds its lock
+                threads.append(t)
+            return found
+
+    threads = []
+    op._choices = Interleaved(op._choices)
+    assert op.select(x) is impl
+    for t in threads:
+        t.join(timeout=10)
+    assert Interleaved.hit and others == [impl, impl]
+    assert len(op._choices) == 2
+    assert all(v is impl for v in op._choices.values())
