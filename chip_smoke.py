@@ -425,14 +425,39 @@ Phases (any failure exits non-zero before the result line):
     run. (e) One gateway serving both models at once: the predicts while
     a fresh engine's thread captures and replays its decode graph, the
     streams and the predicts held as before.
-41. Prints the kernels line (all nine kernels; the LRN entries count the
+41. SameDiff: (a) config #4's BertBase (12 x 768, 12 heads, d_ff 3072,
+    vocab 30522) built with the SameDiff API from a port BertBase's params
+    (``samediff_bert``: embedding_lookup, positions, layer_norm, mmul,
+    heads by reshape + transpose_ into dot_product_attention, gelu, mean
+    pooling, cross_entropy), on a [32, 128] batch from the ported
+    BertWordPieceTokenizer + BertIterator over a generated 30,522-piece
+    vocabulary (every row full). f32: ``output()`` within TOL_SD_BERT_OUT
+    of ``net.output()``; ``sd.grad`` at the start through the kernels
+    against the same graph on the plain lowering (TOL_SD_BERT_GRAD), then
+    3 Adam ``fit`` steps against it (TOL_SD_BERT_FIT); bf16 (the variables
+    cast): ``output()`` (TOL_SD_BF16_PROBS), the gradients and 3 steps at
+    an lr that moves bf16 weights, the same way. Each ``output()``
+    launches 12 flash forwards and each step 12 forwards, 12 dq and 12
+    dk/dv, the device's records equal to the host's. (b)
+    TextGenerationLSTM through ``sd.nn.lstm_layer`` at [64, 64]: against
+    ``net.output()``, 3 RMSProp steps against the plain lowering, 2 LSTM
+    forwards a call and 2 + 2 a step on the cluster kernels. (c) AlexNet's
+    conv1 block (B 128, 224 x 224 x 3, conv 11 x 11 / 4 to 96, ReLU,
+    ``lrn``, max-pool 3 / 2, mean, dense 1000): against the plain lowering,
+    1 LRN forward a call and 1 + 1 a step. (d) A TF GraphDef of (c)'s
+    block through ``to_samediff`` on the card against the imported graph
+    (TOL_SD_IMPORT), and (a)'s f32 graph saved as an .sdz and loaded on
+    the card, its outputs equal bit for bit. Each part times ``output()``
+    and a step (wall and device), (a) and (b) beside the net's own.
+42. Prints the kernels line (all nine kernels; the LRN entries count the
     import path's launches under ``launches_by_path["tf_import"]``, the
     flash forward the serving prefills of phases 29-30 and its prefill
     shape's times, every entry YOLO2's, 0, under ``"yolo2_inference"``
     and ``"yolo2_training"``, the training runtime's paths of phases
     32-35, the observability paths of phase 36, the import, pretrain
     and quantized paths of phases 37-39 and the serving tier's predict
-    and generate paths of phase 40), the card line and, last, the
+    and generate paths of phase 40, SameDiff's paths of phase 41), the
+    card line and, last, the
     result line ``{"ok": true, "device": {...}}``.
 
 Every phase's JSON record carries
@@ -7180,6 +7205,625 @@ def phase_serving_tier(torch, np):
     return out
 
 
+# ------------------------------------------------------- phase 41: SameDiff
+# (a) config #4's BertBase, (b) TextGenerationLSTM and (c) AlexNet's conv1
+# block, each built with the SameDiff API from a port net's params or a
+# seed, and (d) the TF -> SameDiff import and the .sdz zip on the card
+SD_BERT_BATCH = 32
+SD_BERT_T = 128
+SD_CHAR_BATCH = 64        # TextGenerationLSTM's [64, 64] batch (phase 7)
+SD_CHAR_T = 64
+SD_ALEX_CLASSES = 1000
+N_SD_FIT_STEPS = 3
+N_SD_TIMED = 3
+# Adam's learning rate for the BERT fit checks. f32: every weight moves by
+# about lr a step, so the two runs' variables can part by at most
+# 2 x N_SD_FIT_STEPS x lr = 6e-5 (SD_BERT_PARAM_BOUND). bf16: 1e-3 moves
+# every weight under 0.5 (a bf16 step is 2^-8 of the weight), so the three
+# steps change the whole model but the LayerNorm gains
+SD_BERT_LR = {"f32": 1e-5, "bf16": 1e-3}
+SD_CHAR_LR = 1e-3         # RMSProp, TextGenerationLSTM's own
+SD_ALEX_LR = 1e-2         # Nesterovs, AlexNet's own
+# f32 SameDiff BERT output() against net.output(), max abs over the probs
+TOL_SD_BERT_OUT = 1e-4
+# Kernels against the plain lowering on the card, BERT. The gradients at
+# the start (sd.grad): each leaf's max abs difference over that leaf's
+# largest |g|, or over 1e-3 of the largest |g| of the whole model where a
+# leaf's is smaller (the key bias's gradient is 0 in exact arithmetic and
+# rounding noise in both runs). Adam hides a gradient off by a constant
+# factor (its step is scale-free); this check does not: with the flash dq
+# scaled by 1.01 it read 1.08e-2 on a query weight.
+TOL_SD_BERT_GRAD = {"f32": 3e-5, "bf16": 5e-2}  # read 2.9e-6, 2.1e-2
+# f32 fit: the variables after the steps, max abs, a tenth of Adam's bound
+# (read 6.5e-7)
+SD_BERT_PARAM_BOUND = 2 * N_SD_FIT_STEPS * SD_BERT_LR["f32"]
+TOL_SD_BERT_PARAM = SD_BERT_PARAM_BOUND / 10
+# The steps' updates ||dA - dB|| / ||dB|| over every variable (d: the
+# variables after the steps less before, in f32): f32 read 2.0e-5; bf16 read
+# 4.9e-2, where small gradients' signs part and Adam steps them apart. The
+# bf16 variables' max abs is recorded, not held: it reads 5.2e-3 of the
+# 6e-3 that Adam's steps allow
+TOL_SD_BERT_UPDATE = {"f32": 2e-4, "bf16": 1e-1}
+# The share of the variables' elements the plain run's steps moved (read
+# 0.81 in f32, 0.79 in bf16; the embedding rows no token of the batch
+# names, a fifth of the model, never move): a check of steps that leave
+# the model where it was checks nothing
+SD_BERT_MIN_MOVED = 0.5
+# bf16: the plain attention rounds its scores and softmax to bf16 where the
+# flash kernels hold them in f32, through 12 blocks. probs max abs (read
+# 3.9e-3); fit losses relative (read 9.2e-4; Adam's first step at either
+# rate throws this random network's loss from 0.80 to 3.0 in f32 and to 16
+# in bf16, the same in both runs)
+TOL_SD_BF16_PROBS = 1e-2
+TOL_SD_BF16_LOSS = 1e-2
+# (loss, variables, updates) of the BERT fit checks by type
+TOL_SD_BERT_FIT = {"f32": (TOL_TRAIN_LOSS, TOL_SD_BERT_PARAM,
+                           TOL_SD_BERT_UPDATE["f32"]),
+                   "bf16": (TOL_SD_BF16_LOSS, None,
+                            TOL_SD_BERT_UPDATE["bf16"])}
+# to_samediff().output() against the imported graph's output() (f32)
+TOL_SD_IMPORT = 1e-5
+
+
+def sd_vars(sd, prefix, p):
+    """One SameDiff variable a parameter of ``p``, named prefix_name."""
+    return {k: sd.var(f"{prefix}_{k}", v) for k, v in p.items()}
+
+
+def samediff_bert(sd, params, heads, seq_len=None, eps=1e-5):
+    """Config #4's network (the port's ``Bert`` zoo model: token embedding,
+    learned positions, LayerNorm, pre-norm encoder blocks, LayerNorm, mean
+    pooling, softmax classifier) as a SameDiff graph on ``sd``, from
+    ``params``: the net's per-layer params (arrays or tensors) in its
+    layer order. Heads are split by ``reshape`` + ``transpose_`` and
+    attend through ``dot_product_attention`` (no mask: every row is full).
+    Placeholders ``ids`` [B, T] and ``labels`` [B, C]; outputs ``probs``
+    and the loss ``loss`` (softmax cross-entropy), set as the graph's
+    loss. Only the SameDiff API is used, so either package builds it."""
+    emb, pos, ln0 = params[0], params[1], params[2]
+    blocks, lnf, out = params[3:-3], params[-3], params[-1]
+    D = emb["W"].shape[1]
+    Dh = D // heads
+    T = seq_len or pos["P"].shape[0]
+    ids = sd.placeholder("ids")
+    labels = sd.placeholder("labels")
+
+    def split(t):  # [B, T, D] -> [B, N, T, Dh]
+        return sd.transpose_(sd.reshape(t, [-1, T, heads, Dh]), [0, 2, 1, 3])
+
+    h = sd.embedding_lookup(sd.var("emb_W", emb["W"]), ids)
+    h = h + sd.var("pos_P", pos["P"])[0:T]
+    g = sd_vars(sd, "ln0", ln0)
+    h = sd.layer_norm(h, g["gamma"], g["beta"], eps=eps)
+    for i, p in enumerate(blocks):
+        v = sd_vars(sd, f"block{i}", p)
+        a = sd.layer_norm(h, v["ln1_g"], v["ln1_b"], eps=eps)
+        q, k, vv = (split(sd.mmul(a, v[f"W{n}"]) + v[f"b{n}"])
+                    for n in "qkv")
+        o = sd.nn.dot_product_attention(q, k, vv)
+        o = sd.reshape(sd.transpose_(o, [0, 2, 1, 3]), [-1, T, D])
+        h = h + (sd.mmul(o, v["Wo"]) + v["bo"])
+        m = sd.layer_norm(h, v["ln2_g"], v["ln2_b"], eps=eps)
+        m = sd.gelu(sd.mmul(m, v["W1"]) + v["b1"])
+        h = h + (sd.mmul(m, v["W2"]) + v["b2"])
+    g = sd_vars(sd, "lnf", lnf)
+    h = sd.layer_norm(h, g["gamma"], g["beta"], eps=eps)
+    pooled = sd.mean(h, axis=1)
+    o = sd_vars(sd, "out", out)
+    logits = sd.add(sd.mmul(pooled, o["W"]), o["b"], name="logits")
+    sd.softmax(logits, name="probs")
+    sd.set_loss(sd.cross_entropy(labels, logits, name="loss"))
+    return sd
+
+
+def samediff_charlstm(sd, params, batch):
+    """TextGenerationLSTM (LSTM x 2, RnnOutputLayer softmax) as a SameDiff
+    graph from the net's params, through ``sd.nn.lstm_layer`` from zero
+    carries (the layers' forget-gate bias is already in b). Placeholders
+    ``x`` [B, T, V] one-hot and ``labels``; outputs ``probs`` and the
+    per-step softmax cross-entropy ``loss``."""
+    import numpy as np
+
+    h = sd.placeholder("x")
+    labels = sd.placeholder("labels")
+    for i, p in enumerate(params[:-1]):
+        H = p["RW"].shape[0]
+        zero = sd.constant(np.zeros((batch, H), np.float32), name=f"zero{i}")
+        v = sd_vars(sd, f"lstm{i}", p)
+        h, _, _ = sd.nn.lstm_layer(h, zero, zero, v["W"], v["RW"], v["b"])
+    o = sd_vars(sd, "out", params[-1])
+    logits = sd.add(sd.mmul(h, o["W"]), o["b"], name="logits")
+    sd.softmax(logits, name="probs")
+    sd.set_loss(sd.cross_entropy(labels, logits, name="loss"))
+    return sd
+
+
+def alexnet_conv1_params(seed=SEED, classes=SD_ALEX_CLASSES):
+    """AlexNet's conv1 (11 x 11 x 3 -> 96, He-scaled) and a 96 -> classes
+    dense layer, from ``seed``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return {"conv_W": (rng.standard_normal((11, 11, 3, 96), np.float32)
+                       * np.float32(np.sqrt(2.0 / 363))),
+            "conv_b": np.zeros(96, np.float32),
+            "fc_W": (rng.standard_normal((96, classes), np.float32)
+                     / np.float32(np.sqrt(96))),
+            "fc_b": np.zeros(classes, np.float32)}
+
+
+def samediff_alexnet_conv1(sd, params):
+    """AlexNet's first block at its shapes: conv 11 x 11 / 4 (VALID) to
+    96 channels, ReLU, ``lrn`` (depth 5, k 2, alpha 1e-4, beta 0.75), max
+    pool 3 / 2, the spatial mean, then the dense classifier. Placeholders
+    ``x`` [B, 224, 224, 3] and ``labels``; outputs ``probs``, ``loss``."""
+    v = {k: sd.var(k, a) for k, a in params.items()}
+    x = sd.placeholder("x")
+    labels = sd.placeholder("labels")
+    h = sd.relu(sd.add(sd.conv2d(x, v["conv_W"], strides=(4, 4),
+                                 padding="valid"), v["conv_b"]))
+    h = sd._op("lrn", h, attrs={"depth": 5, "bias": 2.0, "alpha": 1e-4,
+                                "beta": 0.75})
+    h = sd.max_pool2d(h, kernel=(3, 3), strides=(2, 2), padding="valid")
+    h = sd.mean(h, axis=[1, 2])
+    logits = sd.add(sd.mmul(h, v["fc_W"]), v["fc_b"], name="logits")
+    sd.softmax(logits, name="probs")
+    sd.set_loss(sd.cross_entropy(labels, logits, name="loss"))
+    return sd
+
+
+def conv_graph_def(shape, params) -> bytes:
+    """Placeholder ``x`` (float32, NHWC ``shape``) -> Conv2D (11 x 11 / 4,
+    VALID) + BiasAdd + Relu + MaxPool (3 / 2, VALID) + Mean over H, W +
+    MatMul + BiasAdd + Softmax ("probs"): AlexNet's conv1 block with
+    ``params`` (``alexnet_conv1_params``) as a TF GraphDef."""
+    import numpy as np
+
+    return b"".join([
+        _pb_node("x", "Placeholder", (), _pb_attr("dtype", type_=1),
+                 _pb_attr("shape", shape=shape)),
+        _pb_node("conv_W", "Const", (), _pb_attr("value",
+                                                 tensor=params["conv_W"])),
+        _pb_node("conv_b", "Const", (), _pb_attr("value",
+                                                 tensor=params["conv_b"])),
+        _pb_node("conv", "Conv2D", ("x", "conv_W"),
+                 _pb_attr("strides", ints=[1, 4, 4, 1]),
+                 _pb_attr("padding", s="VALID")),
+        _pb_node("conv_bias", "BiasAdd", ("conv", "conv_b")),
+        _pb_node("relu", "Relu", ("conv_bias",)),
+        _pb_node("pool", "MaxPool", ("relu",),
+                 _pb_attr("ksize", ints=[1, 3, 3, 1]),
+                 _pb_attr("strides", ints=[1, 2, 2, 1]),
+                 _pb_attr("padding", s="VALID")),
+        _pb_node("axes", "Const", (), _pb_attr(
+            "value", tensor=np.array([1, 2], np.int32))),
+        _pb_node("mean", "Mean", ("pool", "axes"), _pb_attr("keep_dims",
+                                                            b=False)),
+        _pb_node("fc_W", "Const", (), _pb_attr("value", tensor=params["fc_W"])),
+        _pb_node("fc_b", "Const", (), _pb_attr("value", tensor=params["fc_b"])),
+        _pb_node("fc", "MatMul", ("mean", "fc_W")),
+        _pb_node("logits", "BiasAdd", ("fc", "fc_b")),
+        _pb_node("probs", "Softmax", ("logits",)),
+    ])
+
+
+def bert_vocab(np, seed=SEED, size=30522, words=20000):
+    """A BERT-base-sized WordPiece vocabulary from ``seed``: the five
+    specials, ``words`` whole words and ``##`` continuations up to
+    ``size``."""
+    rng = np.random.default_rng(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+
+    def fresh(n, lo, hi, taken):
+        out = []
+        while len(out) < n:
+            w = "".join(rng.choice(letters, rng.integers(lo, hi + 1)))
+            if w not in taken:
+                taken.add(w)
+                out.append(w)
+        return out
+
+    specials = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    whole = fresh(words, 3, 8, set())
+    cont = fresh(size - len(specials) - words, 2, 5, set())
+    return specials + whole + ["##" + c for c in cont], whole, cont
+
+
+def bert_sentences(np, whole, cont, n, seed=SEED, words=140):
+    """``n`` (sentence, label) pairs of ``words`` words each: whole words,
+    a third of them with a continuation glued on, so every row fills 128
+    wordpieces."""
+    rng = np.random.default_rng(seed + 1)
+    out = []
+    for i in range(n):
+        ws = [whole[j] + (cont[c] if c >= 0 else "")
+              for j, c in zip(rng.integers(0, len(whole), words),
+                              np.where(rng.random(words) < 1 / 3,
+                                       rng.integers(0, len(cont), words), -1))]
+        out.append((" ".join(ws), "pos" if i % 2 else "neg"))
+    return out
+
+
+def _bert_text_batch(np):
+    """Config #4's [32, 128] batch through the ported BERT text front:
+    BertWordPieceTokenizer over a generated 30,522-piece vocabulary and a
+    seq_classification BertIterator; every row full (mask all ones)."""
+    from deeplearning4j_tpu_torch.nlp import (
+        BertIterator, BertWordPieceTokenizer,
+    )
+
+    vocab, whole, cont = bert_vocab(np)
+    tok = BertWordPieceTokenizer(vocab)
+    it = BertIterator(tok, bert_sentences(np, whole, cont, SD_BERT_BATCH),
+                      batch_size=SD_BERT_BATCH, max_len=SD_BERT_T,
+                      task="seq_classification", labels=["neg", "pos"])
+    ds = next(iter(it))
+    if (ds.features.shape != (SD_BERT_BATCH, SD_BERT_T)
+            or not (ds.features_mask == 1).all()):
+        fail(f"BERT text front: batch {ds.features.shape}, mask not all "
+             f"ones ({ds.features_mask.sum()} of {ds.features_mask.size})")
+    pieces = sum(t.startswith("##") for t in tok.tokenize(
+        bert_sentences(np, whole, cont, 1)[0][0]))
+    return ds, {"vocab": len(vocab), "continuation_pieces_row0": pieces,
+                "unk_ids": int((ds.features == tok.index["[UNK]"]).sum())}
+
+
+class _Losses:
+    """A SameDiff listener that keeps each step's loss."""
+
+    def __init__(self):
+        self.losses = []
+
+    def iteration_done(self, sd, i, epoch, loss):
+        self.losses.append(loss)
+
+
+def _plain(fn):
+    """``fn()`` with the kernels off (DL4J_TORCH_DISABLE_KERNELS: every
+    registry op takes its plain lowering)."""
+    from deeplearning4j_tpu_torch.common.env import env
+
+    env.disable_kernels = True
+    try:
+        return fn()
+    finally:
+        env.reload()
+
+
+def _sd_fit(sd, updater, steps, feeds):
+    """``steps`` fit steps; the losses of every step."""
+    rec = _Losses()
+    sd.fit(updater=updater, steps=steps, listeners=[rec], **feeds)
+    return rec.losses
+
+
+def _sd_against_plain(torch, make, updater, feeds, steps, loss_tol,
+                      param_tol, what, update_tol=None):
+    """Two graphs from ``make()``: ``steps`` fit steps through the kernels
+    and through the plain lowering, the losses of each step (relative) and
+    the variables after (max abs; and, given ``update_tol``, the steps'
+    updates ||dA - dB|| / ||dB|| over every variable, and the share of
+    elements the steps moved at least SD_BERT_MIN_MOVED) held to the
+    tolerances (None: recorded only)."""
+    import numpy as np
+
+    a, b = make(), make()
+    v0 = {k: t.float() for k, t in b.variables().items()}
+    la = _sd_fit(a, updater(), steps, feeds)
+    lb = _plain(lambda: _sd_fit(b, updater(), steps, feeds))
+    loss_err = max(abs(p - q) / max(abs(q), 1e-12) for p, q in zip(la, lb))
+    va, vb = a.variables(), b.variables()
+    param_err = max(float((va[k].float() - vb[k].float()).abs().max())
+                    for k in va)
+    num = sum(float((va[k].float() - vb[k].float()).square().sum())
+              for k in va)
+    den = sum(float((vb[k].float() - v0[k]).square().sum()) for k in vb)
+    moved = sum(int((vb[k].float() != v0[k]).sum()) for k in vb)
+    update_err = (num / den) ** 0.5 if den > 0 else float("inf")
+    moved_share = moved / sum(t.numel() for t in v0.values())
+    if not all(np.isfinite(la)) or loss_err > loss_tol or \
+            (param_tol is not None and param_err > param_tol) or \
+            (update_tol is not None and (update_err > update_tol or
+                                         moved_share < SD_BERT_MIN_MOVED)):
+        fail(f"{what}: {steps} fit steps, kernels against the plain "
+             f"lowering on the card: losses {la} / {lb} (rel err {loss_err},"
+             f" tol {loss_tol}), variables abs err {param_err} (tol "
+             f"{param_tol}), updates rel err {update_err} (tol "
+             f"{update_tol}), share moved {moved_share} (at least "
+             f"{SD_BERT_MIN_MOVED} where the updates are held)")
+    return {"kernel_losses": la, "plain_losses": lb,
+            "loss_max_rel_err": loss_err, "variables_max_abs_err": param_err,
+            "updates_rel_err": update_err,
+            "plain_update_norm": den ** 0.5,
+            "plain_moved_share": moved_share}
+
+
+def _grads_against_plain(sd, feeds, tol, what):
+    """``sd.grad`` of the loss at the graph's variables, kernels against
+    the plain lowering: each leaf's max abs difference over the larger of
+    its own largest |g| and 1e-3 of the model's (TOL_SD_BERT_GRAD says
+    why), held to ``tol``; the worst leaf and the attention weights'."""
+    ga = sd.grad("loss", **feeds)
+    gb = _plain(lambda: sd.grad("loss", **feeds))
+    top = max(float(g.float().abs().max()) for g in gb.values())
+    errs = {k: float((ga[k].float() - gb[k].float()).abs().max())
+            / max(float(gb[k].float().abs().max()), 1e-3 * top)
+            for k in gb}
+    worst = max(errs, key=errs.get)
+    if not errs[worst] <= tol:
+        fail(f"{what}: gradients, kernels against the plain lowering on "
+             f"the card: {worst} {errs[worst]} > {tol}")
+    attn = [k for k in errs if k.split("_")[-1] in ("Wq", "Wk", "Wv")]
+    return {"max_rel_err": errs[worst], "worst_leaf": worst,
+            "attention_weights_max_rel_err": max(errs[k] for k in attn),
+            "largest_abs_grad": top}
+
+
+def _sd_launches(torch, kernels, fn, want, what):
+    """One call of ``fn`` profiled: the host's launches and the device's
+    records must both equal ``want``."""
+    host, device, _, wall_ms, lost = profiled_launches(torch, kernels, fn)
+    if host != want or device != host:
+        fail(f"{what}: host launches {host}, device records {device}; want "
+             f"{ {k: v for k, v in want.items() if v} } and nothing else")
+    return {"host": host, "device": device, "wall_ms": wall_ms,
+            "profiler_lead_in_records_lost": lost}
+
+
+def _timed(torch, fn, what):
+    """Wall ms (synced) and device ms of one call of ``fn``."""
+    return {f"{what}_ms": host_ms(torch, fn, N_SD_TIMED),
+            f"{what}_device_ms": call_device_ms(torch, fn, N_SD_TIMED)}
+
+
+def _sd_bert(torch, np, KERNELS):
+    """Phase 41(a): config #4's BertBase at full width through SameDiff."""
+    from deeplearning4j_tpu_torch.autodiff.samediff import SameDiff
+    from deeplearning4j_tpu_torch.optimize.updaters import Adam
+    from deeplearning4j_tpu_torch.zoo import BertBase
+
+    model = BertBase(seed=SEED, max_len=SD_BERT_T, dtype="float32",
+                     dropout=0.0)
+    net = model.init(device="cuda")
+    ds, text = _bert_text_batch(np)
+    ids = ds.features.astype(np.int64)
+    feeds = {"ids": torch.as_tensor(ids, device="cuda"),
+             "labels": torch.as_tensor(ds.labels, device="cuda")}
+
+    def make(dtype=torch.float32):
+        sd = samediff_bert(SameDiff.create(SEED, device="cuda"),
+                           [{k: t.detach().clone() for k, t in p.items()}
+                            for p in net.params], heads=model.n_heads)
+        if dtype != torch.float32:
+            sd.set_variables({k: t.to(dtype)
+                              for k, t in sd.variables().items()})
+        return sd
+
+    n = model.n_layers
+    out_want = _only(KERNELS, flash_attention_fwd=n)
+    step_want = _only(KERNELS, flash_attention_fwd=n, flash_attention_dq=n,
+                      flash_attention_dkv=n)
+    rec, launches = {"model": "BertBase(12 x 768, 12 heads, d_ff 3072, vocab "
+                              "30522), SameDiff graph from the net's params",
+                     "batch": SD_BERT_BATCH, "timesteps": SD_BERT_T,
+                     "text_front": text}, {}
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        sd = make(dt)
+        probs, n_out, _, _ = _count_launches(
+            torch, KERNELS, lambda: sd.output("probs", **feeds))
+        plain = _plain(lambda: sd.output("probs", **feeds))
+        r = {"output_max_abs_err_vs_plain": float(
+            (probs.float() - plain.float()).abs().max())}
+        if name == "f32":
+            want = net.output(ids, mask=ds.features_mask)
+            r["output_max_abs_err_vs_net"] = float(
+                (probs - want).abs().max())
+            if r["output_max_abs_err_vs_net"] > TOL_SD_BERT_OUT:
+                fail(f"SameDiff BERT f32 output() against net.output(): "
+                     f"{r['output_max_abs_err_vs_net']} > {TOL_SD_BERT_OUT}")
+        elif r["output_max_abs_err_vs_plain"] > TOL_SD_BF16_PROBS:
+            fail(f"SameDiff BERT bf16 output(), kernels against plain: "
+                 f"{r['output_max_abs_err_vs_plain']} > {TOL_SD_BF16_PROBS}")
+        r["output_launches"] = _sd_launches(
+            torch, KERNELS, lambda: sd.output("probs", **feeds), out_want,
+            f"SameDiff BERT {name} output()")
+        r["grads_against_plain"] = _grads_against_plain(
+            sd, feeds, TOL_SD_BERT_GRAD[name], f"SameDiff BERT {name}")
+        upd = (lambda: Adam(lr=SD_BERT_LR[name]))
+        r["updater"] = f"Adam lr {SD_BERT_LR[name]}"
+        tols = TOL_SD_BERT_FIT[name]
+        r["fit_against_plain"] = _sd_against_plain(
+            torch, lambda: make(dt), upd, feeds, N_SD_FIT_STEPS, tols[0],
+            tols[1], f"SameDiff BERT {name}", update_tol=tols[2])
+        r["step_launches"] = _sd_launches(
+            torch, KERNELS, lambda: sd.fit(updater=upd(), steps=1, **feeds),
+            step_want, f"SameDiff BERT {name} fit step")
+        _, n_fit, _, _ = _count_launches(
+            torch, KERNELS, lambda: sd.fit(updater=upd(), steps=1, **feeds))
+        launches[name] = {k: n_out[k] + n_fit[k] for k in n_out}
+        r.update(_timed(torch, lambda: sd.output("probs", **feeds),
+                        "output"))
+        r.update(_timed(torch, lambda: sd.fit(updater=upd(), steps=1,
+                                              **feeds), "step"))
+        rec[name] = r
+        del sd
+    # the net's own entry points beside SameDiff's eager graph (f32)
+    y, m = ds.labels, ds.features_mask
+    rec["net_f32"] = {
+        **_timed(torch, lambda: net.output(ids, mask=m), "output"),
+        **_timed(torch, lambda: float(net.fit_batch((ids, y, m))), "step"),
+        "updater": "AdamW on warmup-cosine, clip 1.0 (the net's own)"}
+    rec["launches"] = launches
+    return rec, make, feeds
+
+
+def _sd_charlstm(torch, np, KERNELS):
+    """Phase 41(b): TextGenerationLSTM through SameDiff's lstm_layer."""
+    from deeplearning4j_tpu_torch.autodiff.samediff import SameDiff
+    from deeplearning4j_tpu_torch.ops.cuda import fused_lstm
+    from deeplearning4j_tpu_torch.optimize.updaters import RMSProp
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+
+    model = TextGenerationLSTM(seed=SEED)
+    net = model.init(device="cuda")
+    x, y = _char_batch(np, np.random.default_rng(SEED + 41),
+                       model.vocab_size, SD_CHAR_BATCH, SD_CHAR_T)
+    feeds = {"x": torch.as_tensor(x, device="cuda"),
+             "labels": torch.as_tensor(y, device="cuda")}
+
+    def make():
+        return samediff_charlstm(
+            SameDiff.create(SEED, device="cuda"),
+            [{k: t.detach().clone() for k, t in p.items()}
+             for p in net.params], SD_CHAR_BATCH)
+
+    sd = make()
+    probs, n_out, _, _ = _count_launches(
+        torch, KERNELS, lambda: sd.output("probs", **feeds))
+    err = float((probs - net.output(x)).abs().max())
+    if err > TOL:
+        fail(f"SameDiff char-LSTM output() against net.output(): {err} > "
+             f"{TOL}")
+    rec = {"model": "TextGenerationLSTM (LSTM 256 x 2, vocab 77), SameDiff "
+                    "graph from the net's params",
+           "batch": SD_CHAR_BATCH, "timesteps": SD_CHAR_T,
+           "output_max_abs_err_vs_net": err}
+    cluster = {"fused_lstm_fwd": fused_lstm.FWD_KERNEL_NAMES["cluster"],
+               "fused_lstm_bwd": fused_lstm.BWD_KERNEL_NAMES["cluster"]}
+    rec["output_launches"] = _sd_launches(
+        torch, KERNELS, lambda: sd.output("probs", **feeds),
+        _only(KERNELS, fused_lstm_fwd=2), "SameDiff char-LSTM output()")
+    upd = (lambda: RMSProp(lr=SD_CHAR_LR))
+    rec["fit_against_plain"] = _sd_against_plain(
+        torch, make, upd, feeds, N_SD_FIT_STEPS, TOL_TRAIN_LOSS,
+        TOL_TRAIN_PARAM, "SameDiff char-LSTM")
+
+    def step():
+        return sd.fit(updater=upd(), steps=1, **feeds)
+
+    rec["step_launches"] = _sd_launches(
+        torch, KERNELS, step, _only(KERNELS, fused_lstm_fwd=2,
+                                    fused_lstm_bwd=2),
+        "SameDiff char-LSTM fit step")
+    by_kernel, _, _ = profile_device(torch, step, 1)
+    rec["step_device_functions"] = sorted(
+        k for k in by_kernel if "lstm_" in k)
+    if not all(any(f in k for k in by_kernel) for f in cluster.values()):
+        fail(f"SameDiff char-LSTM step ran {rec['step_device_functions']}; "
+             f"want the cluster kernels {sorted(cluster.values())}")
+    _, n_fit, _, _ = _count_launches(torch, KERNELS, step)
+    rec.update(_timed(torch, lambda: sd.output("probs", **feeds), "output"))
+    rec.update(_timed(torch, step, "step"))
+    rec["net"] = {**_timed(torch, lambda: net.output(x), "output"),
+                  **_timed(torch, lambda: float(net.fit_batch((x, y))),
+                           "step"),
+                  "updater": "RMSProp 1e-3, clip 5.0 (the net's own)"}
+    rec["launches"] = {k: n_out[k] + n_fit[k] for k in n_out}
+    return rec
+
+
+def _sd_alexnet(torch, np, KERNELS):
+    """Phase 41(c): AlexNet's conv1 block through SameDiff's lrn."""
+    from deeplearning4j_tpu_torch.autodiff.samediff import SameDiff
+    from deeplearning4j_tpu_torch.optimize.updaters import Nesterovs
+
+    params = alexnet_conv1_params()
+    x, y = _alexnet_images(torch, SEED + 41, ALEXNET_BATCH)
+    feeds = {"x": x, "labels": y}
+
+    def make():
+        return samediff_alexnet_conv1(SameDiff.create(SEED, device="cuda"),
+                                      params)
+
+    sd = make()
+    probs, n_out, _, _ = _count_launches(
+        torch, KERNELS, lambda: sd.output("probs", **feeds))
+    err = float((probs - _plain(lambda: sd.output("probs", **feeds)))
+                .abs().max())
+    if err > TOL:
+        fail(f"SameDiff AlexNet conv1 output(), kernels against plain: {err}"
+             f" > {TOL}")
+    rec = {"model": "AlexNet conv1 block: conv 11 x 11 / 4 -> 96, ReLU, lrn "
+                    "depth 5, max-pool 3 / 2, mean, dense 1000",
+           "batch": ALEXNET_BATCH, "output_max_abs_err_vs_plain": err}
+    rec["output_launches"] = _sd_launches(
+        torch, KERNELS, lambda: sd.output("probs", **feeds),
+        _only(KERNELS, lrn_fwd=1), "SameDiff AlexNet conv1 output()")
+    upd = (lambda: Nesterovs(lr=SD_ALEX_LR, momentum=0.9))
+    rec["fit_against_plain"] = _sd_against_plain(
+        torch, make, upd, feeds, N_SD_FIT_STEPS, TOL_TRAIN_LOSS,
+        TOL_TRAIN_PARAM, "SameDiff AlexNet conv1")
+
+    def step():
+        return sd.fit(updater=upd(), steps=1, **feeds)
+
+    rec["step_launches"] = _sd_launches(
+        torch, KERNELS, step, _only(KERNELS, lrn_fwd=1, lrn_bwd=1),
+        "SameDiff AlexNet conv1 fit step")
+    _, n_fit, _, _ = _count_launches(torch, KERNELS, step)
+    rec.update(_timed(torch, lambda: sd.output("probs", **feeds), "output"))
+    rec.update(_timed(torch, step, "step"))
+    rec["launches"] = {k: n_out[k] + n_fit[k] for k in n_out}
+    return rec, params, x
+
+
+def _sd_import_and_zip(torch, np, params, x, make_bert, bert_feeds):
+    """Phase 41(d): a TF GraphDef through to_samediff on the card, and the
+    full-width BERT graph through the .sdz zip."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.autodiff.samediff import SameDiff
+    from deeplearning4j_tpu_torch.modelimport import TFGraphMapper
+
+    imp = TFGraphMapper.import_graph(conv_graph_def(tuple(x.shape), params))
+    sd = imp.to_samediff()
+    want = imp.output({"x": x}, ["probs"])
+    got = sd.output("probs", x=x)
+    err = float((got - want).abs().max())
+    if got.device.type != "cuda" or err > TOL_SD_IMPORT:
+        fail(f"to_samediff on the card: output on {got.device}, against the "
+             f"imported graph {err} > {TOL_SD_IMPORT}")
+    rec = {"tf_graph": "Conv2D + BiasAdd + Relu + MaxPool + Mean + MatMul + "
+                       "BiasAdd + Softmax, [128, 224, 224, 3]",
+           "sd_nodes": len(sd._nodes),
+           "to_samediff_max_abs_err_vs_import": err}
+    bert = make_bert()
+    before = bert.output("probs", **bert_feeds)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "bert.sdz")
+        t0 = time.perf_counter()
+        bert.save(path)
+        rec["bert_sdz_save_s"] = time.perf_counter() - t0
+        rec["bert_sdz_bytes"] = os.path.getsize(path)
+        t0 = time.perf_counter()
+        back = SameDiff.load(path, device="cuda")
+        rec["bert_sdz_load_s"] = time.perf_counter() - t0
+    after = back.output("probs", **bert_feeds)
+    if after.device.type != "cuda" or not torch.equal(before, after):
+        fail(f"SameDiff BERT through the .sdz: outputs differ by "
+             f"{float((before - after).abs().max())} (device {after.device})")
+    rec["bert_sdz_bit_equal"] = True
+    return rec
+
+
+def phase_samediff(torch, np):
+    """Phase 41: SameDiff on the card (a-d); returns the record."""
+    from deeplearning4j_tpu_torch.ops.cuda import KERNELS
+
+    t0 = time.perf_counter()
+    bert, make_bert, bert_feeds = _sd_bert(torch, np, KERNELS)
+    char = _sd_charlstm(torch, np, KERNELS)
+    alex, params, x = _sd_alexnet(torch, np, KERNELS)
+    zipped = _sd_import_and_zip(torch, np, params, x, make_bert, bert_feeds)
+    launches = {"samediff_bert_f32": bert["launches"]["f32"],
+                "samediff_bert_bf16": bert["launches"]["bf16"],
+                "samediff_charlstm": char["launches"],
+                "samediff_alexnet_conv1": alex["launches"]}
+    return {"bert": bert, "charlstm": char, "alexnet_conv1": alex,
+            "import_and_zip": zipped, "launches_by_path": launches,
+            "wall_s_phase": time.perf_counter() - t0}
+
+
 def main() -> None:
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "deeplearning4j_tpu_torch")):
@@ -7611,6 +8255,22 @@ def main() -> None:
           f"{tpr['sessions']} sessions preempted and resumed equal",
           flush=True)
 
+    # phase 41: SameDiff on the card: full-width BERT f32 and bf16, the
+    # char-LSTM, AlexNet's conv1 block, to_samediff and the .sdz zip
+    samediff = phase_samediff(torch, np)
+    emit(card, {"samediff": samediff})
+    sb, sc, sa = (samediff[k] for k in ("bert", "charlstm", "alexnet_conv1"))
+    print(f"SameDiff on {card}: BERT-base f32 output() "
+          f"{sb['f32']['output_ms']:.2f} ms (net {sb['net_f32']['output_ms']:.2f}"
+          f"), step {sb['f32']['step_ms']:.2f} ms (net "
+          f"{sb['net_f32']['step_ms']:.2f}), against net.output() "
+          f"{sb['f32']['output_max_abs_err_vs_net']:.2e}; bf16 output() "
+          f"{sb['bf16']['output_ms']:.2f} ms, step {sb['bf16']['step_ms']:.2f}"
+          f" ms; char-LSTM step {sc['step_ms']:.2f} ms (net "
+          f"{sc['net']['step_ms']:.2f}); AlexNet conv1 step "
+          f"{sa['step_ms']:.2f} ms; phase {samediff['wall_s_phase']:.1f} s",
+          flush=True)
+
     # the kernels line, card line, result line
     decode = rows[0]  # the serving path's decode shape [8, 1, 256]
     graves = bwd_rows[0]  # the training path's first layer [64, 64, 200]
@@ -7799,6 +8459,11 @@ def main() -> None:
         n = e["name"]
         paths = {"serving_tier_predict": tp["launches"][n],
                  "serving_tier_generate": tg["launches"][n]}
+        e["launches_by_path"].update(paths)
+        e["launches"] += sum(paths.values())
+    for e in entries:  # SameDiff's paths (phase 41)
+        paths = {k: v[e["name"]]
+                 for k, v in samediff["launches_by_path"].items()}
         e["launches_by_path"].update(paths)
         e["launches"] += sum(paths.values())
     print(json.dumps({"kernels": entries}), flush=True)

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from deeplearning4j_tpu_torch.autodiff.sd_ops import fake_quant
 from deeplearning4j_tpu_torch.common.device import resolve_device
 
 # ------------------------------------------------------------ wire format
@@ -546,68 +547,6 @@ def one_hot(idx, depth: int, axis: int = -1, dtype=torch.float32):
     return oh if axis in (-1, oh.dim() - 1) else oh.movedim(-1, axis)
 
 
-# ----------------------------------------------------------- FakeQuant
-
-def _fq_nudged(mn, mx, num_bits, narrow):
-    """TF-semantics nudged quantization range: [min, max] adjusted so an
-    exact integer zero-point exists (FakeQuantWithMinMaxVars kernel)."""
-    qmin = 1.0 if narrow else 0.0
-    qmax = float((1 << num_bits) - 1)
-    scale = (mx - mn) / (qmax - qmin)
-    zp_from_min = qmin - mn / scale
-    # TF kernels round half UP (floor(v + 0.5)), not round-half-to-even —
-    # midpoint inputs must land on the same level
-    nudged_zp = torch.where(zp_from_min < qmin, torch.full_like(
-        zp_from_min, qmin), torch.where(
-            zp_from_min > qmax, torch.full_like(zp_from_min, qmax),
-            torch.floor(zp_from_min + 0.5)))
-    return (qmin - nudged_zp) * scale, (qmax - nudged_zp) * scale, scale
-
-
-class _FakeQuant(torch.autograd.Function):
-    """Quantize-dequantize with TF's straight-through gradient (the JAX
-    package's ``fake_quant`` custom_vjp, ``autodiff/sd_ops.py``)."""
-
-    generate_vmap_rule = True
-
-    @staticmethod
-    def forward(x, mn, mx, num_bits, narrow_range):
-        nmin, nmax, scale = _fq_nudged(mn, mx, num_bits, narrow_range)
-        clamped = torch.minimum(torch.maximum(x, nmin), nmax)
-        return torch.floor((clamped - nmin) / scale + 0.5) * scale + nmin
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        x, mn, mx, num_bits, narrow_range = inputs
-        ctx.save_for_backward(x, mn, mx)
-        ctx.num_bits, ctx.narrow_range = num_bits, narrow_range
-
-    @staticmethod
-    def backward(ctx, g):
-        x, mn, mx = ctx.saved_tensors
-        nmin, nmax, _ = _fq_nudged(mn, mx, ctx.num_bits, ctx.narrow_range)
-        below, above = x < nmin, x > nmax
-        zero = torch.zeros_like(g)
-        dx = torch.where(below | above, zero, g)
-        axes = (tuple(range(g.dim())) if mn.dim() == 0
-                else tuple(range(g.dim() - 1)))
-        dmn = torch.where(below, g, zero).sum(axes).reshape(mn.shape)
-        dmx = torch.where(above, g, zero).sum(axes).reshape(mx.shape)
-        return dx, dmn, dmx, None, None
-
-
-def fake_quant(x, mn, mx, num_bits=8, narrow_range=False):
-    """Quantize-dequantize x to num_bits levels over the nudged [mn, mx]
-    range. mn/mx: scalars (per-tensor) or [C] vectors broadcast over the
-    LAST axis (per-channel). Gradient is TF's straight-through estimator:
-    dx passes inside the nudged range and is 0 outside; d(mn)/d(mx) collect
-    the out-of-range cotangents."""
-    x = _t(x)
-    mn = _t(mn).to(x.dtype)
-    mx = _t(mx).to(x.dtype)
-    return _FakeQuant.apply(x, mn, mx, int(num_bits), bool(narrow_range))
-
-
 # --------------------------------------------------------------- op mapping
 
 TF_OP_REGISTRY: Dict[str, Callable] = {}
@@ -705,14 +644,14 @@ def _tf_fake_quant_args(node, xs):
     mn = node.attr("min")
     mx = node.attr("max")
     return fake_quant(
-        xs[0], np.float32(mn.f if mn and mn.f is not None else -6.0),
-        np.float32(mx.f if mx and mx.f is not None else 6.0), nb, nr)
+        _t(xs[0]), _t(np.float32(mn.f if mn and mn.f is not None else -6.0)),
+        _t(np.float32(mx.f if mx and mx.f is not None else 6.0)), nb, nr)
 
 
 @tf_op("FakeQuantWithMinMaxVars", "FakeQuantWithMinMaxVarsPerChannel")
 def _tf_fake_quant_vars(node, xs):
     nb, nr = _fq_attrs(node)
-    return fake_quant(xs[0], xs[1], xs[2], nb, nr)
+    return fake_quant(_t(xs[0]), _t(xs[1]), _t(xs[2]), nb, nr)
 
 
 @tf_op("ReadVariableOp")
@@ -1664,11 +1603,150 @@ class TFImportedGraph:
         return fn, params
 
     def to_samediff(self):
-        """The JAX package builds a SameDiff graph here; the port has no
-        SameDiff yet."""
-        raise NotImplementedError(
-            "TFImportedGraph.to_samediff: the TF -> SameDiff path waits for "
-            "the port of autodiff/ (SameDiff; ROADMAP A2's remainder)")
+        """Build a SameDiff graph from the imported GraphDef.
+
+        Reference analog: TFGraphMapper.importGraph returns a SameDiff — the
+        imported model is a *graph object* (inspectable, trainable,
+        serializable), not just a closure. Shape/axis argument nodes are
+        baked from Consts into op attrs (the reference does the same when
+        mapping TF's tensor-args onto libnd4j iArgs). The JAX package's
+        mapping op for op (36 TF op types), on the import's device.
+        """
+        from deeplearning4j_tpu_torch.autodiff.samediff import SameDiff
+
+        sd = SameDiff.create(device=self.device)
+        handles = {}  # tf node name -> SDVariable
+
+        def const_val(name):
+            ref = self._ref(name)
+            if ref in self.constants:
+                return np.asarray(self.constants[ref])
+            if ref in self.folded:
+                return np.asarray(self.folded[ref])
+            raise NotImplementedError(
+                f"to_samediff: node input '{ref}' must be a Const")
+
+        for name in self.order:
+            node = self.nodes[name]
+            ins = [i for i in node.inputs if not i.startswith("^")]
+
+            def x(i):
+                ref = self._ref(ins[i])
+                if ref not in handles and ref in self.folded:
+                    # import-time folded value: materialize as a constant
+                    handles[ref] = sd.constant(self.folded[ref], name=ref)
+                return handles[ref]
+
+            if node.op == "Const":
+                handles[name] = sd.constant(self.constants[name], name=name)
+            elif node.op == "Placeholder":
+                handles[name] = sd.placeholder(name)
+            elif node.op in ("Add", "AddV2", "BiasAdd"):
+                handles[name] = sd.add(x(0), x(1), name=name)
+            elif node.op == "Sub":
+                handles[name] = sd.sub(x(0), x(1), name=name)
+            elif node.op == "Mul":
+                handles[name] = sd.mul(x(0), x(1), name=name)
+            elif node.op in ("RealDiv", "Div"):
+                handles[name] = sd.div(x(0), x(1), name=name)
+            elif node.op == "MatMul":
+                a, b = x(0), x(1)
+                ta, tb = node.attr("transpose_a"), node.attr("transpose_b")
+                if ta and ta.b:
+                    a = sd.transpose_(a, [1, 0])
+                if tb and tb.b:
+                    b = sd.transpose_(b, [1, 0])
+                handles[name] = sd.mmul(a, b, name=name)
+            elif node.op == "Relu":
+                handles[name] = sd.relu(x(0), name=name)
+            elif node.op == "Relu6":
+                handles[name] = sd._op("relu6", x(0), name=name)
+            elif node.op == "Sigmoid":
+                handles[name] = sd.sigmoid(x(0), name=name)
+            elif node.op == "Tanh":
+                handles[name] = sd.tanh(x(0), name=name)
+            elif node.op == "Softmax":
+                handles[name] = sd.softmax(x(0), name=name)
+            elif node.op == "FakeQuantWithMinMaxArgs":
+                nb, nr = _fq_attrs(node)
+                mn = node.attr("min")
+                mx = node.attr("max")
+                handles[name] = sd._op(
+                    "fake_quant_with_min_max_args", x(0),
+                    attrs={"min": mn.f if mn and mn.f is not None else -6.0,
+                           "max": mx.f if mx and mx.f is not None else 6.0,
+                           "num_bits": nb, "narrow_range": nr}, name=name)
+            elif node.op in ("FakeQuantWithMinMaxVars",
+                             "FakeQuantWithMinMaxVarsPerChannel"):
+                nb, nr = _fq_attrs(node)
+                opname = ("fake_quant_with_min_max_vars_per_channel"
+                          if node.op.endswith("PerChannel")
+                          else "fake_quant_with_min_max_vars")
+                handles[name] = sd._op(
+                    opname, x(0), x(1), x(2),
+                    attrs={"num_bits": nb, "narrow_range": nr}, name=name)
+            elif node.op in ("Identity", "StopGradient", "PreventGradient"):
+                handles[name] = sd.identity(x(0), name=name)
+            elif node.op == "NoOp":
+                continue                    # control-dependency anchor only
+            elif node.op == "Reshape":
+                shape = [int(d) for d in const_val(ins[1]).ravel()]
+                handles[name] = sd.reshape(x(0), shape, name=name)
+            elif node.op == "Squeeze":
+                dims = node.attr("squeeze_dims") or node.attr("axis")
+                axis = list(dims.list_i) if dims and dims.list_i else None
+                handles[name] = sd.squeeze(x(0), axis=axis, name=name)
+            elif node.op == "ExpandDims":
+                handles[name] = sd.expand_dims(
+                    x(0), int(const_val(ins[1]).ravel()[0]), name=name)
+            elif node.op in ("Mean", "Max"):
+                axes = [int(a) for a in const_val(ins[1]).ravel()]
+                keep = node.attr("keep_dims")
+                kd = bool(keep.b) if keep else False
+                fn = sd.mean if node.op == "Mean" else sd.max
+                handles[name] = fn(x(0), axis=axes, keepdims=kd, name=name)
+            elif node.op == "ConcatV2":
+                axis = int(const_val(ins[-1]).ravel()[0])
+                handles[name] = sd.concat([x(i) for i in range(len(ins) - 1)],
+                                          axis=axis, name=name)
+            elif node.op == "Conv2D":
+                strides = node.attr("strides").list_i or [1, 1, 1, 1]
+                pad = _pad_mode(node).lower()
+                handles[name] = sd.conv2d(x(0), x(1),
+                                          strides=tuple(strides[1:3]),
+                                          padding=pad, name=name)
+            elif node.op in ("MaxPool", "AvgPool"):
+                k = node.attr("ksize").list_i
+                s = node.attr("strides").list_i
+                pad = _pad_mode(node).lower()
+                fn = sd.max_pool2d if node.op == "MaxPool" else sd.avg_pool2d
+                handles[name] = fn(x(0), kernel=tuple(k[1:3]),
+                                   strides=tuple(s[1:3]), padding=pad, name=name)
+            elif node.op in ("FusedBatchNorm", "FusedBatchNormV3"):
+                eps = node.attr("epsilon")
+                eps = eps.f if eps and eps.f is not None else 1e-4  # TF op default
+                # TF input order (x, scale, offset, mean, var) -> ours
+                handles[name] = sd.batch_norm(x(0), x(3), x(4), x(1), x(2),
+                                              eps=float(eps), name=name)
+            elif node.op == "Pad":
+                pads = const_val(ins[1]).reshape(-1, 2)
+                handles[name] = sd.pad(x(0), [(int(a), int(b)) for a, b in pads],
+                                       name=name)
+            elif node.op == "Rsqrt":
+                # decomposed batchnorm graphs (keras export without fused
+                # BN) carry 1/sqrt(var+eps) as an explicit Rsqrt node
+                handles[name] = sd.rsqrt(x(0), name=name)
+            elif node.op == "DepthwiseConv2dNative":
+                strides = node.attr("strides").list_i or [1, 1, 1, 1]
+                handles[name] = sd.depthwise_conv2d(
+                    x(0), x(1), strides=tuple(strides[1:3]),
+                    padding=_pad_mode(node).lower(), name=name)
+            else:
+                raise NotImplementedError(
+                    f"to_samediff: no SameDiff mapping for TF op '{node.op}' "
+                    f"(node {name})")
+        return sd
+
 
 
 def _parse_signatures(meta_graph: Dict[int, list]) -> Dict[str, dict]:

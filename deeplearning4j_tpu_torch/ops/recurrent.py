@@ -27,6 +27,13 @@ from deeplearning4j_tpu_torch.common.dtypes import widen
 from deeplearning4j_tpu_torch.ops.registry import register_op
 
 
+def carry_dtype(dtype):
+    """The type the recurrences sum and carry in: f32 for bf16 and f32 (the
+    Pallas kernels' and the port's kernels' carries), f64 for an f64 input
+    (the XLA lowering's own type; no kernel takes f64)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def project_gates(x, W, b, forget_gate_bias=0.0, reverse=False):
     """The non-sequential input projection, time-major: xg [T, B, G] for
     any gate count G = W.shape[1]. ``forget_gate_bias`` is the LSTM's: it
@@ -47,22 +54,22 @@ def lstm_recurrence(xg, R, h0, c0, peephole=None, save_residuals=False):
     Returns (outputs [T, B, H], hT, cT), and with ``save_residuals`` also the
     training reserve [5, T, B, H] float32: the cell state c_t and the
     post-activation gates i, f, o, z, in kernel time order (what the Pallas
-    ``_lstm_kernel`` saves for its backward). This is the plain version of
-    the fused-LSTM forward kernel (``ops/cuda/fused_lstm.py``). Whatever the
-    inputs' type, the sums, the gates and the cell state are f32; h_{t-1}
-    enters the product rounded to R's type, and the results return in the
-    inputs' type (the JAX package's Pallas kernel does the same for bf16).
-    In f32 every cast is a no-op."""
+    ``_lstm_kernel`` saves for its backward). This is the plain version of the
+    fused-LSTM forward kernel (``ops/cuda/fused_lstm.py``). Whatever the
+    inputs' type, the sums, the gates and the cell state are f32 (f64 for f64
+    inputs); h_{t-1} enters the product rounded to R's type, and the results
+    return in the inputs' type (the JAX package's Pallas kernel does the same
+    for bf16). In f32 every cast is a no-op."""
     H = R.shape[0]
-    f32 = torch.float32
-    Rf = R.to(f32)
+    acc = carry_dtype(xg.dtype)
+    Rf = R.to(acc)
     if peephole is not None:
-        pf = peephole.to(f32)
+        pf = peephole.to(acc)
         p_i, p_f, p_o = pf[:H], pf[H:2 * H], pf[2 * H:]
-    h, c = h0.to(f32), c0.to(f32)
+    h, c = h0.to(acc), c0.to(acc)
     outs, saved = [], []
     for t in range(xg.shape[0]):
-        g = xg[t].to(f32) + h.to(R.dtype).to(f32) @ Rf
+        g = xg[t].to(acc) + h.to(R.dtype).to(acc) @ Rf
         i, f, o, z = g[:, :H], g[:, H:2 * H], g[:, 2 * H:3 * H], g[:, 3 * H:]
         if peephole is not None:
             i = i + c * p_i
@@ -95,23 +102,24 @@ def lstm_bwd_recurrence(reserve, R, c0, dout, dcT=None, peephole=None):
     gradient of cT (None: zero). Returns (dg [T, B, 4H] float32, the
     pre-activation gate gradients [dgi dgf dgo dgz], and dc0 [B, H] float32).
     This is the plain version of the fused-LSTM backward kernel
-    (``csrc/fused_lstm_bwd.cu``), step by step. The carries dh_rec and dc
-    are f32; dg enters the product dg @ R^T rounded to R's type, as in the
-    Pallas ``_lstm_bwd_kernel``. In f32 every cast is a no-op."""
-    f32 = torch.float32
+    (``csrc/fused_lstm_bwd.cu``), step by step. The carries dh_rec and dc are
+    f32 (f64 for f64 inputs); dg enters the product dg @ R^T rounded to R's
+    type, as in the Pallas ``_lstm_bwd_kernel``. In f32 every cast is a
+    no-op."""
+    acc = carry_dtype(R.dtype)
     T, B, H = reserve.shape[1:]
-    Rt = R.to(f32).t()
+    Rt = R.to(acc).t()
     cseq, gi, gf, go, gz = reserve
     dh_rec = reserve.new_zeros((B, H))
-    dc = reserve.new_zeros((B, H)) if dcT is None else dcT.to(f32)
+    dc = reserve.new_zeros((B, H)) if dcT is None else dcT.to(acc)
     if peephole is not None:
-        pf = peephole.to(f32)
+        pf = peephole.to(acc)
         p_i, p_f, p_o = pf[:H], pf[H:2 * H], pf[2 * H:]
     dg = reserve.new_empty((T, B, 4 * H))
     for t in range(T - 1, -1, -1):
         i, f, o, z, c = gi[t], gf[t], go[t], gz[t], cseq[t]
-        c_prev = cseq[t - 1] if t > 0 else c0.to(f32)
-        dh = dout[t].to(f32) + dh_rec
+        c_prev = cseq[t - 1] if t > 0 else c0.to(acc)
+        dh = dout[t].to(acc) + dh_rec
         th = torch.tanh(c)
         dgo = (dh * th) * o * (1.0 - o)
         d = dc + dh * o * (1.0 - th * th)
@@ -126,7 +134,7 @@ def lstm_bwd_recurrence(reserve, R, c0, dout, dcT=None, peephole=None):
         dg_t = torch.cat((dgi, dgf, dgo, dgz), 1)
         dg[t] = dg_t
         if t > 0:
-            dh_rec = dg_t.to(R.dtype).to(f32) @ Rt
+            dh_rec = dg_t.to(R.dtype).to(acc) @ Rt
     return dg, dc
 
 
@@ -156,22 +164,22 @@ def gru_recurrence(xg, R, h0, save_residuals=False):
     (r, z, n; the input projection and bias already in them).
 
     Returns (outputs [T, B, H], hT), and with ``save_residuals`` also the
-    training reserve [4, T, B, H] float32: the post-activation r, z, n and
-    the raw recurrent candidate projection hg_n = (h_{t-1} @ R)_n, in
-    kernel time order (what the Pallas ``_gru_kernel`` saves for its
-    backward). This is the plain version of the fused-GRU forward kernel
-    (``csrc/fused_gru.cu``). Whatever the inputs' type, the sums, the gates
-    and the carry h are f32; h_{t-1} enters the product rounded to R's
-    type, and the results return in the inputs' type (the JAX package's
-    Pallas kernel does the same for bf16). In f32 every cast is a no-op."""
+    training reserve [4, T, B, H] float32: the post-activation r, z, n and the
+    raw recurrent candidate projection hg_n = (h_{t-1} @ R)_n, in kernel time
+    order (what the Pallas ``_gru_kernel`` saves for its backward). This is the
+    plain version of the fused-GRU forward kernel (``csrc/fused_gru.cu``).
+    Whatever the inputs' type, the sums, the gates and the carry h are f32 (f64
+    for f64 inputs); h_{t-1} enters the product rounded to R's type, and the
+    results return in the inputs' type (the JAX package's Pallas kernel does
+    the same for bf16). In f32 every cast is a no-op."""
     H = R.shape[0]
-    f32 = torch.float32
-    Rf = R.to(f32)
-    h = h0.to(f32)
+    acc = carry_dtype(xg.dtype)
+    Rf = R.to(acc)
+    h = h0.to(acc)
     outs, saved = [], []
     for t in range(xg.shape[0]):
-        g = xg[t].to(f32)
-        hg = h.to(R.dtype).to(f32) @ Rf
+        g = xg[t].to(acc)
+        hg = h.to(R.dtype).to(acc) @ Rf
         r = torch.sigmoid(g[:, :H] + hg[:, :H])
         z = torch.sigmoid(g[:, H:2 * H] + hg[:, H:2 * H])
         hgn = hg[:, 2 * H:]
@@ -187,7 +195,7 @@ def gru_recurrence(xg, R, h0, save_residuals=False):
     if not save_residuals:
         return res
     return res + (torch.stack(saved, 1) if saved
-                  else xg.new_empty((4, 0) + tuple(h0.shape), dtype=f32),)
+                  else xg.new_empty((4, 0) + tuple(h0.shape), dtype=acc),)
 
 
 def gru_bwd_recurrence(reserve, R, h0, out, dout):
@@ -207,25 +215,25 @@ def gru_bwd_recurrence(reserve, R, h0, out, dout):
         carry = z * dh + [ga_r, ga_z, r * ga_n] @ R^T
 
     This is the plain version of the fused-GRU backward kernel
-    (``csrc/fused_gru_bwd.cu``), step by step. The carry is f32; [ga_r,
-    ga_z, r * ga_n] enters the product rounded to R's type, as in the Pallas
-    ``_gru_bwd_kernel``. In f32 every cast is a no-op."""
-    f32 = torch.float32
+    (``csrc/fused_gru_bwd.cu``), step by step. The carry is f32 (f64 for f64
+    inputs); [ga_r, ga_z, r * ga_n] enters the product rounded to R's type, as
+    in the Pallas ``_gru_bwd_kernel``. In f32 every cast is a no-op."""
+    acc = carry_dtype(R.dtype)
     T, B, H = reserve.shape[1:]
-    Rt = R.to(f32).t()
+    Rt = R.to(acc).t()
     rr, rz, rn, rhgn = reserve
     carry = reserve.new_zeros((B, H))
     dg = reserve.new_empty((T, B, 3 * H))
     for t in range(T - 1, -1, -1):
         r, z, n = rr[t], rz[t], rn[t]
-        h_prev = (out[t - 1] if t > 0 else h0.to(out.dtype)).to(f32)
-        dh = dout[t].to(f32) + carry
+        h_prev = (out[t - 1] if t > 0 else h0.to(out.dtype)).to(acc)
+        dh = dout[t].to(acc) + carry
         ga_n = dh * (1.0 - z) * (1.0 - n * n)
         ga_z = dh * (h_prev - n) * z * (1.0 - z)
         ga_r = ga_n * rhgn[t] * r * (1.0 - r)
         dg[t] = torch.cat((ga_r, ga_z, ga_n), 1)
         gh = torch.cat((ga_r, ga_z, r * ga_n), 1)
-        carry = z * dh + gh.to(R.dtype).to(f32) @ Rt
+        carry = z * dh + gh.to(R.dtype).to(acc) @ Rt
     return dg, carry
 
 

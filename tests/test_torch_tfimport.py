@@ -6,7 +6,9 @@ The cases of ``tests/test_tfimport.py`` (wire format, MLP, conv, scalar-
 field tensors, the BERT-class ops, the mini BERT) are built with that
 file's protobuf writer and imported by both packages on the CPU: outputs
 within 1e-5 (f32; only the order of f32 sums differs). ``to_samediff``
-raises (the port has no SameDiff yet). ``chip_smoke.bert_graph_def`` (the
+is held against the JAX package's on the MLP, conv and fake-quant
+fixtures, and raises the JAX message at an unmapped op (GatherV2) in both
+packages. ``chip_smoke.bert_graph_def`` (the
 BERT-base GraphDef of the chip run, here at 2 layers x 64, 2 heads, vocab
 100, T 16) goes through both packages' import: outputs within 1e-5, and 3
 Adam steps of ``as_trainable`` on the same batch leave params within 1e-5.
@@ -155,10 +157,99 @@ def test_scalar_field_tensors(case):
     np.testing.assert_array_equal(got, want)
 
 
-def test_to_samediff_raises():
-    g = graph_def(node("x", "Placeholder"), node("y", "Relu", ["x"]))
-    with pytest.raises(NotImplementedError, match="SameDiff"):
-        TFGraphMapper.import_graph(g, device="cpu").to_samediff()
+def test_mlp_to_samediff_matches_direct(rng):
+    W = rng.normal(size=(4, 3)).astype(np.float32)
+    b = rng.normal(size=(3,)).astype(np.float32)
+    g = graph_def(
+        node("x", "Placeholder"), _const("W", W), _const("b", b),
+        node("mm", "MatMul", ["x", "W"]),
+        node("ba", "BiasAdd", ["mm", "b"]),
+        node("relu", "Relu", ["ba"]),
+        node("probs", "Softmax", ["relu"]),
+    )
+    imported = TFGraphMapper.import_graph(g, device="cpu")
+    sd = imported.to_samediff()
+    x = rng.normal(size=(5, 4)).astype(np.float32)
+    direct = imported.output({"x": x}, ["probs"]).numpy()
+    via_sd = sd.output("probs", x=x).numpy()
+    np.testing.assert_allclose(via_sd, direct, rtol=1e-5, atol=1e-6)
+    jax_sd = JaxTF.import_graph(g).to_samediff()
+    assert list(sd._nodes) == list(jax_sd._nodes)
+    np.testing.assert_allclose(via_sd, np.asarray(jax_sd.output("probs", x=x)),
+                               **TOL)
+
+
+def test_conv_graph_to_samediff_and_save(rng, tmp_path):
+    from deeplearning4j_tpu.autodiff.samediff import SameDiff as JaxSameDiff
+    from deeplearning4j_tpu_torch.autodiff.samediff import SameDiff
+
+    K = rng.normal(size=(3, 3, 2, 4)).astype(np.float32)
+    g = graph_def(
+        node("x", "Placeholder"), _const("K", K),
+        node("conv", "Conv2D", ["x", "K"],
+             strides=_attr("strides", li=[1, 1, 1, 1]),
+             padding=_attr("padding", s="SAME")),
+        node("relu", "Relu", ["conv"]),
+        node("pool", "MaxPool", ["relu"],
+             ksize=_attr("ksize", li=[1, 2, 2, 1]),
+             strides=_attr("strides", li=[1, 2, 2, 1]),
+             padding=_attr("padding", s="VALID")),
+    )
+    imported = TFGraphMapper.import_graph(g, device="cpu")
+    sd = imported.to_samediff()
+    x = rng.normal(size=(2, 8, 8, 2)).astype(np.float32)
+    want = imported.output({"x": x}, ["pool"]).numpy()
+    np.testing.assert_allclose(sd.output("pool", x=x).numpy(), want,
+                               rtol=1e-4, atol=1e-5)
+    jax_want = np.asarray(JaxTF.import_graph(g).to_samediff().output(
+        "pool", x=x))
+    np.testing.assert_allclose(sd.output("pool", x=x).numpy(), jax_want,
+                               **TOL)
+    # the imported graph serializes like any other SameDiff, and crosses
+    p = str(tmp_path / "imported.sdz")
+    sd.save(p)
+    sd2 = SameDiff.load(p, device="cpu")
+    np.testing.assert_allclose(sd2.output("pool", x=x).numpy(), want,
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(
+        np.asarray(JaxSameDiff.load(p).output("pool", x=x)), jax_want,
+        **TOL)
+
+
+def test_quant_graph_to_samediff_parity():
+    """The QAT fixture through to_samediff, against its committed golden
+    and the JAX package's to_samediff (test_sd_ops_ext.py's
+    TestFakeQuantToSameDiff)."""
+    import os
+
+    fx = os.path.join(os.path.dirname(__file__), "fixtures")
+    gold = np.load(os.path.join(fx, "quant_golden.npz"))
+    path = os.path.join(fx, "quant_graph.pb")
+    sd = TFGraphMapper.import_graph(path, device="cpu").to_samediff()
+    out = sd.output("output", input=gold["x"]).numpy()
+    np.testing.assert_allclose(out, gold["out"], rtol=1e-5, atol=1e-6)
+    jax_out = np.asarray(JaxTF.import_graph(path).to_samediff().output(
+        "output", input=gold["x"]))
+    np.testing.assert_allclose(out, jax_out, **TOL)
+
+
+def test_to_samediff_unmapped_op_raises_the_jax_message():
+    """GatherV2 (BERT's embedding lookup) has no SameDiff mapping in the
+    JAX package; the port adds none, and raises the same message."""
+    table = np.arange(12, dtype=np.float32).reshape(4, 3)
+    g = graph_def(
+        node("ids", "Placeholder"), _const("table", table),
+        _const("axis", np.array(0, np.int32)),
+        node("emb", "GatherV2", ["table", "ids", "axis"]),
+    )
+    msgs = []
+    for imp in (TFGraphMapper.import_graph(g, device="cpu"),
+                JaxTF.import_graph(g)):
+        with pytest.raises(NotImplementedError) as err:
+            imp.to_samediff()
+        msgs.append(str(err.value))
+    assert msgs[0] == msgs[1]
+    assert "no SameDiff mapping for TF op 'GatherV2' (node emb)" in msgs[0]
 
 
 def test_embedding_attention_block(rng):
