@@ -449,15 +449,44 @@ Phases (any failure exits non-zero before the result line):
     (TOL_SD_IMPORT), and (a)'s f32 graph saved as an .sdz and loaded on
     the card, its outputs equal bit for bit. Each part times ``output()``
     and a step (wall and device), (a) and (b) beside the net's own.
-42. Prints the kernels line (all nine kernels; the LRN entries count the
+42. The parallel slice. (a) The flash ring of 4 replayed on the card
+    (``replay_ring_flash``: rank r holds block (r - i) mod 4 at step i)
+    at bench.py's long-context shape [1, 4, 8192, 128] (T_local 2048),
+    forward and backward, causal and not, keys past 6000 padded (block 3
+    wholly), f32 and bf16: o, lse, dq, dk, dv against one flash call over
+    the whole sequence (each row's error over its norm) and against the
+    plain versions (max |a - b| over max |b|) within TOL_SEQ, beside two
+    controls that must
+    miss it (each backward step given the block's own lse, or delta of the
+    block's own o), 10 or 16 launches of each flash kernel, device ms
+    against the one call's.
+    Then, in an NCCL group of one rank that the phase creates and
+    destroys: (b) an all-reduce's NCCL records in the profile; (c)
+    BASELINE.json config #5: phase 20's ResNet-50 saved as a zip and
+    loaded twice, ``ParallelWrapper(net, DeviceMesh(data=1))`` against the
+    plain ``fit_batch``, 2 + 10 bf16 steps at B = 64: losses, params, BN
+    state and updater state within TOL_PAR_LOSS / TOL_PAR_PARAM, an f32
+    pass of 3 steps within TOL_PAR_PARAM beside a control (gradients
+    halved) that must miss it, both passes on cuDNN's deterministic
+    algorithms; step wall and device ms against plain on the default
+    ones, the
+    NCCL kernels of a step (53 BN statistics forward and back, one flat
+    gradient buffer) and their device ms; (d) ``ring_attention``,
+    ``ring_attention_zigzag`` and ``ulysses_attention`` at the
+    long-context shape in bf16 against one ``flash_attention`` call,
+    forward and gradients; (e) ``sequence_parallel_encoder`` (BERT-base's
+    block, T = 2048), one ``TensorParallel`` step (a 2-layer LM of width
+    768) and one ``switch_moe`` step (8 experts, 4096 tokens) against
+    their single-device runs (TOL_PAR_MODULE).
+43. Prints the kernels line (all nine kernels; the LRN entries count the
     import path's launches under ``launches_by_path["tf_import"]``, the
     flash forward the serving prefills of phases 29-30 and its prefill
     shape's times, every entry YOLO2's, 0, under ``"yolo2_inference"``
     and ``"yolo2_training"``, the training runtime's paths of phases
     32-35, the observability paths of phase 36, the import, pretrain
     and quantized paths of phases 37-39 and the serving tier's predict
-    and generate paths of phase 40, SameDiff's paths of phase 41), the
-    card line and, last, the
+    and generate paths of phase 40, SameDiff's paths of phase 41, the
+    parallel paths of phase 42), the card line and, last, the
     result line ``{"ok": true, "device": {...}}``.
 
 Every phase's JSON record carries
@@ -3459,9 +3488,10 @@ def _images(torch, seed, B, H, W, dtype, device="cuda"):
 
 
 def _max_rel(a, b):
-    """Largest |a - b| over the largest |b| (b on the CPU)."""
-    return float((a.float().cpu() - b.float()).abs().max()) / max(
-        float(b.float().abs().max()), 1e-30)
+    """Largest |a - b| over the largest |b|, on b's device."""
+    b = b.float()
+    return float((a.float().to(b.device) - b).abs().max()) / max(
+        float(b.abs().max()), 1e-30)
 
 
 def yolo2_cpu_check(torch, np):
@@ -3969,12 +3999,6 @@ def _close(torch, got, want, rtol, atol):
     return err, bool(((got - want).abs() <= atol + rtol * want.abs()).all())
 
 
-def _rel_err(torch, got, want):
-    """max |got - want| over max |want|."""
-    got, want = got.float().cpu(), want.float().cpu()
-    return float((got - want).abs().max()) / float(want.abs().max())
-
-
 def phase_onnx_golden(torch, np):
     """bert_tiny.onnx imported onto the card with the import-graph
     optimizer on and off, both outputs against the recorded torch
@@ -4160,9 +4184,9 @@ def phase_bert_tf_import(torch, np, zoo_step_ms):
     card = imp.output(small, outs)
     cpu = TFGraphMapper.import_graph(gd, device="cpu").output(small, outs)
     off = TFGraphMapper.import_graph(gd, optimize=False).output(small, outs)
-    errs = {"card_vs_cpu": max(_rel_err(torch, a, b)
+    errs = {"card_vs_cpu": max(_max_rel(a, b)
                                for a, b in zip(card, cpu)),
-            "on_vs_off": max(_rel_err(torch, a, b) for a, b in zip(card, off))}
+            "on_vs_off": max(_max_rel(a, b) for a, b in zip(card, off))}
     if max(errs.values()) > TOL_BERT_TF:
         fail(f"BERT-base GraphDef f32 at B=2: {errs} (relative to the "
              f"largest value, tol {TOL_BERT_TF})")
@@ -4291,7 +4315,7 @@ def phase_tf_import_lrn(torch, np):
         (gp,) = grad()
     finally:
         env.reload()
-    grad_rel = _rel_err(torch, gw, gp)
+    grad_rel = _max_rel(gw, gp)
     if grad_rel > TOL_GRAD:
         fail(f"imported conv + LRN: the weight gradient through the kernels "
              f"against the plain path {grad_rel} > {TOL_GRAD}")
@@ -4392,10 +4416,6 @@ def teacher_forced(torch, ad, net, seq, n0, steps, stale=()):
     with torch.no_grad():
         pre = net._forward(net._compute_params(), net.state, x, None)[0]
     return torch.stack(got), pre[0, n0 - 1:].float()
-
-
-def _rel(torch, got, want):
-    return float((got - want).abs().max() / want.abs().max())
 
 
 def _record_greedy(eng, record):
@@ -4552,7 +4572,7 @@ def phase_lane_serving(torch, np):
                 torch.full((2,), t, dtype=torch.long, device=m.device))
             logits[m.device.type].append(lg.cpu())
     for a, b in zip(logits["cuda"], logits["cpu"]):
-        worst = max(worst, _rel(torch, a, b))
+        worst = max(worst, _max_rel(a, b))
     if not worst <= TOL_LM_CPU_REL:
         fail(f"bench lane: decode logits through a ring wrap, card against "
              f"the CPU: {worst} > {TOL_LM_CPU_REL} relative")
@@ -4789,7 +4809,7 @@ def phase_full_width_serving(torch, np):
     seq = np.random.default_rng(SEED + 30).integers(0, V, 96).tolist()
     got, want = teacher_forced(torch, AttentionDecodeAdapter(net2, L), net2,
                                seq, 80, N_TEACHER_STEPS)
-    rel = _rel(torch, got, want)
+    rel = _max_rel(got, want)
     if not rel <= TOL_LM_CPU_REL:
         fail(f"full width, f32 2 layers: cached decode against the full "
              f"recompute {rel} > {TOL_LM_CPU_REL} relative")
@@ -6132,7 +6152,7 @@ def _against_cpu(torch, np, net, cpu, x, y, steps, what):
     the MNIST convnet's dense W read 2.1e-6 apart after 3 steps (3.2e-5
     of that leaf's largest weight) where its outputs and losses agree to
     3e-7."""
-    out = _rel(torch, net.output(x).cpu(), cpu.output(x))
+    out = _max_rel(net.output(x).cpu(), cpu.output(x))
     card = [float(net.fit_batch((x, y))) for _ in range(steps)]
     host = [float(cpu.fit_batch((x, y))) for _ in range(steps)]
     pabs, prel, worst = _param_diffs(torch, net, cpu)
@@ -7824,6 +7844,542 @@ def phase_samediff(torch, np):
             "wall_s_phase": time.perf_counter() - t0}
 
 
+# ------------------------------------------------------- parallel slice
+
+N_PAR_WARM = 2
+N_PAR_STEPS = 10
+N_PAR_TIMED = 5
+N_PAR_F32 = 3
+# config #5 at one rank against the plain fit_batch from the same zip: at
+# one rank every all-reduce sums one value and divides by 1, so the two are
+# equal bit for bit, and these limits are what a control must miss (the
+# wrapper with its averaged gradients halved, as a wrapper dividing by a
+# wrong rank count would leave them)
+TOL_PAR_LOSS = 1e-6     # relative
+TOL_PAR_PARAM = 1e-6    # relative to each leaf's largest |value|
+# bench.py's long-context lane (bench.py:398-420): B = 1, H = 4, head dim
+# 128, T = 8192, causal, bf16; the ring of 4 replayed on the card
+SEQ_SHAPE = (1, 4, 8192, 128)
+SEQ_RING = 4
+SEQ_MASK_FROM = 6000    # keys at and past it padded: block 3 wholly
+N_SEQ_TIMED = 3
+# the replayed ring's o, lse, dq, dk and dv against one flash call over the
+# whole sequence (_row_rel: a causal tensor's first rows are far larger
+# than its last, so a limit over the tensor's largest |value| would not see
+# the last rows) and against the plain versions (_max_rel). The ring's p
+# are the one call's (the backward takes the global lse), its o merges
+# four partial o rounded to the input type. About 3x the largest reading
+# on the H100, at this shape and at the cuda tests' [1, 2, 512, 128]; the
+# controls below (SEQ_CONTROLS) must miss them
+TOL_SEQ = {"float32": 1e-5, "bfloat16": 2e-2}
+# the world-1 encoder, TensorParallel and MoE against their single-device
+# runs on the card (relative to each tensor's largest |value|)
+TOL_PAR_MODULE = 1e-5
+
+
+def _grads_rel_err(got, want):
+    """max |a - b| over every gradient, over the largest |b| of them all (a
+    gradient that is 0 in exact arithmetic, as a key bias's, is noise
+    against its own size)."""
+    scale = max(float(b.float().abs().max()) for b in want.values())
+    return max(float((got[k].float() - want[k].float()).abs().max())
+               for k in want) / max(scale, 1e-30)
+
+
+def _tree_rel_err(got, want):
+    from deeplearning4j_tpu_torch.common.trees import tree_leaves
+
+    return max(_max_rel(a, b) for a, b in zip(tree_leaves(got),
+                                              tree_leaves(want)))
+
+
+def collective_records(torch, fn, steps: int):
+    """``steps`` calls of ``fn`` under torch.profiler (CPU and CUDA): the
+    collectives' records, {name: [count, device ms] a step}: the host's
+    c10d records ("nccl:all_reduce" on an NCCL group) and NCCL's device
+    kernels. At one rank NCCL runs no device kernel for an all-reduce
+    (experiments/nccl_one_card/probe.py on the H100): the host's records
+    show the collectives the step issued."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: [e.count / steps, _device_us(e) / 1e3 / steps]
+            for e in prof.key_averages() if "nccl" in e.key.lower()}
+
+
+def _nccl_kernels(records):
+    """The device kernels among ``collective_records``' records."""
+    return {k: v for k, v in records.items() if not k.startswith("nccl:")}
+
+
+def _par_nets(torch, path, n, f32=False):
+    """``n`` copies of the zipped ResNet-50 on the card, f32 compute when
+    ``f32``."""
+    from deeplearning4j_tpu_torch.common.dtypes import FLOAT32
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    nets = [ComputationGraph.load(path, device="cuda") for _ in range(n)]
+    if f32:
+        for net in nets:
+            net._policy = FLOAT32
+    return nets
+
+
+class _HalvedGrads:
+    """The control of config #5: the data axis with its averaged gradients
+    halved."""
+
+    def __init__(self, axis):
+        self.axis = axis
+
+    def reduce_step(self, loss, grads):
+        from deeplearning4j_tpu_torch.common.trees import tree_map
+
+        loss, grads = self.axis.reduce_step(loss, grads)
+        return loss, tree_map(lambda g: g / 2, grads)
+
+    def __getattr__(self, name):
+        return getattr(self.axis, name)
+
+
+def phase_config5(torch, np, zip_path, zip_save_s):
+    """BASELINE.json config #5: ResNet-50 (config #2's net, bf16, Nesterovs
+    0.1, B = 64) from phase 20's zip (``zip_path``, written in
+    ``zip_save_s``) through ParallelWrapper over an NCCL group of one
+    rank, held against the same net's plain fit_batch."""
+    from deeplearning4j_tpu_torch.ops.cuda import KERNELS
+    from deeplearning4j_tpu_torch.parallel import DeviceMesh, ParallelWrapper
+
+    x, y = _resnet_batch(torch, SEED + 42, RESNET_BATCH, torch.bfloat16)
+    out = {"model": "ResNet50 (config #2's net) from phase 20's zip, bf16, "
+                    "Nesterovs 0.1; ParallelWrapper over DeviceMesh(data=1)"
+                    " on NCCL",
+           "batch": RESNET_BATCH, "warm_steps": N_PAR_WARM,
+           "steps": N_PAR_STEPS, "timed_steps": N_PAR_TIMED,
+           "correctness_passes_on": "cudnn.deterministic",
+           "zip_save_s": zip_save_s}
+    t0 = time.perf_counter()
+    plain, wrapped = _par_nets(torch, zip_path, 2)
+    p32, w32, c32 = _par_nets(torch, zip_path, 3, f32=True)
+    out["zip_load_s_each"] = (time.perf_counter() - t0) / 5
+    mesh = DeviceMesh(data=1, device="cuda")
+    w = ParallelWrapper(wrapped, mesh)
+    steps = {"plain": lambda: plain.fit_batch((x, y)),
+             "wrapper": lambda: w.fit_batch((x, y))}
+    # both correctness passes, bf16 and f32, run on cuDNN's deterministic
+    # algorithms: its weight gradients otherwise sum in a run-dependent
+    # order, and this net at lr 0.1 amplifies that past any limit within 3
+    # steps. The timed and profiled steps after them take the default ones
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {}
+        for name, step in steps.items():
+            warm = [float(step()) for _ in range(N_PAR_WARM)]
+            got, launches, _, _ = _count_launches(
+                torch, KERNELS, lambda: [step() for _ in range(N_PAR_STEPS)])
+            runs[name] = {"losses": warm + [float(v) for v in got],
+                          "launches": launches}
+        wc = ParallelWrapper(c32, mesh)
+        wc.axis = _HalvedGrads(wc.axis)
+        w32w = ParallelWrapper(w32, mesh)
+        f32 = {name: [float(fn()) for _ in range(N_PAR_F32)]
+               for name, fn in (
+                   ("plain", lambda: p32.fit_batch((x.float(), y))),
+                   ("wrapper", lambda: w32w.fit_batch((x.float(), y))),
+                   ("control_halved_grads",
+                    lambda: wc.fit_batch((x.float(), y))))}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    for name in steps:
+        if any(runs[name]["launches"].values()):
+            fail(f"config #5 {name} launched {runs[name]['launches']}; "
+                 f"ResNet-50 runs none of the port's kernels")
+        if not np.all(np.isfinite(runs[name]["losses"])):
+            fail(f"config #5 {name} losses not finite: "
+                 f"{runs[name]['losses']}")
+    lp, lw = (np.asarray(runs[k]["losses"]) for k in ("plain", "wrapper"))
+    err = {"losses": float(np.max(np.abs(lw - lp) / np.abs(lp))),
+           "params": _tree_rel_err(wrapped.params, plain.params),
+           "bn_state": _tree_rel_err(wrapped.state, plain.state),
+           "updater_state": _tree_rel_err(wrapped.opt_state,
+                                          plain.opt_state)}
+    if err["losses"] > TOL_PAR_LOSS or max(
+            err[k] for k in ("params", "bn_state",
+                             "updater_state")) > TOL_PAR_PARAM:
+        fail(f"config #5 wrapper against the plain step: {err} (limits "
+             f"{TOL_PAR_LOSS} losses, {TOL_PAR_PARAM} trees)")
+    # the f32 pass at full width: wrapper, plain, and the control
+    f32_err = {"params": _tree_rel_err(w32.params, p32.params),
+               "control_params": _tree_rel_err(c32.params,
+                                               p32.params)}
+    if f32_err["params"] > TOL_PAR_PARAM:
+        fail(f"config #5 f32 wrapper params against plain: {f32_err}, "
+             f"losses {f32}")
+    if f32_err["control_params"] <= TOL_PAR_PARAM:
+        fail(f"config #5 control (gradients halved) passed the limit "
+             f"{TOL_PAR_PARAM}: {f32_err}; the check cannot tell")
+    # wall and device time of a step, and the collectives of the wrapper's
+    prof = {}
+    for name, fn in steps.items():
+        fn()  # the default algorithms' first step picks them
+        _, _, _, wall = _count_launches(
+            torch, KERNELS, lambda: [fn() for _ in range(N_PAR_TIMED)])
+        runs[name]["step_wall_ms"] = 1e3 * wall / N_PAR_TIMED
+        by_kernel, wall_ms, _ = profile_device(torch, fn, 3)
+        prof[name] = {"device_ms_per_step": sum(
+            t for t, _ in by_kernel.values()) / 3,
+            "profiled_wall_ms_per_step": wall_ms / 3,
+            "collectives_per_step": collective_records(torch, fn, 3)}
+    coll = prof["wrapper"]["collectives_per_step"]
+    n_coll = coll.get("nccl:all_reduce", [0, 0])[0]
+    nccl = _nccl_kernels(coll)
+    # 53 BN statistics forward, 53 their gradients, 1 flat gradient buffer
+    if n_coll != 2 * 53 + 1 or prof["plain"]["collectives_per_step"]:
+        fail(f"config #5: {n_coll} NCCL all-reduces a wrapper step "
+             f"({coll}); want 107, and none in the plain step")
+    out.update({"runs": runs, "max_rel_err": err,
+                "limits": {"losses": TOL_PAR_LOSS, "trees": TOL_PAR_PARAM},
+                "f32": {"losses": f32, "max_rel_err": f32_err},
+                "profile": prof,
+                "nccl_all_reduces_per_step": n_coll,
+                "nccl_kernels_per_step": sum(c for c, _ in nccl.values()),
+                "nccl_device_ms_per_step": sum(t for _, t in nccl.values()),
+                "grad_buffer_mb": 4 * wrapped.num_params() / 1e6})
+    return out
+
+
+def _seq_inputs(torch, dtype, requires_grad=False):
+    g = torch.Generator(device="cuda").manual_seed(SEED + 420)
+    t = [torch.randn(SEQ_SHAPE, device="cuda", generator=g).to(dtype)
+         for _ in range(4)]
+    km = torch.ones(SEQ_SHAPE[0], SEQ_SHAPE[2], device="cuda")
+    km[:, SEQ_MASK_FROM:] = 0.0
+    if requires_grad:
+        t[:3] = [a.requires_grad_(True) for a in t[:3]]
+    return t, km
+
+
+def _row_rel(a, b):
+    """The largest ||a - b|| of a row (the last dim) over that row's ||b||,
+    taken no smaller than 1e-3 of the largest row's (a row that cancels to
+    about 0, as a causal dq's first, is held at the tensor's scale)."""
+    a, b = a.float(), b.float()
+    den = b.norm(dim=-1)
+    den = den.clamp_min(max(1e-3 * float(den.max()), 1e-30))
+    return float(((a - b).norm(dim=-1) / den).max())
+
+
+def _seq_errs(torch, got, want, dtype, metric):
+    """{name: ``metric`` over the entries finite in both (inf where a
+    different set is finite)} and whether every one is within TOL_SEQ."""
+    errs = {}
+    for name, a, b in zip(("o", "lse", "dq", "dk", "dv"), got, want):
+        fin = torch.isfinite(b)
+        errs[name] = (metric(a.float().where(fin, 0), b.float().where(fin, 0))
+                      if torch.equal(fin, torch.isfinite(a))
+                      else float("inf"))
+    return errs, all(e <= TOL_SEQ[str(dtype).split(".")[-1]]
+                     for e in errs.values())
+
+
+def _block_lse_bwd(q, k, v, do, lse, delta, *, causal, scale, kmask=None):
+    """A control of TOL_SEQ: ``flash_block_bwd`` given the block's own lse
+    in place of the ring's global one."""
+    from deeplearning4j_tpu_torch.ops.cuda.flash_attention import (
+        flash_block_bwd, flash_block_fwd,
+    )
+
+    kw = dict(causal=causal, scale=scale, kmask=kmask)
+    _, own = flash_block_fwd(q, k, v, **kw)
+    return flash_block_bwd(q, k, v, do, own, delta, **kw)
+
+
+def _block_delta_bwd(q, k, v, do, lse, delta, *, causal, scale,
+                     kmask=None):
+    """A control of TOL_SEQ: ``flash_block_bwd`` given rowsum(do * o) of
+    the block's own o in place of the merged o."""
+    from deeplearning4j_tpu_torch.ops.cuda.flash_attention import (
+        flash_block_bwd, flash_block_fwd,
+    )
+
+    kw = dict(causal=causal, scale=scale, kmask=kmask)
+    o_i, _ = flash_block_fwd(q, k, v, **kw)
+    own = (do.float() * o_i.float()).sum(-1, keepdim=True).contiguous()
+    return flash_block_bwd(q, k, v, do, lse, own, **kw)
+
+
+# each planted in place of the ring's flash_block_bwd for one replay
+SEQ_CONTROLS = {"block_lse": _block_lse_bwd, "block_delta": _block_delta_bwd}
+
+
+def phase_ring_replay(torch, np):
+    """The flash ring of 4 replayed on the card at the long-context lane's
+    shape (T_local = 2048), forward and backward, causal and not, with a
+    key-padding mask, f32 and bf16: against one flash call over the whole
+    sequence and against the plain versions; device ms of the replay's
+    forward + backward against the one call's."""
+    from deeplearning4j_tpu_torch.ops.cuda import FLASH_DKV, FLASH_DQ, FLASH_FWD
+    from deeplearning4j_tpu_torch.ops.cuda.flash_attention import (
+        flash_backward, flash_backward_plain, flash_forward,
+        flash_forward_plain,
+    )
+    from deeplearning4j_tpu_torch.parallel import sequence
+    from deeplearning4j_tpu_torch.parallel.sequence import replay_ring_flash
+
+    kernels = (FLASH_FWD, FLASH_DQ, FLASH_DKV)
+    scale = 1.0 / SEQ_SHAPE[3] ** 0.5
+    ring_bwd = sequence.flash_block_bwd
+    rows, launches = [], {k.name: 0 for k in kernels}
+    for dtype in (torch.float32, torch.bfloat16):
+        (q, k, v, do), km = _seq_inputs(torch, dtype)
+        for causal in (False, True):
+            kw = dict(scale=scale, causal=causal, kmask=km)
+
+            def replay():
+                return replay_ring_flash(q, k, v, size=SEQ_RING, kmask=km,
+                                         do=do, causal=causal, scale=scale)
+
+            def one_call():
+                o, lse = flash_forward(q, k, v, **kw)
+                delta = (do.float() * o.float()).sum(-1, keepdim=True)
+                return (o, lse) + flash_backward(q, k, v, do, lse, delta,
+                                                 **kw)
+
+            got, n, _, _ = _count_launches(torch, kernels, replay)
+            for name in launches:
+                launches[name] += n[name]
+            blocks = (SEQ_RING * (SEQ_RING + 1) // 2 if causal
+                      else SEQ_RING * SEQ_RING)
+            if any(n[kk.name] != blocks for kk in kernels):
+                fail(f"ring replay {dtype} causal={causal} launched {n}; "
+                     f"want {blocks} of each flash kernel")
+            single = one_call()
+            po, plse = flash_forward_plain(q, k, v, **kw)
+            pdelta = (do.float() * po.float()).sum(-1, keepdim=True)
+            plain = (po, plse) + flash_backward_plain(q, k, v, do, plse,
+                                                      pdelta, **kw)
+            e_one, ok_one = _seq_errs(torch, got, single, dtype, _row_rel)
+            e_plain, ok_plain = _seq_errs(torch, got, plain, dtype, _max_rel)
+            del plain, po, plse, pdelta
+            if not (ok_one and ok_plain):
+                fail(f"ring replay {dtype} causal={causal}: against one "
+                     f"flash call {e_one}, against plain {e_plain} "
+                     f"(tolerance {TOL_SEQ})")
+            e_ctl = {}
+            for fault, bwd in SEQ_CONTROLS.items():
+                sequence.flash_block_bwd = bwd
+                try:
+                    bad = replay()
+                finally:
+                    sequence.flash_block_bwd = ring_bwd
+                e_ctl[fault], missed = _seq_errs(torch, bad, single, dtype,
+                                                 _row_rel)
+                del bad
+                if missed:
+                    fail(f"ring replay {dtype} causal={causal}: the control "
+                         f"{fault} is within {TOL_SEQ} of one flash call "
+                         f"({e_ctl[fault]}); the check cannot tell")
+            rows.append({
+                "dtype": str(dtype).split(".")[-1], "causal": causal,
+                "masked_from": SEQ_MASK_FROM, "launches": n,
+                "max_err_vs_one_call": e_one, "max_err_vs_plain": e_plain,
+                "controls_max_err_vs_one_call": e_ctl,
+                "replay_device_ms": call_device_ms(torch, replay,
+                                                   N_SEQ_TIMED),
+                "one_call_device_ms": call_device_ms(torch, one_call,
+                                                     N_SEQ_TIMED)})
+            torch.cuda.empty_cache()
+    return {"shape": list(SEQ_SHAPE), "ring": SEQ_RING,
+            "t_local": SEQ_SHAPE[2] // SEQ_RING, "tolerance": TOL_SEQ,
+            "rows": rows, "launches": launches}
+
+
+def phase_sequence_world1(torch, np, mesh):
+    """ring_attention, ring_attention_zigzag and ulysses_attention through
+    the NCCL group of one rank at the lane's shape (bf16, causal), forward
+    and backward, against one flash_attention call."""
+    from deeplearning4j_tpu_torch.ops.cuda import FLASH_DKV, FLASH_DQ, FLASH_FWD
+    from deeplearning4j_tpu_torch.ops.cuda.flash_attention import (
+        flash_attention,
+    )
+    from deeplearning4j_tpu_torch.parallel import (
+        ring_attention, ring_attention_zigzag, ulysses_attention,
+    )
+
+    kernels = (FLASH_FWD, FLASH_DQ, FLASH_DKV)
+    (q, k, v, do), _ = _seq_inputs(torch, torch.bfloat16, True)
+
+    def run(fn):
+        out = fn(q, k, v)
+        grads = torch.autograd.grad((out.float() * do.float()).sum(),
+                                    (q, k, v))
+        return (out.detach(),) + grads
+
+    want = run(lambda a, b, c: flash_attention(a, b, c, causal=True))
+    out = {}
+    for name, fn in (
+            ("ring", lambda a, b, c: ring_attention(a, b, c, mesh,
+                                                    causal=True)),
+            ("zigzag", lambda a, b, c: ring_attention_zigzag(a, b, c, mesh)),
+            ("ulysses", lambda a, b, c: ulysses_attention(a, b, c, mesh,
+                                                          causal=True))):
+        got, n, _, wall = _count_launches(torch, kernels, lambda: run(fn))
+        errs = {w: _max_rel(a, b) for w, a, b in zip(
+            ("o", "dq", "dk", "dv"), got, want)}
+        if any(e > TOL_SEQ["bfloat16"] for e in errs.values()):
+            fail(f"{name} at one rank against one flash call: {errs}")
+        if any(n[kk.name] < 1 for kk in kernels):
+            fail(f"{name} launched {n}: its core must run the flash kernels")
+        out[name] = {"launches": n, "max_rel_err": errs, "wall_ms": wall * 1e3,
+                     "device_ms": call_device_ms(torch, lambda: run(fn), 2)}
+    out["one_call_device_ms"] = call_device_ms(
+        torch, lambda: run(lambda a, b, c: flash_attention(a, b, c,
+                                                           causal=True)), 2)
+    out["launches"] = {kk.name: sum(out[p]["launches"][kk.name]
+                                    for p in ("ring", "zigzag", "ulysses"))
+                       for kk in kernels}
+    return out
+
+
+def phase_modules_world1(torch, np, mesh):
+    """sequence_parallel_encoder, one TensorParallel step and one switch_moe
+    step at one rank on the card, each against its single-device run."""
+    from deeplearning4j_tpu_torch.common.trees import tree_map
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers.attention import (
+        TransformerEncoderLayer,
+    )
+    from deeplearning4j_tpu_torch.ops.cuda import FLASH_DKV, FLASH_DQ, FLASH_FWD
+    from deeplearning4j_tpu_torch.parallel import (
+        TensorParallel, init_moe_params, place_moe_params,
+        sequence_parallel_encoder, switch_moe,
+    )
+
+    kernels = (FLASH_FWD, FLASH_DQ, FLASH_DKV)
+    out = {}
+    # BERT-base's block (768, 12 heads), B = 2, T = 2048, f32
+    layer = TransformerEncoderLayer(d_model=768, n_heads=12, causal=True)
+    params, _ = layer.init(torch.Generator().manual_seed(SEED),
+                           InputType.recurrent(768, 2048), "cuda")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    x = torch.randn((2, 2048, 768), device="cuda", generator=g)
+
+    def enc(fn):
+        p = {kk: vv.clone().requires_grad_(True) for kk, vv in params.items()}
+        y = fn(p)
+        grads = torch.autograd.grad((y * y).sum(), list(p.values()))
+        return y.detach(), dict(zip(p, grads))
+
+    (y1, g1), n, _, _ = _count_launches(torch, kernels, lambda: enc(
+        lambda p: sequence_parallel_encoder(p, x, mesh, n_heads=12,
+                                            causal=True)))
+    y0, g0 = enc(lambda p: layer.apply(p, {}, x)[0])
+    errs = {"y": _max_rel(y1, y0), "grads": _grads_rel_err(g1, g0)}
+    if max(errs.values()) > TOL_PAR_MODULE or n[FLASH_FWD.name] != 1:
+        fail(f"sequence_parallel_encoder at one rank: {errs}, launches {n}")
+    out["encoder"] = {"launches": n, "max_rel_err": errs}
+    # one TensorParallel step of a BERT-base-width encoder stack against
+    # the plain step (no clip: at one rank each reduction divides by 1)
+    plain, tp_net = (lm_net(torch, device="cuda", d=768, heads=12,
+                            layers=2, vocab=1024, max_len=256)
+                     for _ in range(2))
+    ids = torch.randint(0, 1024, (8, 256), device="cuda", generator=g)
+    yl = torch.nn.functional.one_hot(torch.randint(
+        0, 1024, (8, 256), device="cuda", generator=g), 1024).float()
+    tp = TensorParallel(tp_net, mesh)
+    (lt,), n, _, _ = _count_launches(torch, kernels,
+                                     lambda: [float(tp.fit_batch((ids, yl)))])
+    lp = float(plain.fit_batch((ids, yl)))
+    errs = {"loss": abs(lt - lp) / abs(lp),
+            "params": _tree_rel_err(tp_net.params, plain.params)}
+    if max(errs.values()) > TOL_PAR_MODULE or n[FLASH_DKV.name] != 2:
+        fail(f"TensorParallel step at one rank: {errs}, launches {n}")
+    out["tensor_parallel"] = {"launches": n, "max_rel_err": errs,
+                              "loss": lt}
+    # one switch_moe step, 8 experts of 768 -> 3072, 4096 tokens
+    mp = init_moe_params(torch.Generator().manual_seed(SEED + 8), 768, 3072,
+                         8, device="cuda")
+    xm = torch.randn((4096, 768), device="cuda", generator=g)
+
+    def moe(p, **kw):
+        ps = tree_map(lambda a: a.clone().requires_grad_(True), p)
+        y, aux = switch_moe(ps, xm, **kw)
+        grads = torch.autograd.grad((y * y).mean() + 0.01 * aux,
+                                    list(ps.values()))
+        return y.detach(), float(aux), dict(zip(ps, grads))
+
+    (y1, a1, g1), n, _, _ = _count_launches(
+        torch, kernels, lambda: moe(place_moe_params(mp, mesh), mesh=mesh))
+    y0, a0, g0 = moe(mp)
+    errs = {"y": _max_rel(y1, y0), "aux": abs(a1 - a0) / abs(a0),
+            "grads": _grads_rel_err(g1, g0)}
+    if max(errs.values()) > TOL_PAR_MODULE:
+        fail(f"switch_moe at one rank: {errs}")
+    out["switch_moe"] = {"launches": n, "max_rel_err": errs, "aux": a1}
+    out["launches"] = {kk.name: sum(out[p]["launches"][kk.name] for p in (
+        "encoder", "tensor_parallel", "switch_moe")) for kk in kernels}
+    return out
+
+
+def nccl_group_records(torch, mesh):
+    """The collective records of one all-reduce of 4 floats on the group."""
+    import torch.distributed as dist
+
+    t = torch.ones(4, device="cuda")
+    return collective_records(
+        torch, lambda: dist.all_reduce(t, group=mesh.group("data")), 3)
+
+
+def save_resnet_zip(net):
+    """Phase 20's ResNet-50 as a zip in a temporary directory, for config
+    #5 (phase 42): (the directory, the zip's path, seconds to write)."""
+    import tempfile
+
+    tmp = tempfile.TemporaryDirectory()
+    path = os.path.join(tmp.name, "resnet50.zip")
+    t0 = time.perf_counter()
+    net.save(path)
+    return tmp, path, time.perf_counter() - t0
+
+
+def phase_parallel(torch, np, zip_path, zip_save_s):
+    """Phase 42: config #5 and the sequence-parallel path. The ring replay
+    runs first, outside any group; the rest in an NCCL group of one rank
+    that the phase creates and destroys."""
+    from deeplearning4j_tpu_torch.parallel import DeviceMesh, launch
+
+    t0 = time.perf_counter()
+    walls = {}
+
+    def part(name, fn, *args):
+        t = time.perf_counter()
+        out[name] = fn(torch, np, *args)
+        walls[name] = time.perf_counter() - t
+
+    out = {}
+    part("ring_replay", phase_ring_replay)
+    with launch.local_group("cuda"):
+        mesh = DeviceMesh(data=1, device="cuda")
+        seq_mesh = DeviceMesh(data=1, seq=1, device="cuda")
+        out["nccl_all_reduce"] = nccl_group_records(torch, mesh)
+        if out["nccl_all_reduce"].get("nccl:all_reduce", [0])[0] != 1:
+            fail(f"an all-reduce on the group left the records "
+                 f"{out['nccl_all_reduce']}: the group does not run on NCCL")
+        part("config5", phase_config5, zip_path, zip_save_s)
+        part("sequence_world1", phase_sequence_world1, seq_mesh)
+        part("modules_world1", phase_modules_world1, mesh)
+    out["wall_s_parts"] = walls
+    out["wall_s_phase"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> None:
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "deeplearning4j_tpu_torch")):
@@ -7981,6 +8537,8 @@ def main() -> None:
 
     # phase 21: ResNet-50 training
     rn_train = phase_resnet_training(torch, np, rn_net)
+    # config #5 (phase 42) starts from this net's zip
+    rn_zip_dir, rn_zip, rn_zip_s = save_resnet_zip(rn_net)
     del rn_net
     emit(card, {"resnet50_training": rn_train, "card": card})
     print(f"ResNet-50 training on {card}: {rn_train['step_wall_ms']:.2f} ms "
@@ -8271,6 +8829,31 @@ def main() -> None:
           f"{sa['step_ms']:.2f} ms; phase {samediff['wall_s_phase']:.1f} s",
           flush=True)
 
+    # phase 42: the parallel slice: config #5 through ParallelWrapper on an
+    # NCCL group of one rank, the ring of 4 replayed on the card, and the
+    # sequence-parallel, tensor-parallel and MoE paths at one rank
+    par = phase_parallel(torch, np, rn_zip, rn_zip_s)
+    rn_zip_dir.cleanup()
+    emit(card, {"parallel": par})
+    c5, rr = par["config5"], par["ring_replay"]["rows"]
+    bf16_causal = next(r for r in rr if r["dtype"] == "bfloat16"
+                       and r["causal"])
+    def ms(v):  # a device time the profiler may not have recorded
+        return "not measured" if v is None else f"{v:.2f} ms"
+
+    print(f"config #5 on {card}: ParallelWrapper step "
+          f"{c5['runs']['wrapper']['step_wall_ms']:.1f} ms wall (plain "
+          f"{c5['runs']['plain']['step_wall_ms']:.1f}), device "
+          f"{ms(c5['profile']['wrapper']['device_ms_per_step'])} (plain "
+          f"{ms(c5['profile']['plain']['device_ms_per_step'])}), "
+          f"{c5['nccl_all_reduces_per_step']:.0f} NCCL all-reduces a step "
+          f"({c5['nccl_kernels_per_step']:.0f} device kernels, "
+          f"{ms(c5['nccl_device_ms_per_step'])}); ring of 4 replayed, "
+          f"bf16 causal T = {SEQ_SHAPE[2]}: forward + backward "
+          f"{ms(bf16_causal['replay_device_ms'])} device (one flash call "
+          f"{ms(bf16_causal['one_call_device_ms'])}); phase "
+          f"{par['wall_s_phase']:.1f} s", flush=True)
+
     # the kernels line, card line, result line
     decode = rows[0]  # the serving path's decode shape [8, 1, 256]
     graves = bwd_rows[0]  # the training path's first layer [64, 64, 200]
@@ -8464,6 +9047,17 @@ def main() -> None:
     for e in entries:  # SameDiff's paths (phase 41)
         paths = {k: v[e["name"]]
                  for k, v in samediff["launches_by_path"].items()}
+        e["launches_by_path"].update(paths)
+        e["launches"] += sum(paths.values())
+    for e in entries:  # the parallel slice's paths (phase 42)
+        n = e["name"]
+        paths = {
+            "config5_parallel_wrapper": c5["runs"]["wrapper"]["launches"][n],
+            "ring_replay_4": par["ring_replay"]["launches"].get(n, 0),
+            "sequence_parallel_world1": par["sequence_world1"][
+                "launches"].get(n, 0),
+            "encoder_tp_moe_world1": par["modules_world1"]["launches"].get(
+                n, 0)}
         e["launches_by_path"].update(paths)
         e["launches"] += sum(paths.values())
     print(json.dumps({"kernels": entries}), flush=True)

@@ -29,10 +29,10 @@ of every vertex), fault plans, the async fit loop with listeners and tail
 padding, ``evaluate`` (of the first output), ``score_value`` and
 ``rnn_time_step``, and the guardrails and monitoring of ``fit_batch``.
 ``quantize()`` returns the int8 inference view (``quantize/passes.py``),
-which ``fit_batch`` refuses to train. Not ported yet: ``as_loss_fn`` (with
-the parallel trainers). A ``CenterLossOutputLayer`` output adds its center
-term and moves its centers every step (``nn/graph.py:294,345-352``
-there).
+which ``fit_batch`` refuses to train. ``as_loss_fn`` is the functional
+surface of the parallel trainers. A ``CenterLossOutputLayer`` output adds
+its center term and moves its centers every step
+(``nn/graph.py:294,345-352`` there).
 """
 
 from __future__ import annotations
@@ -56,8 +56,8 @@ from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
 from deeplearning4j_tpu_torch.nn.conf.graph import LayerVertex
 from deeplearning4j_tpu_torch.nn.multilayer import (  # noqa: F401 (re-exported)
     MultiLayerNetwork, _canonical, _center_term, _check_carry_batch, _grads,
-    _layer_seed, _refuse_view, _unpack, host_array, load_jax_opt_state,
-    load_jax_params, remat_apply,
+    _layer_seed, _normalizer, _refuse_view, _unpack, host_array,
+    load_jax_opt_state, load_jax_params, remat_apply,
 )
 from deeplearning4j_tpu_torch.nn.layers.output import CenterLossOutputLayer
 from deeplearning4j_tpu_torch.optimize.async_dispatch import (
@@ -235,15 +235,40 @@ class ComputationGraph:
                 for n in self.conf.network_outputs]
         return outs[0] if len(outs) == 1 else outs
 
+    def as_loss_fn(self, train: bool = False):
+        """(loss_fn(params, state, rng, x, y, mask=None, label_mask=None,
+        denom=None) -> (loss, new_state), (params, state)): the functional
+        surface the parallel trainers take, over :meth:`_loss` (the
+        MultiLayerNetwork counterpart's contract). ``x`` is one array for a
+        single-input graph or a {input name: array} dict, ``y`` likewise
+        for the outputs; ``label_mask`` covers every output. Vertices
+        without a new state keep their entry, so the returned state has the
+        input's structure."""
+        conf = self.conf
+
+        def loss_fn(params, state, rng, x, y, mask=None, label_mask=None,
+                    denom=None):
+            lms = (None if label_mask is None else
+                   {n: to_device(label_mask, self.device).float()
+                    for n in conf.network_outputs})
+            loss, new_state = self._loss(
+                params, state, self._as_input_dict(x, cast=False),
+                self._as_label_dict(y), rng, self._mask_list(mask),
+                labels_masks=lms, train=train, denom=denom)
+            return loss, {k: new_state.get(k, s) for k, s in state.items()}
+
+        return loss_fn, (self.params, self.state)
+
     # ------------------------------------------------------------------- fit
     def _loss(self, params, state, inputs, labels: dict, rng, masks,
-              labels_masks=None, train=True):
+              labels_masks=None, train=True, denom=None):
         """(the summed loss of every output plus the l1/l2 terms, the new
         state). ``masks``: the forward (features/padding) mask list the
         vertices take, whose first entry is also each output's default
         loss mask; ``labels_masks``: {output name: mask} overriding it per
         output ([B, T] for a sequence head, per-example [B] or [B, 1] for
-        any other)."""
+        any other). A masked loss is normalized by its valid count, or by
+        ``denom`` when given (``_normalizer``)."""
         acts, new_state, preouts, out_feats = self._forward(
             params, state, inputs, train, rng, masks=masks, want_preout=True)
         shared_mask = masks[0] if masks else None
@@ -288,20 +313,20 @@ class ComputationGraph:
                         ref.shape[0])
                 if out_mask is not None and per.dim() == 1:
                     # masked per-sample sums normalized by the valid count
-                    loss = loss + per.sum() / torch.clamp(out_mask.sum(),
-                                                          min=1.0)
+                    loss = loss + per.sum() / _normalizer(out_mask.sum(),
+                                                          denom)
                 else:
                     loss = loss + per.mean()
             else:
                 d = acts[name] - labels[name]
                 if out_mask is not None and d.dim() == 3:
                     w = out_mask[..., None]
-                    loss = loss + ((d * d) * w).sum() / torch.clamp(
-                        w.sum() * float(d.shape[-1]), min=1.0)
+                    loss = loss + ((d * d) * w).sum() / _normalizer(
+                        w.sum(), denom, float(d.shape[-1]))
                 elif explicit:
                     w = out_mask.reshape(d.shape[0], *([1] * (d.dim() - 1)))
-                    loss = loss + ((d * d) * w).sum() / torch.clamp(
-                        w.sum() * float(np.prod(d.shape[1:])), min=1.0)
+                    loss = loss + ((d * d) * w).sum() / _normalizer(
+                        w.sum(), denom, float(np.prod(d.shape[1:])))
                 else:
                     loss = loss + (d * d).mean()
         for name, v in self.conf.vertices.items():
@@ -350,12 +375,11 @@ class ComputationGraph:
         loss, new_state = self._loss(
             cast_floating(params, self._policy.compute_dtype), self.state,
             inputs, labels, self._generator(), masks, labels_masks)
-        loss = loss.float()
         for k, v in self.state.items():  # unchanged entries carry forward
             new_state.setdefault(k, v)
-        word = self._step_update(loss, params, new_state, ctrl, clip_active,
-                                 step)
-        return loss.detach() if word is None else (loss.detach(), word)
+        loss, word = self._step_update(loss.float(), params, new_state, ctrl,
+                                       clip_active, step)
+        return loss if word is None else (loss, word)
 
     def _tail_padding_ok(self) -> bool:
         """Tail padding is loss-exact for a DAG iff no vertex computes

@@ -14,6 +14,7 @@ from typing import Optional
 
 import torch
 
+from deeplearning4j_tpu_torch.nn import replicas
 from deeplearning4j_tpu_torch.nn.layers.base import Layer, register_layer
 
 
@@ -28,7 +29,10 @@ class BatchNormalizationLayer(Layer):
     the same for var), eps 1e-5, ``lock_gamma_beta`` drops the affine
     params, ``use_mean_var_from_state`` normalizes with the running
     statistics even in training. Params ``gamma``, ``beta``; state ``mean``,
-    ``var``, all f32."""
+    ``var``, all f32. Under a data-parallel trainer (``nn/replicas.py``) the
+    training statistics are averaged over the replicas, so every rank
+    normalizes with, and moves its running statistics by, the whole
+    batch's."""
 
     n_out: Optional[int] = None  # inferred
     decay: float = 0.9
@@ -59,8 +63,14 @@ class BatchNormalizationLayer(Layer):
             # f32 for bf16 activations (the JAX layer's, not F.batch_norm's
             # two-pass variance); the running update carries no gradient
             xf = x.to(torch.promote_types(x.dtype, torch.float32))
-            mean = xf.mean(axes)
-            var = ((xf * xf).mean(axes) - mean * mean).clamp_min(0.0)
+            mean, msq = xf.mean(axes), (xf * xf).mean(axes)
+            rep = replicas.active()
+            if rep is not None:
+                # under data parallelism the statistics are the whole
+                # batch's, as the JAX layer's are under SPMD: the replicas'
+                # equal slices average, with a gradient through the sum
+                mean, msq = rep.stats(torch.cat([mean, msq])).chunk(2)
+            var = (msq - mean * mean).clamp_min(0.0)
             with torch.no_grad():
                 new_state = {
                     "mean": self.decay * state["mean"]

@@ -78,6 +78,7 @@ from deeplearning4j_tpu_torch.common.trees import (
 )
 from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
 from deeplearning4j_tpu_torch.guardrails import sentinel
+from deeplearning4j_tpu_torch.nn import replicas
 from deeplearning4j_tpu_torch.nn.conf.builders import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.layers.base import resolve_activation
 from deeplearning4j_tpu_torch.nn.layers.output import CenterLossOutputLayer
@@ -422,20 +423,23 @@ class MultiLayerNetwork:
 
     # ------------------------------------------------------------------- fit
     def _loss_terms(self, params, x, y, mask, label_mask=None, train=True,
-                    rng=None, carries=None):
+                    rng=None, carries=None, state=None, denom=None):
         """(mean loss of one forward plus the l1/l2 terms, the layers' new
         states), and with ``carries`` (tBPTT) the RNN layers start from
-        them and their new carries come third. ``label_mask``, a loss mask
-        distinct from the forward's (padding) mask, replaces it for the
-        loss; a masked per-example loss is normalized by the mask's sum. A
-        center-loss head adds its center term and returns its moved
-        centers as its new state."""
+        them and their new carries come third. ``state`` defaults to the
+        network's. ``label_mask``, a loss mask distinct from the forward's
+        (padding) mask, replaces it for the loss; a masked per-example loss
+        is normalized by ``denom`` when given, else by the mask's sum (under
+        a data-parallel trainer, the global sum over the replica count:
+        ``nn/replicas.py``). A center-loss head adds its center term and
+        returns its moved centers as its new state."""
+        state = self.state if state is None else state
         if carries is None:
             preout, new_states, out_mask, features = self._forward(
-                params, self.state, x, mask, train=train, rng=rng)
+                params, state, x, mask, train=train, rng=rng)
         else:
             preout, new_states, out_mask, features, new_carries = (
-                self._walk_carry(params, self.state, x, carries, mask,
+                self._walk_carry(params, state, x, carries, mask,
                                  train=train, rng=rng))
         if label_mask is not None:
             out_mask = label_mask
@@ -443,10 +447,10 @@ class MultiLayerNetwork:
         per = out_layer.score_from_preout(y, preout, out_mask)
         if isinstance(out_layer, CenterLossOutputLayer):
             per, new_states[-1] = _center_term(
-                out_layer, params[-1], self.state[-1], features, y, per,
+                out_layer, params[-1], state[-1], features, y, per,
                 out_mask, preout.shape[0])
         if out_mask is not None and per.dim() == 1:
-            loss = per.sum() / torch.clamp(out_mask.sum(), min=1.0)
+            loss = per.sum() / _normalizer(out_mask.sum(), denom)
         else:
             loss = per.mean()
         reg = sum(l.regularization(p) for l, p in zip(self.layers, params))
@@ -512,28 +516,33 @@ class MultiLayerNetwork:
         out = self._loss_terms(
             cast_floating(params, self._policy.compute_dtype), x, y, mask,
             label_mask, train=True, rng=self._generator(), carries=carries)
-        loss = out[0].float()
-        word = self._step_update(loss, params, out[1], ctrl, clip_active,
-                                 step)
+        loss, word = self._step_update(out[0].float(), params, out[1], ctrl,
+                                       clip_active, step)
         if word is not None:
-            return loss.detach(), word
+            return loss, word
         if carries is None:
-            return loss.detach()
-        return loss.detach(), tree_map(lambda a: a.detach(), out[2])
+            return loss
+        return loss, tree_map(lambda a: a.detach(), out[2])
 
     def _step_update(self, loss, params, new_state, ctrl=None,
                      clip_active=False, step=None):
         """The backward pass of ``loss`` to ``params`` (the detached copies
         of ``self.params`` it was computed from), the clips and the
         updaters; stores the new params, updater state and layer state
-        ``new_state``. Guarded (``ctrl`` given), the raw gradients are
-        screened first (``sentinel.screen``, scaled by the control clip
-        only in the ``clip_active`` variant), and the new trees are
-        selected against the old ones on the device by the word's ok lane;
-        returns the word (None unguarded). No updater writes its state in
-        place, so the old trees the select keeps are intact (shared with
-        ComputationGraph, whose trees are dicts by vertex name)."""
+        ``new_state``. Under a data-parallel trainer the loss and the
+        gradients are averaged over the replicas first (``nn/replicas.py``).
+        Guarded (``ctrl`` given), the gradients are then screened
+        (``sentinel.screen``, scaled by the control clip only in the
+        ``clip_active`` variant), and the new trees are selected against the
+        old ones on the device by the word's ok lane. Returns (the step's
+        loss, detached, the word or None unguarded). No updater writes its
+        state in place, so the old trees the select keeps are intact (shared
+        with ComputationGraph, whose trees are dicts by vertex name)."""
         grads = tree_unflatten(self.params, _grads(loss, tree_leaves(params)))
+        loss = loss.detach()
+        rep = replicas.active()
+        if rep is not None:
+            loss, grads = rep.reduce_step(loss, grads)
         word = None
         with torch.no_grad():
             if ctrl is not None:
@@ -551,7 +560,7 @@ class MultiLayerNetwork:
                 new_opt = sentinel.tree_select(ok, new_opt, self.opt_state)
                 new_state = sentinel.tree_select(ok, new_state, self.state)
         self.params, self.opt_state, self.state = new_params, new_opt, new_state
-        return word
+        return loss, word
 
     def _fit_tbptt(self, x, y, mask, label_mask):
         """Truncated BPTT over one batch: full chunks of
@@ -757,6 +766,27 @@ class MultiLayerNetwork:
         self.params[layer_index] = lparams
         return float("nan") if loss is None else float(loss)
 
+    def as_loss_fn(self, train: bool = False):
+        """(loss_fn(params, state, rng, x, y, mask=None, label_mask=None,
+        denom=None) -> (loss, new_state), (params, state)): the functional
+        surface the parallel trainers take (``as_loss_fn`` of the JAX
+        package). It is :meth:`_loss_terms` itself, so the fit path's mask
+        routing, valid-count normalization (``denom`` replaces the local
+        count) and l1/l2 terms hold; ``train`` runs the training forward
+        (batch statistics, dropout when ``rng``, a ``torch.Generator``, is
+        not None). Params and inputs go in as given: arrays become tensors
+        on the network's device, floating ones keep their type."""
+
+        def loss_fn(params, state, rng, x, y, mask=None, label_mask=None,
+                    denom=None):
+            loss, new_states = self._loss_terms(
+                params, self._input(x, cast=False), self._labels(y),
+                self._mask(mask), self._mask(label_mask), train=train,
+                rng=rng, state=state, denom=denom)
+            return loss, new_states
+
+        return loss_fn, (self.params, self.state)
+
     # ------------------------------------------------------------- quantize
     def quantize(self, dtype: str = "int8") -> "MultiLayerNetwork":
         """Weight-only int8 inference view of this network (the original
@@ -832,6 +862,24 @@ class MultiLayerNetwork:
 
         return restore_multi_layer_network(path, device=device,
                                            load_updater=load_updater)
+
+
+def _normalizer(count, denom, per_count=None):
+    """A masked loss's denominator from its ``count`` of valid entries,
+    as the JAX package forms it: ``denom`` replaces the count when given
+    (the trainers pass the global count over the replica count), and under
+    a data-parallel trainer it is that, from the replicas
+    (``nn/replicas.py``). A per-example sum divides by the count, at least
+    1, or by ``denom`` as it is; a sum over ``per_count`` values an entry
+    by their number, at least 1."""
+    if denom is None:
+        rep = replicas.active()
+        if rep is not None:
+            denom = rep.denominator(count)
+    if per_count is None:
+        return torch.clamp(count, min=1.0) if denom is None else denom
+    return torch.clamp((count if denom is None else denom) * per_count,
+                       min=1.0)
 
 
 def _grads(loss, leaves):

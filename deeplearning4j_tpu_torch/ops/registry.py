@@ -17,10 +17,11 @@ on this card is a measured decision, and until one is measured a kernel has
 none. ``DL4J_TORCH_DISABLE_KERNELS`` sends every call to the plain lowering.
 
 The JAX registry chooses once, at trace time. PyTorch runs eagerly, so the
-port chooses on every call and caches the choice per (op, device, dtypes,
-shapes, contiguity, whether autograd will need gradients, flags) to keep
-the predicates off the hot path: a kernel's ``requires`` may depend on all
-of them (the recurrent kernels' backward has its own limit on H). The
+port chooses on every call and caches the choice per (op, device type
+and index, dtypes, shapes, contiguity, whether autograd will need
+gradients, flags) to keep the predicates off the hot path: a kernel's
+``requires`` may depend on all of them (the recurrent kernels' backward
+has its own limit on H). The
 cache is a bounded LRU (``CHOICE_CACHE_SIZE`` entries an op): the choice is
 a function of the key alone, so an evicted key is chosen again the same
 way, and a server that sees a new shape per prompt length holds memory
@@ -65,11 +66,19 @@ class OpImpl:
             self.predicate is None or bool(self.predicate(*args, **kwargs)))
 
 
+def _device_key(device: torch.device):
+    """(type, index) of a device: a plan chosen for one card is never
+    reused for another (the grid kernels' plans depend on the card)."""
+    return (device.type, device.index)
+
+
 def _signature(a):
     """Hashable description of one argument for the selection cache."""
     if isinstance(a, torch.Tensor):
-        return ("T", a.device.type, a.dtype, tuple(a.shape),
+        return ("T", _device_key(a.device), a.dtype, tuple(a.shape),
                 a.is_contiguous(), a.requires_grad)
+    if isinstance(a, torch.device):
+        return ("D",) + _device_key(a)
     if a is None or isinstance(a, (bool, int, float, str)):
         return a
     if isinstance(a, (tuple, list)):
