@@ -478,7 +478,38 @@ Phases (any failure exits non-zero before the result line):
     block, T = 2048), one ``TensorParallel`` step (a 2-layer LM of width
     768) and one ``switch_moe`` step (8 experts, 4096 tokens) against
     their single-device runs (TOL_PAR_MODULE).
-43. Prints the kernels line (all nine kernels; the LRN entries count the
+43. The parallel slice, second half. Outside any group: (a) GPipe over
+    BertBase's encoder (config #4's widths, dropout off), 4 stages of 3
+    blocks, 4 microbatches of 8 from [32, 128], every stage's tick
+    replayed on the card (``GPipe(mesh=None)``), bf16 and f32: the
+    forward against ``sequential_reference`` and the net's own encoder
+    output within TOL_PIPE, 3 ``pipeline_train_step`` Sgd steps with a
+    [CLS] head against the same steps run sequentially within
+    TOL_PIPE_STEP, beside controls that must miss (a stage's output
+    dropped at one tick; the stages in the wrong order), 4 x 7 x 3 flash
+    forwards (bubble ticks are computed, as in JAX), device ms of the
+    replay's forward and forward + backward against the unpipelined
+    stack; (b) HeteroPipe over config #2's ResNet-50 from phase 20's zip,
+    cut by ``resnet50_pipeline_plan`` + ``graph_stage_fn``, 4
+    microbatches of 16, against the net's output() within
+    TOL_HETERO_RESNET, bf16 and f32, beside a control; (e) ``initialize_distributed``
+    with NUM_PROCESSES=1 and two injected ``coord_connect`` refusals, its
+    group on NCCL. In an NCCL group of one rank: (a) one
+    ``GPipe(pipe=1)`` step equal to the sequential step bit for bit; (c)
+    config #3 through ``SparkDl4jMultiLayer(DeviceMesh(data=1))`` at
+    averaging_frequency 1 and 5, 10 steps each from a zip, equal to plain
+    ``fit_batch`` bit for bit, beside a control (the average halved), 4 +
+    4 LSTM launches a step on each route; (d) ``FaultTolerantTrainer``
+    over ``ParallelWrapper(config #3)``, save_every 5, a preempt fault at
+    step 7, a new trainer restoring step 5 and running to 10: equal to
+    the uninterrupted run bit for bit, beside a control (a relaunch with
+    nothing to restore); checkpoint save and restore ms; (f)
+    ``ParallelInference(ResNet-50, mesh=DeviceMesh(data=1)).output`` at
+    B = 64 equal to ``net.output``. The phase fails past 60 s of wall.
+    After it, the three flash kernels (bf16) at the ring's step block
+    [1, 4, 8192, 128] (causal) and the pipeline's microbatch
+    [8, 12, 128, 64]: times, bounds and SDPA's.
+44. Prints the kernels line (all nine kernels; the LRN entries count the
     import path's launches under ``launches_by_path["tf_import"]``, the
     flash forward the serving prefills of phases 29-30 and its prefill
     shape's times, every entry YOLO2's, 0, under ``"yolo2_inference"``
@@ -486,7 +517,8 @@ Phases (any failure exits non-zero before the result line):
     32-35, the observability paths of phase 36, the import, pretrain
     and quantized paths of phases 37-39 and the serving tier's predict
     and generate paths of phase 40, SameDiff's paths of phase 41, the
-    parallel paths of phase 42), the card line and, last, the
+    parallel paths of phases 42 and 43, and the flash kernels' rows at
+    the parallel shapes), the card line and, last, the
     result line ``{"ok": true, "device": {...}}``.
 
 Every phase's JSON record carries
@@ -8380,6 +8412,708 @@ def phase_parallel(torch, np, zip_path, zip_save_s):
     return out
 
 
+# ------------------------------------------ parallel slice, second half
+
+N_MICRO = 4
+N_PIPE_STAGES = 4
+N_PIPE_STEPS = 3
+PIPE_BATCH, PIPE_T = 32, 128
+PIPE_LR = 1e-2
+N_PIPE_TIMED = 1
+# the replayed pipeline against the unpipelined stack and the net's own
+# encoder (max |a - b| over max |b|): bf16 microbatches run GEMMs of other
+# shapes (8 rows of sequences, not 32), and 12 bf16 blocks round each
+# differently; f32 with TF32 off differs only in the order of f32 sums.
+# The steps (Sgd, so that an update is the gradient's image; Adam's
+# m / sqrt(v) turns the sign of a near-zero gradient into a full step):
+# the losses relative, and the updates over 3 steps against the
+# sequential steps' (_grads_rel_err over every leaf). Read on NVIDIA H100
+# 80GB HBM3, 700.00 W: the forward bf16 0, f32 8.2e-7; the steps bf16
+# 1.7e-3 and 3.7e-3, f32 4.7e-6 and 1.6e-6. The controls (stage 1
+# skipped at tick 1, microbatch 0; the stages in the wrong order) must
+# miss the limits (read 0.6, and updates 0.99-1.0)
+TOL_PIPE = {"bfloat16": 1e-2, "float32": 5e-6}
+TOL_PIPE_STEP = {"bfloat16": (5e-3, 1.5e-2), "float32": (2e-5, 1e-5)}
+# ResNet-50 cut by resnet50_pipeline_plan, replayed as a HeteroPipe of 4
+# microbatches of 16 against the net's output() on the 64 images: the
+# softmax, max |a - b| over max |b|. cuDNN picks algorithms by batch, so
+# each logit rounds differently through 50 layers; f32 (TF32 off) differs
+# in the order of f32 sums. Read on NVIDIA H100 80GB HBM3, 700.00 W: the
+# net phase 21 trained bf16 5.5e-2, f32 2.9e-6 (a fresh net 0); the
+# control (a microbatch dropped between stages 2 and 3) 0.92-1.0
+TOL_HETERO_RESNET = {"bfloat16": 0.2, "float32": 1e-3}
+N_SPARK_STEPS = 10
+SPARK_BATCH, SPARK_T = 64, 64
+N_FT_STEPS, FT_SAVE_EVERY, FT_FAULT_STEP = 10, 5, 7
+# the flash kernels at the parallel paths' shapes: the ring's step block
+# (phase 42, causal) and the pipeline's microbatch (no mask)
+FLASH_PAR_SHAPES = (("ring_step_causal", (1, 4, 8192, 128), True),
+                    ("pipeline_microbatch", (8, 12, 128, 64), False))
+
+
+def _enc_stage(layers, compute):
+    """A pipeline stage of ``len(layers)`` encoder blocks: params {"l<i>":
+    block params} (f32 masters, cast to the compute type as the net's
+    forward casts them), activations in the compute type."""
+    from deeplearning4j_tpu_torch.common.dtypes import cast_floating
+
+    def stage(p, h):
+        p = cast_floating(p, compute)
+        for i, layer in enumerate(layers):
+            h, _ = layer.apply(p[f"l{i}"], {}, h)
+        return h
+
+    return stage
+
+
+def _drop_tick(fn, at):
+    """The control of a replay: ``fn`` with its call ``at`` (counted from
+    0) lost: answered by its input where the shapes allow (the stage
+    skipped at that tick), else by zeros (its output dropped on the way to
+    the next stage)."""
+    calls = [0]
+
+    def wrapped(p, x):
+        calls[0] += 1
+        y = fn(p, x)
+        if calls[0] != at + 1:
+            return y
+        return x.to(y.dtype) if x.shape == y.shape else y * 0
+
+    return wrapped
+
+
+def _bert_pipeline_parts(torch, np, dtype):
+    """BertBase (config #4's widths, dropout off) on the card in ``dtype``:
+    the embedding output on [32, 128] ids, the 12 encoder blocks, their
+    params stacked into 4 stages of 3 (f32 masters), the net's own encoder
+    output, a [CLS] head and labels."""
+    from deeplearning4j_tpu_torch.nn.layers.attention import (
+        TransformerEncoderLayer,
+    )
+    from deeplearning4j_tpu_torch.parallel import stack_stage_params
+    from deeplearning4j_tpu_torch.zoo import BertBase
+
+    net = BertBase(seed=SEED, max_len=PIPE_T, dropout=0.0,
+                   dtype="bf16" if dtype == torch.bfloat16
+                   else "float32").init(device="cuda")
+    x, y, _ = _bert_batch(np, SEED + 43, B=PIPE_BATCH, T=PIPE_T)
+    blocks = [i for i, l in enumerate(net.layers)
+              if isinstance(l, TransformerEncoderLayer)]
+    per = len(blocks) // N_PIPE_STAGES
+    with torch.no_grad():
+        params = net._compute_params()
+        h = net._input(x)
+        for i in range(blocks[0]):
+            h, _ = net.layers[i].apply(params[i], net.state[i], h)
+        enc = h
+        for i in blocks:
+            enc, _ = net.layers[i].apply(params[i], net.state[i], enc)
+    stages = [{f"l{j}": net.params[blocks[s * per + j]] for j in range(per)}
+              for s in range(N_PIPE_STAGES)]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 44)
+    head = {"W": 0.02 * torch.randn((h.shape[-1], 2), device="cuda",
+                                    generator=g),
+            "b": torch.zeros(2, device="cuda")}
+    layers = [net.layers[i] for i in blocks[:per]]
+    return {"h": h.detach(), "enc": enc.detach(),
+            "stacked": stack_stage_params(stages), "head": head,
+            "y": torch.as_tensor(y, device="cuda").argmax(-1),
+            "stage": _enc_stage(layers, net._policy.compute_dtype),
+            "whole": _enc_stage([net.layers[i] for i in blocks],
+                                net._policy.compute_dtype),
+            "blocks": [net.params[i] for i in blocks]}
+
+
+def _pipe_loss(torch):
+    def head_fn(hp, h):
+        return h[:, 0, :].float() @ hp["W"] + hp["b"]
+
+    def loss_fn(pred, y):
+        return torch.nn.functional.cross_entropy(pred, y)
+
+    return head_fn, loss_fn
+
+
+def _pipe_steps(torch, pipe, parts, steps=N_PIPE_STEPS):
+    """``steps`` pipeline_train_step steps (Sgd) from the parts' params:
+    (losses, params)."""
+    from deeplearning4j_tpu_torch.optimize.updaters import Sgd
+    from deeplearning4j_tpu_torch.parallel import pipeline_train_step
+
+    head_fn, loss_fn = _pipe_loss(torch)
+    step = pipeline_train_step(pipe, loss_fn, Sgd(lr=PIPE_LR), head_fn)
+    params = {"stages": parts["stacked"], "head": parts["head"]}
+    opt = Sgd(lr=PIPE_LR).init_state(params)
+    losses = []
+    for i in range(steps):
+        params, opt, loss = step(params, opt, i, parts["h"], parts["y"])
+        losses.append(float(loss))
+    return losses, params
+
+
+def _pipe_step_errs(torch, parts, got, want):
+    """The losses' relative error, and the updates against the sequential
+    updates (max |a - b| over every leaf, over the largest |b| of them
+    all: a key bias's gradient is 0 in exact arithmetic)."""
+    from deeplearning4j_tpu_torch.common.trees import tree_leaves
+
+    (lg, pg), (lw, pw) = got, want
+    p0 = tree_leaves({"stages": parts["stacked"], "head": parts["head"]})
+    ug = dict(enumerate(a - z for a, z in zip(tree_leaves(pg), p0)))
+    uw = dict(enumerate(b - z for b, z in zip(tree_leaves(pw), p0)))
+    return {"losses": max(abs(a - b) / abs(b) for a, b in zip(lg, lw)),
+            "updates": _grads_rel_err(ug, uw)}
+
+
+def phase_pipeline_bert(torch, np):
+    """(a), the replay: GPipe over BertBase's encoder, 4 stages of 3
+    blocks, 4 microbatches of 8, every stage's tick replayed on the card
+    (``GPipe(mesh=None)``), bf16 and f32: the forward against
+    ``sequential_reference`` and the net's own encoder output, 3
+    ``pipeline_train_step`` steps against the same steps run sequentially,
+    the controls, the flash launches, device ms against the unpipelined
+    stack."""
+    from deeplearning4j_tpu_torch.ops.cuda import FLASH_DKV, FLASH_DQ, FLASH_FWD
+    from deeplearning4j_tpu_torch.parallel import GPipe
+
+    from deeplearning4j_tpu_torch.common.trees import tree_leaves, tree_map
+
+    kernels = (FLASH_FWD, FLASH_DQ, FLASH_DKV)
+    out = {"model": "BertBase encoder (12 x 768, 12 heads of 64, d_ff "
+                    "3072), dropout off; 4 stages of 3 blocks, 4 "
+                    "microbatches of 8, replayed on the card",
+           "batch": [PIPE_BATCH, PIPE_T], "limits": TOL_PIPE,
+           "step_limits": TOL_PIPE_STEP}
+    ticks = N_MICRO + N_PIPE_STAGES - 1
+    walls = out["wall_s"] = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        t0 = time.perf_counter()
+        parts = _bert_pipeline_parts(torch, np, dtype)
+        walls[f"{name}_init"] = time.perf_counter() - t0
+        pipe = GPipe(parts["stage"], None, n_microbatches=N_MICRO)
+        h, stacked = parts["h"], parts["stacked"]
+        with torch.no_grad():
+            y, n_fwd, _, _ = _count_launches(
+                torch, kernels, lambda: pipe(stacked, h))
+            seq = pipe.sequential_reference(stacked, h)
+            errs = {"vs_sequential": _max_rel(y, seq),
+                    "vs_net_encoder": _max_rel(y, parts["enc"])}
+            # controls: stage 1's output at tick 1 (microbatch 0) dropped;
+            # the stages in the wrong order
+            dropped = GPipe(_drop_tick(parts["stage"], 1 * N_PIPE_STAGES + 1),
+                            None, n_microbatches=N_MICRO)(stacked, h)
+            swapped = tree_map(lambda v: v[[0, 2, 1, 3]], stacked)
+            ctl = {"dropped_tick": _max_rel(dropped, seq),
+                   "stages_swapped": _max_rel(pipe(swapped, h), seq)}
+        if max(errs.values()) > TOL_PIPE[name]:
+            fail(f"pipeline {name}: {errs} over {TOL_PIPE[name]}")
+        if min(ctl.values()) <= TOL_PIPE[name]:
+            fail(f"pipeline {name}: a control is within {TOL_PIPE[name]} "
+                 f"({ctl}); the check cannot tell")
+        want_fwd = N_PIPE_STAGES * ticks * 3
+        if n_fwd[FLASH_FWD.name] != want_fwd:
+            fail(f"pipeline {name} forward launched {n_fwd}; want "
+                 f"{want_fwd} flash forwards (every stage, every tick)")
+        walls[f"{name}_forward"] = time.perf_counter() - t0
+        (got, n_step, _, wall) = _count_launches(
+            torch, kernels, lambda: _pipe_steps(torch, pipe, parts))
+        want = _pipe_steps(torch, pipe.sequential_reference, parts)
+        serr = _pipe_step_errs(torch, parts, got, want)
+        # the control, its first step against the sequential first step
+        ctl_step = _pipe_step_errs(torch, parts, _pipe_steps(
+            torch, GPipe(_drop_tick(parts["stage"], 1 * N_PIPE_STAGES + 1),
+                         None, n_microbatches=N_MICRO), parts, steps=1),
+            _pipe_steps(torch, pipe.sequential_reference, parts, steps=1))
+        walls[f"{name}_steps"] = time.perf_counter() - t0
+        lt, pt = TOL_PIPE_STEP[name]
+        if serr["losses"] > lt or serr["updates"] > pt:
+            fail(f"pipeline {name} steps against sequential: {serr} "
+                 f"(limits {lt}, {pt})")
+        if ctl_step["updates"] <= pt:
+            fail(f"pipeline {name} step control within {pt}: {ctl_step}")
+        if not all(np.isfinite(got[0])):
+            fail(f"pipeline {name} losses not finite: {got[0]}")
+        row = {"forward_max_rel_err": errs, "controls_max_rel_err": ctl,
+               "steps_max_rel_err": serr, "step_control_rel_err": ctl_step,
+               "losses": got[0], "sequential_losses": want[0],
+               "forward_launches": n_fwd,
+               "step_launches": {k: v / N_PIPE_STEPS
+                                 for k, v in n_step.items()},
+               "step_wall_ms": 1e3 * wall / N_PIPE_STEPS}
+        if name == "bfloat16":
+            def fwd_bwd(fn):
+                def run():
+                    s = tree_map(lambda v: v.detach().requires_grad_(True),
+                                 stacked)
+                    yy = fn(s, h)
+                    torch.autograd.grad(yy.float().pow(2).sum(),
+                                        tree_leaves(s))
+                return run
+
+            with torch.no_grad():
+                row["replay_fwd_device_ms"] = call_device_ms(
+                    torch, lambda: pipe(stacked, h), N_PIPE_TIMED)
+                row["stack_fwd_device_ms"] = call_device_ms(
+                    torch, lambda: pipe.sequential_reference(stacked, h),
+                    N_PIPE_TIMED)
+            row["replay_fwd_bwd_device_ms"] = call_device_ms(
+                torch, fwd_bwd(pipe), N_PIPE_TIMED)
+            row["stack_fwd_bwd_device_ms"] = call_device_ms(
+                torch, fwd_bwd(pipe.sequential_reference), N_PIPE_TIMED)
+            _, n_fb, _, _ = _count_launches(torch, kernels, fwd_bwd(pipe))
+            row["fwd_bwd_launches"] = n_fb
+            walls[f"{name}_timing"] = time.perf_counter() - t0
+            out["launches"] = {k: n_step[k] + n_fwd[k] for k in n_step}
+            out["bf16_parts"] = parts
+        out[name] = row
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_pipeline_world1(torch, np, parts, mesh):
+    """(a), at one rank: GPipe(pipe=1), the 12 blocks as one stage, one
+    pipeline_train_step step through the NCCL group against the same step
+    run sequentially on the same microbatches: equal bit for bit."""
+    from deeplearning4j_tpu_torch.common.trees import tree_leaves
+    from deeplearning4j_tpu_torch.ops.cuda import FLASH_DKV, FLASH_DQ, FLASH_FWD
+    from deeplearning4j_tpu_torch.parallel import (
+        GPipe, stack_stage_params,
+    )
+
+    kernels = (FLASH_FWD, FLASH_DQ, FLASH_DKV)
+    one = dict(parts, stacked=stack_stage_params(
+        [{f"l{j}": p for j, p in enumerate(parts["blocks"])}]))
+    pipe = GPipe(parts["whole"], mesh, n_microbatches=N_MICRO)
+
+    def sequential(stacked, x):
+        ref = GPipe(parts["whole"], None, n_microbatches=N_MICRO)
+        return torch.cat([ref.sequential_reference(stacked, m)
+                          for m in x.chunk(N_MICRO)])
+
+    got, n, _, wall = _count_launches(
+        torch, kernels, lambda: _pipe_steps(torch, pipe, one, steps=1))
+    want = _pipe_steps(torch, sequential, one, steps=1)
+    equal = got[0] == want[0] and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(got[1]),
+                                          tree_leaves(want[1])))
+    if not equal:
+        fail(f"GPipe(pipe=1) step over NCCL against the sequential step: "
+             f"not equal ({_pipe_step_errs(torch, one, got, want)})")
+    return {"launches": n, "loss": got[0], "step_wall_ms": 1e3 * wall,
+            "equal_to_sequential": equal}
+
+
+def _net_images(torch, net, seed):
+    """RESNET_BATCH bf16 images (``_images``) at the net's input size."""
+    H, W, _ = net.conf.vertex_output_types["input"].shape
+    return _images(torch, seed, RESNET_BATCH, H, W, torch.bfloat16)
+
+
+def phase_hetero_resnet(torch, np, zip_path):
+    """(b): config #2's ResNet-50 from phase 20's zip cut by
+    ``resnet50_pipeline_plan`` into 4 stages, replayed as a HeteroPipe of
+    4 microbatches of 16 on [64, 224, 224, 3] images, the head after it:
+    against the net's inference-mode output() within TOL_HETERO_RESNET, in
+    bf16 and in f32 (the same net, TF32 off), beside a control (stage 2's
+    output at its first microbatch dropped)."""
+    from deeplearning4j_tpu_torch.common.dtypes import FLOAT32
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.ops.cuda import KERNELS
+    from deeplearning4j_tpu_torch.parallel import (
+        HeteroPipe, graph_stage_fn, pack_stage_params,
+    )
+    from deeplearning4j_tpu_torch.zoo.resnet import resnet50_pipeline_plan
+
+    net = ComputationGraph.load(zip_path, device="cuda")
+    x = _net_images(torch, net, SEED + 43)
+    stages, head, shapes = resnet50_pipeline_plan(
+        net, net.conf.vertex_output_types["input"].shape)
+    entries = ["input"] + [s[-1] for s in stages[:-1]]
+    packed, metas = pack_stage_params(
+        [{n: net.params[n] for n in s if n in net.params} for s in stages])
+    head_p = {n: net.params[n] for n in head if n in net.params}
+    out = {"stages": [len(s) for s in stages], "head": head,
+           "shapes": [list(s) for s in shapes],
+           "packed_shape": list(packed.shape), "limits": TOL_HETERO_RESNET}
+    for name in ("bfloat16", "float32"):
+        if name == "float32":
+            net._policy = FLOAT32
+            x = x.float()
+        fns = [graph_stage_fn(net, s, e) for s, e in zip(stages, entries)]
+        head_fn = graph_stage_fn(net, head, stages[-1][-1])
+
+        def run(stage_fns):
+            pipe = HeteroPipe(stage_fns, metas, shapes, None,
+                              n_microbatches=N_MICRO)
+            return head_fn(head_p, pipe(packed, x)).float()
+
+        with torch.no_grad():
+            y, n, _, wall = _count_launches(torch, KERNELS,
+                                            lambda: run(fns))
+            want = net.output(x).float()
+            bad = list(fns)
+            bad[2] = _drop_tick(fns[2], 2)   # stage 2, tick 2: microbatch 0
+            err, ctl = _max_rel(y, want), _max_rel(run(bad), want)
+        if err > TOL_HETERO_RESNET[name] or ctl <= TOL_HETERO_RESNET[name]:
+            fail(f"HeteroPipe ResNet-50 {name} against output(): {err}, "
+                 f"control {ctl} (limit {TOL_HETERO_RESNET[name]})")
+        if any(n.values()):
+            fail(f"HeteroPipe ResNet-50 launched {n}; it runs none of the "
+                 f"port's kernels")
+        out[name] = {"max_rel_err": err, "control_max_rel_err": ctl,
+                     "wall_ms": 1e3 * wall}
+    return out
+
+
+def _config3_zip(torch):
+    """Config #3 (BidirectionalGravesLSTMCharRnn at its published width,
+    f32) saved as a zip in a temporary directory."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.zoo import BidirectionalGravesLSTMCharRnn
+
+    tmp = tempfile.TemporaryDirectory()
+    path = os.path.join(tmp.name, "config3.zip")
+    BidirectionalGravesLSTMCharRnn(seed=SEED).init(device="cuda").save(path)
+    return tmp, path
+
+
+class _DoubledDivisor:
+    """The control of the Spark routes: the round's average divided by
+    twice the replica count (an average over a replica that is not
+    there)."""
+
+    def __init__(self, module):
+        self.module, self.orig = module, module.flat_all_reduce
+
+    def __enter__(self):
+        self.module.flat_all_reduce = (
+            lambda ts, g, divisor=1.0: self.orig(ts, g, 2 * divisor))
+
+    def __exit__(self, *exc):
+        self.module.flat_all_reduce = self.orig
+
+
+def phase_spark_config3(torch, np, zip_path, mesh):
+    """(c): config #3 through SparkDl4jMultiLayer over the NCCL group of
+    one rank, averaging_frequency 1 (ParallelWrapper) and 5 (local SGD),
+    10 steps at [64, 64] each from the zip, against the plain fit_batch
+    from the same zip: equal bit for bit at one replica (params, and the
+    updater state at K = 1; K > 1 restarts it, as the reference master
+    does), beside a control (the K = 5 average divided by 2)."""
+    from deeplearning4j_tpu_torch.common.trees import tree_leaves
+    from deeplearning4j_tpu_torch.datasets.iterators import (
+        ArrayDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops.cuda import KERNELS
+    from deeplearning4j_tpu_torch.parallel import (
+        ParameterAveragingTrainingMaster, SparkDl4jMultiLayer,
+        param_averaging,
+    )
+
+    V = 77
+    rng = np.random.default_rng(SEED + 45)
+    xs, ys = zip(*[_char_batch(np, rng, V, SPARK_BATCH, SPARK_T)
+                   for _ in range(N_SPARK_STEPS)])
+    x, y = np.concatenate(xs), np.concatenate(ys)
+
+    def load():
+        return MultiLayerNetwork.load(zip_path, device="cuda")
+
+    def spark(net, k):
+        tm = (ParameterAveragingTrainingMaster.Builder()
+              .batch_size_per_worker(SPARK_BATCH).averaging_frequency(k)
+              .build())
+        return lambda: SparkDl4jMultiLayer(mesh, net, tm).fit(
+            ArrayDataSetIterator(x, y, batch_size=SPARK_BATCH))
+
+    runs, nets = {}, {}
+    for route in ("plain", "k1", "k5"):
+        net = nets[route] = load()
+        fn = ((lambda n=net: [float(n.fit_batch((a, b)))
+                              for a, b in zip(xs, ys)])
+              if route == "plain" else spark(net, int(route[1])))
+        _, n, _, wall = _count_launches(torch, KERNELS, fn)
+        runs[route] = {"launches": {k: v for k, v in n.items() if v},
+                       "step_wall_ms": 1e3 * wall / N_SPARK_STEPS}
+        if n != _only(KERNELS, fused_lstm_fwd=4 * N_SPARK_STEPS,
+                      fused_lstm_bwd=4 * N_SPARK_STEPS):
+            fail(f"config #3 {route}: {n}; want 4 + 4 LSTM launches a step")
+    plain = nets["plain"]
+    eq = lambda a, b: all(torch.equal(p, q) for p, q in zip(  # noqa: E731
+        tree_leaves(a), tree_leaves(b)))
+    equal = {"k1_params": eq(nets["k1"].params, plain.params),
+             "k1_updater_state": eq(nets["k1"].opt_state, plain.opt_state),
+             "k5_params": eq(nets["k5"].params, plain.params)}
+    ctl_net = load()
+    with _DoubledDivisor(param_averaging):
+        spark(ctl_net, 5)()
+    equal["control_k5_halved_average"] = eq(ctl_net.params, plain.params)
+    if not all(v for k, v in equal.items() if not k.startswith("control")):
+        fail(f"config #3 Spark routes against plain fit at one replica: "
+             f"{equal}; want equal bit for bit")
+    if equal["control_k5_halved_average"]:
+        fail("config #3: the control (average halved) equals plain fit")
+    return {"model": "BidirectionalGravesLSTMCharRnn(units=200, layers=2, "
+                     "vocab=77), Adam 1e-3, clipping 5.0, f32, from a zip",
+            "batch": [SPARK_BATCH, SPARK_T], "steps": N_SPARK_STEPS,
+            "routes": runs, "equal_to_plain": equal}
+
+
+def phase_fault_tolerant(torch, np, zip_path, mesh):
+    """(d): FaultTolerantTrainer over ParallelWrapper(config #3) on the
+    NCCL group, save_every 5: 10 uninterrupted steps; 10 steps with a
+    preempt fault at step 7 (unmanaged: the process dies there), a new
+    trainer restoring step 5 and running to 10: params and updater state
+    equal the uninterrupted run's bit for bit, beside a control (the
+    relaunch with nothing to restore); checkpoint save and restore ms."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch import faults
+    from deeplearning4j_tpu_torch.common.trees import tree_leaves
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops.cuda import KERNELS
+    from deeplearning4j_tpu_torch.parallel import (
+        FaultTolerantTrainer, ParallelWrapper,
+    )
+
+    V = 77
+    rng = np.random.default_rng(SEED + 46)
+    batches = [_char_batch(np, rng, V, SPARK_BATCH, SPARK_T)
+               for _ in range(N_FT_STEPS)]
+    tmp = tempfile.TemporaryDirectory()
+
+    def trainer(name):
+        net = MultiLayerNetwork.load(zip_path, device="cuda")
+        return FaultTolerantTrainer(ParallelWrapper(net, mesh),
+                                    os.path.join(tmp.name, name),
+                                    save_every=FT_SAVE_EVERY)
+
+    def run(tr):
+        target = tr._target
+        while target.step_count < N_FT_STEPS:
+            tr.fit_batch(batches[target.step_count])
+        tr.checkpointer.wait()
+        return target
+
+    with tmp:
+        plain, n, _, _ = _count_launches(torch, KERNELS,
+                                         lambda: run(trainer("plain")))
+        crashed = trainer("crash")
+        with faults.injected(f"preempt:1@step=={FT_FAULT_STEP}") as plan:
+            try:
+                run(crashed)
+                fail("the injected preemption did not stop the run")
+            except faults.PreemptionFault:
+                pass
+        crashed.checkpointer.wait()
+        fault_step = crashed._target.step_count
+        t0 = time.perf_counter()
+        resumed_tr = trainer("crash")
+        torch.cuda.synchronize()
+        restore_ms = 1e3 * (time.perf_counter() - t0)
+        resumed = run(resumed_tr)
+        # the control: a relaunch that restores nothing and runs steps 5
+        # to 10 from the zip's params
+        ctl_tr = trainer("fresh")
+        ctl_tr._target.step_count = FT_SAVE_EVERY
+        control = run(ctl_tr)
+        t0 = time.perf_counter()
+        resumed_tr.checkpointer.save(99, resumed)
+        resumed_tr.checkpointer.wait()
+        save_ms = 1e3 * (time.perf_counter() - t0)
+    eq = lambda a, b: all(torch.equal(p, q) for p, q in zip(  # noqa: E731
+        tree_leaves(a), tree_leaves(b)))
+    equal = {"params": eq(resumed.params, plain.params),
+             "updater_state": eq(resumed.opt_state, plain.opt_state),
+             "control_unrestored_params": eq(control.params, plain.params)}
+    if (resumed_tr.restored_step != FT_SAVE_EVERY or fault_step
+            != FT_FAULT_STEP or plan.injected["preempt"] != 1):
+        fail(f"fault-tolerant run: fault at {fault_step}, restored "
+             f"{resumed_tr.restored_step}; want {FT_FAULT_STEP} and "
+             f"{FT_SAVE_EVERY}")
+    if not (equal["params"] and equal["updater_state"]) or equal[
+            "control_unrestored_params"]:
+        fail(f"resumed config #3 against the uninterrupted run: {equal}")
+    return {"restored_step": resumed_tr.restored_step,
+            "fault_at_step": fault_step, "equal": equal,
+            "launches": n, "checkpoint_save_ms": save_ms,
+            "trainer_restore_ms": restore_ms,
+            "checkpoint_mb": 4 * plain.num_params() * 3 / 1e6}
+
+
+def phase_initialize_distributed(torch, np):
+    """(e): initialize_distributed with NUM_PROCESSES=1 and two injected
+    coord_connect refusals (two retries), the summary, and a group on NCCL
+    (an all-reduce's nccl:all_reduce host record); the control: more
+    refusals than attempts raises."""
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch import faults
+    from deeplearning4j_tpu_torch.parallel import (
+        DeviceMesh, initialize_distributed,
+    )
+
+    os.environ["NUM_PROCESSES"] = "1"
+    try:
+        t0 = time.perf_counter()
+        with faults.injected("coord_connect:2") as plan:
+            info = initialize_distributed()
+        connect_s = time.perf_counter() - t0
+        try:
+            records = nccl_group_records(torch, DeviceMesh(
+                data=1, device="cuda"))
+            backend = str(dist.get_backend())
+        finally:
+            dist.destroy_process_group()
+        try:
+            with faults.injected("coord_connect:9"):
+                initialize_distributed(retry=faults.RetryPolicy(
+                    max_attempts=2, base_delay_s=0.001))
+            dist.destroy_process_group()
+            fail("initialize_distributed with every attempt refused "
+                 "returned")
+        except faults.CoordinatorConnectFault:
+            pass
+    finally:
+        del os.environ["NUM_PROCESSES"]
+    want = {"process_index": 0, "process_count": 1, "local_devices": 1,
+            "global_devices": 1}
+    if (info != want or plan.injected["coord_connect"] != 2
+            or records.get("nccl:all_reduce", [0])[0] != 1):
+        fail(f"initialize_distributed: {info}, refusals "
+             f"{dict(plan.injected)}, records {records}")
+    return {"summary": info, "refusals_retried": 2, "connect_s": connect_s,
+            "backend": backend, "nccl_all_reduce": records}
+
+
+class _Logits:
+    """A ResNet-50's pre-softmax logits as its ``output`` (its softmax
+    over 1000 classes rounds to the same row for every image of a random
+    net: a check on it could not tell the rows apart)."""
+
+    def __init__(self, torch, net):
+        self.torch, self.net, self.device = torch, net, net.device
+
+    def output(self, x):
+        return _resnet_logits(self.torch, self.net, x)
+
+
+def phase_inference_mesh(torch, np, zip_path, mesh):
+    """(f): ParallelInference(ResNet-50, mesh=DeviceMesh(data=1)).output
+    at B = 64 against net.output, and through the same path the logits
+    against the net's: equal bit for bit; the control (the logits of the
+    rows reversed) must differ."""
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.parallel import ParallelInference
+
+    net = ComputationGraph.load(zip_path, device="cuda")
+    x = _net_images(torch, net, SEED + 47)
+    pi = ParallelInference(net, mesh=mesh, device="cuda")
+    logits = _Logits(torch, net)
+    pl = ParallelInference(logits, mesh=mesh, device="cuda")
+    equal = {"output": torch.equal(pi.output(x), net.output(x)),
+             "logits": torch.equal(pl.output(x), logits.output(x))}
+    ctl = _max_rel(pl.output(x.flip(0)), logits.output(x))
+    if not all(equal.values()) or ctl == 0.0:
+        fail(f"ParallelInference over the mesh against the net: {equal}; "
+             f"control (rows reversed) {ctl}")
+    return {"equal": equal, "control_max_rel_err": ctl,
+            "ms_per_call": host_ms(torch, lambda: pi.output(x), 3),
+            "net_ms_per_call": host_ms(torch, lambda: net.output(x), 3)}
+
+
+def flash_at_parallel_shapes(torch):
+    """The three flash kernels (bf16) at the parallel paths' shapes
+    (FLASH_PAR_SHAPES): CUDA-event and device ms of each, the bound of
+    each, and scaled_dot_product_attention's forward and forward +
+    backward as the library yardstick."""
+    from deeplearning4j_tpu_torch.ops.cuda.flash_attention import (
+        DKV_KERNEL_NAMES, DQ_KERNEL_NAMES, FWD_KERNEL_NAMES, flash_backward,
+        flash_forward,
+    )
+
+    bf16 = torch.bfloat16
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    g = torch.Generator(device="cuda").manual_seed(SEED + 48)
+    out = {}
+    for name, (B, N, T, D), causal in FLASH_PAR_SHAPES:
+        q, k, v, do = (torch.randn((B, N, T, D), device="cuda",
+                                   generator=g).to(bf16) for _ in range(4))
+        kw = dict(scale=1.0 / D ** 0.5, causal=causal)
+        o, lse = flash_forward(q, k, v, **kw)
+        delta = (do.float() * o.float()).sum(-1, keepdim=True)
+        fwd = lambda: flash_forward(q, k, v, **kw)  # noqa: E731
+        bwd = lambda: flash_backward(  # noqa: E731
+            q, k, v, do, lse, delta, **kw)
+        lq, lk, lv = (t.clone().requires_grad_() for t in (q, k, v))
+        lib_out = sdpa(lq, lk, lv, is_causal=causal)
+        lib_fwd = lambda: sdpa(q, k, v, is_causal=causal)  # noqa: E731
+        lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
+            lib_out, (lq, lk, lv), do, retain_graph=True)
+        row = {"shape": [B, N, T, D], "causal": causal, "dtype": "bfloat16",
+               "fwd_ms": cuda_ms(torch, fwd, 10),
+               "bwd_ms": cuda_ms(torch, bwd, 10),
+               "fwd_device_ms": kernel_device_ms(torch, fwd, 5,
+                                                 FWD_KERNEL_NAMES[bf16]),
+               "dq_device_ms": kernel_device_ms(torch, bwd, 5,
+                                                DQ_KERNEL_NAMES[bf16]),
+               "dkv_device_ms": kernel_device_ms(torch, bwd, 5,
+                                                 DKV_KERNEL_NAMES[bf16]),
+               "library_fwd_ms": cuda_ms(torch, lib_fwd, 10),
+               "library_bwd_ms": cuda_ms(torch, lib_bwd, 10),
+               "library_fwd_device_ms": call_device_ms(torch, lib_fwd, 5),
+               "library_bwd_device_ms": call_device_ms(torch, lib_bwd, 5)}
+        for kind in ("fwd", "dq", "dkv"):
+            row[f"{kind}_bound_ms"], row[f"{kind}_bound_by"] = flash_bound(
+                torch, kind, q, k, None, causal)
+        out[name] = row
+        del lib_out, lq, lk, lv
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_parallel2(torch, np, resnet_zip):
+    """Phase 43: the second half of the parallel slice. The replays and
+    the flash kernels at the parallel shapes run outside any group; the
+    rest in an NCCL group of one rank that the phase creates and destroys
+    (initialize_distributed creates and destroys its own)."""
+    from deeplearning4j_tpu_torch.parallel import DeviceMesh, launch
+
+    t0 = time.perf_counter()
+    walls, out = {}, {}
+
+    def part(name, fn, *args):
+        t = time.perf_counter()
+        out[name] = fn(torch, np, *args)
+        walls[name] = time.perf_counter() - t
+
+    part("pipeline_bert", phase_pipeline_bert)
+    parts = out["pipeline_bert"].pop("bf16_parts")
+    part("hetero_resnet", phase_hetero_resnet, resnet_zip)
+    part("initialize_distributed", phase_initialize_distributed)
+    tmp, c3_zip = _config3_zip(torch)
+    with tmp, launch.local_group("cuda"):
+        mesh = DeviceMesh(data=1, device="cuda")
+        part("pipeline_world1", phase_pipeline_world1, parts,
+             DeviceMesh(data=1, pipe=1, device="cuda"))
+        del parts
+        part("spark_config3", phase_spark_config3, c3_zip, mesh)
+        part("fault_tolerant_config3", phase_fault_tolerant, c3_zip, mesh)
+        part("inference_mesh", phase_inference_mesh, resnet_zip, mesh)
+    out["wall_s_parts"] = walls
+    out["wall_s_phase"] = time.perf_counter() - t0
+    if out["wall_s_phase"] > 60:
+        fail(f"phase 43 took {out['wall_s_phase']:.1f} s of wall, over 60")
+    t = time.perf_counter()
+    out["flash_parallel_shapes"] = flash_at_parallel_shapes(torch)
+    out["wall_s_flash_rows"] = time.perf_counter() - t
+    return out
+
+
 def main() -> None:
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "deeplearning4j_tpu_torch")):
@@ -8833,7 +9567,6 @@ def main() -> None:
     # NCCL group of one rank, the ring of 4 replayed on the card, and the
     # sequence-parallel, tensor-parallel and MoE paths at one rank
     par = phase_parallel(torch, np, rn_zip, rn_zip_s)
-    rn_zip_dir.cleanup()
     emit(card, {"parallel": par})
     c5, rr = par["config5"], par["ring_replay"]["rows"]
     bf16_causal = next(r for r in rr if r["dtype"] == "bfloat16"
@@ -8853,6 +9586,28 @@ def main() -> None:
           f"{ms(bf16_causal['replay_device_ms'])} device (one flash call "
           f"{ms(bf16_causal['one_call_device_ms'])}); phase "
           f"{par['wall_s_phase']:.1f} s", flush=True)
+
+    # phase 43: the parallel slice's second half: GPipe over BertBase's
+    # encoder (replayed, and at one rank on NCCL), HeteroPipe over
+    # ResNet-50, the Spark shims and the fault-tolerant trainer on config
+    # #3, initialize_distributed, ParallelInference over a mesh
+    par2 = phase_parallel2(torch, np, rn_zip)
+    rn_zip_dir.cleanup()
+    emit(card, {"parallel_second_half": par2})
+    pb = par2["pipeline_bert"]["bfloat16"]
+    sp = par2["spark_config3"]["routes"]
+    ftr = par2["fault_tolerant_config3"]
+    print(f"parallel, second half, on {card}: BertBase GPipe replay (4 x 3 "
+          f"blocks, 4 microbatches) forward {ms(pb['replay_fwd_device_ms'])}"
+          f" device (stack {ms(pb['stack_fwd_device_ms'])}), forward + "
+          f"backward {ms(pb['replay_fwd_bwd_device_ms'])} (stack "
+          f"{ms(pb['stack_fwd_bwd_device_ms'])}); config #3 Spark step wall "
+          f"K=1 {sp['k1']['step_wall_ms']:.2f} ms, K=5 "
+          f"{sp['k5']['step_wall_ms']:.2f} ms (plain "
+          f"{sp['plain']['step_wall_ms']:.2f}); checkpoint save "
+          f"{ftr['checkpoint_save_ms']:.1f} ms, restore "
+          f"{ftr['trainer_restore_ms']:.1f} ms; phase "
+          f"{par2['wall_s_phase']:.1f} s", flush=True)
 
     # the kernels line, card line, result line
     decode = rows[0]  # the serving path's decode shape [8, 1, 256]
@@ -9060,6 +9815,22 @@ def main() -> None:
                 n, 0)}
         e["launches_by_path"].update(paths)
         e["launches"] += sum(paths.values())
+    for e in entries:  # the second half's paths (phase 43)
+        n = e["name"]
+        paths = {
+            "pipeline_bert_replay": par2["pipeline_bert"]["launches"].get(
+                n, 0),
+            "pipeline_bert_pipe1_nccl": par2["pipeline_world1"][
+                "launches"].get(n, 0),
+            "spark_k1_config3": sp["k1"]["launches"].get(n, 0),
+            "spark_k5_config3": sp["k5"]["launches"].get(n, 0),
+            "fault_tolerant_config3": ftr["launches"].get(n, 0)}
+        e["launches_by_path"].update(paths)
+        e["launches"] += sum(paths.values())
+    # the flash kernels at the parallel paths' shapes (phase 43)
+    for e in entries:
+        if e["name"].startswith("flash_attention_"):
+            e["parallel_shapes"] = par2["flash_parallel_shapes"]
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,10 +8,12 @@ in both packages. The port's injection points: ``ckpt_io`` and
 iterators and the MNIST reader) and ``nan_grad`` / ``loss_spike`` /
 ``data_corrupt`` (``fit_batch``'s input path, :func:`poison_batch`),
 ``infer_crash`` / ``worker_crash`` / ``slow_worker`` (the serving tier's
-``ParallelInference`` workers) and ``preempt`` (``GenerationEngine.step``,
-handed to ``serving/lifecycle.py``). The other classes parse and fire as
-in the JAX package; the modules that consume them (distributed training)
-are not ported yet.
+``ParallelInference`` workers), ``preempt`` (``GenerationEngine.step`` and
+``FaultTolerantTrainer.fit_batch``, handed to ``serving/lifecycle.py``),
+``coord_connect`` (``parallel.initialize_distributed``) and
+``worker_crash`` / ``collective_delay`` (the local-SGD rounds'
+``parallel.spark.RoundSupervisor``). ``traffic_spike`` parses and fires as
+in the JAX package.
 
 Spec grammar (``DL4J_TORCH_FAULTS`` or :func:`configure`)::
 

@@ -256,6 +256,37 @@ class AdaDelta(Updater):
         return upd, {"g2": g2, "dx2": dx2}
 
 
+class PerEntryUpdater(Updater):
+    """One updater per top-level entry of the param tree (the
+    MultiLayerNetwork's layer list, the ComputationGraph's vertex dict):
+    the network's own updater selection (NoOp for frozen layers, per-layer
+    overrides, the global default otherwise) on the functional training
+    surface (``as_loss_fn`` -> ``ParameterAveragingTrainer``), each
+    entry's step as ``_apply_updaters`` takes it. Clipping stays with the
+    caller (the trainer's ``max_grad_norm``)."""
+
+    def __init__(self, updaters):
+        # list OR dict keyed like params; the dataclass base is frozen
+        object.__setattr__(self, "updaters", updaters)
+
+    def init_state(self, params):
+        if isinstance(self.updaters, dict):
+            return {k: self.updaters[k].init_state(p)
+                    for k, p in params.items()}
+        return [u.init_state(p) for u, p in zip(self.updaters, params)]
+
+    def update(self, grads, state, params, step):
+        if isinstance(self.updaters, dict):
+            out = {k: self.updaters[k].update(grads[k], state[k],
+                                              params[k], step)
+                   for k in params}
+            return ({k: v[0] for k, v in out.items()},
+                    {k: v[1] for k, v in out.items()})
+        out = [u.update(g, s, p, step)
+               for u, g, s, p in zip(self.updaters, grads, state, params)]
+        return [v[0] for v in out], [v[1] for v in out]
+
+
 _ALIASES = {
     "sgd": Sgd, "adam": Adam, "adamw": AdamW, "adamax": AdaMax,
     "nadam": Nadam, "nesterovs": Nesterovs, "nesterov": Nesterovs,

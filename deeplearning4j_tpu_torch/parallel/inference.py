@@ -39,7 +39,14 @@ default stream; the op registry's choice cache is locked for them.
 
 ``device`` defaults to the card and must be where a model that has a
 ``device`` lives; asking for the card where there is none raises.
-``mesh`` takes None only: the port maps no ``DeviceMesh`` yet.
+
+With a ``mesh`` (a ``DeviceMesh``), the synchronous :meth:`output` is
+collective, as the JAX package's is one program sharded over the mesh's
+"data" axis: every rank calls it with the same x, each rank runs its slice
+of dim 0 (the batch zero-padded to a multiple of the axis size), and the
+slices are all-gathered and trimmed, so every rank returns the whole
+batch's output. The batching workers stay local to their rank: they call
+the model itself.
 """
 
 from __future__ import annotations
@@ -101,11 +108,11 @@ class ParallelInference:
                  on_depth: Optional[Callable[[int], None]] = None,
                  name: Optional[str] = None,
                  device: DeviceLike = "cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "ParallelInference takes mesh=None only: the port maps no "
-                "DeviceMesh yet")
         self.device = resolve_device(device)
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"the mesh runs on {mesh.device_type}, "
+                             f"ParallelInference was asked for "
+                             f"{self.device}")
         model_device = getattr(model, "device", None)
         if (isinstance(model_device, (str, torch.device))
                 and torch.device(model_device) != self.device):
@@ -113,6 +120,7 @@ class ParallelInference:
                              f"ParallelInference was asked for "
                              f"{self.device}; call model.to(...)")
         self.model = model
+        self.mesh = mesh
         self.name = name or "pi-worker"
         self.batch_limit = batch_limit
         self.queue_timeout_s = queue_timeout_s
@@ -140,13 +148,32 @@ class ParallelInference:
 
     # --- synchronous one-shot API (ParallelInference.output) ---
     def output(self, x):
-        return self.model.output(x)
+        """The model's output on ``x``; with a mesh, collective over its
+        "data" axis (every rank calls it with the same x)."""
+        if self.mesh is None:
+            return self.model.output(x)
+        from deeplearning4j_tpu_torch.common.trees import tree_map
+        from deeplearning4j_tpu_torch.parallel.collectives import (
+            all_gather, axis_group,
+        )
+
+        group = axis_group(self.mesh, "data")
+        n, r = self.mesh.shape["data"], self.mesh.index("data")
+        x = to_device(x, self.device)
+        b = x.shape[0]
+        per = -(-b // n)
+        if per * n != b:
+            x = torch.cat([x, x.new_zeros((per * n - b,) + x.shape[1:])])
+        with torch.no_grad():
+            ys = self.model.output(x[r * per:(r + 1) * per])
+            return tree_map(lambda y: all_gather(y.contiguous(), group,
+                                                 0)[:b], ys)
 
     def _forward(self, xs: np.ndarray, n: int) -> np.ndarray:
         """One padded batch through the model: staged on the device, the
         padding sliced off there, one copy back (the batch's sync)."""
         with torch.no_grad():
-            ys = self.output(to_device(xs, self.device))
+            ys = self.model.output(to_device(xs, self.device))
             if isinstance(ys, torch.Tensor):
                 return ys[:n].cpu().numpy()
         return np.asarray(ys)[:n]

@@ -9,7 +9,8 @@ compute, Nesterovs 0.1 with momentum 0.9. The same builder calls, vertex
 names and defaults, so the configuration JSON is the JAX package's. On
 the card the convolutions run on cuDNN through ``torch.nn.functional``
 with NHWC activations as channels_last views; no hand-written kernel is on
-its path. ``resnet50_pipeline_plan`` is not ported yet.
+its path. ``resnet50_pipeline_plan`` cuts the graph at its four stage
+boundaries for ``parallel.HeteroPipe``.
 """
 
 from __future__ import annotations
@@ -110,3 +111,40 @@ class ResNet50(ZooModel):
         g.add_layer(f"{name}_out", ActivationLayer(activation="relu"),
                     f"{name}_add")
         return f"{name}_out"
+
+
+def resnet50_pipeline_plan(model, input_shape):
+    """Cut an inited ResNet-50 ComputationGraph at its four conv stage
+    boundaries for :class:`~deeplearning4j_tpu_torch.parallel.HeteroPipe`.
+
+    Returns (stage_name_lists, head_names, shapes):
+
+    - stage_name_lists: four contiguous topological vertex slices (the stem
+      folds into the first); each slice's only external input is the
+      previous slice's output (the conv2/3/4/5 boundaries);
+    - head_names: the replicated tail (global pool and classifier);
+    - shapes: per-example activation shapes [input, s1_in, s2_in, s3_in,
+      pipeline_out], what HeteroPipe needs for its padded buffer.
+
+    ``input_shape``: the per-example input, e.g. (32, 32, 3). The JAX
+    package traces the forward abstractly for the shapes; here they are the
+    configuration's own output types, so ``input_shape`` must be the
+    configured input's (it raises otherwise) and no forward runs."""
+    conf = model.conf
+    order = [n for n in conf.topological_order
+             if n not in conf.network_inputs]
+    (entry,) = conf.network_inputs
+    configured = tuple(conf.vertex_output_types[entry].shape)
+    if tuple(input_shape) != configured:
+        raise ValueError(f"input_shape {tuple(input_shape)} is not the "
+                         f"configured input {configured}")
+    cuts = [max(i for i, n in enumerate(order) if n.startswith(f"s{si}b"))
+            for si in range(4)]
+    stages, start = [], 0
+    for idx in cuts:
+        stages.append(order[start:idx + 1])
+        start = idx + 1
+    head = order[start:]
+    shapes = [configured] + [tuple(conf.vertex_output_types[st[-1]].shape)
+                             for st in stages]
+    return stages, head, shapes

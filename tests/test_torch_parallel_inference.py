@@ -6,8 +6,10 @@ The scenarios of ``tests/test_parallel.py`` (``TestParallelInference``,
 the CPU: the same results (a JAX-built network, restored by the port from
 its zip, within 1e-5 of the JAX network), the same pow2 batch shapes, the
 same self-healing outcomes and recovery counters. Then what is the port's
-own: batches staged on the queue's device and sliced there, ``mesh``
-taking None only, the device check against the model's, and replicas of a
+own: batches staged on the queue's device and sliced there, a ``mesh``
+on another device type refused, the device check against the model's,
+``output`` with a mesh as a collective over "data" in a gloo world of 2
+and 4 (against the JAX package's ``output`` under its mesh), and replicas of a
 real recurrent network running ``output`` at once while the op registry's
 choice cache evicts under them.
 """
@@ -269,8 +271,12 @@ def test_mesh_and_device_checks(dense_pair):
     from deeplearning4j_tpu_torch.parallel import ParallelInference
 
     net = dense_pair[2]["torch"]
-    with pytest.raises(NotImplementedError, match="mesh=None"):
-        ParallelInference(net, mesh=object(), device="cpu")
+
+    class CardMesh:
+        device_type = "cuda"
+
+    with pytest.raises(ValueError, match="mesh runs on cuda"):
+        ParallelInference(net, mesh=CardMesh(), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             ParallelInference(net)
@@ -372,3 +378,36 @@ def test_padded_batches_on_card_through_the_lstm_kernel(cuda_device):
         assert FUSED_LSTM.launches == batches
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def test_output_over_a_mesh(tmp_path):
+    """ParallelInference(mesh=...).output in gloo worlds of 2 and 4
+    against the JAX package's output under its mesh (B 8 and a
+    ragged 5, which pads): within 1e-5, every rank the same; the
+    control (every rank running the first slice) misses."""
+    from deeplearning4j_tpu.parallel import DeviceMesh as JaxMesh
+    from deeplearning4j_tpu.parallel import (
+        ParallelInference as JaxParallelInference,
+    )
+    from deeplearning4j_tpu_torch.parallel import launch
+    from test_torch_serving_gateway import jax_dense
+
+    import torch_parallel_ranks as ranks
+
+    jnet = jax_dense(9, n_in=8, hidden=16, n_out=4)
+    zpath = jax_zip(jnet, tmp_path / "dense.zip")
+    rng = np.random.default_rng(5)
+    xs = {"even": rng.normal(size=(8, 8)).astype(np.float32),
+          "ragged": rng.normal(size=(5, 8)).astype(np.float32)}
+    jpi = JaxParallelInference(jnet, mesh=JaxMesh(data=8))
+    want = {n: np.asarray(jpi.output(x)) for n, x in xs.items()}
+    for world in (2, 4):
+        outs = launch.run(ranks.inference_world, world, device="cpu",
+                          args=({"zip": zpath, "xs": xs},), threads=1,
+                          timeout=120)
+        for r in outs:
+            for n in xs:
+                np.testing.assert_allclose(r[n], want[n], rtol=0,
+                                           atol=1e-5)
+                np.testing.assert_array_equal(r[n], outs[0][n])
+            assert np.abs(r["control"] - want["even"]).max() > 1e-3

@@ -949,8 +949,8 @@ def test_load_time_quantization(tmp_path):
 # ------------------------------------------------------- device contract
 def test_entry_points_take_the_card_unless_told():
     """Without a card, every serving entry point asked for the default
-    device raises; a ``mesh`` other than None raises; ``KNNServer`` names
-    the module it waits for."""
+    device raises; a ``mesh`` on another device type than the queue's
+    raises; ``KNNServer`` names the module it waits for."""
     from deeplearning4j_tpu_torch.parallel import ParallelInference
     from deeplearning4j_tpu_torch.serving import (
         KNNServer, ModelRegistry, ModelServer, ServingGateway,
@@ -962,8 +962,11 @@ def test_entry_points_take_the_card_unless_told():
                       lambda: ModelServer(StubModel())):
             with pytest.raises(RuntimeError, match="cuda"):
                 build()
-    with pytest.raises(NotImplementedError, match="mesh=None"):
-        ParallelInference(StubModel(), mesh=object(), device="cpu")
+    class CardMesh:
+        device_type = "cuda"
+
+    with pytest.raises(ValueError, match="mesh runs on cuda"):
+        ParallelInference(StubModel(), mesh=CardMesh(), device="cpu")
     with pytest.raises(ImportError, match="A9"):
         KNNServer(np.zeros((4, 2)))
 

@@ -435,3 +435,429 @@ def local_sgd_world(rank, p):
         {"w": torch.zeros((6, 1))}, a["x"][:64], a["y"][:64],
         mask=np.ones((64, 1), np.float32))
     return out
+
+
+# --------------------------------------------------------------- pipeline
+
+def _t(tree):
+    return tree_map(lambda a: torch.as_tensor(np.asarray(a)), tree)
+
+
+def stage_dense(p, x):
+    return torch.tanh(x @ p["W"] + p["b"])
+
+
+def stage_dense_nobias(p, x):
+    return torch.tanh(x @ p["W"])
+
+
+def _value_and_grads(fn, tree):
+    """(fn(tree), the gradients of sum(fn(tree) ** 2) for every leaf of
+    ``tree``) as numpy."""
+    from deeplearning4j_tpu_torch.common.trees import tree_leaves as leaves_of
+    from deeplearning4j_tpu_torch.common.trees import tree_unflatten
+
+    leaves = [a.clone().requires_grad_(True) for a in leaves_of(tree)]
+    y = fn(tree_unflatten(tree, leaves))
+    grads = torch.autograd.grad((y * y).sum(), leaves)
+    return y.detach().numpy(), np_tree(tree_unflatten(tree, list(grads)))
+
+
+class _DropRotation:
+    """The control: ``collectives.rotate`` with the call ``at`` replaced by
+    zeros (one rotation dropped)."""
+
+    def __init__(self, at):
+        self.at, self.calls = at, 0
+        self.rotate = C.rotate
+
+    def __enter__(self):
+        def rotate(x, group, shift=1):
+            self.calls += 1
+            if self.calls == self.at:
+                return self.rotate(torch.zeros_like(x), group, shift)
+            return self.rotate(x, group, shift)
+
+        C.rotate = rotate
+        return self
+
+    def __exit__(self, *exc):
+        C.rotate = self.rotate
+
+
+def _bert_stage(case):
+    """The port's encoder block of a Bert built from the JAX package's
+    configuration JSON, as a stage function."""
+    from deeplearning4j_tpu_torch.nn.conf.builders import (
+        MultiLayerConfiguration,
+    )
+    from deeplearning4j_tpu_torch.nn.layers.attention import (
+        TransformerEncoderLayer,
+    )
+
+    conf = MultiLayerConfiguration.from_json(case["json"])
+    enc = next(l for l in conf.layers
+               if isinstance(l, TransformerEncoderLayer))
+    return lambda p, h: enc.apply(p, {}, h, train=False)[0]
+
+
+def _hetero_fns(n):
+    return [stage_dense if s % 2 == 0 else stage_dense_nobias
+            for s in range(n)]
+
+
+def _pipelines(p, mesh):
+    """Every pipeline case of ``pipeline_world`` on ``mesh`` (None: the
+    one-device replay)."""
+    from deeplearning4j_tpu_torch.optimize.updaters import Sgd
+    from deeplearning4j_tpu_torch.parallel import (
+        GPipe, HeteroPipe, pack_stage_params, pipeline_train_step,
+    )
+
+    out = {}
+    g = p["gpipe"]
+    pipe = GPipe(stage_dense, mesh, n_microbatches=4)
+    x = torch.as_tensor(g["x"])
+    out["gpipe"] = _value_and_grads(lambda s: pipe(s, x), _t(g["stacked"]))
+    tr = p["train"]
+    step = pipeline_train_step(
+        GPipe(stage_dense, mesh, n_microbatches=4),
+        lambda pred, y: ((pred - y) ** 2).mean(), Sgd(lr=0.2),
+        lambda hp, h: h @ hp["W"])
+    params = _t(tr["params"])
+    opt = Sgd(lr=0.2).init_state(params)
+    losses = []
+    for i in range(tr["steps"]):
+        params, opt, loss = step(params, opt, i, torch.as_tensor(tr["x"]),
+                                 torch.as_tensor(tr["y"]))
+        losses.append(float(loss))
+    out["train"] = (losses, np_tree(params))
+    b = p["bert"]
+    bpipe = GPipe(_bert_stage(b), mesh, n_microbatches=4)
+    h = torch.as_tensor(b["h"])
+    out["bert"] = _value_and_grads(lambda s: bpipe(s, h), _t(b["stacked"]))
+    hp = p["hetero"]
+    packed, metas = pack_stage_params(_t(hp["stages"]))
+    hpipe = HeteroPipe(_hetero_fns(4), metas, hp["shapes"], mesh,
+                       n_microbatches=2)
+    xh = torch.as_tensor(hp["x"])
+    out["hetero_packed"] = packed.numpy()
+    out["hetero"] = _value_and_grads(lambda q: hpipe(q, xh), packed)
+    out["hetero_sequential"] = _value_and_grads(
+        lambda q: hpipe.sequential_reference(q, xh), packed)
+    return out
+
+
+def pipeline_world(rank, p):
+    """GPipe (dense stages, a train step, the BERT encoder stack) and
+    HeteroPipe over (pipe 4), forward and gradients, with the controls
+    (one rotation dropped), and the checks at :98-105."""
+    from deeplearning4j_tpu_torch.parallel import GPipe, HeteroPipe
+
+    mesh = DeviceMesh(data=1, pipe=WORLD_SEQ, device="cpu")
+    out = _pipelines(p, mesh)
+    g = p["gpipe"]
+    x = torch.as_tensor(g["x"])
+    pipe = GPipe(stage_dense, mesh, n_microbatches=4)
+    for at in (1, 3):
+        with _DropRotation(at):
+            out[("dropped", at)] = pipe(_t(g["stacked"]), x).numpy()
+    out["bad_stages"] = _raises(pipe, _t({k: v[:2] for k, v in
+                                          g["stacked"].items()}), x)
+    out["bad_batch"] = _raises(pipe, _t(g["stacked"]), x[:6])
+    out["hetero_bad_stages"] = _raises(
+        HeteroPipe, _hetero_fns(4), [None] * 4, [(4,)] * 4, mesh)
+    return out
+
+
+def pipeline_world1(rank, p):
+    """GPipe(pipe=1) train steps through a group of one rank against the
+    same steps run sequentially on the same microbatches."""
+    from deeplearning4j_tpu_torch.optimize.updaters import Sgd
+    from deeplearning4j_tpu_torch.parallel import GPipe, pipeline_train_step
+
+    mesh = DeviceMesh(data=1, pipe=1, device="cpu")
+    tr = p["train1"]
+
+    def sequential(stacked, x):
+        ref = GPipe(stage_dense, None, n_microbatches=4)
+        return torch.cat([ref.sequential_reference(stacked, m)
+                          for m in x.chunk(4)])
+
+    runs = {}
+    for name, pipe in (("pipe1", GPipe(stage_dense, mesh, n_microbatches=4)),
+                       ("sequential", sequential)):
+        step = pipeline_train_step(
+            pipe, lambda pred, y: ((pred - y) ** 2).mean(), Sgd(lr=0.2),
+            lambda hp, h: h @ hp["W"])
+        params = _t(tr["params"])
+        opt = Sgd(lr=0.2).init_state(params)
+        losses = []
+        for i in range(tr["steps"]):
+            params, opt, loss = step(params, opt, i,
+                                     torch.as_tensor(tr["x"]),
+                                     torch.as_tensor(tr["y"]))
+            losses.append(float(loss))
+        runs[name] = (losses, np_tree(params))
+    return runs
+
+
+# -------------------------------------------------------------- inference
+
+def inference_world(rank, p):
+    """ParallelInference(mesh=...).output over "data": every rank's result,
+    and the control (every rank running the first slice)."""
+    from deeplearning4j_tpu_torch.parallel import ParallelInference
+    from deeplearning4j_tpu_torch.util.serialization import restore_model
+
+    net = restore_model(p["zip"], device="cpu")
+    mesh = DeviceMesh(device="cpu")
+    pi = ParallelInference(net, mesh=mesh, device="cpu")
+    out = {n: pi.output(x).numpy() for n, x in p["xs"].items()}
+    mesh.index = lambda axis: 0
+    out["control"] = pi.output(p["xs"]["even"]).numpy()
+    return out
+
+
+# ------------------------------------------------------------------ spark
+
+class MultiStream:
+    """A resettable MultiDataSet stream: the same batches every epoch."""
+
+    def __init__(self, mds_cls, feats, labels, batch, fmask=None,
+                 lmask=None):
+        self.mds = mds_cls(feats, labels, features_mask=fmask,
+                           labels_mask=lmask)
+        self.batch = batch
+
+    def __iter__(self):
+        return iter(self.mds.batches(self.batch))
+
+    def reset(self):
+        pass
+
+
+def spark_stream(pkg, spec):
+    """The stream ``spec`` describes, built from ``pkg``'s datasets (the
+    JAX package's or the port's)."""
+    import importlib
+
+    ds_mod = importlib.import_module(f"{pkg}.datasets.dataset")
+    it_mod = importlib.import_module(f"{pkg}.datasets.iterators")
+    kind = spec["kind"]
+    if kind == "array":
+        return it_mod.ArrayDataSetIterator(spec["x"], spec["y"],
+                                           batch_size=spec["batch"])
+    if kind == "multi":
+        return MultiStream(ds_mod.MultiDataSet, spec["x"], spec["y"],
+                           spec["batch"], spec.get("fmask"),
+                           spec.get("lmask"))
+    if kind == "list":
+        return [ds_mod.DataSet(x, y, features_mask=m)
+                for x, y, m in spec["batches"]]
+    if kind == "oneshot":
+        return iter([ds_mod.DataSet(spec["x"], spec["y"])])
+    raise ValueError(kind)
+
+
+def spark_score(pkg, net, spec):
+    import importlib
+
+    ds_mod = importlib.import_module(f"{pkg}.datasets.dataset")
+    if spec["kind"] == "multi":
+        return float(net.score(ds_mod.MultiDataSet(
+            spec["x"], spec["y"], features_mask=spec.get("fmask"))))
+    if spec["kind"] == "list":
+        xs, ys, ms = (np.concatenate(a) for a in zip(*spec["batches"]))
+        return float(net.score(ds_mod.DataSet(xs, ys, features_mask=ms)))
+    return float(net.score((spec["x"], spec["y"])))
+
+
+def _forgetting(fit, spark, lost):
+    def run(*a, **kw):
+        orig = spark.RoundSupervisor.lost_for_round
+        spark.RoundSupervisor.lost_for_round = lambda self: list(lost)
+        try:
+            return fit(*a, **kw)
+        finally:
+            spark.RoundSupervisor.lost_for_round = orig
+
+    return run
+
+
+def run_spark(pkg, sc, mesh, net, lost=None):
+    """One Spark scenario through ``pkg``'s shims: (score before, score
+    after, params, state, accuracy or None, warnings, supervisor counts,
+    the error raised or None)."""
+    import importlib
+    import warnings
+
+    spark = importlib.import_module(f"{pkg}.parallel.spark")
+    tm = (spark.ParameterAveragingTrainingMaster.Builder()
+          .batch_size_per_worker(sc["bpw"]).averaging_frequency(sc["k"])
+          .straggler_timeout_s(sc.get("straggler", 0.0)).build())
+    cls = (spark.SparkComputationGraph if sc.get("graph_facade")
+           else spark.SparkDl4jMultiLayer)
+    facade = cls(mesh, net, tm)
+    if lost is not None:
+        # the control: an average that forgets replicas ``lost`` every
+        # round (the facade's supervisor answers with them)
+        facade._fit_local_sgd = _forgetting(facade._fit_local_sgd, spark,
+                                            lost)
+    l0 = spark_score(pkg, net, sc["score"])
+    err, injected, metrics, wall = None, None, None, None
+    faults = importlib.import_module(f"{pkg}.faults")
+    monitoring = importlib.import_module(f"{pkg}.monitoring")
+    spec, delay = sc.get("faults", (None, 0.0))
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        try:
+            if spec is None:
+                facade.fit(spark_stream(pkg, sc["data"]),
+                           epochs=sc["epochs"])
+            else:
+                monitoring.enable()
+                with faults.injected(spec, delay_s=delay) as plan:
+                    t0 = time.monotonic()
+                    facade.fit(spark_stream(pkg, sc["data"]),
+                               epochs=sc["epochs"])
+                    wall = time.monotonic() - t0
+                injected = dict(plan.injected)
+                metrics = [line for line in
+                           monitoring.metrics_text().splitlines()
+                           if 'component="localsgd"' in line
+                           and line.startswith("dl4j_recovery_total")]
+        except (ValueError, NotImplementedError) as e:
+            err = (type(e).__name__, str(e))
+    l1 = spark_score(pkg, net, sc["score"]) if err is None else None
+    acc = None
+    if sc.get("accuracy") and err is None:
+        d = sc["score"]
+        x = d["x"] if d["kind"] != "multi" else dict(zip(d["names"], d["x"]))
+        out = net.output(x)
+        out = out[0] if isinstance(out, (list, tuple)) else out
+        out = np.asarray(out.detach().cpu() if hasattr(out, "detach")
+                         else out)
+        want = d["y"][0] if d["kind"] == "multi" else d["y"]
+        acc = float((out.argmax(-1) == np.asarray(want).argmax(-1)).mean())
+    sup = getattr(facade, "_round_supervisor", None)
+    return {"l0": l0, "l1": l1, "params": np_tree(net.params),
+            "state": np_tree(net.state), "acc": acc,
+            "warned": [str(r.message) for r in rec
+                       if "dropped" in str(r.message)],
+            "supervisor": None if sup is None else (sup.dropped,
+                                                    sup.readmitted),
+            "error": err, "injected": injected, "metrics": metrics,
+            "wall": wall}
+
+
+def spark_world(rank, scenarios):
+    """Every Spark scenario through the port's shims over every rank on
+    "data" (gloo)."""
+    out = {}
+    for name, sc in scenarios.items():
+        net = _port_net(sc["net"])
+        out[name] = run_spark("deeplearning4j_tpu_torch", sc,
+                              DeviceMesh(device="cpu"), net,
+                              lost=sc.get("force_lost"))
+    return out
+
+
+def spark_world1(rank, sc):
+    """Config-sized check at one replica: the Spark routes (K = 1 and
+    K > 1) against the plain fit_batch on the same batches, and the
+    PerEntryUpdater against the network's own _apply_updaters."""
+    from deeplearning4j_tpu_torch.datasets.iterators import (
+        ArrayDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.optimize.updaters import PerEntryUpdater
+    from deeplearning4j_tpu_torch.parallel import (
+        ParameterAveragingTrainingMaster, SparkDl4jMultiLayer,
+    )
+
+    x, y = sc["x"], sc["y"]
+    out = {}
+    plain = _port_net(sc["net"])
+    for i in range(0, len(x), sc["batch"]):
+        plain.fit_batch((x[i:i + sc["batch"]], y[i:i + sc["batch"]]))
+    out["plain"] = (np_tree(plain.params), np_tree(plain.opt_state))
+    mesh = DeviceMesh(data=1, device="cpu")
+    for k in (1, 5):
+        net = _port_net(sc["net"])
+        tm = (ParameterAveragingTrainingMaster.Builder()
+              .batch_size_per_worker(sc["batch"]).averaging_frequency(k)
+              .build())
+        SparkDl4jMultiLayer(mesh, net, tm).fit(
+            ArrayDataSetIterator(x, y, batch_size=sc["batch"]), epochs=1)
+        out[k] = (np_tree(net.params), np_tree(net.opt_state))
+    net = _port_net(sc["per_entry_net"])
+    grads = tree_map(lambda a: torch.full_like(a, 0.01), net.params)
+    mine = net._apply_updaters(grads, net.params, net.opt_state, 3)
+    per = PerEntryUpdater(net._updaters).update(grads, net.opt_state,
+                                                net.params, 3)
+    per = (tree_map(lambda p, d: p - d, net.params, per[0]), per[1])
+    out["per_entry"] = (np_tree(mine), np_tree(per))
+    return out
+
+
+# ------------------------------------------------------ fault tolerance
+
+def _ft_run(make, directory, steps, batch, crash_at=None):
+    """A FaultTolerantTrainer over ``make()`` from ``directory`` to
+    ``steps`` steps (save_every 5), abandoned after step ``crash_at``
+    (its pending writes flushed, as a killed process's committed steps
+    are). Returns (the wrapper, the trainer, the saves this rank made)."""
+    from deeplearning4j_tpu_torch.parallel import FaultTolerantTrainer
+
+    wrapper = make()
+    tr = FaultTolerantTrainer(wrapper, directory, save_every=5)
+    saves = []
+    orig = tr.checkpointer.save
+    tr.checkpointer.save = lambda step, m: (saves.append(step),
+                                            orig(step, m))
+    target = tr._target
+    while target.step_count < steps:
+        tr.fit_batch(batch)
+        if crash_at is not None and target.step_count == crash_at:
+            break
+    tr.checkpointer.wait()
+    return wrapper, tr, saves
+
+
+def ft_world(rank, p):
+    """Kill-and-resume under ranks: a ParallelWrapper (replicated: rank 0
+    writes) and a TensorParallel (sharded: a shard a rank), each run 10
+    steps uninterrupted, and crashed at step 7 then resumed by a new
+    trainer, against each other."""
+    from deeplearning4j_tpu_torch.parallel import (
+        ParallelWrapper, TensorParallel,
+    )
+
+    out = {}
+    batch = p["batch"]
+    for kind in ("wrapper", "tensor"):
+        def make():
+            net = _port_net(p["net"])
+            if kind == "wrapper":
+                return ParallelWrapper(net, DeviceMesh(device="cpu"),
+                                       prefetch_buffer=0)
+            return TensorParallel(net, DeviceMesh(data=1, model=WORLD_SEQ // 2,
+                                                  device="cpu"))
+
+        def whole(w):
+            return (_whole(w) if kind == "tensor"
+                    else np_tree(w.model.params))
+
+        d_plain = f"{p['dir']}/{kind}_plain"
+        d_crash = f"{p['dir']}/{kind}_crash"
+        plain, _, plain_saves = _ft_run(make, d_plain, 10, batch)
+        _, _, crash_saves = _ft_run(make, d_crash, 10, batch, crash_at=7)
+        dist.barrier()
+        resumed, tr, resume_saves = _ft_run(make, d_crash, 10, batch)
+        tr.fit([batch], epochs=0)      # fit's closing save and barrier
+        out[kind] = {"restored": tr.restored_step,
+                     "saves": (plain_saves, crash_saves, resume_saves),
+                     "plain": whole(plain), "resumed": whole(resumed),
+                     "plain_opt": np_tree(plain.model.opt_state),
+                     "resumed_opt": np_tree(resumed.model.opt_state)}
+    return out
