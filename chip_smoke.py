@@ -509,7 +509,30 @@ Phases (any failure exits non-zero before the result line):
     After it, the three flash kernels (bf16) at the ring's step block
     [1, 4, 8192, 128] (causal) and the pipeline's microbatch
     [8, 12, 128, 64]: times, bounds and SDPA's.
-44. Prints the kernels line (all nine kernels; the LRN entries count the
+44. The embedding and input tier, none of it on the nine kernels. Word2Vec
+    at bench.py's nlp lane's shape (50,000 Zipf sentences of 19 words over
+    10,000, vector 100, window 5, negative 5, batch 2048, one epoch)
+    through the native concurrent front (C++ threads, uint16 pairs,
+    negatives drawn on the card; the library must be the one built from
+    ``native/dl4jtpu_native.cpp``) and the Python front, then HS (native
+    front) and CBOW (Python front, the first 10,000 sentences): words/s
+    of each, the native front's host drain and the device step alone;
+    the native vocabulary against the Python one; every step function
+    on the card against the CPU from the same inputs and negatives
+    (TOL_W2V_STEP, deterministic index_add_, repeated bit for bit), and
+    a Python-front fit on 2,000 sentences card against CPU
+    (TOL_W2V_FIT), each beside a control at lr x 1.01; GloVe (5,000
+    sentences) and ParagraphVectors (2,000 documents); ``knn_search`` at
+    N = 10^6 x 100 f32, Q = 512, k = 10, euclidean and cosine, and
+    manhattan at N = 10^4, against float64 numpy (indices but for near
+    ties, distances within TOL_KNN_DIST, beside the indices shifted by
+    one); ``KNNServer`` over the 10,000 trained vectors with each
+    backend over HTTP, the three agreeing; 1,024 staged 256 x 256 x 3
+    images through ``NativeImageDataSetIterator`` (crop 224, u8 and f32
+    host rates, ``normalize`` on the card against the host f32 batch
+    beside a flipped control) and, prefetched to the card, feeding
+    ResNet-50's bf16 ``fit_batch`` at B = 64 beside the step alone.
+45. Prints the kernels line (all nine kernels; the LRN entries count the
     import path's launches under ``launches_by_path["tf_import"]``, the
     flash forward the serving prefills of phases 29-30 and its prefill
     shape's times, every entry YOLO2's, 0, under ``"yolo2_inference"``
@@ -517,8 +540,9 @@ Phases (any failure exits non-zero before the result line):
     32-35, the observability paths of phase 36, the import, pretrain
     and quantized paths of phases 37-39 and the serving tier's predict
     and generate paths of phase 40, SameDiff's paths of phase 41, the
-    parallel paths of phases 42 and 43, and the flash kernels' rows at
-    the parallel shapes), the card line and, last, the
+    parallel paths of phases 42 and 43, the embedding and input tier's
+    paths of phase 44, and the flash kernels' rows at the parallel
+    shapes), the card line and, last, the
     result line ``{"ok": true, "device": {...}}``.
 
 Every phase's JSON record carries
@@ -9114,6 +9138,648 @@ def phase_parallel2(torch, np, resnet_zip):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 44: the embedding and input tier. Word2Vec at bench.py's nlp lane's
+# shape through both fronts, HS and CBOW, GloVe and ParagraphVectors on
+# parts of the same corpus, knn_search at a million points, KNNServer over
+# the trained vectors, and the native image pipeline feeding ResNet-50.
+# None of it launches one of the nine kernels.
+
+W2V_SENTENCES = 50_000   # bench.py's nlp lane: 50,000 sentences of 19
+W2V_SENT_LEN = 19        # Zipf words over a vocabulary of 10,000
+W2V_VOCAB = 10_000
+W2V_CONF = dict(vector_size=100, window=5, negative=5, min_count=1,
+                batch_size=2048, epochs=1)
+W2V_CBOW_SENTENCES = 10_000   # CBOW's host windowing (Python), cut for time
+W2V_CHECK_SENTENCES = 200     # the Python-front fit on the card and the CPU
+W2V_WARM_SENTENCES = 1_000    # an untimed fit through each front first
+GLOVE_SENTENCES = 5_000
+PV_DOCS = 2_000
+N_W2V_CHECK_STEPS = 5
+TOL_W2V_STEP = 1e-5      # relative to the table's largest |entry|, f32
+TOL_W2V_FIT = 1e-4       # the same, after a whole Python-front fit
+W2V_CONTROL_LR = 1.01    # the controls' first step at lr x 1.01
+KNN_N = 1_000_000        # 400 MB of f32 points; [Q, N] is 2 GB
+KNN_D = 100
+KNN_Q = 512
+KNN_K = 10
+KNN_MANHATTAN_N = 10_000  # [Q, N, D] at N = 10^6 would be 5e10 elements
+KNN_CHECK_Q = 8          # queries held against float64 numpy
+KNN_TIE_REL = 1e-5       # ranks may swap where distances lie this close
+TOL_KNN_DIST = 1e-5      # relative, against float64
+N_KNN_TIMED = 3
+KNN_SERVER_QUERIES = (1, 10, 100, 1000)   # rows of W, each moved by 1e-3
+PIPE_IMAGES = 1024       # bench.py:2673's staged images, 256 x 256 x 3
+PIPE_SIDE = 256
+PIPE_CROP = 224
+PIPE_CLASSES = 1000
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+N_PIPE_WARM = 2
+N_PIPE_STEPS = 6
+TOL_NORMALIZE = 2e-6     # absolute + relative, as tests/test_native.py
+
+
+def _rel_err(np, got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def _hold(checks, name, value, tol, control):
+    """Record a check beside its planted control: ``value`` must be within
+    ``tol`` and ``control`` must miss it."""
+    checks[name] = {"value": value, "tol": tol, "control": control}
+    if not value <= tol:
+        fail(f"phase 44 {name}: {value} past {tol}")
+    if not control > tol:
+        fail(f"phase 44 {name}: the planted control ({control}) passed "
+             f"within {tol}")
+
+
+def w2v_corpus(np, path, seed=SEED):
+    """bench.py's nlp lane corpus: Zipf ids (p ~ 1/rank) written as words
+    w0 .. w9999, one sentence a line; returns the lines."""
+    rng = np.random.default_rng(seed)
+    probs = 1.0 / np.arange(1, W2V_VOCAB + 1)
+    probs /= probs.sum()
+    words = np.array([f"w{i}" for i in range(W2V_VOCAB)])
+    ids = rng.choice(W2V_VOCAB, size=(W2V_SENTENCES, W2V_SENT_LEN), p=probs)
+    lines = [" ".join(words[row]) for row in ids]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return lines
+
+
+def _w2v_step_inputs(np, vocab, batches, seed=SEED):
+    """Full-width inputs for the step checks: the native front's first
+    (center, context) batches, host negatives, warm tables."""
+    from deeplearning4j_tpu_torch.nlp.vocab import NegativeSampler
+    from deeplearning4j_tpu_torch.nlp.word2vec import (
+        build_huffman, cbow_windows,
+    )
+
+    rng = np.random.default_rng(seed)
+    V, D = len(vocab), W2V_CONF["vector_size"]
+    B, K, n = W2V_CONF["batch_size"], W2V_CONF["negative"], N_W2V_CHECK_STEPS
+    sampler = NegativeSampler(vocab.unigram_table_probs())
+    cs = np.stack([b[0] for b in batches[:n]]).astype(np.int32)
+    xs = np.stack([b[1] for b in batches[:n]]).astype(np.int32)
+    sents = [vocab.encode([f"w{i}" for i in rng.choice(V, W2V_SENT_LEN)])
+             for _ in range(2 * n * B // W2V_SENT_LEN)]
+    ctx_c, ctx_w = cbow_windows(sents, W2V_CONF["window"])
+    order = rng.permutation(len(ctx_c))[:n * B]
+    codes, points, mask = build_huffman(
+        [vocab.counts[w] for w in vocab.words])
+
+    def table(rows, scale=0.1):
+        return (rng.normal(size=(rows, D)) * scale).astype(np.float32)
+
+    return {
+        "V": V, "cs": cs, "xs": xs, "negs": sampler.sample(rng, (n, B, K)),
+        "ctx": ctx_w[order].reshape(n, B, -1), "ctr": ctx_c[order].reshape(
+            n, B), "W": table(V), "C": table(V), "Th": table(max(V - 1, 1)),
+        "accW": rng.uniform(0.5, 1.5, (V, D)).astype(np.float32),
+        "accT": rng.uniform(0.5, 1.5, (max(V - 1, 1), D)).astype(np.float32),
+        "codes": codes, "points": points, "mask": mask,
+        "Dv": table(PV_DOCS), "docs": rng.integers(0, PV_DOCS, (n, B)),
+        "rows": rng.choice(V, (n, 8 * B), p=vocab.unigram_table_probs()),
+        "cols": rng.choice(V, (n, 8 * B), p=vocab.unigram_table_probs()),
+        "logx": rng.normal(size=(n, 8 * B)).astype(np.float32),
+        "weight": rng.random((n, 8 * B)).astype(np.float32),
+        "bw": (rng.normal(size=V) * 0.1).astype(np.float32),
+        "bc": (rng.normal(size=V) * 0.1).astype(np.float32),
+    }
+
+
+def _w2v_step_runs(torch, np, inp, dev, lr_first, gen_negs=None):
+    """Each step function N times on ``dev`` from the same inputs, the
+    first step at ``lr_first`` and the rest at 0.025: {name: [tables]}."""
+    from deeplearning4j_tpu_torch.nlp import glove, paragraph_vectors
+    from deeplearning4j_tpu_torch.nlp import word2vec as w2v
+
+    def t(a):
+        return torch.tensor(np.asarray(a), device=dev)
+
+    lr = 0.025
+    lrs = [lr_first] + [lr] * (N_W2V_CHECK_STEPS - 1)
+    out = {}
+    W, C = t(inp["W"]), t(inp["C"])
+    for s, a in enumerate(lrs):
+        w2v._sg_neg_step(W, C, t(inp["cs"][s]), t(inp["xs"][s]),
+                         t(inp["negs"][s]), a)
+    out["sg_neg"] = [W, C]
+    # the scanned step: the card draws its negatives (gen_negs replays the
+    # same draws on the CPU, one step at a time)
+    W, C = t(inp["W"]), t(inp["C"])
+    if gen_negs is None:
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        for s, a in enumerate(lrs):
+            w2v._sg_neg_steps_devneg(
+                W, C, gen, t(inp["cs"][s:s + 1]), t(inp["xs"][s:s + 1]),
+                inp["aprob"], inp["aalias"], a, W2V_CONF["negative"])
+    else:
+        for s, a in enumerate(lrs):
+            w2v._sg_neg_step(W, C, t(inp["cs"][s]), t(inp["xs"][s]),
+                             t(gen_negs[s]), a)
+    out["sg_neg_devneg"] = [W, C]
+    W, C = t(inp["W"]), t(inp["C"])
+    for s, a in enumerate(lrs):
+        w2v._cbow_neg_step(W, C, t(inp["ctx"][s]), t(inp["ctr"][s]),
+                           t(inp["negs"][s]), a)
+    out["cbow_neg"] = [W, C]
+    hs = [t(inp[k]) for k in ("W", "Th", "accW", "accT")]
+    huff = [t(inp[k]) for k in ("codes", "points", "mask")]
+    for s, a in enumerate(lrs):
+        w2v._sg_hs_step(*hs, t(inp["cs"][s]), t(inp["xs"][s]), *huff, a)
+    out["sg_hs"] = hs
+    hs = [t(inp[k]) for k in ("W", "Th", "accW", "accT")]
+    w2v._sg_hs_steps(*hs, t(inp["cs"][:1]), t(inp["xs"][:1]), *huff,
+                     lrs[0])
+    w2v._sg_hs_steps(*hs, t(inp["cs"][1:]), t(inp["xs"][1:]), *huff, lr)
+    out["sg_hs_scanned"] = hs
+    p = {"W": t(inp["W"]), "C": t(inp["C"]), "bw": t(inp["bw"]),
+         "bc": t(inp["bc"])}
+    for k in ("W", "C", "bw", "bc"):
+        p["acc_" + k] = torch.ones_like(p[k])
+    for s, a in enumerate(lrs):
+        glove._glove_step(p, t(inp["rows"][s]), t(inp["cols"][s]),
+                          t(inp["logx"][s]), t(inp["weight"][s]), a)
+    out["glove"] = list(p.values())
+    Dv, W, C = t(inp["Dv"]), t(inp["W"]), t(inp["C"])
+    for s, a in enumerate(lrs):
+        paragraph_vectors._pvdm_step(Dv, W, C, t(inp["docs"][s]),
+                                     t(inp["ctx"][s]), t(inp["ctr"][s]),
+                                     t(inp["negs"][s]), a)
+    out["pvdm"] = [Dv, W, C]
+    return {k: [v.cpu().numpy() for v in vs] for k, vs in out.items()}
+
+
+def _w2v_step_checks(torch, np, vocab, batches, checks):
+    """Every step function on the card against the same function on the
+    CPU from the same inputs and negatives, under deterministic
+    index_add_; the control runs the CPU's first step at lr x 1.01."""
+    from deeplearning4j_tpu_torch.nlp import word2vec as w2v
+    from deeplearning4j_tpu_torch.nlp.vocab import build_alias_table
+
+    inp = _w2v_step_inputs(np, vocab, batches)
+    aprob, aalias = build_alias_table(vocab.unigram_table_probs())
+    inp["aprob"] = torch.tensor(aprob, device="cuda")
+    inp["aalias"] = torch.tensor(aalias, device="cuda")
+    replay = torch.Generator(device="cuda").manual_seed(SEED)
+    negs = [w2v.alias_negatives(replay, inp["aprob"], inp["aalias"], (
+        1, inp["cs"].shape[1], W2V_CONF["negative"]))[0].cpu().numpy()
+        for _ in range(N_W2V_CHECK_STEPS)]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        card = _w2v_step_runs(torch, np, inp, "cuda", 0.025)
+        card_again = _w2v_step_runs(torch, np, inp, "cuda", 0.025)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    cpu = _w2v_step_runs(torch, np, inp, "cpu", 0.025, gen_negs=negs)
+    control = _w2v_step_runs(torch, np, inp, "cpu", 0.025 * W2V_CONTROL_LR,
+                             gen_negs=negs)
+    repeat = {}
+    for name in card:
+        err = max(_rel_err(np, a, b) for a, b in zip(card[name], cpu[name]))
+        ctl = max(_rel_err(np, a, b)
+                  for a, b in zip(card[name], control[name]))
+        _hold(checks, f"step_{name}", err, TOL_W2V_STEP, ctl)
+        repeat[name] = all(np.array_equal(a, b) for a, b in
+                           zip(card[name], card_again[name]))
+    if not all(repeat.values()):
+        fail(f"phase 44: deterministic step runs on the card differ: "
+             f"{repeat}")
+    return {"steps": N_W2V_CHECK_STEPS, "shapes": {
+        "V": inp["V"], "D": W2V_CONF["vector_size"],
+        "B": W2V_CONF["batch_size"], "K": W2V_CONF["negative"],
+        "cbow_window": int(inp["ctx"].shape[-1]),
+        "huffman_depth": int(inp["codes"].shape[1]),
+        "glove_entries": int(inp["rows"].shape[1])},
+        "deterministic_repeat_bit_equal": repeat}
+
+
+def _w2v_device_rate(torch, np, vocab, batches):
+    """Device-only pairs/s: the scanned step (32 batches a call, negatives
+    drawn on the card) over the native front's first 32 batches staged on
+    the card, on CUDA events."""
+    from deeplearning4j_tpu_torch.nlp import word2vec as w2v
+    from deeplearning4j_tpu_torch.nlp.vocab import build_alias_table
+
+    S, B = 32, W2V_CONF["batch_size"]
+    cs = np.stack([b[0] for b in batches[:S]]).astype(np.uint16)
+    xs = np.stack([b[1] for b in batches[:S]]).astype(np.uint16)
+    cs_d, xs_d = (torch.from_numpy(a.view(np.int16)).to("cuda")
+                  for a in (cs, xs))
+    V, D = len(vocab), W2V_CONF["vector_size"]
+    W = torch.rand((V, D), device="cuda").sub_(0.5).div_(D)
+    C = torch.zeros((V, D), device="cuda")
+    aprob, aalias = (torch.tensor(a, device="cuda") for a in
+                     build_alias_table(vocab.unigram_table_probs()))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def call():
+        w2v._sg_neg_steps_devneg(W, C, gen, cs_d, xs_d, aprob, aalias, 0.025,
+                                 W2V_CONF["negative"])
+
+    ms = cuda_ms(torch, call, 3)
+    by_kernel, wall, _ = profile_device(torch, call, 1)
+    return {"batches_a_call": S, "ms_a_call": ms,
+            "pairs_per_s": S * B / (ms * 1e-3),
+            "profile_a_step": _profile_summary(by_kernel, wall, S, "step",
+                                               top_n=8)}
+
+
+def phase_word2vec(torch, np, tmp, checks):
+    """Word2Vec at the nlp lane's shape through the native front and the
+    Python front, HS and CBOW, the card-against-CPU checks, GloVe and
+    ParagraphVectors; returns (record, the native-front model)."""
+    from deeplearning4j_tpu_torch.native import lib as native_lib
+    from collections import Counter
+
+    from deeplearning4j_tpu_torch.nlp import (
+        Glove, LineSentenceIterator, ParagraphVectors, Word2Vec,
+    )
+    from deeplearning4j_tpu_torch.nlp.native_text import NativeSkipGramStream
+    from deeplearning4j_tpu_torch.ops.cuda import KERNELS
+
+    path = os.path.join(tmp, "corpus.txt")
+    t0 = time.perf_counter()
+    lines = w2v_corpus(np, path)
+    out = {"corpus": {"sentences": W2V_SENTENCES, "words_a_sentence":
+                      W2V_SENT_LEN, "vocabulary": W2V_VOCAB,
+                      "write_s": time.perf_counter() - t0},
+           "conf": W2V_CONF, "launches": {}}
+    n_words = W2V_SENTENCES * W2V_SENT_LEN
+
+    def run(name, fn, words):
+        model, launches, _, wall = _count_launches(torch, KERNELS, fn)
+        out["launches"][name] = launches
+        if not np.isfinite(model.W).all():
+            fail(f"phase 44 {name}: non-finite vectors")
+        out[name] = {"wall_s": wall, "words": words,
+                     "words_per_s": words / wall, "V": len(model.vocab)}
+        return model
+
+    # an untimed fit through each front first: the card's and the
+    # library's first calls are not the fronts' rate
+    warm = os.path.join(tmp, "warm.txt")
+    with open(warm, "w") as f:
+        f.write("\n".join(lines[:W2V_WARM_SENTENCES]) + "\n")
+    t0 = time.perf_counter()
+    for front in (True, False):
+        Word2Vec(seed=SEED, **W2V_CONF).fit(LineSentenceIterator(warm),
+                                            native_front=front)
+    out["warm_up_fits_s"] = time.perf_counter() - t0
+    # the default path: the native concurrent front (C++ threads, uint16
+    # pairs, negatives on the card, 32 batches a dispatch); True asserts
+    # the route
+    native = run("w2v_native", lambda: Word2Vec(seed=SEED, **W2V_CONF).fit(
+        LineSentenceIterator(path), native_front=True), n_words)
+    lib_path = native_lib.native_library_path()
+    out["native_library"] = str(lib_path)
+    if not native_lib.native_built_from_source():
+        fail(f"phase 44: the native library loaded ({lib_path}) is not the "
+             f"one built from native/dl4jtpu_native.cpp into _build/")
+    python = run("w2v_python", lambda: Word2Vec(seed=SEED, **W2V_CONF).fit(
+        LineSentenceIterator(path), native_front=False), n_words)
+    # the native front's vocabulary against the Python front's (ASCII);
+    # the control drops the corpus's last line from the Python counts
+    ref_counts = dict(python.vocab.counts)
+    short = Counter(ref_counts)
+    short.subtract(python.tokenizer.tokenize(lines[-1]))
+    _hold(checks, "native_vocab_equals_python",
+          float(dict(native.vocab.counts) != ref_counts), 0.0,
+          float(dict(short) != ref_counts))
+    # the host drain alone and the device step alone
+    stream = NativeSkipGramStream(path, native.vocab.words, None, None,
+                                  W2V_CONF["window"], 0,
+                                  W2V_CONF["batch_size"], seed=SEED,
+                                  n_threads=native.workers)
+    t0 = time.perf_counter()
+    batches = [(c.copy(), x.copy()) for c, x, _ in stream]
+    drain = time.perf_counter() - t0
+    out["native_host_drain"] = {
+        "wall_s": drain, "words_per_s": stream.words_seen / drain,
+        "pairs_per_s": stream.pairs_emitted / drain,
+        "pairs": stream.pairs_emitted, "threads": native.workers}
+    stream.close()
+    out["device_only"] = _w2v_device_rate(torch, np, native.vocab, batches)
+    out["device_only"]["words_per_s"] = (out["device_only"]["pairs_per_s"]
+                                         * n_words / out["native_host_drain"]
+                                         ["pairs"])
+    run("w2v_hs", lambda: Word2Vec(seed=SEED, **dict(
+        W2V_CONF, hs=True, negative=0)).fit(LineSentenceIterator(path),
+                                            native_front=True), n_words)
+    run("w2v_cbow", lambda: Word2Vec(seed=SEED, cbow=True, **W2V_CONF).fit(
+        lines[:W2V_CBOW_SENTENCES]), W2V_CBOW_SENTENCES * W2V_SENT_LEN)
+    out["nearest_w1"] = native.words_nearest("w1", top=10)
+    if len(out["nearest_w1"]) != 10 or "w1" in out["nearest_w1"]:
+        fail(f"phase 44 words_nearest: {out['nearest_w1']}")
+    t0 = time.perf_counter()
+    out["step_checks"] = _w2v_step_checks(torch, np, native.vocab, batches,
+                                          checks)
+    out["step_checks"]["wall_s"] = time.perf_counter() - t0
+    # the Python-front fit on the card against the same fit on the CPU:
+    # one seed, the same pairs and host negatives
+    sub = lines[:W2V_CHECK_SENTENCES]
+    t0 = time.perf_counter()
+    card = Word2Vec(seed=SEED, **W2V_CONF).fit(sub)
+    cpu = Word2Vec(seed=SEED, device="cpu", **W2V_CONF).fit(sub)
+    ctl = Word2Vec(seed=SEED, device="cpu", **dict(
+        W2V_CONF, learning_rate=0.025 * W2V_CONTROL_LR)).fit(sub)
+    _hold(checks, "python_fit_card_against_cpu",
+          max(_rel_err(np, card.W, cpu.W), _rel_err(np, card.C, cpu.C)),
+          TOL_W2V_FIT,
+          max(_rel_err(np, card.W, ctl.W), _rel_err(np, card.C, ctl.C)))
+    out["fit_check_s"] = time.perf_counter() - t0
+    glove = run("glove", lambda: Glove(vector_size=100, window=5, seed=SEED)
+                .fit(lines[:GLOVE_SENTENCES]),
+                GLOVE_SENTENCES * W2V_SENT_LEN)
+    out["glove"]["epochs"] = glove.epochs
+    out["glove"]["nearest_w1"] = glove.words_nearest("w1", top=10)
+    labels = [f"DOC_{i}" for i in range(PV_DOCS)]
+    pv = run("paragraph_vectors", lambda: ParagraphVectors(
+        vector_size=100, seed=SEED).fit(lines[:PV_DOCS], labels),
+        PV_DOCS * W2V_SENT_LEN)
+    if not np.isfinite(pv.doc_vectors).all():
+        fail("phase 44 paragraph_vectors: non-finite doc vectors")
+    out["paragraph_vectors"]["epochs"] = pv.epochs
+    out["paragraph_vectors"]["nearest_labels_doc0"] = pv.nearest_labels(
+        lines[0], top=5)
+    return out, native
+
+
+def _knn_reference(np, P64, Q64, metric, k):
+    """float64 distances of each query to every point, and the k nearest
+    (stable order)."""
+    if metric == "euclidean":
+        pp = (P64 * P64).sum(1)
+        d = np.sqrt(np.maximum(pp[:, None] - 2.0 * P64 @ Q64.T
+                               + (Q64 * Q64).sum(1)[None], 0.0)).T
+    elif metric == "cosine":
+        pn = P64 / np.linalg.norm(P64, axis=1, keepdims=True)
+        qn = Q64 / np.linalg.norm(Q64, axis=1, keepdims=True)
+        d = 1.0 - qn @ pn.T
+    else:
+        d = np.abs(Q64[:, None, :] - P64[None, :, :]).sum(-1)
+    part = np.argpartition(d, k, axis=1)[:, :k]
+    ref = np.take_along_axis(part, np.argsort(
+        np.take_along_axis(d, part, 1), axis=1, kind="stable"), 1)
+    return d, ref
+
+
+def _knn_misses(np, d64, ref, idx):
+    """Ranks whose index differs from float64's, but for near ties."""
+    misses = 0
+    for q in range(ref.shape[0]):
+        for r in range(ref.shape[1]):
+            a, b = d64[q, idx[q, r]], d64[q, ref[q, r]]
+            if idx[q, r] != ref[q, r] and abs(a - b) > KNN_TIE_REL * abs(b):
+                misses += 1
+    return misses
+
+
+def phase_knn(torch, np, checks):
+    """knn_search at N = 10^6 x D 100 f32, Q = 512, k = 10 (euclidean and
+    cosine) and at N = 10^4 (manhattan), against float64 numpy."""
+    from deeplearning4j_tpu_torch.neighbors import knn_search
+    from deeplearning4j_tpu_torch.ops.cuda import KERNELS
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    P = torch.randn((KNN_N, KNN_D), device="cuda", generator=g)
+    Q = torch.randn((KNN_Q, KNN_D), device="cuda", generator=g)
+    P64 = P.double().cpu().numpy()
+    Q64 = Q[:KNN_CHECK_Q].double().cpu().numpy()
+    out = {"launches": {}}
+    for metric, n in (("euclidean", KNN_N), ("cosine", KNN_N),
+                      ("manhattan", KNN_MANHATTAN_N)):
+        pts = P[:n]
+        knn_search(pts, Q, k=KNN_K, metric=metric)   # warm-up
+        (res, launches, _, wall) = _count_launches(
+            torch, KERNELS, lambda: [knn_search(pts, Q, k=KNN_K,
+                                                metric=metric)
+                                     for _ in range(N_KNN_TIMED)])
+        out["launches"][metric] = launches
+        idx, dist = res[-1]
+        if idx.shape != (KNN_Q, KNN_K) or not np.isfinite(dist).all():
+            fail(f"phase 44 knn {metric}: {idx.shape}, finite "
+                 f"{np.isfinite(dist).all()}")
+        d64, ref = _knn_reference(np, P64[:n], Q64, metric, KNN_K)
+        got = idx[:KNN_CHECK_Q]
+        _hold(checks, f"knn_{metric}_index_misses",
+              float(_knn_misses(np, d64, ref, got)), 0.0,
+              float(_knn_misses(np, d64, ref, (got + 1) % n)))
+        want_d = np.take_along_axis(d64, got.astype(np.int64), 1)
+        err = float((np.abs(dist[:KNN_CHECK_Q] - want_d)
+                     / np.maximum(np.abs(want_d), 1e-12)).max())
+        shifted = np.take_along_axis(d64, (got.astype(np.int64) + 1) % n, 1)
+        ctl = float((np.abs(dist[:KNN_CHECK_Q] - shifted)
+                     / np.maximum(np.abs(shifted), 1e-12)).max())
+        _hold(checks, f"knn_{metric}_distance", err, TOL_KNN_DIST, ctl)
+        ms = 1e3 * wall / N_KNN_TIMED
+        out[metric] = {"N": n, "D": KNN_D, "Q": KNN_Q, "k": KNN_K,
+                       "ms_a_batch": ms, "queries_per_s": KNN_Q / ms * 1e3,
+                       "nearest_distance_q0": float(dist[0, 0])}
+    del P, Q
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_knn_server(torch, np, W, checks):
+    """KNNServer over the trained word vectors with each backend, /knn and
+    /knnvec over HTTP; the three backends return the same indices."""
+    from deeplearning4j_tpu_torch.ops.cuda import KERNELS
+    from deeplearning4j_tpu_torch.serving import KNNServer
+
+    rng = np.random.default_rng(SEED)
+    qs = (W[list(KNN_SERVER_QUERIES)]
+          + 1e-3 * rng.normal(size=(len(KNN_SERVER_QUERIES), W.shape[1]))
+          ).astype(np.float32)
+    answers, out = {}, {"points": int(W.shape[0]), "launches": {}}
+
+    def serve(backend):
+        t0 = time.perf_counter()
+        server = KNNServer(W, port=0, backend=backend).start()
+        build = time.perf_counter() - t0
+        base = f"http://127.0.0.1:{server.port}"
+        try:
+            status, health = _http_json(base, "/health")
+            if status != 200 or health["points"] != W.shape[0]:
+                fail(f"phase 44 KNNServer {backend} /health: {status} "
+                     f"{health}")
+            t0 = time.perf_counter()
+            one = []
+            for q in qs:
+                status, body = _http_json(base, "/knn", {
+                    "point": q.tolist(), "k": KNN_K})
+                if status != 200:
+                    fail(f"phase 44 KNNServer {backend} /knn: {status}")
+                one.append([r["index"] for r in body["results"]])
+            knn_ms = 1e3 * (time.perf_counter() - t0) / len(qs)
+            t0 = time.perf_counter()
+            status, body = _http_json(base, "/knnvec", {
+                "vectors": qs.tolist(), "k": KNN_K})
+            vec_ms = 1e3 * (time.perf_counter() - t0)
+            if status != 200:
+                fail(f"phase 44 KNNServer {backend} /knnvec: {status}")
+            vec = [[r["index"] for r in row] for row in body["results"]]
+        finally:
+            server.stop()
+        return one, vec, {"build_s": build, "knn_ms_a_query": knn_ms,
+                          "knnvec_ms_a_batch": vec_ms}
+
+    for backend in ("vptree", "kdtree", "brute"):
+        (one, vec, times), launches, _, _ = _count_launches(
+            torch, KERNELS, lambda: serve(backend))
+        answers[backend] = (one, vec)
+        out[backend] = times
+        out["launches"][backend] = launches
+    brute_one, brute_vec = answers["brute"]
+    differ = sum(answers[b][0] != brute_one for b in ("vptree", "kdtree"))
+    differ += sum(answers[b][1] != brute_one for b in answers)
+    # the control: the trees' answers held against the next query's
+    control = sum(answers[b][0][1:] != brute_one[:-1]
+                  for b in ("vptree", "kdtree"))
+    _hold(checks, "knn_server_backends_differ", float(differ), 0.0,
+          float(control))
+    out["indices_query0"] = brute_one[0]
+    return out
+
+
+def phase_pipeline(torch, np, tmp, checks):
+    """The staged uint8 ImageNet-class pipeline: host rates (f32, u8),
+    normalize on the card against the host's f32 batch, and u8 batches
+    prefetched to the card feeding ResNet-50 fit_batch (bf16)."""
+    from deeplearning4j_tpu_torch.native import (
+        NativeImageDataSetIterator, write_image_dataset,
+    )
+    from deeplearning4j_tpu_torch.native import lib as native_lib
+    from deeplearning4j_tpu_torch.ops.cuda import KERNELS
+    from deeplearning4j_tpu_torch.zoo import ResNet50
+
+    rng = np.random.default_rng(SEED)
+    imgs = rng.integers(0, 256, (PIPE_IMAGES, PIPE_SIDE, PIPE_SIDE, 3),
+                        dtype=np.uint8)
+    labels = np.eye(PIPE_CLASSES, dtype=np.float32)[
+        rng.integers(0, PIPE_CLASSES, PIPE_IMAGES)]
+    img_path, label_path = write_image_dataset(tmp, imgs, labels)
+    del imgs
+    threads = max(4, (os.cpu_count() or 4) - 1)
+    shape = (PIPE_SIDE, PIPE_SIDE, 3)
+
+    def iterator(**kw):
+        it = NativeImageDataSetIterator(
+            img_path, label_path, PIPE_IMAGES, shape, PIPE_CLASSES,
+            RESNET_BATCH, crop=(PIPE_CROP, PIPE_CROP), mean=IMAGENET_MEAN,
+            std=IMAGENET_STD, n_threads=threads, queue_cap=8, **kw)
+        if not it.native:
+            fail("phase 44: the image pipeline is not on the native library")
+        return it
+
+    out = {"images": PIPE_IMAGES, "stored": list(shape), "crop": PIPE_CROP,
+           "batch": RESNET_BATCH, "threads": threads,
+           "native_library": str(native_lib.native_library_path())}
+    if not native_lib.native_built_from_source():
+        fail("phase 44: the pipeline's native library is not the one "
+             "built from the source")
+    for output in ("f32", "u8"):
+        it = iterator(output=output, shuffle=True, augment=True, seed=SEED)
+        sum(1 for _ in it)          # the first epoch warms the workers
+        it.reset()
+        t0 = time.perf_counter()
+        seen = sum(ds.features.shape[0] for ds in it)
+        out[f"host_samples_per_s_{output}"] = seen / (
+            time.perf_counter() - t0)
+        it.close()
+    # normalize on the card against the host f32 pipeline's batch, same
+    # draws (center crops, file order); the control flips the u8 batch
+    host = iterator(output="f32", shuffle=False, augment=False)
+    card = iterator(output="u8", shuffle=False, augment=False,
+                    device_prefetch=True)
+    errs, ctl = [], []
+    for _, h, c in zip(range(2), host, card):
+        if not c.features.is_cuda or c.features.dtype != torch.uint8:
+            fail(f"phase 44: prefetched batch {c.features.device} "
+                 f"{c.features.dtype}")
+        want = np.asarray(h.features, np.float64)
+        scale = TOL_NORMALIZE * (1 + np.abs(want))
+        got = card.normalize(c.features).cpu().numpy()
+        errs.append(float((np.abs(got - want) / scale).max()))
+        flipped = card.normalize(c.features.flip(2)).cpu().numpy()
+        ctl.append(float((np.abs(flipped - want) / scale).max()))
+    _hold(checks, "normalize_card_against_host_f32", max(errs), 1.0,
+          min(ctl))
+    host.close()
+    card.close()
+    # u8 batches prefetched to the card feed ResNet-50's bf16 fit_batch
+    net = ResNet50(seed=SEED).init(device="cuda")
+    it = iterator(output="u8", shuffle=True, augment=True, seed=SEED,
+                  device_prefetch=True)
+
+    def feed(n):
+        losses = []
+        for _, ds in zip(range(n), it):
+            losses.append(net.fit_batch((it.normalize(ds.features),
+                                         ds.labels)))
+        return [float(v) for v in losses]
+
+    warm = feed(N_PIPE_WARM)
+    losses, launches, _, wall = _count_launches(
+        torch, KERNELS, lambda: feed(N_PIPE_STEPS))
+    if not np.isfinite(warm + losses).all():
+        fail(f"phase 44 ResNet-50 on the pipeline: losses {warm + losses}")
+    it.close()
+    out["launches"] = {"pipeline_resnet50": launches}
+    out["fed_steps"] = N_PIPE_STEPS
+    out["fed_samples_per_s"] = N_PIPE_STEPS * RESNET_BATCH / wall
+    out["losses"] = warm + losses
+    # the same step on one batch already on the card: the model's own rate
+    x = torch.randn((RESNET_BATCH, PIPE_CROP, PIPE_CROP, 3), device="cuda")
+    y = torch.from_numpy(labels[:RESNET_BATCH]).to("cuda")
+    [net.fit_batch((x, y)) for _ in range(2)]
+    _, _, _, alone = _count_launches(
+        torch, KERNELS, lambda: [float(net.fit_batch((x, y)))
+                                 for _ in range(N_PIPE_STEPS)])
+    out["step_alone_samples_per_s"] = N_PIPE_STEPS * RESNET_BATCH / alone
+    del net
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_embedding_input(torch, np):
+    """Phase 44: the embedding and input tier on the card."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    checks, walls = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        w2v, native = phase_word2vec(torch, np, tmp, checks)
+        walls["word2vec"] = time.perf_counter() - t
+        t = time.perf_counter()
+        knn = phase_knn(torch, np, checks)
+        walls["knn"] = time.perf_counter() - t
+        t = time.perf_counter()
+        server = phase_knn_server(torch, np, native.W, checks)
+        walls["knn_server"] = time.perf_counter() - t
+        t = time.perf_counter()
+        pipe = phase_pipeline(torch, np, tmp, checks)
+        walls["pipeline"] = time.perf_counter() - t
+    launches = {**w2v.pop("launches"),
+                **{f"knn_search_{k}": v for k, v in knn.pop(
+                    "launches").items()},
+                **{f"knn_server_{k}": v for k, v in server.pop(
+                    "launches").items()},
+                **pipe.pop("launches")}
+    ran = {path: {k: n for k, n in counts.items() if n}
+           for path, counts in launches.items()}
+    if any(ran.values()):
+        fail(f"phase 44 launched kernels of the port: {ran}")
+    return {"word2vec": w2v, "knn": knn, "knn_server": server,
+            "pipeline": pipe, "checks": checks, "launches": launches,
+            "wall_s_parts": walls, "wall_s_phase": time.perf_counter() - t0}
+
+
 def main() -> None:
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "deeplearning4j_tpu_torch")):
@@ -9609,6 +10275,28 @@ def main() -> None:
           f"{ftr['trainer_restore_ms']:.1f} ms; phase "
           f"{par2['wall_s_phase']:.1f} s", flush=True)
 
+    # phase 44: the embedding and input tier: Word2Vec through both fronts,
+    # HS, CBOW, GloVe, ParagraphVectors, knn_search at 10^6 points,
+    # KNNServer, and the native image pipeline feeding ResNet-50
+    emb = phase_embedding_input(torch, np)
+    emit(card, {"embedding_input": emb})
+    ew, ek, ep = emb["word2vec"], emb["knn"], emb["pipeline"]
+    print(f"embedding and input tier on {card}: Word2Vec words/s native "
+          f"front {ew['w2v_native']['words_per_s']:.0f}, Python front "
+          f"{ew['w2v_python']['words_per_s']:.0f}, native host drain "
+          f"{ew['native_host_drain']['words_per_s']:.0f}, device only "
+          f"{ew['device_only']['pairs_per_s']:.0f} pairs/s; HS (native) "
+          f"{ew['w2v_hs']['words_per_s']:.0f}, CBOW (Python) "
+          f"{ew['w2v_cbow']['words_per_s']:.0f}; knn_search N = {KNN_N}: "
+          f"euclidean {ek['euclidean']['ms_a_batch']:.2f} ms a batch of "
+          f"{KNN_Q} ({ek['euclidean']['queries_per_s']:.0f} queries/s), "
+          f"cosine {ek['cosine']['ms_a_batch']:.2f} ms; pipeline samples/s "
+          f"u8 {ep['host_samples_per_s_u8']:.0f}, f32 "
+          f"{ep['host_samples_per_s_f32']:.0f}, ResNet-50 fed "
+          f"{ep['fed_samples_per_s']:.0f} (its step alone "
+          f"{ep['step_alone_samples_per_s']:.0f}); phase "
+          f"{emb['wall_s_phase']:.1f} s", flush=True)
+
     # the kernels line, card line, result line
     decode = rows[0]  # the serving path's decode shape [8, 1, 256]
     graves = bwd_rows[0]  # the training path's first layer [64, 64, 200]
@@ -9825,6 +10513,10 @@ def main() -> None:
             "spark_k1_config3": sp["k1"]["launches"].get(n, 0),
             "spark_k5_config3": sp["k5"]["launches"].get(n, 0),
             "fault_tolerant_config3": ftr["launches"].get(n, 0)}
+        e["launches_by_path"].update(paths)
+        e["launches"] += sum(paths.values())
+    for e in entries:  # the embedding and input tier's paths (phase 44)
+        paths = {k: v[e["name"]] for k, v in emb["launches"].items()}
         e["launches_by_path"].update(paths)
         e["launches"] += sum(paths.values())
     # the flash kernels at the parallel paths' shapes (phase 43)

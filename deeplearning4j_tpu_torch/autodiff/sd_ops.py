@@ -32,6 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from deeplearning4j_tpu_torch.common.topk import top_k
 from deeplearning4j_tpu_torch.autodiff.samediff import (
     SameDiff, _OP_IMPLS, _axlist, _simple, current_device, dims, reduce_over,
     register_sd_op, scatter_rows, torch_dtype,
@@ -536,24 +537,9 @@ _segment("unsorted_segment_sqrt_n", lambda a, i, n: segment_reduce(
 # sort / topk / search. jnp.sort and jnp.argsort are stable over values
 # (-0.0 equals +0.0, NaNs last); lax.top_k ranks floats in their total
 # order (+0.0 above -0.0, a NaN first) and puts the lower index first among
-# equal keys, so the port ranks top-k on an integer key with that order.
+# equal keys, so the port ranks top-k on an integer key with that order
+# (common/topk.py, shared with neighbors.knn_search).
 # --------------------------------------------------------------------------
-
-_INT_OF = {torch.float64: torch.int64, torch.float32: torch.int32,
-           torch.bfloat16: torch.int16, torch.float16: torch.int16}
-
-
-def total_order_key(a):
-    """An integer tensor ordered as XLA orders ``a``'s floats (the sign
-    bit flips the rest of a negative number's bits); ``a`` itself if it is
-    not floating."""
-    if not a.is_floating_point():
-        return a
-    it = _INT_OF[a.dtype]
-    i = a.contiguous().view(it)
-    bits = torch.iinfo(it).bits
-    return i ^ ((i >> (bits - 1)) & torch.iinfo(it).max)
-
 
 @register_sd_op("sort")
 def _b_sort(attrs):
@@ -582,9 +568,7 @@ def _b_top_k(attrs):
     k = attrs["k"]
 
     def fn(a):  # (values, indices)
-        idx = torch.argsort(total_order_key(a), dim=-1, descending=True,
-                            stable=True)[..., :k]
-        return torch.take_along_dim(a, idx, dim=-1), idx
+        return top_k(a, k)
     return fn
 
 

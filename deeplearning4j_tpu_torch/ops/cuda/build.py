@@ -66,6 +66,37 @@ def check_device(device: torch.device) -> None:
             f"{torch.cuda.get_device_name(device)} is sm_{major}{minor}")
 
 
+def hashed_library_path(stem: str, sources, flags) -> Path:
+    """``BUILD_DIR/<stem>-<hash>.so``, the hash over the sources' bytes and
+    the flags: an edited source or flag builds anew, an unchanged one
+    finds its library."""
+    digest = hashlib.sha1()
+    for src in sources:
+        digest.update(Path(src).read_bytes())
+    digest.update(" ".join(flags).encode())
+    return BUILD_DIR / f"{stem}-{digest.hexdigest()[:12]}.so"
+
+
+def compile_library(command, path: Path, timeout=None):
+    """Run ``command(out)`` to build into a temporary file beside ``path``
+    and publish it there with ``os.replace`` when the compiler succeeds:
+    processes that build the same library at once each publish a whole
+    one. Returns (the finished process, seconds)."""
+    path.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=path.parent)
+    os.close(fd)
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(command(tmp), capture_output=True, text=True,
+                              timeout=timeout)
+        if proc.returncode == 0:
+            os.replace(tmp, path)  # atomic: concurrent builds agree
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return proc, time.perf_counter() - t0
+
+
 class CudaLibrary:
     """One ``csrc/<name>.cu`` source, built once per process and loaded.
 
@@ -84,11 +115,9 @@ class CudaLibrary:
         self._lock = threading.Lock()
 
     def library_path(self) -> Path:
-        digest = hashlib.sha1(self.source.read_bytes())
-        for header in sorted(CSRC_DIR.glob("*.cuh")):
-            digest.update(header.read_bytes())
-        digest.update(" ".join(NVCC_FLAGS).encode())
-        return BUILD_DIR / f"{self.source.stem}-{digest.hexdigest()[:12]}.so"
+        return hashed_library_path(
+            self.source.stem,
+            [self.source, *sorted(CSRC_DIR.glob("*.cuh"))], NVCC_FLAGS)
 
     def build(self) -> Path:
         """Compile the source unless this exact build already exists."""
@@ -97,21 +126,12 @@ class CudaLibrary:
             self.build_seconds = 0.0
             compile_metrics.record_cache("hit")
             return path
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(self.source)]
-        t0 = time.perf_counter()
-        try:
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {self.source.name}:\n"
-                                   f"{proc.stdout}{proc.stderr}")
-            os.replace(tmp, path)  # atomic: concurrent builds agree
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-        self.build_seconds = time.perf_counter() - t0
+        proc, self.build_seconds = compile_library(
+            lambda out: [find_nvcc(), *NVCC_FLAGS, "-o", out,
+                         str(self.source)], path)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {self.source.name}:\n"
+                               f"{proc.stdout}{proc.stderr}")
         self.build_log = proc.stdout + proc.stderr
         compile_metrics.record_build(self.build_seconds)
         return path

@@ -18,8 +18,8 @@
   retry;
 - :mod:`.generate`: the streaming generate route over a
   ``GenerationEngine``;
-- :mod:`.legacy`: the single-model ``ModelServer`` (``KNNServer`` waits on
-  ``neighbors/``).
+- :mod:`.legacy`: the single-model ``ModelServer`` and the
+  nearest-neighbors ``KNNServer`` over ``neighbors/``.
 
 Everything runs on the card unless the caller passes ``device="cpu"``.
 """

@@ -3,8 +3,8 @@
 Counterpart of ``deeplearning4j_tpu/serving/legacy.py``. ``ModelServer`` is
 copied whole, with a ``device`` (the card unless the caller passes
 ``device="cpu"``) for its ParallelInference. ``KNNServer`` serves the
-nearest-neighbour structures of ``neighbors/``, which the port does not
-have yet: building one raises ``ImportError``.
+nearest-neighbour structures of ``neighbors/``; its brute search runs on
+the same kind of ``device``.
 
 Reference analog: the reference's serving tier — ParallelInference behind
 a REST endpoint (deeplearning4j model server / nearest-neighbors-server
@@ -23,7 +23,9 @@ import time
 
 import numpy as np
 
-from deeplearning4j_tpu_torch.common.device import DeviceLike
+from deeplearning4j_tpu_torch.common.device import (
+    DeviceLike, resolve_device, to_device,
+)
 from deeplearning4j_tpu_torch.parallel.inference import (
     DeadlineExceeded, ParallelInference,
 )
@@ -85,13 +87,71 @@ class ModelServer(_HttpServerMixin):
 
 
 class KNNServer(_HttpServerMixin):
-    """Nearest-neighbors HTTP server (``POST /knn``, ``POST /knnvec``,
-    ``GET /health`` in the JAX package). Its VP-tree, k-d tree and brute
-    search live in ``neighbors/``, which the port has not taken yet
-    (ROADMAP A9): building one raises ``ImportError``."""
+    """Nearest-neighbors HTTP server.
+
+    Reference analog: deeplearning4j-nearestneighbors-server's
+    NearestNeighborsServer — a VPTree over an indexed point set behind
+    REST. Endpoints:
+
+        POST /knn     {"point": [...], "k": n}
+                      -> {"results": [{"index": i, "distance": d}, ...]}
+        POST /knnvec  {"vectors": [[...], ...], "k": n}   (batched; one
+                      brute-force product on the server's device)
+                      -> {"results": [[{"index", "distance"}, ...], ...]}
+        GET  /health
+
+    ``backend``: "vptree" (default, the reference's structure) | "kdtree" |
+    "brute" (single points also answered by the batched product). The
+    brute search runs ``neighbors.knn_search`` on ``device``: the card
+    unless the caller passes ``device="cpu"``; the points go there once.
+    """
 
     def __init__(self, points, port: int = 0, host: str = "127.0.0.1",
-                 backend: str = "vptree"):
-        raise ImportError(
-            "KNNServer needs deeplearning4j_tpu_torch.neighbors, which is "
-            "not ported yet (ROADMAP A9, with neighbors/)")
+                 backend: str = "vptree", device: DeviceLike = "cuda"):
+        from deeplearning4j_tpu_torch.neighbors import (
+            KDTree, VPTree, knn_search,
+        )
+
+        self.device = resolve_device(device)
+        self.points = np.asarray(points, np.float32)
+        self._host, self._port = host, port
+        on_device = to_device(self.points, self.device)
+        self._brute = lambda qs, k: knn_search(on_device, qs, k=k,
+                                               device=self.device)
+        if backend == "vptree":
+            self._tree = VPTree(self.points)
+        elif backend == "kdtree":
+            self._tree = KDTree(self.points)
+        elif backend == "brute":
+            self._tree = None
+        else:
+            raise ValueError("backend must be vptree|kdtree|brute")
+
+    def _query_one(self, point, k):
+        if self._tree is not None:
+            idx, dist = self._tree.knn(np.asarray(point, np.float32), k=k)
+            return [{"index": int(i), "distance": float(d)}
+                    for i, d in zip(idx, dist)]
+        return self._query_batch([point], k)[0]
+
+    def _query_batch(self, vectors, k):
+        idx, dist = self._brute(np.asarray(vectors, np.float32), k)
+        return [[{"index": int(i), "distance": float(d)}
+                 for i, d in zip(row_i, row_d)]
+                for row_i, row_d in zip(idx, dist)]
+
+    def start(self) -> "KNNServer":
+        self._httpd, self._thread = serve_json(
+            self._host, self._port,
+            post_routes={
+                "/knn": lambda b: {"results": self._query_one(
+                    b["point"], int(b.get("k", 1)))},
+                "/knnvec": lambda b: {"results": self._query_batch(
+                    b["vectors"], int(b.get("k", 1)))},
+            },
+            get_routes={"/health": lambda _: {"status": "ok",
+                                              "points": len(self.points)}})
+        return self
+
+    def stop(self):
+        self._stop_httpd()

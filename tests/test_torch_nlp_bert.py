@@ -222,8 +222,13 @@ class TestBertFront:
 
 
 def test_nlp_exports_only_the_ported_modules():
+    """Every module of the JAX package's nlp/ is ported: the port exports
+    its whole ``__all__``, and besides it only CommonPreprocessor and the
+    weights-across function."""
+    import deeplearning4j_tpu.nlp as jax_nlp
     import deeplearning4j_tpu_torch.nlp as nlp
 
-    assert sorted(nlp.__all__) == sorted([
-        "BertIterator", "BertWordPieceTokenizer", "CommonPreprocessor",
-        "DefaultTokenizerFactory", "NGramTokenizerFactory"])
+    assert sorted(nlp.__all__) == sorted(
+        list(jax_nlp.__all__) + ["CommonPreprocessor", "load_jax_state"])
+    for name in nlp.__all__:
+        assert hasattr(nlp, name), name

@@ -967,8 +967,12 @@ def test_entry_points_take_the_card_unless_told():
 
     with pytest.raises(ValueError, match="mesh runs on cuda"):
         ParallelInference(StubModel(), mesh=CardMesh(), device="cpu")
-    with pytest.raises(ImportError, match="A9"):
-        KNNServer(np.zeros((4, 2)))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            KNNServer(np.zeros((4, 2)))
+    server = KNNServer(np.eye(4, 2, dtype=np.float32), backend="brute",
+                       device="cpu")
+    assert server._query_one([1.0, 0.0], 1)[0]["index"] == 0
 
 
 def test_load_route_restores_onto_the_gateway_device(dense_zips):
