@@ -532,7 +532,29 @@ Phases (any failure exits non-zero before the result line):
     host rates, ``normalize`` on the card against the host f32 batch
     beside a flipped control) and, prefetched to the card, feeding
     ResNet-50's bf16 ``fit_batch`` at B = 64 beside the step alone.
-45. Prints the kernels line (all nine kernels; the LRN entries count the
+45. The learners. Arbiter's random search over config #3's layers (a
+    ``MultiLayerSpace`` of 2 x ``GravesBidirectionalLSTMLayer`` of width
+    128, 200 or 256, Adam lr log-uniform in [1e-4, 1e-2]; 4 candidates
+    of 10 ``fit_batch`` steps at [64, 64], each scored on a held-out
+    batch), its fused-LSTM launches counted against 4 + 4 a step and 4
+    a score, the best score against a direct fit of its configuration
+    (bit for bit, beside a fit at lr x 1.01); ``QLearningDiscreteConv``
+    at the DQN-Nature widths (84 x 84 x 4 through ``HistoryProcessor``,
+    channels 32-64-64, dense 512, batch 32, double, dueling, n_step 3,
+    50,000-frame replay; 1,100 environment steps, the first 1,000 filling
+    the replay) and ``QLearningDiscreteDense`` on CartPole (1,200 steps);
+    ``A3CDiscreteConv`` with 16 environments, 100 segments of 5;
+    ``A2CDiscreteDense``, 20 iterations; ``BarnesHutTsne`` at N = 2,000 x
+    100 (seeded clusters), perplexity 30, 1,000 iterations; DeepWalk on a
+    planted 7-community graph at Cora's counts (2,708 vertices, 5,429
+    edges; 5 walks of 40 a vertex, one epoch). Checks beside planted
+    controls: one DQN update (conv, dense) and one A3C update card against
+    CPU within TOL_LEARNER_UPDATE and TOL_A3C_UPDATE (controls: the
+    discount x 1.01; torch's unbiased std), 50
+    t-SNE iterations each from the CPU's state within TOL_TSNE_STEP
+    (control: exaggeration x 1.01), the DeepWalk walks equal to the CPU's
+    (control: the next seed's).
+46. Prints the kernels line (all nine kernels; the LRN entries count the
     import path's launches under ``launches_by_path["tf_import"]``, the
     flash forward the serving prefills of phases 29-30 and its prefill
     shape's times, every entry YOLO2's, 0, under ``"yolo2_inference"``
@@ -541,8 +563,8 @@ Phases (any failure exits non-zero before the result line):
     and quantized paths of phases 37-39 and the serving tier's predict
     and generate paths of phase 40, SameDiff's paths of phase 41, the
     parallel paths of phases 42 and 43, the embedding and input tier's
-    paths of phase 44, and the flash kernels' rows at the parallel
-    shapes), the card line and, last, the
+    paths of phase 44, the learners' of phase 45, and the flash kernels'
+    rows at the parallel shapes), the card line and, last, the
     result line ``{"ok": true, "device": {...}}``.
 
 Every phase's JSON record carries
@@ -560,6 +582,7 @@ and ``torch.backends.cudnn`` ``allow_tf32`` False), the timed ones too.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -824,6 +847,8 @@ def cudnn_lstm(torch, W, R, b, forget_gate_bias, dtype):
 LSTM_DESIGNS = {"decode_layer1": "stream", "decode_layer2": "stream",
                 "decode_layer1_bf16": "stream", "prefill_layer1": "cluster",
                 "graves_charrnn": "cluster", "graves_charrnn_bf16": "cluster",
+                "arbiter_score_h128": "cluster",
+                "arbiter_score_h256": "cluster",
                 "h1024": "stream", "h1024_bf16": "stream"}
 
 
@@ -870,6 +895,10 @@ LSTM_TRAIN_DESIGNS = {"graves_layer1": ("cluster", "cluster"),
                       "graves_layer1_bf16": ("cluster", "cluster"),
                       "textgen_layer1_bf16": ("cluster", "cluster"),
                       "textgen_layer2_bf16": ("cluster", "cluster"),
+                      "arbiter_h128_layer1": ("cluster", "cluster"),
+                      "arbiter_h128_layer2": ("cluster", "cluster"),
+                      "arbiter_h256_layer1": ("cluster", "cluster"),
+                      "arbiter_h256_layer2": ("cluster", "cluster"),
                       "stream_h448": ("stream", "stream"),
                       "h1024": ("stream", "stream"),
                       "h1024_bf16": ("stream", "stream")}
@@ -893,6 +922,10 @@ def phase_kernels(torch):
         ("graves_charrnn", 32, 64, 77, 200, True, True, 1.0, f32),
         ("decode_layer1_bf16", 8, 1, 77, 256, False, False, 0.0, bf16),
         ("graves_charrnn_bf16", 32, 64, 77, 200, True, True, 1.0, bf16),
+        # phase 45's arbiter scores its candidates' Graves layers at the
+        # drawn widths 128 and 256 (200 is graves_charrnn's)
+        ("arbiter_score_h128", 64, 64, 77, 128, True, True, 1.0, f32),
+        ("arbiter_score_h256", 64, 64, 77, 256, True, True, 1.0, f32),
         # past the width a cluster holds (the stream kernels), timed beside
         # cuDNN's LSTM so that the grid layer's next family can be ranked
         ("h1024", 64, 64, 256, 1024, False, False, 0.0, f32),
@@ -1219,6 +1252,13 @@ def phase_bwd_kernels(torch):
         ("graves_layer1_bf16", 64, 64, 77, 200, True, True, 1.0, bf16),
         ("textgen_layer1_bf16", 64, 64, 77, 256, False, False, 0.0, bf16),
         ("textgen_layer2_bf16", 64, 64, 256, 256, False, False, 0.0, bf16),
+        # phase 45's arbiter trains Graves layers at the drawn widths 128
+        # and 256 (peepholes, the backward direction reversed); a second
+        # layer reads 2 x the first's width
+        ("arbiter_h128_layer1", 64, 64, 77, 128, True, True, 1.0, f32),
+        ("arbiter_h128_layer2", 64, 64, 400, 128, True, True, 1.0, f32),
+        ("arbiter_h256_layer1", 64, 64, 77, 256, True, True, 1.0, f32),
+        ("arbiter_h256_layer2", 64, 64, 512, 256, True, True, 1.0, f32),
         ("stream_h448", 64, 16, 77, 448, True, True, 1.0, f32),
         # past the width a cluster holds, beside cuDNN's LSTM pair
         ("h1024", 64, 64, 256, 1024, False, False, 0.0, f32),
@@ -9185,14 +9225,14 @@ def _rel_err(np, got, want):
     return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
 
 
-def _hold(checks, name, value, tol, control):
+def _hold(checks, name, value, tol, control, phase=44):
     """Record a check beside its planted control: ``value`` must be within
     ``tol`` and ``control`` must miss it."""
     checks[name] = {"value": value, "tol": tol, "control": control}
     if not value <= tol:
-        fail(f"phase 44 {name}: {value} past {tol}")
+        fail(f"phase {phase} {name}: {value} past {tol}")
     if not control > tol:
-        fail(f"phase 44 {name}: the planted control ({control}) passed "
+        fail(f"phase {phase} {name}: the planted control ({control}) passed "
              f"within {tol}")
 
 
@@ -9780,6 +9820,670 @@ def phase_embedding_input(torch, np):
             "wall_s_parts": walls, "wall_s_phase": time.perf_counter() - t0}
 
 
+# --------------------------------------------------------------------------
+# phase 45: the learners. Arbiter's random search over config #3's layers
+# (the fused-LSTM kernels), DQN at the DQN-Nature widths on the JAX trunk
+# and on CartPole, A3C with 16 environments and A2C, t-SNE at N = 2,000 and
+# DeepWalk at Cora's counts. Only the arbiter path launches kernels of the
+# port; the rest is PyTorch ops on the card.
+
+ARB_CANDIDATES = 4
+ARB_STEPS = 10           # fit_batch steps a candidate
+ARB_BATCH = 64           # config #3's [64, 64] batch of one-hot chars
+ARB_T = 64
+ARB_VOCAB = 77
+ARB_WIDTHS = (128, 200, 256)   # inside the cluster designs' H <= 436
+DQN_FRAME = 84           # DQN-Nature's 84 x 84 x 4 input
+DQN_HISTORY = 4
+DQN_CONV = dict(channels=(32, 64, 64), dense=512, batch_size=32,
+                double_dqn=True, dueling=True, n_step=3, min_replay=1000,
+                replay_capacity=50_000)   # 1.4 GB of f32 frames (Nature: 10^6)
+DQN_MAX_STEPS = 2 * DQN_FRAME   # an episode can reach the right edge
+# environment steps, cut from 3,000 for the phase's time (an updating step
+# is host-bound, 26-37 ms of wall on the H100 for 1.5-1.6 of device): the
+# conv learner's replay fills over its first 1,000 (no update),
+# then about 100 updates (the last episode runs to its end); CartPole's
+# over 200, then about 1,000
+DQN_STEPS = {"conv": 1100, "dense": 1200}
+A3C_ENVS = 16            # the A3C paper's 16 threads
+A3C_T_MAX = 5
+A3C_SEGMENTS = 100
+A2C_ITERATIONS = 20
+TSNE_N = 2000
+TSNE_D = 100
+TSNE_CLUSTERS = 10
+TSNE_CHECK_ITERS = 50
+DW_VERTICES = 2708       # Cora's vertex and edge counts
+DW_EDGES = 5429
+DW_COMMUNITIES = 7       # Cora's 7 classes, planted
+DW_P_IN = 0.9            # the share of edges inside a community
+# walks a vertex cut from 10 and epochs from 3 for the phase's time (the
+# Python front's step is host-bound: 50-66 k words/s on the H100)
+DW_CONF = dict(vector_size=128, walk_length=40, walks_per_vertex=5,
+               window=5, epochs=1)
+DW_SIM_PAIRS = 4000
+DW_CHECK_WALKS = 10      # the fit card against CPU: ~10 steps of 256 pairs
+TOL_LEARNER_UPDATE = 1e-5   # one DQN update, card against CPU, TF32 off
+# one A3C update: its policy gradient sums advantages of mean 0 (the
+# standardized ones), so the gradient is a few times smaller than its
+# terms and the card's conv wgrad rounding shows (read 9.3e-6 and 1.7e-5
+# of the update's largest entry on the H100; the unbiased-std control
+# 3.6e-3)
+TOL_A3C_UPDATE = 5e-5
+TOL_TSNE_STEP = 1e-5        # one iteration from the CPU's state, max |Y|
+LEARNER_CONTROL_LR = 1.01   # the arbiter control's learning rate factor
+# the kernels-against-plain control: the weights x 1.05 (at x 1.01 the
+# loss moved only 2-10x its tolerance at small widths on the CPU)
+ARB_CONTROL_WEIGHTS = 1.05
+DQN_CONTROL_GAMMA = 1.01    # the DQN control's discount factor
+TSNE_CONTROL_EXAGGERATION = 1.01
+
+
+def _np_tree(torch, tree):
+    from deeplearning4j_tpu_torch.common.trees import tree_map
+
+    return tree_map(lambda a: a.detach().cpu().numpy().copy(), tree)
+
+
+def _tree_rel(np, got, want):
+    """|got - want| over |want|'s largest entry, over every leaf of two
+    trees of host arrays (the tests' measure)."""
+    from deeplearning4j_tpu_torch.common.trees import tree_leaves
+
+    g = np.concatenate([np.ravel(a) for a in tree_leaves(got)])
+    w = np.concatenate([np.ravel(a) for a in tree_leaves(want)])
+    g, w = g.astype(np.float64), w.astype(np.float64)
+    return float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-30))
+
+
+def _learner_update_err(torch, np, card, cpu, batch, patch=None):
+    """One update of the card learner and of its CPU copy (``cpu``) from
+    the card learner's state and the same batch: the largest of the loss's
+    relative error and, for a DQN, the params' and Adam's m and v after
+    the update (each tree against its largest entry; Adam divides by
+    sqrt(v), so an entry whose gradient nearly cancels moves by up to lr
+    either way and the update itself is no measure), for an actor-critic
+    the SGD update lr * g (against its largest entry). ``patch`` (a
+    context manager factory) wraps the card's update alone: a planted
+    control. The card learner's state is put back. Returns (the largest
+    error, {part: error})."""
+    from deeplearning4j_tpu_torch.common.trees import tree_map
+    from deeplearning4j_tpu_torch.rl import load_jax_state
+
+    dqn = hasattr(card, "target_params")
+    params = _np_tree(torch, card.params)
+    extra = (dict(target_params=_np_tree(torch, card.target_params),
+                  opt_state=_np_tree(torch, card.opt["state"]),
+                  step=card.opt["step"]) if dqn else {})
+    load_jax_state(cpu, params, **extra)
+    loss_cpu = float(cpu.update(*batch))
+    with (patch() if patch else contextlib.nullcontext()):
+        loss_card = float(card.update(*batch))
+    torch.cuda.synchronize()
+    # a loss near 0 is a difference of O(1) terms (the actor-critic's
+    # policy term sums advantages of mean 0): absolute below 1
+    errs = {"loss": abs(loss_card - loss_cpu) / max(abs(loss_cpu), 1.0)}
+    after = [_np_tree(torch, a.params) for a in (card, cpu)]
+    if dqn:
+        errs["params"] = _tree_rel(np, *after)
+        for k in ("m", "v"):
+            errs[k] = _tree_rel(np, _np_tree(torch, card.opt["state"][k]),
+                                _np_tree(torch, cpu.opt["state"][k]))
+    else:
+        errs["update"] = _tree_rel(np, *(
+            tree_map(lambda a, b: a - b, t, params) for t in after))
+    load_jax_state(card, params, **extra)
+    return max(errs.values()), errs
+
+
+class _scaled_gamma:
+    """The control of the DQN checks: the discount times
+    DQN_CONTROL_GAMMA in the TD target."""
+
+    def __init__(self, agent):
+        self.agent = agent
+
+    def __enter__(self):
+        self.saved = self.agent.gamma
+        self.agent.gamma = self.saved * DQN_CONTROL_GAMMA
+
+    def __exit__(self, *exc):
+        self.agent.gamma = self.saved
+        return False
+
+
+class _unbiased_std:
+    """The control of the A3C check: torch's default std (N - 1), the
+    port's population std swapped out."""
+
+    def __enter__(self):
+        import torch
+
+        self.orig = torch.Tensor.std
+        torch.Tensor.std = lambda t, *a, **k: self.orig(t)
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.Tensor.std = self.orig
+        return False
+
+
+def _capture_update(agent, run):
+    """``run()`` with the learner's ``update`` arguments of its last call
+    recorded; returns them."""
+    seen = {}
+    orig = agent.update
+
+    def rec(*args):
+        seen["args"] = args
+        return orig(*args)
+
+    agent.update = rec
+    try:
+        run()
+    finally:
+        agent.update = orig
+    return seen["args"]
+
+
+def _profiled(torch, fn, n, unit):
+    by_kernel, wall_ms, _ = profile_device(torch, fn, n)
+    return _profile_summary(by_kernel, wall_ms, n, unit)
+
+
+def _learner_rate(torch, agent, steps):
+    """Episodes of ``agent`` until it has taken ``steps`` environment
+    steps; returns (environment steps taken, wall s, episodes)."""
+    torch.cuda.synchronize()
+    t0, s0, n = time.perf_counter(), agent.step_count, 0
+    while agent.step_count < steps:
+        agent.train_episode()
+        n += 1
+    torch.cuda.synchronize()
+    return agent.step_count - s0, time.perf_counter() - t0, n
+
+
+def _arbiter_space():
+    from deeplearning4j_tpu_torch.arbiter import (
+        ContinuousParameterSpace, DiscreteParameterSpace, MultiLayerSpace,
+    )
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers import (
+        GravesBidirectionalLSTMLayer, RnnOutputLayer,
+    )
+    from deeplearning4j_tpu_torch.optimize.updaters import Adam
+
+    lr = ContinuousParameterSpace(1e-4, 1e-2, log_scale=True)
+    b = MultiLayerSpace.builder().updater_space(
+        lambda r: Adam(lr=lr.sample(r)))
+    for _ in range(2):
+        b = b.add_layer(GravesBidirectionalLSTMLayer(
+            n_out=DiscreteParameterSpace(list(ARB_WIDTHS))))
+    return (b.add_layer(RnnOutputLayer(n_out=ARB_VOCAB, activation="softmax",
+                                       loss="mcxent"))
+            .set_input_type(InputType.recurrent(ARB_VOCAB, ARB_T)).build())
+
+
+def _arbiter_against_plain(torch, np, results, batch, held, checks):
+    """Each drawn pair of widths, from its candidate's initial weights on
+    the card: the training loss and its gradients and the held-out score
+    through the kernels (the forward with its reserve and the backward,
+    the inference forward) against the same through the plain lowering.
+    The loss and score within TOL_TRAIN_LOSS (relative), the gradients
+    within TOL_GRAD of the tree's largest |entry|; the control is the plain
+    lowering at the weights x ARB_CONTROL_WEIGHTS. Returns {widths: the
+    errors}."""
+    from deeplearning4j_tpu_torch.common.trees import tree_leaves, tree_map
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    def run(conf, scale=1.0):
+        net = MultiLayerNetwork(conf).init(device="cuda")
+        loss_fn, (params, state) = net.as_loss_fn(train=True)
+        params = tree_map(lambda a: (a.detach() * scale).requires_grad_(),
+                          params)
+        loss, _ = loss_fn(params, state, None, *batch)
+        grads = torch.autograd.grad(loss, tree_leaves(params))
+        with torch.no_grad():
+            score, _ = net.as_loss_fn()[0](
+                tree_map(lambda a: a.detach(), params), state, None, *held)
+        return (float(loss.detach()), float(score),
+                {"g": [g.detach().cpu().numpy() for g in grads]})
+
+    def errs(a, b):
+        return (max(abs(a[0] - b[0]) / abs(b[0]),
+                    abs(a[1] - b[1]) / abs(b[1])), _tree_rel(np, a[2], b[2]))
+
+    out = {}
+    for r in results:
+        conf = r.hyperparams["conf"]
+        widths = "_".join(str(l.n_out) for l in conf.layers[:2])
+        if widths in out:
+            continue
+        kern = run(conf)
+        plain = _plain(lambda: run(conf))
+        ctl = _plain(lambda: run(conf, ARB_CONTROL_WEIGHTS))
+        (loss_err, grad_err), (loss_ctl, grad_ctl) = (errs(kern, plain),
+                                                      errs(kern, ctl))
+        _hold(checks, f"arbiter_{widths}_loss_kernels_against_plain",
+              loss_err, TOL_TRAIN_LOSS, loss_ctl, phase=45)
+        _hold(checks, f"arbiter_{widths}_grads_kernels_against_plain",
+              grad_err, TOL_GRAD, grad_ctl, phase=45)
+        out[widths] = {"loss_and_score": loss_err, "grads": grad_err}
+    return out
+
+
+def phase_arbiter(torch, np, checks):
+    """Arbiter's random search over config #3's layers on the card: 4
+    candidates of 10 steps, each scored on a held-out batch, the fused-LSTM
+    launches counted; the best candidate's score against a direct fit of
+    its configuration (the search is deterministic), and each drawn pair
+    of widths through the kernels against the plain lowering."""
+    import dataclasses
+
+    from deeplearning4j_tpu_torch.arbiter import (
+        MaxCandidatesCondition, OptimizationRunner,
+    )
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops.cuda import KERNELS
+
+    rng = np.random.default_rng(SEED)
+    batches = [_char_batch(np, rng, ARB_VOCAB, ARB_BATCH, ARB_T)
+               for _ in range(ARB_STEPS)]
+    held = _char_batch(np, rng, ARB_VOCAB, ARB_BATCH, ARB_T)
+
+    def fit(conf):
+        net = MultiLayerNetwork(conf).init(device="cuda")
+        for b in batches:
+            net.fit_batch(b)
+        return net
+
+    runner = OptimizationRunner(
+        _arbiter_space().candidate_generator(seed=SEED), lambda hp: fit(
+            hp["conf"]), lambda net: net.score(held),
+        [MaxCandidatesCondition(ARB_CANDIDATES)])
+    best, launches, _, wall = _count_launches(torch, KERNELS, runner.execute)
+    want = {k.name: 0 for k in KERNELS}
+    want["fused_lstm_fwd"] = ARB_CANDIDATES * (ARB_STEPS + 1) * 4
+    want["fused_lstm_bwd"] = ARB_CANDIDATES * ARB_STEPS * 4
+    if launches != want:
+        fail(f"phase 45 arbiter launches {launches}, want {want} (4 + 4 a "
+             f"step, 4 a score)")
+    cands = [{"widths": [l.n_out for l in r.hyperparams["conf"].layers[:2]],
+              "lr": r.hyperparams["conf"].updater.lr, "score": r.score}
+             for r in runner.results]
+    if not all(np.isfinite(c["score"]) for c in cands):
+        fail(f"phase 45 arbiter: non-finite scores {cands}")
+    conf = best.hyperparams["conf"]
+    direct = fit(conf).score(held)
+    ctl_conf = copy.copy(conf)
+    ctl_conf.updater = dataclasses.replace(
+        conf.updater, lr=conf.updater.lr * LEARNER_CONTROL_LR)
+    ctl = fit(ctl_conf).score(held)
+    _hold(checks, "arbiter_best_against_direct_fit",
+          abs(direct - best.score) / abs(direct), 0.0,
+          abs(ctl - best.score) / abs(direct), phase=45)
+    against_plain = _arbiter_against_plain(torch, np, runner.results,
+                                           batches[0], held, checks)
+    net = best.model
+    host, device, _, _, _ = profiled_launches(
+        torch, KERNELS, lambda: net.fit_batch(batches[0]))
+    if host != device:
+        fail(f"phase 45 arbiter step: device records {device} != host "
+             f"launches {host}")
+    steps = ARB_CANDIDATES * ARB_STEPS
+    return {"candidates": cands, "best_index": best.index,
+            "best_score": best.score, "direct_fit_score": direct,
+            "kernels_against_plain": against_plain,
+            "wall_s": wall, "candidates_per_s": ARB_CANDIDATES / wall,
+            "steps_per_s": steps / wall,
+            "samples_per_s": steps * ARB_BATCH / wall,
+            "step_launches_host": host, "step_launches_device": device,
+            "step_profile": _profiled(torch, lambda: net.fit_batch(
+                batches[0]), 5, "step"),
+            "launches": launches}
+
+
+def _dqn_run(torch, np, make, checks, name, steps):
+    """A DQN learner for ``steps`` environment steps on the card, the
+    replay's fill (no update) timed apart from the steps that update; its
+    update's profile; one update card against CPU beside the discount
+    control."""
+    agent = make("cuda", None)
+    fill_n, fill_s, e1 = _learner_rate(torch, agent, agent.min_replay)
+    upd_n, upd_s, e2 = _learner_rate(torch, agent, steps)
+    batch = agent.replay.sample(agent.batch_size)
+    cpu = make("cpu", 64)
+    err, parts = _learner_update_err(torch, np, agent, cpu, batch)
+    ctl, _ = _learner_update_err(torch, np, agent, cpu, batch,
+                                 lambda: _scaled_gamma(agent))
+    _hold(checks, f"{name}_update_card_against_cpu", err,
+          TOL_LEARNER_UPDATE, ctl, phase=45)
+    checks[f"{name}_update_card_against_cpu"]["parts"] = parts
+    rewards = agent.episode_rewards
+    wall = fill_s + upd_s
+    return {"env_steps": agent.step_count, "episodes": e1 + e2,
+            "updates": agent.opt["step"], "wall_s": wall,
+            "env_steps_per_s": agent.step_count / wall,
+            "fill_env_steps_per_s": fill_n / fill_s,
+            "updating_env_steps_per_s": upd_n / upd_s,
+            "mean_reward_first_10": float(np.mean(rewards[:10])),
+            "mean_reward_last_10": float(np.mean(rewards[-10:])),
+            "update_profile": _profiled(torch, lambda: agent.update(*batch),
+                                        10, "update")}
+
+
+def phase_dqn(torch, np, checks):
+    from deeplearning4j_tpu_torch.rl import (
+        CartPole, HistoryProcessor, PixelGridWorld, QLearningDiscreteConv,
+        QLearningDiscreteDense,
+    )
+
+    def conv(device, capacity):
+        conf = dict(DQN_CONV)
+        if capacity:
+            conf["replay_capacity"] = capacity
+        return QLearningDiscreteConv(
+            PixelGridWorld(size=DQN_FRAME, max_steps=DQN_MAX_STEPS,
+                           seed=SEED),
+            HistoryProcessor(history_length=DQN_HISTORY).set_input_shape(
+                DQN_FRAME, DQN_FRAME), seed=SEED, device=device, **conf)
+
+    def dense(device, capacity):
+        kw = {"replay_capacity": capacity} if capacity else {}
+        return QLearningDiscreteDense(CartPole(seed=SEED), seed=SEED,
+                                      device=device, **kw)
+
+    return {"conv_pixels": _dqn_run(torch, np, conv, checks, "dqn_conv",
+                                    DQN_STEPS["conv"]),
+            "dense_cartpole": _dqn_run(torch, np, dense, checks,
+                                       "dqn_dense", DQN_STEPS["dense"])}
+
+
+def phase_actor_critic(torch, np, checks):
+    from deeplearning4j_tpu_torch.rl import (
+        A2CDiscreteDense, A3CDiscreteConv, CartPole, HistoryProcessor,
+        PixelGridWorld,
+    )
+
+    def a3c(device):
+        return A3CDiscreteConv(
+            lambda i: PixelGridWorld(size=DQN_FRAME,
+                                     max_steps=DQN_MAX_STEPS, seed=SEED + i),
+            lambda i: HistoryProcessor(
+                history_length=DQN_HISTORY).set_input_shape(DQN_FRAME,
+                                                            DQN_FRAME),
+            n_envs=A3C_ENVS, channels=DQN_CONV["channels"],
+            dense=DQN_CONV["dense"], t_max=A3C_T_MAX, seed=SEED,
+            device=device)
+
+    agent = a3c("cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    agent.train(A3C_SEGMENTS - 1)
+    seg = _capture_update(agent, agent.train_segment)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cpu = a3c("cpu")
+    err, parts = _learner_update_err(torch, np, agent, cpu, seg)
+    ctl, _ = _learner_update_err(torch, np, agent, cpu, seg, _unbiased_std)
+    _hold(checks, "a3c_update_card_against_cpu", err, TOL_A3C_UPDATE,
+          ctl, phase=45)
+    checks["a3c_update_card_against_cpu"]["parts"] = parts
+    steps = A3C_SEGMENTS * A3C_T_MAX * A3C_ENVS
+    out = {"a3c_conv": {
+        "segments": A3C_SEGMENTS, "env_steps": steps, "wall_s": wall,
+        "env_steps_per_s": steps / wall,
+        "episodes": len(agent.episode_rewards),
+        "update_profile": _profiled(torch, lambda: agent.update(*seg), 10,
+                                    "update")}}
+    a2c = A2CDiscreteDense(CartPole(seed=SEED), seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a2c.train(A2C_ITERATIONS - 1)
+    roll = _capture_update(a2c, a2c.train_iteration)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = sum(a2c.episode_rewards)   # CartPole pays 1 a step
+    out["a2c_dense"] = {
+        "iterations": A2C_ITERATIONS, "env_steps": steps, "wall_s": wall,
+        "env_steps_per_s": steps / wall,
+        "mean_reward_first_4": float(np.mean(a2c.episode_rewards[:4])),
+        "mean_reward_last_4": float(np.mean(a2c.episode_rewards[-4:])),
+        "update_profile": _profiled(torch, lambda: a2c.update(*roll), 10,
+                                    "update")}
+    return out
+
+
+def _tsne_points(np, seed=SEED):
+    """TSNE_N points of TSNE_D in TSNE_CLUSTERS seeded Gaussian clusters,
+    and their labels."""
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(TSNE_CLUSTERS, TSNE_D))
+    labels = rng.integers(0, TSNE_CLUSTERS, TSNE_N)
+    return centers[labels] + 0.3 * rng.normal(size=(TSNE_N, TSNE_D)), labels
+
+
+def _tsne_states(torch, P, Y0, dev, exaggeration=12.0, forced=None):
+    """TSNE_CHECK_ITERS early iterations (exaggerated, momentum 0.5, the
+    defaults' rate) from Y0 on ``dev``; with ``forced``, each iteration
+    starts from that run's state instead of its own. Returns the states
+    (Y, vel, gains) on the host, the first Y0's."""
+    from deeplearning4j_tpu_torch.plot.tsne import off_diagonal, tsne_step
+
+    Pd = torch.tensor(P, dtype=torch.float32, device=dev)
+    off = off_diagonal(len(P), Pd)
+    state = (torch.tensor(Y0, device=dev), torch.zeros(Y0.shape, device=dev),
+             torch.ones(Y0.shape, device=dev))
+    out = [tuple(t.cpu() for t in state)]
+    for i in range(TSNE_CHECK_ITERS):
+        if forced is not None:
+            state = tuple(t.to(dev) for t in forced[i])
+        state = tsne_step(*state, Pd * exaggeration, 0.5, 200.0, off)
+        out.append(tuple(t.cpu() for t in state))
+    return out
+
+
+def _tsne_step_err(states, ref):
+    """The largest |Y - Y_ref| over max |Y_ref| of an iteration."""
+    return max(float((s[0] - r[0]).abs().max() / r[0].abs().max())
+               for s, r in zip(states[1:], ref[1:]))
+
+
+def phase_tsne(torch, np, checks):
+    """BarnesHutTsne at N = 2,000, D = 100, perplexity 30, 1,000 iterations
+    (the JAX defaults) on the card; the host's perplexity search timed
+    apart from the optimizer."""
+    from deeplearning4j_tpu_torch.plot import BarnesHutTsne
+    from deeplearning4j_tpu_torch.plot.tsne import _conditional_probs
+
+    X, labels = _tsne_points(np)
+    tsne = BarnesHutTsne(perplexity=30.0, max_iter=1000, seed=SEED,
+                         device="cuda")
+    t0 = time.perf_counter()
+    P = _conditional_probs(X, tsne.perplexity)
+    host_s = time.perf_counter() - t0
+    Y0 = tsne.initial_embedding(TSNE_N)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Y, kl = tsne.optimize(P, Y0)
+    torch.cuda.synchronize()
+    opt_ms = (time.perf_counter() - t0) * 1e3
+    Y, kl = Y.cpu().numpy(), float(kl)
+    cents = np.stack([Y[labels == k].mean(0) for k in range(TSNE_CLUSTERS)])
+    intra = float(np.mean([np.linalg.norm(Y[labels == k] - cents[k],
+                                          axis=1).mean()
+                           for k in range(TSNE_CLUSTERS)]))
+    inter = float(np.mean([np.linalg.norm(cents[a] - cents[b])
+                           for a in range(TSNE_CLUSTERS)
+                           for b in range(a + 1, TSNE_CLUSTERS)]))
+    if not (np.isfinite(Y).all() and np.isfinite(kl) and inter > 3 * intra):
+        fail(f"phase 45 t-SNE: KL {kl}, intra {intra}, inter {inter}")
+    # each card iteration from the CPU's state; the control exaggerates
+    # the card's P by 1 % more
+    cpu = _tsne_states(torch, P, Y0, "cpu")
+    err = _tsne_step_err(_tsne_states(torch, P, Y0, "cuda", forced=cpu), cpu)
+    ctl = _tsne_step_err(_tsne_states(
+        torch, P, Y0, "cuda", 12.0 * TSNE_CONTROL_EXAGGERATION, cpu), cpu)
+    _hold(checks, "tsne_step_card_against_cpu", err, TOL_TSNE_STEP, ctl,
+          phase=45)
+    free = _tsne_states(torch, P, Y0, "cuda")[-1][0]
+    free = float((free - cpu[-1][0]).abs().max() / cpu[-1][0].abs().max())
+    by_kernel, wall_ms, _ = profile_device(
+        torch, lambda: tsne.optimize(P, Y0), 1)
+    return {"n": TSNE_N, "d": TSNE_D, "perplexity": tsne.perplexity,
+            "iterations": tsne.max_iter, "conditional_probs_host_s": host_s,
+            "optimizer_wall_ms": opt_ms, "kl": kl,
+            "intra_cluster": intra, "inter_cluster": inter,
+            "free_run_parting_after_check_iters": free,
+            "optimizer_profile": _profile_summary(by_kernel, wall_ms, 1,
+                                                  "call")}
+
+
+def deepwalk_graph(np, seed=SEED):
+    """DW_EDGES distinct undirected edges over DW_VERTICES vertices in
+    DW_COMMUNITIES planted communities, a share DW_P_IN of them inside a
+    community; returns (edges, community of each vertex)."""
+    rng = np.random.default_rng(seed)
+    comm = rng.integers(0, DW_COMMUNITIES, DW_VERTICES)
+    members = [np.flatnonzero(comm == c) for c in range(DW_COMMUNITIES)]
+    edges = set()
+    while len(edges) < DW_EDGES:
+        a = int(rng.integers(DW_VERTICES))
+        if rng.random() < DW_P_IN:
+            b = int(rng.choice(members[comm[a]]))
+        else:
+            b = int(rng.integers(DW_VERTICES))
+        if a != b:
+            edges.add((min(a, b), max(a, b)))
+    return sorted(edges), comm
+
+
+def _first_walks(**kw):
+    """A DeepWalk whose ``fit`` trains on its first DW_CHECK_WALKS walks
+    alone: DeepWalk.fit's own Word2Vec, a few steps of it."""
+    from deeplearning4j_tpu_torch.graphlearn import DeepWalk
+
+    dw = DeepWalk(**kw)
+    dw.walks = lambda g, walks=dw.walks: walks(g)[:DW_CHECK_WALKS]
+    return dw
+
+
+def _deepwalk_fit_check(torch, np, g, checks):
+    """DeepWalk's fit on the card against the same fit on the CPU, over
+    its first DW_CHECK_WALKS walks (the same pairs and host negatives),
+    under deterministic index_add_: W and C within TOL_W2V_STEP of their
+    largest |entry|; the control fits on the CPU at lr x
+    W2V_CONTROL_LR."""
+    conf = dict(DW_CONF, seed=SEED, epochs=1)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        card = _first_walks(device="cuda", **conf).fit(g).w2v
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    cpu = _first_walks(device="cpu", **conf).fit(g).w2v
+    ctl = _first_walks(device="cpu", learning_rate=0.01 * W2V_CONTROL_LR,
+                      **conf).fit(g).w2v
+
+    def err(a, b):
+        return max(_rel_err(np, a.W, b.W), _rel_err(np, a.C, b.C))
+
+    _hold(checks, "deepwalk_fit_card_against_cpu", err(card, cpu),
+          TOL_W2V_STEP, err(card, ctl), phase=45)
+    return {"walks": DW_CHECK_WALKS, "V": len(card.vocab),
+            "max_rel_err": err(card, cpu)}
+
+
+def phase_deepwalk(torch, np, checks):
+    """DeepWalk on the planted graph on the card: the walks' host s, the
+    Word2Vec words a second, in-community against cross-community
+    similarity; the walks against the CPU's, and a few fit steps card
+    against CPU."""
+    from deeplearning4j_tpu_torch.graphlearn import DeepWalk, Graph
+    from deeplearning4j_tpu_torch.nlp.word2vec import _sg_neg_step
+
+    edges, comm = deepwalk_graph(np)
+    g = Graph.from_edges(edges, n_vertices=DW_VERTICES)
+    dw = DeepWalk(seed=SEED, device="cuda", **DW_CONF)
+    t0 = time.perf_counter()
+    walks = dw.walks(g)
+    walks_s = time.perf_counter() - t0
+    words = sum(len(w) for w in walks)
+    # the walks are host numpy whatever the device: this shows that
+    # ``device`` leaves them alone, not that the card is right
+    cpu_walks = DeepWalk(seed=SEED, device="cpu", **DW_CONF).walks(g)
+    # the control: the next seed's first walk a vertex (its prefix of the
+    # card's walks)
+    other = DeepWalk(seed=SEED + 1, device="cpu",
+                     **dict(DW_CONF, walks_per_vertex=1)).walks(g)
+    _hold(checks, "deepwalk_walks_differ_from_cpu",
+          float(walks != cpu_walks), 0.0,
+          float(walks[:len(other)] != other), phase=45)
+    fit_check = _deepwalk_fit_check(torch, np, g, checks)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dw.fit(g)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    W = dw.w2v.W / np.maximum(np.linalg.norm(dw.w2v.W, axis=1,
+                                             keepdims=True), 1e-12)
+    index = {int(w): i for i, w in enumerate(dw.w2v.vocab.words)}
+    rng = np.random.default_rng(SEED)
+    sims = {"in": [], "cross": []}
+    while min(len(v) for v in sims.values()) < DW_SIM_PAIRS:
+        a, b = (int(v) for v in rng.integers(0, DW_VERTICES, 2))
+        if a != b and a in index and b in index:
+            sims["in" if comm[a] == comm[b] else "cross"].append(
+                float(W[index[a]] @ W[index[b]]))
+    sim_in = float(np.mean(sims["in"][:DW_SIM_PAIRS]))
+    sim_cross = float(np.mean(sims["cross"][:DW_SIM_PAIRS]))
+    if not (np.isfinite(dw.w2v.W).all() and sim_in > sim_cross):
+        fail(f"phase 45 DeepWalk: in-community {sim_in}, cross {sim_cross}")
+    Wd = torch.tensor(dw.w2v.W, device="cuda")
+    Cd = torch.tensor(dw.w2v.C, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    V = Wd.shape[0]
+    c, x = (torch.randint(0, V, (256,), generator=gen, device="cuda")
+            for _ in range(2))
+    negs = torch.randint(0, V, (256, 5), generator=gen, device="cuda")
+    return {"vertices": DW_VERTICES, "edges": len(edges),
+            "communities": DW_COMMUNITIES, "conf": DW_CONF,
+            "walks": len(walks), "words": words, "walks_host_s": walks_s,
+            "fit_wall_s": fit_s, "fit_check": fit_check,
+            "words_per_s": words * DW_CONF["epochs"] / fit_s,
+            "similarity_in_community": sim_in,
+            "similarity_cross_community": sim_cross,
+            "step_profile": _profiled(torch, lambda: _sg_neg_step(
+                Wd, Cd, c, x, negs, 0.01), 20, "step")}
+
+
+def phase_learners(torch, np):
+    """Phase 45: the learners on the card, each path's kernels counted."""
+    from deeplearning4j_tpu_torch.ops.cuda import KERNELS
+
+    t0 = time.perf_counter()
+    checks, walls, launches, out = {}, {}, {}, {}
+    for name, fn in (("arbiter", phase_arbiter), ("dqn", phase_dqn),
+                     ("actor_critic", phase_actor_critic),
+                     ("tsne", phase_tsne), ("deepwalk", phase_deepwalk)):
+        t = time.perf_counter()
+        rec, counts, _, _ = _count_launches(torch, KERNELS,
+                                            lambda: fn(torch, np, checks))
+        walls[name] = time.perf_counter() - t
+        # the arbiter's path is its search, counted inside (its checks and
+        # profiles launch more, and zero the counts)
+        launches[f"learners_{name}"] = rec.pop("launches", counts)
+        out[name] = rec
+    ran = {p: {k: n for k, n in c.items() if n}
+           for p, c in launches.items() if p != "learners_arbiter"}
+    if any(ran.values()):
+        fail(f"phase 45 launched kernels of the port off the arbiter's "
+             f"path: {ran}")
+    return {**out, "checks": checks, "launches": launches,
+            "wall_s_parts": walls, "wall_s_phase": time.perf_counter() - t0}
+
+
 def main() -> None:
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "deeplearning4j_tpu_torch")):
@@ -10297,6 +11001,31 @@ def main() -> None:
           f"{ep['step_alone_samples_per_s']:.0f}); phase "
           f"{emb['wall_s_phase']:.1f} s", flush=True)
 
+    # phase 45: the learners: arbiter's search over config #3's layers,
+    # DQN (DQN-Nature widths, CartPole), A3C and A2C, t-SNE, DeepWalk
+    learners = phase_learners(torch, np)
+    emit(card, {"learners": learners})
+    la, ld, lac = learners["arbiter"], learners["dqn"], learners[
+        "actor_critic"]
+    lt, lw = learners["tsne"], learners["deepwalk"]
+    print(f"learners on {card}: arbiter {ARB_CANDIDATES} config #3 "
+          f"candidates {la['steps_per_s']:.1f} steps/s, a step "
+          f"{la['step_profile']['device_ms_per_step']:.3f} ms device, "
+          f"{la['step_profile']['device_kernels_per_step']:.0f} kernels, "
+          f"busy {la['step_profile']['device_busy_share']}; DQN conv "
+          f"{ld['conv_pixels']['env_steps_per_s']:.0f} env steps/s (update "
+          f"{ld['conv_pixels']['update_profile']['device_ms_per_update']:.3f}"
+          f" ms device), dense "
+          f"{ld['dense_cartpole']['env_steps_per_s']:.0f}; A3C "
+          f"{lac['a3c_conv']['env_steps_per_s']:.0f} env steps/s, A2C "
+          f"{lac['a2c_dense']['env_steps_per_s']:.0f}; t-SNE N = {TSNE_N} "
+          f"optimizer {lt['optimizer_wall_ms']:.1f} ms, perplexity search "
+          f"{lt['conditional_probs_host_s']:.2f} s; DeepWalk "
+          f"{lw['words_per_s']:.0f} words/s, similarity in "
+          f"{lw['similarity_in_community']:.3f} / cross "
+          f"{lw['similarity_cross_community']:.3f}; phase "
+          f"{learners['wall_s_phase']:.1f} s", flush=True)
+
     # the kernels line, card line, result line
     decode = rows[0]  # the serving path's decode shape [8, 1, 256]
     graves = bwd_rows[0]  # the training path's first layer [64, 64, 200]
@@ -10517,6 +11246,10 @@ def main() -> None:
         e["launches"] += sum(paths.values())
     for e in entries:  # the embedding and input tier's paths (phase 44)
         paths = {k: v[e["name"]] for k, v in emb["launches"].items()}
+        e["launches_by_path"].update(paths)
+        e["launches"] += sum(paths.values())
+    for e in entries:  # the learners' paths (phase 45)
+        paths = {k: v[e["name"]] for k, v in learners["launches"].items()}
         e["launches_by_path"].update(paths)
         e["launches"] += sum(paths.values())
     # the flash kernels at the parallel paths' shapes (phase 43)

@@ -6,8 +6,8 @@ distances within 1e-5 (near 0 the euclidean formula's own f32
 cancellation, sqrt(16 eps (qq + pp)) of the float64 distance, bounds both
 packages); ties rank as ``lax.top_k`` ranks them (the lower index
 first). The trees are the JAX package's code, held equal to it answer
-for answer. ``tests/test_neighbors.py``'s cases (but DeepWalk,
-whose ``graphlearn/`` is not ported yet) run here on the port.
+for answer. ``tests/test_neighbors.py``'s cases, DeepWalk's too (on
+the port's ``graphlearn/``), run here on the port.
 """
 
 import json
@@ -228,6 +228,27 @@ class TestKNNServer:
     def test_unknown_backend_rejected(self):
         with pytest.raises(ValueError, match="backend"):
             KNNServer(np.zeros((3, 2)), backend="ball", device="cpu")
+
+
+class TestDeepWalk:
+    def test_two_cliques(self):
+        from deeplearning4j_tpu_torch.graphlearn import DeepWalk, Graph
+
+        # two dense cliques joined by one bridge edge: embeddings should
+        # cluster by clique
+        edges = []
+        for a in range(5):
+            for b in range(a + 1, 5):
+                edges.append((a, b))
+                edges.append((a + 5, b + 5))
+        edges.append((0, 5))
+        g = Graph.from_edges(edges, n_vertices=10)
+        dw = DeepWalk(vector_size=16, window=3, walk_length=10,
+                      walks_per_vertex=20, epochs=5, learning_rate=0.01,
+                      seed=4, device="cpu").fit(g)
+        assert dw.get_vertex_vector(0).shape == (16,)
+        # in-clique similarity beats cross-clique (excluding bridge nodes)
+        assert dw.similarity(1, 2) > dw.similarity(1, 7)
 
 
 def test_entry_points_take_the_card_unless_told():

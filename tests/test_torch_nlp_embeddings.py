@@ -47,6 +47,18 @@ Glove = functools.partial(nlp.Glove, device="cpu")
 ParagraphVectors = functools.partial(nlp.ParagraphVectors, device="cpu")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One PyTorch intra-op thread for this file's tests: tier-1 runs six
+    workers over the machine's cores, and at the default pool size their
+    OpenMP threads oversubscribe them (``test_words_nearest_analogy_form``
+    took 379 s there against 1 s alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def rel(got, want):
     got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
     want = np.asarray(want)
@@ -620,10 +632,12 @@ class TestNativeTextFront:
         s.close()
 
     def test_fit_native_front_learns_and_matches_vocab(self, tmp_path):
+        """Quality at one worker thread: the native front's batch order is
+        then the seed's alone (at more threads it depends on the run)."""
         p = tmp_path / "corpus.txt"
         p.write_text("\n".join(CORPUS))
         w2v = Word2Vec(vector_size=32, window=3, negative=4, epochs=15,
-                       learning_rate=0.01, batch_size=128, seed=7)
+                       learning_rate=0.01, batch_size=128, seed=7, workers=1)
         w2v.fit(nlp.LineSentenceIterator(str(p)), native_front=True)
         ref = VocabCache(min_count=1)
         ref.fit(w2v._iter_token_sents(CORPUS))
@@ -637,11 +651,25 @@ class TestNativeTextFront:
 
         assert sim("cat", "dog") > sim("cat", "market") + 0.1
 
+    def test_fit_native_front_multithread_matches_vocab(self, tmp_path):
+        """At four worker threads (a run-dependent batch order) what holds
+        in any order: the vocabulary, its counts, finite vectors."""
+        p = tmp_path / "corpus.txt"
+        p.write_text("\n".join(CORPUS))
+        w2v = Word2Vec(vector_size=16, window=3, negative=4, epochs=2,
+                       batch_size=128, seed=7, workers=4)
+        w2v.fit(nlp.LineSentenceIterator(str(p)), native_front=True)
+        ref = VocabCache(min_count=1)
+        ref.fit(w2v._iter_token_sents(CORPUS))
+        assert set(w2v.vocab.words) == set(ref.words)
+        assert {w: w2v.vocab.counts[w] for w in ref.words} == dict(ref.counts)
+        assert np.isfinite(w2v.W).all()
+
     def test_fit_native_front_hierarchical_softmax(self, tmp_path):
         p = tmp_path / "corpus.txt"
         p.write_text("\n".join(CORPUS))
         w2v = Word2Vec(vector_size=32, window=3, hs=True, negative=0,
-                       epochs=15, batch_size=128, seed=3)
+                       epochs=15, batch_size=128, seed=3, workers=1)
         w2v.fit(nlp.LineSentenceIterator(str(p)), native_front=True)
         assert np.isfinite(w2v.W).all()
         assert (w2v.similarity("cat", "dog")
