@@ -554,7 +554,39 @@ Phases (any failure exits non-zero before the result line):
     t-SNE iterations each from the CPU's state within TOL_TSNE_STEP
     (control: exaggeration x 1.01), the DeepWalk walks equal to the CPU's
     (control: the next seed's).
-46. Prints the kernels line (all nine kernels; the LRN entries count the
+46. Datavec and the dashboard: BASELINE config #2's ImageNet flow,
+    1,024 images of 256 x 256 x 3 uint8 (phase 44's, as ``.npy`` files)
+    under 1,000 class directories, through ``ImageRecordReader(root, 224,
+    224, 3)`` and ``RecordReaderDataSetIterator(64, 1000)``, scaled by
+    ``ImagePreProcessingScaler`` in the phase's own loop, into
+    ``ResNet50.fit`` for one epoch with a ``StatsListener`` (every 5th
+    iteration) writing a ``FileStatsStorage`` that a ``UIServer`` serves
+    while a thread polls ``/data`` (then ``/data``, ``/report`` and
+    ``/metrics`` after): images/s fed against the step alone and phase
+    44's native pipeline, the reader's host ms a batch and the fit
+    monitor's data wait, the listener's ms sampled and not, ``/data``'s
+    latency, the reader's work on one batch taken apart, the epoch's first
+    3 batches profiled (device ms a step, kernels, busy share; none of the
+    nine kernels); config #3 fed by a CSV of 512 character
+    sequences (lengths 40-64, rows shuffled) through ``CSVRecordReader``,
+    a ``TransformProcess`` round-tripped through JSON
+    (``integer_to_categorical``, ``convert_to_sequence``,
+    ``categorical_to_one_hot``, ``remove_columns``) and
+    ``SequenceRecordReaderDataSetIterator`` (B = 64, masks), ``fit`` for
+    one epoch under a listener: 4 + 4 fused-LSTM launches a step on the
+    host and on the device, steps/s against the step alone; and
+    ``CSVRecordReader.numeric_array`` on 200,000 rows in UCI HIGGS's
+    layout through the native library built from the source, beside the
+    Python rows on the first 10,000. Checks beside planted controls:
+    ResNet-50's ``fit`` over the reader's first 3 batches against
+    ``fit_batch`` over the same DataSets, bit for bit on cuDNN's
+    deterministic algorithms (control: one batch's labels rolled); the
+    listener's record against float64 numpy over the host copy it came
+    from (control: the previous sample's copy); one masked config #3 step
+    card against CPU (control: the labels mask all ones); the fast path
+    against ``native_csv_parse`` bit for bit and against the Python rows
+    within TOL_CSV_PYTHON (controls: rows or columns rolled).
+47. Prints the kernels line (all nine kernels; the LRN entries count the
     import path's launches under ``launches_by_path["tf_import"]``, the
     flash forward the serving prefills of phases 29-30 and its prefill
     shape's times, every entry YOLO2's, 0, under ``"yolo2_inference"``
@@ -563,8 +595,8 @@ Phases (any failure exits non-zero before the result line):
     and quantized paths of phases 37-39 and the serving tier's predict
     and generate paths of phase 40, SameDiff's paths of phase 41, the
     parallel paths of phases 42 and 43, the embedding and input tier's
-    paths of phase 44, the learners' of phase 45, and the flash kernels'
-    rows at the parallel shapes), the card line and, last, the
+    paths of phase 44, the learners' of phase 45, datavec's of phase 46,
+    and the flash kernels' rows at the parallel shapes), the card line and, last, the
     result line ``{"ok": true, "device": {...}}``.
 
 Every phase's JSON record carries
@@ -10484,6 +10516,594 @@ def phase_learners(torch, np):
             "wall_s_parts": walls, "wall_s_phase": time.perf_counter() - t0}
 
 
+# --------------------------------------------------------------------------
+# phase 46: datavec and the dashboard. The reference's two ETL-to-training
+# flows at full width: ImageRecordReader -> RecordReaderDataSetIterator ->
+# ResNet-50's fit under a StatsListener into a FileStatsStorage that a live
+# UIServer serves (no kernel of the port on its path), and a CSV of
+# character sequences through a TransformProcess and
+# SequenceRecordReaderDataSetIterator into config #3 (4 + 4 fused-LSTM
+# launches a step); and CSVRecordReader's native fast path at HIGGS's row
+# layout.
+
+ETL_IMAGES = PIPE_IMAGES        # phase 44's 1,024 images of 256 x 256 x 3
+ETL_SIDE = PIPE_SIDE
+ETL_CROP = PIPE_CROP            # ImageRecordReader(root, 224, 224, 3)
+ETL_CLASSES = 1000
+ETL_UPDATE_FREQUENCY = 5        # the listener samples every 5th iteration
+ETL_DIRECT_BATCHES = 3          # fit(iterator) against fit_batch, bit for bit
+ETL_ALONE_STEPS = 6
+ETL_PROFILE_BATCHES = 3         # the profiled window: the epoch's first 3
+ETL_POLL_S = 0.1                # the dashboard thread's pause between polls
+CSV_SEQUENCES = 512
+CSV_MIN_LEN, CSV_MAX_LEN = 40, 64
+CSV_BATCH = 64
+CSV_VOCAB = 77
+# config #3's 77 symbols, the names integer_to_categorical gives indices
+CSV_SYMBOLS = (
+    "abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789"
+    "!?.,;:'\"-()[] &")
+CSV_ALONE_STEPS = 10
+HIGGS_ROWS = 200_000            # of UCI HIGGS's 11,000,000 rows
+HIGGS_COLS = 29                 # its label and 28 features a row
+HIGGS_PYTHON_ROWS = 10_000      # the Python rows' rate, on the first rows
+HIGGS_FORMAT = "%.18e"          # the number format of HIGGS.csv
+TOL_LISTENER_MAGNITUDE = 1e-6   # relative, against float64 numpy
+TOL_CSV_PYTHON = 1e-6           # absolute; one f32 ulp near |x| = 5 is 5e-7
+
+
+def imagenet_tree(np, root, seed=SEED):
+    """ETL_IMAGES uint8 images of ETL_SIDE x ETL_SIDE x 3 as ``.npy`` files
+    (ImageRecordReader's contract) under ETL_CLASSES class directories with
+    ImageNet-style synset names, each image's class drawn from the seed.
+    Returns the classes drawn."""
+    rng = np.random.default_rng(seed)
+    names = [f"n{1440764 + 3571 * i:08d}" for i in range(ETL_CLASSES)]
+    for n in names:
+        os.makedirs(os.path.join(root, n))
+    classes = rng.integers(0, ETL_CLASSES, ETL_IMAGES)
+    for i, c in enumerate(classes):
+        np.save(os.path.join(root, names[c], f"img_{i:05d}.npy"),
+                rng.integers(0, 256, (ETL_SIDE, ETL_SIDE, 3), dtype=np.uint8))
+    return classes
+
+
+class _Scaled:
+    """The phase's own loop over a DataSet iterator: each batch scaled to
+    [0, 1] by ImagePreProcessingScaler (what the reference's examples do
+    with setPreProcessor; the iterator has no hook), the first ``limit``
+    batches only. The host seconds of each pull and of each scaling are
+    kept apart."""
+
+    def __init__(self, iterator, scaler, limit=None):
+        self.iterator, self.scaler, self.limit = iterator, scaler, limit
+        self.pull_s, self.scale_s = [], []
+
+    def __iter__(self):
+        it = iter(self.iterator)
+        while self.limit is None or len(self.pull_s) < self.limit:
+            t0 = time.perf_counter()
+            try:
+                ds = next(it)
+            except StopIteration:
+                return
+            t1 = time.perf_counter()
+            ds = self.scaler.transform(ds)
+            self.pull_s.append(t1 - t0)
+            self.scale_s.append(time.perf_counter() - t1)
+            yield ds
+
+    def reset(self):
+        self.iterator.reset()
+
+
+def _timed_listener(listener):
+    """Wrap ``listener.iteration_done``: its ms at each iteration, and at a
+    sampled one the host copy its record was computed from."""
+    times, copies = {}, {}
+    inner = listener.iteration_done
+
+    def timed(model, iteration, epoch, score):
+        t0 = time.perf_counter()
+        inner(model, iteration, epoch, score)
+        times[iteration] = (time.perf_counter() - t0) * 1e3
+        if iteration % listener.update_frequency == 0:
+            copies[iteration] = dict(listener._prev_flat)
+    listener.iteration_done = timed
+    return times, copies
+
+
+def _listener_record_errors(np, rec, host):
+    """A sampled record against a host copy ({layer: f32 array}): the
+    relative error of params_mean_magnitude against float64 numpy, and the
+    layers whose histogram counts do not sum to the layer's size or whose
+    min or max is not the copy's, exactly."""
+    total = sum(float(np.abs(a.astype(np.float64)).sum())
+                for a in host.values())
+    mag = total / sum(a.size for a in host.values())
+    bad = [name for name, a in host.items()
+           if sum(rec["histograms"][name]["w"]["counts"]) != a.size
+           or rec["histograms"][name]["w"]["min"] != float(a.min())
+           or rec["histograms"][name]["w"]["max"] != float(a.max())]
+    return abs(rec["params_mean_magnitude"] - mag) / mag, bad
+
+
+def _reader_split(np, root):
+    """One batch of ImageRecordReader's work taken apart (host ms): the
+    files' ``np.load`` (warm: just written), the resize and f32 cast, the
+    label lookups, and the iterator's ``np.stack``."""
+    from deeplearning4j_tpu_torch.datavec import ImageRecordReader
+
+    from pathlib import Path
+
+    rr = ImageRecordReader(root, ETL_CROP, ETL_CROP, 3)
+    files = sorted(Path(root).glob("*/*.npy"))[:RESNET_BATCH]
+    labels = rr.labels
+    t0 = time.perf_counter()
+    raw = [np.load(f) for f in files]
+    t1 = time.perf_counter()
+    imgs = [rr._resize(a) for a in raw]
+    t2 = time.perf_counter()
+    [labels.index(f.parent.name) for f in files]
+    t3 = time.perf_counter()
+    np.stack(imgs)
+    t4 = time.perf_counter()
+    return {"load_ms": (t1 - t0) * 1e3, "resize_cast_ms": (t2 - t1) * 1e3,
+            "label_ms": (t3 - t2) * 1e3, "stack_ms": (t4 - t3) * 1e3}
+
+
+def _get(url):
+    import urllib.request
+
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(url, timeout=60) as r:
+        body = r.read()
+    return body, (time.perf_counter() - t0) * 1e3
+
+
+def _max_param_diff(a, b):
+    from deeplearning4j_tpu_torch.common.trees import tree_leaves
+
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(tree_leaves(a.params), tree_leaves(b.params)))
+
+
+def phase_image_etl(torch, np, tmp, checks, native_fed=None):
+    """ImageNet ETL into ResNet-50 under the dashboard: the reader's epoch
+    through fit, a live /data poll, the listener's cost, the step alone,
+    3 profiled batches, fit(iterator) against fit_batch bit for bit and the
+    listener's record against float64 numpy."""
+    import threading
+
+    from deeplearning4j_tpu_torch import monitoring
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.datasets.normalizers import (
+        ImagePreProcessingScaler,
+    )
+    from deeplearning4j_tpu_torch.datavec import (
+        ImageRecordReader, RecordReaderDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.ops.cuda import KERNELS
+    from deeplearning4j_tpu_torch.ui import (
+        FileStatsStorage, InMemoryStatsStorage, StatsListener, UIServer,
+    )
+    from deeplearning4j_tpu_torch.zoo import ResNet50
+
+    root = os.path.join(tmp, "imagenet")
+    walls, t0 = {}, time.perf_counter()
+
+    def lap(name):  # the wall s of each part of this path, in order
+        nonlocal t0
+        t = time.perf_counter()
+        walls[name] = t - t0
+        t0 = t
+
+    imagenet_tree(np, root)
+    lap("tree_write")
+    out = {"images": ETL_IMAGES, "stored": [ETL_SIDE, ETL_SIDE, 3],
+           "read_as": [ETL_CROP, ETL_CROP, 3], "classes": ETL_CLASSES,
+           "batch": RESNET_BATCH, "update_frequency": ETL_UPDATE_FREQUENCY,
+           "reader_split_per_batch": _reader_split(np, root), "walls": walls}
+    scaler = ImagePreProcessingScaler()
+
+    def batches(limit=None):
+        return _Scaled(RecordReaderDataSetIterator(
+            ImageRecordReader(root, ETL_CROP, ETL_CROP, 3), RESNET_BATCH,
+            num_classes=ETL_CLASSES), scaler, limit)
+
+    base = ResNet50(seed=SEED).init(device="cuda")
+    net = copy.deepcopy(base)
+    # two steps on the first batch, already on the card, warm the net
+    first = next(iter(batches(1)))
+    x = torch.from_numpy(first.features).to("cuda")
+    y = torch.from_numpy(first.labels).to("cuda")
+    [float(net.fit_batch((x, y))) for _ in range(2)]
+    it0 = net.step_count
+    lap("init_and_warm")
+    storage = FileStatsStorage(os.path.join(tmp, "stats.jsonl"))
+    listener = StatsListener(storage, session_id="resnet50",
+                             update_frequency=ETL_UPDATE_FREQUENCY)
+    listener_ms, copies = _timed_listener(listener)
+    net.set_listeners(listener)
+    server = UIServer(port=0).attach(storage).start()
+    url = f"http://127.0.0.1:{server.port}"
+    polls, poll_errors, done = [], [], threading.Event()
+
+    def poll():
+        while not done.is_set():
+            try:
+                polls.append(_get(url + "/data")[1])
+            except Exception as e:  # read after fit, as a failure
+                poll_errors.append(repr(e))
+                return
+            done.wait(ETL_POLL_S)
+
+    monitoring.reset()
+    monitoring.enable()
+    data = batches()
+    poller = threading.Thread(target=poll, daemon=True)
+    try:
+        poller.start()
+        _, launches, _, wall = _count_launches(torch, KERNELS,
+                                               lambda: net.fit(data))
+        done.set()
+        poller.join(120)
+        reg = monitoring.registry()
+        _, wait_s, wait_n = reg.get(
+            "dl4j_train_data_wait_seconds").labels().snapshot()
+        _, step_s, step_n = reg.get(
+            "dl4j_train_device_step_seconds").labels().snapshot()
+        body, data_ms = _get(url + "/data")
+        report, report_ms = _get(url + "/report")
+        metrics, _ = _get(url + "/metrics")
+    finally:
+        done.set()
+        monitoring.disable()
+        monitoring.reset()
+        server.stop()
+    lap("fit_epoch")
+    if poll_errors or not polls:
+        fail(f"phase 46: /data while fit ran: {poll_errors or 'no poll'}")
+    steps = len(data.pull_s)
+    # the fit monitor times every pull, the last (empty) one too
+    if steps != ETL_IMAGES // RESNET_BATCH or wait_n != steps + 1:
+        fail(f"phase 46: the ResNet-50 epoch took {steps} batches "
+             f"({wait_n} data waits)")
+    if any(launches.values()):
+        fail(f"phase 46: ResNet-50 through the reader launched {launches}")
+    session = json.loads(body)["sessions"]["resnet50"]
+    sampled = [i for i in range(it0, it0 + steps)
+               if i % ETL_UPDATE_FREQUENCY == 0]
+    if (session["records"] != steps + 1       # and the epoch-end record
+            or len(session["series"]["score"]) != steps
+            or next(iter(session["histograms"].values()))["iters"]
+            != sampled):
+        fail(f"phase 46: /data after fit: {session['records']} records, "
+             f"{len(session['series']['score'])} scores")
+    if b"<svg" not in report or (
+            b"dl4j_train_data_wait_seconds_count" not in metrics):
+        fail("phase 46: /report has no chart or /metrics no fit monitor")
+    scores = storage.scalars("score", "resnet50")
+    if not np.isfinite([v for _, v in scores]).all():
+        fail(f"phase 46: ResNet-50 scores {scores}")
+    unsampled = [v for i, v in listener_ms.items()
+                 if i % ETL_UPDATE_FREQUENCY]
+    out.update({
+        "launches": {"datavec_resnet50": launches},
+        "steps": steps, "wall_s": wall,
+        "images_per_s_fed": ETL_IMAGES / wall,
+        "iterator_host_ms_per_batch": 1e3 * float(np.mean(data.pull_s)),
+        "scaler_host_ms_per_batch": 1e3 * float(np.mean(data.scale_s)),
+        "data_wait_ms_per_batch": 1e3 * wait_s / steps,
+        "device_step_ms_per_batch": 1e3 * step_s / step_n,
+        "listener_ms_sampled": [listener_ms[i] for i in sampled],
+        "listener_ms_unsampled_mean": float(np.mean(unsampled)),
+        "listener_ms_unsampled_max": float(np.max(unsampled)),
+        "data_polls_during_fit": len(polls),
+        "data_ms_during_fit_p50": float(np.median(polls)),
+        "data_ms_during_fit_max": float(np.max(polls)),
+        "data_ms_after_fit": data_ms, "data_bytes_after_fit": len(body),
+        "report_ms_after_fit": report_ms,
+        "stats_file_bytes": os.path.getsize(os.path.join(
+            tmp, "stats.jsonl")),
+        "scores": [v for _, v in scores]})
+    # the listener's record against float64 numpy over the host copy it
+    # came from; the control is the previous sample's copy
+    recs = [r for r in storage.records("resnet50") if "histograms" in r]
+    last, prev = recs[-1], recs[-2]
+    err, bad = _listener_record_errors(np, last, copies[last["iteration"]])
+    ctl_err, ctl_bad = _listener_record_errors(np, last,
+                                               copies[prev["iteration"]])
+    _hold(checks, "listener_magnitude_against_float64", err,
+          TOL_LISTENER_MAGNITUDE, ctl_err, phase=46)
+    _hold(checks, "listener_histogram_layers_off", float(len(bad)), 0.0,
+          float(len(ctl_bad)), phase=46)
+    out["listener_layers"] = len(copies[last["iteration"]])
+    # the same net's step alone on the batch on the card, no listener
+    net.set_listeners()
+    _, _, _, alone = _count_launches(torch, KERNELS, lambda: [
+        float(v) for v in [net.fit_batch((x, y))
+                           for _ in range(ETL_ALONE_STEPS)]])
+    out["step_alone_images_per_s"] = ETL_ALONE_STEPS * RESNET_BATCH / alone
+    out["native_pipeline_fed_images_per_s"] = native_fed
+    lap("listener_check_and_step_alone")
+    # the epoch's first batches through the reader again under the
+    # profiler, the listener on
+    net.set_listeners(listener)
+    host, device, by_kernel, prof_wall, _ = profiled_launches(
+        torch, KERNELS, lambda: net.fit(batches(ETL_PROFILE_BATCHES)))
+    if any(host.values()) or any(device.values()):
+        fail(f"phase 46: ResNet-50's profiled batches launched {host} "
+             f"(device {device})")
+    out["profile"] = _profile_summary(by_kernel, prof_wall,
+                                      ETL_PROFILE_BATCHES, "step")
+    lap("profiled_batches")
+    del net
+    # fit(iterator) over the first batches against fit_batch over the same
+    # DataSets from the same init, the same listener attached, on cuDNN's
+    # deterministic algorithms; the control rolls one batch's labels by one
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        nets = [copy.deepcopy(base) for _ in range(3)]
+        for n in nets:
+            n.set_listeners(StatsListener(
+                InMemoryStatsStorage(), update_frequency=ETL_UPDATE_FREQUENCY))
+        nets[0].fit(batches(ETL_DIRECT_BATCHES))
+        direct = list(batches(ETL_DIRECT_BATCHES))
+        for i, ds in enumerate(direct):
+            nets[1].fit_batch(ds)
+            nets[2].fit_batch(ds if i != 1 else DataSet(
+                ds.features, np.roll(ds.labels, 1, axis=0)))
+        torch.cuda.synchronize()
+        _hold(checks, "fit_iterator_against_fit_batch",
+              _max_param_diff(nets[0], nets[1]), 0.0,
+              _max_param_diff(nets[0], nets[2]), phase=46)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    del nets, base
+    torch.cuda.empty_cache()
+    lap("fit_against_fit_batch")
+    return out
+
+
+def csv_char_sequences(np, path, seed=SEED):
+    """CSV_SEQUENCES sequences of lengths in [CSV_MIN_LEN, CSV_MAX_LEN] cut
+    from one seeded character stream over CSV_VOCAB symbols, written as
+    integer rows (seq_id, t, char, next_char) in shuffled order under a
+    header. Returns {seq_id: (chars, next chars)}."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(CSV_MIN_LEN, CSV_MAX_LEN + 1, CSV_SEQUENCES)
+    stream = rng.integers(0, CSV_VOCAB, int(lengths.sum()) + 1)
+    starts = np.concatenate([[0], np.cumsum(lengths)[:-1]])
+    rows = [(s, t, int(stream[p + t]), int(stream[p + t + 1]))
+            for s, (p, n) in enumerate(zip(starts, lengths))
+            for t in range(n)]
+    with open(path, "w") as f:
+        f.write("seq_id,t,char,next_char\n")
+        f.write("".join("%d,%d,%d,%d\n" % rows[i]
+                        for i in rng.permutation(len(rows))))
+    return {s: (stream[p:p + n], stream[p + 1:p + n + 1])
+            for s, (p, n) in enumerate(zip(starts, lengths))}
+
+
+def phase_csv_config3(torch, np, tmp, checks):
+    """Config #3 fed by CSV sequences: CSVRecordReader, a TransformProcess
+    round-tripped through JSON, SequenceRecordReaderDataSetIterator with
+    masks, fit for one epoch under a StatsListener; the launches counted on
+    the host and on the device; one masked step card against CPU."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.datavec import (
+        CollectionRecordReader, CSVRecordReader, Schema,
+        SequenceRecordReaderDataSetIterator, TransformProcess,
+    )
+    from deeplearning4j_tpu_torch.ops.cuda import KERNELS
+    from deeplearning4j_tpu_torch.ui import InMemoryStatsStorage, StatsListener
+    from deeplearning4j_tpu_torch.zoo import BidirectionalGravesLSTMCharRnn
+
+    path = os.path.join(tmp, "chars.csv")
+    t0 = time.perf_counter()
+    truth = csv_char_sequences(np, path)
+    out = {"sequences": CSV_SEQUENCES, "lengths": [CSV_MIN_LEN, CSV_MAX_LEN],
+           "vocab": CSV_VOCAB, "batch": CSV_BATCH,
+           "csv_write_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    records = list(CSVRecordReader(path, skip_lines=1))
+    out["csv_read_host_ms"] = (time.perf_counter() - t0) * 1e3
+    schema = (Schema.builder().add_column_integer("seq_id")
+              .add_column_integer("t").add_column_integer("char")
+              .add_column_integer("next_char").build())
+    tp = (TransformProcess.builder(schema)
+          .integer_to_categorical("char", *CSV_SYMBOLS)
+          .convert_to_sequence("seq_id", "t")
+          .categorical_to_one_hot("char")
+          .remove_columns("seq_id", "t").build())
+    tp = TransformProcess.from_json(tp.to_json())
+    t0 = time.perf_counter()
+    seqs = tp.execute(records)
+    out["process_host_ms"] = (time.perf_counter() - t0) * 1e3
+    out["rows"] = len(records)
+    # the process grouped and sorted every sequence: each step's one-hot
+    # is its char, its label the next char
+    order = list(dict.fromkeys(r[0] for r in records))
+    for sid, seq in zip(order, seqs):
+        chars, nxt = truth[sid]
+        a = np.asarray(seq)
+        if (a.shape != (len(chars), CSV_VOCAB + 1)
+                or not (a[:, :-1].argmax(1) == chars).all()
+                or not (a[:, -1] == nxt).all()):
+            fail(f"phase 46: sequence {sid} out of the TransformProcess "
+                 f"is not the stream's")
+    it = SequenceRecordReaderDataSetIterator(
+        CollectionRecordReader(seqs), CSV_BATCH, num_classes=CSV_VOCAB)
+    t0 = time.perf_counter()
+    batches = list(it)
+    out["iterator_host_ms_per_batch"] = (
+        (time.perf_counter() - t0) * 1e3 / len(batches))
+    out["batch_timesteps"] = [int(b.features.shape[1]) for b in batches]
+    out["padded_share"] = float(1 - np.mean([b.features_mask.mean()
+                                             for b in batches]))
+
+    model = BidirectionalGravesLSTMCharRnn(seed=SEED)
+    net = model.init(device="cuda")
+    n_lstm = 2 * model.layers
+    # one masked step from the iterator's first batch, card against the
+    # CPU's plain path on the same weights; the control's labels mask is
+    # all ones
+    b0 = batches[0]
+    cpu, cpu_ctl, card = (copy.deepcopy(net).to("cpu"),
+                          copy.deepcopy(net).to("cpu"), copy.deepcopy(net))
+    card_loss = float(card.fit_batch(b0))
+    cpu_loss = float(cpu.fit_batch(b0))
+    ctl_loss = float(cpu_ctl.fit_batch(DataSet(
+        b0.features, b0.labels, b0.features_mask,
+        np.ones_like(b0.labels_mask))))
+    _hold(checks, "config3_masked_step_card_against_cpu",
+          abs(card_loss - cpu_loss) / abs(cpu_loss), TOL_TRAIN_LOSS,
+          abs(card_loss - ctl_loss) / abs(ctl_loss), phase=46)
+    del cpu, cpu_ctl, card
+    storage = InMemoryStatsStorage()
+    listener = StatsListener(storage, session_id="config3",
+                             update_frequency=ETL_UPDATE_FREQUENCY)
+    listener_ms, _ = _timed_listener(listener)
+    net.set_listeners(listener)
+    _, launches, reserves, wall = _count_launches(torch, KERNELS,
+                                                  lambda: net.fit(it))
+    steps = len(batches)
+    want = n_lstm * steps
+    if (launches != _only(KERNELS, fused_lstm_fwd=want, fused_lstm_bwd=want)
+            or reserves != _reserves_only(KERNELS, fused_lstm_fwd=want)):
+        fail(f"phase 46: config #3's epoch of {steps} steps launched "
+             f"{launches} ({reserves} with reserve); want {n_lstm} + "
+             f"{n_lstm} a step")
+    scores = storage.scalars("score", "config3")
+    if len(scores) != steps or not np.isfinite([v for _, v in scores]).all():
+        fail(f"phase 46: config #3 scores {scores}")
+    # a second epoch under the profiler: the launches counted on the device
+    host, device, by_kernel, prof_wall, _ = profiled_launches(
+        torch, KERNELS, lambda: net.fit(it))
+    if host != device or host != launches:
+        fail(f"phase 46: config #3's profiled epoch: host {host}, device "
+             f"{device}; want {launches}")
+    # the step alone on the first batch already on the card (phase 7's
+    # kind), no listener
+    net.set_listeners()
+    on_card = tuple(torch.from_numpy(a).to("cuda") for a in (
+        b0.features, b0.labels, b0.features_mask, b0.labels_mask))
+    [float(net.fit_batch(on_card)) for _ in range(2)]
+    _, _, _, alone = _count_launches(torch, KERNELS, lambda: [
+        float(v) for v in [net.fit_batch(on_card)
+                           for _ in range(CSV_ALONE_STEPS)]])
+    unsampled = [v for i, v in listener_ms.items()
+                 if i % ETL_UPDATE_FREQUENCY]
+    out.update({
+        "launches": {"datavec_config3": launches},
+        "launches_per_step": {k: v / steps for k, v in launches.items()},
+        "device_launches_per_step": {k: v / steps
+                                     for k, v in device.items()},
+        "steps": steps, "wall_s": wall, "steps_per_s_fed": steps / wall,
+        "steps_per_s_alone": CSV_ALONE_STEPS / alone,
+        "listener_ms_sampled": [listener_ms[i] for i in
+                                range(0, steps, ETL_UPDATE_FREQUENCY)],
+        "listener_ms_unsampled_mean": float(np.mean(unsampled)),
+        "scores": [v for _, v in scores],
+        "card_cpu_losses": [card_loss, cpu_loss, ctl_loss],
+        "profile": _profile_summary(by_kernel, prof_wall, steps, "step")})
+    del net
+    torch.cuda.empty_cache()
+    return out
+
+
+def higgs_csv(np, path, seed=SEED):
+    """HIGGS_ROWS rows in UCI HIGGS's layout: the label (0 or 1) and 28
+    features a row, every number in HIGGS.csv's format; the features from
+    N(0, 1). Returns the file's bytes."""
+    rng = np.random.default_rng(seed)
+    data = rng.standard_normal((HIGGS_ROWS, HIGGS_COLS))
+    data[:, 0] = rng.integers(0, 2, HIGGS_ROWS)
+    fmt = ",".join([HIGGS_FORMAT] * HIGGS_COLS) + "\n"
+    with open(path, "w") as f:
+        for lo in range(0, HIGGS_ROWS, 10_000):
+            f.write("".join(fmt % tuple(r)
+                            for r in data[lo:lo + 10_000].tolist()))
+    return os.path.getsize(path)
+
+
+def phase_csv_fastpath(torch, np, tmp, checks):
+    """CSVRecordReader.numeric_array at HIGGS's layout through the native
+    library built from the source; the Python rows on the first rows."""
+    from deeplearning4j_tpu_torch.datavec import CSVRecordReader
+    from deeplearning4j_tpu_torch.native import lib as native_lib
+
+    path = os.path.join(tmp, "higgs.csv")
+    if native_lib.load_native_lib() is None:  # built here if not yet
+        fail("phase 46: no native library for the CSV fast path")
+    t0 = time.perf_counter()
+    size = higgs_csv(np, path)
+    out = {"rows": HIGGS_ROWS, "cols": HIGGS_COLS, "bytes": size,
+           "csv_write_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    arr = CSVRecordReader(path).numeric_array()
+    native_s = time.perf_counter() - t0
+    if not native_lib.native_built_from_source():
+        fail("phase 46: numeric_array did not run on the native library "
+             "built from the source")
+    ref = native_lib.native_csv_parse(path)
+    if ref is None or arr.shape != (HIGGS_ROWS, HIGGS_COLS):
+        fail(f"phase 46: the HIGGS file parsed to {arr.shape}")
+    _hold(checks, "csv_numeric_array_against_native_parse",
+          float(np.abs(arr - ref).max()), 0.0,
+          float(np.abs(arr - np.roll(ref, 1, axis=0)).max()), phase=46)
+    with open(path) as f:
+        head = "".join(next(f) for _ in range(HIGGS_PYTHON_ROWS))
+    t0 = time.perf_counter()
+    rows = CSVRecordReader(text=head).numeric_array()
+    python_s = time.perf_counter() - t0
+    first = arr[:HIGGS_PYTHON_ROWS]
+    _hold(checks, "csv_numeric_array_against_python_rows",
+          float(np.abs(rows - first).max()), TOL_CSV_PYTHON,
+          float(np.abs(rows - np.roll(first, 1, axis=1)).max()), phase=46)
+    out.update({"native_library": str(native_lib.native_library_path()),
+                "native_s": native_s, "native_rows_per_s": HIGGS_ROWS / native_s,
+                "native_mb_per_s": size / native_s / 1e6,
+                "python_rows": HIGGS_PYTHON_ROWS, "python_s": python_s,
+                "python_rows_per_s": HIGGS_PYTHON_ROWS / python_s})
+    return out
+
+
+def phase_datavec_ui(torch, np, native_fed=None):
+    """Phase 46: datavec and the dashboard on the card. ``native_fed`` is
+    phase 44's native-pipeline rate into the same net (images/s), printed
+    beside the reader's."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.ops.cuda import KERNELS
+
+    t0 = time.perf_counter()
+    checks, walls, launches, out = {}, {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, fn in (
+                ("imagenet_resnet50", lambda: phase_image_etl(
+                    torch, np, tmp, checks, native_fed)),
+                ("csv_config3", lambda: phase_csv_config3(torch, np, tmp,
+                                                          checks)),
+                ("csv_higgs", lambda: phase_csv_fastpath(torch, np, tmp,
+                                                         checks))):
+            t = time.perf_counter()
+            rec, counts, _, _ = _count_launches(torch, KERNELS, fn)
+            walls[name] = time.perf_counter() - t
+            # a path counted inside its phase (its checks launch more);
+            # the CSV fast path is host work, counted whole
+            launches.update(rec.pop("launches", {"datavec_higgs_csv": counts}))
+            out[name] = rec
+    if any(launches["datavec_higgs_csv"].values()) or any(
+            launches["datavec_resnet50"].values()):
+        fail(f"phase 46 launched kernels of the port off config #3's path: "
+             f"{launches}")
+    return {**out, "checks": checks, "launches": launches,
+            "wall_s_parts": walls, "wall_s_phase": time.perf_counter() - t0}
+
+
 def main() -> None:
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "deeplearning4j_tpu_torch")):
@@ -11026,6 +11646,32 @@ def main() -> None:
           f"{lw['similarity_cross_community']:.3f}; phase "
           f"{learners['wall_s_phase']:.1f} s", flush=True)
 
+    # phase 46: datavec and the dashboard: ImageNet ETL through
+    # ImageRecordReader into ResNet-50 under a StatsListener and a live
+    # UIServer, CSV sequences through a TransformProcess into config #3,
+    # and the CSV fast path at HIGGS's layout
+    dv = phase_datavec_ui(torch, np, ep["fed_samples_per_s"])
+    emit(card, {"datavec_ui": dv})
+    di, dc, dh = dv["imagenet_resnet50"], dv["csv_config3"], dv["csv_higgs"]
+    print(f"datavec and the dashboard on {card}: ResNet-50 fed by "
+          f"ImageRecordReader {di['images_per_s_fed']:.0f} images/s (step "
+          f"alone {di['step_alone_images_per_s']:.0f}, native pipeline "
+          f"{ep['fed_samples_per_s']:.0f}), reader "
+          f"{di['iterator_host_ms_per_batch']:.1f} ms of host a batch, "
+          f"listener {max(di['listener_ms_sampled']):.0f} ms sampled / "
+          f"{di['listener_ms_unsampled_mean']:.2f} ms not, /data "
+          f"{di['data_ms_during_fit_p50']:.1f} ms p50 during fit, device "
+          f"{di['profile']['device_ms_per_step']:.1f} ms a step, busy "
+          f"{di['profile']['device_busy_share']}; config #3 from CSV "
+          f"{dc['steps_per_s_fed']:.1f} steps/s (alone "
+          f"{dc['steps_per_s_alone']:.1f}), process "
+          f"{dc['process_host_ms']:.0f} ms, "
+          f"{dc['launches_per_step']['fused_lstm_fwd']:.0f} + "
+          f"{dc['launches_per_step']['fused_lstm_bwd']:.0f} LSTM launches a "
+          f"step; HIGGS CSV native {dh['native_rows_per_s']:.0f} rows/s, "
+          f"Python {dh['python_rows_per_s']:.0f}; phase "
+          f"{dv['wall_s_phase']:.1f} s", flush=True)
+
     # the kernels line, card line, result line
     decode = rows[0]  # the serving path's decode shape [8, 1, 256]
     graves = bwd_rows[0]  # the training path's first layer [64, 64, 200]
@@ -11250,6 +11896,10 @@ def main() -> None:
         e["launches"] += sum(paths.values())
     for e in entries:  # the learners' paths (phase 45)
         paths = {k: v[e["name"]] for k, v in learners["launches"].items()}
+        e["launches_by_path"].update(paths)
+        e["launches"] += sum(paths.values())
+    for e in entries:  # datavec and the dashboard's paths (phase 46)
+        paths = {k: v[e["name"]] for k, v in dv["launches"].items()}
         e["launches_by_path"].update(paths)
         e["launches"] += sum(paths.values())
     # the flash kernels at the parallel paths' shapes (phase 43)

@@ -5,8 +5,9 @@ The port builds ``native/dl4jtpu_native.cpp`` with g++ into its own build
 directory under a hashed name (never into ``native/build/``, which the
 JAX package owns); both packages' iterators over the same files deliver
 the same batches bit for bit. ``tests/test_native.py``'s cases run here on
-the port (but the DataVec CSV reader's, whose ``datavec/`` is not ported
-yet). ``normalize`` and ``device_prefetch`` run on the CPU here
+the port, the DataVec CSV reader's fast path among them (the port's
+``CSVRecordReader.numeric_array`` through the port's build, held against
+the JAX reader's). ``normalize`` and ``device_prefetch`` run on the CPU here
 (``device="cpu"``); the pinned side-stream copy runs in the ``cuda`` case.
 """
 
@@ -276,6 +277,36 @@ class TestNativeCsv:
         np.testing.assert_allclose(arr, data, rtol=0, atol=1e-5)
         np.testing.assert_array_equal(arr, jax_native.native_csv_parse(
             path, n_threads=4))
+
+    @pytest.mark.parametrize("skip", [0, 1])
+    def test_csv_header_and_reader_fastpath(self, tmp_path, rng,
+                                            monkeypatch, skip):
+        from deeplearning4j_tpu.datavec.records import (
+            CSVRecordReader as JaxCSVRecordReader,
+        )
+        from deeplearning4j_tpu_torch.datavec.records import CSVRecordReader
+
+        assert native_available()
+        data = rng.normal(size=(50, 3)).astype(np.float32)
+        path = tmp_path / "d.csv"
+        with open(path, "w") as f:
+            if skip:
+                f.write("a,b,c\n")
+            for row in data:
+                f.write(",".join(f"{v:.6f}" for v in row) + "\n")
+        calls = []
+        real = native_lib.native_csv_parse
+        monkeypatch.setattr(native, "native_csv_parse",
+                            lambda *a, **k: calls.append(a) or real(*a, **k))
+        arr = CSVRecordReader(path, skip_lines=skip).numeric_array()
+        assert len(calls) == 1 and arr.shape == (50, 3)
+        np.testing.assert_allclose(arr, data, rtol=0, atol=1e-5)
+        np.testing.assert_array_equal(
+            arr, JaxCSVRecordReader(path, skip_lines=skip).numeric_array())
+        # the Python rows (no native library) agree within the parse
+        monkeypatch.setattr(native, "native_csv_parse", lambda *a, **k: None)
+        rows = CSVRecordReader(path, skip_lines=skip).numeric_array()
+        np.testing.assert_allclose(rows, arr, rtol=0, atol=1e-6)
 
     def test_csv_parse_thread_split_consistency(self, tmp_path):
         n = 10007

@@ -63,6 +63,29 @@ def test_no_jax_import_statement(path):
             assert root not in ("jax", "jaxlib", "deeplearning4j_tpu"), (path, n)
 
 
+def test_every_jax_module_has_a_counterpart():
+    """Each module of the JAX package has one at the same relative path in
+    the port, but the Pallas kernels (the port's are ``ops/cuda/`` and
+    ``csrc/``) and ``parallel/_compat.py`` (``parallel/collectives.py``)."""
+    jax_pkg = ROOT / "deeplearning4j_tpu"
+    theirs = {p.relative_to(jax_pkg).as_posix() for p in jax_pkg.rglob("*.py")}
+    ours = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
+    assert sorted(theirs - ours) == [
+        "ops/pallas/__init__.py", "ops/pallas/flash_attention.py",
+        "ops/pallas/fused_gru.py", "ops/pallas/fused_lstm.py",
+        "ops/pallas/lrn.py", "parallel/_compat.py"]
+    assert (PKG / "parallel" / "collectives.py").is_file()
+
+
+@pytest.mark.parametrize("path", sorted(ROOT.glob("tests/test_torch_*.py")),
+                         ids=lambda p: p.name)
+def test_port_tests_carry_no_xfail(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        assert not (isinstance(node, ast.Attribute)
+                    and node.attr == "xfail"), (path, node.lineno)
+
+
 def test_kernel_sources_are_in_the_package():
     from deeplearning4j_tpu_torch.ops.cuda import KERNELS
 
