@@ -21,8 +21,10 @@ Phases (any failure exits non-zero before the result line):
    device function), the plain version and, as a yardstick the port never
    calls, ``torch.nn.LSTM`` (cuDNN) on the same layer with its gates
    reordered (on CUDA events and as the device time of its kernels); and
-   the stream kernel at [64, 64, 1024] in f32 and bf16, past the width a
-   cluster holds, beside cuDNN's LSTM there.
+   the grid kernel, R resident across a row group of the card's CTAs,
+   past the width a cluster holds: at [64, 64, 1024] in f32 and bf16
+   beside cuDNN's LSTM, and at a ragged [50, 64, 650] with peepholes,
+   reversed.
 4. Main path: TextGenerationLSTM at its published width (LSTM 256 x 2,
    vocabulary 77, random weights from a seed) served by
    ``GenerationEngine(slots=8, max_len=256)``: 16 requests, greedy and
@@ -51,8 +53,11 @@ Phases (any failure exits non-zero before the result line):
    backward kernel against their plain versions at the training shapes
    (B=64, T=64; H=200 with peepholes, reversed; H=256 without), in f32 and
    bf16, both kernels on their cluster designs (R resident across a
-   thread-block cluster), and at [64, 16, 448] and [64, 64, 1024] (f32
-   and bf16), past the width a cluster holds, on both stream designs;
+   thread-block cluster); past the width a cluster holds, on both grid
+   designs at [64, 16, 448], [64, 64, 1024] and a ragged [50, 64, 650]
+   with peepholes, reversed (f32 and bf16; each T = 64 row with its time
+   a step, T = 64 against T = 8, and the card's resident CTAs), and on
+   both stream designs at [64, 8, 1200], past the width the grid holds;
    each row names the designs the
    launchers chose (held against their Python mirrors ``fwd_design`` and
    ``bwd_design``) and is profiled under each design's kernel; each
@@ -586,7 +591,16 @@ Phases (any failure exits non-zero before the result line):
     card against CPU (control: the labels mask all ones); the fast path
     against ``native_csv_parse`` bit for bit and against the Python rows
     within TOL_CSV_PYTHON (controls: rows or columns rolled).
-47. Prints the kernels line (all nine kernels; the LRN entries count the
+47. TextGenerationLSTM(units=1024) on the LSTM's grid kernels: served by
+    ``GenerationEngine(slots=8, max_len=256)`` with phase 4's 16 requests
+    (each prefill's two layers on the grid forward, profiled; exactly 2
+    stream decode launches a replayed step, counted on the device; decode
+    logits against the kernel-disabled plain path on the card), and
+    trained at B = 64, T = 64 (2 steps against a plain copy on the card,
+    then N_WIDE_LSTM_STEPS steps of exactly 2 grid forwards with reserve
+    and 2 grid backwards, the last loss below the first; a profiled
+    window shows both grid kernels, 2 launches each a step).
+48. Prints the kernels line (all nine kernels; the LRN entries count the
     import path's launches under ``launches_by_path["tf_import"]``, the
     flash forward the serving prefills of phases 29-30 and its prefill
     shape's times, every entry YOLO2's, 0, under ``"yolo2_inference"``
@@ -596,7 +610,9 @@ Phases (any failure exits non-zero before the result line):
     and generate paths of phase 40, SameDiff's paths of phase 41, the
     parallel paths of phases 42 and 43, the embedding and input tier's
     paths of phase 44, the learners' of phase 45, datavec's of phase 46,
-    and the flash kernels' rows at the parallel shapes), the card line and, last, the
+    TextGenerationLSTM(1024)'s of phase 47, the LSTM grid designs' rows
+    of phase 6 and the flash kernels' rows at the parallel shapes), the
+    card line and, last, the
     result line ``{"ok": true, "device": {...}}``.
 
 Every phase's JSON record carries
@@ -875,13 +891,16 @@ def cudnn_lstm(torch, W, R, b, forget_gate_bias, dtype):
 
 # the LSTM forward design each shape of phases 3 and 6 must run: the
 # cluster kernel (R resident across a thread-block cluster) at every T > 1
-# shape of the main path, the stream kernel at decode
+# shape of the main path to H = 436 (f32) and 512 (bf16), the grid kernel
+# (R resident across a row group of CTAs) past that width, TextGeneration-
+# LSTM(1024)'s prefill included, the stream kernel at decode
 LSTM_DESIGNS = {"decode_layer1": "stream", "decode_layer2": "stream",
                 "decode_layer1_bf16": "stream", "prefill_layer1": "cluster",
                 "graves_charrnn": "cluster", "graves_charrnn_bf16": "cluster",
                 "arbiter_score_h128": "cluster",
                 "arbiter_score_h256": "cluster",
-                "h1024": "stream", "h1024_bf16": "stream"}
+                "h1024": "grid", "h1024_bf16": "grid", "h650": "grid",
+                "prefill_h1024": "grid"}
 
 
 def lstm_r_scale(H):
@@ -917,9 +936,13 @@ def lstm_design(name, T, B, H, dt, want, backward=False):
 
 
 # the LSTM forward and backward designs each row of phase 6 must run: the
-# cluster kernels at every training shape of the main path; the stream
-# kernels one unit tile past the width a cluster of 16 holds in f32 (the
-# forward's limit is H = 436, the backward's 440)
+# cluster kernels at every training shape of the main path to the width a
+# cluster of 16 holds (f32: the forward's limit is H = 436, the
+# backward's 440; bf16 512); the grid kernels past it, one unit tile past
+# (grid_h448), at a ragged width and batch (h650) and at
+# TextGenerationLSTM(1024)'s [64, 64, 1024]; the stream kernels past the
+# width the grid holds (in f32 a row group of 8-unit CTAs outgrows the
+# H100's 132 SMs past H = 1056), at a short T
 LSTM_TRAIN_DESIGNS = {"graves_layer1": ("cluster", "cluster"),
                       "graves_layer2": ("cluster", "cluster"),
                       "textgen_layer1": ("cluster", "cluster"),
@@ -931,9 +954,12 @@ LSTM_TRAIN_DESIGNS = {"graves_layer1": ("cluster", "cluster"),
                       "arbiter_h128_layer2": ("cluster", "cluster"),
                       "arbiter_h256_layer1": ("cluster", "cluster"),
                       "arbiter_h256_layer2": ("cluster", "cluster"),
-                      "stream_h448": ("stream", "stream"),
-                      "h1024": ("stream", "stream"),
-                      "h1024_bf16": ("stream", "stream")}
+                      "grid_h448": ("grid", "grid"),
+                      "h1024": ("grid", "grid"),
+                      "h1024_bf16": ("grid", "grid"),
+                      "h650": ("grid", "grid"),
+                      "h650_bf16": ("grid", "grid"),
+                      "stream_h1200": ("stream", "stream")}
 
 
 def phase_kernels(torch):
@@ -958,10 +984,17 @@ def phase_kernels(torch):
         # drawn widths 128 and 256 (200 is graves_charrnn's)
         ("arbiter_score_h128", 64, 64, 77, 128, True, True, 1.0, f32),
         ("arbiter_score_h256", 64, 64, 77, 256, True, True, 1.0, f32),
-        # past the width a cluster holds (the stream kernels), timed beside
-        # cuDNN's LSTM so that the grid layer's next family can be ranked
+        # past the width a cluster holds (the grid kernels), timed beside
+        # cuDNN's LSTM: TextGenerationLSTM(1024)'s second layer, and a
+        # ragged width and batch (650 no multiple of a CTA's units, 50 rows
+        # no multiple of a group's), reversed with peepholes
         ("h1024", 64, 64, 256, 1024, False, False, 0.0, f32),
         ("h1024_bf16", 64, 64, 256, 1024, False, False, 0.0, bf16),
+        ("h650", 50, 64, 77, 650, True, True, 1.0, f32),
+        # phase 47's prefills (the mix's prompts, 47 tokens at most, less
+        # the last token) through TextGenerationLSTM(1024)'s first layer:
+        # one live row of a row group
+        ("prefill_h1024", 1, 47, 77, 1024, False, False, 0.0, f32),
     ]
     g = torch.Generator(device="cuda").manual_seed(SEED)
     rows, worst = [], {f32: 0.0, bf16: 0.0}
@@ -1017,6 +1050,9 @@ def phase_kernels(torch):
         if row["kernel_device_ms"] is None:
             fail(f"LSTM forward at {name}: the profile shows no "
                  f"{fwd_kernel}, the {design.kind} design's kernel")
+        if design.kind == "grid" and T == GRU_STEP_PAIR[0]:
+            grid_below_plain(row, "LSTM grid forward", "kernel_device_ms",
+                             "plain_ms")
         row["bound_ms"], row["bound_by"] = lstm_bound(T, B, H, peep,
                                                       bf16=dt == bf16)
         if not peep and not rev:
@@ -1264,6 +1300,55 @@ def _within(torch, got, want, dtype):
     return bool(((got - want).abs() <= TOL_BF16 * (1 + want.abs())).all())
 
 
+def grid_step(torch, row, what, fwd, bwd, fwd_kernel, bwd_kernel,
+              fwd_ms, bwd_ms):
+    """A grid row's time a step: its device times at T = 64 (``fwd_ms``,
+    ``bwd_ms``) against the same calls cut to their first 8 steps (``fwd``,
+    ``bwd``), the difference over the 56 steps between (the launch, the
+    resident R's load and the set-up cancel)."""
+    T, t = GRU_STEP_PAIR
+    fwd_t = kernel_device_ms(torch, fwd, 20, fwd_kernel)
+    bwd_t = kernel_device_ms(torch, bwd, 20, bwd_kernel)
+    if fwd_t is None or bwd_t is None:
+        fail(f"{what} grid at {row['shape']}: the profile shows no kernel at "
+             f"T = {t}")
+    return {f"fwd_T{t}_device_ms": fwd_t, f"bwd_T{t}_device_ms": bwd_t,
+            "fwd_us_per_step": 1e3 * (fwd_ms - fwd_t) / (T - t),
+            "bwd_us_per_step": 1e3 * (bwd_ms - bwd_t) / (T - t)}
+
+
+def grid_below_plain(row, what, device_key, plain_key):
+    """A grid kernel's device time must be below its plain version's."""
+    if not row[device_key] < row[plain_key]:
+        fail(f"{what} at {row['shape']}: {row[device_key]} ms on the "
+             f"device, its plain version {row[plain_key]} ms")
+
+
+def lstm_grid_step(torch, row, xg, R, h0, c0, p, dout, g_c, fwd_kernel,
+                   bwd_kernel):
+    """An LSTM grid row's time a step (``grid_step``) and the CTAs of each
+    grid kernel the card holds at once."""
+    from deeplearning4j_tpu_torch.ops.cuda import fused_lstm
+
+    t = GRU_STEP_PAIR[1]
+    xs, ds = xg[:t], dout[:t]
+    _, _, _, res = fused_lstm.fused_lstm_recurrence(xs, R, h0, c0, p,
+                                                    save_residuals=True)
+    f, b = row["fwd_design"], row["bwd_design"]
+    return {**grid_step(
+                torch, row, "LSTM",
+                lambda: fused_lstm.fused_lstm_recurrence(
+                    xs, R, h0, c0, p, save_residuals=True),
+                lambda: fused_lstm.fused_lstm_bwd_recurrence(
+                    res, R, c0, ds, g_c, p),
+                fwd_kernel, bwd_kernel, row["fwd_reserve_device_ms"],
+                row["kernel_device_ms"]),
+            "fwd_resident_ctas": fused_lstm.card_co_resident(xg.dtype)(
+                f["rows"], f["smem"]),
+            "bwd_resident_ctas": fused_lstm.card_bwd_co_resident(xg.dtype)(
+                b["rows"], b["smem"])}
+
+
 def phase_bwd_kernels(torch):
     """The training forward's reserve and the backward kernel against their
     plain versions, and each layer's gradients through the kernels against
@@ -1291,10 +1376,14 @@ def phase_bwd_kernels(torch):
         ("arbiter_h128_layer2", 64, 64, 400, 128, True, True, 1.0, f32),
         ("arbiter_h256_layer1", 64, 64, 77, 256, True, True, 1.0, f32),
         ("arbiter_h256_layer2", 64, 64, 512, 256, True, True, 1.0, f32),
-        ("stream_h448", 64, 16, 77, 448, True, True, 1.0, f32),
+        ("grid_h448", 64, 16, 77, 448, True, True, 1.0, f32),
         # past the width a cluster holds, beside cuDNN's LSTM pair
         ("h1024", 64, 64, 256, 1024, False, False, 0.0, f32),
         ("h1024_bf16", 64, 64, 256, 1024, False, False, 0.0, bf16),
+        ("h650", 50, 64, 77, 650, True, True, 1.0, f32),
+        ("h650_bf16", 50, 64, 77, 650, True, True, 1.0, bf16),
+        # past the width the grid holds: the stream kernels at T > 1
+        ("stream_h1200", 64, 8, 77, 1200, True, True, 1.0, f32),
     ]
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     rows, worst = [], {f32: 0.0, bf16: 0.0}
@@ -1417,6 +1506,14 @@ def phase_bwd_kernels(torch):
             # projection included
             row["library_fwd_device_ms"] = call_device_ms(
                 torch, lambda: lstm(xt, state), iters)
+        if design.kind == "grid" and T == GRU_STEP_PAIR[0]:
+            row["grid_step"] = lstm_grid_step(torch, row, xg, R, h0, c0, p,
+                                              dout, g_c, fwd_kernel,
+                                              bwd_kernel)
+            grid_below_plain(row, "LSTM grid forward with reserve",
+                             "fwd_reserve_device_ms", "fwd_reserve_plain_ms")
+            grid_below_plain(row, "LSTM grid backward", "kernel_device_ms",
+                             "plain_ms")
         rows.append(row)
     return rows, worst[f32], worst[bf16]
 
@@ -1729,6 +1826,220 @@ def phase_short_training(torch, np, model, per_step, steps=3):
     return {"model": name, "dtype": model.dtype, "steps": steps,
             "losses": losses, "launches": launches,
             "step_wall_ms": 1e3 * wall / steps}
+
+
+# ----------------------------------------- TextGenerationLSTM(1024) slice
+
+WIDE_LSTM_UNITS = 1024  # TextGenerationLSTM(units=1024): the grid kernels
+# its timed training steps: at this width RMSProp's first steps (each
+# parameter moves by about lr / sqrt(1 - decay), whatever its gradient)
+# lift the loss on the repeated batch for about 5 steps before it falls,
+# on the plain path as on the kernels
+# (experiments/lstm_grid/textgen_losses.py); the last 5 of 20 steps must
+# each end below the first
+N_WIDE_LSTM_STEPS = 20
+N_WIDE_LSTM_PROFILED = 5  # its profiled steps
+
+
+def phase_wide_lstm_serving(torch, np):
+    """Serve TextGenerationLSTM(units=1024) through GenerationEngine(slots=8,
+    max_len=256) with phase 4's 16-request mix: each prefill's two layers
+    run the grid forward (profiled: 2 launches of its device function a
+    prefill), each decode step the stream decode kernel inside the replayed
+    graph, exactly 2 LSTM launches a step counted on the device, nothing
+    else; decode logits against the kernel-disabled plain path on the
+    card."""
+    from deeplearning4j_tpu_torch.generation import GenerationEngine
+    from deeplearning4j_tpu_torch.ops.cuda import KERNELS
+    from deeplearning4j_tpu_torch.ops.cuda.fused_lstm import FWD_KERNEL_NAMES
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+
+    what = f"TextGenerationLSTM({WIDE_LSTM_UNITS}) serving"
+    net = TextGenerationLSTM(seed=SEED, units=WIDE_LSTM_UNITS).init(
+        device="cuda")
+    vocab = net.layers[-1].n_out
+    eng = GenerationEngine(net, slots=8, max_len=256, device="cuda")
+    eng.generate([1, 2, 3, 4], max_new_tokens=2)  # warm-up, not counted
+    reqs = lstm_serving_requests(np, vocab)
+
+    def serve(counted):
+        out = [eng.submit(r.pop("prompt"), **r) for r in
+               [dict(q) for q in reqs]]
+        eng.drain()
+        return out
+
+    run = _engine_launches(torch, eng, KERNELS, serve, what=what)
+    streams, launches, reserves = (run["streams"], run["launches"],
+                                   run["reserves"])
+    decode_steps, replays = run["steps"], run["replays"]
+    _check_replays(eng, decode_steps, what)
+    n_prefill = sum(1 for r in reqs if len(r["prompt"]) > 1)
+    want = _only(KERNELS, fused_lstm_fwd=2 * decode_steps + 2 * n_prefill)
+    if launches != want or any(reserves.values()):
+        fail(f"{what} launched {launches} ({reserves} with reserve) in "
+             f"{decode_steps} decode steps ({replays} replays of "
+             f"{eng.capture_launches}) and {n_prefill} prefills; want "
+             f"{want} and no reserve")
+    for i, (st, r) in enumerate(zip(streams, reqs)):
+        if st.finish_reason != "length" or \
+                len(st.tokens) != r["max_new_tokens"]:
+            fail(f"{what}: request {i} finished {st.finish_reason} with "
+                 f"{len(st.tokens)}/{r['max_new_tokens']} tokens")
+        if not all(0 <= t < vocab for t in st.tokens):
+            fail(f"{what}: request {i} emitted a token outside the "
+                 f"vocabulary")
+    worst, logit_max = _decode_against_plain(torch, eng, net, reqs, streams,
+                                             what)
+    prefill_err = _prefill_against_plain(torch, eng, reqs, what)
+    # a prefill's two layers on the grid design, as the launcher and its
+    # mirror choose at the longest prompt
+    longest = max(len(r["prompt"]) for r in reqs) - 1
+    design, grid_name = lstm_design(what, longest, 1, WIDE_LSTM_UNITS,
+                                    torch.float32, "grid")
+    prompt = [int(t) for t in np.arange(longest) % vocab]
+    by_kernel, _, seen = profile_showing(
+        torch, lambda: eng.adapter.prefill(prompt), 3, {grid_name: 2})
+    if seen[grid_name] != 2 * 3:
+        fail(f"{what}: 3 profiled prefills of {longest} tokens show "
+             f"{seen[grid_name]} launches of {grid_name}; want 2 each")
+    n_tokens = sum(len(st.tokens) for st in streams)
+    wall = run["wall_s"]
+    ttft = sorted(st.first_token_at - st.submitted_at for st in run["timed"])
+    return {
+        "model": f"TextGenerationLSTM(units={WIDE_LSTM_UNITS}, layers=2, "
+                 f"vocab={vocab})",
+        "slots": 8, "max_len": 256, "requests": N_REQUESTS,
+        "tokens": n_tokens, "decode_steps": decode_steps,
+        "prefills": n_prefill, "wall_s": wall,
+        "tokens_per_s": n_tokens / wall,
+        "ttft_p50_ms": 1e3 * float(np.percentile(ttft, 50)),
+        "launches": launches, "host_launches": run["host_launches"],
+        "replays": replays, "capture_launches": eng.capture_launches,
+        "decode_programs": eng.decode_programs,
+        "launches_per_decode_step": (launches["fused_lstm_fwd"]
+                                     - 2 * n_prefill) / decode_steps,
+        "decode_logits_max_abs_err_kernel_vs_plain": worst,
+        "decode_logit_max_abs": logit_max,
+        "prefill_carries_max_abs_err_kernel_vs_plain": prefill_err,
+        "prefill_design": design._asdict(),
+        "prefill_profile": {"prompt_tokens": longest,
+                            "launches_per_prefill": seen[grid_name] / 3,
+                            "device_ms_per_prefill": sum(
+                                t for t, _ in by_kernel.values()) / 3},
+        "decode_profile": profile_decode(
+            torch, eng, reqs, want={FWD_KERNEL_NAMES["stream"]: 2}),
+    }
+
+
+def _prefill_against_plain(torch, eng, reqs, what):
+    """Each request's prefill as the engine runs it (its prompt less the
+    last token, through ``adapter.prefill``): every layer's h and c carry,
+    kernel vs kernel-disabled plain path on the card, within TOL. Returns
+    the max abs err."""
+    from deeplearning4j_tpu_torch.common.env import env
+    from deeplearning4j_tpu_torch.common.trees import tree_leaves
+
+    worst = 0.0
+    for i, r in enumerate(reqs):
+        carries = {}
+        for disable in (False, True):
+            env.disable_kernels = disable
+            try:
+                with torch.no_grad():
+                    carries[disable] = tree_leaves(
+                        eng.adapter.prefill(r["prompt"][:-1]))
+            finally:
+                env.reload()
+        finite = all(bool(torch.isfinite(a).all()) for a in carries[False])
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(carries[False], carries[True]))
+        worst = max(worst, err)
+        if not finite or err > TOL:
+            fail(f"{what}: request {i}'s prefill of {len(r['prompt']) - 1} "
+                 f"tokens, kernel vs plain carries on the card: {err} > "
+                 f"{TOL} (finite={finite})")
+    return worst
+
+
+def phase_wide_lstm_training(torch, np):
+    """Train TextGenerationLSTM(units=1024) (RMSProp 1e-3, clipping 5.0,
+    f32) at B=64, T=64: 2 steps against a copy on the kernel-disabled
+    plain path on the card, then N_WIDE_LSTM_STEPS timed steps that must
+    each launch exactly 2 LSTM forwards with reserve and 2 backwards and
+    nothing else, each of the last N_WIDE_LSTM_PROFILED steps' losses on
+    the repeated batch below the first's. The launchers must choose the grid designs (held against
+    their Python mirrors), and a profiled window of N_WIDE_LSTM_PROFILED
+    steps must show both grid kernels, 2 launches each a step."""
+    from deeplearning4j_tpu_torch.common.env import env
+    from deeplearning4j_tpu_torch.common.trees import tree_leaves
+    from deeplearning4j_tpu_torch.ops.cuda import KERNELS
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+
+    what = f"TextGenerationLSTM({WIDE_LSTM_UNITS}) training"
+    model = TextGenerationLSTM(seed=SEED, units=WIDE_LSTM_UNITS)
+    net = model.init(device="cuda")
+    plain = copy.deepcopy(net)
+    B, T, H = 64, model.timesteps, WIDE_LSTM_UNITS
+    x, y = _char_batch(np, np.random.default_rng(SEED + 25),
+                       model.vocab_size, B, T)
+    card = [float(net.fit_batch((x, y))) for _ in range(2)]  # the warm-up
+    env.disable_kernels = True
+    try:
+        ref = [float(plain.fit_batch((x, y))) for _ in range(2)]
+    finally:
+        env.reload()
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(card, ref))
+    param_err = max(float((a - b).abs().max()) for a, b in zip(
+        tree_leaves(net.params), tree_leaves(plain.params)))
+    if loss_err > TOL_TRAIN_LOSS or param_err > TOL_TRAIN_PARAM:
+        fail(f"{what}, 2 steps, kernels vs plain on the card: loss rel err "
+             f"{loss_err} (tol {TOL_TRAIN_LOSS}), param abs err {param_err} "
+             f"(tol {TOL_TRAIN_PARAM})")
+    del plain
+
+    steps = N_WIDE_LSTM_STEPS
+    losses, launches, reserves, wall = _count_launches(
+        torch, KERNELS, lambda: [net.fit_batch((x, y)) for _ in range(steps)])
+    losses = [float(v) for v in losses]
+    if not all(np.isfinite(losses)) or \
+            not max(losses[-N_WIDE_LSTM_PROFILED:]) < losses[0]:
+        fail(f"{what}: the loss on a repeated batch did not fall over "
+             f"{steps} steps (each of the last {N_WIDE_LSTM_PROFILED} below "
+             f"the first): {losses}")
+    want = 2 * steps
+    if (launches != _only(KERNELS, fused_lstm_fwd=want, fused_lstm_bwd=want)
+            or reserves != _reserves_only(KERNELS, fused_lstm_fwd=want)):
+        fail(f"{what}: {steps} steps launched {launches} ({reserves} with "
+             f"reserve); want 2 LSTM forwards with reserve and 2 backwards "
+             f"a step, nothing else")
+    design, fwd_kernel = lstm_design(what, T, B, H, torch.float32, "grid")
+    b_design, bwd_kernel = lstm_design(what, T, B, H, torch.float32, "grid",
+                                       backward=True)
+    want_seen = {fwd_kernel: 2, bwd_kernel: 2}
+    n_prof = N_WIDE_LSTM_PROFILED
+    by_kernel, prof_wall, seen = profile_showing(
+        torch, lambda: net.fit_batch((x, y)), n_prof, want_seen)
+    if any(seen[k] != n * n_prof for k, n in want_seen.items()):
+        fail(f"{what}: {n_prof} profiled steps show {seen} launches; want "
+             f"2 of {fwd_kernel} and of {bwd_kernel} a step")
+    return {
+        "model": f"TextGenerationLSTM(units={H}, layers=2, vocab="
+                 f"{model.vocab_size}), RMSProp 1e-3, clipping 5.0, f32",
+        "batch": B, "timesteps": T, "params": net.num_params(),
+        "plain_copy": {"card_kernel_losses": card, "card_plain_losses": ref,
+                       "loss_max_rel_err": loss_err,
+                       "param_max_abs_err": param_err},
+        "steps": steps, "losses": losses, "launches": launches,
+        "reserve_launches": reserves["fused_lstm_fwd"],
+        "launches_per_step": {k: v / steps for k, v in launches.items() if v},
+        "wall_s": wall, "step_wall_ms": 1e3 * wall / steps,
+        "samples_per_s": B * steps / wall,
+        "fwd_design": design._asdict(), "bwd_design": b_design._asdict(),
+        "profile": {**_profile_summary(by_kernel, prof_wall, n_prof, "step"),
+                    "launches_per_step": {k: v / n_prof
+                                          for k, v in seen.items()}},
+        "synced_step_ms": host_ms(torch, lambda: net.fit_batch((x, y)), 5),
+    }
 
 
 # ----------------------------------------------------------------- BERT slice
@@ -2925,13 +3236,18 @@ def phase_gru_kernels(torch):
             fail(f"GRU backward at {name}: the profile shows no "
                  f"{bwd_kernel}, the {b_design.kind} design's kernel")
         if design.kind == "grid" and T == GRU_STEP_PAIR[0]:
-            row["grid_step"] = gru_grid_step(torch, row, xg, R, h0, dout,
-                                             fwd_kernel, bwd_kernel)
+            t = GRU_STEP_PAIR[1]
+            xs, ds = xg[:t], dout[:t]
+            s_out, _, s_res = fused_gru_recurrence(xs, R, h0,
+                                                   save_residuals=True)
+            row["grid_step"] = grid_step(
+                torch, row, "GRU", lambda: fused_gru_recurrence(xs, R, h0),
+                lambda: fused_gru_bwd_recurrence(s_res, R, h0, s_out, ds),
+                fwd_kernel, bwd_kernel, row["fwd_device_ms"],
+                row["bwd_device_ms"])
             for k in ("fwd", "bwd"):
-                if not row[f"{k}_device_ms"] < row[f"{k}_plain_ms"]:
-                    fail(f"GRU grid {k} at {name}: {row[f'{k}_device_ms']} "
-                         f"ms on the device, its plain version "
-                         f"{row[f'{k}_plain_ms']} ms")
+                grid_below_plain(row, f"GRU grid {k}", f"{k}_device_ms",
+                                 f"{k}_plain_ms")
         rows.append(row)
     # the launches above were for checks and timing: not the main path's
     return rows, worst[f32], worst[bf16]
@@ -2939,51 +3255,31 @@ def phase_gru_kernels(torch):
 
 #: the grid kernels' instances by element type, as mangled device names
 #: hold them (``cuobjdump -sass``)
-GRU_GRID_INSTANCES = {"bfloat16": "grid_kernelI13__nv_bfloat16",
-                      "float32": "grid_kernelIf"}
+GRID_INSTANCES = {"bfloat16": "grid_kernelI13__nv_bfloat16",
+                  "float32": "grid_kernelIf"}
 
 
-def gru_grid_tensor_cores():
-    """The bf16 grid kernels' step products run on the tensor cores: their
-    machine code holds HMMA (mma.sync) instructions, the f32 instances'
-    none. Returns the counts by kernel and type."""
-    from deeplearning4j_tpu_torch.ops.cuda.build import tensor_core_ops
-    from deeplearning4j_tpu_torch.ops.cuda.fused_gru import (
-        FUSED_GRU, FUSED_GRU_BWD,
+def grid_tensor_cores(family):
+    """The bf16 grid kernels' step products of ``family`` ("gru" or
+    "lstm") run on the tensor cores: their machine code holds HMMA
+    (mma.sync) instructions, the f32 instances' none. Returns the counts by
+    kernel and type."""
+    from deeplearning4j_tpu_torch.ops.cuda import (
+        FUSED_GRU, FUSED_GRU_BWD, FUSED_LSTM, FUSED_LSTM_BWD,
     )
+    from deeplearning4j_tpu_torch.ops.cuda.build import tensor_core_ops
 
+    kernels = {"gru": (FUSED_GRU, FUSED_GRU_BWD),
+               "lstm": (FUSED_LSTM, FUSED_LSTM_BWD)}[family]
     out = {}
-    for kern, stem in ((FUSED_GRU, "gru_fwd_"), (FUSED_GRU_BWD, "gru_bwd_")):
-        for dt, inst in GRU_GRID_INSTANCES.items():
+    for kern, stem in zip(kernels, (f"{family}_fwd_", f"{family}_bwd_")):
+        for dt, inst in GRID_INSTANCES.items():
             ops = tensor_core_ops(kern.library, stem + inst)
             out[f"{stem}grid_kernel_{dt}"] = ops
             if (ops["HMMA"] == 0) == (dt == "bfloat16"):
                 fail(f"{stem}grid_kernel ({dt}) holds {ops['HMMA']} HMMA; "
                      f"want some in bf16 and none in f32")
     return out
-
-
-def gru_grid_step(torch, row, xg, R, h0, dout, fwd_kernel, bwd_kernel):
-    """A grid row's time a step: its device time at T = 64 against the
-    same call cut to its first 8 steps, the difference over the 56 steps
-    between (the launch, the resident R's load and the set-up cancel)."""
-    from deeplearning4j_tpu_torch.ops.cuda.fused_gru import (
-        fused_gru_bwd_recurrence, fused_gru_recurrence,
-    )
-
-    T, t = GRU_STEP_PAIR
-    xs, ds = xg[:t], dout[:t]
-    out, _, res = fused_gru_recurrence(xs, R, h0, save_residuals=True)
-    fwd_t = kernel_device_ms(torch, lambda: fused_gru_recurrence(xs, R, h0),
-                             20, fwd_kernel)
-    bwd_t = kernel_device_ms(torch, lambda: fused_gru_bwd_recurrence(
-        res, R, h0, out, ds), 20, bwd_kernel)
-    if fwd_t is None or bwd_t is None:
-        fail(f"GRU grid at {row['shape']}: the profile shows no kernel at "
-             f"T = {t}")
-    return {f"fwd_T{t}_device_ms": fwd_t, f"bwd_T{t}_device_ms": bwd_t,
-            "fwd_us_per_step": 1e3 * (row["fwd_device_ms"] - fwd_t) / (T - t),
-            "bwd_us_per_step": 1e3 * (row["bwd_device_ms"] - bwd_t) / (T - t)}
 
 
 def gru_charrnn_conf(bidi=False, units=GRU_UNITS):
@@ -3018,7 +3314,6 @@ def phase_gru_serving(torch, np):
     max_len=256) with phase 4's 16-request mix: exactly 2 GRU forward
     launches a decode step and a prefill, no other kernel; decode logits
     against the kernel-disabled plain path on the card."""
-    from deeplearning4j_tpu_torch.common.env import env
     from deeplearning4j_tpu_torch.generation import GenerationEngine
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
     from deeplearning4j_tpu_torch.ops.cuda import KERNELS
@@ -3065,47 +3360,8 @@ def phase_gru_serving(torch, np):
         if not all(0 <= t < vocab for t in s.tokens):
             fail(f"GRU request {i} emitted a token outside the vocabulary")
 
-    # the first decode steps of a full pool, kernel vs kernel-disabled plain
-    # path on the card, from the same carries and tokens
-    greedy = [(r, s) for r, s in zip(reqs, streams) if "temperature" not in r]
-    n_check = 8
-    toks = torch.as_tensor([[s.tokens[j % len(s.tokens)]
-                             for _, s in greedy[:8]] for j in range(n_check)],
-                           device="cuda")
-    worst, logit_max = 0.0, 0.0
-    carries = {False: eng.adapter.init_state(8), True: eng.adapter.init_state(8)}
-    for j in range(n_check):
-        logits = {}
-        for disable in (False, True):
-            env.disable_kernels = disable
-            try:
-                logits[disable], carries[disable] = eng.adapter.decode(
-                    carries[disable], toks[j], None)
-            finally:
-                env.reload()
-        err = float((logits[False] - logits[True]).abs().max())
-        worst = max(worst, err)
-        logit_max = max(logit_max, float(logits[True].abs().max()))
-        if not bool(torch.isfinite(logits[False]).all()) or err > TOL:
-            fail(f"GRU decode step {j} logits, kernel vs plain on the card: "
-                 f"{err} > {TOL}")
-    # greedy streams, teacher-forced on the plain path on the card
-    for r, s in greedy:
-        seq = list(r["prompt"]) + s.tokens
-        x = torch.nn.functional.one_hot(
-            torch.as_tensor([seq[:-1]], device="cuda"), vocab).float()
-        env.disable_kernels = True
-        try:
-            with torch.no_grad():
-                pre, _, _ = net._forward_carry(net.params, net.state, x,
-                                               net._init_carries(1))
-        finally:
-            env.reload()
-        lg = pre[0, len(r["prompt"]) - 1:]
-        top2 = lg.topk(2, dim=-1).values
-        if lg.argmax(-1).tolist() != s.tokens and \
-                float((top2[:, 0] - top2[:, 1]).min()) > TOL:
-            fail("GRU greedy tokens differ from the teacher-forced argmax")
+    worst, logit_max = _decode_against_plain(torch, eng, net, reqs, streams,
+                                             "GRU")
 
     n_tokens = sum(len(s.tokens) for s in streams)
     wall = run["wall_s"]
@@ -3129,6 +3385,59 @@ def phase_gru_serving(torch, np):
         "decode_profile": profile_decode(
             torch, eng, reqs, want={gru_names["stream"]: 2}),
     }
+
+
+def _decode_against_plain(torch, eng, net, reqs, streams, what,
+                          n_check: int = 8):
+    """A recurrent char-RNN served by ``eng``: the first ``n_check`` decode
+    steps of a full pool (the greedy streams' tokens), kernel vs
+    kernel-disabled plain path on the card from the same carries, within
+    TOL; then each greedy stream teacher-forced on the plain path on the
+    card must give its tokens as the argmax (or a near tie, within TOL).
+    Returns (the logits' max abs err, their max |logit|)."""
+    from deeplearning4j_tpu_torch.common.env import env
+
+    vocab = eng.adapter.vocab
+    greedy = [(r, s) for r, s in zip(reqs, streams) if "temperature" not in r]
+    toks = torch.as_tensor([[s.tokens[j % len(s.tokens)]
+                             for _, s in greedy[:8]] for j in range(n_check)],
+                           device="cuda")
+    worst, logit_max = 0.0, 0.0
+    carries = {False: eng.adapter.init_state(8), True: eng.adapter.init_state(8)}
+    for j in range(n_check):
+        logits = {}
+        for disable in (False, True):
+            env.disable_kernels = disable
+            try:
+                logits[disable], carries[disable] = eng.adapter.decode(
+                    carries[disable], toks[j], None)
+            finally:
+                env.reload()
+        err = float((logits[False] - logits[True]).abs().max())
+        worst = max(worst, err)
+        logit_max = max(logit_max, float(logits[True].abs().max()))
+        if not bool(torch.isfinite(logits[False]).all()) or err > TOL:
+            fail(f"{what} decode step {j} logits, kernel vs plain on the "
+                 f"card: {err} > {TOL}")
+    # greedy streams, teacher-forced on the plain path on the card
+    for r, s in greedy:
+        seq = list(r["prompt"]) + s.tokens
+        x = torch.nn.functional.one_hot(
+            torch.as_tensor([seq[:-1]], device="cuda"), vocab).float()
+        env.disable_kernels = True
+        try:
+            with torch.no_grad():
+                pre, _, _ = net._forward_carry(net.params, net.state, x,
+                                               net._init_carries(1))
+        finally:
+            env.reload()
+        lg = pre[0, len(r["prompt"]) - 1:]
+        top2 = lg.topk(2, dim=-1).values
+        if lg.argmax(-1).tolist() != s.tokens and \
+                float((top2[:, 0] - top2[:, 1]).min()) > TOL:
+            fail(f"{what} greedy tokens differ from the teacher-forced "
+                 f"argmax")
+    return worst, logit_max
 
 
 def phase_gru_training(torch, np, bidi=False, units=GRU_UNITS):
@@ -3247,6 +3556,50 @@ def _grid_shapes(rows, kind, sass):
                      reserve_device_ms=r["fwd_reserve_device_ms"],
                      reserve_plain_ms=r["fwd_reserve_plain_ms"],
                      reserve_bound_ms=r["fwd_reserve_bound_ms"])
+        out.append(e)
+    return out
+
+
+def lstm_grid_shapes(rows, bwd_rows, kind, sass):
+    """The LSTM grid rows of phase 6 at T = 64 for the kernels line: the
+    forward with its reserve (``kind`` "fwd"; beside it the forward alone
+    at phase 3's same shape, where it has one) or the backward, with their
+    plans, times a step, bounds, cuDNN's times (no peepholes, not
+    reversed; no library LSTM has peepholes) and tensor-core instruction
+    counts."""
+    fwd_alone = {r["shape"]: r for r in rows}
+    out = []
+    for r in bwd_rows:
+        if r["fwd_design"]["kind"] != "grid" or r["T"] != GRU_STEP_PAIR[0]:
+            continue
+        e = {"shape": f"[B={r['B']}, T={r['T']}, H={r['H']}] {r['dtype']}"
+                      + (", peephole, reverse" if r["peephole"] else ""),
+             "us_per_step": r["grid_step"][f"{kind}_us_per_step"],
+             "resident_ctas": r["grid_step"][f"{kind}_resident_ctas"],
+             "tensor_core_ops": sass[f"lstm_{kind}_grid_kernel_{r['dtype']}"]}
+        if kind == "fwd":
+            alone = fwd_alone.get(r["shape"], {})
+            e.update(design=r["fwd_design"], ms=r["fwd_reserve_kernel_ms"],
+                     device_ms=r["fwd_reserve_device_ms"],
+                     plain_ms=r["fwd_reserve_plain_ms"],
+                     bound_ms=r["fwd_reserve_bound_ms"],
+                     bound_by=r["fwd_reserve_bound_by"],
+                     library_ms=r.get("library_fwd_ms"),
+                     library_device_ms=r["library_fwd_device_ms"],
+                     no_reserve_device_ms=alone.get("kernel_device_ms"),
+                     no_reserve_plain_ms=alone.get("plain_ms"),
+                     no_reserve_bound_ms=alone.get("bound_ms"),
+                     no_reserve_library_device_ms=alone.get(
+                         "library_device_ms"))
+        else:
+            e.update(design=r["bwd_design"], ms=r["kernel_ms"],
+                     device_ms=r["kernel_device_ms"], plain_ms=r["plain_ms"],
+                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                     library_ms=None, library_device_ms=None,
+                     layer_pair_device_ms=r["layer_pair_device_ms"],
+                     library_pair_device_ms=r["library_pair_device_ms"],
+                     layer_pair_ms=r["layer_pair_ms"],
+                     library_pair_ms=r["library_pair_ms"])
         out.append(e)
     return out
 
@@ -11133,7 +11486,10 @@ def main() -> None:
         print(f"build {k.name}: {k.library.build_seconds:.2f} s", flush=True)
         print(k.library.build_log.strip(), flush=True)
 
-    # phase 3: forward kernel against plain
+    # phase 3: forward kernel against plain, the bf16 grid products on the
+    # tensor cores
+    lstm_sass = grid_tensor_cores("lstm")
+    emit(card, {"lstm_grid_tensor_cores": lstm_sass})
     rows, worst, worst_bf16 = phase_kernels(torch)
     emit(card, {"kernel_shapes": rows})
 
@@ -11222,7 +11578,7 @@ def main() -> None:
 
     # phase 16: GRU kernels against plain, the bf16 grid products on the
     # tensor cores
-    gru_sass = gru_grid_tensor_cores()
+    gru_sass = grid_tensor_cores("gru")
     emit(card, {"gru_grid_tensor_cores": gru_sass})
     gru_rows, gru_worst, gru_worst_bf16 = phase_gru_kernels(torch)
     emit(card, {"gru_kernel_shapes": gru_rows, "card": card})
@@ -11672,6 +12028,25 @@ def main() -> None:
           f"Python {dh['python_rows_per_s']:.0f}; phase "
           f"{dv['wall_s_phase']:.1f} s", flush=True)
 
+    # phase 47: TextGenerationLSTM(1024) served and trained on the LSTM's
+    # grid kernels (the stream decode kernel in the replayed graph)
+    t0 = time.perf_counter()
+    wide_serve = phase_wide_lstm_serving(torch, np)
+    wide_train = phase_wide_lstm_training(torch, np)
+    wide_lstm = {"serving": wide_serve, "training": wide_train,
+                 "wall_s_phase": time.perf_counter() - t0}
+    emit(card, {"wide_lstm": wide_lstm, "card": card})
+    print(f"TextGenerationLSTM({WIDE_LSTM_UNITS}) on {card}: serving "
+          f"{wide_serve['tokens_per_s']:.1f} tokens/s, "
+          f"{wide_serve['launches_per_decode_step']:.0f} LSTM launches a "
+          f"decode step; training {wide_train['step_wall_ms']:.2f} ms a "
+          f"step ({wide_train['fwd_design']['kind']} forward and "
+          f"{wide_train['bwd_design']['kind']} backward, "
+          f"{wide_train['profile']['device_ms_per_step']:.3f} device ms), "
+          f"losses {wide_train['losses'][0]:.4f} -> "
+          f"{wide_train['losses'][-1]:.4f}; phase "
+          f"{wide_lstm['wall_s_phase']:.1f} s", flush=True)
+
     # the kernels line, card line, result line
     decode = rows[0]  # the serving path's decode shape [8, 1, 256]
     graves = bwd_rows[0]  # the training path's first layer [64, 64, 200]
@@ -11743,6 +12118,12 @@ def main() -> None:
             "layer_pair_ms": textgen["layer_pair_ms"],
             "library_pair_ms": textgen["library_pair_ms"]},
     }]
+    # the grid designs past the cluster's width (phase 6's T = 64 rows),
+    # on TextGenerationLSTM(1024)'s path (phase 47)
+    entries[0]["grid_shapes"] = lstm_grid_shapes(rows, bwd_rows, "fwd",
+                                                 lstm_sass)
+    entries[1]["grid_shapes"] = lstm_grid_shapes(rows, bwd_rows, "bwd",
+                                                 lstm_sass)
     # the flash kernels at the BERT main path's shape and type (bf16, key
     # padding); the f32 times are in flash_times
     from deeplearning4j_tpu_torch.ops.cuda.flash_attention import (
@@ -11900,6 +12281,11 @@ def main() -> None:
         e["launches"] += sum(paths.values())
     for e in entries:  # datavec and the dashboard's paths (phase 46)
         paths = {k: v[e["name"]] for k, v in dv["launches"].items()}
+        e["launches_by_path"].update(paths)
+        e["launches"] += sum(paths.values())
+    for e in entries:  # TextGenerationLSTM(1024)'s paths (phase 47)
+        paths = {"textgen1024_serving": wide_serve["launches"][e["name"]],
+                 "textgen1024_training": wide_train["launches"][e["name"]]}
         e["launches_by_path"].update(paths)
         e["launches"] += sum(paths.values())
     # the flash kernels at the parallel paths' shapes (phase 43)

@@ -5,9 +5,12 @@
 // about 30 MB. So R is split across more CTAs than a cluster has (the
 // persistent-RNN design: Diamos et al., "Persistent RNNs", ICML 2016).
 // CTA c of a row group of n CTAs owns hidden units [c U, c U + U) (U at
-// most kGridSlots * 4 / sizeof(E): 16 in f32, 32 in bf16) and loads their
-// G gate columns of R into shared memory once; they stay there for all T
-// steps. A row group owns RB batch rows; the groups that the card holds
+// most S * 4 / sizeof(E) for S unit slots: a slot holds one f32 unit or a
+// bf16 pair) and loads their G gate columns of R into shared memory once;
+// they stay there for all T steps. The slot count is the layer's parameter:
+// the GRU's kernels take kGridSlots = 16 (48 columns of f32 words a CTA
+// with three gates), the LSTM's kLstmGridSlots = 8 (32 with four), so
+// that an LSTM CTA's resident R still fits at H = 1024. A row group owns RB batch rows; the groups that the card holds
 // run side by side, and a group takes its next RB rows after its last
 // step while rows are left (passes).
 //
@@ -41,8 +44,9 @@
 // - Ragged edges: units past H and rows past B are zero in the resident R
 //   and in the staged operands (cp.async's zero fill), and write nothing.
 //
-// The kernels built on it: gru_fwd_grid_kernel (fused_gru.cu) and
-// gru_bwd_grid_kernel (fused_gru_bwd.cu). This header holds what they
+// The kernels built on it: gru_fwd_grid_kernel (fused_gru.cu),
+// gru_bwd_grid_kernel (fused_gru_bwd.cu), lstm_fwd_grid_kernel
+// (fused_lstm.cu) and lstm_bwd_grid_kernel (fused_lstm_bwd.cu). This header holds what they
 // share: the sizes, the R loader, the L2 reads, the group barrier, the
 // launch configuration and occupancy query, and the planner.
 
@@ -62,18 +66,20 @@ namespace {
 
 constexpr int kGridWarps = 8;                  // warps of a grid CTA
 constexpr int kGridThreads = kGridWarps * 32;
-constexpr int kGridSlots = 16;                 // unit slots of a half-warp
+constexpr int kGridSlots = 16;                 // unit slots: the GRU's
+constexpr int kLstmGridSlots = 8;              // unit slots: the LSTM's
 constexpr int kGridStage = 2048;               // floats of one h stage
 constexpr int kGridStagePad = 8;               // floats after a staged row
 constexpr int kGridOperandPad = 8;             // floats after an operand row
 constexpr int kGridRows[] = {8, 16, 32};       // rows a group, in order
+constexpr int kLstmGridRows[] = {8, 16, 32, 64};  // the LSTM forward's
 constexpr size_t kGridSmemCap = 227 * 1024;    // all a block may use
 constexpr int kGridBarWords = 32;              // a group's counter line
 
-// Hidden units a CTA owns at most for elements of e bytes: a lane slot
-// holds one f32 unit or a bf16 pair (one 4-byte word).
-__host__ __device__ constexpr int grid_units(int e) {
-  return kGridSlots * 4 / e;
+// Hidden units a CTA owns at most for elements of e bytes and `slots`
+// unit slots: a slot holds one f32 unit or a bf16 pair (one 4-byte word).
+__host__ __device__ constexpr int grid_units(int e, int slots = kGridSlots) {
+  return slots * 4 / e;
 }
 // H rounded up to 16: the f32 forward's two half-warps take alternate
 // chunks of 4 k, the bf16 forward's tensor-core product steps of 16 k
@@ -82,29 +88,35 @@ inline __host__ __device__ int grid_hp(int H) { return (H + 15) & ~15; }
 // Elements (room for f32) of one h stage buffer: RB rows of kGridStage /
 // RB k, each padded by kGridStagePad elements (in bf16 a row stride of 4
 // mod 32 words keeps the product's fragment loads off each other's
-// banks), at the most rows.
+// banks), at the most rows (`rows`).
+__host__ __device__ constexpr int grid_stage_floats(int rows) {
+  return kGridStage + kGridStagePad * rows;
+}
 constexpr int kGridStageFloats = kGridStage + kGridStagePad * 32;
 
-// Words of a resident row of the forward: G gates x kGridSlots slots and
-// 4 words of padding, so that the half-warp reading row k + 4 hits the
-// other 16 banks (4 (16 G + 4) = 16 mod 32).
-template <int G>
-__host__ __device__ constexpr int fwd_grid_row() { return G * kGridSlots + 4; }
+// Words of a resident row of the forward: G gates x S slots and 4 words
+// of padding, so that the half-warp reading row k + 4 hits the other 16
+// banks (4 (G S + 4) = 16 mod 32 where G S is a multiple of 8).
+template <int G, int S = kGridSlots>
+__host__ __device__ constexpr int fwd_grid_row() { return G * S + 4; }
 // Words of a resident row of the backward for elements of e bytes: in
 // f32 one word of padding (an odd row), so that 32 lanes reading rows
 // k .. k + 31 hit 32 banks; in bf16 the forward's 4 words (16-byte rows
 // for ldmatrix, eight of them on disjoint banks).
-__host__ __device__ constexpr int bwd_grid_row(int G, int e) {
-  return G * kGridSlots + (e == 2 ? 4 : 1);
+__host__ __device__ constexpr int bwd_grid_row(int G, int e,
+                                               int slots = kGridSlots) {
+  return G * slots + (e == 2 ? 4 : 1);
 }
 
-// Shared memory of a forward grid CTA (bytes), with HP = grid_hp(H):
-//   Rs [HP][fwd_grid_row] words      its gate columns of R, resident
-//   hs [2][kGridStageFloats] E       h_{t-1} staged in k-tiles, double
-//                                    buffer (room for f32)
-inline size_t fwd_grid_smem_bytes(int H, int G) {
-  return (size_t)grid_hp(H) * (G * kGridSlots + 4) * 4 +
-         2 * sizeof(float) * kGridStageFloats;
+// Shared memory of a forward grid CTA (bytes), with HP = grid_hp(H), S
+// unit slots and stages for up to `rows` rows:
+//   Rs [HP][fwd_grid_row] words         its gate columns of R, resident
+//   hs [2][grid_stage_floats(rows)] E   h_{t-1} staged in k-tiles, double
+//                                       buffer (room for f32)
+inline size_t fwd_grid_smem_bytes(int H, int G, int slots = kGridSlots,
+                                  int rows = 32) {
+  return (size_t)grid_hp(H) * (G * slots + 4) * 4 +
+         2 * sizeof(float) * grid_stage_floats(rows);
 }
 
 // Shared memory of a backward grid CTA (bytes) for RB rows and elements
@@ -114,9 +126,11 @@ inline size_t fwd_grid_smem_bytes(int H, int G) {
 //                                         (the padding keeps the bf16
 //                                         product's fragment loads off
 //                                         each other's banks)
-inline size_t bwd_grid_smem_bytes(int rb, int H, int G, int e) {
-  return (size_t)grid_hp(H) * bwd_grid_row(G, e) * 4 +
-         sizeof(float) * (size_t)rb * (G * grid_units(e) + kGridOperandPad);
+inline size_t bwd_grid_smem_bytes(int rb, int H, int G, int e,
+                                  int slots = kGridSlots) {
+  return (size_t)grid_hp(H) * bwd_grid_row(G, e, slots) * 4 +
+         sizeof(float) * (size_t)rb *
+             (G * grid_units(e, slots) + kGridOperandPad);
 }
 
 // The workspace of a call (bytes): a counter line a group, then the
@@ -134,13 +148,14 @@ inline size_t bwd_grid_workspace_bytes(int groups, int n, int rb, int H) {
 }
 
 // Rs[k * Row + g * UL + u] = R[k][g H + j0 + u] for k < H and u < nu
-// (UL = grid_units); zero elsewhere (rows up to HP), so padding never meets
-// a weight. Row is in elements; the padding at a row's end is never
-// written or read. The caller commits and waits for the copies.
-template <typename E, int G, int Row>
+// (UL = grid_units for S slots); zero elsewhere (rows up to HP), so
+// padding never meets a weight. Row is in elements; the padding at a
+// row's end is never written or read. The caller commits and waits for
+// the copies.
+template <typename E, int G, int Row, int S = kGridSlots>
 __device__ __forceinline__ void load_grid_r(E* Rs, const E* R, int H, int HP,
                                             int j0, int nu) {
-  constexpr int UL = grid_units(sizeof(E));
+  constexpr int UL = grid_units(sizeof(E), S);
   const int ld = G * H;
   for (int idx = threadIdx.x; idx < HP * G * UL; idx += kGridThreads) {
     const int u = idx % UL, kg = idx / UL;
@@ -258,6 +273,16 @@ auto by_grid_rows(int rb, F f) {
     default: return f(std::integral_constant<int, 8>{});
   }
 }
+// The same for rb in kLstmGridRows.
+template <typename F>
+auto by_lstm_grid_rows(int rb, F f) {
+  switch (rb) {
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 32: return f(std::integral_constant<int, 32>{});
+    case 16: return f(std::integral_constant<int, 16>{});
+    default: return f(std::integral_constant<int, 8>{});
+  }
+}
 
 // Opts `kernel` in to kGridSmemCap bytes of dynamic shared memory and
 // fills `cfg` for a cooperative grid of `ctas` CTAs of kGridThreads
@@ -318,7 +343,7 @@ cudaError_t grid_resident(K kernel, size_t smem, int* n) {
   return cudaSuccess;
 }
 
-// The design a GRU launcher runs, as its plan query reports it.
+// The design a recurrent launcher runs, as its plan query reports it.
 enum Kind { kStream = 0, kCluster = 1, kGrid = 2 };
 
 // The grid a [T > 1, B, *, H] call takes: U units a CTA, n CTAs a row
@@ -329,22 +354,25 @@ struct GridPlan {
   size_t smem;
 };
 
-// U: H split evenly over the fewest CTAs of at most grid_units(e) units.
-// Rows a group: the fewest of kGridRows whose ceil(B / RB) groups the
-// card holds at once; if none, the most rows that fit, in as many groups
-// as the card holds (each group then takes several passes). No grid where
-// a CTA's shared memory is over the cap or the card holds no row group.
-// `smem_of(rb)` is a CTA's shared memory, `resident(rb, smem, &n)` the
-// CTAs of the kernel's instance for rb rows the card holds at once.
-template <typename SmemFn, typename ResidentFn>
+// U: H split evenly over the fewest CTAs of at most grid_units(e, slots)
+// units. Rows a group: the fewest of `rows` (kGridRows unless given) whose
+// ceil(B / RB) groups the card holds at once; if none, the most rows that
+// fit, in as many groups as the card holds (each group then takes several
+// passes). No grid where a CTA's shared memory is over the cap or the card
+// holds no row group. `smem_of(rb)` is a CTA's shared memory,
+// `resident(rb, smem, &n)` the CTAs of the kernel's instance for rb rows
+// the card holds at once.
+template <typename SmemFn, typename ResidentFn, int NR = 3>
 cudaError_t plan_grid(int B, int H, int e, SmemFn smem_of,
-                      ResidentFn resident, GridPlan* plan) {
+                      ResidentFn resident, GridPlan* plan,
+                      int slots = kGridSlots,
+                      const int (&rows)[NR] = kGridRows) {
   *plan = GridPlan{0, 0, 0, 0, 0};
-  const int ul = grid_units(e);
+  const int ul = grid_units(e, slots);
   const int n0 = (H + ul - 1) / ul;
   const int U = (H + n0 - 1) / n0;
   const int n = (H + U - 1) / U;
-  for (int rb : kGridRows) {
+  for (int rb : rows) {
     const size_t smem = smem_of(rb);
     if (smem > kGridSmemCap) break;
     int cap = 0;

@@ -68,7 +68,6 @@ saved the reserve.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import torch
@@ -84,6 +83,7 @@ from deeplearning4j_tpu_torch.ops.cuda.fused_lstm import (
 from deeplearning4j_tpu_torch.ops.cuda.recurrent_cluster import (
     Design, plan_cluster, rows_max,
 )
+from deeplearning4j_tpu_torch.ops.cuda.recurrent_grid import launcher_plan
 from deeplearning4j_tpu_torch.ops.recurrent import (
     finish_h, gru_bwd_recurrence, gru_recurrence, project_gates,
 )
@@ -149,11 +149,11 @@ def fused_gru_recurrence(xg, R, h0, save_residuals=False):
     hT = xg.new_empty((B, H))
     # decode (T == 1) always takes the stream design, which needs no
     # workspace: only longer calls ask the launcher's plan
-    work = (_workspace(_fwd_plan(T, B, H, xg.dtype, xg.device)[1], xg)
+    work = (rg.workspace(_fwd_plan(T, B, H, xg.dtype, xg.device)[1], xg)
             if T > 1 else None)
     launch(FUSED_GRU, _FWD_SYMBOLS[xg.dtype], xg.device, (
         pointer(xg), pointer(R), pointer(h0), pointer(out), pointer(hT),
-        pointer(reserve), pointer(work), _nbytes(work), T, B, H))
+        pointer(reserve), pointer(work), rg.nbytes(work), T, B, H))
     if save_residuals:
         FUSED_GRU.reserves += 1
     return (out, hT, reserve) if save_residuals else (out, hT)
@@ -187,26 +187,14 @@ def fused_gru_bwd_recurrence(reserve, R, h0, out, dout):
     # itself, the grid design with its workspace
     design, nbytes = _bwd_plan(T, B, H, dt, dev)
     Rt = R.t().contiguous() if design.kind == "stream" else None
-    work = _workspace(nbytes, reserve)
+    work = rg.workspace(nbytes, reserve)
     dg = reserve.new_empty((T, B, 3 * H))
     dh0 = reserve.new_empty((B, H))
     launch(FUSED_GRU_BWD, _BWD_SYMBOLS[dt], dev, (
         pointer(reserve), pointer(R), pointer(Rt), pointer(h0), pointer(out),
         pointer(dout), pointer(dg), pointer(dh0), pointer(work),
-        _nbytes(work), T, B, H))
+        rg.nbytes(work), T, B, H))
     return dg, dh0
-
-
-def _workspace(nbytes: int, like: torch.Tensor):
-    """The workspace a launcher's plan asks for (``nbytes`` bytes on
-    ``like``'s device; the grid design's), or None where it asks for
-    none."""
-    return like.new_empty(nbytes, dtype=torch.uint8) if nbytes else None
-
-
-def _nbytes(work) -> int:
-    """The bytes of a workspace from :func:`_workspace` (0 for None)."""
-    return 0 if work is None else work.numel()
 
 
 class FusedGRUFunction(torch.autograd.Function):
@@ -442,19 +430,6 @@ def card_bwd_co_resident(dtype: torch.dtype, device=None):
     """``co_resident`` for :func:`bwd_design` from the card."""
     return rg.card_co_resident(FUSED_GRU_BWD, "dl4j_gru_bwd_grid_resident",
                                dtype, device)
-
-
-def launcher_plan(kernel, symbol: str, T: int, B: int, H: int,
-                  dtype: torch.dtype, device=None) -> tuple[Design, int]:
-    """A C launcher's own plan (``symbol``, a ``dl4j_gru_*_plan``) on the
-    card: its :class:`Design` and the workspace bytes a call must pass (0
-    unless grid)."""
-    kind, C, rb, smem, units, ctas, groups, work = rc.query(
-        kernel, symbol, 8, device, T, B, H, int(dtype == torch.bfloat16),
-        ctype=ctypes.c_longlong)
-    if kind == 2:
-        return Design("grid", None, rb, smem, units, ctas, groups), work
-    return Design("cluster" if kind else "stream", C or None, rb, smem), 0
 
 
 def launcher_design(T: int, B: int, H: int, dtype: torch.dtype,

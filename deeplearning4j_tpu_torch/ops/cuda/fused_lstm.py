@@ -32,19 +32,26 @@ way. A call that mixes f32 and bf16 (an f32 carry beside bf16 weights, as
 wrappers widen the narrower operands before launching (``widen``; widening
 is exact).
 
-Each kernel has two designs (``csrc/fused_lstm.cu``,
-``fused_lstm_bwd.cu``) on the cluster layer of
-``csrc/recurrent_cluster.cuh``: at T > 1, where a thread-block cluster can
-hold R in shared memory, the cluster kernel; at T == 1 and for any wider
-R, the stream kernel, which reads R (the backward: R^T, formed by the
-wrapper for that design alone) from L2 every step. The C launchers
-choose; :func:`fwd_design` and :func:`bwd_design` repeat their choices,
-and ``FWD_KERNEL_NAMES`` and ``BWD_KERNEL_NAMES`` name each design's
-device function.
+Each kernel has three designs (``csrc/fused_lstm.cu``,
+``fused_lstm_bwd.cu``): at T > 1, where a thread-block cluster can hold R
+in shared memory (f32 to H = 436 forward and 440 backward, bf16 to 512),
+the cluster kernel, on the cluster layer of ``csrc/recurrent_cluster.cuh``;
+at T > 1 past that width, where the whole card holds R, the grid kernel,
+on the grid layer of ``csrc/recurrent_grid.cuh`` at its LSTM slot count
+(R split across row groups of CTAs, 128 a group in f32 at H = 1024, one
+barrier a step over a group, h or the partial carries through L2, the
+bf16 step products on the tensor cores; the wrapper allocates the
+workspace the launcher's plan asks for); at T == 1 (decode) and for any R
+the card cannot hold, the stream kernel, which reads R (the backward:
+R^T, formed by the wrapper for that design alone) from L2 every step. The
+C launchers choose; :func:`fwd_design` and :func:`bwd_design` repeat their
+choices, and ``FWD_KERNEL_NAMES`` and ``BWD_KERNEL_NAMES`` name each
+design's device function.
 
 A stream block keeps all of h in shared memory, under the launchers' cap,
 so H has a limit: :func:`kernel_admits` repeats the launchers' arithmetic
-(the cluster design takes only shapes the stream design also takes).
+(the cluster and grid designs take only shapes the stream design also
+takes).
 The registry sends an all-CUDA ``lstm_layer`` call here when
 :func:`kernel_admits` takes it (f32 or bf16, H under the limit of the
 kernels the call will run); any other call takes the plain lowering, as
@@ -63,6 +70,7 @@ import torch
 
 from deeplearning4j_tpu_torch.common.dtypes import widen
 from deeplearning4j_tpu_torch.ops.cuda import recurrent_cluster as rc
+from deeplearning4j_tpu_torch.ops.cuda import recurrent_grid as rg
 from deeplearning4j_tpu_torch.ops.cuda.build import CudaKernel, launch, pointer
 from deeplearning4j_tpu_torch.ops.cuda.recurrent_cluster import (
     Design, plan_cluster, rows_max,
@@ -94,20 +102,24 @@ _BWD_SYMBOLS = {torch.float32: "dl4j_lstm_bwd",
 
 #: the device function of each design, for profiles
 FWD_KERNEL_NAMES = {"cluster": "lstm_fwd_cluster_kernel",
+                    "grid": "lstm_fwd_grid_kernel",
                     "stream": "lstm_fwd_kernel"}
 BWD_KERNEL_NAMES = {"cluster": "lstm_bwd_cluster_kernel",
+                    "grid": "lstm_bwd_grid_kernel",
                     "stream": "lstm_bwd_kernel"}
 
 FUSED_LSTM = RecurrentKernel(
     "fused_lstm_fwd", "fused_lstm.cu",
     "deeplearning4j_tpu/ops/pallas/fused_lstm.py:83 (_lstm_kernel)",
-    {**{sym: "pppppppppiiip" for sym in _FWD_SYMBOLS.values()},
-     "dl4j_lstm_fwd_plan": "iiiip", "dl4j_lstm_active_clusters": "iiiip"})
+    {**{sym: "ppppppppppliiip" for sym in _FWD_SYMBOLS.values()},
+     "dl4j_lstm_fwd_plan": "iiiip", "dl4j_lstm_active_clusters": "iiiip",
+     "dl4j_lstm_grid_resident": "iiip"})
 FUSED_LSTM_BWD = RecurrentKernel(
     "fused_lstm_bwd", "fused_lstm_bwd.cu",
     "deeplearning4j_tpu/ops/pallas/fused_lstm.py:386 (_lstm_bwd_kernel)",
-    {**{sym: "pppppppppiiip" for sym in _BWD_SYMBOLS.values()},
-     "dl4j_lstm_bwd_plan": "iiiip", "dl4j_lstm_bwd_active_clusters": "iiiip"})
+    {**{sym: "ppppppppppliiip" for sym in _BWD_SYMBOLS.values()},
+     "dl4j_lstm_bwd_plan": "iiiip", "dl4j_lstm_bwd_active_clusters": "iiiip",
+     "dl4j_lstm_bwd_grid_resident": "iiip"})
 
 
 def _check_tensors(what, dtype, device, tensors):
@@ -163,9 +175,14 @@ def fused_lstm_recurrence(xg, R, h0, c0, peephole=None, save_residuals=False):
     out = xg.new_empty((T, B, H))
     hT = xg.new_empty((B, H))
     cT = xg.new_empty((B, H))
+    # decode (T == 1) always takes the stream design, which needs no
+    # workspace: only longer calls ask the launcher's plan
+    work = (rg.workspace(_fwd_plan(T, B, H, xg.dtype, xg.device)[1], xg)
+            if T > 1 else None)
     launch(FUSED_LSTM, _FWD_SYMBOLS[xg.dtype], xg.device, (
         pointer(xg), pointer(R), pointer(h0), pointer(c0), pointer(peephole),
-        pointer(out), pointer(hT), pointer(cT), pointer(reserve), T, B, H))
+        pointer(out), pointer(hT), pointer(cT), pointer(reserve),
+        pointer(work), rg.nbytes(work), T, B, H))
     if save_residuals:
         FUSED_LSTM.reserves += 1
     return (out, hT, cT, reserve) if save_residuals else (out, hT, cT)
@@ -195,15 +212,17 @@ def fused_lstm_bwd_recurrence(reserve, R, c0, dout, dcT=None, peephole=None):
     _check_shapes("fused_lstm_bwd", {
         "R": (R, (H, 4 * H)), "c0": (c0, (B, H)), "dout": (dout, (T, B, H)),
         "dcT": (dcT, (B, H)), "peephole": (peephole, (3 * H,))})
-    # the stream design reads R^T; the cluster design reads R itself
-    Rt = (R.t().contiguous()
-          if _bwd_plan(T, B, H, dt, dev).kind == "stream" else None)
+    # the stream design reads R^T; the cluster and grid designs read R
+    # itself, the grid design with its workspace
+    design, nbytes = _bwd_plan(T, B, H, dt, dev)
+    Rt = R.t().contiguous() if design.kind == "stream" else None
+    work = rg.workspace(nbytes, reserve)
     dg = reserve.new_empty((T, B, 4 * H))
     dc0 = reserve.new_empty((B, H))
     launch(FUSED_LSTM_BWD, _BWD_SYMBOLS[dt], dev, (
         pointer(reserve), pointer(R), pointer(Rt), pointer(c0),
         pointer(dout), pointer(dcT), pointer(peephole), pointer(dg),
-        pointer(dc0), T, B, H))
+        pointer(dc0), pointer(work), rg.nbytes(work), T, B, H))
     return dg, dc0
 
 
@@ -377,23 +396,48 @@ def cluster_smem_bytes(rb: int, H: int, e: int) -> int:
     return rc.fwd_cluster_smem_bytes(rb, H, 4, e)
 
 
+def grid_smem_bytes(H: int) -> int:
+    """A forward grid CTA's shared memory (csrc/fused_lstm.cu
+    ``lstm_fwd_grid_smem_bytes``): ``fwd_grid_smem_bytes`` with four
+    gates at the LSTM's slots, stages for its most rows."""
+    return rg.fwd_grid_smem_bytes(H, 4, rg.LSTM_GRID_SLOTS,
+                                  max(rg.LSTM_GRID_ROWS))
+
+
+def bwd_grid_smem_bytes(rb: int, H: int, e: int) -> int:
+    """A backward grid CTA's shared memory for RB rows and elements of
+    ``e`` bytes: ``bwd_grid_smem_bytes`` with four gates at the LSTM's
+    slots."""
+    return rg.bwd_grid_smem_bytes(rb, H, 4, e, rg.LSTM_GRID_SLOTS)
+
+
 def fwd_design(T: int, B: int, H: int, dtype: torch.dtype,
-               active_clusters=None) -> Design:
+               active_clusters=None, co_resident=None) -> Design:
     """The forward launcher's choice for a [T, B, *, H] call
     (csrc/fused_lstm.cu ``plan_fwd``). ``active_clusters(C, rows, smem)``
     is the card's ``cudaOccupancyMaxActiveClusters`` for clusters of C CTAs
-    of the cluster kernel for ``rows`` rows with ``smem`` bytes each; None
-    asks the card (:func:`card_active_clusters`).
+    of the cluster kernel for ``rows`` rows with ``smem`` bytes each;
+    ``co_resident(rows, smem)`` the CTAs of the grid kernel for ``rows``
+    rows the card holds at once; None asks the card
+    (:func:`card_active_clusters`, :func:`card_co_resident`).
 
-    T > 1 takes the cluster design where ``plan_cluster`` finds one: in
-    f32 a cluster of 16 holds R [H, 4H] up to H = 436, in bf16 up to 512.
-    Everything else takes the stream design: rows halved while over the
-    cap, then more k-slices while warps would idle, each at least 16 long
-    (decode: DECODE_UNITS units a block)."""
+    T > 1 takes the cluster design where ``plan_cluster`` finds one (in
+    f32 a cluster of 16 holds R [H, 4H] up to H = 436, in bf16 up to 512),
+    else the grid design where ``plan_grid`` finds one at the LSTM's slots
+    and rows (a CTA holds its R to H = 1472; on the H100 an f32 row group
+    of 8-unit CTAs fits to H = 1056). Everything else takes the stream
+    design: rows
+    halved while over the cap, then more k-slices while warps would idle,
+    each at least 16 long (decode: DECODE_UNITS units a block)."""
     e = 2 if dtype == torch.bfloat16 else 4
     if T > 1:
         d = plan_cluster(B, H, lambda rb, C: cluster_smem_bytes(rb, H, e),
                          active_clusters or card_active_clusters(dtype))
+        if d is not None:
+            return d
+        d = rg.plan_grid(B, H, e, lambda rb: grid_smem_bytes(H),
+                         co_resident or card_co_resident(dtype),
+                         rg.LSTM_GRID_SLOTS, rg.LSTM_GRID_ROWS)
         if d is not None:
             return d
     upb = min(H, DECODE_UNITS) if T == 1 else H
@@ -414,21 +458,31 @@ def bwd_cluster_smem_bytes(rb: int, H: int, C: int, e: int) -> int:
 
 
 def bwd_design(T: int, B: int, H: int, dtype: torch.dtype,
-               active_clusters=None) -> Design:
+               active_clusters=None, co_resident=None) -> Design:
     """The backward launcher's choice for a [T, B, *, H] call
     (csrc/fused_lstm_bwd.cu ``plan_bwd``), as :func:`fwd_design` for the
     forward: the cluster design at T > 1 where ``plan_cluster`` finds one
     (a CTA's shared memory grows with the cluster, by its receive slots;
     in f32 a cluster of 16 holds R [H, 4H] up to H = 440, in bf16 up to
-    512); else the stream design, rows halved while over the cap, then
-    more slices of the 4H reduction while warps would idle, each at least
-    16 long. ``active_clusters`` None asks the card
-    (:func:`card_bwd_active_clusters`)."""
+    512); else the grid design where ``plan_grid`` finds one at the
+    LSTM's slots and the GRU's rows, up to 32 a group (a CTA's shared
+    memory grows with its rows, by the product operands; a CTA
+    holds its R to H = 1744 in f32, 1584 in bf16, and on the H100 an f32
+    row group fits to H = 1056); else the stream design, rows halved while
+    over the cap, then more slices of the 4H reduction while warps would
+    idle, each at least 16 long. ``active_clusters`` and ``co_resident``
+    None ask the card (:func:`card_bwd_active_clusters`,
+    :func:`card_bwd_co_resident`)."""
     e = 2 if dtype == torch.bfloat16 else 4
     if T > 1:
         d = plan_cluster(B, H,
                          lambda rb, C: bwd_cluster_smem_bytes(rb, H, C, e),
                          active_clusters or card_bwd_active_clusters(dtype))
+        if d is not None:
+            return d
+        d = rg.plan_grid(B, H, e, lambda rb: bwd_grid_smem_bytes(rb, H, e),
+                         co_resident or card_bwd_co_resident(dtype),
+                         rg.LSTM_GRID_SLOTS)
         if d is not None:
             return d
     rb = rows_max(B)
@@ -452,30 +506,48 @@ def card_bwd_active_clusters(dtype: torch.dtype, device=None):
                                    device)
 
 
+def card_co_resident(dtype: torch.dtype, device=None):
+    """``co_resident`` for :func:`fwd_design` from the card."""
+    return rg.card_co_resident(FUSED_LSTM, "dl4j_lstm_grid_resident", dtype,
+                               device)
+
+
+def card_bwd_co_resident(dtype: torch.dtype, device=None):
+    """``co_resident`` for :func:`bwd_design` from the card."""
+    return rg.card_co_resident(FUSED_LSTM_BWD, "dl4j_lstm_bwd_grid_resident",
+                               dtype, device)
+
+
 def launcher_design(T: int, B: int, H: int, dtype: torch.dtype,
                     device=None) -> Design:
     """The forward C launcher's own choice (``dl4j_lstm_fwd_plan``)."""
-    return rc.launcher_design(FUSED_LSTM, "dl4j_lstm_fwd_plan", T, B, H,
-                              dtype, device)
+    return rg.launcher_plan(FUSED_LSTM, "dl4j_lstm_fwd_plan", T, B, H, dtype,
+                            device)[0]
 
 
 def launcher_bwd_design(T: int, B: int, H: int, dtype: torch.dtype,
                         device=None) -> Design:
     """The backward C launcher's own choice (``dl4j_lstm_bwd_plan``)."""
-    return rc.launcher_design(FUSED_LSTM_BWD, "dl4j_lstm_bwd_plan", T, B, H,
-                              dtype, device)
+    return rg.launcher_plan(FUSED_LSTM_BWD, "dl4j_lstm_bwd_plan", T, B, H,
+                            dtype, device)[0]
 
 
-#: the backward launcher's choice by call, asked once: the wrapper forms
-#: R^T only for the stream design
-_bwd_plan = functools.lru_cache(maxsize=256)(launcher_bwd_design)
+#: the launchers' plans by call, asked once: the wrappers allocate the
+#: workspace a plan asks for, and form R^T only for the backward's stream
+#: design
+_fwd_plan = functools.lru_cache(maxsize=256)(
+    functools.partial(rg.launcher_plan, FUSED_LSTM, "dl4j_lstm_fwd_plan"))
+_bwd_plan = functools.lru_cache(maxsize=256)(
+    functools.partial(rg.launcher_plan, FUSED_LSTM_BWD, "dl4j_lstm_bwd_plan"))
 
 
 def kernel_admits(T: int, H: int, dtype: torch.dtype,
                   backward: bool) -> bool:
     """Can the kernels compute a call of this length, width and (promoted)
     type: f32 or bf16, and the shared memory of the forward, and of the
-    backward when autograd will run it, under the cap."""
+    backward when autograd will run it, under the cap. The cluster and
+    grid designs widen nothing: they take only shapes that the stream
+    launchers take too."""
     return (dtype in _FWD_SYMBOLS and fwd_smem_bytes(T, H) <= SMEM_CAP
             and (not backward or bwd_smem_bytes(H) <= SMEM_CAP))
 

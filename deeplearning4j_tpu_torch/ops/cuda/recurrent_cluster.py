@@ -1,16 +1,16 @@
 """The thread-block-cluster layer of the recurrent kernels, as their
 launchers see it: the Python mirror of ``csrc/recurrent_cluster.cuh``.
 
-The GRU and LSTM forwards and backwards each have two designs:
+The GRU and LSTM forwards and backwards each have three designs:
 at T > 1, where a thread-block cluster can hold R in shared memory, a
-cluster kernel; elsewhere a stream kernel that reads R from L2 every step.
-The GRU's have a third past the cluster's width, on the grid layer
-(``recurrent_grid.py``).
+cluster kernel; at T > 1 past the cluster's width, a grid kernel on the
+grid layer (``recurrent_grid.py``); elsewhere a stream kernel that reads R
+from L2 every step.
 The C launchers choose by shape and by what the card can co-schedule
 (``plan_cluster``), never by a failed launch. Each family's ``fwd_design``
 / ``bwd_design`` repeats that choice here, so that the CPU tests can hold
 it at its boundaries and ``chip_smoke.py`` can hold each launcher to it;
-:func:`launcher_design` asks the C launcher itself.
+``recurrent_grid.launcher_plan`` asks the C launcher itself.
 """
 
 from __future__ import annotations
@@ -134,11 +134,3 @@ def card_active_clusters(kernel, symbol: str, dtype: torch.dtype,
     return lambda C, rows, smem: query(kernel, symbol, 1, device, bf16, rows,
                                        C, int(smem))[0]
 
-
-def launcher_design(kernel, symbol: str, T: int, B: int, H: int,
-                    dtype: torch.dtype, device=None) -> Design:
-    """The C launcher's own choice (``symbol``, a ``dl4j_*_plan``) on the
-    card."""
-    cluster, C, rb, smem = query(kernel, symbol, 4, device, T, B, H,
-                                 int(dtype == torch.bfloat16))
-    return Design("cluster" if cluster else "stream", C or None, rb, smem)

@@ -400,12 +400,13 @@ def test_bwd_cluster_design_against_plain_on_card(cuda_device, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_bwd_stream_design_against_plain_on_card(cuda_device, dtype):
-    """T = 1, and T > 1 one unit past the width a cluster of 16 holds
-    (H = 441 in f32, 513 in bf16), take the stream design, against the
-    plain backward."""
+    """T = 1, and T > 1 past the width the grid holds (H = 1100 in f32,
+    where a row group of 8-unit CTAs outgrows the H100's 132 SMs; 1600 in
+    bf16, where a CTA's R outgrows its shared memory), take the stream
+    design, against the plain backward."""
     dt = getattr(torch, dtype)
     g = torch.Generator(device=cuda_device).manual_seed(10)
-    past = 441 if dt == torch.float32 else 513
+    past = 1100 if dt == torch.float32 else 1600
     for B, T, H, peep in ((8, 1, 256, False), (5, 6, past, True)):
         design = port_fused.launcher_bwd_design(T, B, H, dt)
         assert design == port_fused.bwd_design(T, B, H, dt)

@@ -272,26 +272,38 @@ def test_grid_layer_constants_match_the_header():
     text = (CSRC / "recurrent_grid.cuh").read_text()
     assert _const(text, "kGridWarps") == rg.GRID_WARPS
     assert _const(text, "kGridSlots") == rg.GRID_SLOTS
+    assert _const(text, "kLstmGridSlots") == rg.LSTM_GRID_SLOTS
     assert _const(text, "kGridStage") == rg.GRID_STAGE
     assert _const(text, "kGridStagePad") == rg.GRID_STAGE_PAD
     assert _const(text, "kGridOperandPad") == rg.GRID_OPERAND_PAD
     rows = re.search(r"constexpr int kGridRows\[\] = \{([\d, ]+)\};",
                      text).group(1)
     assert tuple(int(r) for r in rows.split(",")) == rg.GRID_ROWS
+    rows = re.search(r"constexpr int kLstmGridRows\[\] = \{([\d, ]+)\};",
+                     text).group(1)
+    assert tuple(int(r) for r in rows.split(",")) == rg.LSTM_GRID_ROWS
     cap = re.search(r"constexpr size_t kGridSmemCap = (\d+) \* 1024;", text)
     assert int(cap.group(1)) * 1024 == rg.GRID_SMEM_CAP
     for line in (
-            "return kGridSlots * 4 / e;",
+            "grid_units(int e, int slots = kGridSlots) {",
+            "return slots * 4 / e;",
             "int grid_hp(int H) { return (H + 15) & ~15; }",
+            "return kGridStage + kGridStagePad * rows;",
             "constexpr int kGridStageFloats = kGridStage + kGridStagePad * "
             "32;",
-            "fwd_grid_row() { return G * kGridSlots + 4; }",
-            "return G * kGridSlots + (e == 2 ? 4 : 1);",
-            "return (size_t)grid_hp(H) * (G * kGridSlots + 4) * 4 +",
-            "2 * sizeof(float) * kGridStageFloats;",
-            "return (size_t)grid_hp(H) * bwd_grid_row(G, e) * 4 +",
-            "sizeof(float) * (size_t)rb * (G * grid_units(e) + "
+            "template <int G, int S = kGridSlots>",
+            "fwd_grid_row() { return G * S + 4; }",
+            "return G * slots + (e == 2 ? 4 : 1);",
+            "int slots = kGridSlots, int rows = 32) {",
+            "return (size_t)grid_hp(H) * (G * slots + 4) * 4 +",
+            "2 * sizeof(float) * grid_stage_floats(rows);",
+            "return (size_t)grid_hp(H) * bwd_grid_row(G, e, slots) * 4 +",
+            "sizeof(float) * (size_t)rb * (G * grid_units(e, slots) + "
             "kGridOperandPad);",
+            "constexpr int UL = grid_units(sizeof(E), S);",
+            "const int (&rows)[NR] = kGridRows) {",
+            "const int ul = grid_units(e, slots);",
+            "for (int rb : rows) {",
             "const int n0 = (H + ul - 1) / ul;",
             "const int U = (H + n0 - 1) / n0;",
             "const int n = (H + U - 1) / U;",
@@ -346,20 +358,26 @@ def test_grid_layer_constants_match_the_header():
     assert rg.bwd_grid_smem_bytes(16, 1024, 3, 2) == (
         1024 * 52 * 4 + 4 * 16 * (3 * 32 + 8))
     assert rg.fwd_grid_smem_bytes(1024, 3) <= rg.GRID_SMEM_CAP
+    # the GRU's instances keep 16 slots and 32-row stages
+    assert rg.grid_units(4) == rg.grid_units(4, 16) == 16
+    assert rg.grid_units(2) == 32
+    assert rg.GRID_STAGE_FLOATS == rg.grid_stage_floats(32) == 2048 + 8 * 32
 
 
 def test_a_change_to_the_grid_header_rebuilds_the_gru_libraries(
         tmp_path, monkeypatch):
-    """The two GRU sources include csrc/recurrent_grid.cuh, and a library's
-    name hashes every header: an edited grid header gives both a new
-    library (no stale build is loaded)."""
+    """The two GRU sources and the two LSTM sources include
+    csrc/recurrent_grid.cuh, and a library's name hashes every header: an
+    edited grid header gives each a new library (no stale build is
+    loaded)."""
     import shutil
 
     from deeplearning4j_tpu_torch.ops.cuda import build
 
     shutil.copytree(CSRC, tmp_path / "csrc")
     monkeypatch.setattr(build, "CSRC_DIR", tmp_path / "csrc")
-    sources = ("fused_gru.cu", "fused_gru_bwd.cu")
+    sources = ("fused_gru.cu", "fused_gru_bwd.cu", "fused_lstm.cu",
+               "fused_lstm_bwd.cu")
     for src in sources:
         assert '#include "recurrent_grid.cuh"' in (
             tmp_path / "csrc" / src).read_text()
@@ -625,12 +643,11 @@ def test_gru_kernel_admits_what_it_did(T, backward):
 # the cluster designs of the GRU backward and the LSTM forward: where a
 # cluster of 16 stops holding R, in f32 and bf16, and the rows a cluster
 _CLUSTER_DESIGNS = {"gru_bwd": lambda *a: fused_gru.bwd_design(*a, H100),
-                    "lstm_fwd": fused_lstm.fwd_design,
-                    "lstm_bwd": fused_lstm.bwd_design}
+                    "lstm_fwd": lambda *a: fused_lstm.fwd_design(*a, H100),
+                    "lstm_bwd": lambda *a: fused_lstm.bwd_design(*a, H100)}
 #: the design a T > 1 call takes past the cluster's width on the H100:
-#: the GRU's grid design; the LSTM's stream design (no grid design yet)
-_PAST_CLUSTER = {"gru_bwd": "grid", "lstm_fwd": "stream",
-                 "lstm_bwd": "stream"}
+#: the grid design, the GRU's and the LSTM's alike
+_PAST_CLUSTER = {"gru_bwd": "grid", "lstm_fwd": "grid", "lstm_bwd": "grid"}
 #: a backward cluster CTA's shared memory by kernel: (rows, H, C, e)
 _BWD_SMEM = {"gru_bwd": fused_gru.bwd_cluster_smem_bytes,
              "lstm_bwd": fused_lstm.bwd_cluster_smem_bytes}
@@ -647,8 +664,7 @@ def test_cluster_design_boundary(dtype, kernel, H_max):
     CTA's 227 KB first (at H = 436 and 440, one row a cluster; the
     backward's rows are padded by a word but hold no h), in bf16 their
     units run out at 512. One unit more and a card that holds no such
-    cluster take the GRU backward's grid design and the LSTM's stream
-    design; T == 1 at any H the stream design."""
+    cluster take the grid design; T == 1 at any H the stream design."""
     design = _CLUSTER_DESIGNS[kernel]
     ok = _slots(16)
     H = max(h for h in range(1, 1100)
@@ -692,8 +708,9 @@ def test_stream_designs_of_the_gru_bwd_and_lstm_fwd():
     the GRU backward at H=1024 on a card that holds no grid row group (8
     rows; 32 unit tiles, so one slice; the H100 takes the grid design
     there) and T = 1; the LSTM forward at decode (DECODE_UNITS units a
-    block, one tile, 16 k-slices at H=256, each 16 long) and at H=1024 (8
-    rows, 32 unit tiles, so one slice)."""
+    block, one tile, 16 k-slices at H=256, each 16 long) and at H=1024 on
+    a card that holds no grid row group (8 rows, 32 unit tiles, so one
+    slice; the H100 takes the grid design there)."""
     ok = _slots(16)
     assert fused_gru.bwd_design(64, 64, 1024, F32, ok, H100).kind == "grid"
     assert fused_gru.bwd_design(64, 64, 1024, F32, ok, _sms(0)) == rc.Design(
@@ -704,30 +721,35 @@ def test_stream_designs_of_the_gru_bwd_and_lstm_fwd():
         "stream", None, 8, 4 * (8 * 256 + 8 * 8 + 16 * 4 * 8 * 32))
     assert fused_lstm.fwd_design(1, 3, 5, BF16, ok) == rc.Design(
         "stream", None, 4, 4 * (4 * 5 + 4 * 5 + 4 * 4 * 32))
-    assert fused_lstm.fwd_design(64, 64, 1024, F32, ok) == rc.Design(
-        "stream", None, 8, 4 * (8 * 1024 + 8 * 1024 + 32 * 4 * 8 * 32))
+    assert fused_lstm.fwd_design(64, 64, 1024, F32, ok,
+                                 H100).kind == "grid"
+    assert fused_lstm.fwd_design(64, 64, 1024, F32, ok, _sms(0)) == \
+        rc.Design("stream", None, 8,
+                  4 * (8 * 1024 + 8 * 1024 + 32 * 4 * 8 * 32))
     h = _max_h(fused_lstm, 7, False)
-    assert fused_lstm.fwd_design(7, 64, h, F32, ok).rows == 1
+    assert fused_lstm.fwd_design(7, 64, h, F32, ok, H100).rows == 1
 
 
 def test_lstm_bwd_stream_design():
     """The LSTM backward's stream design repeats its launcher's rows and
     shared memory: T = 1 at any H (8 rows; 8 unit tiles at H = 256, so two
-    slices of the 4H reduction), H = 1024 (32 unit tiles, one slice), and
-    H = 441 in f32 / 513 in bf16, one unit past a cluster of 16 (14 and 17
-    unit tiles: two slices, one)."""
-    ok = _slots(16)
+    slices of the 4H reduction), and, on a card that holds no grid row
+    group (the H100 takes the grid design there), H = 1024 (32 unit
+    tiles, one slice) and H = 441 in f32 / 513 in bf16, one unit past a
+    cluster of 16 (14 and 17 unit tiles: two slices, one)."""
+    ok, none = _slots(16), _sms(0)
     assert fused_lstm.bwd_design(1, 8, 256, F32, ok) == rc.Design(
         "stream", None, 8, 4 * (8 * 4 * 256 + 8 * 256 + 2 * 8 * 8 * 32))
-    assert fused_lstm.bwd_design(64, 64, 1024, BF16, ok) == rc.Design(
+    assert fused_lstm.bwd_design(64, 64, 1024, BF16, ok, none) == rc.Design(
         "stream", None, 8, 4 * (8 * 4 * 1024 + 8 * 1024 + 32 * 8 * 32))
     for dt, H, slices in ((F32, 441, 2), (BF16, 513, 1)):
-        d = fused_lstm.bwd_design(6, 5, H, dt, ok)
+        assert fused_lstm.bwd_design(6, 5, H, dt, ok, H100).kind == "grid"
+        d = fused_lstm.bwd_design(6, 5, H, dt, ok, none)
         assert (d.kind, d.rows) == ("stream", 8)
         assert d.smem == fused_lstm.bwd_stream_smem_bytes(8, H, slices)
     # rows halved while one block's share exceeds the cap
     h = _max_h(fused_lstm, 7, True)
-    assert fused_lstm.bwd_design(7, 64, h, F32, ok).rows == 1
+    assert fused_lstm.bwd_design(7, 64, h, F32, ok, H100).rows == 1
     assert fused_lstm.bwd_smem_bytes(h) <= fused_lstm.SMEM_CAP
 
 
@@ -752,9 +774,8 @@ def test_the_backward_forms_r_transpose_only_for_the_stream_design(
     monkeypatch.setattr(family, "launch",
                         lambda kernel, sym, dev, args: launched.append(args))
     design = rc.Design(kind, 8 if kind == "cluster" else None, 4, 1024)
-    # the GRU's plan also reports its workspace (none but the grid's)
-    monkeypatch.setattr(family, "_bwd_plan", lambda *a: (
-        (design, 0) if family is fused_gru else design))
+    # the plan also reports its workspace (none but the grid's)
+    monkeypatch.setattr(family, "_bwd_plan", lambda *a: (design, 0))
     T, B, H = 3, 2, 5
     on_card = lambda *s: torch.zeros(*s).as_subclass(_OnCardDevice)  # noqa
     R = on_card(H, gates * H)
@@ -776,11 +797,11 @@ def test_the_backward_forms_r_transpose_only_for_the_stream_design(
 @pytest.mark.parametrize("T", [1, 2, 64])
 @pytest.mark.parametrize("backward", [False, True])
 def test_lstm_kernel_admits_what_it_did(T, backward):
-    """The cluster design changes no limit: kernel_admits takes exactly
-    the stream launchers' shared-memory limits, written out here (a
-    decode block holds DECODE_UNITS units), and every shape the cluster
-    design takes is one the stream design takes; so does the GRU
-    backward's cluster or grid design."""
+    """The cluster and grid designs change no limit: kernel_admits takes
+    exactly the stream launchers' shared-memory limits, written out here
+    (a decode block holds DECODE_UNITS units), and every shape the
+    cluster or grid design takes is one the stream design takes; so does
+    the GRU backward's cluster or grid design."""
     def stream(H):
         upb = min(H, 8) if T == 1 else H
         fwd = 4 * (H + upb + -(-upb // 32) * 4 * 32) <= 200 * 1024
@@ -791,9 +812,10 @@ def test_lstm_kernel_admits_what_it_did(T, backward):
             range(51000, 51100, 3)):
         for dt in (F32, BF16):
             assert fused_lstm.kernel_admits(T, H, dt, backward) is stream(H)
-            if fused_lstm.fwd_design(T, 64, H, dt, _slots(16)).kind == \
-                    "cluster":
-                assert stream(H)
+            for design in (fused_lstm.fwd_design, fused_lstm.bwd_design):
+                if design(T, 64, H, dt, _slots(16), H100).kind in (
+                        "cluster", "grid"):
+                    assert stream(H)
             if fused_gru.bwd_design(T, 64, H, dt, _slots(16),
                                     H100).kind in ("cluster", "grid"):
                 assert fused_gru.kernel_admits(T, H, dt, True)
@@ -996,3 +1018,225 @@ def test_lrn_launcher_design_reads_the_plan_query(monkeypatch, out, want):
     assert lrn.launcher_design(96, False, BF16) == want
     assert seen == {"kernel": lrn.LRN_FWD, "symbol": "dl4j_lrn_fwd_plan",
                     "n_out": 3, "args": (96, 0, 1)}
+
+
+# ------------------------------------------------- the LSTM's grid design
+
+
+def test_lstm_grid_constants_match_the_sources():
+    """The LSTM launchers on the grid layer, read back from
+    csrc/fused_lstm.cu and csrc/fused_lstm_bwd.cu: the cluster design
+    first, then the grid at the LSTM's slots and rows, then the stream
+    design; four gates at 8 slots, the shared memory of each as the Python
+    mirror sizes it; and what other SMs wrote read through L2 only."""
+    for source, lines in (
+            ("fused_lstm.cu", (
+                "return fwd_grid_smem_bytes(H, 4, kLstmGridSlots, 64);",
+                "[&](int) { return lstm_fwd_grid_smem_bytes(H); },",
+                "grid_resident(lstm_fwd_grid_kernel<E, decltype(r)::value>,",
+                "&gp, kLstmGridSlots, kLstmGridRows);",
+                "load_grid_r<E, 4, Row, S>(Rs, R, H, HP, j0, nu);",
+                "constexpr int S = kLstmGridSlots;",
+                "constexpr int SF = grid_stage_floats(64);",
+                "int dl4j_lstm_fwd_plan(int T, int B, int H, int bf16, long "
+                "long* out) {",
+                "? (long long)fwd_grid_workspace_bytes(plan.groups, B, H)",
+                "int dl4j_lstm_grid_resident(int bf16, int rb, int smem, "
+                "int* n) {")),
+            ("fused_lstm_bwd.cu", (
+                "return bwd_grid_smem_bytes(rb, H, 4, sizeof(E), "
+                "kLstmGridSlots);",
+                "grid_resident(lstm_bwd_grid_kernel<E, decltype(r)::value>,",
+                "return by_grid_rows(rb, [&](auto r) {",
+                "&gp, kLstmGridSlots);",
+                "load_grid_r<E, 4, Row, S>(Rs, R, H, HP, j0, nu);",
+                "constexpr int Row = bwd_grid_row(4, sizeof(E), S) * 4 / "
+                "(int)sizeof(E);",
+                "int dl4j_lstm_bwd_plan(int T, int B, int H, int bf16, long "
+                "long* out) {",
+                "? (long long)bwd_grid_workspace_bytes( plan.groups, plan.n, "
+                "plan.rb, H)",
+                "int dl4j_lstm_bwd_grid_resident(int bf16, int rb, int "
+                "smem, int* n) {"))):
+        code = _grid_text(source)
+        flat = " ".join(code.split())
+        for line in lines:
+            assert " ".join(line.split()) in flat, (source, line)
+        own = (CSRC / source).read_text()
+        plan = own[own.index("cudaError_t plan_"):]
+        # cluster, then grid, then the stream design's rows
+        assert (plan.index("plan_cluster(") < plan.index("plan_grid(")
+                < plan.index("while (rb < 8 && rb < B) rb *= 2;"))
+        assert "kGrid, 0, gp.rb" in plan and "kCluster, cp.C" in plan
+        kernel = own[own.index("_grid_kernel(const"):]
+        kernel = kernel[:kernel.index("// " + "-" * 66 + " choice")]
+        assert "__ldg" not in kernel and "ldg_f32" not in kernel
+        assert "cp_async4(" not in kernel
+        assert ("grid_stage16(" in kernel if source == "fused_lstm.cu"
+                else "ld_cg_f32(" in kernel)
+    # H = 1024, four gates at 8 slots: rows of 36 words and two stages of
+    # 2048 floats and 64 rows' padding; the backward's rows of 33 words
+    # (f32) or 36 (bf16) and its operands, 32 rows x (4 x 8 + 8) in f32,
+    # 32 rows x (4 x 16 + 8) in bf16. The GRU's three gates keep 16 slots.
+    assert fused_lstm.grid_smem_bytes(1024) == 1024 * 36 * 4 + 2 * 4 * (
+        2048 + 8 * 64) == 167936
+    assert fused_lstm.bwd_grid_smem_bytes(32, 1024, 4) == (
+        1024 * 33 * 4 + 4 * 32 * (4 * 8 + 8)) == 140288
+    assert fused_lstm.bwd_grid_smem_bytes(32, 1024, 2) == (
+        1024 * 36 * 4 + 4 * 32 * (4 * 16 + 8)) == 156672
+    assert rg.grid_units(4, rg.LSTM_GRID_SLOTS) == 8
+    assert rg.grid_units(2, rg.LSTM_GRID_SLOTS) == 16
+    assert rg.fwd_grid_smem_bytes(1024, 3) == rg.fwd_grid_smem_bytes(
+        1024, 3, 16, 32) == 1024 * 52 * 4 + 2 * 4 * (2048 + 8 * 32)
+    assert rg.bwd_grid_smem_bytes(32, 1024, 3, 4) == rg.bwd_grid_smem_bytes(
+        32, 1024, 3, 4, 16)
+    # 16 slots with four gates would not fit at H = 1024; 8 leave room
+    assert rg.fwd_grid_smem_bytes(1024, 4, 16) > rg.GRID_SMEM_CAP
+    assert fused_lstm.grid_smem_bytes(1024) <= rg.GRID_SMEM_CAP
+
+
+_LSTM_DESIGNS = {"fwd": fused_lstm.fwd_design, "bwd": fused_lstm.bwd_design}
+
+
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_lstm_grid_design_boundaries(direction, dtype):
+    """On the H100 (132 SMs, 16 clusters), at T > 1: the cluster design to
+    its last width (f32 forward 436, backward 440; bf16 512), the grid
+    design from the next (437, 441, 513) through H = 650 and 1024, and
+    the stream design from the first width past the grid: in f32 a row
+    group of 8-unit CTAs outgrows the 132 SMs past H = 1056; in bf16 a
+    CTA's R outgrows its shared memory past H = 1472 forward and 1584
+    backward. Decode (T == 1) takes the stream design at every width."""
+    design = _LSTM_DESIGNS[direction]
+    ok = _slots(16)
+    last = {F32: {"fwd": 436, "bwd": 440}[direction], BF16: 512}[dtype]
+    past = {F32: 1057, BF16: {"fwd": 1473, "bwd": 1585}[direction]}[dtype]
+    assert design(64, 64, last, dtype, ok, H100).kind == "cluster"
+    for H in (last + 1, 650, 1024, past - 1):
+        d = design(64, 64, H, dtype, ok, H100)
+        assert d.kind == "grid" and d.cluster is None, H
+        assert d.smem <= rg.GRID_SMEM_CAP
+        assert d.ctas * d.groups <= H100(d.rows, d.smem)
+        assert (d.ctas - 1) * d.units < H <= d.ctas * d.units
+    assert design(64, 64, past, dtype, ok, H100).kind == "stream"
+    assert design(8, 8, past, dtype, ok, H100).kind == "stream"
+    assert fused_lstm.kernel_admits(64, past, dtype, True)
+    for H in (256, 650, 1024, 2048):
+        assert design(1, 8, H, dtype, ok, H100).kind == "stream"
+
+
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+@pytest.mark.parametrize("dtype,B,H,plan", [
+    # (units a CTA, CTAs a group, rows a group, groups); the backward's
+    # groups take at most 32 rows
+    (F32, 64, 1024, {"fwd": (8, 128, 64, 1), "bwd": (8, 128, 32, 1)}),
+    (BF16, 64, 1024, (16, 64, 32, 2)),
+    (F32, 8, 1024, (8, 128, 8, 1)), (BF16, 3, 1024, (16, 64, 8, 1)),
+    # the ragged width: 650 is no multiple of 8 or 16, and 50 rows no
+    # multiple of a group's
+    (F32, 50, 650, (8, 82, 32, 2)), (BF16, 50, 650, (16, 41, 16, 4)),
+    (F32, 8, 650, (8, 82, 8, 1)),
+    (F32, 64, 448, (8, 56, 16, 4)),
+    # more rows than the card's groups hold at once: one group, which
+    # takes 4 passes of 64 rows (the backward 8 of 32)
+    (F32, 256, 1024, {"fwd": (8, 128, 64, 1), "bwd": (8, 128, 32, 1)})])
+def test_lstm_grid_plan_units_rows_groups(direction, dtype, B, H, plan):
+    """The LSTM grid plan on the H100: H split evenly over the fewest CTAs
+    of at most 8 (f32) or 16 (bf16) units; rows a group the fewest of 8,
+    16, 32, 64 (the backward: 8, 16, 32) whose groups fit the card's CTAs
+    at once (one group of 128 CTAs in f32 at H = 1024, two of 64 in bf16),
+    or the most rows in as many groups as fit; the shared memory as the
+    launcher sizes it."""
+    d = _LSTM_DESIGNS[direction](16, B, H, dtype, _slots(16), H100)
+    assert d.kind == "grid"
+    if isinstance(plan, dict):
+        plan = plan[direction]
+    assert (d.units, d.ctas, d.rows, d.groups) == plan
+    assert d.ctas * d.groups <= H100(d.rows, d.smem)
+    e = 2 if dtype == BF16 else 4
+    assert d.smem == (fused_lstm.grid_smem_bytes(H) if direction == "fwd"
+                      else fused_lstm.bwd_grid_smem_bytes(d.rows, H, e))
+
+
+@pytest.mark.parametrize("kind", ["cluster", "grid", "stream"])
+def test_the_lstm_grid_design_gets_its_workspace(monkeypatch, kind):
+    """Both LSTM wrappers ask the launcher's (cached) plan and pass the
+    workspace it asks for (the grid design's: the barrier counters, then
+    the h exchange or the partial carries), as many bytes as it reports;
+    the other designs ask for none and get none. The backward forms R^T
+    only for the stream design."""
+    launched = []
+    monkeypatch.setattr(fused_lstm, "launch",
+                        lambda kernel, sym, dev, args: launched.append(args))
+    T, B, H = 3, 5, 600
+    plan = {"grid": (rc.Design("grid", None, 8, 1024, 8, 75, 1), 4096),
+            "cluster": (rc.Design("cluster", 16, 4, 1024), 0),
+            "stream": (rc.Design("stream", None, 4, 1024), 0)}[kind]
+    bwd_plan = (plan[0], 2 * plan[1])
+    monkeypatch.setattr(fused_lstm, "_fwd_plan", lambda *a: plan)
+    monkeypatch.setattr(fused_lstm, "_bwd_plan", lambda *a: bwd_plan)
+    on_card = lambda *s: torch.zeros(*s).as_subclass(_OnCardDevice)  # noqa
+    R = on_card(H, 4 * H)
+    fused_lstm.fused_lstm_recurrence(on_card(T, B, 4 * H), R, on_card(B, H),
+                                     on_card(B, H))
+    fused_lstm.fused_lstm_bwd_recurrence(on_card(5, T, B, H), R,
+                                         on_card(B, H), on_card(T, B, H))
+    (fwd, bwd) = launched
+    if kind == "grid":
+        assert fwd[9] is not None and fwd[10] == 4096
+        assert bwd[9] is not None and bwd[10] == 8192
+    else:
+        assert (fwd[9], fwd[10], bwd[9], bwd[10]) == (None, 0, None, 0)
+    assert fwd[11:] == (T, B, H) and bwd[11:] == (T, B, H)
+    assert bwd[1] == R.data_ptr()
+    assert (bwd[2] is None) is (kind != "stream")
+
+
+def test_lstm_decode_asks_no_plan(monkeypatch):
+    """A T == 1 LSTM forward (decode) always takes the stream design,
+    which needs no workspace: the wrapper launches without asking the
+    launcher's plan."""
+    launched = []
+    monkeypatch.setattr(fused_lstm, "launch",
+                        lambda kernel, sym, dev, args: launched.append(args))
+
+    def asked(*a):
+        raise AssertionError("decode asked the launcher's plan")
+
+    monkeypatch.setattr(fused_lstm, "_fwd_plan", asked)
+    B, H = 8, 1024
+    on_card = lambda *s: torch.zeros(*s).as_subclass(_OnCardDevice)  # noqa
+    fused_lstm.fused_lstm_recurrence(on_card(1, B, 4 * H), on_card(H, 4 * H),
+                                     on_card(B, H), on_card(B, H))
+    (args,) = launched
+    assert (args[9], args[10]) == (None, 0) and args[11:] == (1, B, H)
+
+
+@pytest.mark.parametrize("symbol", ["dl4j_lstm_fwd_plan",
+                                    "dl4j_lstm_bwd_plan"])
+def test_lstm_launcher_design_reads_the_plan_query(monkeypatch, symbol):
+    """The LSTM launchers' plan queries write the GRU's eight 64-bit
+    outputs; ``launcher_design`` / ``launcher_bwd_design`` read the grid
+    fields from them."""
+    seen = {}
+
+    def query(kernel, sym, n_out, device, *args, ctype):
+        seen.update(symbol=sym, n_out=n_out, args=args, ctype=ctype)
+        return [2, 0, 64, 167936, 8, 128, 1, 1234]
+
+    monkeypatch.setattr(rc, "query", query)
+    fn = (fused_lstm.launcher_design if symbol == "dl4j_lstm_fwd_plan"
+          else fused_lstm.launcher_bwd_design)
+    design = fn(64, 64, 1024, F32)
+    assert seen == {"symbol": symbol, "n_out": 8, "args": (64, 64, 1024, 0),
+                    "ctype": ctypes.c_longlong}
+    assert design == rc.Design("grid", None, 64, 167936, 8, 128, 1)
+    # each launcher takes the workspace and its bytes before T, B, H
+    want = ([ctypes.c_void_p] * 10 + [ctypes.c_longlong]
+            + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    for kernel in (fused_lstm.FUSED_LSTM, fused_lstm.FUSED_LSTM_BWD):
+        for sym in ("dl4j_lstm_fwd", "dl4j_lstm_fwd_bf16", "dl4j_lstm_bwd",
+                    "dl4j_lstm_bwd_bf16"):
+            if sym in kernel.library.functions:
+                assert list(kernel.library.functions[sym][0]) == want
