@@ -82,8 +82,9 @@ Phases (any failure exits non-zero before the result line):
    kernels.
 9. Flash kernels against plain. First the tensor cores: the bf16 forward,
    dq and dk/dv kernels' machine code (``cuobjdump -sass``) must hold HGMMA
-   or HMMA instructions and the f32 kernels none, and the tile layer's two
-   products are held against the same product on the card. Then the
+   or HMMA instructions, the f32 dq and dk/dv (three-pass TF32) HMMA that
+   are all .TF32 and no HGMMA, the f32 forward none; and the tile layer's
+   two products are held against the same product on the card. Then the
    forward, dq and dk/dv kernels against
    their plain versions (o, lse, dq, dk, dv) at BERT-base's attention shape
    [32, 12, 128, 64] in f32 (TF32 off) and bf16, without and with a
@@ -92,7 +93,10 @@ Phases (any failure exits non-zero before the result line):
    through the plain lowering on the card; times of each kernel, its plain
    version and, as a yardstick the port never calls,
    ``scaled_dot_product_attention`` (forward, and backward), the library's
-   both on the host's clock and as the device time of its kernels.
+   both on the host's clock and as the device time of its kernels (the
+   backward's kernels named). The f32 dq and dk/dv also at the long-context
+   shape [1, 4, 8192, 128], causal and not: against plain, each kernel's
+   device time with its bound, and SDPA's f32 backward with its kernels.
 10. BERT-base inference: ``BertBase(max_len=128)`` at its published width
     (12 x 768, 12 heads, d_ff 3072, vocabulary 30522, bf16, random weights
     from the seed) runs ``output()`` on [32, 128] token ids with a padding
@@ -820,11 +824,22 @@ def call_device_ms(torch, fn, iters: int):
             if by_kernel else None)
 
 
+def call_device_kernels(torch, fn, iters: int) -> dict:
+    """The device kernels one call of ``fn`` runs, {name: device ms a
+    call}, longest first: a library call's backend on record."""
+    by_kernel, _, _ = profile_device(torch, fn, iters)
+    return {k: t / iters for k, (t, _) in sorted(
+        by_kernel.items(), key=lambda kv: -kv[1][0])}
+
+
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 (non-tensor) flop/s
-# and bf16 dense tensor-core flop/s
+# and bf16 dense tensor-core flop/s; f32-accurate products on the tensor
+# cores in three TF32 passes (495 TFLOP/s TF32 dense / 3), the f32 rate of
+# flash_bound
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
+TF32X3_FLOP_PER_S = 495e12 / 3
 
 
 def lstm_bound(T: int, B: int, H: int, peephole: bool, bf16: bool = False):
@@ -2056,9 +2071,13 @@ TOL_BERT_GRAD = 1e-3
 def flash_bound(torch, kind, q, k, kmask, causal):
     """Least time of one flash kernel call: each input read once, each output
     written once, at 3.35 TB/s, against the products over the (query, key)
-    pairs this call's mask leaves visible, at the peak for the inputs' type
-    (bf16 tensor cores, or f32 off them). Forward: 4 D flops a pair (q k^T,
-    p v); dq: 6 (q k^T, do v^T, ds k); dk/dv: 8 (and p^T do, ds^T q)."""
+    pairs this call's mask leaves visible, at the peak for the inputs' type:
+    bf16 on the tensor cores; f32 at the three-pass TF32 rate (495 / 3
+    TFLOP/s), the least time the card takes for f32-accurate products (the
+    f32 dq and dk/dv run so and hold the f32 tolerances), for every f32
+    call whatever kernel runs it, so that no design reads above its bound.
+    Forward: 4 D flops a pair (q k^T, p v); dq: 6 (q k^T, do v^T, ds k);
+    dk/dv: 8 (and p^T do, ds^T q)."""
     from deeplearning4j_tpu_torch.ops.cuda.flash_attention import _valid
 
     B, N, Tq, D = q.shape
@@ -2081,7 +2100,7 @@ def flash_bound(torch, kind, q, k, kmask, causal):
                   + mask_bytes + 8.0 * rows_k)
         flops = 8.0 * D * pairs
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / (BF16_FLOP_PER_S if bf16 else F32_FLOP_PER_S)
+    t_ops = flops / (BF16_FLOP_PER_S if bf16 else TF32X3_FLOP_PER_S)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -2118,8 +2137,9 @@ def _err_within(torch, got, want, dtype):
 def flash_tensor_cores(torch):
     """The bf16 flash forward, dq and dk/dv run on the tensor cores: their
     machine code (``cuobjdump -sass`` of the built libraries) holds HGMMA
-    (wgmma) or HMMA (mma.sync) instructions, and the f32 kernels hold none;
-    and the
+    (wgmma) or HMMA (mma.sync) instructions; the f32 dq and dk/dv hold
+    three-pass TF32 mma.sync (HMMA, every one .TF32) and the f32 forward
+    none; and the
     tile layer's two products (``tile_check``) agree with the same product
     on the card in f32 (TF32 off; only the order of f32 sums differs:
     1e-4 (1 + |ref|)). Returns the counts by kernel and the products'
@@ -2131,7 +2151,7 @@ def flash_tensor_cores(torch):
     )
 
     f32, bf16 = torch.float32, torch.bfloat16
-    out = {"sass": {}}
+    out = {"sass": {}, "sass_tf32": {}}
     for kern, names in ((FLASH_FWD, FWD_KERNEL_NAMES),
                         (FLASH_DQ, DQ_KERNEL_NAMES),
                         (FLASH_DKV, DKV_KERNEL_NAMES)):
@@ -2141,9 +2161,16 @@ def flash_tensor_cores(torch):
         if tc["HGMMA"] + tc["HMMA"] == 0:
             fail(f"{names[bf16]} compiled to no tensor-core instruction "
                  f"(HGMMA/HMMA): {tc}")
-        if sum(out["sass"][names[f32]].values()):
-            fail(f"{names[f32]} holds tensor-core instructions: "
-                 f"{out['sass'][names[f32]]}")
+        ops = out["sass"][names[f32]]
+        if kern is FLASH_FWD:
+            if sum(ops.values()):
+                fail(f"{names[f32]} holds tensor-core instructions: {ops}")
+            continue
+        tf32 = tensor_core_ops(kern.library, names[f32], "TF32")
+        out["sass_tf32"][names[f32]] = tf32
+        if ops["HGMMA"] or not tf32["HMMA"] or tf32["HMMA"] != ops["HMMA"]:
+            fail(f"{names[f32]} should hold TF32 mma.sync only: {ops}, "
+                 f"TF32 {tf32}")
     g = torch.Generator(device="cuda").manual_seed(SEED + 13)
     a, b = (torch.randn(64, 128, device="cuda", generator=g).to(bf16)
             for _ in range(2))
@@ -2161,8 +2188,10 @@ def flash_tensor_cores(torch):
 
 def phase_flash_kernels(torch):
     """The three flash kernels against their plain versions, the autograd
-    Function against the plain lowering, and times at BERT-base's shape;
-    returns (rows, timings {dtype: {...}}, f32 and bf16 max_abs_err)."""
+    Function against the plain lowering, and times at BERT-base's shape
+    and, for the f32 backward, at [1, 4, 8192, 128] causal and not;
+    returns (rows, timings {dtype: {...}, "float32_long": [rows]}, f32 and
+    bf16 max_abs_err)."""
     from deeplearning4j_tpu_torch.ops.attention import dot_product_attention
     from deeplearning4j_tpu_torch.ops.cuda.flash_attention import (
         flash_attention, flash_backward, flash_backward_plain, flash_forward,
@@ -2225,6 +2254,10 @@ def phase_flash_kernels(torch):
         timings[str(dt).replace("torch.", "")] = time_flash(
             torch, g, dt, flash_forward, flash_backward, flash_forward_plain,
             flash_backward_plain)
+    timings["float32_long"] = time_flash_f32_long(torch, g)
+    for row in timings["float32_long"]:
+        worst[f32] = max(worst[f32], *(row[f"{n}_max_abs_err"]
+                                       for n in ("dq", "dk", "dv")))
     return rows, timings, grad_rel, worst[f32], worst[bf16]
 
 
@@ -2287,12 +2320,69 @@ def time_flash(torch, g, dt, fwd, bwd, fwd_plain, bwd_plain):
         "library_bwd_ms": cuda_ms(torch, lib_bwd, iters),
         "library_fwd_device_ms": call_device_ms(torch, lib_fwd, iters),
         "library_bwd_device_ms": call_device_ms(torch, lib_bwd, iters),
+        "library_bwd_kernels": call_device_kernels(torch, lib_bwd, iters),
     }
     for kind in ("fwd", "dq", "dkv"):
         out[f"{kind}_bound_ms"], out[f"{kind}_bound_by"] = flash_bound(
             torch, kind, q, k, kmask, False)
     # the launches above were for timing: they are not the main path's
     return out
+
+
+def time_flash_f32_long(torch, g):
+    """The f32 dq and dk/dv (three-pass TF32) at the long-context shape
+    [1, 4, 8192, 128], causal and not, unmasked: against the plain backward
+    on the kernels' own lse and delta (TOL), each kernel's device time, the
+    pair's, their bounds, and scaled_dot_product_attention's f32 backward
+    alone on a retained graph (device time and its kernels by name)."""
+    from deeplearning4j_tpu_torch.ops.cuda.flash_attention import (
+        DKV_KERNEL_NAMES, DQ_KERNEL_NAMES, flash_backward,
+        flash_backward_plain, flash_forward,
+    )
+
+    f32 = torch.float32
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    for causal in (False, True):
+        q, k, v, do, _ = _attn_inputs(torch, g, 1, 4, 8192, 128, f32, False)
+        kw = dict(scale=128 ** -0.5, causal=causal, kmask=None)
+        o, lse = flash_forward(q, k, v, **kw)
+        delta = (do * o).sum(-1, keepdim=True)
+        bwd = lambda: flash_backward(q, k, v, do, lse, delta,  # noqa: E731
+                                     **kw)
+        got = bwd()
+        want = flash_backward_plain(q, k, v, do, lse, delta, **kw)
+        row = {"shape": [1, 4, 8192, 128], "dtype": "float32",
+               "causal": causal, "masked": False}
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            err, ok = _err_within(torch, a, b, f32)
+            if not ok:
+                fail(f"f32 flash backward at [1, 4, 8192, 128] causal="
+                     f"{causal} disagrees with plain: {name} max_abs_err "
+                     f"{err}")
+            row[f"{name}_max_abs_err"] = err
+        del got, want
+        row["dq_device_ms"] = kernel_device_ms(torch, bwd, 3,
+                                               DQ_KERNEL_NAMES[f32])
+        row["dkv_device_ms"] = kernel_device_ms(torch, bwd, 3,
+                                                DKV_KERNEL_NAMES[f32])
+        row["bwd_ms"] = cuda_ms(torch, bwd, 3)
+        lq, lk, lv = (t.clone().requires_grad_() for t in (q, k, v))
+        lib_out = sdpa(lq, lk, lv, is_causal=causal)
+        lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
+            lib_out, (lq, lk, lv), do, retain_graph=True)
+        row["library_bwd_ms"] = cuda_ms(torch, lib_bwd, 3)
+        row["library_bwd_kernels"] = call_device_kernels(torch, lib_bwd, 3)
+        row["library_bwd_device_ms"] = sum(row["library_bwd_kernels"]
+                                           .values()) or None
+        for kind in ("dq", "dkv"):
+            row[f"{kind}_bound_ms"], row[f"{kind}_bound_by"] = flash_bound(
+                torch, kind, q, k, None, causal)
+        rows.append(row)
+        del lib_out, lq, lk, lv
+        torch.cuda.empty_cache()
+    # the launches above were for timing: they are not the main path's
+    return rows
 
 
 def phase_bert_inference(torch, np):
@@ -11532,6 +11622,20 @@ def main() -> None:
     emit(card, {"flash_kernel_shapes": flash_rows,
                       "flash_function_grad_max_rel_err": flash_grad_rel,
                       "flash_times": flash_times, "card": card})
+    def dev(*vals):  # device times the profiler may not have recorded
+        return ("not measured" if None in vals
+                else f"{sum(vals):.4f} ms")
+
+    fb = flash_times["float32"]
+    print(f"f32 flash backward (3xTF32) on {card}: [32, 12, 128, 64] masked "
+          f"dq + dk/dv {dev(fb['dq_device_ms'], fb['dkv_device_ms'])} of "
+          f"device (bound {fb['dq_bound_ms'] + fb['dkv_bound_ms']:.4f}, SDPA "
+          f"backward {dev(fb['library_bwd_device_ms'])}); " + "; ".join(
+              f"[1, 4, 8192, 128] causal={r['causal']} "
+              f"{dev(r['dq_device_ms'], r['dkv_device_ms'])} (bound "
+              f"{r['dq_bound_ms'] + r['dkv_bound_ms']:.3f}, SDPA "
+              f"{dev(r['library_bwd_device_ms'])})"
+              for r in flash_times["float32_long"]), flush=True)
 
     # phase 10: BERT-base inference
     bert_out, bert_net = phase_bert_inference(torch, np)
@@ -12168,6 +12272,21 @@ def main() -> None:
                  "dkv": DKV_KERNEL_NAMES}[kind][torch.bfloat16]],
             "shape": "[32, 12, 128, 64] bf16, key-padding mask",
         })
+        if kind != "fwd":  # the f32 instance: three-pass TF32 (phase 9)
+            f32n = {"dq": DQ_KERNEL_NAMES, "dkv": DKV_KERNEL_NAMES}[kind][
+                torch.float32]
+            entries[-1]["f32"] = {
+                "kernel": f32n, "design": "3xTF32 mma.sync (tensor cores), "
+                                          "cp.async ring",
+                "tensor_core_ops": tensor_cores["sass"][f32n],
+                "tf32_ops": tensor_cores["sass_tf32"][f32n],
+                "shapes": [{"shape": s["shape"], "causal": s["causal"],
+                            **{k: s[f"{kind}_{k}"] for k in (
+                                "device_ms", "bound_ms", "bound_by")},
+                            "library_bwd_device_ms": s[
+                                "library_bwd_device_ms"]}
+                           for s in [dict(flash_times["float32"], causal=False)]
+                           + flash_times["float32_long"]]}
     # the forward at one prefill shape of the full-width LM (phase 30)
     entries[2]["prefill_shape"] = full["prefill_flash"]
     # the LRN kernels at AlexNet's conv1 LRN shape, f32 (the main path's

@@ -175,16 +175,19 @@ class CudaLibrary:
             return self._lib
 
 
-def tensor_core_ops(library: CudaLibrary, function: str) -> dict:
+def tensor_core_ops(library: CudaLibrary, function: str,
+                    operand: str = "") -> dict:
     """How many tensor-core instructions the device functions whose name
     holds ``function`` compiled to: {"HGMMA": n (wgmma), "HMMA": n
-    (mma.sync)}."""
+    (mma.sync)}; with ``operand`` (e.g. "TF32"), only those whose
+    modifiers name it (``HMMA.1684.F32.TF32``)."""
     codes = [text for name, text in library.sass().items()
              if function in name]
     if not codes:
         raise RuntimeError(f"no device function {function!r} in "
                            f"{library.source.name}")
-    return {op: sum(len(re.findall(rf"\b{op}\.", t)) for t in codes)
+    mods = rf"[\w.]*\.{operand}\b" if operand else ""
+    return {op: sum(len(re.findall(rf"\b{op}\.{mods}", t)) for t in codes)
             for op in ("HGMMA", "HMMA")}
 
 

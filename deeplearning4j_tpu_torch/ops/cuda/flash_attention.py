@@ -28,9 +28,14 @@ product, p is rounded to v's (do's) type and ds to k's (q's) type before
 their products, and o is stored in the input type. The kernels take f32 or
 bf16 and any head dim up to 128. The bf16 kernels run on the tensor cores
 (wgmma; ``FWD_KERNEL_NAMES``, ``DQ_KERNEL_NAMES``, ``DKV_KERNEL_NAMES``
-name each type's device function); the f32 ones run on the CUDA cores.
-None of the TPU machinery is carried over (``bwd_tiles``,
-the v5e tile defaults): the kernels tile by 64 rows.
+name each type's device function). The f32 dq and dk/dv run on the tensor
+cores too, in three TF32 passes a product (each operand split into tf32
+hi and lo parts, a b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi, on mma.sync):
+within 3 * 2^-22 |a| |b| of the f32 product, so f32 accuracy at up to
+2.5x the CUDA cores' f32 rate (``csrc/flash_common.cuh``, flash::tf32).
+The f32 forward runs on the CUDA cores. None of the TPU machinery is
+carried over (``bwd_tiles``, the v5e tile defaults): the kernels tile by
+64 rows.
 
 The wrappers take the plain versions (:func:`flash_forward_plain`,
 :func:`flash_backward_plain`) only for CPU tensors; for CUDA tensors they
@@ -63,12 +68,13 @@ _DKV_SYMBOLS = {torch.float32: "dl4j_flash_dkv",
                 torch.bfloat16: "dl4j_flash_dkv_bf16"}
 
 #: the device function each launcher runs, for profiles: the bf16 kernels
-#: are the tensor-core (wgmma) designs, the f32 ones run on the CUDA cores
+#: are the tensor-core (wgmma) designs, the f32 dq and dk/dv the three-pass
+#: TF32 ones (mma.sync), the f32 forward runs on the CUDA cores
 FWD_KERNEL_NAMES = {torch.float32: "flash_fwd_kernel",
                     torch.bfloat16: "flash_fwd_wgmma_kernel"}
-DQ_KERNEL_NAMES = {torch.float32: "flash_dq_kernel",
+DQ_KERNEL_NAMES = {torch.float32: "flash_dq_tf32x3_kernel",
                    torch.bfloat16: "flash_dq_wgmma_kernel"}
-DKV_KERNEL_NAMES = {torch.float32: "flash_dkv_kernel",
+DKV_KERNEL_NAMES = {torch.float32: "flash_dkv_tf32x3_kernel",
                     torch.bfloat16: "flash_dkv_wgmma_kernel"}
 
 FLASH_FWD = CudaKernel(

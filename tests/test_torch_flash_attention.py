@@ -507,8 +507,10 @@ def test_tensor_core_tile_layer_on_card(cuda_device):
 @pytest.mark.cuda
 def test_bf16_kernels_run_on_tensor_cores_on_card(cuda_device):
     """The bf16 forward, dq and dk/dv compiled to wgmma (HGMMA in their
-    machine code); the f32 kernels, and so every f32 call, stay on the CUDA
-    cores: a profile of each dtype's calls names its own kernels."""
+    machine code); the f32 dq and dk/dv to three-pass TF32 mma.sync (HMMA
+    with .TF32, no HGMMA); the f32 forward stays on the CUDA cores (no
+    tensor-core instruction): a profile of each dtype's calls names its
+    own kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     from deeplearning4j_tpu_torch.ops.cuda.build import tensor_core_ops
@@ -518,8 +520,15 @@ def test_bf16_kernels_run_on_tensor_cores_on_card(cuda_device):
                         (FLASH_DKV, fa.DKV_KERNEL_NAMES)):
         assert tensor_core_ops(kern.library,
                                names[torch.bfloat16])["HGMMA"] > 0
-        assert tensor_core_ops(kern.library, names[torch.float32]) == {
-            "HGMMA": 0, "HMMA": 0}
+    assert tensor_core_ops(FLASH_FWD.library,
+                           fa.FWD_KERNEL_NAMES[torch.float32]) == {
+        "HGMMA": 0, "HMMA": 0}
+    for kern, names in ((FLASH_DQ, fa.DQ_KERNEL_NAMES),
+                        (FLASH_DKV, fa.DKV_KERNEL_NAMES)):
+        ops = tensor_core_ops(kern.library, names[torch.float32])
+        tf32 = tensor_core_ops(kern.library, names[torch.float32], "TF32")
+        assert ops["HGMMA"] == 0 and tf32["HMMA"] > 0
+        assert tf32["HMMA"] == ops["HMMA"]  # every one of them TF32
     for dt in (torch.float32, torch.bfloat16):
         t, km = _card_inputs(cuda_device, 2, 2, 128, 64, dt, "pad", 3)
         kw = dict(scale=0.125, causal=False, kmask=km)
@@ -535,3 +544,51 @@ def test_bf16_kernels_run_on_tensor_cores_on_card(cuda_device):
             assert table[dt] in names
             # neither f32 name is a substring of a bf16 one, nor back
             assert table[other] not in names
+
+
+def _against_plain(cuda_device, B, N, T, D, *, causal, mask, qk_scale, seed):
+    """The f32 dq, dk, dv of the kernels and of the plain backward on the
+    kernels' own lse and delta, with q and k scaled by ``qk_scale``."""
+    t, km = _card_inputs(cuda_device, B, N, T, D, torch.float32, mask, seed)
+    q, k = t["q"] * qk_scale, t["k"] * qk_scale
+    kw = dict(scale=1.0 / math.sqrt(D), causal=causal, kmask=km)
+    o, lse = flash_forward(q, k, t["v"], **kw)
+    delta = (t["do"] * o).sum(-1, keepdim=True)
+    n0 = FLASH_DQ.launches, FLASH_DKV.launches
+    got = flash_backward(q, k, t["v"], t["do"], lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert (FLASH_DQ.launches, FLASH_DKV.launches) == (n0[0] + 1, n0[1] + 1)
+    want = flash_backward_plain(q, k, t["v"], t["do"], lse, delta, **kw)
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", [(2, 3, 128, 64), (1, 2, 300, 128)])
+def test_f32_backward_large_logits_on_card(cuda_device, shape, causal):
+    """The three-pass TF32 dq and dk/dv with q and k scaled by 8 (logits
+    of about +-500 before the scale: the split's dropped terms weigh most
+    and p is nearly one-hot), key-padded, against the plain f32 backward:
+    1e-4 of the output's scale, max(1, max |ref|), as the Function's
+    gradients are held. The gradients reach |20|, where f32 summed in
+    another order than the plain version's is 1e-3 from float64
+    (tests/test_torch_tf32_split.py): an absolute 1e-4 there holds only a
+    kernel that sums in the plain version's order."""
+    got, want = _against_plain(cuda_device, *shape, causal=causal,
+                               mask="pad", qk_scale=8.0, seed=sum(shape))
+    for a, b in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        err = float((a - b).abs().max())
+        assert err <= 1e-4 * max(1.0, float(b.abs().max())), err
+
+
+@pytest.mark.cuda
+def test_f32_backward_t1024_causal_d128_on_card(cuda_device):
+    """The three-pass TF32 dq and dk/dv at T = 1024, causal, D = 128 (16
+    key tiles a query tile: the longest sums of the card tests), against
+    the plain f32 backward at the card tests' f32 1e-4."""
+    got, want = _against_plain(cuda_device, 1, 2, 1024, 128, causal=True,
+                               mask=None, qk_scale=1.0, seed=1024)
+    for a, b in zip(got, want):
+        err = (a - b).abs()
+        assert bool((err <= 1e-4).all()), float(err.max())
